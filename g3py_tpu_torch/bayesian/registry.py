@@ -1,0 +1,156 @@
+"""Graphical-model parameter registry (the PyTorch counterpart of
+:mod:`g3py_tpu.bayesian.registry`): an ordered table of
+:class:`~g3py_tpu_torch.hypers.Param` descriptors shared by one or more
+processes.  It owns the dict <-> flat-array bijection (natural-space
+name-keyed dicts on the user side, an unconstrained vector on the sampler
+side), the prior logp, the potentials, and ``params_default`` assembled from
+every component's data-driven defaults.
+
+Unlike the JAX package there is no process-wide active registry: a process
+makes its own unless it is handed one (``active=``).
+"""
+
+import warnings
+
+import numpy as np
+import torch
+
+from ..config import settings, asarray_x, as_tensor
+from ..utils import DictObj
+from ..hypers import Param
+
+__all__ = ["GraphicalModel"]
+
+
+class GraphicalModel:
+    """Shared parameter registry + model container."""
+
+    def __init__(self, name="GM", description=None):
+        self.name = name
+        self.description = description if description is not None else ""
+        self.components = DictObj()
+        self.params_spec = {}  # name -> Param, insertion-ordered
+        self.potentials = DictObj()  # name -> callable(params_dict) -> scalar
+
+    def add_component(self, component):
+        self.components[component.name] = component
+
+    # -- registration ---------------------------------------------------------
+    def register_param(self, p: Param):
+        existing = self.params_spec.get(p.name)
+        if existing is not None and existing is not p:
+            if existing.shape != p.shape:
+                raise ValueError(
+                    f"conflicting shapes for shared hyper {p.name}: "
+                    f"{existing.shape} vs {p.shape}")
+            return existing
+        self.params_spec[p.name] = p
+        return p
+
+    def register_potential(self, name, fn):
+        self.potentials[name] = fn
+
+    # -- layout ---------------------------------------------------------------
+    @property
+    def ordered_params(self):
+        return list(self.params_spec.values())
+
+    @property
+    def ndim(self):
+        return sum(p.size for p in self.ordered_params)
+
+    def slices(self):
+        out = {}
+        start = 0
+        for p in self.ordered_params:
+            out[p.name] = (start, start + p.size, p.shape)
+            start += p.size
+        return out
+
+    def param_names(self):
+        """Flat-array column names, one per scalar dim (vector params get
+        __0, __1, ... suffixes)."""
+        names = []
+        for p in self.ordered_params:
+            if p.size == 1:
+                names.append(p.name)
+            else:
+                names.extend(f"{p.name}__{i}" for i in range(p.size))
+        return names
+
+    # -- bijection ------------------------------------------------------------
+    def dict_to_array(self, params):
+        """Natural-space dict -> unconstrained flat host array."""
+        if not isinstance(params, dict):
+            return np.asarray(params, dtype=settings.floatx)
+        u = np.empty(self.ndim, dtype=settings.floatx)
+        start = 0
+        for p in self.ordered_params:
+            v = params.get(p.name)
+            if v is None:
+                v = p.testval()
+            if isinstance(v, torch.Tensor):
+                v = v.detach().cpu().numpy()
+            u[start:start + p.size] = np.ravel(p.prior.transform.forward(np.asarray(v)))
+            start += p.size
+        return u
+
+    def array_to_dict(self, u):
+        """Unconstrained flat host array -> natural-space dict of host arrays."""
+        u = np.asarray(u, dtype=settings.floatx)
+        out = DictObj()
+        start = 0
+        for p in self.ordered_params:
+            seg = torch.as_tensor(u[start:start + p.size].reshape(p.shape))
+            out[p.name] = p.prior.transform.backward(seg).numpy()
+            start += p.size
+        return out
+
+    # -- prior logp -----------------------------------------------------------
+    def logp_prior_dict(self, params):
+        """Sum of per-param prior terms from a natural-space dict."""
+        total = torch.zeros((), dtype=settings.dtype, device=settings.device)
+        for p in self.ordered_params:
+            total = total + p.prior.logp_natural(as_tensor(params[p.name]).reshape(-1))
+        return total
+
+    def logp_potentials(self, params):
+        total = torch.zeros((), dtype=settings.dtype, device=settings.device)
+        for fn in self.potentials.values():
+            term = fn(params)
+            if term is not None:  # e.g. a substr matching no hyper
+                total = total + term
+        return total
+
+    # -- params ---------------------------------------------------------------
+    @property
+    def params(self):
+        """The params a process uses when given none: the defaults (setting
+        current params comes with training)."""
+        return self.params_default
+
+    @property
+    def params_test(self):
+        """Prior test values."""
+        return DictObj({p.name: p.testval() for p in self.ordered_params})
+
+    @property
+    def params_default(self):
+        """Test values overridden by each component's data-driven defaults."""
+        default = self.params_test
+        for name, component in self.components.items():
+            try:
+                d = component.default_hypers()
+            except Exception as e:  # degrade loudly, keep the test values
+                warnings.warn(
+                    f"default_hypers failed for component {name!r} "
+                    f"({type(e).__name__}: {e}); falling back to test "
+                    "values for its params")
+                d = {}
+            for param, v in d.items():
+                key = param.name if isinstance(param, Param) else param
+                if key in self.params_spec:
+                    default[key] = asarray_x(
+                        np.reshape(np.asarray(v), self.params_spec[key].shape))
+        return default
+

@@ -1,0 +1,79 @@
+"""Numeric and runtime policy for g3py_tpu_torch.
+
+The PyTorch counterpart of :mod:`g3py_tpu.config`: an explicit settings
+object instead of ambient flags.  ``device`` names where model tensors live;
+it defaults to ``"cpu"`` and is never auto-detected, so a program runs on
+the GPU only when it says ``settings.device = "cuda"``.
+
+Grams feed a Cholesky, so float32 matrix products must be full float32 —
+the counterpart of the JAX package's ``matmul_precision='highest'``.
+PyTorch's default already keeps cuBLAS matmuls out of TF32, but cuDNN is
+TF32 by default; both are pinned off here so the policy is stated, not
+inherited.
+"""
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+__all__ = ["Settings", "settings", "floatx", "set_floatx", "asarray_x",
+           "as_tensor"]
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+@dataclass
+class Settings:
+    """Numeric and runtime policy.
+
+    Attributes:
+      floatx: compute dtype of every model tensor ("float32" or "float64").
+      cholesky_max_tries: bound on the factorization attempts of
+        :func:`g3py_tpu_torch.ops.linalg.safe_cholesky` (one clean attempt
+        plus escalating-jitter retries).
+      cholesky_jitter: relative base jitter, ``mean(diag) * cholesky_jitter``.
+      logp_guard: value returned by a logp whose NaN/Inf guards trip.
+      quadrature_degree: Gauss-Hermite degree of warped-process moments.
+      device: torch device of model tensors ("cpu", "cuda", "cuda:1", ...).
+    """
+
+    floatx: str = "float32"
+    cholesky_max_tries: int = 21
+    cholesky_jitter: float = 1e-6
+    logp_guard: float = -1e30
+    quadrature_degree: int = 10
+    device: str = "cpu"
+
+    @property
+    def dtype(self):
+        return getattr(torch, self.floatx)
+
+
+settings = Settings()
+
+
+def floatx():
+    """The active compute dtype (numpy dtype object)."""
+    return np.dtype(settings.floatx)
+
+
+def set_floatx(name: str):
+    settings.floatx = name
+
+
+def asarray_x(value):
+    """Host array in the active float dtype (numeric input only)."""
+    arr = np.asarray(value)
+    if np.issubdtype(arr.dtype, np.floating) or np.issubdtype(arr.dtype, np.integer):
+        return arr.astype(settings.floatx)
+    return arr
+
+
+def as_tensor(value):
+    """Tensor in the active dtype on ``settings.device``; no copy when the
+    value already is one."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=settings.dtype, device=settings.device)
+    return torch.as_tensor(asarray_x(value), device=settings.device)

@@ -1,0 +1,207 @@
+"""EllipticalProcess — shared posterior math of the GP family (the PyTorch
+counterpart of :mod:`g3py_tpu.models.elliptical`, forward subset).
+
+Owns a location Mean, a Kernel (wrapped with an additive KernelNoise when
+``noisy=True``) and a Mapping warping.  The posterior goes through one
+robust Cholesky of the observed gram:
+
+  location* = m(s) + K_si Kii^{-1} (T^{-1}y - m(i))
+  var*      = k_ss - colsum((L^{-1} K_is)^2)      (clamped at 0)
+
+``posterior_state`` factors the observed gram once into ``(L^{-1}, alpha,
+z)``; carried in a params dict under the reserved ``_state_*`` keys it
+turns every query into products with that state (the serving fast path,
+:class:`~g3py_tpu_torch.models.predictor.Predictor`).
+"""
+
+import torch
+
+from ..hypers.kernels import KernelSum, KernelNoise
+from ..hypers.means import Zero
+from ..hypers.mappings import Identity
+from ..ops.guards import to_cov, to_num, to_bounded
+from ..ops.linalg import safe_cholesky, solve_lower_triangular, cho_solve
+from .stochastic import StochasticProcess, _statistic
+
+__all__ = ["EllipticalProcess", "STATE_OBS_LINV", "STATE_OBS_ALPHA", "STATE_OBS_Z"]
+
+STATE_OBS_LINV = "_state_obs_linv"     # L^{-1} of chol(K_obs + noise)
+STATE_OBS_ALPHA = "_state_obs_alpha"   # K^{-1} (T^{-1}y - m)
+STATE_OBS_Z = "_state_obs_z"           # L^{-1} (T^{-1}y - m)
+
+
+class EllipticalProcess(StochasticProcess):
+    def __init__(self, space=None, location=None, kernel=None, mapping=None,
+                 noisy=True, var_noise=None, **kwargs):
+        self.f_location = location if location is not None else Zero()
+        self.f_mapping = mapping if mapping is not None else Identity()
+        self.f_kernel = kernel
+        if noisy:
+            self.f_kernel_noise = KernelSum(
+                self.f_kernel, KernelNoise(name="Noise", var=var_noise))
+        else:
+            self.f_kernel_noise = self.f_kernel
+        super().__init__(space=space, **kwargs)
+
+    # -- registration ----------------------------------------------------------
+    def _components(self):
+        return [self.f_location, self.f_kernel_noise, self.f_mapping]
+
+    def _check_hypers(self):
+        for comp in self._components():
+            comp.check_dims(self.inputs)
+        for comp in self._components():
+            comp.check_hypers(self.name + "_")
+
+    def default_hypers(self):
+        x, y = self.inputs, self.outputs
+        out = {}
+        for comp in self._components():
+            out.update(comp.default_hypers_dims(x, y))
+        return out
+
+    # -- shared math -------------------------------------------------------------
+    def _latent_obs(self, params, outputs):
+        """T^{-1} y."""
+        return to_num(self.f_mapping.inv(params, outputs))
+
+    def _obs_chol(self, params, inputs):
+        """Robust Cholesky of the (noisy) observed gram."""
+        return safe_cholesky(to_cov(self.f_kernel_noise.cov(params, inputs)))
+
+    def posterior_state(self, params=None):
+        """Factor the observed gram ONCE: a dict of ``_state_*`` device
+        tensors (L^{-1} of the observed-gram Cholesky, alpha =
+        K^{-1}(T^{-1}y - m) and the whitened residual z), valid for exactly
+        these params and the current observed data."""
+        if not self.is_observed:
+            raise ValueError("posterior_state needs observed data "
+                             "(call observed(x, y) first)")
+        p = self._tensor_params(self.params if params is None else params)
+        _, inputs, outputs = self._resolve_data(None, None, None)
+        with torch.no_grad():
+            chol = self._obs_chol(p, inputs)
+            eye = torch.eye(chol.shape[0], dtype=chol.dtype, device=chol.device)
+            linv = torch.linalg.solve_triangular(chol, eye, upper=False)
+            resid = self._latent_obs(p, outputs) - self.f_location(p, inputs)
+            z = torch.matmul(linv, resid)
+            alpha = torch.matmul(linv.T, z)
+        return {STATE_OBS_LINV: linv, STATE_OBS_ALPHA: alpha, STATE_OBS_Z: z}
+
+    def predictor(self, params=None):
+        """Serving fast path: a :class:`~g3py_tpu_torch.models.predictor.
+        Predictor` bound to these params and the current observed data."""
+        from .predictor import Predictor
+        return Predictor(self, params=params)
+
+    def _whitened_cross(self, params, inputs, cross):
+        """v = L^{-1} K_is — a product with the state's inverse when one
+        rides in ``params``, a triangular solve otherwise."""
+        if STATE_OBS_LINV in params:
+            return torch.matmul(params[STATE_OBS_LINV], cross.T)
+        return solve_lower_triangular(self._obs_chol(params, inputs), cross.T)
+
+    def _location_from_cross(self, params, space, inputs, outputs, cross):
+        if STATE_OBS_ALPHA in params:
+            alpha = params[STATE_OBS_ALPHA]
+        else:
+            chol = self._obs_chol(params, inputs)
+            resid = self._latent_obs(params, outputs) - self.f_location(params, inputs)
+            alpha = cho_solve(chol, resid)
+        return self.f_location(params, space) + torch.matmul(cross, alpha)
+
+    def _latent_var_from_cross(self, params, space, inputs, cross):
+        """``k_ss - v'v`` clamped at 0: f32 cancellation lands it a few ulp
+        negative where the space meets the observed inputs."""
+        v = self._whitened_cross(params, inputs, cross)
+        k_diag = torch.diagonal(self.f_kernel.cov(params, space))
+        return to_bounded(k_diag - (v * v).sum(dim=0), 0.0)
+
+    def _posterior_location(self, params, space, inputs, outputs, noise):
+        kernel = self.f_kernel_noise if noise else self.f_kernel
+        cross = to_num(kernel.cov(params, space, inputs))
+        return self._location_from_cross(params, space, inputs, outputs, cross)
+
+    def _posterior_kernel_diag(self, params, space, inputs, outputs, noise):
+        """Posterior variance diagonal: the latent part is clamped at 0 and
+        the noise variance is added separately, so the noisy variance never
+        drops below the noise floor."""
+        cross = to_num(self.f_kernel.cov(params, space, inputs))
+        latent = self._latent_var_from_cross(params, space, inputs, cross)
+        if noise:
+            return latent + self._noise_diag(params, space)
+        return latent
+
+    def _noise_diag(self, params, space):
+        """Diagonal of the noise-only kernel, taken from the noise term
+        itself: ``diag(K + s2 I) - diag(K)`` would lose the noise to f32
+        absorption when the signal variance dwarfs it."""
+        kn = self.f_kernel_noise
+        if kn is self.f_kernel:
+            return torch.zeros(space.shape[0], dtype=space.dtype, device=space.device)
+        if isinstance(kn, KernelSum) and kn.k1 is self.f_kernel:
+            return to_bounded(torch.diagonal(kn.k2.cov(params, space)), 0.0)
+        return to_bounded(torch.diagonal(kn.cov(params, space))
+                          - torch.diagonal(self.f_kernel.cov(params, space)), 0.0)
+
+    def _latent_moments(self, params, space, inputs, outputs):
+        """``(location, latent variance, noise variance)`` of the posterior
+        from ONE cross gram — the fused path of the Predictor.  The noisy
+        location equals the noise-free one: the noise term adds exactly 0
+        to every cross covariance."""
+        cross = to_num(self.f_kernel.cov(params, space, inputs))
+        return (self._location_from_cross(params, space, inputs, outputs, cross),
+                self._latent_var_from_cross(params, space, inputs, cross),
+                self._noise_diag(params, space))
+
+    def _warped_moments(self, params, loc, var):
+        """(mean, variance) of the observed process given latent moments."""
+        return self.f_mapping(params, loc), var
+
+    # -- selector th_* quantities ------------------------------------------------
+    def th_mapping(self, prior=False, noise=False):
+        def fn(params, space, inputs, outputs, vector):
+            # forward warping of an arbitrary latent vector
+            return self.f_mapping(params, vector)
+        return fn
+
+    def th_location(self, prior=False, noise=False):
+        if prior:
+            def fn(params, space, inputs, outputs, vector):
+                return self.f_location(params, space)
+        else:
+            def fn(params, space, inputs, outputs, vector):
+                return self._posterior_location(params, space, inputs, outputs, noise)
+        return fn
+
+    def th_kernel_diag(self, prior=False, noise=False):
+        if prior:
+            kernel = self.f_kernel_noise if noise else self.f_kernel
+
+            def fn(params, space, inputs, outputs, vector):
+                return to_bounded(torch.diagonal(kernel.cov(params, space)), 0.0)
+        else:
+            def fn(params, space, inputs, outputs, vector):
+                return self._posterior_kernel_diag(params, space, inputs, outputs, noise)
+        return fn
+
+    def th_kernel_sd(self, prior=False, noise=False):
+        diag_fn = self.th_kernel_diag(prior=prior, noise=noise)
+
+        def fn(params, space, inputs, outputs, vector):
+            return torch.sqrt(diag_fn(params, space, inputs, outputs, vector))
+        return fn
+
+    def th_mean(self, prior=False, noise=False):
+        loc_fn = self.th_location(prior=prior, noise=noise)
+
+        def fn(params, space, inputs, outputs, vector):
+            return self.f_mapping(params, loc_fn(params, space, inputs, outputs, vector))
+        return fn
+
+    def th_variance(self, prior=False, noise=False):
+        return self.th_kernel_diag(prior=prior, noise=noise)
+
+    mapping = _statistic("th_mapping", "Forward warping of ``vector``.")
+    location = _statistic("th_location", "Latent (pre-warping) location.")
+    kernel_sd = _statistic("th_kernel_sd", "Latent marginal standard deviation.")

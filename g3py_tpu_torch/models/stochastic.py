@@ -1,0 +1,293 @@
+"""StochasticProcess — the abstract model behind every process family (the
+PyTorch counterpart of :mod:`g3py_tpu.models.stochastic`, forward subset).
+
+Observed data lives on the host as numpy arrays in ``settings.floatx``
+(``set_space`` / ``observed``); device copies on ``settings.device`` are
+made once per data change and reused.  Every statistic is a ``th_*``
+builder returning a function ``fn(params, space, inputs, outputs, vector)``
+of tensors — PyTorch runs eagerly, so the builders are called directly
+instead of being jitted.  Statistics return tensors on ``settings.device``;
+``logp`` returns a Python float.
+
+This slice carries construction, data, params, the forward ``logp``,
+``predict`` and the statistic methods.  ``find_MAP``, ``dlogp``, samplers
+and plotting come in later slices.
+"""
+
+import numpy as np
+import torch
+
+from ..config import settings, asarray_x, as_tensor
+from ..utils import DictObj
+from ..bayesian.registry import GraphicalModel
+
+__all__ = ["StochasticProcess"]
+
+
+def _prep_matrix(x):
+    x = asarray_x(np.asarray(x))
+    if x.ndim < 2:
+        x = x.reshape(len(x), 1)
+    return x
+
+
+def _prep_vector(y):
+    y = asarray_x(np.asarray(y))
+    if y.ndim > 1:
+        y = y.reshape(len(y))
+    return y
+
+
+def _statistic(th_name, doc):
+    """A public statistic method evaluating ``th_name`` (the JAX package
+    binds the same methods at construction)."""
+
+    def method(self, params=None, space=None, inputs=None, outputs=None,
+               vector=None, prior=False, noise=False):
+        return self._call_method(th_name, params=params, space=space, inputs=inputs,
+                                 outputs=outputs, vector=vector, prior=prior,
+                                 noise=noise)
+
+    method.__name__ = th_name[3:]
+    method.__doc__ = doc
+    return method
+
+
+class StochasticProcess:
+    """Abstract stochastic-process model (see module docstring).
+
+    ``active`` is the :class:`GraphicalModel` to join; None makes a fresh
+    one named ``"GM_" + name``."""
+
+    def __init__(self, space=None, inputs=None, outputs=None, name="SP",
+                 active=None):
+        ndim = 1
+        if space is not None:
+            if hasattr(space, "shape"):
+                if len(space.shape) > 1:
+                    ndim = space.shape[1]
+            else:
+                ndim = int(space)
+        self.nspace = ndim
+        self.name = name
+
+        default_mat = np.array([[0.0, 1.0]] * self.nspace, dtype=settings.floatx).T
+        self._space = default_mat.copy()
+        self._inputs = default_mat.copy()
+        self._outputs = np.array([0.0, 1.0], dtype=settings.floatx)
+        self.is_observed = False
+        self._device_copies = {}
+
+        self.active = active if active is not None else GraphicalModel("GM_" + self.name)
+        self.active.add_component(self)
+
+        self._check_hypers()
+        self._register_params()
+        self.set_space(space=space, inputs=inputs, outputs=outputs)
+
+    # ------------------------------------------------------------------ hooks
+    def _components(self):
+        """Hypers-bearing components of this process (subclass hook)."""
+        return []
+
+    def _check_hypers(self):
+        pass
+
+    def default_hypers(self):
+        return {}
+
+    def _register_params(self):
+        for comp in self._components():
+            for p in comp.hypers:
+                self.active.register_param(p)
+            if comp.has_potential():
+                self.active.register_potential(f"{self.name}_{comp.name}_potential",
+                                               comp.potential_logp)
+
+    # ----------------------------------------------------------------- params
+    @property
+    def params(self):
+        return self.active.params
+
+    @property
+    def params_default(self):
+        return self.active.params_default
+
+    def filter_params(self, params):
+        return DictObj({p.name: params[p.name] for p in self.active.ordered_params
+                        if p.name in params})
+
+    def _tensor_params(self, params):
+        """This process's hypers as tensors on ``settings.device``; reserved
+        ``_state_*`` keys (a precomputed posterior factorization) pass
+        through untouched."""
+        out = {k: as_tensor(v) for k, v in self.filter_params(params).items()}
+        out.update({k: v for k, v in params.items()
+                    if isinstance(k, str) and k.startswith("_state_")})
+        return out
+
+    # ------------------------------------------------------------------- data
+    def set_space(self, space=None, inputs=None, outputs=None):
+        """Assign domain/data arrays (host numpy in ``settings.floatx``)."""
+        if space is not None:
+            self._space = _prep_matrix(space)
+        if inputs is not None:
+            self._inputs = _prep_matrix(inputs)
+        if outputs is not None:
+            self._outputs = _prep_vector(outputs)
+
+    def observed(self, inputs=None, outputs=None):
+        """Assign observations; computes nothing until asked."""
+        self.set_space(inputs=inputs, outputs=outputs)
+        self.is_observed = not (inputs is None and outputs is None)
+
+    @property
+    def space(self):
+        return self._space
+
+    @property
+    def inputs(self):
+        return self._inputs
+
+    @property
+    def outputs(self):
+        return self._outputs
+
+    def _device_data(self, name):
+        """Device copy of ``self._<name>``, made once per data change."""
+        arr = getattr(self, "_" + name)
+        key = (name, settings.device, settings.floatx)
+        hit = self._device_copies.get(key)
+        if hit is None or hit[0] is not arr:
+            hit = (arr, as_tensor(arr))
+            self._device_copies[key] = hit
+        return hit[1]
+
+    @staticmethod
+    def _as_matrix(x):
+        if isinstance(x, torch.Tensor):
+            x = x.to(dtype=settings.dtype, device=settings.device)
+            return x.reshape(-1, 1) if x.ndim < 2 else x
+        return as_tensor(_prep_matrix(x))
+
+    @staticmethod
+    def _as_vector(y):
+        if isinstance(y, torch.Tensor):
+            return y.to(dtype=settings.dtype, device=settings.device).reshape(-1)
+        return as_tensor(_prep_vector(y))
+
+    def _resolve_data(self, space, inputs, outputs):
+        space = self._device_data("space") if space is None else self._as_matrix(space)
+        inputs = self._device_data("inputs") if inputs is None else self._as_matrix(inputs)
+        outputs = self._device_data("outputs") if outputs is None else self._as_vector(outputs)
+        return space, inputs, outputs
+
+    # ---------------------------------------------------------------- th_* API
+    # Each th_* returns fn(params, space, inputs, outputs, vector) -> tensor,
+    # or None when the quantity is undefined for the class.
+
+    def th_mean(self, prior=False, noise=False):
+        return None
+
+    def th_variance(self, prior=False, noise=False):
+        return None
+
+    def th_std(self, prior=False, noise=False):
+        var_fn = self.th_variance(prior=prior, noise=noise)
+        if var_fn is None:
+            return None
+
+        def fn(params, space, inputs, outputs, vector):
+            return torch.sqrt(var_fn(params, space, inputs, outputs, vector))
+
+        return fn
+
+    def th_loglike_fn(self):
+        """Observed-data loglikelihood ``fn(params, space, inputs, outputs)``
+        of THIS process (subclass hook)."""
+        return None
+
+    def _call_method(self, th_name, params=None, space=None, inputs=None,
+                     outputs=None, vector=None, prior=False, noise=False):
+        if params is None:
+            params = self.params
+        params = self._tensor_params(params)
+        if inputs is None and not self.is_observed:
+            prior = True
+        space, inputs, outputs = self._resolve_data(space, inputs, outputs)
+        if vector is None:
+            vector = torch.zeros(space.shape[0], dtype=settings.dtype, device=space.device)
+        else:
+            vector = self._as_vector(vector)
+        fn = getattr(self, th_name)(prior=prior, noise=noise)
+        if fn is None:
+            raise NotImplementedError(f"{type(self).__name__} has no {th_name[3:]}")
+        return fn(params, space, inputs, outputs, vector)
+
+    mean = _statistic("th_mean", "Mean of the (warped) process.")
+    variance = _statistic("th_variance", "Marginal variance of the (warped) process.")
+    std = _statistic("th_std", "Marginal standard deviation of the (warped) process.")
+
+    # ----------------------------------------------------------------- logp
+    def _logp_pure(self, prior=False):
+        """logp over natural-space params dicts: prior terms + potentials
+        (+ every component's observed loglike unless ``prior``)."""
+        reg = self.active
+        like_fns = []
+        if not prior:
+            for comp in reg.components.values():
+                fn = comp.th_loglike_fn()
+                if fn is not None:
+                    like_fns.append((fn, comp))
+
+        def fn(params, space, inputs, outputs):
+            total = reg.logp_prior_dict(params) + reg.logp_potentials(params)
+            for like_fn, comp in like_fns:
+                if comp is self:
+                    total = total + like_fn(params, space, inputs, outputs)
+                else:  # another process of the graphical model: its own data
+                    total = total + like_fn(params, *comp._resolve_data(None, None, None))
+            return total
+
+        return fn
+
+    def logp(self, params=None, space=None, inputs=None, outputs=None, prior=False):
+        """Posterior (or, with ``prior``, prior) log density at ``params``."""
+        if params is None:
+            params = self.params
+        params = {k: as_tensor(v) for k, v in params.items()}
+        space, inputs, outputs = self._resolve_data(space, inputs, outputs)
+        with torch.no_grad():
+            return float(self._logp_pure(prior=prior)(params, space, inputs, outputs))
+
+    # ----------------------------------------------------------------- predict
+    def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
+                  prior=False, noise=False):
+        return None
+
+    def predict(self, params=None, space=None, inputs=None, outputs=None, mean=True,
+                std=True, var=False, quantiles=False, quantiles_noise=False,
+                prior=False, noise=False):
+        """Dict of the requested statistics (tensors), each evaluated on its
+        own as in the JAX package; :meth:`predictor` serves query batches
+        from one factorization instead."""
+        if params is None:
+            params = self.params
+        if not self.is_observed:
+            prior = True
+        kw = dict(space=space, inputs=inputs, outputs=outputs, prior=prior)
+        values = DictObj()
+        if mean:
+            values["mean"] = self.mean(params, noise=noise, **kw)
+        if var:
+            values["variance"] = self.variance(params, noise=noise, **kw)
+        if std:
+            values["std"] = self.std(params, noise=noise, **kw)
+        if quantiles:
+            values["quantile_up"] = self.quantiler(params, q=0.975, noise=noise, **kw)
+            values["quantile_down"] = self.quantiler(params, q=0.025, noise=noise, **kw)
+        if quantiles_noise:
+            values["noise_std"] = self.std(params, noise=True, **kw)
+            values["noise_up"] = self.quantiler(params, q=0.975, noise=True, **kw)
+            values["noise_down"] = self.quantiler(params, q=0.025, noise=True, **kw)
+        return values

@@ -1,0 +1,29 @@
+"""Gauss-Hermite quadrature for warped-process moments (the PyTorch
+counterpart of :mod:`g3py_tpu.ops.quadrature`): ``E[f(X)]`` for
+``X ~ N(mu, sigma^2)`` with an n-point Hermite rule, one vectorized ``f``
+call over the whole (n, len(mu)) grid."""
+
+import math
+
+import numpy as np
+import torch
+
+__all__ = ["gauss_hermite", "hermgauss"]
+
+
+def hermgauss(n, dtype=torch.float32, device="cpu"):
+    """Hermite nodes and weights as tensors."""
+    a, w = np.polynomial.hermite.hermgauss(n)
+    return (torch.as_tensor(a, dtype=dtype, device=device),
+            torch.as_tensor(w, dtype=dtype, device=device))
+
+
+def gauss_hermite(f, mu, sigma, n=10):
+    """E[f(X)], X ~ N(mu, sigma^2), elementwise over mu/sigma vectors.
+
+    grid[j, i] = mu[i] + sqrt(2)*sigma[i]*a[j];  result = w @ f(grid) / sqrt(pi)
+    """
+    a, w = hermgauss(n, mu.dtype, mu.device)
+    grid = mu[None, :] + math.sqrt(2.0) * sigma[None, :] * a[:, None]
+    vals = f(grid.reshape(-1)).reshape(grid.shape)
+    return torch.matmul(w, vals) / math.sqrt(math.pi)

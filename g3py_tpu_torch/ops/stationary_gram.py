@@ -1,0 +1,213 @@
+"""Fused stationary gram: a hand-written CUDA kernel and its plain version.
+
+``var * k(ARD_L2(x1, x2))`` for the SE, MAT32, MAT52 and RQ families — the
+gram behind every observed, cross and query covariance of exact GP/WGP
+regression.  The port of the TPU kernel
+``g3py_tpu/ops/pallas_gram.py::_stationary_kernel``; the CUDA source is
+``csrc/stationary_gram.cu`` and says what bounds it on the card.
+
+* :func:`stationary_gram` is the entry point.  On a CPU tensor it computes
+  the plain PyTorch version :func:`_plain_form`; on a CUDA tensor it
+  launches the kernel or raises — a missing ``nvcc``, a failed build or a
+  failed launch is an error, never a fallback.
+* The kernel library is built with ``nvcc`` from the source in this
+  package at first use, into ``build/g3py_tpu_torch/`` beside the package,
+  keyed by a hash of the source and flags, and loaded with ``ctypes``.
+* ``stationary_gram.launches`` counts kernel launches (and nothing else),
+  so a run can show that its main path went through the kernel.
+* The gradient is a ``torch.autograd.Function`` whose backward
+  differentiates the plain form, as the TPU package's ``_gram_hybrid``
+  replays the vjp of its XLA form.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from collections import namedtuple
+from pathlib import Path
+
+import torch
+
+from .gram import weighted_sqdist
+
+__all__ = ["stationary_gram", "build", "KINDS"]
+
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "stationary_gram.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "g3py_tpu_torch"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: family name -> the kernel's template index (csrc/stationary_gram.cu Kind)
+KINDS = {"se": 0, "mat32": 1, "mat52": 2, "rq": 3}
+# one 64-row tile per grid row, and a grid has at most 65535 rows
+_MAX_ROWS = 64 * 65535
+
+# elementwise k(d_metric) on the ARD_L2 distance d_metric = 0.5 |s1 - s2|^2;
+# the sqrt argument is clamped away from 0 for a finite lengthscale gradient
+# at the gram diagonal (see hypers.kernels.MAT32)
+_KFORMS = {
+    "se": lambda dm, extra: torch.exp(-dm),
+    "mat32": lambda dm, extra: (
+        (1.0 + torch.sqrt(torch.clamp(3.0 * dm, min=1e-36)))
+        * torch.exp(-torch.sqrt(torch.clamp(3.0 * dm, min=1e-36)))),
+    "mat52": lambda dm, extra: (
+        (1.0 + torch.sqrt(torch.clamp(5.0 * dm, min=1e-36)) + 5.0 * dm / 3.0)
+        * torch.exp(-torch.sqrt(torch.clamp(5.0 * dm, min=1e-36)))),
+    "rq": lambda dm, extra: torch.pow(1.0 + dm / extra, -extra),
+}
+
+KernelBuild = namedtuple("KernelBuild", "path seconds log cached")
+
+_lock = threading.Lock()
+_library = None  # (ctypes.CDLL, KernelBuild) once built and loaded
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise FileNotFoundError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the stationary-gram kernel "
+        "is built from csrc/ at first use on a CUDA tensor")
+
+
+def build():
+    """Compile (once per source hash) and load the kernel library; returns
+    its :class:`KernelBuild` record.  Raises when nvcc is missing or the
+    build fails."""
+    global _library
+    with _lock:
+        if _library is not None:
+            return _library[1]
+        src = _SOURCE.read_bytes()
+        key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+        path = _BUILD_DIR / f"stationary_gram_{key}.so"
+        t0 = time.perf_counter()
+        log = ""
+        cached = path.is_file()
+        if not cached:
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+                capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed building {_SOURCE}:\n{log}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
+        for name in ("stationary_gram_f32", "stationary_gram_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        record = KernelBuild(str(path), time.perf_counter() - t0, log, cached)
+        _library = (lib, record)
+        return record
+
+
+def _check_scalar(t, ref, what):
+    if not isinstance(t, torch.Tensor) or t.numel() != 1:
+        raise ValueError(f"stationary_gram: {what} must be a one-element tensor")
+    if t.device != ref.device or t.dtype != ref.dtype:
+        raise ValueError(f"stationary_gram: {what} must be {ref.dtype} on {ref.device}, "
+                         f"got {t.dtype} on {t.device}")
+    return t.contiguous()
+
+
+def _launch(kind, s1, s2, var, extra):
+    """Run the kernel on rate-scaled, centred (m, d) and (n, d) CUDA tensors;
+    returns the (m, n) gram."""
+    if kind not in KINDS:
+        raise ValueError(f"stationary_gram: unknown kind {kind!r}")
+    if s1.device.type != "cuda" or s2.device != s1.device:
+        raise ValueError("stationary_gram: the kernel takes CUDA tensors on one device")
+    if s1.dtype not in (torch.float32, torch.float64) or s2.dtype != s1.dtype:
+        raise ValueError(f"stationary_gram: float32 or float64 inputs of one dtype, "
+                         f"got {s1.dtype} and {s2.dtype}")
+    if s1.ndim != 2 or s2.ndim != 2 or s1.shape[1] != s2.shape[1]:
+        raise ValueError(f"stationary_gram: shapes {tuple(s1.shape)} and "
+                         f"{tuple(s2.shape)} are not (m, d) and (n, d)")
+    if not (s1.is_contiguous() and s2.is_contiguous()):
+        raise ValueError("stationary_gram: inputs must be contiguous")
+    m, d = s1.shape
+    n = s2.shape[0]
+    if max(m, n, d) >= 2**31 or m > _MAX_ROWS:
+        raise ValueError(f"stationary_gram: (m, n, d) = ({m}, {n}, {d}) exceeds the "
+                         f"launch grid (m <= {_MAX_ROWS}, n and d < 2**31)")
+    var = _check_scalar(var, s1, "var")
+    if kind == "rq":
+        extra = _check_scalar(extra, s1, "alpha")
+    out = torch.empty((m, n), dtype=s1.dtype, device=s1.device)
+    if m == 0 or n == 0:
+        return out
+    if _library is None:
+        build()
+    lib = _library[0]
+    fn =lib.stationary_gram_f32 if s1.dtype == torch.float32 else lib.stationary_gram_f64
+    with torch.cuda.device(s1.device):
+        stream = torch.cuda.current_stream(s1.device).cuda_stream
+        rc = fn(s1.data_ptr(), s2.data_ptr(), var.data_ptr(),
+                extra.data_ptr() if kind == "rq" else None, out.data_ptr(),
+                m, n, d, KINDS[kind], stream)
+    if rc != 0:
+        raise RuntimeError(f"stationary_gram kernel launch failed: cudaError {rc}")
+    stationary_gram.launches += 1
+    return out
+
+
+def _plain_form(kind, x1, x2, rate, var, extra=None):
+    """The plain PyTorch version: ``var * k(0.5 * weighted_sqdist)`` by the
+    norm decomposition on centred inputs (the TPU package's ``_xla_form``)."""
+    dm = 0.5 * weighted_sqdist(x1, x2, rate)
+    return var * _KFORMS[kind](dm, extra)
+
+
+class _StationaryGram(torch.autograd.Function):
+    """Kernel forward; backward through the plain form's autograd."""
+
+    @staticmethod
+    def forward(ctx, kind, x1, x2, rate, var, extra):
+        s1 = x1 * rate
+        s2 = x2 * rate
+        center = 0.5 * (s1.mean(dim=0) + s2.mean(dim=0))
+        out = _launch(kind, (s1 - center).contiguous(), (s2 - center).contiguous(),
+                      var, extra)
+        ctx.kind = kind
+        ctx.save_for_backward(x1, x2, rate, var, extra)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[1:]
+        leaves = [t.detach().requires_grad_(need) if t is not None else None
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            out = _plain_form(ctx.kind, *leaves)
+        wanted = [t for t, need in zip(leaves, needs) if need]
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (None, *(next(grads) if need else None for need in needs))
+
+
+def stationary_gram(kind, x1, x2, rate, var, extra=None):
+    """``var * k(0.5 * sum_d (x1_d - x2_d)^2 rate_d^2)`` as an (m, n) matrix.
+
+    ``kind`` is one of ``KINDS``; ``extra`` is the RQ alpha.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel (and raise if it
+    cannot be built or launched)."""
+    if kind not in KINDS:
+        raise ValueError(f"stationary_gram: unknown kind {kind!r}")
+    if x1.device.type == "cpu":
+        return _plain_form(kind, x1, x2, rate, var, extra)
+    if x1.device.type != "cuda":
+        raise ValueError(f"stationary_gram: no kernel for device {x1.device}")
+    return _StationaryGram.apply(kind, x1, x2, rate, var, extra)
+
+
+stationary_gram.launches = 0

@@ -1,0 +1,65 @@
+"""Containers and cross-package helpers.
+
+* :class:`DictObj` — dict with attribute access (as in :mod:`g3py_tpu.utils`).
+* :func:`params_from_jax` — carry a natural-space params dict from the JAX
+  package (numpy arrays keyed by hyper name) into this package's dict of
+  tensors on ``settings.device``, checked against the process's registry.
+  It takes plain numpy input and imports nothing of JAX.
+"""
+
+import numpy as np
+
+__all__ = ["DictObj", "params_from_jax"]
+
+
+class DictObj(dict):
+    """dict with attribute access."""
+
+    def __init__(self, data=None, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if data is not None:
+            for k, v in data.items():
+                self[k] = v
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError("No such attribute: " + name) from None
+
+    def __setattr__(self, name, value):
+        self[name] = value
+
+    def __delattr__(self, name):
+        if name in self:
+            del self[name]
+        else:
+            raise AttributeError("No such attribute: " + name)
+
+    def copy(self):
+        return DictObj(data=self)
+
+
+def params_from_jax(process, params):
+    """Natural-space params of the JAX package -> this package's tensors.
+
+    ``params`` maps every hyper name of ``process``'s registry to an array
+    (numpy, or anything ``np.asarray`` takes) of that hyper's shape.  Raises
+    ``KeyError`` on a missing or extra name and ``ValueError`` on a wrongly
+    shaped value; returns a :class:`DictObj` of tensors in
+    ``settings.floatx`` on ``settings.device``, in registry order."""
+    from ..config import as_tensor
+
+    spec = process.active.params_spec
+    missing = [k for k in spec if k not in params]
+    extra = [k for k in params if k not in spec]
+    if missing or extra:
+        raise KeyError(f"params_from_jax: missing {missing}, unexpected {extra}")
+    out = DictObj()
+    for name, p in spec.items():
+        v = np.asarray(params[name])
+        if v.shape != p.shape:
+            raise ValueError(f"params_from_jax: {name} has shape {v.shape}, "
+                             f"expected {p.shape}")
+        out[name] = as_tensor(v)
+    return out
