@@ -1,20 +1,31 @@
 """On-card smoke run of the PyTorch/CUDA port (g3py_tpu_torch).
 
-Drives the port's main path — exact GP and warped-GP regression served from
-one factorization — on one CUDA card, through the hand-written stationary
-gram kernel, and checks it:
+Drives the port's two paths on one CUDA card — exact GP and warped-GP
+regression served from one factorization, and trained by ``dlogp`` and
+``find_MAP`` — through the hand-written kernels K1 (stationary gram) and
+K2 (blocked panel Cholesky), and checks them:
 
   phase 0  require a CUDA card; print its name and power limit
-  phase 1  build the kernel from csrc/ with nvcc
-  phase 2  kernel vs its plain PyTorch version: 4 families x f32/f64 x 5
-           shapes, CUDA-event times at the serving shapes, autograd check
-  phase 3  GP(Bias, SE) at n=16384, d=8: logp, Predictor, 8 query batches
-           of 256 points (mean, std, quantiles, noise bands)
-  phase 4  WGP(Bias, MAT52, BoxCoxLinear) at n=4096, d=8 served the same
-           way; then a GP(Bias, SE) at n=4096 held against a float64
-           numpy/scipy recomputation on the host
+  phase 1  build both kernels from csrc/ with nvcc (in parallel)
+  phase 2  K1 vs its plain PyTorch version: 4 families x f32/f64 x 5 shapes,
+           CUDA-event and profiler times, autograd check
+  phase 2b K2 vs its plain version: f32/f64 at n = 64, 1000, 4096 (and
+           16384 in f32) on SE grams + noise; residual, L, D_k L_kk = I,
+           info on a negative pivot and on NaN; times vs plain and
+           torch.linalg.cholesky_ex
+  phase 3  serving path, GP(Bias, SE) at n=16384, d=8: logp, Predictor, 8
+           query batches of 256 points
+  phase 4  serving path, WGP(Bias, MAT52, BoxCoxLinear) at n=4096; then a
+           GP at n=4096 held against a float64 numpy/scipy recomputation
+  phase 5  training path: GP(Bias, SE) and WGP(Bias, MAT52, BoxCoxLinear) at
+           n=4096 (logp+dlogp, find_MAP, 8 batches from the trained
+           params), GP(Bias, SE) at n=16384 (logp+dlogp); per-op device
+           times; then the f32 dlogp at n=2048 against central differences
+           of a float64 host logp
 
-Every check raises on failure.  The last two lines are the kernel record
+The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
+and read just after; each kernel must have launched on each path.  Every
+check raises on failure.  The last lines are the kernel record, the card
 and ``{"ok": true, "device": {...}}``.  Run from the repository root:
 
     python3 chip_smoke.py
@@ -31,11 +42,17 @@ import numpy as np
 import torch
 
 import g3py_tpu_torch as g3t
-from g3py_tpu_torch.ops.stationary_gram import KINDS, build, stationary_gram, _plain_form
+from g3py_tpu_torch.ops import _build
+from g3py_tpu_torch.ops.panel_cholesky import panel_cholesky, _plain_form as k2_plain_form
+from g3py_tpu_torch.ops.stationary_gram import KINDS, stationary_gram, _plain_form
 
 SHAPES = [(4096, 4096, 8), (256, 16384, 8), (1000, 777, 8), (300, 200, 1), (129, 65, 37)]
 TIMED_SHAPES = SHAPES[:2]
 TOL = {torch.float32: (1e-5, 1e-6), torch.float64: (1e-12, 1e-14)}  # rtol, atol/var
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+PEAK_FP32 = 67e12     # H100 SXM FP32 outside the tensor cores, flop/s
+K2_NAMES = ("prep_kernel", "diag_kernel", "sgemm_nt_128", "nt_tile_kernel", "finish_kernel",
+            "Memcpy DtoD")
 
 
 def require(cond, msg):
@@ -66,8 +83,63 @@ def event_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def _self_device_us(evt):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        t = getattr(evt, attr, None)
+        if t is not None:
+            return float(t)
+    return 0.0
+
+
+def profile(fn, reps=1):
+    """``torch.profiler`` over ``reps`` calls of ``fn`` (after one warm-up);
+    returns the key averages."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return prof.key_averages()
+
+
+def device_ms(averages, names, reps=1):
+    """Profiler device time per call (ms) of the events whose name holds one
+    of ``names``; None when the profiler saw no device time."""
+    total = sum(_self_device_us(e) for e in averages
+                if _on_device(e) and any(n in e.key for n in names))
+    return total / 1e3 / reps if total > 0 else None
+
+
+def _on_device(evt):
+    return "CPU" not in str(getattr(evt, "device_type", "CPU"))
+
+
+def top_ops(averages, label, count=12):
+    """Print the device events (kernels, copies) of a profile by device time;
+    the CPU-side ops that launched them are left out, so nothing is counted
+    twice."""
+    rows = sorted((e for e in averages if _on_device(e)), key=_self_device_us, reverse=True)
+    total = sum(_self_device_us(e) for e in rows)
+    lines = [f"  {label}: device time {total / 1e3:.3f} ms in all; top ops:"]
+    for e in rows[:count]:
+        t = _self_device_us(e)
+        if t <= 0:
+            break
+        lines.append(f"    {t / 1e3:10.3f} ms  {100 * t / total:5.1f}%  x{e.count:<5d} "
+                     f"{e.key[:90]}")
+    print("\n".join(lines), flush=True)
+    return total / 1e3
+
+
 def finite(t):
     return bool(torch.isfinite(t).all())
+
+
+def fmt_ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 # ---------------------------------------------------------------- phase 2
@@ -99,11 +171,13 @@ def phase2():
                         f"(max abs err {max_err:.3e})")
                 worst = max(worst, max_err)
                 if dtype == torch.float32 and (m, n, d) in TIMED_SHAPES:
-                    t_k = event_ms(lambda: stationary_gram(kind, x1, x2, rate, var, extra))
+                    call = lambda: stationary_gram(kind, x1, x2, rate, var, extra)
+                    t_k = event_ms(call)
                     t_p = event_ms(lambda: _plain_form(kind, x1, x2, rate, var, extra))
-                    timing[(kind, (m, n, d))] = (t_k, t_p)
-                    print(f"    time f32 {kind} ({m},{n},{d}): kernel {t_k:.4f} ms, "
-                          f"plain {t_p:.4f} ms", flush=True)
+                    t_dev = device_ms(profile(call, reps=10), ("stationary_gram_kernel",), 10)
+                    timing[(kind, (m, n, d))] = (t_k, t_p, t_dev)
+                    print(f"    time f32 {kind} ({m},{n},{d}): wrapper {t_k:.4f} ms, "
+                          f"kernel device {fmt_ms(t_dev)}, plain {t_p:.4f} ms", flush=True)
     # autograd: the Function's backward vs the plain form's autograd
     for kind in ("se", "rq"):
         m, n, d = 129, 65, 37
@@ -127,16 +201,113 @@ def phase2():
     return worst, timing
 
 
+# ---------------------------------------------------------------- phase 2b
+# Tolerances of K2 against its plain version (cholesky_ex tiles + cuBLAS
+# products) on SE grams + 0.1 noise:
+#  residual |L L^T - A|_F / |A|_F <= 4 sqrt(n) eps: a backward-stable
+#    factorization leaves O(eps) here whatever the conditioning, growing
+#    like sqrt(n) with the length of its rounded sums;
+#  |L - L_plain|_F / |L_plain|_F: two stable factorizations that sum in
+#    different orders differ by up to cond(A) * eps; the grams here have
+#    cond ~ 1e2-1e3, so 1e-3 (f32) and 1e-11 (f64);
+#  max |D_k L_kk - I|: each tile has cond ~ sqrt(cond(A)); 1e-4 (f32) and
+#    1e-12 (f64).
+K2_TOL = {torch.float32: (1e-3, 1e-4), torch.float64: (1e-11, 1e-12)}
+
+
+def se_gram_plus_noise(n, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, 8, generator=gen, device="cuda", dtype=dtype)
+    rate = torch.full((8,), 1.0, device="cuda", dtype=dtype)
+    var = torch.tensor(1.0, device="cuda", dtype=dtype)
+    a = _plain_form("se", x, x, rate, var)
+    a.diagonal().add_(0.1)
+    return a
+
+
+def phase2b():
+    worst = 0.0
+    timing = {}
+    for dtype, sizes in ((torch.float32, (64, 1000, 4096, 16384)),
+                         (torch.float64, (64, 1000, 4096))):
+        l_tol, d_tol = K2_TOL[dtype]
+        eps = torch.finfo(dtype).eps
+        for n in sizes:
+            res_tol = 4 * math.sqrt(n) * eps
+            a = se_gram_plus_noise(n, dtype, seed=n)
+            a_copy = a.clone()
+            lk, dinv, info = panel_cholesky(a)
+            torch.cuda.synchronize()
+            lp, dinv_p, info_p = k2_plain_form(a)
+            require(torch.equal(a, a_copy), f"K2 changed its input (n={n})")
+            require(int(info) == 0 and int(info_p) == 0, f"K2 info {int(info)} on an SPD gram")
+            res = float(torch.linalg.matrix_norm(lk @ lk.T - a) / torch.linalg.matrix_norm(a))
+            l_gap = float(torch.linalg.matrix_norm(lk - lp) / torch.linalg.matrix_norm(lp))
+            max_err = float((lk - lp).abs().max())
+            nb, bs = dinv.shape[0], dinv.shape[1]
+            lpad = torch.eye(nb * bs, dtype=dtype, device="cuda")
+            lpad[:n, :n] = lk
+            tiles = torch.stack([lpad[k * bs:(k + 1) * bs, k * bs:(k + 1) * bs]
+                                 for k in range(nb)])
+            d_err = float((dinv @ tiles - torch.eye(bs, dtype=dtype, device="cuda")).abs().max())
+            upper = float(torch.triu(lk, 1).abs().max()) if n > 1 else 0.0
+            print(f"  K2 {str(dtype)[6:]:8s} n={n:5d}: residual {res:.3e}, |L-Lp|/|Lp| "
+                  f"{l_gap:.3e}, max abs err {max_err:.3e}, max|D L_kk - I| {d_err:.3e}",
+                  flush=True)
+            require(res <= res_tol, f"K2 residual {res:.3e} > {res_tol} ({dtype}, n={n})")
+            require(l_gap <= l_tol, f"K2 L differs from plain {l_gap:.3e} > {l_tol}")
+            require(d_err <= d_tol, f"K2 panel inverse error {d_err:.3e} > {d_tol}")
+            require(upper == 0.0 and finite(lk) and lk.shape == (n, n),
+                    "K2 L is not a finite lower-triangular (n, n) matrix")
+            worst = max(worst, max_err) if dtype == torch.float32 else worst
+            if dtype == torch.float32 and n in (4096, 16384):
+                reps = 10 if n == 4096 else 3
+                t_k = event_ms(lambda: panel_cholesky(a), reps=reps, warmup=1)
+                prof = profile(lambda: panel_cholesky(a), reps=reps)
+                t_dev = device_ms(prof, K2_NAMES, reps)
+                parts = {nm: device_ms(prof, (nm,), reps) for nm in K2_NAMES}
+                t_p = event_ms(lambda: k2_plain_form(a), reps=reps, warmup=1)
+                t_lib = event_ms(lambda: torch.linalg.cholesky_ex(a), reps=reps, warmup=1)
+                flops = n ** 3 / 3
+                nbytes = (2 * n * n + nb * bs * bs) * 4
+                bound = max(flops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+                timing[n] = dict(ms=t_k, device_ms=t_dev, plain_ms=t_p, library_ms=t_lib,
+                                 bound_ms=bound)
+                print(f"    time f32 n={n}: kernel {t_k:.4f} ms (events), device "
+                      f"{fmt_ms(t_dev)} (profiler); plain {t_p:.4f} ms; cholesky_ex "
+                      f"{t_lib:.4f} ms; bound {bound:.4f} ms ({flops / t_k / 1e9:.1f} "
+                      f"TFLOP/s)", flush=True)
+                print("    K2 device time by kernel (ms per factorization): "
+                      + ", ".join(f"{nm} {fmt_ms(t)}" for nm, t in parts.items()), flush=True)
+        # info: a symmetric input whose pivot j is negative, and a NaN input
+        n, j = 1000, 700
+        a = se_gram_plus_noise(n, dtype, seed=7)
+        a[j, :] = 0.0
+        a[:, j] = 0.0
+        a[j, j] = -1.0
+        info = int(panel_cholesky(a)[2])
+        info_p = int(k2_plain_form(a)[2])
+        require(info == j + 1 and info_p == j + 1,
+                f"K2 info {info} (plain {info_p}) on a negative pivot at {j}, want {j + 1}")
+        a = se_gram_plus_noise(n, dtype, seed=8)
+        a[300, 10] = a[10, 300] = float("nan")
+        info = int(panel_cholesky(a)[2])
+        require(info > 0, f"K2 info {info} on a NaN input")
+        print(f"  K2 {str(dtype)[6:]} info: negative pivot at column {j} -> {j + 1}; "
+              f"NaN input -> {info}", flush=True)
+    return worst, timing
+
+
 # ---------------------------------------------------------------- phase 3/4
-def serve(process, rng, batches, m, d, label):
+def serve(process, rng, batches, m, d, label, params=None):
     """logp, Predictor and ``batches`` query batches; returns per-batch ms."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logp = process.logp()
+    logp = process.logp(params)
     t_logp = time.perf_counter() - t0
     require(math.isfinite(logp) and logp > -1e29, f"{label} logp {logp} is not finite")
     t0 = time.perf_counter()
-    pr = process.predictor()
+    pr = process.predictor(params)
     torch.cuda.synchronize()
     t_pred = time.perf_counter() - t0
     print(f"  {label}: logp={logp:.6f} ({t_logp * 1e3:.1f} ms), "
@@ -163,6 +334,13 @@ def serve(process, rng, batches, m, d, label):
     return times
 
 
+def host_gram(a, b, rate, var):
+    acc = np.zeros((a.shape[0], b.shape[0]))
+    for k in range(a.shape[1]):
+        acc += ((a[:, k, None] - b[None, :, k]) * rate[k]) ** 2
+    return var * np.exp(-0.5 * acc)
+
+
 def host_check(rng):
     """GP(Bias, SE) at n=4096 vs a float64 numpy/scipy recomputation."""
     import scipy.linalg
@@ -183,17 +361,12 @@ def host_check(rng):
     rate, noise = p["HOSTGP_SE_rate"], p["HOSTGP_Noise_var"]
     x64, xq64, y64 = x.astype(np.float64), xq.astype(np.float64), y.astype(np.float64)
 
-    def gram(a, b):
-        acc = np.zeros((a.shape[0], b.shape[0]))
-        for k in range(d):
-            acc += ((a[:, k, None] - b[None, :, k]) * rate[k]) ** 2
-        return var * np.exp(-0.5 * acc)
-
-    chol = scipy.linalg.cholesky(gram(x64, x64) + noise * np.eye(n), lower=True)
+    chol = scipy.linalg.cholesky(host_gram(x64, x64, rate, var) + noise * np.eye(n),
+                                 lower=True)
     resid = y64 - bias
     zz = scipy.linalg.solve_triangular(chol, resid, lower=True)
     ref_logp = -0.5 * n * np.log(2 * np.pi) - 0.5 * zz @ zz - np.log(np.diag(chol)).sum()
-    cross = gram(xq64, x64)
+    cross = host_gram(xq64, x64, rate, var)
     alpha = scipy.linalg.cho_solve((chol, True), resid)
     ref_mean = bias + cross @ alpha
     v = scipy.linalg.solve_triangular(chol, cross.T, lower=True)
@@ -207,6 +380,145 @@ def host_check(rng):
         require(gap <= 1e-3, f"host check: {k} relative gap {gap:.3e} > 1e-3")
 
 
+# ---------------------------------------------------------------- phase 5
+def train_eval_ms(proc, u, reps):
+    """Median host time (ms) of one logp + dlogp pair over ``reps``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = proc.logp(u, array=True)
+        grad = proc.dlogp(u)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        require(math.isfinite(val) and val > -1e29 and np.all(np.isfinite(grad)),
+                f"{proc.name}: logp {val} or dlogp not finite")
+    return statistics.median(times), times
+
+
+def train(proc, rng, label, reps, fit=True):
+    reg = proc.active
+    u = reg.dict_to_array(proc.params_default)
+    k1_0, k2_0 = stationary_gram.launches, panel_cholesky.launches
+    med, times = train_eval_ms(proc, u, reps)
+    per_eval = ((stationary_gram.launches - k1_0) / reps, (panel_cholesky.launches - k2_0) / reps)
+    print(f"  {label}: logp+dlogp median {med:.2f} ms over {reps} "
+          f"(all {[round(t, 2) for t in times]}); per evaluation K1 x{per_eval[0]:g}, "
+          f"K2 x{per_eval[1]:g}", flush=True)
+    require(per_eval[0] >= 2 and per_eval[1] >= 2,
+            f"{label}: an evaluation did not launch both kernels")
+    if not fit:
+        return med
+    before = proc.logp(u, array=True)
+    t0 = time.perf_counter()
+    params, points = proc.find_MAP(points=1, powell=False, display=False, return_points=True)
+    t_fit = time.perf_counter() - t0
+    after = proc.logp(params)
+    print(f"  {label}: find_MAP logp {before:.4f} -> {after:.4f} in {t_fit:.1f} s "
+          f"({[p[0] for p in points]})", flush=True)
+    require(after > before, f"{label}: find_MAP did not raise logp ({before} -> {after})")
+    serve(proc, rng, batches=8, m=256, d=8, label=f"{label} trained", params=params)
+    return med
+
+
+def host_logp(reg, u, x, y):
+    """float64 GP(Bias, SE) logp at the unconstrained vector ``u``."""
+    import scipy.linalg
+
+    p = {}
+    start = 0
+    for par in reg.ordered_params:
+        seg = np.asarray(u[start:start + par.size], np.float64).reshape(par.shape)
+        p[par.name.split("_", 1)[1]] = np.exp(seg) if par.prior.transform.name == "log" else seg
+        start += par.size
+    n = x.shape[0]
+    k = host_gram(x, x, p["SE_rate"], p["SE_var"]) + p["Noise_var"] * np.eye(n)
+    chol = scipy.linalg.cholesky(k, lower=True)
+    z = scipy.linalg.solve_triangular(chol, y - p["Bias_Bias"], lower=True)
+    return -0.5 * n * np.log(2 * np.pi) - 0.5 * z @ z - np.log(np.diag(chol)).sum()
+
+
+def gradient_check(rng):
+    """The port's f32 dlogp at n=2048 vs central differences of a float64
+    host logp in the unconstrained coordinates.  Tolerance: 1e-2 relative
+    (2-norm): the f32 gradient carries ~cond(K) * eps of rounding and the
+    f64 differences (h = 1e-4) a truncation error ~h^2."""
+    n, d, h = 2048, 8, 1e-4
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = (np.sin(x[:, 0]) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    gp = g3t.GP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), name="FDGP")
+    gp.observed(x, y)
+    reg = gp.active
+    u = reg.dict_to_array(gp.params_default).astype(np.float64)
+    g = gp.dlogp(u.astype(np.float32)).astype(np.float64)
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    fd = np.empty_like(u)
+    for i in range(len(u)):
+        e = np.zeros_like(u)
+        e[i] = h
+        fd[i] = (host_logp(reg, u + e, x64, y64) - host_logp(reg, u - e, x64, y64)) / (2 * h)
+    gap = float(np.linalg.norm(g - fd) / np.linalg.norm(fd))
+    print(f"  dlogp vs float64 central differences (n={n}): relative gap {gap:.3e}; "
+          f"port {np.round(g, 4).tolist()}, host {np.round(fd, 4).tolist()}", flush=True)
+    require(gap <= 1e-2, f"dlogp relative gap {gap:.3e} > 1e-2")
+
+
+def kinv_forms(n):
+    """Device time of the two ways to form K^{-1} from L^{-1} (the
+    mvn_quad_logdet backward): the block-column product and
+    torch.cholesky_inverse from L."""
+    from g3py_tpu_torch.ops.linalg import _kinv_from_linv, trtri_from_panels
+
+    a = se_gram_plus_noise(n, torch.float32, seed=3)
+    chol, dinv, _ = panel_cholesky(a)
+    linv = trtri_from_panels(chol, dinv)
+    t_lauum = event_ms(lambda: _kinv_from_linv(linv), reps=3, warmup=1)
+    t_inv = event_ms(lambda: torch.cholesky_inverse(chol), reps=3, warmup=1)
+    t_trtri = event_ms(lambda: trtri_from_panels(chol, dinv), reps=3, warmup=1)
+    eye = torch.eye(n, device="cuda")
+    t_solve = event_ms(lambda: torch.linalg.solve_triangular(chol, eye, upper=False),
+                       reps=3, warmup=1)
+    print(f"  n={n}: K^-1 block-column product {t_lauum:.3f} ms vs cholesky_inverse "
+          f"{t_inv:.3f} ms; L^-1 trtri_from_panels {t_trtri:.3f} ms vs "
+          f"solve_triangular(L, I) {t_solve:.3f} ms", flush=True)
+
+
+def phase5(rng):
+    print("phase 5: training path", flush=True)
+    d = 8
+    brng = np.random.default_rng(0)  # bench.py:216-220 data
+    n = 4096
+    x = brng.standard_normal((n, d)).astype(np.float32)
+    y = (np.sin(x[:, 0]) + 0.1 * brng.standard_normal(n)).astype(np.float32)
+    gp = g3t.GP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), name="TRAIN_GP")
+    gp.observed(x, y)
+    t_gp = train(gp, rng, "GP n=4096", reps=10)
+
+    x2 = rng.standard_normal((n, d)).astype(np.float32)
+    y2 = (np.abs(np.sin(x2[:, 0])) + 0.5 + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    wgp = g3t.WGP(space=x2[:4], location=g3t.Bias(), kernel=g3t.MAT52(x2),
+                  mapping=g3t.BoxCoxLinear(y2), name="TRAIN_WGP")
+    wgp.observed(x2, y2)
+    t_wgp = train(wgp, rng, "WGP n=4096", reps=10)
+
+    n16 = 16384
+    x16 = rng.standard_normal((n16, d)).astype(np.float32)
+    y16 = (np.sin(x16[:, 0]) + 0.1 * rng.standard_normal(n16)).astype(np.float32)
+    gp16 = g3t.GP(space=x16[:4], location=g3t.Bias(), kernel=g3t.SE(x16), name="TRAIN_GP16")
+    gp16.observed(x16, y16)
+    t_gp16 = train(gp16, rng, "GP n=16384", reps=3, fit=False)
+    return {"gp4096": t_gp, "wgp4096": t_wgp, "gp16384": t_gp16}, (gp, gp16)
+
+
+def where_time_goes(gp, gp16):
+    print("  where the time goes (torch.profiler, one logp + dlogp, and the "
+          "predictor set-up):", flush=True)
+    for proc, label in ((gp, "GP n=4096 logp+dlogp"), (gp16, "GP n=16384 logp+dlogp")):
+        u = proc.active.dict_to_array(proc.params_default)
+        top_ops(profile(lambda: (proc.logp(u, array=True), proc.dlogp(u))), label)
+    top_ops(profile(lambda: gp16.predictor()), "GP n=16384 predictor set-up")
+
+
 def main():
     print("phase 0: device", flush=True)
     if not torch.cuda.is_available():
@@ -217,21 +529,28 @@ def main():
     print(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     print("phase 1: build", flush=True)
-    rec = build()
-    regs = [ln.strip() for ln in rec.log.splitlines() if "registers" in ln]
-    print(f"  built {rec.path} in {rec.seconds:.2f} s (cached={rec.cached})", flush=True)
-    for ln in regs:
-        print("   ", ln)
+    t0 = time.perf_counter()
+    recs = _build.build()
+    print(f"  built {len(recs)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name, rec in recs.items():
+        print(f"  {name}: {rec.path} (cached={rec.cached})", flush=True)
+        for ln in rec.log.splitlines():
+            if "registers" in ln or "spill" in ln or "error" in ln.lower():
+                print("   ", ln.strip())
 
-    print("phase 2: kernel vs plain form", flush=True)
-    worst, timing = phase2()
+    print("phase 2: K1 vs plain form", flush=True)
+    k1_worst, k1_timing = phase2()
+    print("phase 2b: K2 vs plain form", flush=True)
+    k2_worst, k2_timing = phase2b()
 
     g3t.settings.device = "cuda"
     g3t.settings.floatx = "float32"
     rng = np.random.default_rng(0)
     d = 8
 
+    # ---- serving path
     stationary_gram.launches = 0
+    panel_cholesky.launches = 0
     print("phase 3: GP serving n=16384 d=8", flush=True)
     n = 16384
     x = rng.standard_normal((n, d)).astype(np.float32)
@@ -239,10 +558,11 @@ def main():
     gp = g3t.GP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), name="SMOKE_GP16")
     gp.observed(x, y)
     serve(gp, rng, batches=8, m=256, d=d, label="GP n=16384")
-    after_gp = stationary_gram.launches
-    print(f"  stationary_gram launches in GP serving: {after_gp}", flush=True)
-    require(after_gp >= 2 + 8, f"GP serving launched the kernel {after_gp} times, "
+    k1_gp, k2_gp = stationary_gram.launches, panel_cholesky.launches
+    print(f"  launches in GP serving: K1 {k1_gp}, K2 {k2_gp}", flush=True)
+    require(k1_gp >= 2 + 8, f"GP serving launched K1 {k1_gp} times, "
             "expected >= 1 (logp) + 1 (state) + 8 (batches)")
+    require(k2_gp >= 2, f"GP serving launched K2 {k2_gp} times, expected >= 2 (logp, state)")
 
     print("phase 4: WGP serving n=4096 d=8", flush=True)
     n2 = 4096
@@ -252,17 +572,46 @@ def main():
                   mapping=g3t.BoxCoxLinear(y2), name="SMOKE_WGP")
     wgp.observed(x2, y2)
     serve(wgp, rng, batches=8, m=256, d=d, label="WGP n=4096")
-    launches = stationary_gram.launches
-    print(f"  stationary_gram launches in WGP serving: {launches - after_gp}", flush=True)
-    require(launches - after_gp >= 2 + 8, "WGP serving did not go through the kernel")
+    k1_serve, k2_serve = stationary_gram.launches, panel_cholesky.launches
+    print(f"  launches in WGP serving: K1 {k1_serve - k1_gp}, K2 {k2_serve - k2_gp}", flush=True)
+    require(k1_serve - k1_gp >= 2 + 8 and k2_serve - k2_gp >= 2,
+            "WGP serving did not go through both kernels")
     host_check(rng)
 
-    t_k, t_p = timing[("se", (256, 16384, 8))]
-    record = {"kernels": [{
-        "name": "stationary_gram", "route": "cuda",
-        "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
-        "replaces": "g3py_tpu/ops/pallas_gram.py:80",
-        "launches": launches, "max_abs_err": worst, "ms": t_k, "plain_ms": t_p}]}
+    # ---- training path
+    stationary_gram.launches = 0
+    panel_cholesky.launches = 0
+    train_ms, (tgp, tgp16) = phase5(rng)
+    k1_train, k2_train = stationary_gram.launches, panel_cholesky.launches
+    print(f"  launches in training: K1 {k1_train}, K2 {k2_train}", flush=True)
+    require(k1_train > 0 and k2_train > 0, "training did not go through both kernels")
+
+    print("phase 5b: gradient vs host, K^-1 forms, where the time goes", flush=True)
+    gradient_check(rng)
+    kinv_forms(4096)
+    kinv_forms(16384)
+    where_time_goes(tgp, tgp16)
+
+    shape = (4096, 4096, 8)
+    t_wrap, t_plain, t_dev = k1_timing[("se", shape)]
+    k1_bound = shape[0] * shape[1] * 4 / PEAK_BYTES * 1e3
+    k2t = k2_timing[4096]
+    record = {"kernels": [
+        {"name": "stationary_gram", "route": "cuda",
+         "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
+         "replaces": "g3py_tpu/ops/pallas_gram.py:81",
+         "launches": k1_serve + k1_train, "max_abs_err": k1_worst,
+         "ms": t_dev if t_dev is not None else t_wrap, "plain_ms": t_plain,
+         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
+        {"name": "panel_cholesky", "route": "cuda",
+         "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
+         "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
+         "launches": k2_serve + k2_train, "max_abs_err": k2_worst,
+         "ms": k2t["ms"], "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"],
+         "bound_by": "operations", "library_ms": k2t["library_ms"]}]}
+    print(f"  K1 at {shape} SE f32: device {fmt_ms(t_dev)}, wrapper {t_wrap:.4f} ms, "
+          f"plain {t_plain:.4f} ms, bound {k1_bound:.4f} ms", flush=True)
+    print(f"  training logp+dlogp medians (ms): {train_ms}", flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

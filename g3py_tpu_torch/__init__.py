@@ -1,24 +1,25 @@
 """g3py_tpu_torch — the PyTorch/CUDA port of g3py_tpu.
 
-Exact GP and warped-GP regression served from one factorization, with the
-fused stationary gram as a hand-written CUDA kernel for Hopper (sm_90a).
-It imports neither JAX nor g3py_tpu.  Tensors live on
-``settings.device`` ("cpu" unless the program sets "cuda"):
+Exact GP and warped-GP regression, trained (``dlogp``, ``find_MAP``) and
+served from one factorization, with the fused stationary gram and the
+blocked panel Cholesky as hand-written CUDA kernels for Hopper (sm_90a).
+It imports neither JAX nor g3py_tpu.  Tensors live on ``settings.device``,
+the card (``"cuda"``) unless the program says ``"cpu"``:
 
 >>> import g3py_tpu_torch as g3t
->>> g3t.settings.device = "cuda"
 >>> gp = g3t.GP(space=x, location=g3t.Bias(), kernel=g3t.SE(x))
 >>> gp.observed(x, y)
->>> gp.logp()
->>> pr = gp.predictor()
+>>> params = gp.find_MAP(points=2, display=False)
+>>> pr = gp.predictor(params)
 >>> pr(x_query, quantiles=True, quantiles_noise=True)
 """
 
 from . import config
 from .config import settings, floatx, set_floatx
-from .utils import DictObj, params_from_jax
+from .utils import DictObj, MaxTime, nan_to_high, params_from_jax
 from .ops import (safe_cholesky, cho_solve, solve_lower_triangular,
-                  gauss_hermite, stationary_gram)
+                  solve_upper_triangular, trtri_from_panels, mvn_quad_logdet,
+                  gauss_hermite, stationary_gram, panel_cholesky)
 from .hypers import (Hypers, Param, Prior, Flat, FlatExp, Transform,
                      IdentityTransform, LogTransform)
 from .hypers.metrics import Metric, Delta, ARD, ARD_L2
@@ -27,7 +28,7 @@ from .hypers.kernels import (Kernel, KernelStationary, KernelComposition,
                              KernelStationaryExponential, SE, MAT32, MAT52, RQ)
 from .hypers.means import Mean, Zero, Bias
 from .hypers.mappings import Mapping, Identity, BoxCoxLinear
-from .bayesian import GraphicalModel
+from .bayesian import GraphicalModel, optimize
 from .models import (StochasticProcess, EllipticalProcess, GaussianProcess,
                      WarpedGaussianProcess, GP, WGP, Predictor)
 

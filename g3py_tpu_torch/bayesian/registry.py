@@ -31,6 +31,10 @@ class GraphicalModel:
         self.components = DictObj()
         self.params_spec = {}  # name -> Param, insertion-ordered
         self.potentials = DictObj()  # name -> callable(params_dict) -> scalar
+        self.current_params = None
+        # fix_vars (marginalizing dims over a datatrace) is not ported: every
+        # dim is a sampling dim
+        self.fixed_dims = []
 
     def add_component(self, component):
         self.components[component.name] = component
@@ -95,6 +99,17 @@ class GraphicalModel:
             start += p.size
         return u
 
+    def array_to_dict_tensor(self, u):
+        """Unconstrained flat tensor -> natural-space dict of tensors, a
+        differentiable map (the counterpart of ``array_to_dict_jax``)."""
+        out = {}
+        start = 0
+        for p in self.ordered_params:
+            seg = u[start:start + p.size].reshape(p.shape)
+            out[p.name] = p.prior.transform.backward(seg)
+            start += p.size
+        return out
+
     def array_to_dict(self, u):
         """Unconstrained flat host array -> natural-space dict of host arrays."""
         u = np.asarray(u, dtype=settings.floatx)
@@ -123,10 +138,16 @@ class GraphicalModel:
         return total
 
     # -- params ---------------------------------------------------------------
+    def set_params(self, params=None):
+        """Make ``params`` the current params (None restores the defaults)."""
+        self.current_params = None if params is None else DictObj(params)
+
     @property
     def params(self):
-        """The params a process uses when given none: the defaults (setting
-        current params comes with training)."""
+        """The params a process uses when given none: the current params
+        when set, else the defaults."""
+        if self.current_params is not None:
+            return self.current_params.copy()
         return self.params_default
 
     @property
@@ -154,3 +175,16 @@ class GraphicalModel:
                         np.reshape(np.asarray(v), self.params_spec[key].shape))
         return default
 
+    # -- sampling view ----------------------------------------------------------
+    @property
+    def sampling_dims(self):
+        return sorted(set(range(self.ndim)) - set(self.fixed_dims))
+
+    def sampling_params(self, params):
+        """Flat unconstrained host array of the sampling dims."""
+        if isinstance(params, dict):
+            return self.dict_to_array(params)[self.sampling_dims]
+        return np.asarray(params)[self.sampling_dims]
+
+    def dict_from_sampling_array(self, params):
+        return self.array_to_dict(params)

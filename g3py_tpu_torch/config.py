@@ -2,8 +2,9 @@
 
 The PyTorch counterpart of :mod:`g3py_tpu.config`: an explicit settings
 object instead of ambient flags.  ``device`` names where model tensors live;
-it defaults to ``"cpu"`` and is never auto-detected, so a program runs on
-the GPU only when it says ``settings.device = "cuda"``.
+it defaults to ``"cuda"``: the entry points run on the card unless the
+caller says ``settings.device = "cpu"``.  Nothing falls back — without a
+card the first tensor op raises torch's own error.
 
 Grams feed a Cholesky, so float32 matrix products must be full float32 —
 the counterpart of the JAX package's ``matmul_precision='highest'``.
@@ -44,7 +45,7 @@ class Settings:
     cholesky_jitter: float = 1e-6
     logp_guard: float = -1e30
     quadrature_degree: int = 10
-    device: str = "cpu"
+    device: str = "cuda"
 
     @property
     def dtype(self):

@@ -1,5 +1,5 @@
 """EllipticalProcess — shared posterior math of the GP family (the PyTorch
-counterpart of :mod:`g3py_tpu.models.elliptical`, forward subset).
+counterpart of :mod:`g3py_tpu.models.elliptical`, subset).
 
 Owns a location Mean, a Kernel (wrapped with an additive KernelNoise when
 ``noisy=True``) and a Mapping warping.  The posterior goes through one
@@ -9,7 +9,7 @@ robust Cholesky of the observed gram:
   var*      = k_ss - colsum((L^{-1} K_is)^2)      (clamped at 0)
 
 ``posterior_state`` factors the observed gram once into ``(L^{-1}, alpha,
-z)``; carried in a params dict under the reserved ``_state_*`` keys it
+z)``, with L^{-1} seeded by the factorization's panel inverses; carried in a params dict under the reserved ``_state_*`` keys it
 turns every query into products with that state (the serving fast path,
 :class:`~g3py_tpu_torch.models.predictor.Predictor`).
 """
@@ -20,7 +20,8 @@ from ..hypers.kernels import KernelSum, KernelNoise
 from ..hypers.means import Zero
 from ..hypers.mappings import Identity
 from ..ops.guards import to_cov, to_num, to_bounded
-from ..ops.linalg import safe_cholesky, solve_lower_triangular, cho_solve
+from ..ops.linalg import (safe_cholesky, safe_cholesky_panels, trtri_from_panels,
+                          solve_lower_triangular, cho_solve)
 from .stochastic import StochasticProcess, _statistic
 
 __all__ = ["EllipticalProcess", "STATE_OBS_LINV", "STATE_OBS_ALPHA", "STATE_OBS_Z"]
@@ -80,9 +81,10 @@ class EllipticalProcess(StochasticProcess):
         p = self._tensor_params(self.params if params is None else params)
         _, inputs, outputs = self._resolve_data(None, None, None)
         with torch.no_grad():
-            chol = self._obs_chol(p, inputs)
-            eye = torch.eye(chol.shape[0], dtype=chol.dtype, device=chol.device)
-            linv = torch.linalg.solve_triangular(chol, eye, upper=False)
+            # L^{-1} from the panel inverses of the same factorization
+            chol, dinv, _ = safe_cholesky_panels(
+                to_cov(self.f_kernel_noise.cov(p, inputs)))
+            linv = trtri_from_panels(chol, dinv)
             resid = self._latent_obs(p, outputs) - self.f_location(p, inputs)
             z = torch.matmul(linv, resid)
             alpha = torch.matmul(linv.T, z)

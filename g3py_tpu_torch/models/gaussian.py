@@ -1,5 +1,5 @@
 """GaussianProcess / WarpedGaussianProcess (the PyTorch counterpart of
-:mod:`g3py_tpu.models.gaussian`, forward subset).
+:mod:`g3py_tpu.models.gaussian`, subset).
 
 The GP observed density is the warped multivariate normal
 

@@ -1,5 +1,5 @@
 """StochasticProcess — the abstract model behind every process family (the
-PyTorch counterpart of :mod:`g3py_tpu.models.stochastic`, forward subset).
+PyTorch counterpart of :mod:`g3py_tpu.models.stochastic`, subset).
 
 Observed data lives on the host as numpy arrays in ``settings.floatx``
 (``set_space`` / ``observed``); device copies on ``settings.device`` are
@@ -9,9 +9,11 @@ of tensors — PyTorch runs eagerly, so the builders are called directly
 instead of being jitted.  Statistics return tensors on ``settings.device``;
 ``logp`` returns a Python float.
 
-This slice carries construction, data, params, the forward ``logp``,
-``predict`` and the statistic methods.  ``find_MAP``, ``dlogp``, samplers
-and plotting come in later slices.
+This port carries construction, data, params, ``logp`` / ``loglike``
+(over a params dict or the flat unconstrained vector), ``dlogp`` (autograd
+over that vector on the device), ``find_MAP`` with the reference's scipy
+BFGS/Powell recipe, ``predict`` and the statistic methods.  Samplers, LOO,
+the other ``find_MAP`` engines and plotting come in later slices.
 """
 
 import numpy as np
@@ -19,7 +21,9 @@ import torch
 
 from ..config import settings, asarray_x, as_tensor
 from ..utils import DictObj
+from ..ops.guards import to_num
 from ..bayesian.registry import GraphicalModel
+from ..bayesian.selection import optimize
 
 __all__ = ["StochasticProcess"]
 
@@ -105,6 +109,9 @@ class StochasticProcess:
                                                comp.potential_logp)
 
     # ----------------------------------------------------------------- params
+    def set_params(self, params=None):
+        return self.active.set_params(params)
+
     @property
     def params(self):
         return self.active.params
@@ -229,9 +236,10 @@ class StochasticProcess:
     std = _statistic("th_std", "Marginal standard deviation of the (warped) process.")
 
     # ----------------------------------------------------------------- logp
-    def _logp_pure(self, prior=False):
+    def _logp_pure(self, prior=False, like_only=False):
         """logp over natural-space params dicts: prior terms + potentials
-        (+ every component's observed loglike unless ``prior``)."""
+        (+ every component's observed loglike unless ``prior``); with
+        ``like_only`` the loglikes alone."""
         reg = self.active
         like_fns = []
         if not prior:
@@ -241,7 +249,10 @@ class StochasticProcess:
                     like_fns.append((fn, comp))
 
         def fn(params, space, inputs, outputs):
-            total = reg.logp_prior_dict(params) + reg.logp_potentials(params)
+            if like_only:
+                total = torch.zeros((), dtype=settings.dtype, device=settings.device)
+            else:
+                total = reg.logp_prior_dict(params) + reg.logp_potentials(params)
             for like_fn, comp in like_fns:
                 if comp is self:
                     total = total + like_fn(params, space, inputs, outputs)
@@ -251,14 +262,152 @@ class StochasticProcess:
 
         return fn
 
-    def logp(self, params=None, space=None, inputs=None, outputs=None, prior=False):
-        """Posterior (or, with ``prior``, prior) log density at ``params``."""
+    def _eval_params(self, params, array):
+        """Natural-space dict of device tensors from a params dict, or from
+        the flat unconstrained vector when ``array``."""
+        reg = self.active
         if params is None:
-            params = self.params
-        params = {k: as_tensor(v) for k, v in params.items()}
+            params = reg.dict_to_array(self.params) if array else self.params
+        if array:
+            return reg.array_to_dict_tensor(as_tensor(np.asarray(params)))
+        return {k: as_tensor(v) for k, v in params.items()}
+
+    def logp(self, params=None, space=None, inputs=None, outputs=None, prior=False,
+             array=False):
+        """Posterior (or, with ``prior``, prior) log density at ``params`` —
+        a natural-space dict, or with ``array`` the flat unconstrained
+        vector."""
+        p = self._eval_params(params, array)
         space, inputs, outputs = self._resolve_data(space, inputs, outputs)
         with torch.no_grad():
-            return float(self._logp_pure(prior=prior)(params, space, inputs, outputs))
+            return float(self._logp_pure(prior=prior)(p, space, inputs, outputs))
+
+    def loglike(self, params=None, space=None, inputs=None, outputs=None, array=False):
+        """Observed-data loglikelihood of every process of the graphical
+        model (no prior terms or potentials)."""
+        p = self._eval_params(params, array)
+        space, inputs, outputs = self._resolve_data(space, inputs, outputs)
+        with torch.no_grad():
+            return float(self._logp_pure(like_only=True)(p, space, inputs, outputs))
+
+    def dlogp(self, params=None, space=None, inputs=None, outputs=None, prior=False):
+        """Gradient of logp with respect to the flat unconstrained vector
+        (host float array in ``settings.floatx``): autograd on the device
+        through the analytic ``mvn_quad_logdet`` backward, NaN/Inf guarded
+        by ``to_num``."""
+        reg = self.active
+        if params is None:
+            params = self.params
+        if isinstance(params, dict):
+            params = reg.dict_to_array(params)
+        u = as_tensor(np.asarray(params)).detach().requires_grad_(True)
+        space, inputs, outputs = self._resolve_data(space, inputs, outputs)
+        with torch.enable_grad():
+            total = self._logp_pure(prior=prior)(reg.array_to_dict_tensor(u),
+                                                 space, inputs, outputs)
+            if total.requires_grad:
+                (grad,) = torch.autograd.grad(total, u)
+            else:
+                grad = torch.zeros_like(u)
+        return to_num(grad).cpu().numpy()
+
+    def _array_logp_sampling(self, p):
+        """logp over the sampling dims (every dim: fix_vars is not ported)."""
+        return self.logp(np.asarray(p, dtype=settings.floatx), array=True)
+
+    def _array_dlogp_sampling(self, p):
+        return self.dlogp(np.asarray(p, dtype=settings.floatx))
+
+    # ----------------------------------------------------------------- find_MAP
+    def find_MAP(self, start=None, points=1, return_points=False, plot=False,
+                 display=True, powell=True, bfgs=True, init="bfgs", max_time=None,
+                 engine="scipy", objective="logp"):
+        """Multi-start MAP search with the reference recipe: alternating
+        BFGS (with ``dlogp``) and Powell through scipy, hardened objectives
+        (:func:`~g3py_tpu_torch.bayesian.selection.optimize`).  ``start`` is
+        a params dict or a list of them; ``points`` is the number of
+        optimizer runs; returns the best params dict (and, with
+        ``return_points``, every ``(name, logp, params)`` visited)."""
+        if objective == "loo":
+            raise NotImplementedError(
+                "find_MAP(objective='loo') is not ported yet (ROADMAP Queue 1 item 6, LOO)")
+        if objective != "logp":
+            raise ValueError(f"unknown objective {objective!r}")
+        if engine != "scipy":
+            items = {"jax": "item 9 (on-device L-BFGS)", "iterative": "item 11",
+                     "distributed": "item 16"}
+            if engine in items:
+                raise NotImplementedError(
+                    f"find_MAP(engine={engine!r}) is not ported yet "
+                    f"(ROADMAP Queue 1 {items[engine]})")
+            raise ValueError(f"unknown engine {engine!r}")
+        if plot:
+            raise NotImplementedError("plotting is not ported yet (ROADMAP Queue 1 item 15)")
+        if not self.is_observed:
+            print("For find_MAP it is necessary to have observations")
+            return start
+        reg = self.active
+        if start is None:
+            start = self.params
+        logp = self._array_logp_sampling
+        dlogp = self._array_dlogp_sampling
+        try:
+            dlogp(reg.sampling_params(start if not isinstance(start, list) else start[0]))
+        except Exception as m:
+            print(m)
+            dlogp = None
+
+        points_list = []
+        if isinstance(start, list):
+            for i, s in enumerate(start, start=1):
+                points_list.append(("start" + str(i), logp(reg.sampling_params(s)), s))
+        else:
+            points_list.append(("start", logp(reg.sampling_params(start)), start))
+        n_starts = len(points_list)
+        if display:
+            print("Starting function value (-logp): " + str(-points_list[0][1]))
+        check = 0 if init == "bfgs" else 1
+        i = -1
+        points -= 1
+        while i < points:
+            i += 1
+            idx = i // 2 if powell else i
+            if idx >= len(points_list):
+                break  # no fresh start/refinement left to visit
+            name, _, start_i = points_list[idx]
+            if (i % 2 == check or not powell) and bfgs:
+                if name.endswith("_bfgs"):
+                    if i > n_starts:
+                        points += 1
+                    continue
+                name += "_bfgs"
+                if display:
+                    print(name)
+                new = optimize(logp=logp, start=reg.sampling_params(start_i),
+                               dlogp=dlogp, fmin="bfgs", max_time=max_time,
+                               disp=display)
+            else:
+                if name.endswith("_powell"):
+                    if i > n_starts:
+                        points += 1
+                    continue
+                name += "_powell"
+                if display:
+                    print(name)
+                new = optimize(logp=logp, start=reg.sampling_params(start_i),
+                               fmin="powell", max_time=max_time, disp=display)
+            points_list.append((name, logp(new), reg.dict_from_sampling_array(new)))
+
+        optimal = points_list[0]
+        for test in points_list:
+            if test[1] > optimal[1]:
+                optimal = test
+        params = DictObj(optimal[2])
+        if display:
+            print("find_MAP", params)
+        if return_points is False:
+            return params
+        return params, points_list
 
     # ----------------------------------------------------------------- predict
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,

@@ -1,14 +1,18 @@
-"""Numeric ops: guards, quadrature, grams, the fused stationary-gram kernel
-and robust linear algebra."""
+"""Numeric ops: guards, quadrature, grams, the port's two CUDA kernels (the
+fused stationary gram and the blocked panel Cholesky) and robust linear
+algebra."""
 
 from .guards import to_num, to_cov, to_bounded
 from .quadrature import gauss_hermite, hermgauss
 from .gram import weighted_sqdist, sqdist, pairwise_sum
 from .stationary_gram import stationary_gram
-from .linalg import (safe_cholesky, solve_lower_triangular, cho_solve,
+from .panel_cholesky import panel_cholesky
+from .linalg import (safe_cholesky, safe_cholesky_panels, trtri_from_panels,
+                     solve_lower_triangular, solve_upper_triangular, cho_solve,
                      log_det_from_chol, mvn_quad_logdet)
 
 __all__ = ["to_num", "to_cov", "to_bounded", "gauss_hermite", "hermgauss",
            "weighted_sqdist", "sqdist", "pairwise_sum", "stationary_gram",
-           "safe_cholesky", "solve_lower_triangular", "cho_solve",
-           "log_det_from_chol", "mvn_quad_logdet"]
+           "panel_cholesky", "safe_cholesky", "safe_cholesky_panels",
+           "trtri_from_panels", "solve_lower_triangular", "solve_upper_triangular",
+           "cho_solve", "log_det_from_chol", "mvn_quad_logdet"]

@@ -1,52 +1,95 @@
-"""Robust dense linear algebra, forward only (the PyTorch counterpart of
-:mod:`g3py_tpu.ops.linalg`).
+"""Robust dense linear algebra with analytic gradients (the PyTorch
+counterpart of :mod:`g3py_tpu.ops.linalg`).
 
+* Every factorization goes through :func:`~g3py_tpu_torch.ops.panel_cholesky.
+  panel_cholesky` — the hand-written blocked Cholesky on the card, its plain
+  version on the CPU — which also returns the inverses of its diagonal
+  panels and a ``cholesky_ex``-style info flag.
 * :func:`safe_cholesky` keeps the ``CholeskyRobust`` contract: never raise;
   one clean factorization, then a one-time repair of a non-positive
   diagonal plus escalating jitter ``mean(diag) * 1e-6 * 10**(k-1)`` for a
   bounded number of tries, and ``1e-10 * I`` on total failure.  Failure is
-  read from ``torch.linalg.cholesky_ex``'s info (XLA signals it with NaNs;
-  torch does not), together with a finiteness check of the factor.
+  read from the info flag together with a finiteness check of the factor
+  (one host sync per try).  Its gradient is the Murray reverse-mode rule
+  (arXiv:1602.07527), zero on failure.
+* :func:`trtri_from_panels` builds L^{-1} by block forward substitution
+  seeded with the panel inverses (the counterpart of the JAX package's
+  ``blocked_trtri``).
 * :func:`mvn_quad_logdet` returns ``(quad, logdet_half, ok)`` of a gaussian
-  quadratic form through that factorization.
-* Triangular solves are ``torch.linalg.solve_triangular``.  The JAX
-  package's ``blocked_*`` routines work around the TPU's slow triangular
-  solve and have no counterpart here.
+  quadratic form.  Its value-only path whitens by a triangular solve; the
+  differentiated path builds L^{-1} from the panels and its backward is the
+  analytic ``dK = -g_q alpha alpha^T + 1/2 g_l K^{-1}``, ``dr = 2 g_q alpha``.
 """
 
 import torch
 
 from ..config import settings
+from .panel_cholesky import panel_cholesky
 
-__all__ = ["safe_cholesky", "solve_lower_triangular", "cho_solve",
+__all__ = ["safe_cholesky", "safe_cholesky_panels", "trtri_from_panels",
+           "solve_lower_triangular", "solve_upper_triangular", "cho_solve",
            "log_det_from_chol", "mvn_quad_logdet"]
+
+# block-column width of the K^{-1} = L^{-T} L^{-1} product (one tall
+# matmul per block column, n^3/3 flops instead of the dense 2 n^3)
+_KINV_BLOCK = 1024
 
 
 def _try_cholesky(a):
-    chol, info = torch.linalg.cholesky_ex(a)
+    chol, dinv, info = panel_cholesky(a)
     ok = bool((info == 0) & torch.isfinite(chol).all())
-    return chol, ok
+    return chol, dinv, ok
 
 
-def _safe_cholesky_impl(a, max_tries):
-    """Escalating-jitter factorization; returns ``(L, failed)``.  The common
-    case costs one Cholesky and one host sync (reading the info flag)."""
-    chol, ok = _try_cholesky(a)
+def safe_cholesky_panels(a, max_tries=None):
+    """Escalating-jitter factorization; returns ``(L, dinv, failed)`` with
+    the panel inverses of the factorization that succeeded (``1e-10 * I``
+    and ``1e10 * I`` panels on total failure).  The common case costs one
+    factorization and one host sync."""
+    if max_tries is None:
+        max_tries = settings.cholesky_max_tries
+    a = a.detach()
+    chol, dinv, ok = _try_cholesky(a)
     if ok:
-        return chol, False
+        return chol, dinv, False
     n = a.shape[-1]
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
-    with torch.no_grad():
-        diag = torch.diagonal(a)
-        base = diag.mean() * settings.cholesky_jitter
-        dmin = diag.min()
-        # the non-positive diagonal is fixed once, before the escalation
-        diag_fix = torch.where(dmin <= 0.0, base - dmin, torch.zeros_like(dmin))
+    diag = torch.diagonal(a)
+    base = diag.mean() * settings.cholesky_jitter
+    dmin = diag.min()
+    # the non-positive diagonal is fixed once, before the escalation
+    diag_fix = torch.where(dmin <= 0.0, base - dmin, torch.zeros_like(dmin))
     for k in range(1, max_tries):
-        chol, ok = _try_cholesky(a + (diag_fix + base * 10.0 ** (k - 1)) * eye)
+        chol, dinv, ok = _try_cholesky(a + (diag_fix + base * 10.0 ** (k - 1)) * eye)
         if ok:
-            return chol, False
-    return 1e-10 * eye, True
+            return chol, dinv, False
+    dinv = 1e10 * torch.eye(dinv.shape[-1], dtype=a.dtype, device=a.device).expand_as(dinv)
+    return 1e-10 * eye, dinv.contiguous(), True
+
+
+class _SafeCholesky(torch.autograd.Function):
+    """Robust factorization forward; Murray backward (JAX linalg.py:110-124)."""
+
+    @staticmethod
+    def forward(ctx, a, max_tries):
+        chol, _, failed = safe_cholesky_panels(a, max_tries)
+        ctx.failed = failed
+        ctx.save_for_backward(chol)
+        return chol
+
+    @staticmethod
+    def backward(ctx, chol_bar):
+        (chol,) = ctx.saved_tensors
+        if ctx.failed:
+            return torch.zeros_like(chol), None
+        m = torch.matmul(chol.T, chol_bar)
+        phi = torch.tril(m) - 0.5 * torch.diag(torch.diagonal(m))
+        # S = L^{-T} phi L^{-1} via two upper-triangular solves
+        tmp = torch.linalg.solve_triangular(chol.T, phi.T, upper=True)
+        s = torch.linalg.solve_triangular(chol.T, tmp.T, upper=True)
+        a_bar = torch.tril(s + s.T) - torch.diag(torch.diagonal(s))
+        # symmetrized, as d/dA of cholesky(A) for a full (square) input
+        return 0.5 * (a_bar + a_bar.T), None
 
 
 def safe_cholesky(a, max_tries=None):
@@ -55,12 +98,59 @@ def safe_cholesky(a, max_tries=None):
     try 0:   ``cholesky(a)``
     try k>0: ``cholesky(a + diag_fix + mean(diag)*1e-6*10**(k-1) * I)`` where
              ``diag_fix`` lifts a non-positive diagonal to ``mean(diag)*1e-6``
-    failure: ``1e-10 * I`` after ``max_tries`` attempts in all
-             (``settings.cholesky_max_tries`` by default).
+    failure: ``1e-10 * I`` (and a zero gradient) after ``max_tries``
+             attempts in all (``settings.cholesky_max_tries`` by default).
     """
     if max_tries is None:
         max_tries = settings.cholesky_max_tries
-    return _safe_cholesky_impl(a, max_tries)[0]
+    return _SafeCholesky.apply(a, max_tries)
+
+
+def _pad_tril(l, target):
+    """Embed a lower-triangular L into a larger identity-padded triangle."""
+    n = l.shape[-1]
+    if target == n:
+        return l
+    out = torch.eye(target, dtype=l.dtype, device=l.device)
+    out[:n, :n] = l
+    return out
+
+
+def trtri_from_panels(chol, dinv):
+    """L^{-1} by block forward substitution seeded with the panel inverses
+    ``dinv`` (``dinv[k] = L_kk^{-1}`` over the identity-padded panels):
+
+      X[i,i] = dinv[i],   X[i,:i] = -dinv[i] (L[i,:i] X[:i,:i])
+
+    — one block row per step, every product a plain matmul."""
+    n = chol.shape[-1]
+    nb, block = dinv.shape[0], dinv.shape[-1]
+    npad = nb * block
+    lp = _pad_tril(chol, npad)
+    x = torch.zeros((npad, npad), dtype=chol.dtype, device=chol.device)
+    for i in range(nb):
+        s = slice(i * block, (i + 1) * block)
+        x[s, s] = dinv[i]
+        if i:
+            x[s, :s.start] = -torch.matmul(dinv[i], torch.matmul(lp[s, :s.start],
+                                                                  x[:s.start, :s.start]))
+    return x[:n, :n]
+
+
+def _kinv_from_linv(linv, block=_KINV_BLOCK):
+    """K^{-1} = L^{-T} L^{-1} for lower-triangular L^{-1}: block column j of
+    the upper half is ``W[j0:, :j1]^T W[j0:, j0:j1]`` (rows above j0 are zero
+    in W), mirrored into the lower half."""
+    n = linv.shape[-1]
+    if n <= block:
+        return torch.matmul(linv.T, linv)
+    out = torch.empty_like(linv)
+    for j0 in range(0, n, block):
+        j1 = min(j0 + block, n)
+        colblk = torch.matmul(linv[j0:, :j1].T, linv[j0:, j0:j1])
+        out[:j1, j0:j1] = colblk
+        out[j0:j1, :j0] = colblk[:j0].T
+    return out
 
 
 def solve_lower_triangular(chol, b):
@@ -70,17 +160,60 @@ def solve_lower_triangular(chol, b):
     return torch.linalg.solve_triangular(chol, b, upper=False)
 
 
+def solve_upper_triangular(u, b):
+    """U x = b for a vector or matrix right-hand side."""
+    if b.ndim == 1:
+        return torch.linalg.solve_triangular(u, b[:, None], upper=True)[:, 0]
+    return torch.linalg.solve_triangular(u, b, upper=True)
+
+
 def cho_solve(chol, b):
     """(L L^T)^{-1} b from the lower factor."""
-    y = solve_lower_triangular(chol, b)
-    if y.ndim == 1:
-        return torch.linalg.solve_triangular(chol.T, y[:, None], upper=True)[:, 0]
-    return torch.linalg.solve_triangular(chol.T, y, upper=True)
+    return solve_upper_triangular(chol.T, solve_lower_triangular(chol, b))
 
 
 def log_det_from_chol(chol):
     """log det(A) = 2 * sum(log diag L)."""
     return 2.0 * torch.log(torch.diagonal(chol)).sum()
+
+
+def _ok_flag(failed, k):
+    return torch.tensor(0.0 if failed else 1.0, dtype=k.dtype, device=k.device)
+
+
+class _MvnQuadLogdet(torch.autograd.Function):
+    """Differentiated path: L^{-1} from the panels, analytic backward
+    (JAX linalg.py:477-518)."""
+
+    @staticmethod
+    def forward(ctx, k, resid, max_tries):
+        chol, dinv, failed = safe_cholesky_panels(k, max_tries)
+        linv = trtri_from_panels(chol, dinv)
+        z = torch.matmul(linv, resid)
+        ok = _ok_flag(failed, k)
+        ctx.failed = failed
+        ctx.save_for_backward(linv, z)
+        ctx.mark_non_differentiable(ok)
+        return torch.dot(z, z), torch.log(torch.diagonal(chol)).sum(), ok
+
+    @staticmethod
+    def backward(ctx, g_quad, g_logdet, _g_ok):
+        linv, z = ctx.saved_tensors
+        need_k, need_r = ctx.needs_input_grad[:2]
+        dk = dr = None
+        if ctx.failed:
+            n = linv.shape[-1]
+            if need_k:
+                dk = torch.zeros((n, n), dtype=linv.dtype, device=linv.device)
+            if need_r:
+                dr = torch.zeros_like(z)
+            return dk, dr, None
+        alpha = torch.matmul(linv.T, z)
+        if need_k:
+            dk = (0.5 * g_logdet) * _kinv_from_linv(linv) - g_quad * torch.outer(alpha, alpha)
+        if need_r:
+            dr = (2.0 * g_quad) * alpha
+        return dk, dr, None
 
 
 def mvn_quad_logdet(k, resid, max_tries=None):
@@ -90,13 +223,12 @@ def mvn_quad_logdet(k, resid, max_tries=None):
       logdet_half = sum log diag chol(K)  (= 1/2 log det K)
       ok          = 0.0 when the robust factorization fell back, else 1.0
 
-    Forward only: the analytic-gradient backward of the JAX package comes
-    with training."""
+    Differentiable in ``k`` and ``resid`` (analytic backward, zero on
+    failure); without gradients it whitens by one triangular solve."""
     if max_tries is None:
         max_tries = settings.cholesky_max_tries
-    chol, failed = _safe_cholesky_impl(k, max_tries)
+    if torch.is_grad_enabled() and (k.requires_grad or resid.requires_grad):
+        return _MvnQuadLogdet.apply(k, resid, max_tries)
+    chol, _, failed = safe_cholesky_panels(k, max_tries)
     z = solve_lower_triangular(chol, resid)
-    quad = torch.dot(z, z)
-    logdet_half = torch.log(torch.diagonal(chol)).sum()
-    ok = torch.tensor(0.0 if failed else 1.0, dtype=k.dtype, device=k.device)
-    return quad, logdet_half, ok
+    return torch.dot(z, z), torch.log(torch.diagonal(chol)).sum(), _ok_flag(failed, k)

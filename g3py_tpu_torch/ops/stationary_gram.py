@@ -10,9 +10,8 @@ regression.  The port of the TPU kernel
   the plain PyTorch version :func:`_plain_form`; on a CUDA tensor it
   launches the kernel or raises — a missing ``nvcc``, a failed build or a
   failed launch is an error, never a fallback.
-* The kernel library is built with ``nvcc`` from the source in this
-  package at first use, into ``build/g3py_tpu_torch/`` beside the package,
-  keyed by a hash of the source and flags, and loaded with ``ctypes``.
+* The kernel library is built by :mod:`._build` (``nvcc`` at first use,
+  ``ctypes``), together with the port's other kernels.
 * ``stationary_gram.launches`` counts kernel launches (and nothing else),
   so a run can show that its main path went through the kernel.
 * The gradient is a ``torch.autograd.Function`` whose backward
@@ -21,25 +20,13 @@ regression.  The port of the TPU kernel
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from collections import namedtuple
-from pathlib import Path
 
 import torch
 
+from . import _build
 from .gram import weighted_sqdist
 
-__all__ = ["stationary_gram", "build", "KINDS"]
-
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "stationary_gram.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "g3py_tpu_torch"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+__all__ = ["stationary_gram", "KINDS"]
 
 #: family name -> the kernel's template index (csrc/stationary_gram.cu Kind)
 KINDS = {"se": 0, "mat32": 1, "mat52": 2, "rq": 3}
@@ -60,56 +47,13 @@ _KFORMS = {
     "rq": lambda dm, extra: torch.pow(1.0 + dm / extra, -extra),
 }
 
-KernelBuild = namedtuple("KernelBuild", "path seconds log cached")
-
-_lock = threading.Lock()
-_library = None  # (ctypes.CDLL, KernelBuild) once built and loaded
-
-
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.is_file():
-        return str(cand)
-    raise FileNotFoundError(
-        "nvcc not found (PATH or $CUDA_HOME/bin): the stationary-gram kernel "
-        "is built from csrc/ at first use on a CUDA tensor")
-
-
-def build():
-    """Compile (once per source hash) and load the kernel library; returns
-    its :class:`KernelBuild` record.  Raises when nvcc is missing or the
-    build fails."""
-    global _library
-    with _lock:
-        if _library is not None:
-            return _library[1]
-        src = _SOURCE.read_bytes()
-        key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-        path = _BUILD_DIR / f"stationary_gram_{key}.so"
-        t0 = time.perf_counter()
-        log = ""
-        cached = path.is_file()
-        if not cached:
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed building {_SOURCE}:\n{log}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-        for name in ("stationary_gram_f32", "stationary_gram_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        record = KernelBuild(str(path), time.perf_counter() - t0, log, cached)
-        _library = (lib, record)
-        return record
+def _entry(dtype):
+    """The C entry point for ``dtype``, its ctypes signature set."""
+    fn = getattr(_build.library("stationary_gram"),
+                 "stationary_gram_f32" if dtype == torch.float32 else "stationary_gram_f64")
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check_scalar(t, ref, what):
@@ -147,10 +91,7 @@ def _launch(kind, s1, s2, var, extra):
     out = torch.empty((m, n), dtype=s1.dtype, device=s1.device)
     if m == 0 or n == 0:
         return out
-    if _library is None:
-        build()
-    lib = _library[0]
-    fn =lib.stationary_gram_f32 if s1.dtype == torch.float32 else lib.stationary_gram_f64
+    fn = _entry(s1.dtype)
     with torch.cuda.device(s1.device):
         stream = torch.cuda.current_stream(s1.device).cuda_stream
         rc = fn(s1.data_ptr(), s2.data_ptr(), var.data_ptr(),

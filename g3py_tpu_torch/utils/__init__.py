@@ -1,15 +1,19 @@
 """Containers and cross-package helpers.
 
 * :class:`DictObj` — dict with attribute access (as in :mod:`g3py_tpu.utils`).
+* :class:`MaxTime` and :func:`nan_to_high` — the optimizer's wall-clock
+  budget and NaN/Inf hardening (as in :mod:`g3py_tpu.utils`).
 * :func:`params_from_jax` — carry a natural-space params dict from the JAX
   package (numpy arrays keyed by hyper name) into this package's dict of
   tensors on ``settings.device``, checked against the process's registry.
   It takes plain numpy input and imports nothing of JAX.
 """
 
+import time
+
 import numpy as np
 
-__all__ = ["DictObj", "params_from_jax"]
+__all__ = ["DictObj", "MaxTime", "nan_to_high", "params_from_jax"]
 
 
 class DictObj(dict):
@@ -38,6 +42,24 @@ class DictObj(dict):
 
     def copy(self):
         return DictObj(data=self)
+
+
+class MaxTime:
+    """Optimizer callback raising ``TimeoutError`` once a wall-clock budget
+    of ``max_sec`` seconds is spent."""
+
+    def __init__(self, max_sec=60):
+        self.max_sec = max_sec + time.time()
+
+    def __call__(self, xk=None):
+        if time.time() > self.max_sec:
+            raise TimeoutError("Terminating: time limit reached")
+
+
+def nan_to_high(x):
+    """Replace non-finite entries with 1e100 so scipy optimizers never see
+    NaN/Inf."""
+    return np.where(np.isfinite(x), x, 1.0e100)
 
 
 def params_from_jax(process, params):

@@ -1,6 +1,6 @@
-"""Card-only checks of the port: the CUDA stationary-gram kernel against its
-plain PyTorch version, and the GP/WGP serving path on the card against the
-same path on the CPU.
+"""Card-only checks of the port: the CUDA kernels (stationary gram, panel
+Cholesky) against their plain PyTorch versions, and the GP/WGP serving and
+training paths on the card against the same paths on the CPU.
 
 These skip where ``torch.cuda.is_available()`` is False.  The file imports
 neither JAX nor g3py_tpu, so it runs on a machine that has only PyTorch:
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import g3py_tpu_torch as g3t
+from g3py_tpu_torch.ops.panel_cholesky import _plain_form as _k2_plain, panel_cholesky
 from g3py_tpu_torch.ops.stationary_gram import KINDS, _plain_form, stationary_gram
 
 RAGGED = [(13, 7, 3), (5, 11, 1), (9, 9, 6), (300, 200, 8), (65, 129, 37)]
@@ -75,3 +76,72 @@ def test_serving_on_card_matches_cpu(cuda, kind):
     assert stationary_gram.launches >= launches + 4  # logp, state, cross, query grams
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def _spd(seed, n):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n))
+    return a @ a.T / n + np.eye(n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+@pytest.mark.parametrize("n,block", [(1, 128), (77, 64), (200, 128), (257, 64), (640, 128)])
+def test_panel_cholesky_matches_plain_form(cuda, dtype, tol, n, block):
+    a = torch.as_tensor(_spd(n, n), dtype=dtype, device=cuda)
+    launches = panel_cholesky.launches
+    l, dinv, info = panel_cholesky(a, block)
+    torch.cuda.synchronize()
+    assert panel_cholesky.launches == launches + 1
+    lp, dinv_p, info_p = _k2_plain(a, block)
+    assert int(info) == int(info_p) == 0
+    torch.testing.assert_close(l, lp, rtol=tol, atol=tol)
+    torch.testing.assert_close(dinv, dinv_p, rtol=tol, atol=tol)
+    assert float(torch.triu(l, 1).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_panel_cholesky_info(cuda, dtype):
+    a = torch.as_tensor(_spd(3, 300), dtype=dtype, device=cuda)
+    for j in (0, 5, 130, 299):
+        bad = a.clone()
+        bad[j, :] = 0.0
+        bad[:, j] = 0.0
+        bad[j, j] = -1.0
+        assert int(panel_cholesky(bad)[2]) == int(torch.linalg.cholesky_ex(bad)[1]) == j + 1
+    bad = a.clone()
+    bad[40, 2] = bad[2, 40] = float("nan")
+    assert int(panel_cholesky(bad)[2]) > 0
+
+
+def _trained(kind, device):
+    g3t.settings.device = device
+    g3t.settings.floatx = "float64"
+    try:
+        rng = np.random.default_rng(1234)
+        x = np.linspace(0, 10, 32).reshape(-1, 1)
+        y = np.sin(x[:, 0]) + 0.1 * rng.standard_normal(32)
+        if kind == "gp":
+            proc = g3t.GP(space=x, location=g3t.Bias(), kernel=g3t.SE(x), name="CT_GP")
+        else:
+            y = np.exp(0.3 * y) + 1.0
+            proc = g3t.WGP(space=x, location=g3t.Bias(), kernel=g3t.MAT52(x),
+                           mapping=g3t.BoxCoxLinear(y), name="CT_WGP")
+        proc.observed(x, y)
+        dlogp = proc.dlogp()
+        params = proc.find_MAP(points=2, display=False)
+        return dlogp, proc.logp(params)
+    finally:
+        g3t.settings.floatx = "float32"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gp", "wgp"])
+def test_training_on_card_matches_cpu(cuda, kind):
+    want = _trained(kind, "cpu")
+    k1, k2 = stationary_gram.launches, panel_cholesky.launches
+    got = _trained(kind, "cuda")
+    assert stationary_gram.launches > k1 and panel_cholesky.launches > k2
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6)

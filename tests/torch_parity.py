@@ -9,6 +9,8 @@ torch callable; the results come back as numpy and are compared:
   must be tight.
 
 ``floatx(name)`` switches both packages' compute dtype and restores it.
+The port's entry points run on the card by default; importing this module
+puts them on the CPU (``g3t.settings.device = "cpu"``).
 """
 
 import contextlib
@@ -21,6 +23,7 @@ import g3py_tpu as g3
 import g3py_tpu_torch as g3t
 
 torch.set_num_threads(1)
+g3t.settings.device = "cpu"
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 F64_TOL = dict(rtol=1e-10, atol=1e-10)
