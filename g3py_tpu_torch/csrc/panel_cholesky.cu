@@ -104,6 +104,38 @@ __device__ __forceinline__ float recip_sqrt(float d) {
 }
 __device__ __forceinline__ double recip_sqrt(double d) { return rsqrt(d); }
 
+// Phase clocks of diag_kernel, for measurement only (g3py_tpu_torch/tools/
+// k2_chain.py compiles a copy with -DK2_PHASE_CLOCKS): thread 0 of every
+// diagonal-tile block adds the clock64() cycles since its previous tick to
+// slot s; the last two slots count the blocks and their globaltimer ns.
+#ifdef K2_PHASE_CLOCKS
+constexpr int K2_SLOTS = 16;
+__device__ unsigned long long k2_phase_cycles[K2_SLOTS];
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define K2_TICK_START                       \
+  long long k2_clk = clock64();             \
+  const unsigned long long k2_ns0 = global_ns();
+#define K2_TICK(s)                                                              \
+  if (threadIdx.x == 0 && threadIdx.y == 0) {                                   \
+    const long long now = clock64();                                            \
+    atomicAdd(&k2_phase_cycles[s], (unsigned long long)(now - k2_clk));         \
+    k2_clk = now;                                                               \
+  }
+#define K2_TICK_END                                                             \
+  if (threadIdx.x == 0 && threadIdx.y == 0) {                                   \
+    atomicAdd(&k2_phase_cycles[K2_SLOTS - 2], 1ull);                            \
+    atomicAdd(&k2_phase_cycles[K2_SLOTS - 1], global_ns() - k2_ns0);            \
+  }
+#else
+#define K2_TICK_START
+#define K2_TICK(s)
+#define K2_TICK_END
+#endif
+
 // Factor and invert the diagonal tile at (kb, kb) of w (leading dimension
 // ld); writes L_kk into w and L_kk^{-1} (zero strict upper) into dinv.
 //
@@ -140,12 +172,14 @@ diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info,
   const int warp = tid / 32;
   const int lane = tid % 32;
   T* tile = w + (size_t)kb * ld + kb;
+  K2_TICK_START
 
   for (int e = tid; e < B * B; e += nth) {
     const int r = e / B, c = e % B;
     t[r * S + c] = tile[(size_t)r * ld + c];
   }
   __syncthreads();
+  K2_TICK(0)
 
   for (int jb = 0; jb < B; jb += WF) {
     // (1) warp 0: unblocked Cholesky of the WF x WF diagonal block; lane l
@@ -177,6 +211,7 @@ diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info,
         if (c <= lane && lane < WF) t[(jb + lane) * S + jb + c] = row[c];
     }
     __syncthreads();
+    K2_TICK(1)
     // (2) one thread per row below: x L_sub^T = a by forward substitution,
     //     the row in registers (L_sub reads are broadcasts)
     {
@@ -199,6 +234,7 @@ diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info,
       }
     }
     __syncthreads();
+    K2_TICK(2)
     // (3) rank-WF update of the tile's lower part right of the sub-block
     for (int r = ty; r < B; r += DTY) {
       if (r < jb + WF) continue;
@@ -213,6 +249,7 @@ diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info,
       }
     }
     __syncthreads();
+    K2_TICK(3)
   }
 
   for (int e = tid; e < B * B; e += nth) {
@@ -240,6 +277,7 @@ diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info,
     }
   }
   __syncthreads();
+  K2_TICK(4)
 
   // off-diagonal blocks, block row by block row: a warp takes four
   // columns c0..c0+3 at a time, lane r takes row ib + r (no divergence, no
@@ -280,11 +318,14 @@ diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info,
     }
     __syncthreads();
   }
+  K2_TICK(5)
 
   for (int e = tid; e < B * B; e += nth) {
     const int r = e / B, c = e % B;
     dinv[e] = (c < r) ? t[c * S + r] : (c == r ? rd[r] : T(0));
   }
+  K2_TICK(6)
+  K2_TICK_END
 }
 
 // The output tile (bi, bj) of this block: with tri, blockIdx.x enumerates
@@ -598,6 +639,16 @@ int run(const T* a, T* w, T* out, T* pan, T* dinv, int* info, int n, int npad,
 }
 
 }  // namespace
+
+#ifdef K2_PHASE_CLOCKS
+// Copies the phase clocks to host[K2_SLOTS] and clears them.
+extern "C" int panel_cholesky_phase_cycles(unsigned long long* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, k2_phase_cycles, sizeof(k2_phase_cycles));
+  static const unsigned long long zero[K2_SLOTS] = {};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(k2_phase_cycles, zero, sizeof(zero));
+  return (int)e;
+}
+#endif
 
 // C entry points: every pointer is a device pointer; the return value is
 // the cudaError_t of the launches (0 on success).

@@ -41,16 +41,17 @@ def _check(a, block):
         raise ValueError(f"panel_cholesky: block must be 64 or 128, got {block}")
 
 
-def _entry(dtype):
-    """The C entry point for ``dtype``, its ctypes signature set."""
-    fn = getattr(_build.library("panel_cholesky"),
-                 "panel_cholesky_f32" if dtype == torch.float32 else "panel_cholesky_f64")
+def _entry(dtype, lib=None):
+    """The C entry point for ``dtype`` in ``lib`` (default: the built
+    library), its ctypes signature set."""
+    lib = _build.library("panel_cholesky") if lib is None else lib
+    fn = getattr(lib, "panel_cholesky_f32" if dtype == torch.float32 else "panel_cholesky_f64")
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(a, block):
+def _launch(a, block, lib=None):
     n = a.shape[0]
     nb = -(-n // block)
     npad = nb * block
@@ -63,7 +64,7 @@ def _launch(a, block):
     pan = torch.empty((2, max(npad - block, 1), block), dtype=a.dtype, device=a.device)
     dinv = torch.empty((nb, block, block), dtype=a.dtype, device=a.device)
     info = torch.empty((), dtype=torch.int32, device=a.device)
-    fn = _entry(a.dtype)
+    fn = _entry(a.dtype, lib)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), pan.data_ptr(),
