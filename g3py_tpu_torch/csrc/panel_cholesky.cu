@@ -9,50 +9,48 @@
 // The TPU ran its panel loop as a sequential grid inside one kernel and
 // kept a 256 x 256 diagonal tile, a row strip and a panel column in VMEM.
 // On the H100 a block has 227 KB of shared memory and blocks run in no
-// order, so the panel loop moves to the host side of this file and each
-// panel k issues four steps on the caller's stream:
+// order, so the panel loop moves to the host side of this file.  Per panel k:
 //
-//   (a) diag_kernel      one block of 32 x 16 threads loads the B x B
-//                        diagonal tile into shared memory, factors it in
-//                        32-column sub-blocks (warp-level steps, see the
-//                        kernel), writes L_kk, inverts it blockwise in
-//                        shared memory and writes Dinv[k];
-//   (b) the same product pan = A[below, k] * Dinv[k]^T, the panel's rows
-//                        below the diagonal tile, into a scratch panel;
-//   (c) cudaMemcpy2D     pan back into L's column panel;
-//   (d) sgemm_nt_128     A[I, J] -= pan[I] * pan[J]^T over the 128 x 128
-//                        tiles of the lower trailing triangle (a SYRK);
-//                        nt_tile_kernel, 64 x 64 tiles, for f64 and B = 64.
+//   (a) diag_kernel      one block of 512 threads factors and inverts the
+//                        B x B diagonal tile in shared memory (a blocked
+//                        factor-and-invert over 16-column leaves, see the
+//                        kernel), writes L_kk and Dinv[k];
+//   (b) the panel product L[below, k] = A[below, k] * Dinv[k]^T;
+//   (c) the trailing update A[I, J] -= L[I, k] * L[J, k]^T over the lower
+//                        trailing triangle (a SYRK).
 //
 // What bounds it: n^3/3 multiply-adds, against ~n^2 bytes moved at least,
 // so at n >= 4096 the card's FP32 rate bounds it (n^3/3 flop at 67 TFLOP/s:
 // 0.34 ms at n=4096, 22 ms at n=16384).  The panel width B sets the bytes
 // the trailing updates move (~4n^3/(3B) in all) and the length of the
-// serial chain of diagonal factorizations (n/B blocks, each 2B dependent
-// steps).  B = 128 is chosen: its f32 tile (83 KB with padding and
-// staging) and f64 tile (166 KB) fit one block's shared memory, the trailing traffic is
-// half that of B = 64, and the serial chain is half as long.  The trailing
-// update is a tiled FMA kernel of this file (f32: 128 x 128 tiles, 8 x 8
-// outputs a thread, 16-byte shared-memory loads, two stages; f64: 64 x 64,
-// 4 x 4; IEEE FP32/FP64 throughout: no tensor cores, no TF32), as the
-// TPU kernel ran its products at Precision.HIGHEST.  wgmma with a 3xTF32
-// split is a later step.
+// serial chain of diagonal tiles (n/B of them).  B = 128 is chosen: its f32
+// tile (85 KB with staging) and f64 tile (169 KB) fit one block's shared
+// memory, the trailing traffic is half
+// that of B = 64, and the serial chain is half as long.  The products are
+// FMA kernels of this file (IEEE FP32/FP64 throughout: no tensor cores, no
+// TF32), as the TPU kernel ran its products at Precision.HIGHEST.  wgmma
+// with a 3xTF32 split is a later step.
+//
+// In float with B = 128 (run_lookahead) the chain of diagonal tiles is what
+// bounds n = 4096, so it is kept short: the caller's stream updates only
+// panel k+1's column first (T1, in 32-row blocks that all run at once),
+// then a highest-priority side stream factors panel k+1's diagonal tile and
+// forms its product in place (again in 32-row blocks) while the caller's
+// stream runs the rest of panel k's trailing update (T2).  Other cases (f64, B = 64) run the panel loop in order on the caller's
+// stream, with the product into a scratch panel copied back into L.
 //
 // Failure is reported, never clamped: the TPU clamped every pivot at 1e-30
 // and returned finite garbage for a non-PD input.  Here the first column
 // whose pivot is <= 0 or not finite is written to *info (1-based, by
 // atomicCAS from 0, so the first failure wins); the factor is then garbage
-// (NaN), as with cholesky_ex.  Ragged n is padded with identity (prep) and
-// L is cut back to n x n (finish); info counts in the caller's columns.
-//
-// In float with B = 128 the loop looks one panel ahead (run_lookahead):
-// panel k+1 is factored on a side stream while the rest of panel k's
-// trailing update runs, joined back to the caller's stream by events.
+// (NaN), as with cholesky_ex.  Only the lower triangle of A is read.  Ragged
+// n is padded with identity (prep) and L is copied back to n x n (finish);
+// info counts in the caller's columns.
 //
 // Nothing is allocated here: the caller passes the working matrix w
-// (npad x npad; it may alias out when n == npad), two scratch panels pan
-// (2 x (npad - B) x B), dinv (npad/B x B x B), out (n x n) and info (one int).
-// The input a is only read.
+// (npad x npad; it may alias out when n == npad), a scratch panel pan
+// ((npad - B) x B; the in-order loop uses it), dinv (npad/B x B x B), out
+// (n x n) and info (one int).  The input a is only read.
 
 #include <cuda_runtime.h>
 
@@ -60,15 +58,16 @@
 
 namespace {
 
-constexpr int DT = 32;   // diag_kernel: DT x DTY threads (128 registers each)
-constexpr int DTY = 16;
-constexpr int W = 32;    // diag_kernel: block width of the inversion (one warp)
-constexpr int WF = 16;   // diag_kernel: sub-block width of the factorization
-constexpr int GT = 64;   // nt_tile_kernel: output tile GT x GT
-constexpr int GK = 32;   // depth chunk staged per step
-constexpr int GTH = 16;  // GTH x GTH threads, each PER x PER outputs
+constexpr int DTH = 512;  // diag_kernel: threads (16 warps)
+constexpr int LW = 16;    // diag_kernel: leaf width (one warp factors and inverts a leaf)
+constexpr int GT = 64;    // nt_tile_kernel: output tile GT x GT
+constexpr int GK = 32;    // depth chunk staged per step
+constexpr int GTH = 16;   // GTH x GTH threads, each PER x PER outputs
 constexpr int PER = GT / GTH;
 
+// w = the lower triangle of a, identity-padded to npad; the strict upper
+// triangle is zero (no later step writes there but the diagonal kernel,
+// which writes zeros), so L needs no masking afterwards.
 template <typename T>
 __global__ void prep_kernel(const T* __restrict__ a, T* __restrict__ w,
                             int* __restrict__ info, int n, int npad) {
@@ -79,7 +78,7 @@ __global__ void prep_kernel(const T* __restrict__ a, T* __restrict__ w,
   for (; e < total; e += stride) {
     const int i = (int)(e / npad);
     const int j = (int)(e % npad);
-    w[e] = (i < n && j < n) ? a[(size_t)i * n + j] : (i == j ? T(1) : T(0));
+    w[e] = (j <= i && i < n) ? a[(size_t)i * n + j] : (i == j ? T(1) : T(0));
   }
 }
 
@@ -88,11 +87,8 @@ __global__ void finish_kernel(const T* w, int ldw, T* out, int n) {
   const long long total = (long long)n * n;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += stride) {
-    const int i = (int)(e / n);
-    const int j = (int)(e % n);
-    out[e] = (j <= i) ? w[(size_t)i * ldw + j] : T(0);
-  }
+       e += stride)
+    out[e] = w[(size_t)(e / n) * ldw + e % n];
 }
 
 // 1 / sqrt(d): the float form refines the hardware estimate by one Newton
@@ -136,226 +132,392 @@ __device__ __forceinline__ unsigned long long global_ns() {
 #define K2_TICK_END
 #endif
 
-// Factor and invert the diagonal tile at (kb, kb) of w (leading dimension
-// ld); writes L_kk into w and L_kk^{-1} (zero strict upper) into dinv.
-//
-// The tile is worked in sub-blocks, so that the serial chain is a few
-// warp-level steps per sub-block rather than one block-wide barrier per
-// column:
-//   factor   per sub-block of WF = 16 columns: one warp factors the
-//            WF x WF diagonal block with its rows in registers (shuffles,
-//            no barrier; that warp issues in order and its shuffle count
-//            grows as WF^2, hence the narrow sub-block); one thread per row
-//            solves the rows below against it; all threads apply the
-//            rank-WF update to the rest of the tile;
-//   invert   in blocks of W = 32: every warp inverts one W x W diagonal
-//            block of L (a column per lane, in registers); then block row
-//            by block row, X[i, :i] = -X_ii (L[i, :i] X[:i, :i]) by all
-//            threads.
-// X is kept transposed in the tile's strict upper triangle (free once L is
-// written out) and its diagonal, 1 / L[j][j], in rd.  Sums run on two or
-// four partial accumulators so that no step waits on one long FMA chain.
+// (bi, bj) with bj <= bi of the b-th tile of a lower triangle, row by row.
+__device__ __forceinline__ void tri_index(int b, int* bi, int* bj) {
+  int i = (int)((sqrtf(8.f * b + 1.f) - 1.f) * 0.5f);
+  while ((i + 1) * (i + 2) / 2 <= b) ++i;
+  while (i * (i + 1) / 2 > b) --i;
+  *bi = i;
+  *bj = b - i * (i + 1) / 2;
+}
+
+// Four consecutive values from 16-byte aligned shared memory.
+__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const double* p, double (&o)[4]) {
+  const double2 u = *reinterpret_cast<const double2*>(p);
+  const double2 v = *reinterpret_cast<const double2*>(p + 2);
+  o[0] = u.x, o[1] = u.y, o[2] = v.x, o[3] = v.y;
+}
+
+// acc[x][y] += sum_m a[m][x] b[m][y] over `depth` k-major rows of stride qs.
 template <typename T>
-__global__ void __launch_bounds__(DT * DTY, 1)
-diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info,
-            int ld, int kb, int B) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* t = reinterpret_cast<T*>(smem_raw);  // B x S tile
-  T* rd = t + B * (B + 1);                // 1 / L[j][j], the diagonal of X
-  T* tmp = rd + B;                        // (B - W) x W staging of (L[i, :i] X[:i, :i])^T
-  const int S = B + 1;                    // padded row: columns hit distinct banks
+__device__ __forceinline__ void tile44(const T* a, const T* b, int qs, int depth,
+                                       T (&acc)[4][4]) {
+#pragma unroll 4
+  for (int m = 0; m < depth; ++m) {
+    T av[4], bv[4];
+    load4(a + m * qs, av);
+    load4(b + m * qs, bv);
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) acc[x][y] = fma(av[x], bv[y], acc[x][y]);
+  }
+}
+
+// v[idx] for a lane-dependent idx, without a local-memory array.
+template <typename T>
+__device__ __forceinline__ T pick(const T (&v)[LW], int idx) {
+  T r = v[0];
+#pragma unroll
+  for (int c = 1; c < LW; ++c)
+    if (c == idx) r = v[c];
+  return r;
+}
+
+// Four consecutive values to 16-byte aligned memory.
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(double* p, double a, double b, double c, double d) {
+  *reinterpret_cast<double2*>(p) = make_double2(a, b);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(c, d);
+}
+
+// The leaf: one warp factors a LW x LW block and inverts its factor, in
+// registers.  On entry lane l < LW holds row l of the block (v[c], c <= l
+// read).  On exit lane l < LW holds row l of L (v[c], c <= l) and mine =
+// 1 / L[l][l]; lane LW + c holds column c of X = L^{-1} (v[m] = X[m][c]).
+// Two short dependent chains set the pace of a column: the pivot (one
+// shuffle from each lane's own running diagonal dg, rsqrt, one scale, one
+// FMA) and the next column's entry (one shuffle, one FMA).  Off them,
+// column j of L and row j of L are published once to shared memory (lf,
+// lr: LW x LW each) and read back as 16-byte broadcasts, four values a
+// load: the rest of the rank-1 update, and on lanes LW.. row j of X,
+// X[j][c] = (delta_jc - sum_{m<j} L[j][m] X[m][c]) / L[j][j], so the
+// inverse costs no pass of its own.  The update also runs, harmlessly, on
+// entries above the diagonal, which are never read.  col0 is the caller's
+// column of the leaf's first; the first non-positive or non-finite pivot
+// goes to info.
+template <typename T>
+__device__ __forceinline__ void leaf_factor_invert(T (&v)[LW], T& mine, int lane, int* info,
+                                                   int col0, T* lf, T* lr) {
   const unsigned FULL = 0xffffffffu;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * DT + tx;
-  const int nth = DT * DTY;
+  const bool row = lane < LW;
+  T dg = pick(v, lane), piv = T(1);
+  if (!row) {
+#pragma unroll
+    for (int m = 0; m < LW; ++m) v[m] = T(0);
+  }
+#pragma unroll
+  for (int j = 0; j < LW; ++j) {
+    const T d = __shfl_sync(FULL, dg, j);
+    const T inv = recip_sqrt(d);
+    v[j] = lane == j ? d * inv : v[j] * inv;  // lanes LW..: 0 stays 0
+    dg = fma(-v[j], v[j], dg);
+    const T vj = row ? v[j] : T(0);
+    if (j + 1 < LW) {  // L[l][j + 1] -= L[l][j] L[j + 1][j], on the chain
+      const T next = __shfl_sync(FULL, v[j], j + 1);
+      v[j + 1] = fma(-vj, next, v[j + 1]);
+    }
+    if (lane == j) {
+      mine = inv;
+      piv = d;
+#pragma unroll
+      for (int m4 = 0; m4 < LW / 4; ++m4)
+        store4(lr + j * LW + 4 * m4, v[4 * m4], v[4 * m4 + 1], v[4 * m4 + 2], v[4 * m4 + 3]);
+    }
+    if (row) lf[j * LW + lane] = v[j];
+    __syncwarp();
+#pragma unroll
+    for (int c4 = (j + 2) / 4; c4 < LW / 4; ++c4) {
+      T col[4];
+      load4(lf + j * LW + 4 * c4, col);
+#pragma unroll
+      for (int y = 0; y < 4; ++y)
+        if (4 * c4 + y > j + 1) v[4 * c4 + y] = fma(-vj, col[y], v[4 * c4 + y]);
+    }
+    T acc = (lane == LW + j) ? T(1) : T(0);
+#pragma unroll
+    for (int m4 = 0; 4 * m4 < j; ++m4) {
+      T rw[4];
+      load4(lr + j * LW + 4 * m4, rw);
+#pragma unroll
+      for (int y = 0; y < 4; ++y)
+        if (4 * m4 + y < j) acc = fma(-rw[y], v[4 * m4 + y], acc);
+    }
+    if (!row) v[j] = acc * inv;
+  }
+  const unsigned bad = __ballot_sync(FULL, row && !(piv > T(0) && isfinite(piv)));
+  if (lane == 0 && bad != 0u) atomicCAS(info, 0, col0 + __ffs(bad));
+}
+
+// Writes a leaf at (j0, j0) of the tile: L on and below the diagonal, X
+// transposed above it (X[m][c] at t[c][m]), 1 / L[j][j] into rd, and X
+// whole (row-major, zero above the diagonal) into xl for the next phase B.
+template <typename T, int S>
+__device__ __forceinline__ void leaf_store(T* t, T* rd, T* xl, int j0, const T (&v)[LW],
+                                           T mine, int lane) {
+  if (lane < LW) {
+#pragma unroll
+    for (int c = 0; c < LW; ++c)
+      if (c <= lane) t[(j0 + lane) * S + j0 + c] = v[c];
+    rd[j0 + lane] = mine;
+  } else {
+    const int c = lane - LW;
+#pragma unroll
+    for (int m = 0; m < LW; ++m) {
+      if (m > c) t[(j0 + c) * S + j0 + m] = v[m];
+      xl[m * LW + c] = v[m];
+    }
+  }
+}
+
+// Factor and invert the diagonal tile at (kb, kb) of w (leading dimension
+// ld); writes L_kk into w (zero above the diagonal) and L_kk^{-1} (zero
+// strict upper) into dinv.
+//
+// A right-looking loop over leaves of LW = 16 columns, in which every step
+// keeps the warps busy and the inverse X = L_kk^{-1} is built alongside the
+// factor, right-looking too.  At step i (leaf i at jb = 16 i, R rows below):
+//   B  all warps: the leaf's panel L[below, i] = A[below, i] X_ii^T (into
+//      pnl, k-major), and X's block row i, X[i, :i] = -X_ii Z[i, :i]
+//      (into xb, k-major, and into the tile above the diagonal).  Four
+//      threads a row; X_ii's rows are 16-byte broadcasts from xl.
+//   C  warp 0: the next leaf's own update from pnl, then its factor and
+//      inverse in registers (leaf_factor_invert).  12 other warps: the
+//      rank-16 update of the rest of the trailing triangle (4 x 4 register
+//      tiles), and Z[below, :i+1] += L[below, i] X[i, :i+1] (a row and 4
+//      columns a thread), both from pnl and xb; then they stream L's panel,
+//      the zeros right of leaf i and Dinv's rows of leaf i out.  The warps
+//      that share warp 0's scheduler (4, 8, 12) wait, so the leaf, the
+//      longest serial step, issues without competition.
+// Two barriers a step.  Z = L[below, :] X[:, :], whose rows are the next
+// leaves' sums for X, takes the place of L's finished columns below the
+// diagonal (which have gone to w); the tile keeps L's diagonal leaves, X
+// transposed above the diagonal, and X's diagonal in rd.
+template <typename T, int B>
+__global__ void __launch_bounds__(DTH, 1)
+diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info, int ld, int kb) {
+  constexpr int S = B + 1;   // tile row: odd, so a column's entries hit distinct banks
+  constexpr int QS = B + 4;  // k-major row: 16-byte aligned for the 4-wide loads
+  constexpr int NL = B / LW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* t = reinterpret_cast<T*>(smem_raw);  // B x S
+  T* rd = t + B * S;                      // B: 1 / L[j][j], the diagonal of X
+  T* pnl = rd + B;                        // LW x QS: L[:, leaf i], k-major
+  T* xb = pnl + LW * QS;                  // LW x QS: X[leaf i, :], k-major
+  T* xl = xb + LW * QS;                   // LW x LW: X_ii
+  T* lf = xl + LW * LW;                   // LW x LW: the leaf's columns of L
+  T* lr = lf + LW * LW;                   // LW x LW: the leaf's rows of L
+  const unsigned FULL = 0xffffffffu;
+  const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   T* tile = w + (size_t)kb * ld + kb;
   K2_TICK_START
 
-  for (int e = tid; e < B * B; e += nth) {
-    const int r = e / B, c = e % B;
-    t[r * S + c] = tile[(size_t)r * ld + c];
+  {
+    T buf[B * B / DTH];  // every load in flight before the first store
+#pragma unroll
+    for (int p = 0; p < B * B / DTH; ++p) {
+      const int e = tid + p * DTH;
+      buf[p] = tile[(size_t)(e / B) * ld + e % B];
+    }
+#pragma unroll
+    for (int p = 0; p < B * B / DTH; ++p) {
+      const int e = tid + p * DTH;
+      t[(e / B) * S + e % B] = buf[p];
+    }
   }
   __syncthreads();
   K2_TICK(0)
 
-  for (int jb = 0; jb < B; jb += WF) {
-    // (1) warp 0: unblocked Cholesky of the WF x WF diagonal block; lane l
-    //     holds row jb + l; rd[j] keeps 1 / L[j][j]
-    if (warp == 0) {
-      T row[WF];
+  if (warp == 0) {
+    T v[LW];
+    T mine = T(0);
 #pragma unroll
-      for (int c = 0; c < WF; ++c) row[c] = lane < WF ? t[(jb + lane) * S + jb + c] : T(0);
-#pragma unroll
-      for (int j = 0; j < WF; ++j) {
-        const T d = __shfl_sync(FULL, row[j], j);
-        if (lane == 0 && (!(d > T(0)) || !isfinite(d))) atomicCAS(info, 0, kb + jb + j + 1);
-        const T inv = recip_sqrt(d);
-        const T s = d * inv;
-        if (lane == j) {
-          row[j] = s;
-          rd[jb + j] = inv;
-        } else if (lane > j) {
-          row[j] *= inv;
-        }
-#pragma unroll
-        for (int c = j + 1; c < WF; ++c) {
-          const T lc = __shfl_sync(FULL, row[j], c);
-          if (lane >= c) row[c] -= row[j] * lc;
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < WF; ++c)
-        if (c <= lane && lane < WF) t[(jb + lane) * S + jb + c] = row[c];
-    }
-    __syncthreads();
-    K2_TICK(1)
-    // (2) one thread per row below: x L_sub^T = a by forward substitution,
-    //     the row in registers (L_sub reads are broadcasts)
+    for (int c = 0; c < LW; ++c) v[c] = lane < LW ? t[lane * S + c] : T(0);
+    leaf_factor_invert(v, mine, lane, info, kb, lf, lr);
+    leaf_store<T, S>(t, rd, xl, 0, v, mine, lane);
+  }
+  __syncthreads();
+  K2_TICK(1)
+
+#pragma unroll 1
+  for (int i = 0; i < NL; ++i) {
+    const int jb = i * LW;
+    const int R = B - jb - LW;
+    // phase B: thread (u, g), g the same across a quarter-warp, forms a = g,
+    // g + 4, g + 8, g + 12 of row u < R of the panel, L[jb + LW + u][jb + a]
+    // = sum_m A[jb + LW + u][jb + m] X[a][m], or of column c = u - R < jb of
+    // X's block row, X[jb + a][c] = -sum_m X[a][m] Z[jb + m][c]; the next 64
+    // threads copy X_ii into xb.  Nothing read here is written here.
     {
-      const int r = jb + WF + tid;
-      if (r < B) {
-        T x[WF];
+      const int g = (tid / 8) % 4;
+      const int u = (tid / 32) * 8 + tid % 8;
+      const bool panel = u < R;
+      if (u < R + jb) {
+        const int r = panel ? jb + LW + u : u - R;
+        T in[LW];
 #pragma unroll
-        for (int j = 0; j < WF; ++j) {
-          T acc0 = t[r * S + jb + j], acc1 = T(0);
+        for (int m = 0; m < LW; ++m) in[m] = panel ? t[r * S + jb + m] : t[(jb + m) * S + r];
 #pragma unroll
-          for (int m = 0; m + 1 < j; m += 2) {
-            acc0 -= x[m] * t[(jb + j) * S + jb + m];
-            acc1 -= x[m + 1] * t[(jb + j) * S + jb + m + 1];
+        for (int q = 0; q < 4; ++q) {
+          const int a = g + 4 * q;
+          T acc = T(0);
+#pragma unroll
+          for (int m4 = 0; m4 < LW / 4; ++m4) {
+            T x4[4];
+            load4(xl + a * LW + 4 * m4, x4);
+#pragma unroll
+            for (int y = 0; y < 4; ++y) acc = fma(in[4 * m4 + y], x4[y], acc);
           }
-          if (j % 2 == 1) acc0 -= x[j - 1] * t[(jb + j) * S + jb + j - 1];
-          x[j] = (acc0 + acc1) * rd[jb + j];
+          if (panel) {
+            pnl[a * QS + r] = acc;
+          } else {
+            t[r * S + jb + a] = -acc;
+            xb[a * QS + r] = -acc;
+          }
         }
+      } else if (u < B) {
+        const int a = u - (R + jb);
 #pragma unroll
-        for (int j = 0; j < WF; ++j) t[r * S + jb + j] = x[j];
+        for (int q = 0; q < 4; ++q) xb[a * QS + jb + g + 4 * q] = xl[a * LW + g + 4 * q];
       }
     }
     __syncthreads();
     K2_TICK(2)
-    // (3) rank-WF update of the tile's lower part right of the sub-block
-    for (int r = ty; r < B; r += DTY) {
-      if (r < jb + WF) continue;
-      for (int c = jb + WF + tx; c <= r; c += DT) {
-        T acc0 = T(0), acc1 = T(0);
+    if (R == 0) break;
+
+    const int j0 = jb + LW;  // the next leaf
+    if (warp == 0) {
+      // its rows' rank-16 update, the depth split over the two half-warps
+      const int l = lane % LW, h = lane / LW;
+      T v[LW];
 #pragma unroll
-        for (int m = 0; m < WF; m += 2) {
-          acc0 += t[r * S + jb + m] * t[c * S + jb + m];
-          acc1 += t[r * S + jb + m + 1] * t[c * S + jb + m + 1];
+      for (int c = 0; c < LW; ++c) v[c] = T(0);
+#pragma unroll
+      for (int mm = 0; mm < LW / 2; ++mm) {
+        const int m = h * (LW / 2) + mm;
+        const T a = pnl[m * QS + j0 + l];
+#pragma unroll
+        for (int c4 = 0; c4 < LW / 4; ++c4) {
+          T bq[4];
+          load4(pnl + m * QS + j0 + 4 * c4, bq);
+#pragma unroll
+          for (int y = 0; y < 4; ++y) v[4 * c4 + y] = fma(a, bq[y], v[4 * c4 + y]);
         }
-        t[r * S + c] -= acc0 + acc1;
+      }
+#pragma unroll
+      for (int c = 0; c < LW; ++c) {
+        v[c] += __shfl_xor_sync(FULL, v[c], LW);
+        v[c] = t[(j0 + l) * S + j0 + c] - v[c];
+      }
+      K2_TICK(5)
+      T mine = T(0);
+      leaf_factor_invert(v, mine, lane, info, kb + j0, lf, lr);
+      K2_TICK(6)
+      leaf_store<T, S>(t, rd, xl, j0, v, mine, lane);
+      K2_TICK(7)
+    } else if (warp % 4 != 0) {
+      const int nt = R / 4;
+      const int n1 = nt * (nt + 1) / 2 - 10;  // 4 x 4 tiles, less the next leaf's 10
+      const int ct = (warp - warp / 4 - 1) * 32 + lane;
+      for (int it = ct; it < n1 + R * (j0 / 4); it += 12 * 32) {
+        if (it < n1) {
+          int bi, bj;
+          tri_index(it + 10, &bi, &bj);
+          const int r0 = j0 + 4 * bi, c0 = j0 + 4 * bj;
+          T acc[4][4] = {};
+          tile44(pnl + r0, pnl + c0, QS, LW, acc);
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+#pragma unroll
+            for (int y = 0; y < 4; ++y) t[(r0 + x) * S + c0 + y] -= acc[x][y];
+        } else {  // Z[r][c0 + y] (+)= sum_m L[r][jb + m] X[jb + m][c0 + y]
+          const int r = j0 + (it - n1) % R;
+          const int c0 = 4 * ((it - n1) / R);
+          T acc[4] = {};
+#pragma unroll
+          for (int m = 0; m < LW; ++m) {
+            const T a = pnl[m * QS + r];
+            T x4[4];
+            load4(xb + m * QS + c0, x4);
+#pragma unroll
+            for (int y = 0; y < 4; ++y) acc[y] = fma(a, x4[y], acc[y]);
+          }
+          T* z = t + r * S + c0;
+#pragma unroll
+          for (int y = 0; y < 4; ++y) z[y] = c0 < jb ? z[y] + acc[y] : acc[y];
+        }
+      }
+      // then out to w and dinv: L's panel below leaf i, and on the rows of
+      // leaf i the zeros right of it and Dinv (X's block row, from xb)
+      for (int e = ct; e < R * LW; e += 12 * 32) {
+        const int r = j0 + e / LW, m = e % LW;
+        tile[(size_t)r * ld + jb + m] = pnl[m * QS + r];
+      }
+      for (int e = ct; e < LW * B; e += 12 * 32) {
+        const int a = e / B, c = e % B;
+        dinv[(jb + a) * B + c] = c < j0 ? xb[a * QS + c] : T(0);
+        if (c >= j0) tile[(size_t)(jb + a) * ld + c] = T(0);
       }
     }
     __syncthreads();
     K2_TICK(3)
   }
 
-  for (int e = tid; e < B * B; e += nth) {
-    const int r = e / B, c = e % B;
-    tile[(size_t)r * ld + c] = t[r * S + c];
-  }
-
-  // inverse of each W x W diagonal block: warp b, lane j = column j;
-  // x_i = -(sum_{m<i} L[i][m] x_m) / L[i][i] with x_m = 0 for m < j
-  if (warp < B / W) {
-    const int base = warp * W;
-    T x[W];
+  // L's diagonal leaves, zero above their diagonals, and Dinv's rows of the
+  // last leaf (the rest of L_kk and Dinv have gone out step by step)
 #pragma unroll
-    for (int i = 0; i < W; ++i) {
-      T acc0 = T(0), acc1 = T(0);
-#pragma unroll
-      for (int m = 0; m + 1 < i; m += 2) {
-        acc0 += t[(base + i) * S + base + m] * x[m];
-        acc1 += t[(base + i) * S + base + m + 1] * x[m + 1];
-      }
-      if (i % 2 == 1) acc0 += t[(base + i) * S + base + i - 1] * x[i - 1];
-      const T ri = rd[base + i];
-      x[i] = (i == lane) ? ri : (i > lane ? -(acc0 + acc1) * ri : T(0));
-      if (i > lane) t[(base + lane) * S + base + i] = x[i];  // X[i][lane], transposed
-    }
+  for (int p = 0; p < B * LW / DTH; ++p) {
+    const int e = tid + p * DTH;
+    const int q = e / (LW * LW), a = (e / LW) % LW, c = e % LW;
+    const int r = q * LW + a;
+    tile[(size_t)r * ld + q * LW + c] = c <= a ? t[r * S + q * LW + c] : T(0);
   }
-  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < B * LW / DTH; ++p) {
+    const int e = tid + p * DTH;
+    const int a = e / B, c = e % B;
+    dinv[(B - LW + a) * B + c] = xb[a * QS + c];
+  }
   K2_TICK(4)
-
-  // off-diagonal blocks, block row by block row: a warp takes four
-  // columns c0..c0+3 at a time, lane r takes row ib + r (no divergence, no
-  // bank conflicts; each L element loaded feeds four sums)
-  for (int ib = W; ib < B; ib += W) {
-    // tmp[c][r] = sum_{k=c}^{ib-1} L[ib + r][k] X[k][c]
-    const T* lrow = t + (ib + lane) * S;
-    for (int c0 = 4 * warp; c0 < ib; c0 += 4 * (nth / 32)) {
-      T acc[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        acc[q] = lrow[c0 + q] * rd[c0 + q];
-#pragma unroll
-        for (int k = q + 1; k < 4; ++k) acc[q] += lrow[c0 + k] * t[(c0 + q) * S + c0 + k];
-      }
-      for (int k = c0 + 4; k < ib; ++k) {
-        const T l = lrow[k];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[q] += l * t[(c0 + q) * S + k];  // X[k][c0 + q]
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) tmp[(c0 + q) * W + lane] = acc[q];
-    }
-    __syncthreads();
-    // X[ib + r][c] = -sum_{m<=r} X[ib + r][ib + m] tmp[c][m]
-    for (int c0 = 4 * warp; c0 < ib; c0 += 4 * (nth / 32)) {
-      T acc[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] = rd[ib + lane] * tmp[(c0 + q) * W + lane];
-#pragma unroll
-      for (int m = 0; m < W; ++m) {
-        const T xm = (m < lane) ? t[(ib + m) * S + ib + lane] : T(0);  // X[ib + r][ib + m]
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[q] += xm * tmp[(c0 + q) * W + m];
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) t[(c0 + q) * S + ib + lane] = -acc[q];
-    }
-    __syncthreads();
-  }
-  K2_TICK(5)
-
-  for (int e = tid; e < B * B; e += nth) {
-    const int r = e / B, c = e % B;
-    dinv[e] = (c < r) ? t[c * S + r] : (c == r ? rd[r] : T(0));
-  }
-  K2_TICK(6)
   K2_TICK_END
 }
 
-// The output tile (bi, bj) of this block: with tri, blockIdx.x enumerates
-// the tiles bj <= bi of a lower triangle; otherwise blockIdx = (bj, bi).
-__device__ __forceinline__ void tile_of_block(int tri, int* bi, int* bj) {
-  if (tri) {
-    const int b = blockIdx.x;
-    int i = (int)((sqrt(8.0 * b + 1.0) - 1.0) * 0.5);
-    while ((i + 1) * (i + 2) / 2 <= b) ++i;
-    while (i * (i + 1) / 2 > b) --i;
-    *bi = i;
-    *bj = b - i * (i + 1) / 2;
-  } else {
-    *bi = blockIdx.y;
-    *bj = blockIdx.x;
-  }
+// Dynamic shared memory of diag_kernel<T, B>: the tile, rd, pnl, xb, xl, lf, lr.
+template <typename T>
+constexpr int diag_smem(int B) {
+  return (B * (B + 1) + B + 2 * LW * (B + 4) + 3 * LW * LW) * (int)sizeof(T);
+}
+
+template <typename T>
+cudaError_t diag(T* w, T* dk, int* info, int ld, int kb, int B, cudaStream_t st) {
+  if (B == 128)
+    diag_kernel<T, 128><<<1, DTH, diag_smem<T>(128), st>>>(w, dk, info, ld, kb);
+  else
+    diag_kernel<T, 64><<<1, DTH, diag_smem<T>(64), st>>>(w, dk, info, ld, kb);
+  return cudaGetLastError();
 }
 
 // C[GT x GT tile] (=, or -= when SUB) X_rows * Y_rows^T over depth K, all
 // row-major; each thread owns 4 x 4 outputs in registers, the depth is
-// staged GK at a time in shared memory.  The generic form (any T, B = 64);
-// float with B = 128 takes sgemm_nt_128 below.
+// staged GK at a time in shared memory.  With tri, blockIdx.x enumerates
+// the tiles of a lower triangle; otherwise blockIdx = (bj, bi).  The
+// generic form (f64, B = 64).
 template <typename T, bool SUB>
 __global__ void __launch_bounds__(GTH * GTH)
 nt_tile_kernel(const T* __restrict__ x, int ldx, const T* __restrict__ y, int ldy,
                T* c, int ldc, int K, int tri) {
   __shared__ T xs[GK][GT + 1];
   __shared__ T ys[GK][GT + 1];
-  int bi, bj;
-  tile_of_block(tri, &bi, &bj);
+  int bi = blockIdx.y, bj = blockIdx.x;
+  if (tri) tri_index(blockIdx.x, &bi, &bj);
   const int tid = threadIdx.x;
   const int tx = tid % GTH;
   const int ty = tid / GTH;
@@ -405,8 +567,9 @@ nt_tile_kernel(const T* __restrict__ x, int ldx, const T* __restrict__ y, int ld
   }
 }
 
-// The float form of nt_tile_kernel at B = 128: a 128 x 128 output tile,
-// 256 threads each owning 8 x 8 outputs (rows ty*4 + {0..3, 64..67}, columns
+// The float trailing update at B = 128: C[tile] -= X_rows * Y_rows^T over
+// the 128 x 128 tiles of a lower triangle (blockIdx.x), depth K.  256
+// threads each own 8 x 8 outputs (rows ty*4 + {0..3, 64..67}, columns
 // tx*4 + {0..3, 64..67}), the depth staged 8 at a time, k-major in shared
 // memory, in two stages: the next chunk's 16-byte global loads are in
 // flight while the current one is multiplied.  Every operand read from
@@ -416,14 +579,13 @@ constexpr int FT = 128;
 constexpr int FK = 8;
 constexpr int FS = FT + 4;  // padded k-row: the transposing stores hit distinct banks
 
-template <bool SUB>
 __global__ void __launch_bounds__(256, 2)
 sgemm_nt_128(const float* __restrict__ x, int ldx, const float* __restrict__ y, int ldy,
-             float* c, int ldc, int K, int tri) {
+             float* c, int ldc, int K) {
   __shared__ __align__(16) float xs[2][FK][FS];
   __shared__ __align__(16) float ys[2][FK][FS];
   int bi, bj;
-  tile_of_block(tri, &bi, &bj);
+  tri_index(blockIdx.x, &bi, &bj);
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
@@ -479,8 +641,99 @@ sgemm_nt_128(const float* __restrict__ x, int ldx, const float* __restrict__ y, 
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float4* dst = reinterpret_cast<float4*>(crow + h * 64 + tx * 4);
-      float4 v = make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
-                             acc[r][4 * h + 3]);
+      const float4 old = *dst;
+      *dst = make_float4(old.x - acc[r][4 * h], old.y - acc[r][4 * h + 1],
+                         old.z - acc[r][4 * h + 2], old.w - acc[r][4 * h + 3]);
+    }
+  }
+}
+
+// The chain's products at B = 128 (f32): C[16 rows x 128] (=, or -= when
+// SUB) X_rows * Y^T over depth 128, one block per 16 rows, so that a panel
+// of R rows is R / 16 blocks that run at once (sgemm_nt_128's 128-row
+// blocks take ~15 us alone, which the chain cannot hide).  The block stages
+// its 16 rows of X and all of Y (128 x 128) in shared memory, k-major, with
+// every global load in flight at once.  What bounds a block is then shared
+// memory: each warp reads a whole 512-byte row of Y per step of the depth,
+// so a warp owns 4 rows x 4 columns (16 FMAs a 16-byte Y load) and the two
+// halves of the depth go to two groups of 4 warps, summed at the end.  A
+// block reads its rows of X whole before it writes C, and no other block
+// reads them, so C may alias X: the panel product is written in place.
+constexpr int RT = 16;
+constexpr int RTS = RT + 4;  // k-major row of the X stage
+constexpr int ROWS_SMEM = FT * (RTS + FS) * (int)sizeof(float);
+
+template <bool SUB>
+__global__ void __launch_bounds__(256)
+sgemm_rows_16(const float* x, int ldx, const float* __restrict__ y, int ldy, float* c,
+              int ldc) {
+  extern __shared__ __align__(16) float rows_smem[];
+  float* xs = rows_smem;         // FT x RTS: X^T
+  float* ys = xs + FT * RTS;     // FT x FS: Y^T
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int row0 = blockIdx.x * RT;
+  {
+    // thread tid moves the float4 at (row tid / 2, k 8p + 4 (tid % 2)) of Y
+    // for every p, and of X at (row (tid % 32) / 2, p = tid / 32 + 8j)
+    const int lrow = tid / 2, lk = (tid % 2) * 4;
+    const int xrow = lane / 2, xp = tid / 32;
+    float4 yv[FT / FK], xv[2];
+#pragma unroll
+    for (int p = 0; p < FT / FK; ++p)
+      yv[p] = *reinterpret_cast<const float4*>(y + (size_t)lrow * ldy + FK * p + lk);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      xv[j] = *reinterpret_cast<const float4*>(x + (size_t)(row0 + xrow) * ldx +
+                                               FK * (xp + 8 * j) + lk);
+#pragma unroll
+    for (int p = 0; p < FT / FK; ++p) {
+      float* d = ys + (FK * p + lk) * FS + lrow;
+      d[0] = yv[p].x, d[FS] = yv[p].y, d[2 * FS] = yv[p].z, d[3 * FS] = yv[p].w;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float* d = xs + (FK * (xp + 8 * j) + lk) * RTS + xrow;
+      d[0] = xv[j].x, d[RTS] = xv[j].y, d[2 * RTS] = xv[j].z, d[3 * RTS] = xv[j].w;
+    }
+  }
+  __syncthreads();
+
+  // warp w: rows 4 (w % 4) + {0..3}, depth half w / 4; lane: columns 4 lane + {0..3}
+  const int w = tid / 32;
+  const int r4 = 4 * (w % 4);
+  const int k0 = (w / 4) * (FT / 2);
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+#pragma unroll 8
+  for (int k = k0; k < k0 + FT / 2; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(xs + k * RTS + r4);
+    const float4 b = *reinterpret_cast<const float4*>(ys + k * FS + 4 * lane);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
+  }
+  __syncthreads();  // the stage is free: the upper half hands its sums over
+  float* part = rows_smem;  // RT x FT
+  if (k0 != 0) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<float4*>(part + (r4 + r) * FT + 4 * lane) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+  __syncthreads();
+  if (k0 == 0) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 o = *reinterpret_cast<const float4*>(part + (r4 + r) * FT + 4 * lane);
+      float4* dst = reinterpret_cast<float4*>(c + (size_t)(row0 + r4 + r) * ldc + 4 * lane);
+      float4 v = make_float4(acc[r][0] + o.x, acc[r][1] + o.y, acc[r][2] + o.z, acc[r][3] + o.w);
       if (SUB) {
         const float4 old = *dst;
         v = make_float4(old.x - v.x, old.y - v.y, old.z - v.z, old.w - v.w);
@@ -490,26 +743,23 @@ sgemm_nt_128(const float* __restrict__ x, int ldx, const float* __restrict__ y, 
   }
 }
 
-// Steps (b) and (c) of panel k: pan = A[below, k] Dinv_k^T, copied back
-// into L's column panel.
+// The in-order loop's panel product: pan = A[below, k] Dinv_k^T, copied
+// back into L's column panel (the product's blocks share rows, so it
+// cannot be written in place).
 template <typename T>
 cudaError_t panel_product(T* w, const T* dk, T* pan, int npad, int kb, int B, int R,
                           cudaStream_t st) {
   T* below = w + (size_t)(kb + B) * npad + kb;
-  if (sizeof(T) == 4 && B == FT)
-    sgemm_nt_128<false><<<dim3(1, R / FT), 256, 0, st>>>(
-        (const float*)below, npad, (const float*)dk, B, (float*)pan, B, B, 0);
-  else
-    nt_tile_kernel<T, false><<<dim3(B / GT, R / GT), GTH * GTH, 0, st>>>(
-        below, npad, dk, B, pan, B, B, 0);
+  nt_tile_kernel<T, false><<<dim3(B / GT, R / GT), GTH * GTH, 0, st>>>(
+      below, npad, dk, B, pan, B, B, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return cudaMemcpy2DAsync(below, (size_t)npad * sizeof(T), pan, (size_t)B * sizeof(T),
                            (size_t)B * sizeof(T), R, cudaMemcpyDeviceToDevice, st);
 }
 
-// Step (d) of panel k, on the generic tiles: the whole lower trailing
-// triangle below and right of the diagonal tile.
+// The in-order loop's trailing update: the whole lower trailing triangle
+// below and right of the diagonal tile.
 template <typename T>
 cudaError_t trailing_update(T* w, const T* pan, int npad, int kb, int B, int R,
                             cudaStream_t st) {
@@ -529,8 +779,8 @@ cudaStream_t side_stream() {
   std::lock_guard<std::mutex> guard(lock);
   if (streams[dev] == nullptr) {
     // the highest priority: the block scheduler hands the side stream's
-    // single diagonal-tile block the first SM that frees up inside the
-    // caller's trailing update, instead of after its last block
+    // blocks the first SMs that free up inside the caller's trailing
+    // update, instead of after its last block
     int least = 0, greatest = 0;
     if (cudaDeviceGetStreamPriorityRange(&least, &greatest) != cudaSuccess ||
         cudaStreamCreateWithPriority(&streams[dev], cudaStreamNonBlocking, greatest) !=
@@ -540,58 +790,60 @@ cudaStream_t side_stream() {
   return streams[dev];
 }
 
-// float, B = 128: the panel loop with a lookahead of one panel.  The
-// trailing update of panel k is split into its first tile column T1 (which
-// is panel k+1's column) and the rest T2; once T1 is done, the side stream
-// factors panel k+1 and forms its panel product while the caller's stream
-// runs T2, so the serial chain of diagonal factorizations hides behind the
-// trailing products.  The two scratch panels alternate.
-cudaError_t run_lookahead(float* w, float* dinv, float* pan, int* info, int npad, int B,
-                          int smem, cudaStream_t st) {
+// float, B = 128: the panel loop with a lookahead of one panel.  Per panel
+// k, with P_k = L's column panel k (its product written in place):
+//   caller: [after panel k's product] T1(k): panel k+1's column, its
+//           diagonal tile included, -= P_k P_k^T, in 32-row blocks;
+//   side:   [after T1(k)] diag(k+1), then panel k+1's product in place, in
+//           32-row blocks;
+//   caller: T2(k): the tiles right of column k+1 -= P_k P_k^T (sgemm_nt_128).
+// So panel k+1 waits only for T1(k), and T2(k) runs beside panel k+1's
+// diagonal tile and product.  The caller's stream then waits for the
+// product before T1(k+1).
+cudaError_t run_lookahead(float* w, float* dinv, int* info, int npad, cudaStream_t st) {
+  constexpr int B = FT;
   cudaStream_t side = side_stream();
   if (side == nullptr) return cudaErrorInvalidResourceHandle;
-  cudaEvent_t t1_done, side_done;
+  cudaEvent_t t1_done = nullptr, side_done = nullptr;
   cudaError_t e = cudaEventCreateWithFlags(&t1_done, cudaEventDisableTiming);
-  if (e != cudaSuccess) return e;
-  e = cudaEventCreateWithFlags(&side_done, cudaEventDisableTiming);
-  if (e != cudaSuccess) {
-    cudaEventDestroy(t1_done);
-    return e;
-  }
+  if (e == cudaSuccess) e = cudaEventCreateWithFlags(&side_done, cudaEventDisableTiming);
   const int nb = npad / B;
-  const size_t pan_size = (size_t)(npad - B) * B;
-  diag_kernel<float><<<1, dim3(DT, DTY), smem, st>>>(w, dinv, info, npad, 0, B);
-  e = cudaGetLastError();
-  if (e == cudaSuccess) e = panel_product<float>(w, dinv, pan, npad, 0, B, npad - B, st);
+  if (e == cudaSuccess) e = diag<float>(w, dinv, info, npad, 0, B, st);
+  if (e == cudaSuccess) {
+    float* below = w + (size_t)B * npad;
+    sgemm_rows_16<false><<<(npad - B) / RT, 256, ROWS_SMEM, st>>>(below, npad, dinv, B,
+                                                                  below, npad);
+    e = cudaGetLastError();
+  }
   for (int k = 0; e == cudaSuccess && k + 1 < nb; ++k) {
-    const int kb = k * B;
-    const int t = (npad - kb - B) / FT;  // tile rows of the trailing matrix
-    const float* pk = pan + (k % 2) * pan_size;
-    float* trail = w + (size_t)(kb + B) * npad + kb + B;
-    sgemm_nt_128<true><<<dim3(1, t), 256, 0, st>>>(pk, B, pk, B, trail, npad, B, 0);
+    const int kn = (k + 1) * B;                       // panel k+1's first row and column
+    const int below = npad - kn - B;                  // rows below panel k+1's tile
+    const float* pk = w + (size_t)kn * npad + k * B;  // P_k from row kn on
+    if (k > 0 && (e = cudaStreamWaitEvent(st, side_done, 0)) != cudaSuccess) break;
+    sgemm_rows_16<true><<<(below + B) / RT, 256, ROWS_SMEM, st>>>(
+        pk, npad, pk, npad, w + (size_t)kn * npad + kn, npad);
     if ((e = cudaGetLastError()) != cudaSuccess) break;
     if ((e = cudaEventRecord(t1_done, st)) != cudaSuccess) break;
     if ((e = cudaStreamWaitEvent(side, t1_done, 0)) != cudaSuccess) break;
-    const int kn = kb + B;
     float* dn = dinv + (size_t)(k + 1) * B * B;
-    diag_kernel<float><<<1, dim3(DT, DTY), smem, side>>>(w, dn, info, npad, kn, B);
-    if ((e = cudaGetLastError()) != cudaSuccess) break;
-    if (npad - kn - B > 0) {
-      e = panel_product<float>(w, dn, pan + ((k + 1) % 2) * pan_size, npad, kn, B,
-                               npad - kn - B, side);
-      if (e != cudaSuccess) break;
-    }
-    if ((e = cudaEventRecord(side_done, side)) != cudaSuccess) break;
-    if (t > 1) {
-      sgemm_nt_128<true><<<(unsigned)((t - 1) * t / 2), 256, 0, st>>>(
-          pk + (size_t)FT * B, B, pk + (size_t)FT * B, B, trail + (size_t)FT * npad + FT,
-          npad, B, 1);
+    if ((e = diag<float>(w, dn, info, npad, kn, B, side)) != cudaSuccess) break;
+    if (below > 0) {
+      float* col = w + (size_t)(kn + B) * npad + kn;  // panel k+1 below its tile
+      sgemm_rows_16<false><<<below / RT, 256, ROWS_SMEM, side>>>(col, npad, dn, B, col, npad);
       if ((e = cudaGetLastError()) != cudaSuccess) break;
     }
-    e = cudaStreamWaitEvent(st, side_done, 0);
+    if ((e = cudaEventRecord(side_done, side)) != cudaSuccess) break;
+    if (below > 0) {
+      const int t = below / FT;
+      sgemm_nt_128<<<(unsigned)(t * (t + 1) / 2), 256, 0, st>>>(
+          pk + (size_t)B * npad, npad, pk + (size_t)B * npad, npad,
+          w + (size_t)(kn + B) * npad + kn + B, npad, B);
+      e = cudaGetLastError();
+    }
   }
-  cudaEventDestroy(t1_done);
-  cudaEventDestroy(side_done);
+  if (e == cudaSuccess && nb > 1) e = cudaStreamWaitEvent(st, side_done, 0);
+  if (t1_done != nullptr) cudaEventDestroy(t1_done);
+  if (side_done != nullptr) cudaEventDestroy(side_done);
   return e;
 }
 
@@ -604,36 +856,43 @@ int grid_for(long long total) {
 template <typename T>
 int run(const T* a, T* w, T* out, T* pan, T* dinv, int* info, int n, int npad,
         int B, cudaStream_t st) {
-  if (B <= 0 || B % GT != 0 || B > 128 || npad % B != 0 || n > npad || n < 1)
+  if ((B != 64 && B != 128) || npad % B != 0 || n > npad || n < 1)
     return (int)cudaErrorInvalidValue;
-  const int smem = (B * (B + 1) + B + W * B) * (int)sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(diag_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const bool lookahead = sizeof(T) == 4 && B == FT && npad > B;
+  cudaError_t e = B == 128 ? cudaFuncSetAttribute(diag_kernel<T, 128>,
+                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                  diag_smem<T>(128))
+                           : cudaFuncSetAttribute(diag_kernel<T, 64>,
+                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                  diag_smem<T>(64));
+  if (e == cudaSuccess && lookahead) {
+    e = cudaFuncSetAttribute(sgemm_rows_16<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             ROWS_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(sgemm_rows_16<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, ROWS_SMEM);
+  }
   if (e != cudaSuccess) return (int)e;
 
   prep_kernel<T><<<grid_for((long long)npad * npad), 256, 0, st>>>(a, w, info, n, npad);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   if constexpr (sizeof(T) == 4) {
-    if (B == FT && npad > B) {
-      e = run_lookahead(w, dinv, pan, info, npad, B, smem, st);
-      if (e != cudaSuccess) return (int)e;
-      finish_kernel<T><<<grid_for((long long)n * n), 256, 0, st>>>(w, npad, out, n);
-      return (int)cudaGetLastError();
+    if (lookahead) e = run_lookahead(w, dinv, info, npad, st);
+  }
+  if (!lookahead) {
+    for (int k = 0; k < npad / B; ++k) {
+      const int kb = k * B;
+      const int R = npad - kb - B;  // rows below the diagonal tile
+      T* dk = dinv + (size_t)k * B * B;
+      if ((e = diag<T>(w, dk, info, npad, kb, B, st)) != cudaSuccess) return (int)e;
+      if (R == 0) break;
+      if ((e = panel_product<T>(w, dk, pan, npad, kb, B, R, st)) != cudaSuccess) return (int)e;
+      if ((e = trailing_update<T>(w, pan, npad, kb, B, R, st)) != cudaSuccess) return (int)e;
     }
   }
-  const int nb = npad / B;
-  for (int k = 0; k < nb; ++k) {
-    const int kb = k * B;
-    const int R = npad - kb - B;  // rows below the diagonal tile
-    T* dk = dinv + (size_t)k * B * B;
-    diag_kernel<T><<<1, dim3(DT, DTY), smem, st>>>(w, dk, info, npad, kb, B);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    if (R == 0) break;
-    if ((e = panel_product<T>(w, dk, pan, npad, kb, B, R, st)) != cudaSuccess) return (int)e;
-    if ((e = trailing_update<T>(w, pan, npad, kb, B, R, st)) != cudaSuccess) return (int)e;
-  }
-
+  if (e != cudaSuccess) return (int)e;
+  if (w == out) return 0;  // L is already in place, zero above its diagonal
   finish_kernel<T><<<grid_for((long long)n * n), 256, 0, st>>>(w, npad, out, n);
   return (int)cudaGetLastError();
 }

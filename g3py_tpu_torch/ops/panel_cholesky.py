@@ -60,8 +60,9 @@ def _launch(a, block, lib=None):
     a = a.contiguous()
     out = torch.empty((n, n), dtype=a.dtype, device=a.device)
     w = out if npad == n else torch.empty((npad, npad), dtype=a.dtype, device=a.device)
-    # two scratch panels: the float kernel looks one panel ahead
-    pan = torch.empty((2, max(npad - block, 1), block), dtype=a.dtype, device=a.device)
+    # a scratch panel for the in-order loop (f64, B = 64); the float lookahead
+    # forms its panels in place
+    pan = torch.empty((max(npad - block, 1), block), dtype=a.dtype, device=a.device)
     dinv = torch.empty((nb, block, block), dtype=a.dtype, device=a.device)
     info = torch.empty((), dtype=torch.int32, device=a.device)
     fn = _entry(a.dtype, lib)

@@ -1,6 +1,7 @@
 """Where the time of one K2 factorization goes, on the card.
 
     python3 -m g3py_tpu_torch.tools.k2_chain [--n 4096] [--out chiprun_out]
+    python3 -m g3py_tpu_torch.tools.k2_chain --n 4096 16384 --compare OTHER_ROOT
 
 Two measurements of ``panel_cholesky`` in float32 on an SE gram + 0.1 noise
 (the matrices ``chip_smoke.py`` phase 2b factors):
@@ -16,6 +17,12 @@ Two measurements of ``panel_cholesky`` in float32 on an SE gram + 0.1 noise
   compiled with ``-DK2_PHASE_CLOCKS`` (under ``build/``) adds up the
   clock64() cycles of each phase; printed per launch, in cycles and in µs
   at the clock the blocks ran at (globaltimer ns over cycles).
+
+With ``--compare``, instead: the CUDA-event median time of one
+factorization (and of ``torch.linalg.cholesky_ex`` beside it) in four
+processes, this checkout, OTHER_ROOT (another checkout, e.g. the parent
+commit unpacked by ``git archive``), OTHER_ROOT, this checkout, so that two
+versions are compared on one card in turns.
 
 Needs a CUDA card and nvcc; prints the card's name and power limit.
 """
@@ -34,8 +41,9 @@ from ..ops.panel_cholesky import BLOCK, _launch, panel_cholesky
 from ..ops.stationary_gram import _plain_form
 
 #: what slot s of the phase clocks times, in csrc/panel_cholesky.cu's diag_kernel
-PHASES = ("load tile", "leaf factor (1)", "panel solve (2)", "rank update (3)",
-          "store L + leaf inverses", "off-diagonal inverse", "store Dinv")
+PHASES = ("load tile", "leaf 0", "phase B, all steps", "phase C, wait for the other warps",
+          "store L's diagonal leaves and Dinv's last rows", "phase C, warp 0: the leaf's update",
+          "phase C, warp 0: factor and invert", "phase C, warp 0: store the leaf")
 SLOTS = 16
 
 
@@ -55,6 +63,8 @@ def _label(evt):
                        ("finish_kernel", "finish"), ("Memcpy", "memcpy")):
         if key in name:
             return short if short != "diag" else f"diag[{blocks}]"
+    if "sgemm_nt_128" in name:
+        return f"syrk[{blocks}]"
     if "<true>" in name or "true>" in name:
         return f"upd[{blocks}]"
     if "<false>" in name or "false>" in name:
@@ -62,8 +72,9 @@ def _label(evt):
     return f"{name[:24]}[{blocks}]"
 
 
-def timeline(n, out_dir):
-    """Trace one factorization; print its panels; return a summary dict."""
+def timeline(n, out_dir, panels=True):
+    """Trace one factorization; print its panels (or, without ``panels``,
+    only the summary); return a summary dict."""
     from torch.profiler import ProfilerActivity, profile
 
     a = se_gram(n)
@@ -85,8 +96,9 @@ def timeline(n, out_dir):
     diag_us = [e["dur"] for e in events if "diag_kernel" in e["name"]]
     print(f"  timeline n={n}: {len(starts)} panels, factorization span {span:.1f} us "
           f"(first device event to last), diag_kernel {sum(diag_us):.1f} us in all", flush=True)
-    print("    k   start   chain | events that started in the panel: stream label dur(us)",
-          flush=True)
+    if panels:
+        print("    k   start   chain | events that started in the panel: stream label dur(us)",
+              flush=True)
     bounds = starts + [t0 + span]
     chains = []
     busy = {}
@@ -99,7 +111,8 @@ def timeline(n, out_dir):
             chains.append(chain)
         parts = [f"{'main' if e['args']['stream'] == main else 'side'}:{_label(e)} "
                  f"{e['dur']:.1f}" for e in events if lo <= e["ts"] < hi]
-        print(f"    {k:2d} {lo - t0:7.1f} {chain:7.1f} | " + ", ".join(parts), flush=True)
+        if panels:
+            print(f"    {k:2d} {lo - t0:7.1f} {chain:7.1f} | " + ", ".join(parts), flush=True)
     for stream, t in sorted(busy.items()):
         print(f"    stream {'main' if stream == main else 'side'} ({stream}): busy {t:.1f} us "
               f"= {100 * t / span:.1f}% of the span", flush=True)
@@ -146,10 +159,59 @@ def phase_clocks(n):
               f"{100 * buf[s] / cycles:5.1f}%", flush=True)
 
 
+_TIMES = r"""
+import json, statistics, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from g3py_tpu_torch.ops.panel_cholesky import panel_cholesky
+from g3py_tpu_torch.ops.stationary_gram import _plain_form
+
+def median_ms(fn, reps):
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+out = {}
+for n in map(int, sys.argv[2].split(",")):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, 8, generator=gen, device="cuda")
+    a = _plain_form("se", x, x, torch.ones(8, device="cuda"), torch.tensor(1.0, device="cuda"))
+    a.diagonal().add_(0.1)
+    reps = 10 if n <= 4096 else 3
+    out[n] = {"panel_cholesky_ms": median_ms(lambda: panel_cholesky(a), reps),
+              "cholesky_ex_ms": median_ms(lambda: torch.linalg.cholesky_ex(a), reps)}
+print(json.dumps(out))
+"""
+
+
+def compare(other, sizes):
+    """Time K2 in this checkout and in ``other``, in turns (this, other,
+    other, this), one process each."""
+    import sys
+
+    here = str(Path(__file__).resolve().parents[2])
+    for root in (here, other, other, here):
+        proc = subprocess.run([sys.executable, "-c", _TIMES, root, ",".join(map(str, sizes))],
+                              capture_output=True, text=True, cwd=root, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"timing in {root} failed:\n{proc.stdout}{proc.stderr}")
+        label = "this checkout" if root == here else f"{other}"
+        print(f"  {label}: {proc.stdout.strip().splitlines()[-1]}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, nargs="+", default=[4096])
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--compare", metavar="OTHER_ROOT")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k2_chain: needs a CUDA card")
@@ -157,7 +219,13 @@ def main():
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
     print(f"  {card}; torch {torch.__version__}", flush=True)
-    _build.build()
+    if args.compare:
+        compare(args.compare, args.n)
+        return
+    rec = _build.build()["panel_cholesky"]
+    for ln in rec.log.splitlines():  # nvcc -Xptxas -v: each kernel's registers and spills
+        if "entry function" in ln or "registers" in ln or "spill stores" in ln:
+            print(f"    {ln.strip()[:150]}", flush=True)
     for n in args.n:
         timeline(n, Path(args.out))
         phase_clocks(n)

@@ -86,7 +86,8 @@ def _spd(seed, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
-@pytest.mark.parametrize("n,block", [(1, 128), (77, 64), (200, 128), (257, 64), (640, 128)])
+@pytest.mark.parametrize("n,block", [(1, 128), (77, 64), (200, 128), (257, 64), (640, 128),
+                                     (256, 128), (384, 128), (385, 128), (1000, 128)])
 def test_panel_cholesky_matches_plain_form(cuda, dtype, tol, n, block):
     a = torch.as_tensor(_spd(n, n), dtype=dtype, device=cuda)
     launches = panel_cholesky.launches
@@ -104,7 +105,7 @@ def test_panel_cholesky_matches_plain_form(cuda, dtype, tol, n, block):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_panel_cholesky_info(cuda, dtype):
     a = torch.as_tensor(_spd(3, 300), dtype=dtype, device=cuda)
-    for j in (0, 5, 130, 299):
+    for j in (0, 5, 130, 150, 299):  # 150: the second 16-column leaf of a tile
         bad = a.clone()
         bad[j, :] = 0.0
         bad[:, j] = 0.0
