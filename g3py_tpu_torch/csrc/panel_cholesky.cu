@@ -32,11 +32,11 @@
 // with a 3xTF32 split is a later step.
 //
 // In float with B = 128 (run_lookahead) the chain of diagonal tiles is what
-// bounds n = 4096, so it is kept short: the caller's stream updates only
-// panel k+1's column first (T1, in 32-row blocks that all run at once),
-// then a highest-priority side stream factors panel k+1's diagonal tile and
-// forms its product in place (again in 32-row blocks) while the caller's
-// stream runs the rest of panel k's trailing update (T2).  Other cases (f64, B = 64) run the panel loop in order on the caller's
+// bounds n = 4096, so it is kept short and on one highest-priority side
+// stream: panel k's update of panel k+1's column only (T1), panel k+1's
+// diagonal tile, its product formed in place (T1 and the product in 16-row
+// blocks that all run at once), while the caller's stream runs the rest of
+// panel k's trailing update (T2).  Other cases (f64, B = 64) run the panel loop in order on the caller's
 // stream, with the product into a scratch panel copied back into L.
 //
 // Failure is reported, never clamped: the TPU clamped every pivot at 1e-30
@@ -121,6 +121,12 @@ __device__ __forceinline__ unsigned long long global_ns() {
     atomicAdd(&k2_phase_cycles[s], (unsigned long long)(now - k2_clk));         \
     k2_clk = now;                                                               \
   }
+#define K2_TICK_AT(s, t)                                                        \
+  if (threadIdx.x == (t) && threadIdx.y == 0) {                                 \
+    const long long now = clock64();                                            \
+    atomicAdd(&k2_phase_cycles[s], (unsigned long long)(now - k2_clk));         \
+    k2_clk = now;                                                               \
+  }
 #define K2_TICK_END                                                             \
   if (threadIdx.x == 0 && threadIdx.y == 0) {                                   \
     atomicAdd(&k2_phase_cycles[K2_SLOTS - 2], 1ull);                            \
@@ -129,6 +135,7 @@ __device__ __forceinline__ unsigned long long global_ns() {
 #else
 #define K2_TICK_START
 #define K2_TICK(s)
+#define K2_TICK_AT(s, t)
 #define K2_TICK_END
 #endif
 
@@ -191,20 +198,21 @@ __device__ __forceinline__ void store4(double* p, double a, double b, double c, 
 // registers.  On entry lane l < LW holds row l of the block (v[c], c <= l
 // read).  On exit lane l < LW holds row l of L (v[c], c <= l) and mine =
 // 1 / L[l][l]; lane LW + c holds column c of X = L^{-1} (v[m] = X[m][c]).
-// Two short dependent chains set the pace of a column: the pivot (one
-// shuffle from each lane's own running diagonal dg, rsqrt, one scale, one
-// FMA) and the next column's entry (one shuffle, one FMA).  Off them,
-// column j of L and row j of L are published once to shared memory (lf,
-// lr: LW x LW each) and read back as 16-byte broadcasts, four values a
-// load: the rest of the rank-1 update, and on lanes LW.. row j of X,
-// X[j][c] = (delta_jc - sum_{m<j} L[j][m] X[m][c]) / L[j][j], so the
-// inverse costs no pass of its own.  The update also runs, harmlessly, on
+// Both halves run the same right-looking step j: scale entry j (L[l][j] =
+// A[l][j] / L[j][j] on the rows' lanes; X[j][c] = (delta_jc + v[j]) /
+// L[j][j] on the inverse's, v[j] holding -sum_{k<j} L[j][k] X[k][c]), then
+// v[c] -= v[j] L[c][j] for c > j, with column j of L published once to
+// shared memory (lf) and read back as 16-byte broadcasts, so the inverse
+// costs no work of its own beyond its half of the warp.  Two short
+// dependent chains set the pace: the pivot (one shuffle of each lane's own
+// running diagonal dg, rsqrt, one scale, one FMA) and the next column's
+// entry (one shuffle, one FMA).  The update also runs, harmlessly, on
 // entries above the diagonal, which are never read.  col0 is the caller's
 // column of the leaf's first; the first non-positive or non-finite pivot
 // goes to info.
 template <typename T>
 __device__ __forceinline__ void leaf_factor_invert(T (&v)[LW], T& mine, int lane, int* info,
-                                                   int col0, T* lf, T* lr) {
+                                                   int col0, T* lf) {
   const unsigned FULL = 0xffffffffu;
   const bool row = lane < LW;
   T dg = pick(v, lane), piv = T(1);
@@ -216,19 +224,15 @@ __device__ __forceinline__ void leaf_factor_invert(T (&v)[LW], T& mine, int lane
   for (int j = 0; j < LW; ++j) {
     const T d = __shfl_sync(FULL, dg, j);
     const T inv = recip_sqrt(d);
-    v[j] = lane == j ? d * inv : v[j] * inv;  // lanes LW..: 0 stays 0
+    v[j] = row ? (lane == j ? d : v[j]) * inv : (lane == LW + j ? v[j] + T(1) : v[j]) * inv;
     dg = fma(-v[j], v[j], dg);
-    const T vj = row ? v[j] : T(0);
-    if (j + 1 < LW) {  // L[l][j + 1] -= L[l][j] L[j + 1][j], on the chain
-      const T next = __shfl_sync(FULL, v[j], j + 1);
-      v[j + 1] = fma(-vj, next, v[j + 1]);
-    }
     if (lane == j) {
       mine = inv;
       piv = d;
-#pragma unroll
-      for (int m4 = 0; m4 < LW / 4; ++m4)
-        store4(lr + j * LW + 4 * m4, v[4 * m4], v[4 * m4 + 1], v[4 * m4 + 2], v[4 * m4 + 3]);
+    }
+    if (j + 1 < LW) {  // v[j + 1] -= v[j] L[j + 1][j], on the chain
+      const T next = __shfl_sync(FULL, v[j], j + 1);
+      v[j + 1] = fma(-v[j], next, v[j + 1]);
     }
     if (row) lf[j * LW + lane] = v[j];
     __syncwarp();
@@ -238,18 +242,8 @@ __device__ __forceinline__ void leaf_factor_invert(T (&v)[LW], T& mine, int lane
       load4(lf + j * LW + 4 * c4, col);
 #pragma unroll
       for (int y = 0; y < 4; ++y)
-        if (4 * c4 + y > j + 1) v[4 * c4 + y] = fma(-vj, col[y], v[4 * c4 + y]);
+        if (4 * c4 + y > j + 1) v[4 * c4 + y] = fma(-v[j], col[y], v[4 * c4 + y]);
     }
-    T acc = (lane == LW + j) ? T(1) : T(0);
-#pragma unroll
-    for (int m4 = 0; 4 * m4 < j; ++m4) {
-      T rw[4];
-      load4(lr + j * LW + 4 * m4, rw);
-#pragma unroll
-      for (int y = 0; y < 4; ++y)
-        if (4 * m4 + y < j) acc = fma(-rw[y], v[4 * m4 + y], acc);
-    }
-    if (!row) v[j] = acc * inv;
   }
   const unsigned bad = __ballot_sync(FULL, row && !(piv > T(0) && isfinite(piv)));
   if (lane == 0 && bad != 0u) atomicCAS(info, 0, col0 + __ffs(bad));
@@ -291,10 +285,10 @@ __device__ __forceinline__ void leaf_store(T* t, T* rd, T* xl, int j0, const T (
 //      inverse in registers (leaf_factor_invert).  12 other warps: the
 //      rank-16 update of the rest of the trailing triangle (4 x 4 register
 //      tiles), and Z[below, :i+1] += L[below, i] X[i, :i+1] (a row and 4
-//      columns a thread), both from pnl and xb; then they stream L's panel,
-//      the zeros right of leaf i and Dinv's rows of leaf i out.  The warps
-//      that share warp 0's scheduler (4, 8, 12) wait, so the leaf, the
-//      longest serial step, issues without competition.
+//      columns a thread), both from pnl and xb.  The 3 warps that share
+//      warp 0's scheduler (4, 8, 12) stream L's panel, the zeros right of
+//      leaf i and Dinv's rows of leaf i out: stores, which take few of the
+//      scheduler's slots from the leaf, the longest serial step.
 // Two barriers a step.  Z = L[below, :] X[:, :], whose rows are the next
 // leaves' sums for X, takes the place of L's finished columns below the
 // diagonal (which have gone to w); the tile keeps L's diagonal leaves, X
@@ -312,7 +306,6 @@ diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info, int
   T* xb = pnl + LW * QS;                  // LW x QS: X[leaf i, :], k-major
   T* xl = xb + LW * QS;                   // LW x LW: X_ii
   T* lf = xl + LW * LW;                   // LW x LW: the leaf's columns of L
-  T* lr = lf + LW * LW;                   // LW x LW: the leaf's rows of L
   const unsigned FULL = 0xffffffffu;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -341,7 +334,7 @@ diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info, int
     T mine = T(0);
 #pragma unroll
     for (int c = 0; c < LW; ++c) v[c] = lane < LW ? t[lane * S + c] : T(0);
-    leaf_factor_invert(v, mine, lane, info, kb, lf, lr);
+    leaf_factor_invert(v, mine, lane, info, kb, lf);
     leaf_store<T, S>(t, rd, xl, 0, v, mine, lane);
   }
   __syncthreads();
@@ -419,7 +412,7 @@ diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info, int
       }
       K2_TICK(5)
       T mine = T(0);
-      leaf_factor_invert(v, mine, lane, info, kb + j0, lf, lr);
+      leaf_factor_invert(v, mine, lane, info, kb + j0, lf);
       K2_TICK(6)
       leaf_store<T, S>(t, rd, xl, j0, v, mine, lane);
       K2_TICK(7)
@@ -427,6 +420,7 @@ diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info, int
       const int nt = R / 4;
       const int n1 = nt * (nt + 1) / 2 - 10;  // 4 x 4 tiles, less the next leaf's 10
       const int ct = (warp - warp / 4 - 1) * 32 + lane;
+      K2_TICK_AT(13, 32)
       for (int it = ct; it < n1 + R * (j0 / 4); it += 12 * 32) {
         if (it < n1) {
           int bi, bj;
@@ -455,17 +449,23 @@ diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info, int
           for (int y = 0; y < 4; ++y) z[y] = c0 < jb ? z[y] + acc[y] : acc[y];
         }
       }
-      // then out to w and dinv: L's panel below leaf i, and on the rows of
-      // leaf i the zeros right of it and Dinv (X's block row, from xb)
-      for (int e = ct; e < R * LW; e += 12 * 32) {
+      K2_TICK_AT(8, 32)
+    } else {
+      // warps 4, 8, 12: out to w and dinv, L's panel below leaf i, and on
+      // the rows of leaf i the zeros right of it and Dinv (X's block row,
+      // from xb)
+      const int st = (warp / 4 - 1) * 32 + lane;
+      K2_TICK_AT(12, 128)
+      for (int e = st; e < R * LW; e += 3 * 32) {
         const int r = j0 + e / LW, m = e % LW;
         tile[(size_t)r * ld + jb + m] = pnl[m * QS + r];
       }
-      for (int e = ct; e < LW * B; e += 12 * 32) {
+      for (int e = st; e < LW * B; e += 3 * 32) {
         const int a = e / B, c = e % B;
         dinv[(jb + a) * B + c] = c < j0 ? xb[a * QS + c] : T(0);
         if (c >= j0) tile[(size_t)(jb + a) * ld + c] = T(0);
       }
+      K2_TICK_AT(9, 128)
     }
     __syncthreads();
     K2_TICK(3)
@@ -490,10 +490,10 @@ diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info, int
   K2_TICK_END
 }
 
-// Dynamic shared memory of diag_kernel<T, B>: the tile, rd, pnl, xb, xl, lf, lr.
+// Dynamic shared memory of diag_kernel<T, B>: the tile, rd, pnl, xb, xl, lf.
 template <typename T>
 constexpr int diag_smem(int B) {
-  return (B * (B + 1) + B + 2 * LW * (B + 4) + 3 * LW * LW) * (int)sizeof(T);
+  return (B * (B + 1) + B + 2 * LW * (B + 4) + 2 * LW * LW) * (int)sizeof(T);
 }
 
 template <typename T>
@@ -790,41 +790,55 @@ cudaStream_t side_stream() {
   return streams[dev];
 }
 
-// float, B = 128: the panel loop with a lookahead of one panel.  Per panel
-// k, with P_k = L's column panel k (its product written in place):
-//   caller: [after panel k's product] T1(k): panel k+1's column, its
-//           diagonal tile included, -= P_k P_k^T, in 32-row blocks;
-//   side:   [after T1(k)] diag(k+1), then panel k+1's product in place, in
-//           32-row blocks;
-//   caller: T2(k): the tiles right of column k+1 -= P_k P_k^T (sgemm_nt_128).
-// So panel k+1 waits only for T1(k), and T2(k) runs beside panel k+1's
-// diagonal tile and product.  The caller's stream then waits for the
-// product before T1(k+1).
+// float, B = 128: the panel loop with a lookahead of one panel.  With P_k =
+// L's column panel k (its product written in place), per panel k:
+//   side:   [after T2(k-1)] T1(k): panel k+1's column, its diagonal tile
+//           included, -= P_k P_k^T, in 16-row blocks; diag(k+1); panel
+//           k+1's product in place, in 16-row blocks;
+//   caller: [after panel k's product] T2(k): the tiles right of column k+1
+//           -= P_k P_k^T (sgemm_nt_128).
+// So the serial chain of panels runs on the side stream alone, and T2(k)
+// runs beside T1(k), diag(k+1) and panel k+1's product.  The streams hand
+// over with two events each way, used alternately, so that each wait names
+// the launch it needs (T2(k-1), product k) and not a later one.
 cudaError_t run_lookahead(float* w, float* dinv, int* info, int npad, cudaStream_t st) {
   constexpr int B = FT;
   cudaStream_t side = side_stream();
   if (side == nullptr) return cudaErrorInvalidResourceHandle;
-  cudaEvent_t t1_done = nullptr, side_done = nullptr;
-  cudaError_t e = cudaEventCreateWithFlags(&t1_done, cudaEventDisableTiming);
-  if (e == cudaSuccess) e = cudaEventCreateWithFlags(&side_done, cudaEventDisableTiming);
+  cudaEvent_t ev[4] = {};  // t2_done[2] (prep for k = 0), prod_done[2]
+  cudaEvent_t* t2_done = ev;
+  cudaEvent_t* prod_done = ev + 2;
+  cudaError_t e = cudaSuccess;
+  for (int i = 0; i < 4 && e == cudaSuccess; ++i)
+    e = cudaEventCreateWithFlags(&ev[i], cudaEventDisableTiming);
   const int nb = npad / B;
-  if (e == cudaSuccess) e = diag<float>(w, dinv, info, npad, 0, B, st);
+  if (e == cudaSuccess) e = cudaEventRecord(t2_done[1], st);
+  if (e == cudaSuccess) e = cudaStreamWaitEvent(side, t2_done[1], 0);
+  if (e == cudaSuccess) e = diag<float>(w, dinv, info, npad, 0, B, side);
   if (e == cudaSuccess) {
     float* below = w + (size_t)B * npad;
-    sgemm_rows_16<false><<<(npad - B) / RT, 256, ROWS_SMEM, st>>>(below, npad, dinv, B,
-                                                                  below, npad);
+    sgemm_rows_16<false><<<(npad - B) / RT, 256, ROWS_SMEM, side>>>(below, npad, dinv, B,
+                                                                    below, npad);
     e = cudaGetLastError();
   }
+  if (e == cudaSuccess) e = cudaEventRecord(prod_done[0], side);
   for (int k = 0; e == cudaSuccess && k + 1 < nb; ++k) {
     const int kn = (k + 1) * B;                       // panel k+1's first row and column
     const int below = npad - kn - B;                  // rows below panel k+1's tile
     const float* pk = w + (size_t)kn * npad + k * B;  // P_k from row kn on
-    if (k > 0 && (e = cudaStreamWaitEvent(st, side_done, 0)) != cudaSuccess) break;
-    sgemm_rows_16<true><<<(below + B) / RT, 256, ROWS_SMEM, st>>>(
+    if (below > 0) {
+      if ((e = cudaStreamWaitEvent(st, prod_done[k % 2], 0)) != cudaSuccess) break;
+      const int t = below / FT;
+      sgemm_nt_128<<<(unsigned)(t * (t + 1) / 2), 256, 0, st>>>(
+          pk + (size_t)B * npad, npad, pk + (size_t)B * npad, npad,
+          w + (size_t)(kn + B) * npad + kn + B, npad, B);
+      if ((e = cudaGetLastError()) != cudaSuccess) break;
+      if ((e = cudaEventRecord(t2_done[k % 2], st)) != cudaSuccess) break;
+    }
+    if ((e = cudaStreamWaitEvent(side, t2_done[(k + 1) % 2], 0)) != cudaSuccess) break;
+    sgemm_rows_16<true><<<(below + B) / RT, 256, ROWS_SMEM, side>>>(
         pk, npad, pk, npad, w + (size_t)kn * npad + kn, npad);
     if ((e = cudaGetLastError()) != cudaSuccess) break;
-    if ((e = cudaEventRecord(t1_done, st)) != cudaSuccess) break;
-    if ((e = cudaStreamWaitEvent(side, t1_done, 0)) != cudaSuccess) break;
     float* dn = dinv + (size_t)(k + 1) * B * B;
     if ((e = diag<float>(w, dn, info, npad, kn, B, side)) != cudaSuccess) break;
     if (below > 0) {
@@ -832,18 +846,11 @@ cudaError_t run_lookahead(float* w, float* dinv, int* info, int npad, cudaStream
       sgemm_rows_16<false><<<below / RT, 256, ROWS_SMEM, side>>>(col, npad, dn, B, col, npad);
       if ((e = cudaGetLastError()) != cudaSuccess) break;
     }
-    if ((e = cudaEventRecord(side_done, side)) != cudaSuccess) break;
-    if (below > 0) {
-      const int t = below / FT;
-      sgemm_nt_128<<<(unsigned)(t * (t + 1) / 2), 256, 0, st>>>(
-          pk + (size_t)B * npad, npad, pk + (size_t)B * npad, npad,
-          w + (size_t)(kn + B) * npad + kn + B, npad, B);
-      e = cudaGetLastError();
-    }
+    e = cudaEventRecord(prod_done[(k + 1) % 2], side);
   }
-  if (e == cudaSuccess && nb > 1) e = cudaStreamWaitEvent(st, side_done, 0);
-  if (t1_done != nullptr) cudaEventDestroy(t1_done);
-  if (side_done != nullptr) cudaEventDestroy(side_done);
+  if (e == cudaSuccess) e = cudaStreamWaitEvent(st, prod_done[(nb - 1) % 2], 0);
+  for (int i = 0; i < 4; ++i)
+    if (ev[i] != nullptr) cudaEventDestroy(ev[i]);
   return e;
 }
 

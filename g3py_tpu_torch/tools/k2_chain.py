@@ -43,7 +43,8 @@ from ..ops.stationary_gram import _plain_form
 #: what slot s of the phase clocks times, in csrc/panel_cholesky.cu's diag_kernel
 PHASES = ("load tile", "leaf 0", "phase B, all steps", "phase C, wait for the other warps",
           "store L's diagonal leaves and Dinv's last rows", "phase C, warp 0: the leaf's update",
-          "phase C, warp 0: factor and invert", "phase C, warp 0: store the leaf")
+          "phase C, warp 0: factor and invert", "phase C, warp 0: store the leaf",
+          "phase C, warp 1: trailing and Z updates", "phase C, warp 4: stores to w and dinv")
 SLOTS = 16
 
 
@@ -148,12 +149,16 @@ def phase_clocks(n):
     if read(ctypes.addressof(buf)) != 0:
         raise RuntimeError("reading the phase clocks failed")
     blocks, ns = buf[SLOTS - 2], buf[SLOTS - 1]
-    cycles = sum(buf[:SLOTS - 2])
+    cycles = sum(buf[:8])  # thread 0's slots
     ns_per_cycle = ns / cycles if cycles else float("nan")
     print(f"  diag_kernel phase clocks n={n}: {blocks} launches, "
           f"{cycles / blocks:.0f} cycles = {ns / blocks / 1e3:.2f} us a launch "
           f"({1 / ns_per_cycle:.3f} GHz)", flush=True)
     for s, name in enumerate(PHASES):
+        if s >= 8:  # warps 1 and 4's own clocks: not part of thread 0's total
+            print(f"    slot {s} {name:26s} {buf[s] / blocks:9.0f} cycles "
+                  f"{buf[s] / blocks * ns_per_cycle / 1e3:7.2f} us", flush=True)
+            continue
         c = buf[s] / blocks
         print(f"    slot {s} {name:26s} {c:9.0f} cycles {c * ns_per_cycle / 1e3:7.2f} us "
               f"{100 * buf[s] / cycles:5.1f}%", flush=True)
