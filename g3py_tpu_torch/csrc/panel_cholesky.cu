@@ -24,9 +24,9 @@
 // 0.34 ms at n=4096, 22 ms at n=16384).  The panel width B sets the bytes
 // the trailing updates move (~4n^3/(3B) in all) and the length of the
 // serial chain of diagonal tiles (n/B of them).  B = 128 is chosen: its f32
-// tile (85 KB with staging) and f64 tile (169 KB) fit one block's shared
-// memory, the trailing traffic is half
-// that of B = 64, and the serial chain is half as long.  The products are
+// tile (84 KiB with staging) and f64 tile (167 KiB) fit one block's shared
+// memory, the trailing traffic is half that of B = 64, and the serial chain
+// is half as long.  The products are
 // FMA kernels of this file (IEEE FP32/FP64 throughout: no tensor cores, no
 // TF32), as the TPU kernel ran its products at Precision.HIGHEST.  wgmma
 // with a 3xTF32 split is a later step.
@@ -36,8 +36,9 @@
 // stream: panel k's update of panel k+1's column only (T1), panel k+1's
 // diagonal tile, its product formed in place (T1 and the product in 16-row
 // blocks that all run at once), while the caller's stream runs the rest of
-// panel k's trailing update (T2).  Other cases (f64, B = 64) run the panel loop in order on the caller's
-// stream, with the product into a scratch panel copied back into L.
+// panel k's trailing update (T2).  Other cases (f64, B = 64) run the panel
+// loop in order on the caller's stream, with the product into a scratch
+// panel copied back into L.
 //
 // Failure is reported, never clamped: the TPU clamped every pivot at 1e-30
 // and returned finite garbage for a non-PD input.  Here the first column
@@ -65,9 +66,9 @@ constexpr int GK = 32;    // depth chunk staged per step
 constexpr int GTH = 16;   // GTH x GTH threads, each PER x PER outputs
 constexpr int PER = GT / GTH;
 
-// w = the lower triangle of a, identity-padded to npad; the strict upper
-// triangle is zero (no later step writes there but the diagonal kernel,
-// which writes zeros), so L needs no masking afterwards.
+// w = the lower triangle of a, identity-padded to npad, zero above the
+// diagonal.  Later steps write above the diagonal only inside diagonal
+// tiles, which the diagonal kernel then zeroes, so L needs no masking.
 template <typename T>
 __global__ void prep_kernel(const T* __restrict__ a, T* __restrict__ w,
                             int* __restrict__ info, int n, int npad) {
@@ -101,9 +102,10 @@ __device__ __forceinline__ float recip_sqrt(float d) {
 __device__ __forceinline__ double recip_sqrt(double d) { return rsqrt(d); }
 
 // Phase clocks of diag_kernel, for measurement only (g3py_tpu_torch/tools/
-// k2_chain.py compiles a copy with -DK2_PHASE_CLOCKS): thread 0 of every
-// diagonal-tile block adds the clock64() cycles since its previous tick to
-// slot s; the last two slots count the blocks and their globaltimer ns.
+// k2_chain.py compiles a copy with -DK2_PHASE_CLOCKS): K2_TICK(s) adds
+// thread 0's clock64() cycles since its previous tick to slot s, K2_TICK_AT
+// (s, t) thread t's (slots 12 and 13 only restart a thread's clock); the
+// last two slots count the blocks and their globaltimer ns.
 #ifdef K2_PHASE_CLOCKS
 constexpr int K2_SLOTS = 16;
 __device__ unsigned long long k2_phase_cycles[K2_SLOTS];
@@ -112,30 +114,25 @@ __device__ __forceinline__ unsigned long long global_ns() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
-#define K2_TICK_START                       \
-  long long k2_clk = clock64();             \
+#define K2_TICK_START                 \
+  long long k2_clk = clock64();       \
   const unsigned long long k2_ns0 = global_ns();
-#define K2_TICK(s)                                                              \
-  if (threadIdx.x == 0 && threadIdx.y == 0) {                                   \
-    const long long now = clock64();                                            \
-    atomicAdd(&k2_phase_cycles[s], (unsigned long long)(now - k2_clk));         \
-    k2_clk = now;                                                               \
+#define K2_TICK_AT(s, t)                                                \
+  if (threadIdx.x == (t)) {                                             \
+    const long long now = clock64();                                    \
+    atomicAdd(&k2_phase_cycles[s], (unsigned long long)(now - k2_clk)); \
+    k2_clk = now;                                                       \
   }
-#define K2_TICK_AT(s, t)                                                        \
-  if (threadIdx.x == (t) && threadIdx.y == 0) {                                 \
-    const long long now = clock64();                                            \
-    atomicAdd(&k2_phase_cycles[s], (unsigned long long)(now - k2_clk));         \
-    k2_clk = now;                                                               \
-  }
-#define K2_TICK_END                                                             \
-  if (threadIdx.x == 0 && threadIdx.y == 0) {                                   \
-    atomicAdd(&k2_phase_cycles[K2_SLOTS - 2], 1ull);                            \
-    atomicAdd(&k2_phase_cycles[K2_SLOTS - 1], global_ns() - k2_ns0);            \
+#define K2_TICK(s) K2_TICK_AT(s, 0)
+#define K2_TICK_END                                                  \
+  if (threadIdx.x == 0) {                                            \
+    atomicAdd(&k2_phase_cycles[K2_SLOTS - 2], 1ull);                 \
+    atomicAdd(&k2_phase_cycles[K2_SLOTS - 1], global_ns() - k2_ns0); \
   }
 #else
 #define K2_TICK_START
-#define K2_TICK(s)
 #define K2_TICK_AT(s, t)
+#define K2_TICK(s)
 #define K2_TICK_END
 #endif
 
