@@ -75,7 +75,8 @@ def _label(evt):
 
 def timeline(n, out_dir, panels=True):
     """Trace one factorization; print its panels (or, without ``panels``,
-    only the summary); return a summary dict."""
+    only the summary); return a summary dict, or None when the trace holds
+    no diagonal-tile launch (the profiler saw no device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     a = se_gram(n)
@@ -90,11 +91,16 @@ def timeline(n, out_dir, panels=True):
     events = [e for e in json.loads(path.read_text())["traceEvents"]
               if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy")]
     events.sort(key=lambda e: e["ts"])
-    main = next(e["args"]["stream"] for e in events if "prep_kernel" in e["name"])
+    diags = [e for e in events if "diag_kernel" in e["name"]]
+    if not diags:
+        print(f"  timeline n={n}: not measured (no diagonal-tile launch in the trace)", flush=True)
+        return None
+    # the lookahead runs every diagonal tile but the first on its side stream
+    side = diags[-1]["args"]["stream"]
     t0 = events[0]["ts"]
     span = max(e["ts"] + e["dur"] for e in events) - t0
-    starts = [e["ts"] for e in events if "diag_kernel" in e["name"]]
-    diag_us = [e["dur"] for e in events if "diag_kernel" in e["name"]]
+    starts = [e["ts"] for e in diags]
+    diag_us = [e["dur"] for e in diags]
     print(f"  timeline n={n}: {len(starts)} panels, factorization span {span:.1f} us "
           f"(first device event to last), diag_kernel {sum(diag_us):.1f} us in all", flush=True)
     if panels:
@@ -110,12 +116,12 @@ def timeline(n, out_dir, panels=True):
         chain = hi - lo
         if k + 1 < len(starts):
             chains.append(chain)
-        parts = [f"{'main' if e['args']['stream'] == main else 'side'}:{_label(e)} "
+        parts = [f"{'side' if e['args']['stream'] == side else 'main'}:{_label(e)} "
                  f"{e['dur']:.1f}" for e in events if lo <= e["ts"] < hi]
         if panels:
             print(f"    {k:2d} {lo - t0:7.1f} {chain:7.1f} | " + ", ".join(parts), flush=True)
     for stream, t in sorted(busy.items()):
-        print(f"    stream {'main' if stream == main else 'side'} ({stream}): busy {t:.1f} us "
+        print(f"    stream {'side' if stream == side else 'main'} ({stream}): busy {t:.1f} us "
               f"= {100 * t / span:.1f}% of the span", flush=True)
     med = statistics.median(chains) if chains else float("nan")
     print(f"    chain interval: median {med:.1f} us, min {min(chains, default=0):.1f}, "
