@@ -73,6 +73,38 @@ def _label(evt):
     return f"{name[:24]}[{blocks}]"
 
 
+def chain_summary(events):
+    """The panels of one traced factorization, from its device events
+    (chrome-trace "X" events of category kernel or gpu_memcpy), cut at the
+    diagonal-tile starts; None when no diagonal-tile launch is among them.
+    Returns a dict: ``side`` (the lookahead's stream), ``span_us`` (first
+    event to last), ``panels`` (per panel: start offset, interval to the
+    next tile start or the end, and the (stream, label, duration) of every
+    event that started in it), ``chains`` (the intervals between tile
+    starts), ``busy_us`` per stream and ``diag_us``."""
+    events = sorted(events, key=lambda e: e["ts"])
+    diags = [e for e in events if "diag_kernel" in e["name"]]
+    if not diags:
+        return None
+    # the lookahead runs every diagonal tile on its side stream
+    side = diags[-1]["args"]["stream"]
+    t0 = events[0]["ts"]
+    span = max(e["ts"] + e["dur"] for e in events) - t0
+    bounds = [e["ts"] for e in diags] + [t0 + span]
+    busy = {}
+    for e in events:
+        busy[e["args"]["stream"]] = busy.get(e["args"]["stream"], 0.0) + e["dur"]
+    panels = []
+    for k in range(len(diags)):
+        lo, hi = bounds[k], bounds[k + 1]
+        parts = [("side" if e["args"]["stream"] == side else "main", _label(e), e["dur"])
+                 for e in events if lo <= e["ts"] < hi]
+        panels.append((lo - t0, hi - lo, parts))
+    return {"side": side, "span_us": span, "panels": panels,
+            "chains": [p[1] for p in panels[:-1]], "busy_us": busy,
+            "diag_us": [e["dur"] for e in diags]}
+
+
 def timeline(n, out_dir, panels=True):
     """Trace one factorization; print its panels (or, without ``panels``,
     only the summary); return a summary dict, or None when the trace holds
@@ -88,41 +120,23 @@ def timeline(n, out_dir, panels=True):
     out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / f"k2_trace_n{n}.json"
     prof.export_chrome_trace(str(path))
-    events = [e for e in json.loads(path.read_text())["traceEvents"]
-              if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy")]
-    events.sort(key=lambda e: e["ts"])
-    diags = [e for e in events if "diag_kernel" in e["name"]]
-    if not diags:
+    summary = chain_summary([e for e in json.loads(path.read_text())["traceEvents"]
+                             if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy")])
+    if summary is None:
         print(f"  timeline n={n}: not measured (no diagonal-tile launch in the trace)", flush=True)
         return None
-    # the lookahead runs every diagonal tile but the first on its side stream
-    side = diags[-1]["args"]["stream"]
-    t0 = events[0]["ts"]
-    span = max(e["ts"] + e["dur"] for e in events) - t0
-    starts = [e["ts"] for e in diags]
-    diag_us = [e["dur"] for e in diags]
-    print(f"  timeline n={n}: {len(starts)} panels, factorization span {span:.1f} us "
+    span, chains, diag_us = summary["span_us"], summary["chains"], summary["diag_us"]
+    print(f"  timeline n={n}: {len(diag_us)} panels, factorization span {span:.1f} us "
           f"(first device event to last), diag_kernel {sum(diag_us):.1f} us in all", flush=True)
     if panels:
         print("    k   start   chain | events that started in the panel: stream label dur(us)",
               flush=True)
-    bounds = starts + [t0 + span]
-    chains = []
-    busy = {}
-    for e in events:
-        busy[e["args"]["stream"]] = busy.get(e["args"]["stream"], 0.0) + e["dur"]
-    for k in range(len(starts)):
-        lo, hi = bounds[k], bounds[k + 1]
-        chain = hi - lo
-        if k + 1 < len(starts):
-            chains.append(chain)
-        parts = [f"{'side' if e['args']['stream'] == side else 'main'}:{_label(e)} "
-                 f"{e['dur']:.1f}" for e in events if lo <= e["ts"] < hi]
-        if panels:
-            print(f"    {k:2d} {lo - t0:7.1f} {chain:7.1f} | " + ", ".join(parts), flush=True)
-    for stream, t in sorted(busy.items()):
-        print(f"    stream {'side' if stream == side else 'main'} ({stream}): busy {t:.1f} us "
-              f"= {100 * t / span:.1f}% of the span", flush=True)
+        for k, (start, chain, parts) in enumerate(summary["panels"]):
+            print(f"    {k:2d} {start:7.1f} {chain:7.1f} | "
+                  + ", ".join(f"{who}:{label} {dur:.1f}" for who, label, dur in parts), flush=True)
+    for stream, t in sorted(summary["busy_us"].items()):
+        print(f"    stream {'side' if stream == summary['side'] else 'main'} ({stream}): busy "
+              f"{t:.1f} us = {100 * t / span:.1f}% of the span", flush=True)
     med = statistics.median(chains) if chains else float("nan")
     print(f"    chain interval: median {med:.1f} us, min {min(chains, default=0):.1f}, "
           f"max {max(chains, default=0):.1f}; diag_kernel median {statistics.median(diag_us):.1f} us",
