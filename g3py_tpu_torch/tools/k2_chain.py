@@ -1,6 +1,6 @@
 """Where the time of one K2 factorization goes, on the card.
 
-    python3 -m g3py_tpu_torch.tools.k2_chain [--n 4096] [--out chiprun_out]
+    python3 -m g3py_tpu_torch.tools.k2_chain [--n 4096] [--out build/k2_trace]
     python3 -m g3py_tpu_torch.tools.k2_chain --n 4096 16384 --compare OTHER_ROOT
 
 Two measurements of ``panel_cholesky`` in float32 on an SE gram + 0.1 noise
@@ -235,7 +235,7 @@ def compare(other, sizes):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, nargs="+", default=[4096])
-    ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--out", default="build/k2_trace")
     ap.add_argument("--compare", metavar="OTHER_ROOT")
     args = ap.parse_args()
     if not torch.cuda.is_available():
