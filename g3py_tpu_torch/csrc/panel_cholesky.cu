@@ -4,6 +4,15 @@
 //                                  Dinv[k] = L_kk^{-1} for every B x B panel,
 //                                  info (0, or 1 + the first failing column)
 //
+// over a batch of `batch` independent matrices (the hyperparameter rows of
+// a sampler step or of an averaged predictor).  Every kernel of the panel
+// loop takes the batch in its grid (blockIdx.x of diag_kernel, blockIdx.y
+// of the FP32 products, blockIdx.z of nt_tile_kernel, the flat index of
+// the elementwise kernels), so the R matrices share one launch sequence,
+// one side stream and one pair of events a panel: the serial chain of
+// diagonal tiles runs R blocks at a time instead of one.  Row offsets are
+// size_t (batch * npad^2 passes 2^31 at n = 16384, batch >= 8).
+//
 // Replaces the TPU kernel g3py_tpu/ops/pallas_cholesky.py::_pallas_cholesky
 // (body _make_kernel, panel helpers _panel_factorize and _panel_invert).
 // The TPU ran its panel loop as a sequential grid inside one kernel and
@@ -48,10 +57,11 @@
 // n is padded with identity (prep) and L is copied back to n x n (finish);
 // info counts in the caller's columns.
 //
-// Nothing is allocated here: the caller passes the working matrix w
-// (npad x npad; it may alias out when n == npad), a scratch panel pan
-// ((npad - B) x B; the in-order loop uses it), dinv (npad/B x B x B), out
-// (n x n) and info (one int).  The input a is only read.
+// Nothing is allocated here: the caller passes, for each matrix of the
+// batch, the working matrix w (npad x npad; it may alias out when n ==
+// npad), a scratch panel pan ((npad - B) x B; the in-order loop uses it),
+// dinv (npad/B x B x B), out (n x n) and info (one int).  The input a is
+// only read.
 
 #include <cuda_runtime.h>
 
@@ -69,27 +79,50 @@ constexpr int PER = GT / GTH;
 // w = the lower triangle of a, identity-padded to npad, zero above the
 // diagonal.  Later steps write above the diagonal only inside diagonal
 // tiles, which the diagonal kernel then zeroes, so L needs no masking.
+// Grid-stride over every matrix of the batch; info[r] = 0 for each.
 template <typename T>
 __global__ void prep_kernel(const T* __restrict__ a, T* __restrict__ w,
-                            int* __restrict__ info, int n, int npad) {
-  const long long total = (long long)npad * npad;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e == 0) *info = 0;
-  for (; e < total; e += stride) {
-    const int i = (int)(e / npad);
-    const int j = (int)(e % npad);
-    w[e] = (j <= i && i < n) ? a[(size_t)i * n + j] : (i == j ? T(1) : T(0));
+                            int* __restrict__ info, int n, int npad, int batch) {
+  const size_t plane = (size_t)npad * npad;
+  const size_t total = plane * batch;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t e0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (size_t r = e0; r < (size_t)batch; r += stride) info[r] = 0;
+  for (size_t e = e0; e < total; e += stride) {
+    const size_t r = e / plane;
+    const size_t q = e - r * plane;
+    const int i = (int)(q / npad);
+    const int j = (int)(q % npad);
+    w[e] = (j <= i && i < n) ? a[(r * n + i) * n + j] : (i == j ? T(1) : T(0));
   }
 }
 
+// out[r] (n x n) = the leading n x n block of w[r] (npad x npad).
 template <typename T>
-__global__ void finish_kernel(const T* w, int ldw, T* out, int n) {
-  const long long total = (long long)n * n;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += stride)
-    out[e] = w[(size_t)(e / n) * ldw + e % n];
+__global__ void finish_kernel(const T* w, int npad, T* out, int n, int batch) {
+  const size_t plane = (size_t)n * n;
+  const size_t total = plane * batch;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
+    const size_t r = e / plane;
+    const size_t q = e - r * plane;
+    out[e] = w[(r * npad + q / n) * npad + q % n];
+  }
+}
+
+// The in-order loop's copy of the scratch panel back into L: rows x B
+// values of each matrix, pan[r] (ld B, stride ps) -> dst + r * ds (ld ldd).
+template <typename T>
+__global__ void copy_panel_kernel(const T* __restrict__ pan, size_t ps, T* dst, int ldd,
+                                  size_t ds, int rows, int B, int batch) {
+  const size_t plane = (size_t)rows * B;
+  const size_t total = plane * batch;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
+    const size_t r = e / plane;
+    const size_t q = e - r * plane;
+    dst[r * ds + (q / B) * ldd + q % B] = pan[r * ps + q];
+  }
 }
 
 // 1 / sqrt(d): the float form refines the hardware estimate by one Newton
@@ -269,7 +302,8 @@ __device__ __forceinline__ void leaf_store(T* t, T* rd, T* xl, int j0, const T (
 
 // Factor and invert the diagonal tile at (kb, kb) of w (leading dimension
 // ld); writes L_kk into w (zero above the diagonal) and L_kk^{-1} (zero
-// strict upper) into dinv.
+// strict upper) into dinv.  Block b works on matrix b of the batch: w + b
+// ws, dinv + b ds, info + b.
 //
 // A right-looking loop over leaves of LW = 16 columns, in which every step
 // keeps the warps busy and the inverse X = L_kk^{-1} is built alongside the
@@ -292,7 +326,11 @@ __device__ __forceinline__ void leaf_store(T* t, T* rd, T* xl, int j0, const T (
 // transposed above the diagonal, and X's diagonal in rd.
 template <typename T, int B>
 __global__ void __launch_bounds__(DTH, 1)
-diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info, int ld, int kb) {
+diag_kernel(T* __restrict__ w, T* __restrict__ dinv, int* __restrict__ info, int ld, int kb,
+            size_t ws, size_t ds) {
+  w += blockIdx.x * ws;
+  dinv += blockIdx.x * ds;
+  info += blockIdx.x;
   constexpr int S = B + 1;   // tile row: odd, so a column's entries hit distinct banks
   constexpr int QS = B + 4;  // k-major row: 16-byte aligned for the 4-wide loads
   constexpr int NL = B / LW;
@@ -493,24 +531,30 @@ constexpr int diag_smem(int B) {
   return (B * (B + 1) + B + 2 * LW * (B + 4) + 2 * LW * LW) * (int)sizeof(T);
 }
 
+// One block a matrix of the batch.
 template <typename T>
-cudaError_t diag(T* w, T* dk, int* info, int ld, int kb, int B, cudaStream_t st) {
+cudaError_t diag(T* w, T* dk, int* info, int ld, int kb, int B, int batch, size_t ws,
+                 size_t ds, cudaStream_t st) {
   if (B == 128)
-    diag_kernel<T, 128><<<1, DTH, diag_smem<T>(128), st>>>(w, dk, info, ld, kb);
+    diag_kernel<T, 128><<<batch, DTH, diag_smem<T>(128), st>>>(w, dk, info, ld, kb, ws, ds);
   else
-    diag_kernel<T, 64><<<1, DTH, diag_smem<T>(64), st>>>(w, dk, info, ld, kb);
+    diag_kernel<T, 64><<<batch, DTH, diag_smem<T>(64), st>>>(w, dk, info, ld, kb, ws, ds);
   return cudaGetLastError();
 }
 
 // C[GT x GT tile] (=, or -= when SUB) X_rows * Y_rows^T over depth K, all
 // row-major; each thread owns 4 x 4 outputs in registers, the depth is
 // staged GK at a time in shared memory.  With tri, blockIdx.x enumerates
-// the tiles of a lower triangle; otherwise blockIdx = (bj, bi).  The
+// the tiles of a lower triangle; otherwise blockIdx = (bj, bi).
+// blockIdx.z is the matrix of the batch (operands sx, sy, sc apart).  The
 // generic form (f64, B = 64).
 template <typename T, bool SUB>
 __global__ void __launch_bounds__(GTH * GTH)
 nt_tile_kernel(const T* __restrict__ x, int ldx, const T* __restrict__ y, int ldy,
-               T* c, int ldc, int K, int tri) {
+               T* c, int ldc, int K, int tri, size_t sx, size_t sy, size_t sc) {
+  x += blockIdx.z * sx;
+  y += blockIdx.z * sy;
+  c += blockIdx.z * sc;
   __shared__ T xs[GK][GT + 1];
   __shared__ T ys[GK][GT + 1];
   int bi = blockIdx.y, bj = blockIdx.x;
@@ -571,14 +615,18 @@ nt_tile_kernel(const T* __restrict__ x, int ldx, const T* __restrict__ y, int ld
 // memory, in two stages: the next chunk's 16-byte global loads are in
 // flight while the current one is multiplied.  Every operand read from
 // shared memory is a 16-byte load, four of them per 64 FMAs.  Requires
-// 16-byte aligned rows (ld % 4 == 0) and K % 8 == 0.
+// 16-byte aligned rows (ld % 4 == 0) and K % 8 == 0.  blockIdx.y is the
+// matrix of the batch (operands sx, sy, sc apart).
 constexpr int FT = 128;
 constexpr int FK = 8;
 constexpr int FS = FT + 4;  // padded k-row: the transposing stores hit distinct banks
 
 __global__ void __launch_bounds__(256, 2)
 sgemm_nt_128(const float* __restrict__ x, int ldx, const float* __restrict__ y, int ldy,
-             float* c, int ldc, int K) {
+             float* c, int ldc, int K, size_t sx, size_t sy, size_t sc) {
+  x += blockIdx.y * sx;
+  y += blockIdx.y * sy;
+  c += blockIdx.y * sc;
   __shared__ __align__(16) float xs[2][FK][FS];
   __shared__ __align__(16) float ys[2][FK][FS];
   int bi, bj;
@@ -656,6 +704,7 @@ sgemm_nt_128(const float* __restrict__ x, int ldx, const float* __restrict__ y, 
 // halves of the depth go to two groups of 4 warps, summed at the end.  A
 // block reads its rows of X whole before it writes C, and no other block
 // reads them, so C may alias X: the panel product is written in place.
+// blockIdx.y is the matrix of the batch (operands sx, sy, sc apart).
 constexpr int RT = 16;
 constexpr int RTS = RT + 4;  // k-major row of the X stage
 constexpr int ROWS_SMEM = FT * (RTS + FS) * (int)sizeof(float);
@@ -663,7 +712,10 @@ constexpr int ROWS_SMEM = FT * (RTS + FS) * (int)sizeof(float);
 template <bool SUB>
 __global__ void __launch_bounds__(256)
 sgemm_rows_16(const float* x, int ldx, const float* __restrict__ y, int ldy, float* c,
-              int ldc) {
+              int ldc, size_t sx, size_t sy, size_t sc) {
+  x += blockIdx.y * sx;
+  y += blockIdx.y * sy;
+  c += blockIdx.y * sc;
   extern __shared__ __align__(16) float rows_smem[];
   float* xs = rows_smem;         // FT x RTS: X^T
   float* ys = xs + FT * RTS;     // FT x FS: Y^T
@@ -740,29 +792,37 @@ sgemm_rows_16(const float* x, int ldx, const float* __restrict__ y, int ldy, flo
   }
 }
 
+int grid_for(size_t total) {
+  size_t blocks = (total + 255) / 256;
+  if (blocks > 132 * 64) blocks = 132 * 64;
+  return blocks < 1 ? 1 : (int)blocks;
+}
+
 // The in-order loop's panel product: pan = A[below, k] Dinv_k^T, copied
 // back into L's column panel (the product's blocks share rows, so it
-// cannot be written in place).
+// cannot be written in place).  nrow rows below the diagonal tile; the
+// matrices of the batch are ws (w), ds (dinv) and ps (pan) apart.
 template <typename T>
-cudaError_t panel_product(T* w, const T* dk, T* pan, int npad, int kb, int B, int R,
-                          cudaStream_t st) {
+cudaError_t panel_product(T* w, const T* dk, T* pan, int npad, int kb, int B, int nrow,
+                          int batch, size_t ws, size_t ds, size_t ps, cudaStream_t st) {
   T* below = w + (size_t)(kb + B) * npad + kb;
-  nt_tile_kernel<T, false><<<dim3(B / GT, R / GT), GTH * GTH, 0, st>>>(
-      below, npad, dk, B, pan, B, B, 0);
+  nt_tile_kernel<T, false><<<dim3(B / GT, nrow / GT, batch), GTH * GTH, 0, st>>>(
+      below, npad, dk, B, pan, B, B, 0, ws, ds, ps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return cudaMemcpy2DAsync(below, (size_t)npad * sizeof(T), pan, (size_t)B * sizeof(T),
-                           (size_t)B * sizeof(T), R, cudaMemcpyDeviceToDevice, st);
+  copy_panel_kernel<T><<<grid_for((size_t)nrow * B * batch), 256, 0, st>>>(
+      pan, ps, below, npad, ws, nrow, B, batch);
+  return cudaGetLastError();
 }
 
 // The in-order loop's trailing update: the whole lower trailing triangle
 // below and right of the diagonal tile.
 template <typename T>
-cudaError_t trailing_update(T* w, const T* pan, int npad, int kb, int B, int R,
-                            cudaStream_t st) {
-  const long long t = R / GT;
-  nt_tile_kernel<T, true><<<(unsigned)(t * (t + 1) / 2), GTH * GTH, 0, st>>>(
-      pan, B, pan, B, w + (size_t)(kb + B) * npad + kb + B, npad, B, 1);
+cudaError_t trailing_update(T* w, const T* pan, int npad, int kb, int B, int nrow,
+                            int batch, size_t ws, size_t ps, cudaStream_t st) {
+  const long long t = nrow / GT;
+  nt_tile_kernel<T, true><<<dim3((unsigned)(t * (t + 1) / 2), 1, batch), GTH * GTH, 0, st>>>(
+      pan, B, pan, B, w + (size_t)(kb + B) * npad + kb + B, npad, B, 1, ps, ps, ws);
   return cudaGetLastError();
 }
 
@@ -797,9 +857,14 @@ cudaStream_t side_stream() {
 // So the serial chain of panels runs on the side stream alone, and T2(k)
 // runs beside T1(k), diag(k+1) and panel k+1's product.  The streams hand
 // over with two events each way, used alternately, so that each wait names
-// the launch it needs (T2(k-1), product k) and not a later one.
-cudaError_t run_lookahead(float* w, float* dinv, int* info, int npad, cudaStream_t st) {
+// the launch it needs (T2(k-1), product k) and not a later one.  Every
+// launch covers the whole batch (ws, ds: the matrices' strides in w and
+// dinv), so the events are per panel, not per matrix.
+cudaError_t run_lookahead(float* w, float* dinv, int* info, int npad, int batch,
+                          cudaStream_t st) {
   constexpr int B = FT;
+  const size_t ws = (size_t)npad * npad;
+  const size_t ds = (size_t)(npad / B) * B * B;
   cudaStream_t side = side_stream();
   if (side == nullptr) return cudaErrorInvalidResourceHandle;
   cudaEvent_t ev[4] = {};  // t2_done[2] (prep for k = 0), prod_done[2]
@@ -811,11 +876,11 @@ cudaError_t run_lookahead(float* w, float* dinv, int* info, int npad, cudaStream
   const int nb = npad / B;
   if (e == cudaSuccess) e = cudaEventRecord(t2_done[1], st);
   if (e == cudaSuccess) e = cudaStreamWaitEvent(side, t2_done[1], 0);
-  if (e == cudaSuccess) e = diag<float>(w, dinv, info, npad, 0, B, side);
+  if (e == cudaSuccess) e = diag<float>(w, dinv, info, npad, 0, B, batch, ws, ds, side);
   if (e == cudaSuccess) {
     float* below = w + (size_t)B * npad;
-    sgemm_rows_16<false><<<(npad - B) / RT, 256, ROWS_SMEM, side>>>(below, npad, dinv, B,
-                                                                    below, npad);
+    sgemm_rows_16<false><<<dim3((npad - B) / RT, batch), 256, ROWS_SMEM, side>>>(
+        below, npad, dinv, B, below, npad, ws, ds, ws);
     e = cudaGetLastError();
   }
   if (e == cudaSuccess) e = cudaEventRecord(prod_done[0], side);
@@ -826,21 +891,22 @@ cudaError_t run_lookahead(float* w, float* dinv, int* info, int npad, cudaStream
     if (below > 0) {
       if ((e = cudaStreamWaitEvent(st, prod_done[k % 2], 0)) != cudaSuccess) break;
       const int t = below / FT;
-      sgemm_nt_128<<<(unsigned)(t * (t + 1) / 2), 256, 0, st>>>(
+      sgemm_nt_128<<<dim3((unsigned)(t * (t + 1) / 2), batch), 256, 0, st>>>(
           pk + (size_t)B * npad, npad, pk + (size_t)B * npad, npad,
-          w + (size_t)(kn + B) * npad + kn + B, npad, B);
+          w + (size_t)(kn + B) * npad + kn + B, npad, B, ws, ws, ws);
       if ((e = cudaGetLastError()) != cudaSuccess) break;
       if ((e = cudaEventRecord(t2_done[k % 2], st)) != cudaSuccess) break;
     }
     if ((e = cudaStreamWaitEvent(side, t2_done[(k + 1) % 2], 0)) != cudaSuccess) break;
-    sgemm_rows_16<true><<<(below + B) / RT, 256, ROWS_SMEM, side>>>(
-        pk, npad, pk, npad, w + (size_t)kn * npad + kn, npad);
+    sgemm_rows_16<true><<<dim3((below + B) / RT, batch), 256, ROWS_SMEM, side>>>(
+        pk, npad, pk, npad, w + (size_t)kn * npad + kn, npad, ws, ws, ws);
     if ((e = cudaGetLastError()) != cudaSuccess) break;
     float* dn = dinv + (size_t)(k + 1) * B * B;
-    if ((e = diag<float>(w, dn, info, npad, kn, B, side)) != cudaSuccess) break;
+    if ((e = diag<float>(w, dn, info, npad, kn, B, batch, ws, ds, side)) != cudaSuccess) break;
     if (below > 0) {
       float* col = w + (size_t)(kn + B) * npad + kn;  // panel k+1 below its tile
-      sgemm_rows_16<false><<<below / RT, 256, ROWS_SMEM, side>>>(col, npad, dn, B, col, npad);
+      sgemm_rows_16<false><<<dim3(below / RT, batch), 256, ROWS_SMEM, side>>>(
+          col, npad, dn, B, col, npad, ws, ds, ws);
       if ((e = cudaGetLastError()) != cudaSuccess) break;
     }
     e = cudaEventRecord(prod_done[(k + 1) % 2], side);
@@ -851,16 +917,11 @@ cudaError_t run_lookahead(float* w, float* dinv, int* info, int npad, cudaStream
   return e;
 }
 
-int grid_for(long long total) {
-  long long blocks = (total + 255) / 256;
-  if (blocks > 132 * 64) blocks = 132 * 64;
-  return blocks < 1 ? 1 : (int)blocks;
-}
-
 template <typename T>
 int run(const T* a, T* w, T* out, T* pan, T* dinv, int* info, int n, int npad,
-        int B, cudaStream_t st) {
-  if ((B != 64 && B != 128) || npad % B != 0 || n > npad || n < 1)
+        int B, int batch, cudaStream_t st) {
+  if ((B != 64 && B != 128) || npad % B != 0 || n > npad || n < 1 || batch < 1 ||
+      batch > 65535)
     return (int)cudaErrorInvalidValue;
   const bool lookahead = sizeof(T) == 4 && B == FT && npad > B;
   cudaError_t e = B == 128 ? cudaFuncSetAttribute(diag_kernel<T, 128>,
@@ -878,26 +939,34 @@ int run(const T* a, T* w, T* out, T* pan, T* dinv, int* info, int n, int npad,
   }
   if (e != cudaSuccess) return (int)e;
 
-  prep_kernel<T><<<grid_for((long long)npad * npad), 256, 0, st>>>(a, w, info, n, npad);
+  const size_t ws = (size_t)npad * npad;             // w's matrices apart
+  const size_t ds = (size_t)(npad / B) * B * B;        // dinv's
+  const size_t ps = (size_t)(npad > B ? npad - B : 1) * B;  // pan's
+  prep_kernel<T><<<grid_for(ws * batch), 256, 0, st>>>(a, w, info, n, npad, batch);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   if constexpr (sizeof(T) == 4) {
-    if (lookahead) e = run_lookahead(w, dinv, info, npad, st);
+    if (lookahead) e = run_lookahead(w, dinv, info, npad, batch, st);
   }
   if (!lookahead) {
     for (int k = 0; k < npad / B; ++k) {
       const int kb = k * B;
-      const int R = npad - kb - B;  // rows below the diagonal tile
+      const int nrow = npad - kb - B;  // rows below the diagonal tile
       T* dk = dinv + (size_t)k * B * B;
-      if ((e = diag<T>(w, dk, info, npad, kb, B, st)) != cudaSuccess) return (int)e;
-      if (R == 0) break;
-      if ((e = panel_product<T>(w, dk, pan, npad, kb, B, R, st)) != cudaSuccess) return (int)e;
-      if ((e = trailing_update<T>(w, pan, npad, kb, B, R, st)) != cudaSuccess) return (int)e;
+      if ((e = diag<T>(w, dk, info, npad, kb, B, batch, ws, ds, st)) != cudaSuccess)
+        return (int)e;
+      if (nrow == 0) break;
+      if ((e = panel_product<T>(w, dk, pan, npad, kb, B, nrow, batch, ws, ds, ps, st)) !=
+          cudaSuccess)
+        return (int)e;
+      if ((e = trailing_update<T>(w, pan, npad, kb, B, nrow, batch, ws, ps, st)) !=
+          cudaSuccess)
+        return (int)e;
     }
   }
   if (e != cudaSuccess) return (int)e;
   if (w == out) return 0;  // L is already in place, zero above its diagonal
-  finish_kernel<T><<<grid_for((long long)n * n), 256, 0, st>>>(w, npad, out, n);
+  finish_kernel<T><<<grid_for((size_t)n * n * batch), 256, 0, st>>>(w, npad, out, n, batch);
   return (int)cudaGetLastError();
 }
 
@@ -913,18 +982,20 @@ extern "C" int panel_cholesky_phase_cycles(unsigned long long* host) {
 }
 #endif
 
-// C entry points: every pointer is a device pointer; the return value is
-// the cudaError_t of the launches (0 on success).
+// C entry points: every pointer is a device pointer to `batch` consecutive
+// matrices (a, out: n x n; w: npad x npad; pan: max(npad - B, 1) x B; dinv:
+// npad/B panels of B x B; info: one int each); the return value is the
+// cudaError_t of the launches (0 on success).
 extern "C" int panel_cholesky_f32(const float* a, float* w, float* out, float* pan,
                                   float* dinv, int* info, int n, int npad, int block,
-                                  void* stream) {
-  return run<float>(a, w, out, pan, dinv, info, n, npad, block,
+                                  int batch, void* stream) {
+  return run<float>(a, w, out, pan, dinv, info, n, npad, block, batch,
                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int panel_cholesky_f64(const double* a, double* w, double* out, double* pan,
                                   double* dinv, int* info, int n, int npad, int block,
-                                  void* stream) {
-  return run<double>(a, w, out, pan, dinv, info, n, npad, block,
+                                  int batch, void* stream) {
+  return run<double>(a, w, out, pan, dinv, info, n, npad, block, batch,
                      static_cast<cudaStream_t>(stream));
 }

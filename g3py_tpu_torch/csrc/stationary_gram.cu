@@ -2,9 +2,11 @@
 //
 //   out[i, j] = var * k(0.5 * sum_d (s1[i, d] - s2[j, d])^2)
 //
-// for the four ARD_L2 families (SE, MAT32, MAT52, RQ).  The caller has
-// already scaled both point sets by the ARD rate and centred them, so the
-// kernel sees plain coordinates.
+// for the four ARD_L2 families (SE, MAT32, MAT52, RQ), over a batch of
+// `batch` independent rows r: s1[r] (m x d), s2[r] (n x d), var[r],
+// alpha[r] -> out[r] (m x n).  The caller has already scaled both point
+// sets by the row's ARD rate and centred them, so the kernel sees plain
+// coordinates.  A single gram is the batch of one.
 //
 // Replaces the TPU kernel g3py_tpu/ops/pallas_gram.py::_stationary_kernel
 // (launched by _stationary_gram_pallas).  The TPU tile formed the distance
@@ -20,9 +22,10 @@
 // of the distance sum dominate; the s1/s2 feature chunks staged in shared
 // memory give each loaded value 4 reuses per thread.
 //
-// Design: one block owns a 64 x 64 output tile; 16 x 16 threads each own
-// 4 x 4 outputs (rows ty + 16 r, columns tx + 16 c).  Features are staged
-// in chunks of KC, so any d works; ragged m, n and d are masked.  var and
+// Design: one block owns a 64 x 64 output tile of one row (blockIdx.z is
+// the row: the rows of a hyperparameter batch share one launch); 16 x 16
+// threads each own 4 x 4 outputs (rows ty + 16 r, columns tx + 16 c).
+// Features are staged in chunks of KC, so any d works; ragged m, n and d are masked.  var and
 // the RQ alpha are read from device memory (no host sync).  No fast-math:
 // exp, sqrt and pow are the IEEE-accurate library versions.
 
@@ -58,6 +61,11 @@ stationary_gram_kernel(const T* __restrict__ s1, const T* __restrict__ s2,
                        const T* __restrict__ var_ptr,
                        const T* __restrict__ alpha_ptr, T* __restrict__ out,
                        int m, int n, int d) {
+  // the row's operands (offsets in size_t: batch * m * n may pass 2^31)
+  const size_t row = blockIdx.z;
+  s1 += row * m * d;
+  s2 += row * n * d;
+  out += row * m * n;
   // feature-major staging: the inner loop reads a[k][row] and b[k][col]
   __shared__ T a[KC][TILE];
   __shared__ T b[KC][TILE];
@@ -106,8 +114,8 @@ stationary_gram_kernel(const T* __restrict__ s1, const T* __restrict__ s2,
     __syncthreads();
   }
 
-  const T var = *var_ptr;
-  const T alpha = (KIND == RQ) ? *alpha_ptr : T(1);
+  const T var = var_ptr[row];
+  const T alpha = (KIND == RQ) ? alpha_ptr[row] : T(1);
 #pragma unroll
   for (int r = 0; r < PER; ++r) {
     const int gi = row0 + ty + THREADS * r;
@@ -122,9 +130,10 @@ stationary_gram_kernel(const T* __restrict__ s1, const T* __restrict__ s2,
 
 template <typename T>
 int launch(const T* s1, const T* s2, const T* var, const T* alpha, T* out,
-           int m, int n, int d, int kind, cudaStream_t stream) {
+           int m, int n, int d, int batch, int kind, cudaStream_t stream) {
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   const dim3 block(THREADS, THREADS);
-  const dim3 grid((n + TILE - 1) / TILE, (m + TILE - 1) / TILE);
+  const dim3 grid((n + TILE - 1) / TILE, (m + TILE - 1) / TILE, batch);
   switch (kind) {
     case SE:
       stationary_gram_kernel<T, SE><<<grid, block, 0, stream>>>(s1, s2, var, alpha, out, m, n, d);
@@ -146,20 +155,21 @@ int launch(const T* s1, const T* s2, const T* var, const T* alpha, T* out,
 
 }  // namespace
 
-// C entry points: every pointer is a device pointer; the return value is
-// the cudaError_t of the launch (0 on success).
+// C entry points: every pointer is a device pointer (s1, s2, out: batch
+// consecutive rows; var, alpha: one value a row); the return value is the
+// cudaError_t of the launch (0 on success).
 extern "C" int stationary_gram_f32(const float* s1, const float* s2,
                                    const float* var, const float* alpha,
-                                   float* out, int m, int n, int d, int kind,
-                                   void* stream) {
-  return launch<float>(s1, s2, var, alpha, out, m, n, d, kind,
+                                   float* out, int m, int n, int d, int batch,
+                                   int kind, void* stream) {
+  return launch<float>(s1, s2, var, alpha, out, m, n, d, batch, kind,
                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int stationary_gram_f64(const double* s1, const double* s2,
                                    const double* var, const double* alpha,
-                                   double* out, int m, int n, int d, int kind,
-                                   void* stream) {
-  return launch<double>(s1, s2, var, alpha, out, m, n, d, kind,
+                                   double* out, int m, int n, int d, int batch,
+                                   int kind, void* stream) {
+  return launch<double>(s1, s2, var, alpha, out, m, n, d, batch, kind,
                         static_cast<cudaStream_t>(stream));
 }

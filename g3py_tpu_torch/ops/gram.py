@@ -9,6 +9,8 @@ The PyTorch counterpart of :mod:`g3py_tpu.ops.gram`:
   one (N, M) slab per feature, never an N x M x d tensor.
 
 The accumulator follows the input dtype: float64 inputs stay float64.
+:func:`weighted_sqdist` takes a batch of rates (R, d), and inputs with a
+leading row axis, and then returns (R, N, M).
 """
 
 import torch
@@ -21,20 +23,22 @@ def _as2d(x):
 
 
 def weighted_sqdist(x1, x2, rate=None, exact=False):
-    """sum_d (x1_d - x2_d)^2 * rate_d^2 as an (N, M) matrix."""
+    """sum_d (x1_d - x2_d)^2 * rate_d^2 as an (N, M) matrix; (R, N, M) for
+    a (R, d) ``rate`` or inputs with a leading row axis, each row centred
+    on its own."""
     x1, x2 = _as2d(x1), _as2d(x2)
     if rate is not None:
-        s1, s2 = x1 * rate, x2 * rate
+        s1, s2 = x1 * rate[..., None, :], x2 * rate[..., None, :]
     else:
         s1, s2 = x1, x2
     if exact:
         return pairwise_sum(s1, s2, lambda a, b: (a - b) ** 2)
-    center = (0.5 * (s1.mean(dim=0) + s2.mean(dim=0))).detach()
+    center = (0.5 * (s1.mean(dim=-2) + s2.mean(dim=-2))).detach()[..., None, :]
     s1 = s1 - center
     s2 = s2 - center
     n1 = (s1 * s1).sum(dim=-1)
     n2 = (s2 * s2).sum(dim=-1)
-    d = n1[:, None] + n2[None, :] - 2.0 * torch.matmul(s1, s2.T)
+    d = n1[..., :, None] + n2[..., None, :] - 2.0 * torch.matmul(s1, s2.transpose(-1, -2))
     return torch.clamp(d, min=0.0)
 
 

@@ -2,7 +2,10 @@
 
 ``var * k(ARD_L2(x1, x2))`` for the SE, MAT32, MAT52 and RQ families — the
 gram behind every observed, cross and query covariance of exact GP/WGP
-regression.  The port of the TPU kernel
+regression.  A batch of hyperparameter rows (``rate`` of shape (R, d),
+``var`` and the RQ ``alpha`` of shape (R,)) gives R grams (R, m, n) from one
+launch: the sampler's walkers and the datatrace rows of the averaged
+predictor go through it this way.  The port of the TPU kernel
 ``g3py_tpu/ops/pallas_gram.py::_stationary_kernel``; the CUDA source is
 ``csrc/stationary_gram.cu`` and says what bounds it on the card.
 
@@ -30,8 +33,10 @@ __all__ = ["stationary_gram", "KINDS"]
 
 #: family name -> the kernel's template index (csrc/stationary_gram.cu Kind)
 KINDS = {"se": 0, "mat32": 1, "mat52": 2, "rq": 3}
-# one 64-row tile per grid row, and a grid has at most 65535 rows
+# one 64-row tile per grid row, and a grid has at most 65535 rows; one
+# batch row per grid layer, at most 65535 of them
 _MAX_ROWS = 64 * 65535
+_MAX_BATCH = 65535
 
 # elementwise k(d_metric) on the ARD_L2 distance d_metric = 0.5 |s1 - s2|^2;
 # the sqrt argument is clamped away from 0 for a finite lengthscale gradient
@@ -51,23 +56,25 @@ def _entry(dtype):
     """The C entry point for ``dtype``, its ctypes signature set."""
     fn = getattr(_build.library("stationary_gram"),
                  "stationary_gram_f32" if dtype == torch.float32 else "stationary_gram_f64")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_scalar(t, ref, what):
-    if not isinstance(t, torch.Tensor) or t.numel() != 1:
-        raise ValueError(f"stationary_gram: {what} must be a one-element tensor")
+def _check_rows(t, ref, rows, what):
+    """``t`` as a contiguous (rows,) tensor of ``ref``'s dtype and device: one
+    value a row (a one-element tensor for a single gram)."""
+    if not isinstance(t, torch.Tensor) or t.numel() != rows:
+        raise ValueError(f"stationary_gram: {what} must hold one value a row ({rows})")
     if t.device != ref.device or t.dtype != ref.dtype:
         raise ValueError(f"stationary_gram: {what} must be {ref.dtype} on {ref.device}, "
                          f"got {t.dtype} on {t.device}")
-    return t.contiguous()
+    return t.reshape(rows).contiguous()
 
 
 def _launch(kind, s1, s2, var, extra):
-    """Run the kernel on rate-scaled, centred (m, d) and (n, d) CUDA tensors;
-    returns the (m, n) gram."""
+    """Run the kernel on rate-scaled, centred (R, m, d) and (R, n, d) CUDA
+    tensors with (R,) ``var`` and ``extra``; returns the (R, m, n) grams."""
     if kind not in KINDS:
         raise ValueError(f"stationary_gram: unknown kind {kind!r}")
     if s1.device.type != "cuda" or s2.device != s1.device:
@@ -75,20 +82,22 @@ def _launch(kind, s1, s2, var, extra):
     if s1.dtype not in (torch.float32, torch.float64) or s2.dtype != s1.dtype:
         raise ValueError(f"stationary_gram: float32 or float64 inputs of one dtype, "
                          f"got {s1.dtype} and {s2.dtype}")
-    if s1.ndim != 2 or s2.ndim != 2 or s1.shape[1] != s2.shape[1]:
+    if (s1.ndim != 3 or s2.ndim != 3 or s1.shape[0] != s2.shape[0]
+            or s1.shape[2] != s2.shape[2]):
         raise ValueError(f"stationary_gram: shapes {tuple(s1.shape)} and "
-                         f"{tuple(s2.shape)} are not (m, d) and (n, d)")
+                         f"{tuple(s2.shape)} are not (R, m, d) and (R, n, d)")
     if not (s1.is_contiguous() and s2.is_contiguous()):
         raise ValueError("stationary_gram: inputs must be contiguous")
-    m, d = s1.shape
-    n = s2.shape[0]
-    if max(m, n, d) >= 2**31 or m > _MAX_ROWS:
-        raise ValueError(f"stationary_gram: (m, n, d) = ({m}, {n}, {d}) exceeds the "
-                         f"launch grid (m <= {_MAX_ROWS}, n and d < 2**31)")
-    var = _check_scalar(var, s1, "var")
+    rows, m, d = s1.shape
+    n = s2.shape[1]
+    if max(m, n, d) >= 2**31 or m > _MAX_ROWS or not 1 <= rows <= _MAX_BATCH:
+        raise ValueError(f"stationary_gram: (R, m, n, d) = ({rows}, {m}, {n}, {d}) exceeds "
+                         f"the launch grid (m <= {_MAX_ROWS}, n and d < 2**31, "
+                         f"1 <= R <= {_MAX_BATCH})")
+    var = _check_rows(var, s1, rows, "var")
     if kind == "rq":
-        extra = _check_scalar(extra, s1, "alpha")
-    out = torch.empty((m, n), dtype=s1.dtype, device=s1.device)
+        extra = _check_rows(extra, s1, rows, "alpha")
+    out = torch.empty((rows, m, n), dtype=s1.dtype, device=s1.device)
     if m == 0 or n == 0:
         return out
     fn = _entry(s1.dtype)
@@ -96,18 +105,26 @@ def _launch(kind, s1, s2, var, extra):
         stream = torch.cuda.current_stream(s1.device).cuda_stream
         rc = fn(s1.data_ptr(), s2.data_ptr(), var.data_ptr(),
                 extra.data_ptr() if kind == "rq" else None, out.data_ptr(),
-                m, n, d, KINDS[kind], stream)
+                m, n, d, rows, KINDS[kind], stream)
     if rc != 0:
         raise RuntimeError(f"stationary_gram kernel launch failed: cudaError {rc}")
     stationary_gram.launches += 1
     return out
 
 
+def _rowwise(t, rows):
+    """A per-row scalar (``var``, ``alpha``) shaped to broadcast over each
+    row's (m, n) gram: () stays (), (R,) becomes (R, 1, 1)."""
+    return t if t is None or rows is None else t.reshape(rows, 1, 1)
+
+
 def _plain_form(kind, x1, x2, rate, var, extra=None):
     """The plain PyTorch version: ``var * k(0.5 * weighted_sqdist)`` by the
-    norm decomposition on centred inputs (the TPU package's ``_xla_form``)."""
+    norm decomposition on centred inputs (the TPU package's ``_xla_form``).
+    A (R, d) ``rate`` with (R,) ``var`` and ``extra`` gives (R, m, n)."""
+    rows = rate.shape[0] if rate.ndim == 2 else None
     dm = 0.5 * weighted_sqdist(x1, x2, rate)
-    return var * _KFORMS[kind](dm, extra)
+    return _rowwise(var, rows) * _KFORMS[kind](dm, _rowwise(extra, rows))
 
 
 class _StationaryGram(torch.autograd.Function):
@@ -115,11 +132,13 @@ class _StationaryGram(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, kind, x1, x2, rate, var, extra):
-        s1 = x1 * rate
-        s2 = x2 * rate
-        center = 0.5 * (s1.mean(dim=0) + s2.mean(dim=0))
-        out = _launch(kind, (s1 - center).contiguous(), (s2 - center).contiguous(),
-                      var, extra)
+        single = rate.ndim == 1
+        r = rate[None] if single else rate  # (R, d)
+        s1 = x1 * r[:, None, :]
+        s2 = x2 * r[:, None, :]
+        center = 0.5 * (s1.mean(dim=-2) + s2.mean(dim=-2))[:, None, :]
+        out = _launch(kind, (s1 - center).contiguous(), (s2 - center).contiguous(), var, extra)
+        out = out[0] if single else out
         ctx.kind = kind
         ctx.save_for_backward(x1, x2, rate, var, extra)
         return out
@@ -139,11 +158,15 @@ class _StationaryGram(torch.autograd.Function):
 def stationary_gram(kind, x1, x2, rate, var, extra=None):
     """``var * k(0.5 * sum_d (x1_d - x2_d)^2 rate_d^2)`` as an (m, n) matrix.
 
-    ``kind`` is one of ``KINDS``; ``extra`` is the RQ alpha.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel (and raise if it
-    cannot be built or launched)."""
+    ``kind`` is one of ``KINDS``; ``extra`` is the RQ alpha.  With a (R, d)
+    ``rate``, ``var`` and ``extra`` are (R,) and the result is the (R, m, n)
+    stack of every row's gram (``x1`` and ``x2`` may then carry the row axis
+    too).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel (and raise if it cannot be built or launched)."""
     if kind not in KINDS:
         raise ValueError(f"stationary_gram: unknown kind {kind!r}")
+    if rate.ndim == 1 and max(x1.ndim, x2.ndim) > 2:
+        raise ValueError("stationary_gram: inputs with a row axis need a (R, d) rate")
     if x1.device.type == "cpu":
         return _plain_form(kind, x1, x2, rate, var, extra)
     if x1.device.type != "cuda":

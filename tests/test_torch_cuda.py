@@ -146,3 +146,112 @@ def test_training_on_card_matches_cpu(cuda, kind):
     assert stationary_gram.launches > k1 and panel_cholesky.launches > k2
     np.testing.assert_allclose(got[0], want[0], rtol=1e-8, atol=1e-8)
     np.testing.assert_allclose(got[1], want[1], rtol=1e-6)
+
+
+# ---------------------------------------------------------------- batched kernels
+BATCH_SHAPES = [(1, 13, 7, 3), (4, 125, 125, 8), (3, 300, 200, 8), (2, 65, 129, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-5, 2e-6),
+                                             (torch.float64, 1e-12, 1e-14)])
+def test_batched_gram_matches_plain_form(cuda, dtype, rtol, atol):
+    """One launch for R rows of (rate, var, alpha); each row as its own gram."""
+    for i, (rows, m, n, d) in enumerate(BATCH_SHAPES):
+        rng = np.random.default_rng(100 + i)
+        x1, x2 = (torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=cuda)
+                  for s in ((m, d), (n, d)))
+        rate, var, alpha = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in (
+            rng.uniform(0.3, 1.2, (rows, d)), rng.uniform(0.5, 2.0, rows),
+            rng.uniform(0.5, 2.0, rows)))
+        for kind in sorted(KINDS):
+            extra = alpha if kind == "rq" else None
+            launches = stationary_gram.launches
+            out = stationary_gram(kind, x1, x2, rate, var, extra)
+            torch.cuda.synchronize()
+            assert stationary_gram.launches == launches + 1
+            assert out.shape == (rows, m, n)
+            torch.testing.assert_close(out, _plain_form(kind, x1, x2, rate, var, extra),
+                                       rtol=rtol, atol=atol)
+            for r in range(rows):
+                single = stationary_gram(kind, x1, x2, rate[r], var[r],
+                                         None if extra is None else extra[r])
+                torch.testing.assert_close(out[r], single, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+@pytest.mark.parametrize("rows,n,block", [(1, 200, 128), (3, 77, 64), (4, 257, 64),
+                                          (3, 385, 128), (2, 640, 128)])
+def test_batched_panel_cholesky_matches_plain_form(cuda, dtype, tol, rows, n, block):
+    a = torch.stack([torch.as_tensor(_spd(n + r, n), dtype=dtype, device=cuda)
+                     for r in range(rows)])
+    launches = panel_cholesky.launches
+    l, dinv, info = panel_cholesky(a, block)
+    torch.cuda.synchronize()
+    assert panel_cholesky.launches == launches + 1
+    assert l.shape == (rows, n, n) and info.shape == (rows,)
+    lp, dinv_p, info_p = _k2_plain(a, block)
+    assert info.tolist() == info_p.tolist() == [0] * rows
+    torch.testing.assert_close(l, lp, rtol=tol, atol=tol)
+    torch.testing.assert_close(dinv, dinv_p, rtol=tol, atol=tol)
+    for r in range(rows):
+        one = panel_cholesky(a[r], block)
+        torch.testing.assert_close(l[r], one[0], rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,block", [(torch.float32, 128), (torch.float64, 64),
+                                         (torch.float64, 128)])
+def test_batched_panel_cholesky_one_failing_row(cuda, dtype, block):
+    """Only the row with the negative pivot reports it; the others factor
+    as they do alone."""
+    rows, n, j = 4, 300, 150
+    a = torch.stack([torch.as_tensor(_spd(7 + r, n), dtype=dtype, device=cuda)
+                     for r in range(rows)])
+    a[2, j, :] = 0.0
+    a[2, :, j] = 0.0
+    a[2, j, j] = -1.0
+    l, _, info = panel_cholesky(a, block)
+    torch.cuda.synchronize()
+    assert info.tolist() == [0, 0, j + 1, 0]
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    for r in (0, 1, 3):
+        torch.testing.assert_close(l[r], panel_cholesky(a[r], block)[0], rtol=tol, atol=tol)
+
+
+def _bayes_pair(device, floatx="float64"):
+    g3t.settings.device = device
+    g3t.settings.floatx = floatx
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((40, 2))
+    y = np.exp(0.3 * np.sin(x[:, 0]) + 0.05 * rng.standard_normal(40)) + 1.0
+    proc = g3t.WGP(space=x, location=g3t.Bias(), kernel=g3t.SE(x),
+                   mapping=g3t.BoxCoxLinear(y), name=f"CB_{device}")
+    proc.observed(x, y)
+    u0 = proc.active.dict_to_array(proc.params_default)
+    rows = u0 + 0.2 * np.random.default_rng(9).standard_normal((6, len(u0)))
+    return proc, rows
+
+
+@pytest.mark.cuda
+def test_bayesian_path_on_card_matches_cpu(cuda):
+    """logp_chain and the averaged predictor of six rows, in float64: one
+    batched K1 and K2 launch on the card against the plain versions on the
+    CPU."""
+    try:
+        want_proc, rows = _bayes_pair("cpu")
+        want_ll = want_proc.logp_chain(rows)
+        xq = np.linspace(-2, 2, 9).reshape(-1, 1).repeat(2, axis=1)
+        want = want_proc.averaged_predictor(rows)(xq, quantiles=True)
+        proc, _ = _bayes_pair("cuda")
+        k1, k2 = stationary_gram.launches, panel_cholesky.launches
+        got_ll = proc.logp_chain(rows)
+        assert (stationary_gram.launches, panel_cholesky.launches) == (k1 + 1, k2 + 1)
+        got = proc.averaged_predictor(rows)(xq, quantiles=True)
+    finally:
+        g3t.settings.floatx = "float32"
+    np.testing.assert_allclose(got_ll, want_ll, rtol=1e-9)
+    for k in want:
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(), rtol=1e-9,
+                                   atol=1e-12, err_msg=k)
