@@ -8,6 +8,11 @@ every component's data-driven defaults.
 
 Unlike the JAX package there is no process-wide active registry: a process
 makes its own unless it is handed one (``active=``).
+
+The tensor side takes rows: :meth:`GraphicalModel.array_to_dict_tensor`
+maps an (R, ndim) matrix of unconstrained rows to a dict whose values lead
+with the row axis, and the prior and the potentials of such a dict are (R,)
+— the counterpart of the JAX package's ``vmap`` over parameter rows.
 """
 
 import warnings
@@ -17,7 +22,7 @@ import torch
 
 from ..config import settings, asarray_x, as_tensor
 from ..utils import DictObj
-from ..hypers import Param
+from ..hypers import Param, row_shape
 
 __all__ = ["GraphicalModel"]
 
@@ -101,11 +106,12 @@ class GraphicalModel:
 
     def array_to_dict_tensor(self, u):
         """Unconstrained flat tensor -> natural-space dict of tensors, a
-        differentiable map (the counterpart of ``array_to_dict_jax``)."""
+        differentiable map (the counterpart of ``array_to_dict_jax``).  A
+        (R, ndim) matrix of rows gives values of shape (R,) + Param.shape."""
         out = {}
         start = 0
         for p in self.ordered_params:
-            seg = u[start:start + p.size].reshape(p.shape)
+            seg = u[..., start:start + p.size].reshape(u.shape[:-1] + p.shape)
             out[p.name] = p.prior.transform.backward(seg)
             start += p.size
         return out
@@ -123,13 +129,16 @@ class GraphicalModel:
 
     # -- prior logp -----------------------------------------------------------
     def logp_prior_dict(self, params):
-        """Sum of per-param prior terms from a natural-space dict."""
+        """Sum of per-param prior terms from a natural-space dict (one sum
+        a row for a dict of rows)."""
         total = torch.zeros((), dtype=settings.dtype, device=settings.device)
         for p in self.ordered_params:
-            total = total + p.prior.logp_natural(as_tensor(params[p.name]).reshape(-1))
+            v = as_tensor(params[p.name])
+            total = total + p.prior.logp_natural(v.reshape(row_shape(p, v) + (-1,)))
         return total
 
     def logp_potentials(self, params):
+        """Sum of the potentials (one sum a row for a dict of rows)."""
         total = torch.zeros((), dtype=settings.dtype, device=settings.device)
         for fn in self.potentials.values():
             term = fn(params)
@@ -174,6 +183,11 @@ class GraphicalModel:
                     default[key] = asarray_x(
                         np.reshape(np.asarray(v), self.params_spec[key].shape))
         return default
+
+    def fix_vars(self, datatrace=None, keys=None):
+        raise NotImplementedError(
+            "fix_vars (marginalizing dims over a datatrace) is not ported yet "
+            "(ROADMAP Queue 1 item 8)")
 
     # -- sampling view ----------------------------------------------------------
     @property

@@ -11,6 +11,11 @@ keyed by ``Param.name``; :func:`hval` turns a slot into a tensor.
 This slice carries the priors that exact GP/WGP regression registers:
 :class:`Flat` (means, mapping shifts) and :class:`FlatExp` (amplitudes,
 rates, noise, mapping scales and powers).
+
+A params dict may carry a leading row axis on every value (the (R,) +
+``Param.shape`` values of R hyperparameter rows, e.g. a sampler's walkers):
+every component then returns a leading row axis too.  :func:`row_shape`
+tells the rows of a value apart from the Param's own shape.
 """
 
 import numpy as np
@@ -30,6 +35,7 @@ __all__ = [
     "hval",
     "is_param",
     "slice_dims",
+    "row_shape",
 ]
 
 GUARD = -1e30  # the reference's -1e30 NaN/Inf fallback
@@ -72,13 +78,13 @@ class LogTransform(Transform):
 
 class Prior:
     """Transform + log-prior contribution ``logp_natural(v)``, taken from
-    the natural-space value (the unconstrained-space ``logp`` comes with
-    training)."""
+    the natural-space value flattened to (..., size): one term per leading
+    row (the unconstrained-space ``logp`` comes with training)."""
 
     transform = IdentityTransform()
 
     def logp_natural(self, v):
-        return torch.zeros((), dtype=v.dtype, device=v.device)
+        return torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
 
     def testval(self, shape):
         return np.zeros(shape, dtype=settings.floatx)
@@ -94,8 +100,11 @@ class FlatExp(Prior):
     transform = LogTransform()
 
     def logp_natural(self, v):
-        bad = (v <= 1e-6).any()
-        return torch.where(bad, GUARD, 0.0).to(v.dtype)
+        bad = (v <= 1e-6).any(dim=-1)
+        # the wall in v's own dtype (a Python-scalar where() would round it
+        # through float32), filled on the device (no host copy, no sync)
+        wall = torch.full(bad.shape, GUARD, dtype=v.dtype, device=v.device)
+        return torch.where(bad, wall, torch.zeros_like(wall))
 
     def testval(self, shape):
         return np.ones(shape, dtype=settings.floatx)
@@ -140,6 +149,12 @@ def hval(h, params):
     if isinstance(h, Param):
         return as_tensor(params[h.name])
     return as_tensor(h)
+
+
+def row_shape(h, value):
+    """The leading row axes of ``value``, the tensor of Param ``h`` (``()``
+    for a single params dict, ``(R,)`` for R rows)."""
+    return value.shape[:value.ndim - len(h.shape)] if isinstance(h, Param) else ()
 
 
 def slice_dims(x, dims):
@@ -236,10 +251,11 @@ class Hypers:
         for p in self.hypers:
             if p.name.find(substr) > 0:
                 v = hval(p, params)
+                v = v.reshape(row_shape(p, v) + (-1,))  # one sum a row
                 if reg == "L1":
-                    terms.append(-v.abs().sum())
+                    terms.append(-v.abs().sum(dim=-1))
                 elif reg == "L2":
-                    terms.append(-(v ** 2).sum())
+                    terms.append(-(v ** 2).sum(dim=-1))
         if not terms:
             return None
         return c * sum(terms[1:], terms[0])

@@ -6,7 +6,9 @@ and data-driven defaults, every ``cov`` a function of a params dict.
 metric through :func:`g3py_tpu_torch.ops.stationary_gram.stationary_gram`,
 which launches the hand-written CUDA kernel for CUDA tensors (and computes
 its plain version for CPU tensors).  A subclass that overrides ``k`` takes
-the generic path: the kernel bakes in the family's own ``k``.
+the generic path: the kernel bakes in the family's own ``k``.  A params
+dict of R rows gives (R, m, n) grams; the rows' fused grams share one
+launch.
 """
 
 import numpy as np
@@ -115,7 +117,8 @@ class KernelStationary(Kernel):
             s1, s2 = self.metric._sliced(x1, x2)
             return stationary_gram(kind, s1, s2, hval(self.metric.rate, params),
                                    hval(self.var, params), self._gram_extra(params))
-        return hval(self.var, params) * self.k(params, self.metric.gram(params, x1, x2))
+        return (hval(self.var, params)[..., None, None]
+                * self.k(params, self.metric.gram(params, x1, x2)))
 
 
 class KernelComposition(Kernel):
@@ -183,7 +186,7 @@ class KernelNoise(KernelStationary):
 
     def cov(self, params, x1, x2=None):
         if x2 is None:
-            return hval(self.var, params) * torch.eye(
+            return hval(self.var, params)[..., None, None] * torch.eye(
                 x1.shape[0], dtype=settings.dtype, device=x1.device)
         return torch.zeros((x1.shape[0], x2.shape[0]), dtype=settings.dtype,
                            device=x1.device)
@@ -212,7 +215,7 @@ class RQ(KernelStationary):
         return out
 
     def k(self, params, d):
-        a = hval(self.alpha, params)
+        a = hval(self.alpha, params)[..., None, None]
         return torch.pow(1.0 + d / a, -a)
 
 

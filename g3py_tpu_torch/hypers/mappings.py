@@ -4,7 +4,11 @@
 ``logdet_dinv`` (the log-Jacobian of ``inv``).  This slice carries
 :class:`Identity` (GP) and :class:`BoxCoxLinear` (the WGP workload's
 warping); the Newton-inverse default forward comes with the warpings that
-need it."""
+need it.
+
+With a params dict of R rows, ``inv`` and ``logdet_dinv`` of the observed
+(N,) outputs give (R, N) and (R,), and ``__call__`` takes latent values
+whose leading axis is the row axis, of any trailing shape."""
 
 import numpy as np
 import torch
@@ -15,12 +19,14 @@ from ..config import settings
 __all__ = ["Mapping", "Identity", "BoxCoxLinear"]
 
 
-def _n_of(y):
-    return torch.tensor(y.shape[0], dtype=settings.dtype, device=y.device)
-
-
 def _signed_power(v, p):
     return torch.sign(v) * torch.abs(v) ** p
+
+
+def _over(v, x):
+    """A per-row scalar ``v`` (``()`` or ``(R,)``) shaped to broadcast over
+    ``x``, whose leading axis is the row axis when ``v`` has one."""
+    return v.reshape(v.shape + (1,) * (x.ndim - v.ndim))
 
 
 class Mapping(Hypers):
@@ -77,14 +83,14 @@ class BoxCoxLinear(Mapping):
         return out
 
     def __call__(self, params, x):
-        p = hval(self.power, params)
+        p = _over(hval(self.power, params), x)
         scaled = p * x + 1.0
-        return (_signed_power(scaled, 1.0 / p) / hval(self.scale, params)
-                - hval(self.shift, params))
+        return (_signed_power(scaled, 1.0 / p) / _over(hval(self.scale, params), x)
+                - _over(hval(self.shift, params), x))
 
     def inv(self, params, y):
-        p = hval(self.power, params)
-        shifted = hval(self.scale, params) * (y + hval(self.shift, params))
+        p = hval(self.power, params)[..., None]
+        shifted = hval(self.scale, params)[..., None] * (y + hval(self.shift, params)[..., None])
         # power -> 0 limit is the log map
         boxcox = (_signed_power(shifted, p) - 1.0) / torch.where(p < 1e-5, 1.0, p)
         return torch.where(p < 1e-5, torch.log(torch.abs(shifted) + 1e-32), boxcox)
@@ -92,5 +98,6 @@ class BoxCoxLinear(Mapping):
     def logdet_dinv(self, params, y):
         p = hval(self.power, params)
         s = hval(self.scale, params)
-        shifted = s * (y + hval(self.shift, params))
-        return (p - 1.0) * torch.log(torch.abs(shifted)).sum() + _n_of(y) * torch.log(s)
+        shifted = s[..., None] * (y + hval(self.shift, params)[..., None])
+        return ((p - 1.0) * torch.log(torch.abs(shifted)).sum(dim=-1)
+                + y.shape[0] * torch.log(s))

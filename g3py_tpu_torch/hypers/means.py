@@ -1,5 +1,7 @@
 """Mean (location) functions (the PyTorch counterpart of
-:mod:`g3py_tpu.hypers.means`), each ``(params, x) -> (N,)``."""
+:mod:`g3py_tpu.hypers.means`), each ``(params, x) -> (N,)``, or ``(R, N)``
+for a params dict of R rows (:class:`Zero` stays ``(N,)`` and
+broadcasts)."""
 
 import numpy as np
 import torch
@@ -43,5 +45,5 @@ class Bias(Mean):
         return {self.bias: np.asarray(np.mean(y), dtype=settings.floatx)}
 
     def eval(self, params, x):
-        return hval(self.bias, params) * torch.ones(
+        return hval(self.bias, params)[..., None] * torch.ones(
             (x.shape[0],), dtype=settings.dtype, device=x.device)

@@ -16,11 +16,12 @@ def to_num(x, nan=0.0, posinf=_BIG, neginf=-_BIG):
 
 def to_cov(x, jitter=1e-6):
     """Repair a covariance candidate: sanitize NaN/Inf and, when any
-    diagonal entry is <= 0, add ``(jitter - min(diag)) * I``."""
+    diagonal entry is <= 0, add ``(jitter - min(diag)) * I`` (each matrix
+    of a (R, n, n) stack on its own)."""
     x = to_num(x)
-    dmin = torch.diagonal(x).min()
+    dmin = torch.diagonal(x, dim1=-2, dim2=-1).min(dim=-1).values
     bump = torch.where(dmin <= 0.0, jitter - dmin, torch.zeros_like(dmin))
-    return x + bump * torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    return x + bump[..., None, None] * torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
 
 
 def to_bounded(x, lower=None, upper=None):

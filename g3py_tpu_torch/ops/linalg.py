@@ -19,6 +19,14 @@ counterpart of :mod:`g3py_tpu.ops.linalg`).
   quadratic form.  Its value-only path whitens by a triangular solve; the
   differentiated path builds L^{-1} from the panels and its backward is the
   analytic ``dK = -g_q alpha alpha^T + 1/2 g_l K^{-1}``, ``dr = 2 g_q alpha``.
+
+A stack of R matrices (R, n, n) — the hyperparameter rows of a sampler
+step or of an averaged predictor — goes through :func:`safe_cholesky_panels`,
+:func:`trtri_from_panels` and the value-only :func:`mvn_quad_logdet` as one
+batch: one K2 factorization of all rows, then each retry re-factors only
+the rows that failed, with their own diagonal fix and jitter, and one host
+sync a try for the whole batch (the JAX package's ``vmap`` of
+``_safe_cholesky_impl``).
 """
 
 import torch
@@ -41,30 +49,81 @@ def _try_cholesky(a):
     return chol, dinv, ok
 
 
+def _jitter_plan(a):
+    """``(base, diag_fix)`` of the escalation, per matrix of a stack:
+    ``base = mean(diag) * jitter``; ``diag_fix`` lifts a non-positive
+    diagonal to ``base``."""
+    diag = torch.diagonal(a, dim1=-2, dim2=-1)
+    base = diag.mean(dim=-1) * settings.cholesky_jitter
+    dmin = diag.min(dim=-1).values
+    return base, torch.where(dmin <= 0.0, base - dmin, torch.zeros_like(dmin))
+
+
+def _failed_panels(dinv, dtype, device):
+    """``1e10 * I`` panels, the panel inverses of the ``1e-10 * I`` factor."""
+    eye = torch.eye(dinv.shape[-1], dtype=dtype, device=device)
+    return (1e10 * eye).expand_as(dinv).contiguous()
+
+
+def _safe_cholesky_rows(a, max_tries):
+    """:func:`safe_cholesky_panels` of a (R, n, n) stack: returns ``(L, dinv,
+    failed)`` with ``failed`` a (R,) bool tensor."""
+    chol, dinv, info = panel_cholesky(a)
+    ok = (info == 0) & torch.isfinite(chol).all(dim=-1).all(dim=-1)
+    pending = torch.nonzero(~ok).flatten().cpu()  # the one sync of try 0
+    if len(pending) == 0:
+        return chol, dinv, ~ok
+    base, diag_fix = _jitter_plan(a)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    for k in range(1, max_tries):
+        idx = pending.to(a.device)
+        shift = diag_fix[idx] + base[idx] * 10.0 ** (k - 1)
+        chol_k, dinv_k, info_k = panel_cholesky(a[idx] + shift[:, None, None] * eye)
+        ok_k = (info_k == 0) & torch.isfinite(chol_k).all(dim=-1).all(dim=-1)
+        chol[idx[ok_k]] = chol_k[ok_k]
+        dinv[idx[ok_k]] = dinv_k[ok_k]
+        pending = pending[~ok_k.cpu()]  # one sync a try
+        safe_cholesky_panels.retries += 1
+        if len(pending) == 0:
+            break
+    failed = torch.zeros(a.shape[0], dtype=torch.bool)
+    failed[pending] = True
+    if len(pending):
+        idx = pending.to(a.device)
+        chol[idx] = 1e-10 * eye
+        dinv[idx] = _failed_panels(dinv[idx], a.dtype, a.device)
+    return chol, dinv, failed.to(a.device)
+
+
 def safe_cholesky_panels(a, max_tries=None):
     """Escalating-jitter factorization; returns ``(L, dinv, failed)`` with
     the panel inverses of the factorization that succeeded (``1e-10 * I``
     and ``1e10 * I`` panels on total failure).  The common case costs one
-    factorization and one host sync."""
+    factorization and one host sync.  A (R, n, n) stack is factored as one
+    batch, each row with its own escalation; ``failed`` is then a (R,)
+    bool tensor.  ``safe_cholesky_panels.retries`` counts the retry
+    factorizations."""
     if max_tries is None:
         max_tries = settings.cholesky_max_tries
     a = a.detach()
+    if a.ndim == 3:
+        return _safe_cholesky_rows(a, max_tries)
     chol, dinv, ok = _try_cholesky(a)
     if ok:
         return chol, dinv, False
     n = a.shape[-1]
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
-    diag = torch.diagonal(a)
-    base = diag.mean() * settings.cholesky_jitter
-    dmin = diag.min()
     # the non-positive diagonal is fixed once, before the escalation
-    diag_fix = torch.where(dmin <= 0.0, base - dmin, torch.zeros_like(dmin))
+    base, diag_fix = _jitter_plan(a)
     for k in range(1, max_tries):
+        safe_cholesky_panels.retries += 1
         chol, dinv, ok = _try_cholesky(a + (diag_fix + base * 10.0 ** (k - 1)) * eye)
         if ok:
             return chol, dinv, False
-    dinv = 1e10 * torch.eye(dinv.shape[-1], dtype=a.dtype, device=a.device).expand_as(dinv)
-    return 1e-10 * eye, dinv.contiguous(), True
+    return 1e-10 * eye, _failed_panels(dinv, a.dtype, a.device), True
+
+
+safe_cholesky_panels.retries = 0
 
 
 class _SafeCholesky(torch.autograd.Function):
@@ -107,12 +166,13 @@ def safe_cholesky(a, max_tries=None):
 
 
 def _pad_tril(l, target):
-    """Embed a lower-triangular L into a larger identity-padded triangle."""
+    """Embed a lower-triangular L (or a stack of them) into a larger
+    identity-padded triangle."""
     n = l.shape[-1]
     if target == n:
         return l
-    out = torch.eye(target, dtype=l.dtype, device=l.device)
-    out[:n, :n] = l
+    out = torch.eye(target, dtype=l.dtype, device=l.device).repeat(l.shape[:-2] + (1, 1))
+    out[..., :n, :n] = l
     return out
 
 
@@ -122,19 +182,21 @@ def trtri_from_panels(chol, dinv):
 
       X[i,i] = dinv[i],   X[i,:i] = -dinv[i] (L[i,:i] X[:i,:i])
 
-    — one block row per step, every product a plain matmul."""
+    — one block row per step, every product a plain matmul.  A stack
+    (R, n, n) with its (R, nb, B, B) panels gives the R inverses, each
+    step one batched product."""
     n = chol.shape[-1]
-    nb, block = dinv.shape[0], dinv.shape[-1]
+    nb, block = dinv.shape[-3], dinv.shape[-1]
     npad = nb * block
     lp = _pad_tril(chol, npad)
-    x = torch.zeros((npad, npad), dtype=chol.dtype, device=chol.device)
+    x = torch.zeros(chol.shape[:-2] + (npad, npad), dtype=chol.dtype, device=chol.device)
     for i in range(nb):
         s = slice(i * block, (i + 1) * block)
-        x[s, s] = dinv[i]
+        x[..., s, s] = dinv[..., i, :, :]
         if i:
-            x[s, :s.start] = -torch.matmul(dinv[i], torch.matmul(lp[s, :s.start],
-                                                                  x[:s.start, :s.start]))
-    return x[:n, :n]
+            x[..., s, :s.start] = -torch.matmul(
+                dinv[..., i, :, :], torch.matmul(lp[..., s, :s.start], x[..., :s.start, :s.start]))
+    return x[..., :n, :n]
 
 
 def _kinv_from_linv(linv, block=_KINV_BLOCK):
@@ -224,9 +286,19 @@ def mvn_quad_logdet(k, resid, max_tries=None):
       ok          = 0.0 when the robust factorization fell back, else 1.0
 
     Differentiable in ``k`` and ``resid`` (analytic backward, zero on
-    failure); without gradients it whitens by one triangular solve."""
+    failure); without gradients it whitens by one triangular solve.  A
+    (R, n, n) ``k`` (with a (R, n) or (n,) ``resid``) gives (R,) values
+    from one batched factorization; that form has no gradient."""
     if max_tries is None:
         max_tries = settings.cholesky_max_tries
+    if k.ndim == 3:
+        if torch.is_grad_enabled() and (k.requires_grad or resid.requires_grad):
+            raise NotImplementedError("mvn_quad_logdet: the batched form has no gradient")
+        chol, _, failed = safe_cholesky_panels(k, max_tries)
+        rhs = resid.expand(k.shape[:-1])[..., None]
+        z = torch.linalg.solve_triangular(chol, rhs, upper=False)[..., 0]
+        logdet_half = torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(dim=-1)
+        return (z * z).sum(dim=-1), logdet_half, (~failed).to(k.dtype)
     if torch.is_grad_enabled() and (k.requires_grad or resid.requires_grad):
         return _MvnQuadLogdet.apply(k, resid, max_tries)
     chol, _, failed = safe_cholesky_panels(k, max_tries)

@@ -1,7 +1,8 @@
 """Gauss-Hermite quadrature for warped-process moments (the PyTorch
 counterpart of :mod:`g3py_tpu.ops.quadrature`): ``E[f(X)]`` for
 ``X ~ N(mu, sigma^2)`` with an n-point Hermite rule, one vectorized ``f``
-call over the whole (n, len(mu)) grid."""
+call over the whole (n, len(mu)) grid — (R, n, len(mu)) for (R, m) moments
+of R hyperparameter rows, so ``f`` sees the row axis first."""
 
 import math
 
@@ -19,11 +20,12 @@ def hermgauss(n, dtype=torch.float32, device="cpu"):
 
 
 def gauss_hermite(f, mu, sigma, n=10):
-    """E[f(X)], X ~ N(mu, sigma^2), elementwise over mu/sigma vectors.
+    """E[f(X)], X ~ N(mu, sigma^2), elementwise over mu/sigma vectors (or
+    (R, m) matrices, one row per hyperparameter row).
 
-    grid[j, i] = mu[i] + sqrt(2)*sigma[i]*a[j];  result = w @ f(grid) / sqrt(pi)
+    grid[..., j, i] = mu[..., i] + sqrt(2)*sigma[..., i]*a[j];
+    result = w @ f(grid) / sqrt(pi)
     """
     a, w = hermgauss(n, mu.dtype, mu.device)
-    grid = mu[None, :] + math.sqrt(2.0) * sigma[None, :] * a[:, None]
-    vals = f(grid.reshape(-1)).reshape(grid.shape)
-    return torch.matmul(w, vals) / math.sqrt(math.pi)
+    grid = mu[..., None, :] + math.sqrt(2.0) * sigma[..., None, :] * a[:, None]
+    return torch.matmul(w, f(grid)) / math.sqrt(math.pi)
