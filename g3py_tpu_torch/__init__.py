@@ -1,8 +1,11 @@
 """g3py_tpu_torch — the PyTorch/CUDA port of g3py_tpu.
 
-Exact GP and warped-GP regression, trained (``dlogp``, ``find_MAP``) and
-served from one factorization, with the fused stationary gram and the
-blocked panel Cholesky as hand-written CUDA kernels for Hopper (sm_90a).
+Exact GP and warped-GP regression, trained (``dlogp``, ``find_MAP``),
+sampled (``sample_hypers``, the ensemble sampler over the hyperparameter
+posterior) and served from one factorization or averaged over a datatrace,
+with the fused stationary gram and the blocked panel Cholesky as
+hand-written CUDA kernels for Hopper (sm_90a), both batched over
+hyperparameter rows.
 It imports neither JAX nor g3py_tpu.  Tensors live on ``settings.device``,
 the card (``"cuda"``) unless the program says ``"cpu"``:
 
@@ -12,11 +15,14 @@ the card (``"cuda"``) unless the program says ``"cpu"``:
 >>> params = gp.find_MAP(points=2, display=False)
 >>> pr = gp.predictor(params)
 >>> pr(x_query, quantiles=True, quantiles_noise=True)
+>>> dt = gp.sample_hypers(start=params, samples=400, chains=32)
+>>> gp.averaged_predictor(dt, max_rows=16)(x_query)
 """
 
 from . import config
 from .config import settings, floatx, set_floatx
 from .utils import DictObj, MaxTime, nan_to_high, params_from_jax
+from .utils.datatrace import Datatrace
 from .ops import (safe_cholesky, cho_solve, solve_lower_triangular,
                   solve_upper_triangular, trtri_from_panels, mvn_quad_logdet,
                   gauss_hermite, stationary_gram, panel_cholesky)
@@ -28,8 +34,11 @@ from .hypers.kernels import (Kernel, KernelStationary, KernelComposition,
                              KernelStationaryExponential, SE, MAT32, MAT52, RQ)
 from .hypers.means import Mean, Zero, Bias
 from .hypers.mappings import Mapping, Identity, BoxCoxLinear
-from .bayesian import GraphicalModel, optimize
+from .bayesian import (GraphicalModel, optimize, ensemble_sampler, pt_sampler,
+                       default_beta_ladder, mcmc_ensemble, chains_to_datatrace,
+                       datatrace_to_chains, gelman_rubin, burn_in_samples,
+                       effective_sample_min, effective_sample_size)
 from .models import (StochasticProcess, EllipticalProcess, GaussianProcess,
-                     WarpedGaussianProcess, GP, WGP, Predictor)
+                     WarpedGaussianProcess, GP, WGP, Predictor, AveragedPredictor)
 
 __version__ = "0.1.0"

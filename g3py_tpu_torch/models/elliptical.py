@@ -9,9 +9,16 @@ robust Cholesky of the observed gram:
   var*      = k_ss - colsum((L^{-1} K_is)^2)      (clamped at 0)
 
 ``posterior_state`` factors the observed gram once into ``(L^{-1}, alpha,
-z)``, with L^{-1} seeded by the factorization's panel inverses; carried in a params dict under the reserved ``_state_*`` keys it
-turns every query into products with that state (the serving fast path,
+z)``, with L^{-1} seeded by the factorization's panel inverses; carried in
+a params dict under the reserved ``_state_*`` keys it turns every query
+into products with that state (the serving fast path,
 :class:`~g3py_tpu_torch.models.predictor.Predictor`).
+
+Every piece takes a params dict of R hyperparameter rows as well: the
+state is then stacked (R, n, n), (R, n), (R, n), from one batched K2
+factorization (:meth:`posterior_state_rows`), and every statistic gains a
+leading row axis — the Bayesian model average of a datatrace
+(:meth:`averaged_predictor`, ``batch_predict``, ``average``).
 """
 
 import torch
@@ -19,6 +26,7 @@ import torch
 from ..hypers.kernels import KernelSum, KernelNoise
 from ..hypers.means import Zero
 from ..hypers.mappings import Identity
+from ..config import as_tensor
 from ..ops.guards import to_cov, to_num, to_bounded
 from ..ops.linalg import (safe_cholesky, safe_cholesky_panels, trtri_from_panels,
                           solve_lower_triangular, cho_solve)
@@ -29,6 +37,17 @@ __all__ = ["EllipticalProcess", "STATE_OBS_LINV", "STATE_OBS_ALPHA", "STATE_OBS_
 STATE_OBS_LINV = "_state_obs_linv"     # L^{-1} of chol(K_obs + noise)
 STATE_OBS_ALPHA = "_state_obs_alpha"   # K^{-1} (T^{-1}y - m)
 STATE_OBS_Z = "_state_obs_z"           # L^{-1} (T^{-1}y - m)
+
+
+def _mv(mat, vec):
+    """``mat @ vec`` for a matrix and a vector, or stacks of them."""
+    if vec.ndim == 1:
+        return torch.matmul(mat, vec)
+    return torch.matmul(mat, vec[..., None])[..., 0]
+
+
+def _diag(m):
+    return torch.diagonal(m, dim1=-2, dim2=-1)
 
 
 class EllipticalProcess(StochasticProcess):
@@ -80,15 +99,38 @@ class EllipticalProcess(StochasticProcess):
                              "(call observed(x, y) first)")
         p = self._tensor_params(self.params if params is None else params)
         _, inputs, outputs = self._resolve_data(None, None, None)
+        return self._posterior_state_pure(p, inputs, outputs)
+
+    def _posterior_state_pure(self, p, inputs, outputs):
+        """The state of a params dict of tensors (one row, or a stack of R
+        rows: every factorization of the stack in one batched K2 call)."""
         with torch.no_grad():
             # L^{-1} from the panel inverses of the same factorization
             chol, dinv, _ = safe_cholesky_panels(
                 to_cov(self.f_kernel_noise.cov(p, inputs)))
             linv = trtri_from_panels(chol, dinv)
             resid = self._latent_obs(p, outputs) - self.f_location(p, inputs)
-            z = torch.matmul(linv, resid)
-            alpha = torch.matmul(linv.T, z)
+            resid = resid.expand(linv.shape[:-1])
+            z = _mv(linv, resid)
+            alpha = _mv(linv.transpose(-1, -2), z)
         return {STATE_OBS_LINV: linv, STATE_OBS_ALPHA: alpha, STATE_OBS_Z: z}
+
+    def posterior_state_rows(self, rows, inputs=None, outputs=None):
+        """``(params, state)`` of an (R, ndim) matrix of unconstrained
+        parameter rows: the natural-space params dict with a leading row
+        axis, and the stacked posterior states, factored together (the
+        counterpart of the JAX package's ``vmap`` of
+        ``_posterior_state_pure``)."""
+        if not self.is_observed and inputs is None:
+            raise ValueError("posterior_state_rows needs observed data "
+                             "(call observed(x, y) first)")
+        _, inputs, outputs = self._resolve_data(None, inputs, outputs)
+        rows = as_tensor(rows)
+        if rows.ndim != 2 or rows.shape[1] != self.active.ndim:
+            raise ValueError(f"posterior_state_rows: rows of shape {tuple(rows.shape)}, "
+                             f"expected (R, {self.active.ndim})")
+        p = self.active.array_to_dict_tensor(rows)
+        return p, self._posterior_state_pure(p, inputs, outputs)
 
     def predictor(self, params=None):
         """Serving fast path: a :class:`~g3py_tpu_torch.models.predictor.
@@ -96,11 +138,28 @@ class EllipticalProcess(StochasticProcess):
         from .predictor import Predictor
         return Predictor(self, params=params)
 
+    def averaged_predictor(self, datatrace, max_rows=64):
+        """Serving fast path for the Bayesian model average: factor the
+        posterior once per datatrace row (one batched K2 call for all the
+        rows), then serve row-averaged statistics as batched products
+        (:class:`~g3py_tpu_torch.models.predictor.AveragedPredictor`)."""
+        from .predictor import AveragedPredictor
+        return AveragedPredictor(self, datatrace, max_rows=max_rows)
+
+    def _batch_statistics(self, rows, space, inputs, outputs, **flags):
+        """Statistics of every row of ``rows`` at ``space``, each with a
+        leading row axis (the hook of ``batch_predict``)."""
+        from .predictor import statistics
+        space, inputs, outputs = self._resolve_data(space, inputs, outputs)
+        params, state = self.posterior_state_rows(rows, inputs, outputs)
+        return statistics(self, {**params, **state}, space, inputs, outputs,
+                          z=self._batch_quantile_z(), **flags)
+
     def _whitened_cross(self, params, inputs, cross):
         """v = L^{-1} K_is — a product with the state's inverse when one
         rides in ``params``, a triangular solve otherwise."""
         if STATE_OBS_LINV in params:
-            return torch.matmul(params[STATE_OBS_LINV], cross.T)
+            return torch.matmul(params[STATE_OBS_LINV], cross.transpose(-1, -2))
         return solve_lower_triangular(self._obs_chol(params, inputs), cross.T)
 
     def _location_from_cross(self, params, space, inputs, outputs, cross):
@@ -110,14 +169,14 @@ class EllipticalProcess(StochasticProcess):
             chol = self._obs_chol(params, inputs)
             resid = self._latent_obs(params, outputs) - self.f_location(params, inputs)
             alpha = cho_solve(chol, resid)
-        return self.f_location(params, space) + torch.matmul(cross, alpha)
+        return self.f_location(params, space) + _mv(cross, alpha)
 
     def _latent_var_from_cross(self, params, space, inputs, cross):
         """``k_ss - v'v`` clamped at 0: f32 cancellation lands it a few ulp
         negative where the space meets the observed inputs."""
         v = self._whitened_cross(params, inputs, cross)
-        k_diag = torch.diagonal(self.f_kernel.cov(params, space))
-        return to_bounded(k_diag - (v * v).sum(dim=0), 0.0)
+        k_diag = _diag(self.f_kernel.cov(params, space))
+        return to_bounded(k_diag - (v * v).sum(dim=-2), 0.0)
 
     def _posterior_location(self, params, space, inputs, outputs, noise):
         kernel = self.f_kernel_noise if noise else self.f_kernel
@@ -142,9 +201,9 @@ class EllipticalProcess(StochasticProcess):
         if kn is self.f_kernel:
             return torch.zeros(space.shape[0], dtype=space.dtype, device=space.device)
         if isinstance(kn, KernelSum) and kn.k1 is self.f_kernel:
-            return to_bounded(torch.diagonal(kn.k2.cov(params, space)), 0.0)
-        return to_bounded(torch.diagonal(kn.cov(params, space))
-                          - torch.diagonal(self.f_kernel.cov(params, space)), 0.0)
+            return to_bounded(_diag(kn.k2.cov(params, space)), 0.0)
+        return to_bounded(_diag(kn.cov(params, space))
+                          - _diag(self.f_kernel.cov(params, space)), 0.0)
 
     def _latent_moments(self, params, space, inputs, outputs):
         """``(location, latent variance, noise variance)`` of the posterior

@@ -64,6 +64,13 @@ class GaussianProcess(EllipticalProcess):
         at float32 precision, as the JAX package holds it."""
         return float(np.float32(NormalDist().inv_cdf(q)))
 
+    def _batch_quantile_z(self):
+        """(up, down) latent quantile coefficients of the batched statistics:
+        +-z_0.975 in ``settings.floatx``, as the JAX package's
+        ``batch_predict`` holds them."""
+        p = float(np.asarray(NormalDist().inv_cdf(0.975), dtype=settings.floatx))
+        return p, -p
+
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False):
         """Analytic quantile T(mu + z_q sigma)."""

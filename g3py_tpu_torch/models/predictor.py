@@ -1,29 +1,91 @@
 """Serving fast path: factor once, answer query batches with products.
 
-The PyTorch counterpart of :class:`g3py_tpu.models.predictor.Predictor`.
-The observed gram is factored ONCE into ``(L^{-1}, alpha, z)`` device
-tensors (``EllipticalProcess.posterior_state``); each query batch then costs
-one cross gram ``K(x*, X)`` and one query gram (both through the fused
+The PyTorch counterpart of :class:`g3py_tpu.models.predictor.Predictor`
+and :class:`~g3py_tpu.models.predictor.AveragedPredictor`.  The observed
+gram is factored ONCE into ``(L^{-1}, alpha, z)`` device tensors
+(``EllipticalProcess.posterior_state``); each query batch then costs one
+cross gram ``K(x*, X)`` and one query gram (both through the fused
 stationary-gram kernel on the card), one product with ``L^{-1}`` and
 elementwise work:
 
   mean(s)  = T(m(s) + K_sX alpha)                    (GH quadrature for WGP)
   var(s)   = k_ss - colsum((L^{-1} K_Xs)^2)           (+ noise for bands)
 
-Every requested statistic of a batch shares that one cross gram.  The JAX
-package bakes the state into per-statistic jitted closures to dodge a TPU
-runtime's per-argument dispatch cost; eager PyTorch has no such cost, so
-this Predictor is a plain object holding tensors.
+Every requested statistic of a batch shares that one cross gram.  The
+averaged predictor holds one state per datatrace row, stacked, factored by
+one batched K2 call; its query batch is one batched K1 cross gram, one
+batched query gram and batched products for all rows, averaged over the
+rows.  The JAX package bakes the state into per-statistic jitted closures
+to dodge a TPU runtime's per-argument dispatch cost; eager PyTorch has no
+such cost, so these predictors are plain objects holding tensors.
 """
 
+import numpy as np
 import torch
 
+from ..config import settings
 from ..utils import DictObj
 
-__all__ = ["Predictor"]
+__all__ = ["Predictor", "AveragedPredictor", "statistics"]
 
 
-class Predictor:
+def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False,
+               quantiles=False, quantiles_noise=False, noise=False, z=None):
+    """Statistics of one query batch from a params dict ``p`` that carries
+    a posterior state (same keys as ``process.predict``): ``mean``, ``std``,
+    ``variance``, ``quantile_up``/``quantile_down`` (2.5% and 97.5%) and,
+    with ``quantiles_noise``, the observation-noise bands ``noise_std``,
+    ``noise_up`` and ``noise_down``.  A dict of R rows gives (R, m).  ``z``
+    is the (up, down) pair of latent quantile coefficients (default: the
+    process's own)."""
+    up, down = (proc._quantile_p(0.975), proc._quantile_p(0.025)) if z is None else z
+    values = DictObj()
+
+    def bands(var):  # T(loc + z_q sd) at q = 97.5% and 2.5%
+        sd = torch.sqrt(var)
+        return proc.f_mapping(p, loc + up * sd), proc.f_mapping(p, loc + down * sd)
+
+    with torch.no_grad():
+        loc, latent, noise_var = proc._latent_moments(p, space, inputs, outputs)
+        lvar = latent + noise_var if noise else latent
+        if mean or std or var:
+            m, v = proc._warped_moments(p, loc, lvar)
+            if mean:
+                values["mean"] = m
+            if var:
+                values["variance"] = v
+            if std:
+                values["std"] = torch.sqrt(v)
+        if quantiles:
+            values["quantile_up"], values["quantile_down"] = bands(lvar)
+        if quantiles_noise:
+            nvar = latent + noise_var
+            values["noise_std"] = torch.sqrt(proc._warped_moments(p, loc, nvar)[1])
+            values["noise_up"], values["noise_down"] = bands(nvar)
+    return values
+
+
+class _Bound:
+    """A process and its observed data at factorization time; rejects use
+    after the data changed."""
+
+    def _bind(self, process):
+        self.process = process
+        self._inputs_ref = process._inputs
+        self._outputs_ref = process._outputs
+        self.inputs = process._device_data("inputs")
+        self.outputs = process._device_data("outputs")
+
+    def _check(self):
+        if (self.process._inputs is not self._inputs_ref
+                or self.process._outputs is not self._outputs_ref):
+            raise ValueError(
+                f"the process's observed data changed after this {type(self).__name__}'s "
+                "factorization — rebuild it")
+        return self
+
+
+class Predictor(_Bound):
     """Bound (process, params, factorized posterior state) for streaming
     prediction.
 
@@ -37,57 +99,59 @@ class Predictor:
     def __init__(self, process, params=None):
         if params is None:
             params = process.params
-        self.process = process
+        self._bind(process)
         self.params = process._tensor_params(process.filter_params(params))
-        self._inputs_ref = process._inputs
-        self._outputs_ref = process._outputs
-        self.inputs = process._device_data("inputs")
-        self.outputs = process._device_data("outputs")
         self.state = process.posterior_state(self.params)
         self._merged = {**self.params, **self.state}
 
-    def _check(self):
-        if (self.process._inputs is not self._inputs_ref
-                or self.process._outputs is not self._outputs_ref):
-            raise ValueError(
-                "the process's observed data changed after this Predictor's "
-                "factorization — rebuild it with process.predictor(params)")
-
     def predict(self, space, mean=True, std=True, var=False, quantiles=False,
                 quantiles_noise=False, noise=False):
-        """Statistics of one query batch (same keys as ``process.predict``):
-        ``mean``, ``std``, ``variance``, ``quantile_up``/``quantile_down``
-        (2.5% and 97.5%) and, with ``quantiles_noise``, the observation-noise
-        bands ``noise_std``, ``noise_up`` and ``noise_down``."""
+        """Statistics of one query batch (see :func:`statistics`)."""
         self._check()
-        proc = self.process
-        p = self._merged
-        space = proc._as_matrix(space)
-        up, down = proc._quantile_p(0.975), proc._quantile_p(0.025)
-        values = DictObj()
+        return statistics(self.process, self._merged, self.process._as_matrix(space),
+                          self.inputs, self.outputs, mean=mean, std=std, var=var,
+                          quantiles=quantiles, quantiles_noise=quantiles_noise, noise=noise)
 
-        def bands(var):  # T(loc + z_q sd) at q = 97.5% and 2.5%
-            sd = torch.sqrt(var)
-            return proc.f_mapping(p, loc + up * sd), proc.f_mapping(p, loc + down * sd)
+    __call__ = predict
 
-        with torch.no_grad():
-            loc, latent, noise_var = proc._latent_moments(p, space, self.inputs,
-                                                          self.outputs)
-            lvar = latent + noise_var if noise else latent
-            if mean or std or var:
-                m, v = proc._warped_moments(p, loc, lvar)
-                if mean:
-                    values["mean"] = m
-                if var:
-                    values["variance"] = v
-                if std:
-                    values["std"] = torch.sqrt(v)
-            if quantiles:
-                values["quantile_up"], values["quantile_down"] = bands(lvar)
-            if quantiles_noise:
-                nvar = latent + noise_var
-                values["noise_std"] = torch.sqrt(proc._warped_moments(p, loc, nvar)[1])
-                values["noise_up"], values["noise_down"] = bands(nvar)
-        return values
+
+class AveragedPredictor(_Bound):
+    """Streaming Bayesian model average: one factorization PER DATATRACE
+    ROW — all rows in one batched K2 call — then every query batch is
+    row-batched products and an average.
+
+    >>> ap = gp.averaged_predictor(dt)       # R factorizations, one batch
+    >>> out = ap(x_query, quantiles=True)    # averaged statistics (float64)
+
+    Memory: the stacked state is R x n_obs^2 values (capped by
+    ``max_rows``; rows are subsampled evenly beyond it, matching the
+    average's Monte-Carlo nature)."""
+
+    def __init__(self, process, datatrace, max_rows=64):
+        rows = (process._datatrace_rows(datatrace) if hasattr(datatrace, "columns")
+                else np.asarray(datatrace, settings.floatx))
+        if rows.ndim == 1:
+            rows = rows[None, :]
+        if len(rows) > max_rows:
+            rows = rows[np.linspace(0, len(rows) - 1, max_rows).astype(int)]
+        self._bind(process)
+        self.rows = np.asarray(rows, settings.floatx)
+        self.params, self.state_rows = process.posterior_state_rows(
+            self.rows, self.inputs, self.outputs)
+        self._merged = {**self.params, **self.state_rows}
+
+    def batch(self, space=None, **flags):
+        """Per-row statistics (leading row axis), like
+        ``process.batch_predict``, with the factorizations reused."""
+        self._check()
+        space = (self.process._device_data("space") if space is None
+                 else self.process._as_matrix(space))
+        return statistics(self.process, self._merged, space, self.inputs, self.outputs,
+                          z=self.process._batch_quantile_z(), **flags)
+
+    def predict(self, space=None, **flags):
+        """Row-averaged statistics (the ``average()`` keys), in float64."""
+        return DictObj({k: v.to(torch.float64).mean(dim=0)
+                        for k, v in self.batch(space=space, **flags).items()})
 
     __call__ = predict

@@ -12,8 +12,13 @@ instead of being jitted.  Statistics return tensors on ``settings.device``;
 This port carries construction, data, params, ``logp`` / ``loglike``
 (over a params dict or the flat unconstrained vector), ``dlogp`` (autograd
 over that vector on the device), ``find_MAP`` with the reference's scipy
-BFGS/Powell recipe, ``predict`` and the statistic methods.  Samplers, LOO,
-the other ``find_MAP`` engines and plotting come in later slices.
+BFGS/Powell recipe, ``predict`` and the statistic methods, and the
+hyperparameter posterior: ``logp_chain`` over (R, ndim) rows and
+``sample_hypers(method='ensemble')``, plain or parallel-tempered, into a
+datatrace.  The rows of a batched call are an explicit leading axis (the
+JAX package's ``vmap``): one batched K1 and one batched K2 call a logp
+evaluation of all rows.  NUTS/ADVI, LOO, the other ``find_MAP`` engines and
+plotting come in later slices.
 """
 
 import numpy as np
@@ -24,6 +29,9 @@ from ..utils import DictObj
 from ..ops.guards import to_num
 from ..bayesian.registry import GraphicalModel
 from ..bayesian.selection import optimize
+from ..bayesian.models import BatchedModel
+from ..bayesian.samplers import mcmc_ensemble
+from ..bayesian.average import chains_to_datatrace
 
 __all__ = ["StochasticProcess"]
 
@@ -57,7 +65,7 @@ def _statistic(th_name, doc):
     return method
 
 
-class StochasticProcess:
+class StochasticProcess(BatchedModel):
     """Abstract stochastic-process model (see module docstring).
 
     ``active`` is the :class:`GraphicalModel` to join; None makes a fresh
@@ -310,6 +318,92 @@ class StochasticProcess:
             else:
                 grad = torch.zeros_like(u)
         return to_num(grad).cpu().numpy()
+
+    def _logp_rows(self, u, prior=False, like_only=False):
+        """logp (prior / loglike) of a (R, ndim) tensor of unconstrained
+        rows: a (R,) tensor, every row's gram in one batched call."""
+        space, inputs, outputs = self._resolve_data(None, None, None)
+        with torch.no_grad():
+            out = self._logp_pure(prior=prior, like_only=like_only)(
+                self.active.array_to_dict_tensor(u), space, inputs, outputs)
+        return out.expand(u.shape[:-1])
+
+    def logp_chain(self, chain, prior=False):
+        """logp of every row of an (R, ndim) matrix of unconstrained rows
+        (host array, ``settings.floatx``), from one batched evaluation (the
+        JAX package ``vmap``-s the rows)."""
+        u = as_tensor(np.asarray(chain, dtype=settings.floatx))
+        return self._logp_rows(u, prior=prior).cpu().numpy()
+
+    def _sampling_logps(self, prior=False, tempered=False):
+        """Batched (logp | loglike, logprior) of (R, ndim) rows over the
+        sampling dims (every dim: ``fix_vars`` is not ported)."""
+        if self.active.fixed_dims:
+            raise NotImplementedError("sampling with fixed dims (fix_vars) is not "
+                                      "ported yet (ROADMAP Queue 1 item 8)")
+
+        def logp(u):
+            return self._logp_rows(u, prior=prior)
+
+        def logprior(u):
+            return self._logp_rows(u, prior=True)
+
+        def loglike(u):
+            if prior:
+                return torch.zeros(u.shape[:-1], dtype=u.dtype, device=u.device)
+            return self._logp_rows(u, like_only=True)
+
+        if not tempered:
+            return logp, None, None
+        return None, loglike, logprior
+
+    def sample_hypers(self, start=None, samples=1000, chains=None, ntemps=None,
+                      raw=False, noise_mult=0.1, noise_sum=0.01, burnin_tol=0.001,
+                      burnin_method="multi-sum", outlayer_percentile=0.0005,
+                      clusters=None, prior=False, plot=False, file=None, seed=0,
+                      method="ensemble", reparam=None, stats=None):
+        """MCMC over the hyperparameter posterior with the affine-invariant
+        ensemble sampler (parallel-tempered when ``ntemps``): ``chains``
+        walkers (default 2 ndim) jittered around ``start`` (default: the
+        ``find_MAP`` point), ``samples`` iterations, every half-ensemble's
+        logp one batched evaluation on the device.  Returns a
+        :class:`~g3py_tpu_torch.utils.datatrace.Datatrace` (burn-in from the
+        Gelman-Rubin bisection at ``burnin_tol``, outliers at
+        ``outlayer_percentile``), or with ``raw`` the ``(chain, lnprob)``
+        arrays.  ``stats``, a dict, receives the sampler's acceptance rate,
+        wall seconds and number of batched logp calls."""
+        todo = {"method": (method != "ensemble", "item 8 (NUTS/NeuTra/ADVI)"),
+                "reparam": (reparam is not None, "item 8 (reparam='noncentered')"),
+                "file": (file is not None, "item 8 (datatrace files)"),
+                "plot": (bool(plot), "item 15 (plots)"),
+                "clusters": (bool(clusters), "item 8 (datatrace clusters)")}
+        for name, (asked, item) in todo.items():
+            if asked:
+                raise NotImplementedError(f"sample_hypers({name}=...) is not ported yet "
+                                          f"(ROADMAP Queue 1 {item})")
+        reg = self.active
+        ndim = len(reg.sampling_dims)
+        if chains is None:
+            chains = 2 * ndim
+        if start is None:
+            start = self.find_MAP(display=False)
+        if isinstance(start, dict):
+            start = reg.dict_to_array(start)
+        start = np.asarray(start, dtype=settings.floatx)[..., reg.sampling_dims]
+        logp, loglike, logprior = self._sampling_logps(prior=prior,
+                                                       tempered=ntemps is not None)
+        lnprob, echain = mcmc_ensemble(
+            ndim, samples=samples, chains=chains, ntemps=ntemps, start=start, logp=logp,
+            loglike=loglike, logprior=logprior, noise_mult=noise_mult, noise_sum=noise_sum,
+            seed=seed, stats=stats)
+        complete_chain = np.empty(echain.shape[:2] + (reg.ndim,), dtype=settings.floatx)
+        complete_chain[:, :, reg.sampling_dims] = echain
+        if raw:
+            return complete_chain, lnprob
+        return chains_to_datatrace(
+            self, complete_chain, ll=lnprob, burnin_tol=burnin_tol,
+            burnin_method=burnin_method, burnin_dims=reg.sampling_dims,
+            outlayer_percentile=outlayer_percentile)
 
     def _array_logp_sampling(self, p):
         """logp over the sampling dims (every dim: fix_vars is not ported)."""
