@@ -25,9 +25,23 @@ K2 (blocked panel Cholesky), and checks them:
            params), GP(Bias, SE) at n=16384 (logp+dlogp); per-op device
            times; then the f32 dlogp at n=2048 against central differences
            of a float64 host logp
+  phase 6a K1 batched over hyperparameter rows vs its plain version: 4
+           families x f32/f64, R=16 at (125,125,8), R=3 at (1000,777,8),
+           R=16 at (4096,4096,8) (f32); times
+  phase 6b K2 batched vs its plain version row by row: f32 n=125 R=16, f32
+           n=4096 R=11, f64 n=1000 R=3; a batch with one failing row; times
+           of the batch, of R single calls and of cholesky_ex on the batch
+  phase 6c Bayesian path: the reference sampler workload, WGP(Bias, SE,
+           BoxCoxLinear) at n=125, d=8, 32 walkers x 400 iterations through
+           sample_hypers (one K1 and one K2 launch per batched logp call),
+           ESS/s, R-hat, acceptance, burn-in; 4 temperatures x 50
+  phase 6d full width: GP(Bias, SE) at n=4096, 22 walkers x 20 from the
+           MAP of phase 5, lnprob vs the float64 host logp; the averaged
+           predictor over 16 datatrace rows vs 16 single Predictors
 
-The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
-and read just after; each kernel must have launched on each path.  Every
+The kernel counts are set to 0 just before each path (phases 3-4, phase 5,
+phases 6c-6d) and read just after; each kernel must have launched on each
+path.  Every
 check raises on failure.  The last lines are the kernel record, the card
 and ``{"ok": true, "device": {...}}``.  Run from the repository root:
 
@@ -47,6 +61,7 @@ import torch
 
 import g3py_tpu_torch as g3t
 from g3py_tpu_torch.ops import _build
+from g3py_tpu_torch.ops.linalg import safe_cholesky_panels
 from g3py_tpu_torch.tools.k2_chain import timeline
 from g3py_tpu_torch.ops.panel_cholesky import panel_cholesky, _plain_form as k2_plain_form
 from g3py_tpu_torch.ops.stationary_gram import KINDS, stationary_gram, _plain_form
@@ -57,8 +72,9 @@ TIMED_SHAPES = SHAPES[:2]
 TOL = {torch.float32: (1e-5, 1e-6), torch.float64: (1e-12, 1e-14)}  # rtol, atol/var
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_FP32 = 67e12     # H100 SXM FP32 outside the tensor cores, flop/s
+PEAK_FP64 = 34e12     # H100 SXM FP64 outside the tensor cores, flop/s (data sheet)
 K2_NAMES = ("prep_kernel", "diag_kernel", "sgemm_rows_16", "sgemm_nt_128", "nt_tile_kernel",
-            "finish_kernel", "Memcpy DtoD")
+            "finish_kernel", "copy_panel_kernel")
 
 
 def require(cond, msg):
@@ -463,7 +479,7 @@ def train(proc, rng, label, reps, fit=True):
     require(per_eval[0] >= 2 and per_eval[1] >= 2,
             f"{label}: an evaluation did not launch both kernels")
     if not fit:
-        return med
+        return med, None
     before = proc.logp(u, array=True)
     t0 = time.perf_counter()
     params, points = proc.find_MAP(points=1, powell=False, display=False, return_points=True)
@@ -473,7 +489,7 @@ def train(proc, rng, label, reps, fit=True):
           f"({[p[0] for p in points]})", flush=True)
     require(after > before, f"{label}: find_MAP did not raise logp ({before} -> {after})")
     serve(proc, rng, batches=8, m=256, d=8, label=f"{label} trained", params=params)
-    return med
+    return med, params
 
 
 def host_logp(reg, u, x, y):
@@ -484,7 +500,8 @@ def host_logp(reg, u, x, y):
     start = 0
     for par in reg.ordered_params:
         seg = np.asarray(u[start:start + par.size], np.float64).reshape(par.shape)
-        p[par.name.split("_", 1)[1]] = np.exp(seg) if par.prior.transform.name == "log" else seg
+        key = "_".join(par.name.split("_")[-2:])  # SE_rate, Bias_Bias, Noise_var
+        p[key] = np.exp(seg) if par.prior.transform.name == "log" else seg
         start += par.size
     n = x.shape[0]
     k = host_gram(x, x, p["SE_rate"], p["SE_var"]) + p["Noise_var"] * np.eye(n)
@@ -547,22 +564,22 @@ def phase5(rng):
     y = (np.sin(x[:, 0]) + 0.1 * brng.standard_normal(n)).astype(np.float32)
     gp = g3t.GP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), name="TRAIN_GP")
     gp.observed(x, y)
-    t_gp = train(gp, rng, "GP n=4096", reps=10)
+    t_gp, gp_map = train(gp, rng, "GP n=4096", reps=10)
 
     x2 = rng.standard_normal((n, d)).astype(np.float32)
     y2 = (np.abs(np.sin(x2[:, 0])) + 0.5 + 0.1 * rng.standard_normal(n)).astype(np.float32)
     wgp = g3t.WGP(space=x2[:4], location=g3t.Bias(), kernel=g3t.MAT52(x2),
                   mapping=g3t.BoxCoxLinear(y2), name="TRAIN_WGP")
     wgp.observed(x2, y2)
-    t_wgp = train(wgp, rng, "WGP n=4096", reps=10)
+    t_wgp, _ = train(wgp, rng, "WGP n=4096", reps=10)
 
     n16 = 16384
     x16 = rng.standard_normal((n16, d)).astype(np.float32)
     y16 = (np.sin(x16[:, 0]) + 0.1 * rng.standard_normal(n16)).astype(np.float32)
     gp16 = g3t.GP(space=x16[:4], location=g3t.Bias(), kernel=g3t.SE(x16), name="TRAIN_GP16")
     gp16.observed(x16, y16)
-    t_gp16 = train(gp16, rng, "GP n=16384", reps=3, fit=False)
-    return {"gp4096": t_gp, "wgp4096": t_wgp, "gp16384": t_gp16}, (gp, gp16)
+    t_gp16, _ = train(gp16, rng, "GP n=16384", reps=3, fit=False)
+    return {"gp4096": t_gp, "wgp4096": t_wgp, "gp16384": t_gp16}, (gp, gp16, gp_map, x, y)
 
 
 def where_time_goes(gp, gp16):
@@ -572,6 +589,339 @@ def where_time_goes(gp, gp16):
         u = proc.active.dict_to_array(proc.params_default)
         top_ops(profile(lambda: (proc.logp(u, array=True), proc.dlogp(u))), label)
     top_ops(profile(lambda: gp16.predictor()), "GP n=16384 predictor set-up")
+
+
+# ---------------------------------------------------------------- phase 6
+# The Bayesian path: the ensemble sampler over the hyperparameter posterior
+# and the datatrace-averaged predictor, through K1 and K2 batched over
+# hyperparameter rows (one launch for all rows of a batched call).
+K1_BATCH_SHAPES = ((16, 125, 125, 8), (3, 1000, 777, 8), (16, 4096, 4096, 8))
+
+
+def phase6a():
+    """Batched K1 against its plain version: four families, f32 and f64, a
+    different rate, var and alpha for every row."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst, timing = 0.0, {}
+    for dtype in (torch.float32, torch.float64):
+        rtol, atol_rel = TOL[dtype]
+        for rows, m, n, d in K1_BATCH_SHAPES:
+            if dtype == torch.float64 and m == 4096:
+                continue
+            x1 = torch.randn(m, d, generator=gen, device=dev, dtype=dtype)
+            x2 = torch.randn(n, d, generator=gen, device=dev, dtype=dtype)
+            rate = 0.3 + 0.7 * torch.rand(rows, d, generator=gen, device=dev, dtype=dtype)
+            var = 0.5 + torch.rand(rows, generator=gen, device=dev, dtype=dtype)
+            alpha = 0.5 + torch.rand(rows, generator=gen, device=dev, dtype=dtype)
+            for kind in KINDS:
+                extra = alpha if kind == "rq" else None
+                out = stationary_gram(kind, x1, x2, rate, var, extra)
+                torch.cuda.synchronize()
+                ref = _plain_form(kind, x1, x2, rate, var, extra)
+                err = (out - ref).abs()
+                max_err = float(err.max())
+                ok = bool((err <= atol_rel * var.max() + rtol * ref.abs()).all())
+                require(ok and finite(out) and out.shape == (rows, m, n),
+                        f"batched K1 {kind} {dtype} R={rows} ({m},{n},{d}) disagrees with the "
+                        f"plain form (max abs err {max_err:.3e})")
+                worst = max(worst, max_err) if dtype == torch.float32 else worst
+                if dtype == torch.float32 and kind == "se":
+                    call = lambda: stationary_gram(kind, x1, x2, rate, var, extra)
+                    t_k = event_ms(call)
+                    t_p = event_ms(lambda: _plain_form(kind, x1, x2, rate, var, extra))
+                    t_dev = device_ms(profile(call, reps=10), ("stationary_gram_kernel",), 10)
+                    bound = rows * m * n * 4 / PEAK_BYTES * 1e3
+                    timing[(rows, m, n, d)] = dict(ms=t_k, device_ms=t_dev, plain_ms=t_p,
+                                                   bound_ms=bound)
+                    print(f"    time f32 se R={rows} ({m},{n},{d}): wrapper {t_k:.4f} ms, kernel "
+                          f"device {fmt_ms(t_dev)} a launch, plain {t_p:.4f} ms, bound "
+                          f"{bound:.4f} ms", flush=True)
+            print(f"  batched K1 {str(dtype)[6:]} R={rows} ({m},{n},{d}): 4 families match "
+                  "the plain form", flush=True)
+    return worst, timing
+
+
+def spd_batch(rows, n, dtype, seed):
+    """(rows, n, n) SE grams + 0.1 noise, one point set and rate a row."""
+    return torch.stack([se_gram_plus_noise(n, dtype, seed + r) for r in range(rows)])
+
+
+def phase6b():
+    """Batched K2 against its plain version, row by row; one failing row;
+    times of the batch, of R single calls and of cholesky_ex on the batch."""
+    worst, timing = 0.0, {}
+    for dtype, rows, n in ((torch.float32, 16, 125), (torch.float32, 11, 4096),
+                           (torch.float64, 3, 1000)):
+        l_tol, d_tol = K2_TOL[dtype]
+        res_tol = 4 * math.sqrt(n) * torch.finfo(dtype).eps
+        a = spd_batch(rows, n, dtype, seed=50 + n)
+        lk, dinv, info = panel_cholesky(a)
+        torch.cuda.synchronize()
+        require(lk.shape == (rows, n, n) and info.shape == (rows,) and not bool(info.any()),
+                f"batched K2 R={rows} n={n}: shape {tuple(lk.shape)}, info {info.tolist()}")
+        errs = []
+        for r in range(rows):
+            lp, dinv_p, info_p = k2_plain_form(a[r])
+            res, d_err = k2_checks(lk[r], dinv[r], a[r])
+            l_gap = float(torch.linalg.matrix_norm(lk[r] - lp) / torch.linalg.matrix_norm(lp))
+            require(res <= res_tol and l_gap <= l_tol and d_err <= d_tol and int(info_p) == 0,
+                    f"batched K2 {dtype} n={n} row {r}: residual {res:.3e}, |L-Lp|/|Lp| "
+                    f"{l_gap:.3e}, max|D L_kk - I| {d_err:.3e}")
+            errs.append(float((lk[r] - lp).abs().max()))
+        print(f"  batched K2 {str(dtype)[6:]} R={rows} n={n}: every row matches the plain "
+              f"form (max abs err {max(errs):.3e})", flush=True)
+        worst = max(worst, max(errs)) if dtype == torch.float32 else worst
+        reps = 10 if n <= 1000 else 5
+        t_k = event_ms(lambda: panel_cholesky(a), reps=reps, warmup=1)
+        t_loop = event_ms(lambda: [panel_cholesky(a[r]) for r in range(rows)], reps=reps,
+                          warmup=1)
+        t_lib = event_ms(lambda: torch.linalg.cholesky_ex(a), reps=reps, warmup=1)
+        t_p = event_ms(lambda: k2_plain_form(a), reps=2, warmup=1)
+        t_dev = device_ms(profile(lambda: panel_cholesky(a), reps=reps), K2_NAMES, reps)
+        width = 4 if dtype == torch.float32 else 8
+        nb = -(-n // 128)
+        flops = rows * n ** 3 / 3
+        nbytes = rows * (2 * n * n + nb * 128 * 128) * width
+        peak = PEAK_FP32 if dtype == torch.float32 else PEAK_FP64
+        bound = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
+        timing[(str(dtype)[6:], rows, n)] = dict(
+            ms=t_k, device_ms=t_dev, loop_ms=t_loop, library_ms=t_lib, plain_ms=t_p,
+            bound_ms=bound, bound_by="operations" if flops / peak > nbytes / PEAK_BYTES
+            else "bytes")
+        print(f"    time {str(dtype)[6:]} R={rows} n={n}: batched K2 {t_k:.4f} ms (events), "
+              f"device {fmt_ms(t_dev)}; {rows} single K2 calls {t_loop:.4f} ms; cholesky_ex "
+              f"on the batch {t_lib:.4f} ms; plain {t_p:.4f} ms; bound {bound:.4f} ms",
+              flush=True)
+    # one failing row: only its info is set, the other rows are untouched
+    for dtype in (torch.float32, torch.float64):
+        rows, n, j, bad = 4, 1000, 700, 2
+        a = spd_batch(rows, n, dtype, seed=90)
+        a[bad, j, :] = 0.0
+        a[bad, :, j] = 0.0
+        a[bad, j, j] = -1.0
+        lk, _, info = panel_cholesky(a)
+        torch.cuda.synchronize()
+        want = [j + 1 if r == bad else 0 for r in range(rows)]
+        require(info.tolist() == want, f"batched K2 info {info.tolist()}, want {want}")
+        for r in range(rows):
+            if r != bad:
+                lr = panel_cholesky(a[r])[0]
+                gap = float(torch.linalg.matrix_norm(lk[r] - lr) / torch.linalg.matrix_norm(lr))
+                require(gap <= K2_TOL[dtype][0], f"batched K2 row {r} next to a failing row "
+                        f"differs from its single factorization ({gap:.3e})")
+        print(f"  batched K2 {str(dtype)[6:]} info with row {bad} failing at column {j}: "
+              f"{info.tolist()}; the other rows match their single factorizations", flush=True)
+    return worst, timing
+
+
+def bench_wgp_data(d=8):
+    """The sampler workload's data: bench.py's rng stream after its n=4096
+    headline arrays (bench.py:705-714)."""
+    rr = np.random.default_rng(0)
+    rr.standard_normal((4096, d))
+    rr.standard_normal(4096)
+    x = rr.standard_normal((125, d)).astype(np.float32)
+    y = (np.abs(np.sin(x[:, 0])) + 0.5 + 0.1 * rr.standard_normal(125)).astype(np.float32)
+    return x, y
+
+
+def launches():
+    return stationary_gram.launches, panel_cholesky.launches, safe_cholesky_panels.retries
+
+
+def iteration_profile(proc, rows, label):
+    """Device time of one sampler iteration (two batched logp calls of half
+    the ensemble each) by kernel, and its wall time without the profiler."""
+    logp, _, _ = proc._sampling_logps()
+    half = torch.as_tensor(rows[: len(rows) // 2], device="cuda")
+
+    def one_iteration():
+        logp(half)
+        logp(half)
+        torch.cuda.synchronize()
+
+    busy = top_ops(profile(one_iteration, reps=3), f"{label}: 3 iterations") / 3
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        one_iteration()
+        times.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(times)
+    print(f"    {label}: one iteration {wall:.3f} ms wall (median of 10), device busy "
+          f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / wall):.3f}", flush=True)
+    return dict(wall_ms=wall, busy_ms=busy)
+
+
+def host_profile(proc, rows, label, calls=50):
+    """cProfile of ``calls`` batched logp calls of half the ensemble: the
+    host time a call and the port's functions that take it."""
+    import cProfile
+    import pstats
+
+    logp, _, _ = proc._sampling_logps()
+    half = torch.as_tensor(rows[: len(rows) // 2], device="cuda")
+    logp(half)
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(calls):
+        logp(half)
+    torch.cuda.synchronize()
+    prof.disable()
+    per_call = (time.perf_counter() - t0) * 1e3 / calls
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (cc, nc, tt, ct, callers)
+    rows_out = sorted(((ct * 1e3 / calls, f"{Path(f).name}:{ln}({fn})")
+                       for (f, ln, fn), (_, _, _, ct, _) in stats.items()
+                       if "g3py_tpu_torch" in f), reverse=True)[:10]
+    print(f"  {label}: {per_call:.3f} ms of host time a call under cProfile; cumulative "
+          "ms a call: " + ", ".join(f"{name} {t:.3f}" for t, name in rows_out), flush=True)
+    return per_call
+
+
+def phase6c():
+    """The reference sampler workload: WGP(Bias, SE, BoxCoxLinear), n=125,
+    d=8, 32 walkers x 400 iterations through sample_hypers."""
+    x, y = bench_wgp_data()
+    wgp = g3t.WGP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x),
+                  mapping=g3t.BoxCoxLinear(y), name="SMOKE_BWGP")
+    wgp.observed(x, y)
+    start = wgp.params_default
+    chains, iters = 32, 400
+    wgp.sample_hypers(start=start, samples=5, chains=chains, noise_mult=0.05, seed=1)  # warm-up
+    k1_0, k2_0, retry_0 = launches()
+    stats = {}
+    t0 = time.perf_counter()
+    dt = wgp.sample_hypers(start=start, samples=iters, chains=chains, noise_mult=0.05,
+                           seed=2, stats=stats)
+    t_all = time.perf_counter() - t0
+    k1, k2, retries = (v - v0 for v, v0 in zip(launches(), (k1_0, k2_0, retry_0)))
+    calls = stats["logp_calls"]
+    print(f"  WGP n=125 sampler: {calls} batched logp calls; K1 x{k1}, K2 x{k2} "
+          f"({retries} jitter retries)", flush=True)
+    require(calls == 1 + 2 * iters, f"{calls} batched logp calls, expected {1 + 2 * iters}")
+    require(k1 == calls and k2 - retries == calls,
+            f"K1 x{k1}, K2 x{k2} - {retries} retries on {calls} batched logp calls: the "
+            "kernels did not launch once per batched call")
+    chain = g3t.datatrace_to_chains(wgp, dt)
+    require(chain.shape == (chains, iters, wgp.active.ndim) and np.isfinite(chain).all()
+            and np.isfinite(dt["_ll"]).all() and dt["_ll"].max() > -1e29,
+            "sampler chain or lnprob not finite")
+    from g3py_tpu_torch.bayesian.average import _mESS
+    ess = sum(_mESS(chain[c, iters // 2:, :].astype(np.float64)) for c in range(chains))
+    t_s = stats["seconds"]
+    rhat = g3t.gelman_rubin(chain)
+    rhat_half = g3t.gelman_rubin(chain[:, iters // 2:])
+    nburn = int((~dt["_burnin"]).sum()) // chains
+    out = dict(evals_per_s=chains * iters / t_s, ess=ess, ess_per_s=ess / (t_s / 2),
+               rhat=rhat, rhat_half=rhat_half, acceptance=stats["acceptance"], burnin=nburn,
+               sampler_s=t_s, total_s=t_all)
+    print(f"  WGP n=125, {chains} walkers x {iters}: sampler {t_s:.3f} s ({t_all:.3f} s with "
+          f"the datatrace); {out['evals_per_s']:.1f} logp evaluations/s; mESS (second half) "
+          f"{ess:.1f}, {out['ess_per_s']:.1f} ESS/s; |R-hat - 1| {rhat:.4f} (second half "
+          f"{rhat_half:.4f}); acceptance {stats['acceptance']:.3f}; burn-in {nburn} samples",
+          flush=True)
+    pt = {}
+    k1_0, k2_0, retry_0 = launches()
+    chain_t, lnprob_t = wgp.sample_hypers(start=start, samples=50, chains=chains, ntemps=4,
+                                          noise_mult=0.05, seed=3, raw=True, stats=pt)
+    k1, k2, retries = (v - v0 for v, v0 in zip(launches(), (k1_0, k2_0, retry_0)))
+    require(np.isfinite(chain_t).all() and np.isfinite(lnprob_t).all()
+            and k1 == pt["logp_calls"] and k2 - retries == pt["logp_calls"],
+            f"tempered run: K1 x{k1}, K2 x{k2} on {pt['logp_calls']} batched loglike calls")
+    print(f"  WGP n=125 tempered, 4 temperatures x {chains} walkers x 50: {pt['seconds']:.3f} s, "
+          f"acceptance {pt['acceptance']:.3f}, K1 x{k1}, K2 x{k2} ({pt['logp_calls']} batched "
+          f"loglike calls of {4 * chains // 2} rows)", flush=True)
+    out["tempered_s"] = pt["seconds"]
+    out["profile"] = iteration_profile(wgp, chain[:, -1, :], "WGP n=125 iteration (R=16)")
+    out["host_ms"] = host_profile(wgp, chain[:, -1, :], "WGP n=125 batched logp (R=16)")
+    return out
+
+
+def phase6d(gp, gp_map, x, y):
+    """Full width: GP(Bias, SE) at n=4096, 22 walkers x 20 iterations from
+    the MAP of phase 5, lnprob against the float64 host logp, then the
+    averaged predictor over 16 datatrace rows against 16 single Predictors."""
+    reg = gp.active
+    stats = {}
+    chain, lnprob = gp.sample_hypers(start=gp_map, samples=20, chains=22, seed=4, raw=True,
+                                     noise_mult=0.02, stats=stats)
+    require(np.isfinite(chain).all() and np.isfinite(lnprob).all(),
+            "n=4096 sampler chain or lnprob not finite")
+    print(f"  GP n=4096, 22 walkers x 20: sampler {stats['seconds']:.3f} s "
+          f"({22 * 20 / stats['seconds']:.1f} logp evaluations/s), acceptance "
+          f"{stats['acceptance']:.3f}", flush=True)
+    # the MAP takes ARD rates of irrelevant inputs towards 0, next to the
+    # FlatExp prior's wall at 1e-6; a walker beyond it has lnprob -1e30 (the
+    # prior), which the host logp (the likelihood alone) does not model.
+    # Six walkers are checked: the host logp takes ~2.4 s each at n=4096.
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    inside = [w for w in range(22) if lnprob[w, -1] > -1e29]
+    t0 = time.perf_counter()
+    gaps = []
+    for w in inside[:6]:
+        ref = host_logp(reg, chain[w, -1], x64, y64)
+        gaps.append(abs(lnprob[w, -1] - ref) / abs(ref))
+    print(f"  final walkers' lnprob vs the float64 host logp: {len(inside)} of 22 inside the "
+          f"prior's support, max relative gap {max(gaps):.3e} over {len(gaps)} of them "
+          f"({time.perf_counter() - t0:.1f} s on the host)", flush=True)
+    require(len(inside) >= 11, f"only {len(inside)} of 22 walkers inside the prior's support")
+    require(max(gaps) <= 1e-3, f"n=4096 lnprob vs host logp relative gap {max(gaps):.3e}")
+    prof = iteration_profile(gp, chain[:, -1, :], "GP n=4096 iteration (R=11)")
+
+    dt = g3t.chains_to_datatrace(gp, chain, ll=lnprob, burnin_tol=None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ap = gp.averaged_predictor(dt, max_rows=16)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    rng = np.random.default_rng(44)
+    queries = [rng.standard_normal((256, 8)).astype(np.float32) for _ in range(8)]
+    times, outs = [], []
+    for xq in queries:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ap(xq)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        require(all(out[k].shape == (256,) and finite(out[k]) for k in ("mean", "std")),
+                "averaged predictor output is not finite")
+        outs.append(out)
+    # The averaging machinery against 16 single Predictors, in float64: at
+    # the MAP cond(K) ~ 1e5, so float32 rounding differences between a
+    # batched and a single product (cuBLAS picks other kernels) grow to
+    # ~1e-2 in the posterior std (k_ss - |v|^2 cancels); float64 leaves the
+    # machinery alone to compare.  The float32 output is then held to the
+    # float64 average at that float32 scale.
+    g3t.settings.floatx = "float64"
+    try:
+        ap64 = gp.averaged_predictor(dt, max_rows=16)
+        singles = [gp.predictor({k: v[i] for k, v in ap64.params.items()})
+                   for i in range(len(ap64.rows))]
+        worst = {"mean": 0.0, "std": 0.0}
+        worst32 = {"mean": 0.0, "std": 0.0}
+        for xq, out in zip(queries, outs):
+            got = ap64(xq)
+            refs = [pr(xq) for pr in singles]
+            for k in worst:
+                ref = torch.stack([r[k] for r in refs]).mean(dim=0)
+                scale = float(ref.abs().max())
+                worst[k] = max(worst[k], float((got[k] - ref).abs().max()) / scale)
+                worst32[k] = max(worst32[k], float((out[k] - got[k]).abs().max()) / scale)
+    finally:
+        g3t.settings.floatx = "float32"
+    print(f"  averaged predictor, 16 rows of n=4096: set-up {t_setup * 1e3:.1f} ms; 8 batches "
+          f"of 256: median {statistics.median(times):.3f} ms, all "
+          f"{[round(t, 3) for t in times]}; float64: vs the average of 16 single Predictors "
+          f"mean {worst['mean']:.3e}, std {worst['std']:.3e} relative; float32 vs float64 "
+          f"mean {worst32['mean']:.3e}, std {worst32['std']:.3e}", flush=True)
+    require(max(worst.values()) <= 1e-4,
+            f"averaged predictor vs 16 single Predictors (float64): {worst}")
+    require(worst32["mean"] <= 1e-2 and worst32["std"] <= 1e-1,
+            f"float32 averaged predictor vs float64: {worst32}")
+    return dict(sampler_s=stats["seconds"], setup_ms=t_setup * 1e3,
+                batch_ms=statistics.median(times), profile=prof)
 
 
 def main():
@@ -636,7 +986,7 @@ def main():
     # ---- training path
     stationary_gram.launches = 0
     panel_cholesky.launches = 0
-    train_ms, (tgp, tgp16) = phase5(rng)
+    train_ms, (tgp, tgp16, gp_map, x_map, y_map) = phase5(rng)
     k1_train, k2_train = stationary_gram.launches, panel_cholesky.launches
     print(f"  launches in training: K1 {k1_train}, K2 {k2_train}", flush=True)
     require(k1_train > 0 and k2_train > 0, "training did not go through both kernels")
@@ -646,6 +996,23 @@ def main():
     kinv_forms(4096)
     kinv_forms(16384)
     where_time_goes(tgp, tgp16)
+
+    print("phase 6a: batched K1 vs plain form", flush=True)
+    k1b_worst, k1b_timing = phase6a()
+    print("phase 6b: batched K2 vs plain form", flush=True)
+    k2b_worst, k2b_timing = phase6b()
+
+    # ---- Bayesian path
+    stationary_gram.launches = 0
+    panel_cholesky.launches = 0
+    print("phase 6c: ensemble sampler, WGP(Bias, SE, BoxCoxLinear) n=125 d=8", flush=True)
+    bayes = phase6c()
+    print("phase 6d: full width, GP(Bias, SE) n=4096: sampler and averaged predictor",
+          flush=True)
+    bayes_full = phase6d(tgp, gp_map, x_map, y_map)
+    k1_bayes, k2_bayes = stationary_gram.launches, panel_cholesky.launches
+    print(f"  launches in the Bayesian path: K1 {k1_bayes}, K2 {k2_bayes}", flush=True)
+    require(k1_bayes > 0 and k2_bayes > 0, "the Bayesian path did not go through both kernels")
 
     shape = (4096, 4096, 8)
     t_wrap, t_plain, t_dev = k1_timing[("se", shape)]
@@ -664,9 +1031,27 @@ def main():
          "launches": k2_serve + k2_train, "max_abs_err": k2_worst,
          "ms": k2t["ms"], "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"],
          "bound_by": "operations", "library_ms": k2t["library_ms"]}]}
+    k1b = k1b_timing[(16, 4096, 4096, 8)]
+    k2b = k2b_timing[("float32", 11, 4096)]
+    record["kernels"] += [
+        {"name": "stationary_gram_batched", "route": "cuda",
+         "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
+         "replaces": "g3py_tpu/ops/pallas_gram.py:81",
+         "launches": k1_bayes, "max_abs_err": k1b_worst,
+         "ms": k1b["device_ms"] if k1b["device_ms"] is not None else k1b["ms"],
+         "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "panel_cholesky_batched", "route": "cuda",
+         "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
+         "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
+         "launches": k2_bayes, "max_abs_err": k2b_worst,
+         "ms": k2b["ms"], "plain_ms": k2b["plain_ms"], "bound_ms": k2b["bound_ms"],
+         "bound_by": k2b["bound_by"], "library_ms": k2b["library_ms"]}]
     print(f"  K1 at {shape} SE f32: device {fmt_ms(t_dev)}, wrapper {t_wrap:.4f} ms, "
           f"plain {t_plain:.4f} ms, bound {k1_bound:.4f} ms", flush=True)
     print(f"  training logp+dlogp medians (ms): {train_ms}", flush=True)
+    print(f"  Bayesian path: {json.dumps(bayes)}; full width {json.dumps(bayes_full)}",
+          flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
