@@ -43,12 +43,6 @@ __all__ = ["safe_cholesky", "safe_cholesky_panels", "trtri_from_panels",
 _KINV_BLOCK = 1024
 
 
-def _try_cholesky(a):
-    chol, dinv, info = panel_cholesky(a)
-    ok = bool((info == 0) & torch.isfinite(chol).all())
-    return chol, dinv, ok
-
-
 def _jitter_plan(a):
     """``(base, diag_fix)`` of the escalation, per matrix of a stack:
     ``base = mean(diag) * jitter``; ``diag_fix`` lifts a non-positive
@@ -65,62 +59,46 @@ def _failed_panels(dinv, dtype, device):
     return (1e10 * eye).expand_as(dinv).contiguous()
 
 
-def _safe_cholesky_rows(a, max_tries):
-    """:func:`safe_cholesky_panels` of a (R, n, n) stack: returns ``(L, dinv,
-    failed)`` with ``failed`` a (R,) bool tensor."""
-    chol, dinv, info = panel_cholesky(a)
-    ok = (info == 0) & torch.isfinite(chol).all(dim=-1).all(dim=-1)
-    pending = torch.nonzero(~ok).flatten().cpu()  # the one sync of try 0
-    if len(pending) == 0:
-        return chol, dinv, ~ok
-    base, diag_fix = _jitter_plan(a)
-    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
-    for k in range(1, max_tries):
-        idx = pending.to(a.device)
-        shift = diag_fix[idx] + base[idx] * 10.0 ** (k - 1)
-        chol_k, dinv_k, info_k = panel_cholesky(a[idx] + shift[:, None, None] * eye)
-        ok_k = (info_k == 0) & torch.isfinite(chol_k).all(dim=-1).all(dim=-1)
-        chol[idx[ok_k]] = chol_k[ok_k]
-        dinv[idx[ok_k]] = dinv_k[ok_k]
-        pending = pending[~ok_k.cpu()]  # one sync a try
-        safe_cholesky_panels.retries += 1
-        if len(pending) == 0:
-            break
-    failed = torch.zeros(a.shape[0], dtype=torch.bool)
-    failed[pending] = True
-    if len(pending):
-        idx = pending.to(a.device)
-        chol[idx] = 1e-10 * eye
-        dinv[idx] = _failed_panels(dinv[idx], a.dtype, a.device)
-    return chol, dinv, failed.to(a.device)
-
-
 def safe_cholesky_panels(a, max_tries=None):
     """Escalating-jitter factorization; returns ``(L, dinv, failed)`` with
     the panel inverses of the factorization that succeeded (``1e-10 * I``
     and ``1e10 * I`` panels on total failure).  The common case costs one
     factorization and one host sync.  A (R, n, n) stack is factored as one
-    batch, each row with its own escalation; ``failed`` is then a (R,)
-    bool tensor.  ``safe_cholesky_panels.retries`` counts the retry
-    factorizations."""
+    batch, each row with its own escalation, and ``failed`` is a (R,) bool
+    tensor; a single matrix is the stack of one, and ``failed`` a bool.
+    ``safe_cholesky_panels.retries`` counts the retry factorizations."""
     if max_tries is None:
         max_tries = settings.cholesky_max_tries
-    a = a.detach()
-    if a.ndim == 3:
-        return _safe_cholesky_rows(a, max_tries)
-    chol, dinv, ok = _try_cholesky(a)
-    if ok:
-        return chol, dinv, False
-    n = a.shape[-1]
-    eye = torch.eye(n, dtype=a.dtype, device=a.device)
-    # the non-positive diagonal is fixed once, before the escalation
-    base, diag_fix = _jitter_plan(a)
-    for k in range(1, max_tries):
-        safe_cholesky_panels.retries += 1
-        chol, dinv, ok = _try_cholesky(a + (diag_fix + base * 10.0 ** (k - 1)) * eye)
-        if ok:
-            return chol, dinv, False
-    return 1e-10 * eye, _failed_panels(dinv, a.dtype, a.device), True
+    single = a.ndim == 2
+    a = (a[None] if single else a).detach()
+    chol, dinv, info = panel_cholesky(a)
+    ok = (info == 0) & torch.isfinite(chol).all(dim=-1).all(dim=-1)
+    pending = torch.nonzero(~ok).flatten().cpu()  # the one sync of try 0
+    if len(pending):
+        # the non-positive diagonal is fixed once, before the escalation
+        base, diag_fix = _jitter_plan(a)
+        eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+        for k in range(1, max_tries):
+            idx = pending.to(a.device)
+            shift = diag_fix[idx] + base[idx] * 10.0 ** (k - 1)
+            chol_k, dinv_k, info_k = panel_cholesky(a[idx] + shift[:, None, None] * eye)
+            ok_k = (info_k == 0) & torch.isfinite(chol_k).all(dim=-1).all(dim=-1)
+            chol[idx[ok_k]] = chol_k[ok_k]
+            dinv[idx[ok_k]] = dinv_k[ok_k]
+            pending = pending[~ok_k.cpu()]  # one sync a try
+            safe_cholesky_panels.retries += 1
+            if len(pending) == 0:
+                break
+        if len(pending):
+            idx = pending.to(a.device)
+            chol[idx] = 1e-10 * eye
+            dinv[idx] = _failed_panels(dinv[idx], a.dtype, a.device)
+    if single:
+        return chol[0], dinv[0], len(pending) > 0
+    failed = torch.zeros(a.shape[0], dtype=torch.bool, device=a.device)
+    if len(pending):
+        failed[pending.to(a.device)] = True
+    return chol, dinv, failed
 
 
 safe_cholesky_panels.retries = 0
@@ -291,16 +269,16 @@ def mvn_quad_logdet(k, resid, max_tries=None):
     from one batched factorization; that form has no gradient."""
     if max_tries is None:
         max_tries = settings.cholesky_max_tries
-    if k.ndim == 3:
-        if torch.is_grad_enabled() and (k.requires_grad or resid.requires_grad):
-            raise NotImplementedError("mvn_quad_logdet: the batched form has no gradient")
-        chol, _, failed = safe_cholesky_panels(k, max_tries)
-        rhs = resid.expand(k.shape[:-1])[..., None]
-        z = torch.linalg.solve_triangular(chol, rhs, upper=False)[..., 0]
-        logdet_half = torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(dim=-1)
-        return (z * z).sum(dim=-1), logdet_half, (~failed).to(k.dtype)
+    single = k.ndim == 2
     if torch.is_grad_enabled() and (k.requires_grad or resid.requires_grad):
+        if not single:
+            raise NotImplementedError("mvn_quad_logdet: the batched form has no gradient")
         return _MvnQuadLogdet.apply(k, resid, max_tries)
-    chol, _, failed = safe_cholesky_panels(k, max_tries)
-    z = solve_lower_triangular(chol, resid)
-    return torch.dot(z, z), torch.log(torch.diagonal(chol)).sum(), _ok_flag(failed, k)
+    stack = k[None] if single else k
+    chol, _, failed = safe_cholesky_panels(stack, max_tries)
+    rhs = resid.expand(stack.shape[:-1])[..., None]
+    z = torch.linalg.solve_triangular(chol, rhs, upper=False)[..., 0]
+    quad = (z * z).sum(dim=-1)
+    logdet_half = torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(dim=-1)
+    ok = (~failed).to(k.dtype)
+    return (quad[0], logdet_half[0], ok[0]) if single else (quad, logdet_half, ok)
