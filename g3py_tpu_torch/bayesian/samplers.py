@@ -25,8 +25,6 @@ package's draws (the two generators give different numbers).
 ``hmc_sampler`` comes with the NUTS slice (ROADMAP Queue 1 item 8).
 """
 
-import time
-
 import numpy as np
 import torch
 
@@ -75,22 +73,20 @@ def _stretch_half(gen, x_move, lp_move, aux_move, x_other, logp_rows, a):
     x_new = torch.where(accept[..., None], y, x_move)
     lp_new = torch.where(accept, lp_y, lp_move)
     aux_new = tuple(torch.where(accept, ay, am) for ay, am in zip(aux_y, aux_move))
-    return x_new, lp_new, aux_new, accept
+    return x_new, lp_new, aux_new
 
 
 def _ensemble_step(gen, x, lp, aux, logp_rows, a):
-    """Both halves of one iteration; returns the new state and the accepted
-    flags of every walker."""
+    """Both halves of one iteration; returns the new state."""
     half = x.shape[-2] // 2
     sl = (slice(None, half), slice(half, None))
-    x1, lp1, aux1, acc1 = _stretch_half(gen, x[..., sl[0], :], lp[..., sl[0]],
-                                        tuple(v[..., sl[0]] for v in aux),
-                                        x[..., sl[1], :], logp_rows, a)
-    x2, lp2, aux2, acc2 = _stretch_half(gen, x[..., sl[1], :], lp[..., sl[1]],
-                                        tuple(v[..., sl[1]] for v in aux), x1, logp_rows, a)
+    x1, lp1, aux1 = _stretch_half(gen, x[..., sl[0], :], lp[..., sl[0]],
+                                  tuple(v[..., sl[0]] for v in aux), x[..., sl[1], :],
+                                  logp_rows, a)
+    x2, lp2, aux2 = _stretch_half(gen, x[..., sl[1], :], lp[..., sl[1]],
+                                  tuple(v[..., sl[1]] for v in aux), x1, logp_rows, a)
     return (torch.cat([x1, x2], dim=-2), torch.cat([lp1, lp2], dim=-1),
-            tuple(torch.cat(pair, dim=-1) for pair in zip(aux1, aux2)),
-            torch.cat([acc1, acc2], dim=-1))
+            tuple(torch.cat(pair, dim=-1) for pair in zip(aux1, aux2)))
 
 
 def _generator(seed, device):
@@ -104,19 +100,13 @@ def _start(p0):
     return p0
 
 
-def _finish(chain, lnprob, accepted, stats, t0, calls):
+def _finish(chain, lnprob):
     """(samples, chains, ...) device tensors -> host arrays in emcee's
-    (chains, samples, ...) layout; into ``stats`` the acceptance rate, the
-    wall seconds since ``t0`` (the copy to the host waits for the device)
-    and the number of batched log-density calls."""
-    out = chain.transpose(0, 1).cpu().numpy(), lnprob.T.cpu().numpy()
-    if stats is not None:
-        stats.update(acceptance=float(accepted) / max(lnprob.numel(), 1),
-                     seconds=time.perf_counter() - t0, logp_calls=calls)
-    return out
+    (chains, samples, ...) layout."""
+    return chain.transpose(0, 1).cpu().numpy(), lnprob.T.cpu().numpy()
 
 
-def ensemble_sampler(logp, p0, samples, seed=None, a=2.0, stats=None):
+def ensemble_sampler(logp, p0, samples, seed=None, a=2.0):
     """Affine-invariant ensemble sampler.
 
     Args:
@@ -125,12 +115,9 @@ def ensemble_sampler(logp, p0, samples, seed=None, a=2.0, stats=None):
       samples: iterations.
       seed: seed of the ``torch.Generator`` on ``settings.device``.
       a: stretch scale (emcee default 2).
-      stats: a dict that receives the acceptance rate of the run, its wall
-        seconds and the number of batched ``logp`` calls.
 
     Returns host arrays ``chain (chains, samples, ndim)`` and ``lnprob
     (chains, samples)``."""
-    t0 = time.perf_counter()
     x = _start(p0)
     gen = _generator(seed, x.device)
 
@@ -140,12 +127,10 @@ def ensemble_sampler(logp, p0, samples, seed=None, a=2.0, stats=None):
     lp, _ = logp_rows(x)
     chain = torch.empty((samples,) + x.shape, dtype=x.dtype, device=x.device)
     lnprob = torch.empty((samples, x.shape[0]), dtype=x.dtype, device=x.device)
-    accepted = torch.zeros((), dtype=torch.int64, device=x.device)
     for it in range(samples):
-        x, lp, _, acc = _ensemble_step(gen, x, lp, (), logp_rows, a)
+        x, lp, _ = _ensemble_step(gen, x, lp, (), logp_rows, a)
         chain[it], lnprob[it] = x, lp
-        accepted += acc.sum()
-    return _finish(chain, lnprob, accepted, stats, t0, 1 + 2 * samples)
+    return _finish(chain, lnprob)
 
 
 def default_beta_ladder(ntemps):
@@ -167,15 +152,12 @@ def _swap(x, like, prior, betas, log_u):
             v[t - 1] = torch.where(w, hi, lo)
 
 
-def pt_sampler(loglike, logprior, p0, samples, betas=None, seed=None, a=2.0, stats=None):
+def pt_sampler(loglike, logprior, p0, samples, betas=None, seed=None, a=2.0):
     """Parallel-tempered ensemble sampler over p0 (ntemps, chains, ndim);
     ``loglike`` and ``logprior`` are batched ((R, ndim) -> (R,)).  Every
     temperature's half-ensemble goes into ONE batched call of each.
     Returns the temperature-0 chain (reference kept ``lnprob[0],
-    chain[0]``) and its lnprob; ``stats`` receives the acceptance rate of
-    the stretch moves at temperature 0, the wall seconds and the number of
-    batched calls of each density."""
-    t0 = time.perf_counter()
+    chain[0]``) and its lnprob."""
     x = _start(p0)
     ntemps, chains, ndim = x.shape
     gen = _generator(seed, x.device)
@@ -195,24 +177,21 @@ def pt_sampler(loglike, logprior, p0, samples, betas=None, seed=None, a=2.0, sta
     like, prior = parts(x)
     chain = torch.empty((samples, chains, ndim), dtype=x.dtype, device=x.device)
     lnprob = torch.empty((samples, chains), dtype=x.dtype, device=x.device)
-    accepted = torch.zeros((), dtype=torch.int64, device=x.device)
     for it in range(samples):
         lp = betas[:, None] * like + prior
-        x, _, (like, prior), acc = _ensemble_step(gen, x, lp, (like, prior), logp_rows, a)
-        accepted += acc[0].sum()
+        x, _, (like, prior) = _ensemble_step(gen, x, lp, (like, prior), logp_rows, a)
         _swap(x, like, prior, betas, _swap_draws(gen, (ntemps - 1, chains), x.dtype, x.device))
         chain[it], lnprob[it] = x[0], like[0] + prior[0]
-    return _finish(chain, lnprob, accepted, stats, t0, 1 + 2 * samples)
+    return _finish(chain, lnprob)
 
 
 def mcmc_ensemble(ndim, samples=1000, chains=None, ntemps=None, start=None,
                   logp=None, loglike=None, logprior=None, noise_mult=0.1,
-                  noise_sum=0.01, seed=0, stats=None):
+                  noise_sum=0.01, seed=0):
     """The reference's entry point (``average.py:20-54``): jitter the start into an
     initial ensemble with ``np.random.default_rng(seed)`` (the same draws as
     the JAX package), run the (tempered) sampler, return ``(lnprob,
-    chain)``.  ``stats``, a dict, receives the sampler's acceptance rate,
-    wall seconds and batched-call count."""
+    chain)``."""
     if chains is None:
         chains = 2 * ndim
     chains = int(chains)
@@ -229,7 +208,7 @@ def mcmc_ensemble(ndim, samples=1000, chains=None, ntemps=None, start=None,
             p0 = noise * np.ones((chains, 1)) * start
         p0 += (p0 == 0) * rng.normal(loc=0, scale=noise_sum, size=p0.shape)
         chain, lnprob = ensemble_sampler(logp, p0.astype(settings.floatx), samples,
-                                         seed=seed, stats=stats)
+                                         seed=seed)
     else:
         ntemps = int(ntemps)
         if start.ndim == 3 and start.shape == (ntemps, chains, ndim):
@@ -242,5 +221,5 @@ def mcmc_ensemble(ndim, samples=1000, chains=None, ntemps=None, start=None,
             p0 = noise * np.ones((ntemps, chains, 1)) * start
         p0 += (p0 == 0) * rng.normal(loc=0, scale=noise_sum, size=p0.shape)
         chain, lnprob = pt_sampler(loglike, logprior, p0.astype(settings.floatx), samples,
-                                   seed=seed, stats=stats)
+                                   seed=seed)
     return lnprob, chain

@@ -361,7 +361,7 @@ class StochasticProcess(BatchedModel):
                       raw=False, noise_mult=0.1, noise_sum=0.01, burnin_tol=0.001,
                       burnin_method="multi-sum", outlayer_percentile=0.0005,
                       clusters=None, prior=False, plot=False, file=None, seed=0,
-                      method="ensemble", reparam=None, stats=None):
+                      method="ensemble", reparam=None):
         """MCMC over the hyperparameter posterior with the affine-invariant
         ensemble sampler (parallel-tempered when ``ntemps``): ``chains``
         walkers (default 2 ndim) jittered around ``start`` (default: the
@@ -370,8 +370,7 @@ class StochasticProcess(BatchedModel):
         :class:`~g3py_tpu_torch.utils.datatrace.Datatrace` (burn-in from the
         Gelman-Rubin bisection at ``burnin_tol``, outliers at
         ``outlayer_percentile``), or with ``raw`` the ``(chain, lnprob)``
-        arrays.  ``stats``, a dict, receives the sampler's acceptance rate,
-        wall seconds and number of batched logp calls."""
+        arrays."""
         todo = {"method": (method != "ensemble", "item 8 (NUTS/NeuTra/ADVI)"),
                 "reparam": (reparam is not None, "item 8 (reparam='noncentered')"),
                 "file": (file is not None, "item 8 (datatrace files)"),
@@ -395,7 +394,7 @@ class StochasticProcess(BatchedModel):
         lnprob, echain = mcmc_ensemble(
             ndim, samples=samples, chains=chains, ntemps=ntemps, start=start, logp=logp,
             loglike=loglike, logprior=logprior, noise_mult=noise_mult, noise_sum=noise_sum,
-            seed=seed, stats=stats)
+            seed=seed)
         complete_chain = np.empty(echain.shape[:2] + (reg.ndim,), dtype=settings.floatx)
         complete_chain[:, :, reg.sampling_dims] = echain
         if raw:

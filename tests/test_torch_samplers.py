@@ -90,12 +90,13 @@ def test_stretch_half_matches_jax(feed):
         want_x, want_lp = stretch(key, jnp.asarray(x[:4]), jnp.asarray(lp[:4]),
                                   jnp.asarray(x[4:]), jax.vmap(_jlogp), 2.0)
         feed.halves.append(_jax_half_draws(key, 4, 4))
-        got_x, got_lp, _, acc = tsam._stretch_half(
+        got_x, got_lp, _ = tsam._stretch_half(
             None, torch.as_tensor(x[:4]), torch.as_tensor(lp[:4]), (), torch.as_tensor(x[4:]),
             lambda y: (_tlogp(y), ()), 2.0)
     np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(got_lp.numpy(), np.asarray(want_lp), rtol=1e-10, atol=1e-10)
-    assert 0 < int(acc.sum()) < 4  # both branches of the acceptance test taken
+    moved = (got_x.numpy() != x[:4]).any(-1)
+    assert 0 < int(moved.sum()) < 4  # both branches of the acceptance test taken
 
 
 def test_ensemble_sampler_matches_jax(feed):
@@ -112,16 +113,14 @@ def test_ensemble_sampler_matches_jax(feed):
             calls.append(u.shape)
             return _tlogp(u)
 
-        stats = {}
-        chain, lnprob = tsam.ensemble_sampler(logp, p0, samples, seed=seed, stats=stats)
+        chain, lnprob = tsam.ensemble_sampler(logp, p0, samples, seed=seed)
     assert not feed.halves
     assert calls == [(8, 3)] + [(4, 3)] * (2 * samples)  # one batched call a half
     assert chain.shape == (chains, samples, 3) and lnprob.shape == (chains, samples)
     np.testing.assert_allclose(chain, want_chain, rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(lnprob, want_lnprob, rtol=1e-10, atol=1e-10)
     moved = (np.diff(np.concatenate([p0[:, None], chain], axis=1), axis=1) != 0).any(-1)
-    assert stats["acceptance"] == pytest.approx(moved.mean())
-    assert stats["logp_calls"] == len(calls) and stats["seconds"] > 0
+    assert 0.0 < moved.mean() < 1.0  # moves accepted and rejected
 
 
 def test_pt_sampler_matches_jax(feed):
