@@ -7,7 +7,7 @@
 // over a batch of `batch` independent matrices (the hyperparameter rows of
 // a sampler step or of an averaged predictor).  Every kernel of the panel
 // loop takes the batch in its grid (blockIdx.x of diag_kernel, blockIdx.y
-// of the FP32 products, blockIdx.z of nt_tile_kernel, the flat index of
+// of the FP32 products, blockIdx.z of nt_tile_kernel, blockIdx.y of
 // the elementwise kernels), so the R matrices share one launch sequence,
 // one side stream and one pair of events a panel: the serial chain of
 // diagonal tiles runs R blocks at a time instead of one.  Row offsets are
@@ -79,50 +79,46 @@ constexpr int PER = GT / GTH;
 // w = the lower triangle of a, identity-padded to npad, zero above the
 // diagonal.  Later steps write above the diagonal only inside diagonal
 // tiles, which the diagonal kernel then zeroes, so L needs no masking.
-// Grid-stride over every matrix of the batch; info[r] = 0 for each.
+// blockIdx.y is the matrix of the batch (info[r] = 0 for each); the blocks
+// stride over its rows and the threads over a row's columns, so no index
+// is divided.  The two elementwise kernels below are laid out the same way.
 template <typename T>
 __global__ void prep_kernel(const T* __restrict__ a, T* __restrict__ w,
-                            int* __restrict__ info, int n, int npad, int batch) {
-  const size_t plane = (size_t)npad * npad;
-  const size_t total = plane * batch;
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  const size_t e0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (size_t r = e0; r < (size_t)batch; r += stride) info[r] = 0;
-  for (size_t e = e0; e < total; e += stride) {
-    const size_t r = e / plane;
-    const size_t q = e - r * plane;
-    const int i = (int)(q / npad);
-    const int j = (int)(q % npad);
-    w[e] = (j <= i && i < n) ? a[(r * n + i) * n + j] : (i == j ? T(1) : T(0));
+                            int* __restrict__ info, int n, int npad) {
+  const size_t r = blockIdx.y;
+  a += r * n * n;
+  w += r * npad * npad;
+  if (blockIdx.x == 0 && threadIdx.x == 0) info[r] = 0;
+  for (int i = blockIdx.x; i < npad; i += gridDim.x) {
+    const T* ai = a + (size_t)i * n;
+    T* wi = w + (size_t)i * npad;
+    for (int j = threadIdx.x; j < npad; j += blockDim.x)
+      wi[j] = (j <= i && i < n) ? ai[j] : (i == j ? T(1) : T(0));
   }
 }
 
 // out[r] (n x n) = the leading n x n block of w[r] (npad x npad).
 template <typename T>
-__global__ void finish_kernel(const T* w, int npad, T* out, int n, int batch) {
-  const size_t plane = (size_t)n * n;
-  const size_t total = plane * batch;
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
-    const size_t r = e / plane;
-    const size_t q = e - r * plane;
-    out[e] = w[(r * npad + q / n) * npad + q % n];
-  }
+__global__ void finish_kernel(const T* w, int npad, T* out, int n) {
+  const size_t r = blockIdx.y;
+  w += r * npad * npad;
+  out += r * n * n;
+  for (int i = blockIdx.x; i < n; i += gridDim.x)
+    for (int j = threadIdx.x; j < n; j += blockDim.x)
+      out[(size_t)i * n + j] = w[(size_t)i * npad + j];
 }
 
 // The in-order loop's copy of the scratch panel back into L: rows x B
 // values of each matrix, pan[r] (ld B, stride ps) -> dst + r * ds (ld ldd).
 template <typename T>
 __global__ void copy_panel_kernel(const T* __restrict__ pan, size_t ps, T* dst, int ldd,
-                                  size_t ds, int rows, int B, int batch) {
-  const size_t plane = (size_t)rows * B;
-  const size_t total = plane * batch;
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
-    const size_t r = e / plane;
-    const size_t q = e - r * plane;
-    dst[r * ds + (q / B) * ldd + q % B] = pan[r * ps + q];
-  }
+                                  size_t ds, int rows, int B) {
+  const size_t r = blockIdx.y;
+  pan += r * ps;
+  dst += r * ds;
+  for (int i = blockIdx.x; i < rows; i += gridDim.x)
+    for (int j = threadIdx.x; j < B; j += blockDim.x)
+      dst[(size_t)i * ldd + j] = pan[(size_t)i * B + j];
 }
 
 // 1 / sqrt(d): the float form refines the hardware estimate by one Newton
@@ -792,10 +788,10 @@ sgemm_rows_16(const float* x, int ldx, const float* __restrict__ y, int ldy, flo
   }
 }
 
-int grid_for(size_t total) {
-  size_t blocks = (total + 255) / 256;
-  if (blocks > 132 * 64) blocks = 132 * 64;
-  return blocks < 1 ? 1 : (int)blocks;
+// The elementwise kernels' grid: one block a row (up to 65535 rows, then
+// the blocks stride), one grid layer a matrix of the batch.
+dim3 rows_grid(int rows, int batch) {
+  return dim3(rows < 1 ? 1 : (rows > 65535 ? 65535 : rows), batch);
 }
 
 // The in-order loop's panel product: pan = A[below, k] Dinv_k^T, copied
@@ -810,8 +806,8 @@ cudaError_t panel_product(T* w, const T* dk, T* pan, int npad, int kb, int B, in
       below, npad, dk, B, pan, B, B, 0, ws, ds, ps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  copy_panel_kernel<T><<<grid_for((size_t)nrow * B * batch), 256, 0, st>>>(
-      pan, ps, below, npad, ws, nrow, B, batch);
+  copy_panel_kernel<T><<<rows_grid(nrow, batch), B, 0, st>>>(pan, ps, below, npad, ws, nrow,
+                                                              B);
   return cudaGetLastError();
 }
 
@@ -942,7 +938,7 @@ int run(const T* a, T* w, T* out, T* pan, T* dinv, int* info, int n, int npad,
   const size_t ws = (size_t)npad * npad;             // w's matrices apart
   const size_t ds = (size_t)(npad / B) * B * B;        // dinv's
   const size_t ps = (size_t)(npad > B ? npad - B : 1) * B;  // pan's
-  prep_kernel<T><<<grid_for(ws * batch), 256, 0, st>>>(a, w, info, n, npad, batch);
+  prep_kernel<T><<<rows_grid(npad, batch), 256, 0, st>>>(a, w, info, n, npad);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   if constexpr (sizeof(T) == 4) {
@@ -966,7 +962,7 @@ int run(const T* a, T* w, T* out, T* pan, T* dinv, int* info, int n, int npad,
   }
   if (e != cudaSuccess) return (int)e;
   if (w == out) return 0;  // L is already in place, zero above its diagonal
-  finish_kernel<T><<<grid_for((size_t)n * n * batch), 256, 0, st>>>(w, npad, out, n, batch);
+  finish_kernel<T><<<rows_grid(n, batch), 256, 0, st>>>(w, npad, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,10 @@ Two measurements of ``panel_cholesky`` in float32 on an SE gram + 0.1 noise
   at the clock the blocks ran at (globaltimer ns over cycles).
 
 With ``--compare``, instead: the CUDA-event median time of one
-factorization (and of ``torch.linalg.cholesky_ex`` beside it) in four
+factorization (and of ``torch.linalg.cholesky_ex`` beside it), its device
+time by kernel and host time a call, ptxas's register counts, and K1's
+profiler device time a launch (SE, float32, at (4096, 4096, 8) and (256,
+16384, 8), the shapes of ``chip_smoke.py``'s K1 record), in four
 processes, this checkout, OTHER_ROOT (another checkout, e.g. the parent
 commit unpacked by ``git archive``), OTHER_ROOT, this checkout, so that two
 versions are compared on one card in turns.
@@ -185,11 +188,12 @@ def phase_clocks(n):
 
 
 _TIMES = r"""
-import json, statistics, sys
+import json, re, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
+from torch.profiler import ProfilerActivity, profile
 from g3py_tpu_torch.ops.panel_cholesky import panel_cholesky
-from g3py_tpu_torch.ops.stationary_gram import _plain_form
+from g3py_tpu_torch.ops.stationary_gram import _plain_form, stationary_gram
 
 def median_ms(fn, reps):
     for _ in range(2):
@@ -204,7 +208,64 @@ def median_ms(fn, reps):
         times.append(start.elapsed_time(end))
     return statistics.median(times)
 
-out = {}
+def k1_device_ms(m, n, d, reps=20):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x1 = torch.randn(m, d, generator=gen, device="cuda")
+    x2 = torch.randn(n, d, generator=gen, device="cuda")
+    rate = 0.3 + 0.7 * torch.rand(d, generator=gen, device="cuda")
+    var = torch.tensor(1.7, device="cuda")
+    for _ in range(3):
+        stationary_gram("se", x1, x2, rate, var)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            stationary_gram("se", x1, x2, rate, var)
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if "stationary_gram_kernel" in e.key)
+    return us / 1e3 / reps if us else None
+
+def registers():  # ptxas's count for the float kernels built in this process
+    from g3py_tpu_torch.ops import _build
+    regs, name = {}, None
+    for rec in _build.build().values():
+        for ln in rec.log.splitlines():
+            found = re.search(r"entry function '(\w+)'", ln)
+            if found:
+                name = found.group(1)
+            used = re.search(r"Used (\d+) registers", ln)
+            kept = name and re.search(KEEP, name)
+            if used and kept:
+                regs[kept.group(0)] = int(used.group(1))
+    return regs
+
+KEEP = (r"stationary_gram_kernelIfLi0E\w{0,4}|prep_kernelIf|finish_kernelIf|sgemm_nt_128|"
+        r"sgemm_rows_16ILb[01]|diag_kernelIfLi128")
+NAMES = ("prep_kernel", "diag_kernel", "sgemm_rows_16", "sgemm_nt_128", "finish_kernel")
+
+def k2_split(a, reps=10):  # device ms a factorization by kernel; host ms a call
+    panel_cholesky(a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        panel_cholesky(a)
+    host = (time.perf_counter() - t0) * 1e3 / 5
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            panel_cholesky(a)
+        torch.cuda.synchronize()
+    split = {k: 0.0 for k in NAMES}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        for k in NAMES:
+            if k in e.key:
+                split[k] += t / 1e3 / reps
+    return {"host_ms_a_call": host, "device_ms": split}
+
+out = {"registers": registers(),
+       "k1_device_ms": {f"{m}x{n}x{d}": k1_device_ms(m, n, d)
+                        for m, n, d in ((4096, 4096, 8), (256, 16384, 8))}}
 for n in map(int, sys.argv[2].split(",")):
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(n, 8, generator=gen, device="cuda")
@@ -212,14 +273,15 @@ for n in map(int, sys.argv[2].split(",")):
     a.diagonal().add_(0.1)
     reps = 10 if n <= 4096 else 3
     out[n] = {"panel_cholesky_ms": median_ms(lambda: panel_cholesky(a), reps),
-              "cholesky_ex_ms": median_ms(lambda: torch.linalg.cholesky_ex(a), reps)}
+              "cholesky_ex_ms": median_ms(lambda: torch.linalg.cholesky_ex(a), reps),
+              **k2_split(a)}
 print(json.dumps(out))
 """
 
 
 def compare(other, sizes):
-    """Time K2 in this checkout and in ``other``, in turns (this, other,
-    other, this), one process each."""
+    """Time K2 and K1 in this checkout and in ``other``, in turns (this,
+    other, other, this), one process each."""
     import sys
 
     here = str(Path(__file__).resolve().parents[2])
