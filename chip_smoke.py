@@ -40,12 +40,31 @@ K2 (blocked panel Cholesky), and checks them:
            prior's support vs the float64 host logp; the averaged predictor
            over 16 datatrace rows vs 16 single Predictors (float64), and in
            float32 vs the single Predictors' own float32 rounding
+  phase 7a the reference's recorded sunsets experiment on the card: all 16
+           rows (GP, WGP1-3 with WarpingTanh, TGP1-3) scored in float32 on
+           the test split against the reference's own scores (the JAX
+           test's tolerances) and on the train split (finite, guard-free);
+           the three sunspots_gp_* pins within 1e-3
+  phase 7b full width: GP(Bias, SE) at n=4096 from phase 5's MAP: LOO value
+           and gradient vs the float64 host (GPML 5.10-5.13; float32 at the
+           default params and at the MAP, float64 at the MAP; at the MAP
+           float32 is held to a float32 host recomputation's own gaps),
+           find_MAP(objective='loo') in float32 and float64, scores on 512
+           held-out points vs the host, predict(cov=True, samples=64,
+           noise=True) at m=1024 (symmetry; draws vs loc + L z of the
+           float64 host)
+  phase 7c full width: WGP(Bias, SE, WarpingTanh n=3) at n=4096: logp and
+           dlogp vs the float64 host; Predictor batches of 256 (mean,
+           median, quantiles) through the Newton inverse on the card, its
+           share of a batch, its idle share, the round trip T^-1(T(x))
 
 The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
 and read just after; the Bayesian path's counts are zeroed and read around
 each of its runs (the two n=125 samplers, the n=4096 sampler, the averaged
-predictor's set-up and batches), so its warm-up, profiles and reference
-checks are not counted.  Each kernel must have launched on each path.  Every
+predictor's set-up and batches), and phase 7's around each float32 run of
+the main path (the oracle scoring, LOO, find_MAP, scores, predict, the WGP's
+logp/dlogp and Predictor), so warm-ups, profiles, float64 twins and
+reference checks are not counted.  Each kernel must have launched on each path.  Every
 check raises on failure.  The last lines are the kernel record, the card
 and ``{"ok": true, "device": {...}}``.  Run from the repository root:
 
@@ -67,7 +86,7 @@ import torch
 
 import g3py_tpu_torch as g3t
 from g3py_tpu_torch.ops import _build
-from g3py_tpu_torch.ops.linalg import safe_cholesky_panels
+from g3py_tpu_torch.ops.linalg import mvn_loo, safe_cholesky_panels
 from g3py_tpu_torch.tools.k2_chain import timeline
 from g3py_tpu_torch.ops.panel_cholesky import panel_cholesky, _plain_form as k2_plain_form
 from g3py_tpu_torch.ops.stationary_gram import KINDS, stationary_gram, _plain_form
@@ -202,10 +221,13 @@ def phase2():
                     call = lambda: stationary_gram(kind, x1, x2, rate, var, extra)
                     t_k = event_ms(call)
                     t_p = event_ms(lambda: _plain_form(kind, x1, x2, rate, var, extra))
+                    t_pn = event_ms(lambda: _plain_form(kind, x1, x2, rate, var, extra,
+                                                        exact=False))
                     t_dev = device_ms(profile(call, reps=10), ("stationary_gram_kernel",), 10)
                     timing[(kind, (m, n, d))] = (t_k, t_p, t_dev)
                     print(f"    time f32 {kind} ({m},{n},{d}): wrapper {t_k:.4f} ms, "
-                          f"kernel device {fmt_ms(t_dev)}, plain {t_p:.4f} ms", flush=True)
+                          f"kernel device {fmt_ms(t_dev)}, plain {t_p:.4f} ms (norm "
+                          f"decomposition {t_pn:.4f} ms)", flush=True)
     # autograd: the Function's backward vs the plain form's autograd
     for kind in ("se", "rq"):
         m, n, d = 129, 65, 37
@@ -412,7 +434,7 @@ def serve(process, rng, batches, m, d, label, params=None):
 
 
 def host_gram(a, b, rate, var):
-    acc = np.zeros((a.shape[0], b.shape[0]))
+    acc = np.zeros((a.shape[0], b.shape[0]), a.dtype)
     for k in range(a.shape[1]):
         acc += ((a[:, k, None] - b[None, :, k]) * rate[k]) ** 2
     return var * np.exp(-0.5 * acc)
@@ -498,19 +520,28 @@ def train(proc, rng, label, reps, fit=True):
     return med, params
 
 
-def host_logp(reg, u, x, y):
-    """float64 GP(Bias, SE) logp at the unconstrained vector ``u``."""
-    import scipy.linalg
-
+def host_params(reg, u, dtype=np.float64):
+    """Natural-space values at the unconstrained vector ``u`` (in float64,
+    then cast to ``dtype``), keyed by the last two parts of each name
+    (SE_rate, Bias_Bias, Noise_var, WarpingTanh_a, ...), in registry order."""
     p = {}
     start = 0
     for par in reg.ordered_params:
         seg = np.asarray(u[start:start + par.size], np.float64).reshape(par.shape)
-        key = "_".join(par.name.split("_")[-2:])  # SE_rate, Bias_Bias, Noise_var
-        p[key] = np.exp(seg) if par.prior.transform.name == "log" else seg
+        key = "_".join(par.name.split("_")[-2:])
+        p[key] = (np.exp(seg) if par.prior.transform.name == "log" else seg).astype(dtype)
         start += par.size
+    return p
+
+
+def host_logp(reg, u, x, y):
+    """GP(Bias, SE) logp at the unconstrained vector ``u``, in the float
+    type of ``x``."""
+    import scipy.linalg
+
+    p = host_params(reg, u, x.dtype)
     n = x.shape[0]
-    k = host_gram(x, x, p["SE_rate"], p["SE_var"]) + p["Noise_var"] * np.eye(n)
+    k = host_gram(x, x, p["SE_rate"], p["SE_var"]) + p["Noise_var"] * np.eye(n, dtype=x.dtype)
     chol = scipy.linalg.cholesky(k, lower=True)
     z = scipy.linalg.solve_triangular(chol, y - p["Bias_Bias"], lower=True)
     return -0.5 * n * np.log(2 * np.pi) - 0.5 * z @ z - np.log(np.diag(chol)).sum()
@@ -636,12 +667,15 @@ def phase6a():
                     call = lambda: stationary_gram(kind, x1, x2, rate, var, extra)
                     t_k = event_ms(call)
                     t_p = event_ms(lambda: _plain_form(kind, x1, x2, rate, var, extra))
+                    t_pn = event_ms(lambda: _plain_form(kind, x1, x2, rate, var, extra,
+                                                        exact=False))
                     t_dev = device_ms(profile(call, reps=10), ("stationary_gram_kernel",), 10)
                     bound = rows * m * n * 4 / PEAK_BYTES * 1e3
                     timing[(rows, m, n, d)] = dict(ms=t_k, device_ms=t_dev, plain_ms=t_p,
                                                    bound_ms=bound)
                     print(f"    time f32 se R={rows} ({m},{n},{d}): wrapper {t_k:.4f} ms, kernel "
-                          f"device {fmt_ms(t_dev)} a launch, plain {t_p:.4f} ms, bound "
+                          f"device {fmt_ms(t_dev)} a launch, plain {t_p:.4f} ms (norm "
+                          f"decomposition {t_pn:.4f} ms), bound "
                           f"{bound:.4f} ms", flush=True)
             print(f"  batched K1 {str(dtype)[6:]} R={rows} ({m},{n},{d}): 4 families match "
                   "the plain form", flush=True)
@@ -740,6 +774,17 @@ def zero_counts():
 
 def launches():
     return stationary_gram.launches, panel_cholesky.launches, safe_cholesky_panels.retries
+
+
+@contextlib.contextmanager
+def counted(path):
+    """Zero the kernel counts, run the block, and add its K1 and K2
+    launches to the two-item list ``path``."""
+    zero_counts()
+    yield
+    k1, k2, _ = launches()
+    path[0] += k1
+    path[1] += k2
 
 
 @contextlib.contextmanager
@@ -1000,6 +1045,534 @@ def phase6d(gp, gp_map, x, y):
                 profile=prof, single32=single32, served32=served32), path
 
 
+# ---------------------------------------------------------------- phase 7
+# The main path's parity gate and the rest of its model surface: the
+# reference's recorded sunsets experiment scored on the card, then LOO,
+# scores, covariance and samples of GP(Bias, SE) and a WarpingTanh WGP at
+# full width, each against a float64 host recomputation.
+ORACLE_TEST_RTOL = 2e-3   # tests/test_parity_reference.py TEST_RTOL
+ORACLE_NLPD_RTOL = 3e-2   # tests/test_parity_reference.py NLPD_RTOL
+PINS = ("sunspots_gp_logp_ref_map", "sunspots_gp_pred_mean_sum", "sunspots_gp_pred_std_sum")
+
+
+def oracle_model(name, x, y):
+    """The recorded experiment's model zoo (SE kernel + Bias location)."""
+    common = dict(space=x, location=g3t.Bias(), kernel=g3t.SE(x), name=name)
+    if name == "GP":
+        return g3t.GP(**common)
+    if name.startswith("WGP"):
+        return g3t.WGP(mapping=g3t.WarpingTanh(y, n=int(name[3:])), **common)
+    mapping = {"TGP1": lambda: g3t.BoxCoxLinear(y), "TGP2": lambda: g3t.ArcsinhLinear(y),
+               "TGP3": lambda: g3t.BoxCoxLinear(y) @ g3t.ArcsinhLinear(y)}[name]()
+    return g3t.WGP(mapping=mapping, **common)
+
+
+def phase7a(path):
+    """All 16 recorded rows (GP, WGP1-3, TGP1-3) scored in float32 on the
+    card against the reference's own scores (their launches added to
+    ``path``), and the three sunspots pins (not counted)."""
+    from g3py_tpu_torch.utils import reference_io
+    from g3py_tpu_torch.utils.data import data_sunspots
+
+    rows, sims = reference_io.load_oracle()
+    xs, ys = data_sunspots()
+    x, y = xs.astype(np.float32), ys.astype(np.float32)
+    models = {}
+    worst = {"test": 0.0, "nlpd": 0.0}
+    t0 = time.perf_counter()
+    scored = []
+    with counted(path):
+        for row in rows:
+            name = row["model"]
+            if name not in models:
+                models[name] = oracle_model(name, x, y)
+            sp = models[name]
+            obs_j, test_j = sims[row["n_sim"]]["obs"], sims[row["n_sim"]]["test"]
+            params = reference_io.transformed_to_natural(row["params"])
+            sp.observed(x[obs_j], y[obs_j])
+            sp.set_space(x[test_j], hidden=y[test_j])
+            test = sp.scores(params, logpred=True, bias=True, variance=True)
+            sp.set_space(x[obs_j], hidden=y[obs_j])
+            scored.append((row, test, sp.scores(params, logpred=True, bias=True, variance=True)))
+    t_oracle = time.perf_counter() - t0
+    for row, test, train in scored:
+        name = row["model"]
+        for key, ref in row["scores_test"].items():
+            gap = abs(test[key] - ref) / abs(ref)
+            tol = ORACLE_NLPD_RTOL if key == "_nlpd" else ORACLE_TEST_RTOL
+            worst["nlpd" if key == "_nlpd" else "test"] = max(
+                worst["nlpd" if key == "_nlpd" else "test"], gap)
+            require(gap <= tol, f"oracle {name} n_sim={row['n_sim']} test {key}: "
+                    f"{test[key]!r} vs recorded {ref!r} (gap {gap:.3e} > {tol})")
+        for key, val in train.items():
+            require(math.isfinite(val) and val > -1e29,
+                    f"oracle {name} n_sim={row['n_sim']} train {key} hit a guard: {val!r}")
+        for key in ("_mse", "_rmse"):
+            ref = row["scores_obs"][key]
+            require(abs(train[key] - ref) <= 3.0 * abs(ref),
+                    f"oracle {name} train {key} off by more than 4x: {train[key]!r} vs {ref!r}")
+    with open(ROOT / "tests" / "golden.json") as fh:
+        golden = json.load(fh)
+    row = rows[1]  # GP, n_sim=0: tests/test_golden.py's pins
+    params = reference_io.transformed_to_natural(row["params"])
+    gp = g3t.GP(space=x, location=g3t.Bias(), kernel=g3t.SE(x), name="GP")
+    gp.observed(x[sims[0]["obs"]], y[sims[0]["obs"]])
+    gp.set_space(x[sims[0]["test"]], hidden=y[sims[0]["test"]])
+    got = {"sunspots_gp_logp_ref_map": gp.logp(params),
+           "sunspots_gp_pred_mean_sum": float(gp.mean(params).sum()),
+           "sunspots_gp_pred_std_sum": float(gp.std(params).sum())}
+    gaps = {k: abs(got[k] - golden[k]) / abs(golden[k]) for k in PINS}
+    print(f"  oracle: 16 rows x 2 splits scored in {t_oracle:.2f} s; worst test-split gap "
+          f"{worst['test']:.3e} (limit {ORACLE_TEST_RTOL}), _nlpd {worst['nlpd']:.3e} "
+          f"(limit {ORACLE_NLPD_RTOL}); pins: "
+          + ", ".join(f"{k} {got[k]:.6f} vs {golden[k]:.6f} (gap {gaps[k]:.3e})" for k in PINS),
+          flush=True)
+    for k, gap in gaps.items():
+        require(gap <= 1e-3, f"pin {k}: relative gap {gap:.3e} > 1e-3")
+    return dict(oracle_s=t_oracle, worst_test=worst["test"], worst_nlpd=worst["nlpd"],
+                pin_gaps=gaps)
+
+
+def host_posterior(p, x, y, xq):
+    """GP(Bias, SE) posterior at ``xq`` in the float type of ``x``: (mean,
+    latent covariance, noise variance) from a scipy Cholesky of the
+    observed gram."""
+    import scipy.linalg
+
+    eye = np.eye(len(x), dtype=x.dtype)
+    k = host_gram(x, x, p["SE_rate"], p["SE_var"]) + p["Noise_var"] * eye
+    chol = scipy.linalg.cholesky(k, lower=True)
+    cross = host_gram(xq, x, p["SE_rate"], p["SE_var"])
+    mean = p["Bias_Bias"] + cross @ scipy.linalg.cho_solve((chol, True), y - p["Bias_Bias"])
+    v = scipy.linalg.solve_triangular(chol, cross.T, lower=True)
+    cov = host_gram(xq, xq, p["SE_rate"], p["SE_var"]) - v.T @ v
+    return mean, cov, p["Noise_var"]
+
+
+def host_kbar(k, r):
+    """LOO terms of the gram ``k`` and residual ``r`` in their float type,
+    from a scipy Cholesky and inverse: (value, K_bar = dLOO/dK as GPML eq.
+    5.13 gives it, K^-1 g_alpha = dLOO/dr)."""
+    import scipy.linalg
+
+    chol = scipy.linalg.cholesky(k, lower=True)
+    potri = scipy.linalg.lapack.get_lapack_funcs("potri", (chol,))
+    kinv, info = potri(chol, lower=1)
+    require(info == 0, f"host LOO: potri info {info}")
+    kinv = np.tril(kinv) + np.tril(kinv, -1).T
+    alpha = kinv @ r
+    kd = np.diag(kinv).copy()
+    value = float(np.sum(-0.5 * np.log(2 * np.pi) + 0.5 * np.log(kd) - 0.5 * alpha ** 2 / kd))
+    g_alpha = -alpha / kd
+    g_kd = 0.5 * (1.0 / kd + alpha ** 2 / kd ** 2)
+    kga = kinv @ g_alpha
+    return value, -0.5 * (np.outer(kga, alpha) + np.outer(alpha, kga)) - (kinv * g_kd) @ kinv, kga
+
+
+def host_loo(reg, u, x, y, dtype=np.float64):
+    """LOO of GP(Bias, SE) (GPML eq. 5.10-5.12) at the unconstrained vector
+    ``u`` and its gradient there (eq. 5.13, by dK/dtheta of each
+    hyperparameter), all in ``dtype``: float64 is the reference, float32 a
+    witness, independent of the port, of what float32 rounding does to the
+    same formulas."""
+    p = host_params(reg, u, dtype)
+    x, y = x.astype(dtype), y.astype(dtype)
+    k_se = host_gram(x, x, p["SE_rate"], p["SE_var"])
+    value, kbar, kga = host_kbar(k_se + p["Noise_var"] * np.eye(len(x), dtype=dtype),
+                                 y - p["Bias_Bias"])
+    grads = {"Bias_Bias": [-kga.sum()], "SE_var": [np.sum(kbar * k_se)],
+             "Noise_var": [p["Noise_var"] * np.trace(kbar)],
+             "SE_rate": [np.sum(kbar * k_se * -((x[:, j, None] - x[None, :, j])
+                                                * p["SE_rate"][j]) ** 2)
+                         for j in range(x.shape[1])]}
+    grad = np.concatenate([np.asarray(grads["_".join(par.name.split("_")[-2:])], np.float64)
+                           for par in reg.ordered_params])
+    return value, grad
+
+
+def param_slices(reg):
+    """(short name, slice of the flat vector) of each parameter, in order."""
+    out, start = [], 0
+    for par in reg.ordered_params:
+        out.append(("_".join(par.name.split("_")[-2:]), slice(start, start + par.size)))
+        start += par.size
+    return out
+
+
+def kbar_gaps(reg, u, x, y):
+    """dLOO/dK in float32 on one float32 gram against float64 on the same
+    gram (relative Frobenius norm): the port's (K1's gram + noise, K2 and
+    its L^-1 through mvn_loo's backward, on the card) and the float32 host
+    witness's; and how far the SE_var gradient's sum of K_bar * K_se
+    magnifies an error of K_bar (sum of |terms| over |sum|)."""
+    p = host_params(reg, u, np.float32)
+    dev = g3t.settings.device
+    fro = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    xt = torch.as_tensor(x, device=dev)
+    k = (stationary_gram("se", xt, xt, torch.as_tensor(p["SE_rate"], device=dev),
+                         torch.as_tensor(p["SE_var"], device=dev), None)
+         + float(p["Noise_var"]) * torch.eye(len(x), device=dev)).requires_grad_(True)
+    r = torch.as_tensor(y - p["Bias_Bias"], device=dev)
+    mvn_loo(k, r)[0].backward()
+    k64 = k.detach().double().cpu().numpy()
+    _, ref, _ = host_kbar(k64, r.double().cpu().numpy())
+    port = fro(k.grad.double().cpu().numpy(), ref)
+    terms = ref * (k64 - float(p["Noise_var"]) * np.eye(len(x)))
+    magnify = float(np.abs(terms).sum() / abs(terms.sum()))
+    kh = host_gram(x, x, p["SE_rate"], p["SE_var"]) + p["Noise_var"] * np.eye(len(x),
+                                                                             dtype=np.float32)
+    rh = y - p["Bias_Bias"]
+    witness = fro(host_kbar(kh, rh)[1], host_kbar(kh.astype(np.float64), rh.astype(np.float64))[1])
+    return port, witness, magnify
+
+
+def host_wgp_logp(reg, u, x, y):
+    """float64 logp of WGP(Bias, SE, WarpingTanh) at ``u`` and its gradient
+    there: the gaussian of z = y + sum_k a_k tanh(b_k (y + c_k)) plus
+    sum log dz/dy, differentiated by hand."""
+    import scipy.linalg
+
+    p = host_params(reg, u)
+    a, b, c = p["WarpingTanh_a"], p["WarpingTanh_b"], p["WarpingTanh_c"]
+    n = len(x)
+    arg = y[:, None] + c
+    t = np.tanh(b * arg)
+    sech2 = 1.0 - t * t
+    z = y + t @ a
+    dzdy = 1.0 + (a * b * sech2).sum(axis=1)
+    k_se = host_gram(x, x, p["SE_rate"], p["SE_var"])
+    chol = scipy.linalg.cholesky(k_se + p["Noise_var"] * np.eye(n), lower=True)
+    r = z - p["Bias_Bias"]
+    alpha = scipy.linalg.cho_solve((chol, True), r)
+    value = float(-0.5 * n * np.log(2 * np.pi) - 0.5 * r @ alpha - np.log(np.diag(chol)).sum()
+                  + np.log(dzdy).sum())
+    kinv, info = scipy.linalg.lapack.dpotri(chol, lower=1)
+    require(info == 0, f"host WGP: dpotri info {info}")
+    kinv = np.tril(kinv) + np.tril(kinv, -1).T
+    w = 0.5 * (np.outer(alpha, alpha) - kinv)
+    dz = {"a": t, "b": a * sech2 * arg, "c": a * sech2 * b}          # (n, k) each
+    dj = {"a": b * sech2, "b": a * sech2 * (1.0 - 2.0 * b * t * arg),  # d(dz/dy)/d.
+          "c": -2.0 * a * b * b * t * sech2}
+    scale = {"a": a, "b": b, "c": np.ones_like(c)}                     # log transforms
+    grads = {"Bias_Bias": [alpha.sum()], "SE_var": [np.sum(w * k_se)],
+             "Noise_var": [p["Noise_var"] * np.trace(w)],
+             "SE_rate": [np.sum(w * k_se * -((x[:, j, None] - x[None, :, j])
+                                             * p["SE_rate"][j]) ** 2)
+                         for j in range(x.shape[1])]}
+    for q in ("a", "b", "c"):
+        grads["WarpingTanh_" + q] = scale[q] * (-(alpha @ dz[q]) + (dj[q] / dzdy[:, None]).sum(0))
+    grad = np.concatenate([np.ravel(grads["_".join(par.name.split("_")[-2:])])
+                           for par in reg.ordered_params])
+    return value, grad
+
+
+def rel(a, b):
+    return float(np.linalg.norm(np.ravel(a) - np.ravel(b)) / np.linalg.norm(np.ravel(b)))
+
+
+def host_draws(reg, u, x, y, xc, zs, dtype=np.float64):
+    """The noisy posterior covariance at ``xc`` and the draws loc + L z of
+    the normals ``zs``, all in ``dtype`` (float32: the rounding witness)."""
+    p = host_params(reg, u, dtype)
+    mean_c, cov_c, nv = host_posterior(p, x.astype(dtype), y.astype(dtype), xc.astype(dtype))
+    cov_c = cov_c + nv * np.eye(len(xc), dtype=dtype)
+    return cov_c, mean_c[:, None] + np.linalg.cholesky(cov_c) @ zs.astype(dtype)
+
+
+def host_surface(reg, u, x, y, xh, yh, xc, zs, dtype=np.float64):
+    """Host references of ``surface_run`` in ``dtype`` (float64, or the
+    float32 witness): the scores at ``xh`` against ``yh`` and the draws
+    loc + L z at ``xc`` (noise included)."""
+    p = host_params(reg, u, dtype)
+    x, y, yh = x.astype(dtype), y.astype(dtype), yh.astype(dtype)
+    mean, cov, nv = host_posterior(p, x, y, xh.astype(dtype))
+    resid = mean - yh
+    var_n = np.diag(cov) + nv
+    cov_c, draws = host_draws(reg, u, x, y, xc, zs, dtype)
+    return {"_l1": np.abs(resid).mean(), "_l2": (resid ** 2).mean(),
+            "_mse": (resid ** 2 + np.diag(cov)).mean(), "_logp": host_logp(reg, u, x, y),
+            "_nlpd": np.mean(0.5 * np.log(2 * np.pi * var_n) + 0.5 * resid ** 2 / var_n),
+            "cov": cov_c, "draws": draws}
+
+
+def surface_gaps(got, refs):
+    """Relative gaps of the scores, and the covariance's and draws' largest
+    gaps relative to their largest values, of ``got`` against ``refs``."""
+    return (
+        {k: float(abs(got[k] - refs[k]) / abs(refs[k]))
+         for k in ("_l1", "_l2", "_mse", "_nlpd", "_logp", "_loo")},
+        {k: float(np.abs(np.asarray(got[k], np.float64) - refs[k]).max()
+                  / np.abs(refs[k]).max()) for k in ("cov", "draws")})
+
+
+def surface_run(gp, params, xh, yh, xc, refs, path=None):
+    """scores(logp, logpred, variance, median, loo) on the held-out points,
+    then predict(cov=True, samples=64, noise=True) on ``xc`` and the draws
+    of known normals, each against the float64 host ``refs``, in the
+    active float type.  With ``path`` the launches of the scores and of
+    the predict call are added to it (the draws' check is not counted)."""
+    window = (lambda: counted(path)) if path is not None else contextlib.nullcontext
+    gp.set_space(xh, hidden=yh)
+    torch.cuda.synchronize()
+    with window():
+        t0 = time.perf_counter()
+        sc = gp.scores(params, logp=True, logpred=True, variance=True, median=True, loo=True)
+        t_scores = time.perf_counter() - t0
+    require(all(math.isfinite(v) and v > -1e29 for v in sc.values()), f"scores {sc}")
+    gp.set_space(xc)
+    torch.cuda.synchronize()
+    with window():
+        t0 = time.perf_counter()
+        out = gp.predict(params, mean=True, std=False, cov=True, samples=64, noise=True)
+        torch.cuda.synchronize()
+        t_cov = time.perf_counter() - t0
+    c = out["covariance"]
+    require(out["samples"].shape == (1024, 64) and finite(out["samples"]) and finite(c),
+            "predict(cov=True, samples=64) is not finite")
+    asym = float((c - c.T).abs().max() / c.abs().max())
+    require(asym <= 1e-6, f"posterior covariance not symmetric ({asym:.3e})")
+    draws = gp.sampler(params, samples=64, noise=True, rng=np.random.default_rng(70))
+    score_gaps, gaps = surface_gaps(
+        dict(sc, cov=c.double().cpu().numpy(), draws=draws.double().cpu().numpy()), refs)
+    return dict(scores_ms=t_scores * 1e3, cov_samples_ms=t_cov * 1e3, asym=asym,
+                score_gaps=score_gaps, cov_gap=gaps["cov"], sample_gap=gaps["draws"])
+
+
+# At phase 5's MAP (cond(K) ~ 1e5) float32 rounding alone moves the LOO
+# gradient, the posterior covariance and the draws.  There each of the
+# port's float32 gaps to the float64 host is held to the larger of its
+# limit elsewhere and WITNESS_FACTOR times the gap of a float32 host
+# recomputation of the same formulas (host_loo, host_surface in float32:
+# scipy's spotrf/spotri, numpy's float32 products), which shows what
+# float32 rounding alone does, independent of the port.
+WITNESS_FACTOR = 4.0
+
+
+def phase7b(gp, gp_map, x, y, path):
+    """GP(Bias, SE) at n=4096, d=8 from phase 5's MAP: LOO and its gradient
+    against the float64 host, find_MAP(objective='loo') in float32 and in
+    float64, scores on 512 held-out points, covariance and 64 samples at
+    m=1024.  The float32 runs of the main path (the timed LOO calls,
+    find_MAP, the scores and predict at the MAP) add their launches to
+    ``path``; the checks at the default params and the float64 twins do not."""
+    reg = gp.active
+    u = reg.dict_to_array(gp_map)
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    times = []
+    with counted(path):
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gp._array_loo_sampling(u)
+            gp._array_dloo_sampling(u)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    print(f"  LOO value + gradient at the MAP, float32: median {statistics.median(times):.2f} "
+          f"ms over 5 (all {[round(t, 2) for t in times]})", flush=True)
+    # Against the float64 host: float32 at the default params (as phase 5b
+    # holds dlogp) and at the MAP, float64 at the MAP; the float32 host
+    # witness at the MAP sets the float32 gradient's limit there.
+    gaps, host = {}, {}
+    t0 = time.perf_counter()
+    u_default = reg.dict_to_array(gp.params_default)
+    for label, point in (("default", u_default), ("MAP", u)):
+        ref_val, ref_grad = host[label] = host_loo(reg, point, x64, y64)
+        runs = [("float32", gp._array_loo_sampling(point), gp._array_dloo_sampling(point))]
+        if label == "MAP":
+            runs.append(("float32 host witness",) + host_loo(reg, point, x, y, np.float32))
+            host["MAP witness"] = runs[-1][1]
+            g3t.settings.floatx = "float64"
+            try:
+                runs.append(("float64", gp._array_loo_sampling(point),
+                             gp._array_dloo_sampling(point)))
+            finally:
+                g3t.settings.floatx = "float32"
+        for dtype, val, grad in runs:
+            gaps[f"{label} {dtype}"] = (abs(val - ref_val) / abs(ref_val), rel(grad, ref_grad))
+            print(f"  LOO at the {label} params, {dtype}: {val:.4f} vs host {ref_val:.4f}; "
+                  f"value gap {gaps[f'{label} {dtype}'][0]:.3e}, gradient gap "
+                  f"{gaps[f'{label} {dtype}'][1]:.3e}; |error| by parameter: "
+                  + ", ".join(f"{name} {np.linalg.norm(grad[sl] - ref_grad[sl]):.2e}"
+                              for name, sl in param_slices(reg)), flush=True)
+    print(f"  (host LOO and gradient: {time.perf_counter() - t0:.1f} s)", flush=True)
+    witness = gaps.pop("MAP float32 host witness")
+    kbar_port, kbar_witness, magnify = kbar_gaps(reg, u, x, y)
+    print(f"  dLOO/dK at the MAP, float32 vs float64 on the same float32 gram: port "
+          f"{kbar_port:.3e}, float32 host witness {kbar_witness:.3e} (relative Frobenius); the "
+          f"SE_var gradient sums terms {magnify:.3e} times its value", flush=True)
+    require(kbar_port <= WITNESS_FACTOR * kbar_witness,
+            f"dLOO/dK at the MAP: port {kbar_port:.3e} > {WITNESS_FACTOR} x the float32 host "
+            f"witness {kbar_witness:.3e}")
+    for key, (g_val, g_grad) in gaps.items():
+        require(g_val <= 1e-3, f"LOO value at the {key} vs the float64 host: {g_val:.3e}")
+        limit = max(1e-2, WITNESS_FACTOR * witness[1] if key == "MAP float32" else 0.0)
+        require(g_grad <= limit, f"LOO gradient at the {key} vs the float64 host: "
+                f"{g_grad:.3e} > {limit:.3e}")
+
+    # find_MAP(objective='loo') from the default params: float32 (the main
+    # path, timed and counted), then float64 from the same start; the
+    # float32 optimum's LOO is read in float64 too.
+    with counted(path):
+        t0 = time.perf_counter()
+        fit, points = gp.find_MAP(points=1, powell=False, display=False, objective="loo",
+                                  return_points=True)
+        t_fit = time.perf_counter() - t0
+    g3t.settings.floatx = "float64"
+    try:
+        t0 = time.perf_counter()
+        fit64, points64 = gp.find_MAP(points=1, powell=False, display=False, objective="loo",
+                                      return_points=True)
+        t_fit64 = time.perf_counter() - t0
+        loo32_in64 = gp._array_loo_sampling(reg.dict_to_array(fit))
+    finally:
+        g3t.settings.floatx = "float32"
+    fits = dict(fit_s=t_fit, loo_start=points[0][1], loo_fit=points[-1][1],
+                loo_fit_in64=loo32_in64, fit64_s=t_fit64, loo_fit64=points64[-1][1],
+                loo_logp_map=host["MAP"][0])
+    print(f"  find_MAP(objective='loo'), float32: LOO {points[0][1]:.4f} -> "
+          f"{points[-1][1]:.4f} in {t_fit:.2f} s ({[pt[0] for pt in points]}), "
+          f"{loo32_in64:.4f} read in float64; float64: -> {points64[-1][1]:.4f} in "
+          f"{t_fit64:.2f} s; the LOO at the logp MAP {host['MAP'][0]:.4f}", flush=True)
+    require(points[-1][1] > points[0][1], "find_MAP(objective='loo') did not raise the LOO")
+    require(points64[-1][1] >= host["MAP"][0] - 1e-6 * abs(host["MAP"][0]),
+            "float64 find_MAP(objective='loo') stopped below the LOO at the logp MAP")
+    # float32 stops where its gradient is rounding (cond(K) ~ 1e5, as at the
+    # logp MAP above): a guard on how far short, not a claim of accuracy
+    require(loo32_in64 >= points64[-1][1] - 1e-2 * abs(points64[-1][1]),
+            f"float32 find_MAP(objective='loo') stopped more than 1% below the float64 "
+            f"optimum: {loo32_in64:.4f} vs {points64[-1][1]:.4f}")
+
+    # Scores and draws against the float64 host, like the LOO: float32 at
+    # the default params and at the MAP (timed, counted; held to the
+    # float32 host witness there), float64 at the MAP.
+    hold = np.random.default_rng(77)
+    xh = hold.standard_normal((512, 8)).astype(np.float32)
+    yh = (np.sin(xh[:, 0]) + 0.1 * hold.standard_normal(512)).astype(np.float32)
+    xc = np.random.default_rng(78).standard_normal((1024, 8)).astype(np.float32)
+    zs = np.random.default_rng(70).standard_normal((1024, 64)).astype(np.float32)
+    surface = {}
+    for label, params, point in (("default", gp.params_default, u_default), ("MAP", gp_map, u)):
+        refs = host_surface(reg, point, x64, y64, xh, yh, xc, zs)
+        refs["_loo"] = host[label][0]
+        for dtype in (("float32",) if label == "default" else ("float32", "float64")):
+            g3t.settings.floatx = dtype
+            try:
+                surface[f"{label} {dtype}"] = surface_run(
+                    gp, params, xh, yh, xc, refs,
+                    path if (label, dtype) == ("MAP", "float32") else None)
+            finally:
+                g3t.settings.floatx = "float32"
+        if label == "MAP":
+            refs32 = host_surface(reg, point, x, y, xh, yh, xc, zs, np.float32)
+            refs32["_loo"] = host["MAP witness"]
+            w_scores, w_rest = surface_gaps(refs32, refs)
+            witness_surface = dict(score_gaps=w_scores, cov_gap=w_rest["cov"],
+                                   sample_gap=w_rest["draws"])
+    print("  float32 host witness at the MAP: score gaps "
+          + ", ".join(f"{k} {v:.2e}" for k, v in w_scores.items())
+          + f"; covariance gap {w_rest['cov']:.3e}, draws vs loc + L z "
+          f"{w_rest['draws']:.3e} of the largest value", flush=True)
+    for key, out in surface.items():
+        print(f"  {key}: scores on 512 held-out points in {out['scores_ms']:.1f} ms, gaps "
+              + ", ".join(f"{k} {v:.2e}" for k, v in out["score_gaps"].items())
+              + f"; predict(cov=True, samples=64, noise=True) at m=1024 in "
+              f"{out['cov_samples_ms']:.1f} ms, asymmetry {out['asym']:.1e}, covariance gap "
+              f"{out['cov_gap']:.3e}, draws vs loc + L z {out['sample_gap']:.3e} of the largest "
+              "value", flush=True)
+        witnessed = key == "MAP float32"
+        for k, gap in out["score_gaps"].items():
+            limit = max(1e-3, WITNESS_FACTOR * w_scores[k] if witnessed else 0.0)
+            require(gap <= limit, f"{key}: score {k} vs the float64 host {gap:.3e} > {limit:.3e}")
+        for k in ("cov_gap", "sample_gap"):
+            limit = max(1e-3, WITNESS_FACTOR * witness_surface[k] if witnessed else 0.0)
+            require(out[k] <= limit, f"{key}: {k} vs the float64 host {out[k]:.3e} > {limit:.3e}")
+    return dict(loo_ms=statistics.median(times), loo_gaps=gaps, loo_witness=witness,
+                kbar=dict(port=kbar_port, witness=kbar_witness, magnify=magnify), fits=fits, surface=surface, surface_witness=witness_surface)
+
+
+def phase7c(rng, path, n=4096):
+    """WGP(Bias, SE, WarpingTanh n=3) at n=4096, d=8: logp/dlogp against the
+    float64 host, then Predictor batches of 256 (mean, median, quantiles)
+    through the Newton inverse on the card, its share of a batch, and the
+    round trip T^-1(T(x)).  The timed logp/dlogp calls, the Predictor's
+    set-up and its batches add their launches to ``path``."""
+    d = 8
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = (np.exp(np.sin(x[:, 0])) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    wgp = g3t.WGP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x),
+                  mapping=g3t.WarpingTanh(y, n=3), name="SMOKE_TWGP")
+    wgp.observed(x, y)
+    params = dict(wgp.params_default)
+    # a warping that bends: b 10x and a 2x the (near-linear) defaults
+    params["SMOKE_TWGP_WarpingTanh_b"] = params["SMOKE_TWGP_WarpingTanh_b"] * 10.0
+    params["SMOKE_TWGP_WarpingTanh_a"] = params["SMOKE_TWGP_WarpingTanh_a"] * 2.0
+    reg = wgp.active
+    u = reg.dict_to_array(params)
+    times = []
+    with counted(path):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            val = wgp.logp(u, array=True)
+            grad = wgp.dlogp(u)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    ref_val, ref_grad = host_wgp_logp(reg, u, x.astype(np.float64), y.astype(np.float64))
+    gaps = {"logp": abs(val - ref_val) / abs(ref_val), "dlogp": rel(grad, ref_grad)}
+    print(f"  WGP WarpingTanh n=3, n={n}: logp {val:.4f} vs host {ref_val:.4f}; logp+dlogp "
+          f"median {statistics.median(times):.2f} ms; gaps {gaps}", flush=True)
+    require(gaps["logp"] <= 1e-3 and gaps["dlogp"] <= 1e-2, f"WGP vs the float64 host: {gaps}")
+
+    with counted(path):
+        pr = wgp.predictor(params)
+    batch_ms, newton_ms = [], []
+    resid = 0.0
+    p = pr._merged
+    for b in range(8):
+        xq = rng.standard_normal((256, d)).astype(np.float32)
+        torch.cuda.synchronize()
+        with counted(path):
+            t0 = time.perf_counter()
+            out = pr(xq, mean=True, std=False, median=True, quantiles=True)
+            torch.cuda.synchronize()
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        for k in ("mean", "median", "quantile_up", "quantile_down"):
+            require(out[k].shape == (256,) and finite(out[k]), f"WGP batch {b}: {k}")
+        require(bool((out["quantile_down"] <= out["median"]).all()
+                     and (out["median"] <= out["quantile_up"]).all()),
+                f"WGP batch {b}: quantiles do not bracket the median")
+        # the batch's four forward solves alone: the quadrature grid (mean),
+        # the location (median) and the two quantile arguments
+        loc, latent, _ = wgp._latent_moments(p, pr._space(xq), pr.inputs, pr.outputs)
+        sd = torch.sqrt(latent)
+        grid, _ = g3t.ops.quadrature.hermite_grid(loc, sd, g3t.settings.quadrature_degree)
+        z = wgp._quantile_p(0.975)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for arg in (grid, loc, loc + z * sd, loc - z * sd):
+                wgp.f_mapping(p, arg)
+        torch.cuda.synchronize()
+        newton_ms.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            back = wgp.f_mapping.inv(p, out["median"])
+        resid = max(resid, float((back - loc).abs().max() / loc.abs().max()))
+    share = statistics.median(newton_ms) / statistics.median(batch_ms)
+    print(f"  WGP Predictor, 8 batches of 256 (mean, median, quantiles): median "
+          f"{statistics.median(batch_ms):.3f} ms (all {[round(t, 2) for t in batch_ms]}); "
+          f"its four Newton solves {statistics.median(newton_ms):.3f} ms ({share:.2f} of the "
+          f"batch); max |T^-1(T(x)) - x| / max|x| {resid:.3e}", flush=True)
+    require(resid <= 1e-4, f"Newton round trip residual {resid:.3e} > 1e-4")
+    prof = profile(lambda: wgp.f_mapping(p, grid), reps=3)
+    busy = top_ops(prof, "Newton solve on the (10, 256) quadrature grid, 3 calls", count=6) / 3
+    t_solve = event_ms(lambda: wgp.f_mapping(p, grid), reps=10, warmup=2)
+    print(f"    one Newton solve on the (10, 256) grid: {t_solve:.3f} ms (events), device busy "
+          f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / t_solve):.3f}", flush=True)
+    return dict(logp_dlogp_ms=statistics.median(times), gaps=gaps,
+                batch_ms=statistics.median(batch_ms), newton_ms=statistics.median(newton_ms),
+                newton_share=share, solve_ms=t_solve, solve_busy_ms=busy, residual=resid)
+
+
 def main():
     print("phase 0: device", flush=True)
     if not torch.cuda.is_available():
@@ -1091,6 +1664,26 @@ def main():
     print(f"  launches in the Bayesian path: K1 {k1_bayes}, K2 {k2_bayes}", flush=True)
     require(k1_bayes > 0 and k2_bayes > 0, "the Bayesian path did not go through both kernels")
 
+    # ---- the parity gate and the model surface: the counts are zeroed
+    # before, and read after, each float32 run of the main path (the oracle
+    # scoring; the LOO calls, find_MAP, scores and predict at the MAP; the
+    # WGP's logp/dlogp, Predictor set-up and batches); the pins, the float64
+    # twins, the host witnesses and the profiles are not counted
+    p7a, p7b, p7c = [0, 0], [0, 0], [0, 0]
+    print("phase 7a: the sunsets oracle on the card (16 rows, float32) and the sunspots pins",
+          flush=True)
+    oracle = phase7a(p7a)
+    print("phase 7b: full width, GP(Bias, SE) n=4096: LOO, find_MAP(objective='loo'), scores, "
+          "covariance and samples", flush=True)
+    surface = phase7b(tgp, gp_map, x_map, y_map, p7b)
+    print("phase 7c: full width, WGP(Bias, SE, WarpingTanh n=3) n=4096: logp/dlogp and the "
+          "Newton forward", flush=True)
+    warped = phase7c(rng, p7c)
+    k1_p7, k2_p7 = p7a[0] + p7b[0] + p7c[0], p7a[1] + p7b[1] + p7c[1]
+    print(f"  launches in phase 7: K1 {k1_p7}, K2 {k2_p7} (7a {p7a}, 7b {p7b}, 7c {p7c})",
+          flush=True)
+    require(k1_p7 > 0 and k2_p7 > 0, "phase 7 did not go through both kernels")
+
     shape = (4096, 4096, 8)
     t_wrap, t_plain, t_dev = k1_timing[("se", shape)]
     k1_bound = shape[0] * shape[1] * 4 / PEAK_BYTES * 1e3
@@ -1099,13 +1692,13 @@ def main():
         {"name": "stationary_gram", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
          "replaces": "g3py_tpu/ops/pallas_gram.py:81",
-         "launches": k1_serve + k1_train, "max_abs_err": k1_worst,
+         "launches": k1_serve + k1_train + k1_p7, "max_abs_err": k1_worst,
          "ms": t_dev if t_dev is not None else t_wrap, "plain_ms": t_plain,
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "panel_cholesky", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
          "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
-         "launches": k2_serve + k2_train, "max_abs_err": k2_worst,
+         "launches": k2_serve + k2_train + k2_p7, "max_abs_err": k2_worst,
          "ms": k2t["ms"], "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"],
          "bound_by": "operations", "library_ms": k2t["library_ms"]}]}
     k1b = k1b_timing[(16, 4096, 4096, 8)]
@@ -1129,6 +1722,8 @@ def main():
     print(f"  training logp+dlogp medians (ms): {train_ms}", flush=True)
     print(f"  Bayesian path: {json.dumps(bayes)}; full width {json.dumps(bayes_full)}",
           flush=True)
+    print(f"  phase 7: oracle {json.dumps(oracle)}; GP surface {json.dumps(surface)}; WGP "
+          f"{json.dumps(warped)}", flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

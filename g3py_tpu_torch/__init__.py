@@ -25,7 +25,7 @@ from .utils import DictObj, MaxTime, nan_to_high, params_from_jax
 from .utils.datatrace import Datatrace
 from .ops import (safe_cholesky, cho_solve, solve_lower_triangular,
                   solve_upper_triangular, trtri_from_panels, mvn_quad_logdet,
-                  gauss_hermite, stationary_gram, panel_cholesky)
+                  gauss_hermite, stationary_gram, panel_cholesky, newton_inverse)
 from .hypers import (Hypers, Param, Prior, Flat, FlatExp, Transform,
                      IdentityTransform, LogTransform)
 from .hypers.metrics import Metric, Delta, ARD, ARD_L2
@@ -33,7 +33,8 @@ from .hypers.kernels import (Kernel, KernelStationary, KernelComposition,
                              KernelSum, KernelNoise,
                              KernelStationaryExponential, SE, MAT32, MAT52, RQ)
 from .hypers.means import Mean, Zero, Bias
-from .hypers.mappings import Mapping, Identity, BoxCoxLinear
+from .hypers.mappings import (Mapping, MappingOperation, MappingComposed, Identity,
+                              BoxCoxLinear, WarpingTanh, ArcsinhLinear)
 from .bayesian import (GraphicalModel, optimize, ensemble_sampler, pt_sampler,
                        default_beta_ladder, mcmc_ensemble, chains_to_datatrace,
                        datatrace_to_chains, gelman_rubin, burn_in_samples,

@@ -1,58 +1,125 @@
-"""Datatrace-wide (batched) model evaluation (the PyTorch counterpart of the
-batched half of :class:`g3py_tpu.bayesian.models.PlotModel`).
+"""Model scoring and datatrace-wide (batched) evaluation (the PyTorch
+counterpart of :class:`g3py_tpu.bayesian.models.PlotModel`, without the
+plots).
 
-The reference evaluated a datatrace by looping ``predict`` once per row.
-The JAX package ``vmap``-s the row axis; here the rows are an explicit
-leading axis: :meth:`BatchedModel.batch_predict` turns an (R, ndim) matrix
-of unconstrained rows into one params dict of rows, factors every row's
+:meth:`BatchedModel.scores` is the reference's metric set of one params
+point against the true values ``hidden`` at the space.  The reference
+evaluated a datatrace by looping ``predict`` once per row.  The JAX package
+``vmap``-s the row axis; here the rows are an explicit leading axis:
+:meth:`BatchedModel.batch_predict` turns an (R, ndim) matrix of
+unconstrained rows into one params dict of rows, factors every row's
 posterior in ONE batched call, and evaluates every statistic for all rows
-at once.  :meth:`BatchedModel.average` is its mean over the rows.
+at once.  :meth:`BatchedModel.average` is its mean over the rows, with the
+rows' ``_l1``/``_l2`` against ``hidden``.
 """
 
 import numpy as np
 import torch
 
-from ..config import settings
+from ..config import settings, as_tensor
 from ..utils import DictObj
 
 __all__ = ["BatchedModel"]
 
 
+def _row_scores(mean_rows, hidden):
+    """``_l1``/``_l2`` of (R, m) row means against ``hidden`` (float64,
+    over every row and point), or {} when the space is not ``hidden``'s."""
+    if hidden is None or mean_rows.shape[-1] != len(hidden):
+        return {}
+    resid = mean_rows.to(torch.float64) - torch.as_tensor(hidden, dtype=torch.float64,
+                                                          device=mean_rows.device)
+    return {"_l1": float(resid.abs().mean()), "_l2": float((resid * resid).mean())}
+
+
 class BatchedModel:
     """Mixin of :class:`~g3py_tpu_torch.models.stochastic.StochasticProcess`:
-    needs ``active`` and the ``_batch_statistics`` hook of the process
-    family."""
+    needs ``active``, ``predict``, ``hidden`` and the ``_batch_statistics``
+    hook of the process family."""
+
+    def sample(self, params=None, space=None, inputs=None, outputs=None, samples=1,
+               prior=False, noise=False):
+        """``samples`` draws of the process at the space, (m, samples)."""
+        return self.predict(params=params, space=space, inputs=inputs, outputs=outputs,
+                            mean=False, std=False, samples=samples, prior=prior,
+                            noise=noise)["samples"]
+
+    def scores(self, params=None, space=None, hidden=None, inputs=None, outputs=None,
+               logp=False, logpred=False, bias=True, variance=False, median=False,
+               loo=False, *args, **kwargs):
+        """The reference's metric set against the true values ``hidden``
+        (default: the process's) at the space, Python floats: ``_l1``,
+        ``_l2`` (``bias``); ``_mse``, ``_rmse`` (``variance``);
+        ``_median_l1``, ``_median_l2`` (``median``); ``_logp``,
+        ``_loglike``, ``_logprior`` (``logp``); ``_nlpd``, the negative
+        log predictive density a point (``logpred``); ``_loo``, the
+        leave-one-out log pseudo-likelihood of the observed data (``loo``,
+        processes that have ``loo``)."""
+        if hidden is None:
+            hidden = self.hidden
+        pred = self.predict(params=params, space=space, inputs=inputs, outputs=outputs,
+                            mean=True, var=variance, median=median, distribution=logpred)
+        target = as_tensor(np.asarray(hidden))
+        out = DictObj()
+        if bias:
+            out["_l1"] = float((pred.mean - target).abs().mean())
+            out["_l2"] = float(((pred.mean - target) ** 2).mean())
+        if variance:
+            out["_mse"] = float(((pred.mean - target) ** 2 + pred.variance).mean())
+            out["_rmse"] = float(np.sqrt(out["_mse"]))
+        if median:
+            out["_median_l1"] = float((pred.median - target).abs().mean())
+            out["_median_l2"] = float(((pred.median - target) ** 2).mean())
+        if logp:
+            out["_logp"] = self.logp(params)
+            out["_loglike"] = self.loglike(params)
+            out["_logprior"] = self.logp(params, prior=True)
+        if logpred:
+            out["_nlpd"] = -float(pred.logpredictive(hidden)) / len(hidden)
+        if loo and hasattr(self, "loo"):
+            out["_loo"] = self.loo(params)
+        return out
 
     def _datatrace_rows(self, datatrace):
         return np.asarray(datatrace[self.active.param_names()], dtype=settings.floatx)
 
-    def _batch_statistics(self, rows, space, inputs, outputs, **flags):
+    def _batch_statistics(self, rows, space, inputs, outputs, prior=False, **flags):
         raise NotImplementedError(f"{type(self).__name__} has no batched predictive")
 
     def batch_predict(self, rows, space=None, inputs=None, outputs=None, mean=True,
-                      std=True, var=False, quantiles=False, quantiles_noise=False,
-                      prior=False, noise=False, **extra):
+                      std=True, var=False, cov=False, median=False, quantiles=False,
+                      quantiles_noise=False, prior=False, noise=False, **extra):
         """Requested statistics for an (R, ndim) matrix of unconstrained
         parameter rows, each a tensor with a leading row axis (the keys of
-        ``predict``)."""
+        ``predict``; ``covariance`` is (R, m, m))."""
         unsupported = sorted(k for k, v in extra.items() if v)
         if unsupported:
             raise NotImplementedError(
-                f"batch_predict does not support {unsupported} yet "
-                "(ROADMAP Queue 1 item 7)")
-        if prior or (inputs is None and not self.is_observed):
-            raise NotImplementedError("batch_predict of the prior is not ported yet "
-                                      "(ROADMAP Queue 1 item 7)")
+                f"batch_predict does not support {unsupported} yet (ROADMAP Queue 1 item 7)")
+        if inputs is None and not self.is_observed:
+            prior = True
         rows = np.asarray(rows, dtype=settings.floatx)
         if rows.ndim == 1:
             rows = rows[None, :]
         return self._batch_statistics(rows, space, inputs, outputs, mean=mean, std=std,
-                                      var=var, quantiles=quantiles,
-                                      quantiles_noise=quantiles_noise, noise=noise)
+                                      var=var, cov=cov, median=median, quantiles=quantiles,
+                                      quantiles_noise=quantiles_noise, prior=prior,
+                                      noise=noise)
 
-    def average(self, datatrace, *args, **kwargs):
+    def average(self, datatrace, scores=True, *args, **kwargs):
         """Average predictions over the datatrace's rows (the reference's
         Bayesian model average), every row factored in one batched call;
-        float64 tensors on ``settings.device``."""
+        float64 tensors on ``settings.device``.  With ``scores``, ``_l1``
+        and ``_l2`` of every row's mean against ``hidden`` when the space
+        is ``hidden``'s."""
         batch = self.batch_predict(self._datatrace_rows(datatrace), *args, **kwargs)
-        return DictObj({k: v.to(torch.float64).mean(dim=0) for k, v in batch.items()})
+        out = DictObj({k: v.to(torch.float64).mean(dim=0) for k, v in batch.items()})
+        if scores:
+            mean_rows = batch.get("mean")
+            if mean_rows is None:
+                flags = {k: kwargs[k] for k in ("space", "inputs", "outputs", "prior", "noise")
+                         if k in kwargs}
+                mean_rows = self.batch_predict(self._datatrace_rows(datatrace), mean=True,
+                                               std=False, **flags)["mean"]
+            out.update(_row_scores(mean_rows, self.hidden))
+        return out

@@ -11,7 +11,7 @@
 The JAX package runs the chain as one ``lax.scan`` with the log density
 ``vmap``-ped over walkers.  Here the iteration loop runs on the host and
 everything inside it stays on the device: the draws (a
-``torch.Generator`` on ``settings.device`` seeded from ``seed``), ONE
+``torch.Generator`` on ``settings.device`` seeded from ``key``), ONE
 batched log-density call per half-ensemble — the rows of every walker
 (and every temperature) of the half go through the batched kernels
 together, so a chain of ``samples`` iterations makes ``1 + 2 * samples``
@@ -22,7 +22,7 @@ Each log density here maps an (R, ndim) tensor of rows to an (R,) tensor.
 The draws of a half-ensemble come from :func:`_half_draws` and the swap
 draws from :func:`_swap_draws`; a test can replace them to feed the JAX
 package's draws (the two generators give different numbers).
-``hmc_sampler`` comes with the NUTS slice (ROADMAP Queue 1 item 8).
+``hmc_sampler`` comes with the NUTS slice (ROADMAP Queue 1 item 9).
 """
 
 import numpy as np
@@ -89,8 +89,13 @@ def _ensemble_step(gen, x, lp, aux, logp_rows, a):
             tuple(torch.cat(pair, dim=-1) for pair in zip(aux1, aux2)))
 
 
-def _generator(seed, device):
-    return torch.Generator(device=device).manual_seed(0 if seed is None else int(seed))
+def _generator(key, device):
+    """The draws' generator: ``key`` is an int seed (None: 0) or a
+    ``torch.Generator`` on ``device`` (the JAX package takes a PRNG key or
+    an int there)."""
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator(device=device).manual_seed(0 if key is None else int(key))
 
 
 def _start(p0):
@@ -106,20 +111,22 @@ def _finish(chain, lnprob):
     return chain.transpose(0, 1).cpu().numpy(), lnprob.T.cpu().numpy()
 
 
-def ensemble_sampler(logp, p0, samples, seed=None, a=2.0):
+def ensemble_sampler(logp, p0, samples, key=None, a=2.0, shard=False):
     """Affine-invariant ensemble sampler.
 
     Args:
       logp: batched log density, (R, ndim) tensor -> (R,) tensor.
       p0: (chains, ndim) initial walkers (chains must be even).
       samples: iterations.
-      seed: seed of the ``torch.Generator`` on ``settings.device``.
+      key: int seed of the ``torch.Generator`` on ``settings.device``, or
+        that generator.
       a: stretch scale (emcee default 2).
+      shard: accepted; one card holds every walker.
 
     Returns host arrays ``chain (chains, samples, ndim)`` and ``lnprob
     (chains, samples)``."""
     x = _start(p0)
-    gen = _generator(seed, x.device)
+    gen = _generator(key, x.device)
 
     def logp_rows(y):
         return _safe(logp(y)), ()
@@ -152,15 +159,16 @@ def _swap(x, like, prior, betas, log_u):
             v[t - 1] = torch.where(w, hi, lo)
 
 
-def pt_sampler(loglike, logprior, p0, samples, betas=None, seed=None, a=2.0):
+def pt_sampler(loglike, logprior, p0, samples, betas=None, key=None, a=2.0, shard=False):
     """Parallel-tempered ensemble sampler over p0 (ntemps, chains, ndim);
     ``loglike`` and ``logprior`` are batched ((R, ndim) -> (R,)).  Every
     temperature's half-ensemble goes into ONE batched call of each.
+    ``key`` as in :func:`ensemble_sampler`; ``shard`` is accepted.
     Returns the temperature-0 chain (reference kept ``lnprob[0],
     chain[0]``) and its lnprob."""
     x = _start(p0)
     ntemps, chains, ndim = x.shape
-    gen = _generator(seed, x.device)
+    gen = _generator(key, x.device)
     if betas is None:
         betas = default_beta_ladder(ntemps)
     betas = torch.as_tensor(np.asarray(betas), dtype=x.dtype, device=x.device)
@@ -187,11 +195,12 @@ def pt_sampler(loglike, logprior, p0, samples, betas=None, seed=None, a=2.0):
 
 def mcmc_ensemble(ndim, samples=1000, chains=None, ntemps=None, start=None,
                   logp=None, loglike=None, logprior=None, noise_mult=0.1,
-                  noise_sum=0.01, seed=0):
+                  noise_sum=0.01, threads=1, parallel=False, seed=0):
     """The reference's entry point (``average.py:20-54``): jitter the start into an
     initial ensemble with ``np.random.default_rng(seed)`` (the same draws as
     the JAX package), run the (tempered) sampler, return ``(lnprob,
-    chain)``."""
+    chain)``.  ``threads`` and ``parallel`` are accepted and change nothing
+    (the walkers of a half-ensemble share one batched call)."""
     if chains is None:
         chains = 2 * ndim
     chains = int(chains)
@@ -208,7 +217,7 @@ def mcmc_ensemble(ndim, samples=1000, chains=None, ntemps=None, start=None,
             p0 = noise * np.ones((chains, 1)) * start
         p0 += (p0 == 0) * rng.normal(loc=0, scale=noise_sum, size=p0.shape)
         chain, lnprob = ensemble_sampler(logp, p0.astype(settings.floatx), samples,
-                                         seed=seed)
+                                         key=seed)
     else:
         ntemps = int(ntemps)
         if start.ndim == 3 and start.shape == (ntemps, chains, ndim):
@@ -221,5 +230,5 @@ def mcmc_ensemble(ndim, samples=1000, chains=None, ntemps=None, start=None,
             p0 = noise * np.ones((ntemps, chains, 1)) * start
         p0 += (p0 == 0) * rng.normal(loc=0, scale=noise_sum, size=p0.shape)
         chain, lnprob = pt_sampler(loglike, logprior, p0.astype(settings.floatx), samples,
-                                   seed=seed)
+                                   key=seed)
     return lnprob, chain

@@ -1,22 +1,26 @@
 """Scalar warpings (the PyTorch counterpart of
 :mod:`g3py_tpu.hypers.mappings`): each Mapping provides ``inv`` (observed
--> latent), ``__call__`` (latent -> observed) and
-``logdet_dinv`` (the log-Jacobian of ``inv``).  This slice carries
-:class:`Identity` (GP) and :class:`BoxCoxLinear` (the WGP workload's
-warping); the Newton-inverse default forward comes with the warpings that
-need it.
+-> latent), ``__call__`` (latent -> observed) and ``logdet_dinv`` (the
+log-Jacobian of ``inv``).  A warping without an analytic forward
+(:class:`WarpingTanh`) inverts ``inv`` numerically
+(:func:`~g3py_tpu_torch.ops.root.newton_inverse`), and a warping without an
+analytic Jacobian takes it from autograd (:meth:`Mapping.logdet_dinv_elem`).
+``m1 @ m2`` composes two warpings (:class:`MappingComposed`).
 
 With a params dict of R rows, ``inv`` and ``logdet_dinv`` of the observed
-(N,) outputs give (R, N) and (R,), and ``__call__`` takes latent values
-whose leading axis is the row axis, of any trailing shape."""
+(N,) outputs give (R, N) and (R,); ``inv`` also takes (R, M) values, one
+row per params row.  ``__call__`` takes latent values whose leading axis is
+the row axis, of any trailing shape."""
 
 import numpy as np
 import torch
 
-from . import Hypers, Flat, FlatExp, hval, is_param
+from . import Hypers, Flat, FlatExp, hval, is_param, row_shape
 from ..config import settings
+from ..ops.root import newton_inverse
 
-__all__ = ["Mapping", "Identity", "BoxCoxLinear"]
+__all__ = ["Mapping", "MappingOperation", "MappingComposed", "Identity", "BoxCoxLinear",
+           "WarpingTanh", "ArcsinhLinear"]
 
 
 def _signed_power(v, p):
@@ -36,12 +40,104 @@ class Mapping(Hypers):
     def inv(self, params, y):
         raise NotImplementedError
 
+    def _rows(self, params):
+        """The row shape of ``params`` for this warping: ``(R,)`` for a
+        dict of R rows, ``()`` for one."""
+        for h in self.hypers:
+            return row_shape(h, hval(h, params))
+        return ()
+
     def __call__(self, params, x):
-        raise NotImplementedError(
-            f"{type(self).__name__} has no analytic forward map in this port")
+        """Default forward: numeric inversion of ``inv``, each row of a
+        dict of rows stopping on its own, with implicit gradients."""
+        rows = self._rows(params)
+        flat = x.reshape(rows + (-1,))
+        out = newton_inverse(lambda v: self.inv(params, v), flat, row_dims=len(rows))
+        return out.reshape(x.shape)
 
     def logdet_dinv(self, params, y):
-        raise NotImplementedError
+        return self.logdet_dinv_num(params, y)
+
+    def logdet_dinv_num(self, params, y):
+        """log|det dT^{-1}/dy| of an elementwise warping: the sum of
+        :meth:`logdet_dinv_elem`."""
+        return self.logdet_dinv_elem(params, y).sum(dim=-1)
+
+    def logdet_dinv_elem(self, params, y):
+        """Per-element ``log dT^{-1}/dy_i`` by autograd (an elementwise
+        map has a diagonal Jacobian: d(sum inv)/dy_i).  Differentiable in
+        the params and in ``y`` when gradients are on."""
+        rows = self._rows(params)
+        v = y.expand(rows + y.shape[-1:]) if rows and y.ndim == 1 else y
+        create = torch.is_grad_enabled() and (
+            v.requires_grad or any(hval(h, params).requires_grad for h in self.hypers))
+        if not v.requires_grad:
+            v = v.detach().requires_grad_(True)
+        with torch.enable_grad():
+            (slope,) = torch.autograd.grad(self.inv(params, v).sum(), v, create_graph=create)
+        return torch.log(slope)
+
+    def __matmul__(self, other):
+        return MappingComposed(self, other)
+
+    __imatmul__ = __matmul__
+    __rmatmul__ = __matmul__
+
+
+class MappingOperation(Mapping):
+    """Two warpings combined; the hypers are both operands'."""
+
+    def __init__(self, m1, m2):
+        self.m1 = m1
+        self.m2 = m2
+        self.hypers = []
+        self.potential = None
+        self.op = "op"
+
+    def check_hypers(self, parent=""):
+        self.m1.check_hypers(parent=parent)
+        self.m2.check_hypers(parent=parent)
+        self.hypers = list(self.m1.hypers) + list(self.m2.hypers)
+
+    def check_dims(self, x=None):
+        self.m1.check_dims(x)
+        self.m2.check_dims(x)
+
+    def default_hypers_dims(self, x=None, y=None):
+        return {**self.m1.default_hypers_dims(x, y), **self.m2.default_hypers_dims(x, y)}
+
+    def has_potential(self):
+        return self.m1.has_potential() or self.m2.has_potential()
+
+    def potential_logp(self, params):
+        parts = [p for p in (self.m1.potential_logp(params), self.m2.potential_logp(params))
+                 if p is not None]
+        return sum(parts[1:], parts[0]) if parts else None
+
+    def __str__(self):
+        return f"{self.m1} {self.op} {self.m2}"
+
+    __repr__ = __str__
+
+
+class MappingComposed(MappingOperation):
+    """T = m1 after m2: ``inv`` is m2.inv after m1.inv, and the logdet the
+    chain rule's."""
+
+    def __init__(self, m1, m2):
+        super().__init__(m1, m2)
+        self.op = "@"
+        self.name = self.m1.name + " " + self.m2.name
+
+    def __call__(self, params, x):
+        return self.m1(params, self.m2(params, x))
+
+    def inv(self, params, y):
+        return self.m2.inv(params, self.m1.inv(params, y))
+
+    def logdet_dinv(self, params, y):
+        return (self.m2.logdet_dinv(params, self.m1.inv(params, y))
+                + self.m1.logdet_dinv(params, y))
 
 
 class Identity(Mapping):
@@ -100,4 +196,70 @@ class BoxCoxLinear(Mapping):
         s = hval(self.scale, params)
         shifted = s[..., None] * (y + hval(self.shift, params)[..., None])
         return ((p - 1.0) * torch.log(torch.abs(shifted)).sum(dim=-1)
-                + y.shape[0] * torch.log(s))
+                + y.shape[-1] * torch.log(s))
+
+
+class WarpingTanh(Mapping):
+    """Sum-of-tanh warping T^{-1}(y) = y + sum_k a_k tanh(b_k (y + c_k)),
+    with vectors a, b, c of length ``n``; inv-only, so its forward is the
+    Newton inverse and its Jacobian autograd's."""
+
+    def __init__(self, y=None, n=1, name=None, a=None, b=None, c=None):
+        super().__init__(y, name)
+        self.n = n
+        self.a = a
+        self.b = b
+        self.c = c
+
+    def check_hypers(self, parent=""):
+        self.a = self._param(self.a, parent + self.name + "_a", FlatExp(), shape=self.n)
+        self.b = self._param(self.b, parent + self.name + "_b", FlatExp(), shape=self.n)
+        self.c = self._param(self.c, parent + self.name + "_c", Flat(), shape=self.n)
+
+    def default_hypers(self, x=None, y=None):
+        out = {}
+        ymax = np.abs(y).max()
+        if is_param(self.a):
+            out[self.a] = 0.1 * np.ones(self.n, settings.floatx) * ymax / self.n
+        if is_param(self.b):
+            out[self.b] = 0.1 * np.ones(self.n, settings.floatx) / ymax
+        if is_param(self.c):
+            out[self.c] = np.ones(self.n, settings.floatx) * np.mean(y)
+        return out
+
+    def inv(self, params, y):
+        a, b, c = (hval(h, params)[..., None, :] for h in (self.a, self.b, self.c))
+        return y + (torch.tanh(b * (y[..., None] + c)) * a).sum(dim=-1)
+
+
+class ArcsinhLinear(Mapping):
+    """T(x) = sinh((x - shift) / scale)."""
+
+    def __init__(self, y=None, name=None, shift=None, scale=None):
+        super().__init__(y, name)
+        self.shift = shift
+        self.scale = scale
+
+    def check_hypers(self, parent=""):
+        self.shift = self._param(self.shift, parent + self.name + "_shift", Flat())
+        self.scale = self._param(self.scale, parent + self.name + "_scale", FlatExp())
+
+    def default_hypers(self, x=None, y=None):
+        out = {}
+        if is_param(self.shift):
+            out[self.shift] = np.asarray(np.mean(y), settings.floatx)
+        if is_param(self.scale):
+            out[self.scale] = np.asarray(np.std(y), settings.floatx)
+        return out
+
+    def __call__(self, params, x):
+        return torch.sinh((x - _over(hval(self.shift, params), x))
+                          / _over(hval(self.scale, params), x))
+
+    def inv(self, params, y):
+        return (torch.arcsinh(y) * hval(self.scale, params)[..., None]
+                + hval(self.shift, params)[..., None])
+
+    def logdet_dinv(self, params, y):
+        return (y.shape[-1] * torch.log(hval(self.scale, params))
+                - 0.5 * torch.log1p(y ** 2).sum(dim=-1))

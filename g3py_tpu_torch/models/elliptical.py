@@ -7,6 +7,10 @@ robust Cholesky of the observed gram:
 
   location* = m(s) + K_si Kii^{-1} (T^{-1}y - m(i))
   var*      = k_ss - colsum((L^{-1} K_is)^2)      (clamped at 0)
+  cov*      = K_ss - (L^{-1} K_is)^T (L^{-1} K_is)
+
+and every statistic has a prior branch (``prior=True``: the moments of
+m and K at the space, before the observations).
 
 ``posterior_state`` factors the observed gram once into ``(L^{-1}, alpha,
 z)``, with L^{-1} seeded by the factorization's panel inverses; carried in
@@ -51,8 +55,11 @@ def _diag(m):
 
 
 class EllipticalProcess(StochasticProcess):
-    def __init__(self, space=None, location=None, kernel=None, mapping=None,
+    def __init__(self, space=None, location=None, kernel=None, mapping=None, degree=None,
                  noisy=True, var_noise=None, **kwargs):
+        if degree is not None:
+            raise NotImplementedError("the degrees of freedom (degree=, the Student-t "
+                                      "family) are not ported yet (ROADMAP Queue 1 item 10)")
         self.f_location = location if location is not None else Zero()
         self.f_mapping = mapping if mapping is not None else Identity()
         self.f_kernel = kernel
@@ -146,14 +153,19 @@ class EllipticalProcess(StochasticProcess):
         from .predictor import AveragedPredictor
         return AveragedPredictor(self, datatrace, max_rows=max_rows)
 
-    def _batch_statistics(self, rows, space, inputs, outputs, **flags):
+    def _batch_statistics(self, rows, space, inputs, outputs, prior=False, **flags):
         """Statistics of every row of ``rows`` at ``space``, each with a
-        leading row axis (the hook of ``batch_predict``)."""
+        leading row axis (the hook of ``batch_predict``): the posterior's
+        from one batched factorization, or with ``prior`` the prior's."""
         from .predictor import statistics
         space, inputs, outputs = self._resolve_data(space, inputs, outputs)
-        params, state = self.posterior_state_rows(rows, inputs, outputs)
-        return statistics(self, {**params, **state}, space, inputs, outputs,
-                          z=self._batch_quantile_z(), **flags)
+        if prior:
+            params = self.active.array_to_dict_tensor(as_tensor(rows))
+        else:
+            params, state = self.posterior_state_rows(rows, inputs, outputs)
+            params = {**params, **state}
+        return statistics(self, params, space, inputs, outputs, z=self._batch_quantile_z(),
+                          prior=prior, **flags)
 
     def _whitened_cross(self, params, inputs, cross):
         """v = L^{-1} K_is — a product with the state's inverse when one
@@ -183,6 +195,13 @@ class EllipticalProcess(StochasticProcess):
         cross = to_num(kernel.cov(params, space, inputs))
         return self._location_from_cross(params, space, inputs, outputs, cross)
 
+    def _posterior_kernel(self, params, space, inputs, outputs, noise):
+        """The full posterior covariance over ``space`` (m, m)."""
+        kernel = self.f_kernel_noise if noise else self.f_kernel
+        cross = to_num(kernel.cov(params, space, inputs))
+        v = self._whitened_cross(params, inputs, cross)
+        return kernel.cov(params, space) - torch.matmul(v.transpose(-1, -2), v)
+
     def _posterior_kernel_diag(self, params, space, inputs, outputs, noise):
         """Posterior variance diagonal: the latent part is clamped at 0 and
         the noise variance is added separately, so the noisy variance never
@@ -205,11 +224,15 @@ class EllipticalProcess(StochasticProcess):
         return to_bounded(_diag(kn.cov(params, space))
                           - _diag(self.f_kernel.cov(params, space)), 0.0)
 
-    def _latent_moments(self, params, space, inputs, outputs):
+    def _latent_moments(self, params, space, inputs, outputs, prior=False):
         """``(location, latent variance, noise variance)`` of the posterior
-        from ONE cross gram — the fused path of the Predictor.  The noisy
-        location equals the noise-free one: the noise term adds exactly 0
-        to every cross covariance."""
+        from ONE cross gram — the fused path of the Predictor — or with
+        ``prior`` of the prior.  The noisy location equals the noise-free
+        one: the noise term adds exactly 0 to every cross covariance."""
+        if prior:
+            return (self.f_location(params, space),
+                    to_bounded(_diag(self.f_kernel.cov(params, space)), 0.0),
+                    self._noise_diag(params, space))
         cross = to_num(self.f_kernel.cov(params, space, inputs))
         return (self._location_from_cross(params, space, inputs, outputs, cross),
                 self._latent_var_from_cross(params, space, inputs, cross),
@@ -235,12 +258,30 @@ class EllipticalProcess(StochasticProcess):
                 return self._posterior_location(params, space, inputs, outputs, noise)
         return fn
 
+    def th_kernel(self, prior=False, noise=False):
+        if prior:
+            kernel = self.f_kernel_noise if noise else self.f_kernel
+
+            def fn(params, space, inputs, outputs, vector):
+                return to_cov(kernel.cov(params, space))
+        else:
+            def fn(params, space, inputs, outputs, vector):
+                return self._posterior_kernel(params, space, inputs, outputs, noise)
+        return fn
+
+    def th_cholesky(self, prior=False, noise=False):
+        k_fn = self.th_kernel(prior=prior, noise=noise)
+
+        def fn(params, space, inputs, outputs, vector):
+            return safe_cholesky(to_cov(k_fn(params, space, inputs, outputs, vector)))
+        return fn
+
     def th_kernel_diag(self, prior=False, noise=False):
         if prior:
             kernel = self.f_kernel_noise if noise else self.f_kernel
 
             def fn(params, space, inputs, outputs, vector):
-                return to_bounded(torch.diagonal(kernel.cov(params, space)), 0.0)
+                return to_bounded(_diag(kernel.cov(params, space)), 0.0)
         else:
             def fn(params, space, inputs, outputs, vector):
                 return self._posterior_kernel_diag(params, space, inputs, outputs, noise)
@@ -253,16 +294,34 @@ class EllipticalProcess(StochasticProcess):
             return torch.sqrt(diag_fn(params, space, inputs, outputs, vector))
         return fn
 
-    def th_mean(self, prior=False, noise=False):
+    def th_cholesky_diag(self, prior=False, noise=False):
+        sd_fn = self.th_kernel_sd(prior=prior, noise=noise)
+
+        def fn(params, space, inputs, outputs, vector):
+            return torch.diag_embed(sd_fn(params, space, inputs, outputs, vector))
+        return fn
+
+    def th_median(self, prior=False, noise=False, simulations=None):
         loc_fn = self.th_location(prior=prior, noise=noise)
 
         def fn(params, space, inputs, outputs, vector):
             return self.f_mapping(params, loc_fn(params, space, inputs, outputs, vector))
         return fn
 
-    def th_variance(self, prior=False, noise=False):
+    def th_mean(self, prior=False, noise=False, simulations=None):
+        return self.th_median(prior=prior, noise=noise)
+
+    def th_variance(self, prior=False, noise=False, simulations=None):
         return self.th_kernel_diag(prior=prior, noise=noise)
+
+    def th_covariance(self, prior=False, noise=False):
+        return self.th_kernel(prior=prior, noise=noise)
 
     mapping = _statistic("th_mapping", "Forward warping of ``vector``.")
     location = _statistic("th_location", "Latent (pre-warping) location.")
+    kernel = _statistic("th_kernel", "Latent covariance over ``space``.")
+    cholesky = _statistic("th_cholesky", "Cholesky factor of the latent covariance.")
+    kernel_diag = _statistic("th_kernel_diag", "Latent marginal variance.")
     kernel_sd = _statistic("th_kernel_sd", "Latent marginal standard deviation.")
+    cholesky_diag = _statistic("th_cholesky_diag",
+                               "Diagonal matrix of the latent standard deviations.")

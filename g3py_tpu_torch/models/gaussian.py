@@ -7,8 +7,10 @@ The GP observed density is the warped multivariate normal
          + log|det dT^{-1}(y)|
 
 with four guards falling to -1e30; quantiles are analytic
-(``T(mu + z_q sigma)``); WGP moments are Gauss-Hermite quadratures of T and
-T^2 over the latent gaussian.
+(``T(mu + z_q sigma)``); samples push Cholesky-coloured normals through
+the warping; WGP moments are Gauss-Hermite quadratures of T and T^2 over
+the latent gaussian.  ``loo`` is the leave-one-out log pseudo-likelihood
+(GPML §5.4.2), also a ``find_MAP`` objective.
 """
 
 import math
@@ -17,15 +19,35 @@ from statistics import NormalDist
 import numpy as np
 import torch
 
-from ..config import settings
+from ..config import settings, as_tensor
 from ..ops.guards import to_num, to_cov
-from ..ops.linalg import mvn_quad_logdet
-from ..ops.quadrature import gauss_hermite
+from ..ops.linalg import mvn_quad_logdet, mvn_loo, solve_lower_triangular
+from ..ops.quadrature import gauss_hermite, hermite_grid
 from .elliptical import EllipticalProcess
 
-__all__ = ["GaussianProcess", "WarpedGaussianProcess"]
+__all__ = ["GaussianProcess", "WarpedGaussianProcess", "warped_gaussian_logp_cho"]
 
 LOG2PI = math.log(2.0 * math.pi)
+
+
+def _guarded(r, bad):
+    guard = settings.logp_guard
+    return torch.where(bad, torch.full_like(r, guard), to_num(r, nan=guard, neginf=guard))
+
+
+def warped_gaussian_logp_cho(value, mu, cho, mapping_inv_value, logdet_dinv):
+    """logp of a warped gaussian given a Cholesky factor ``cho`` (full or
+    diagonal) of its dispersion; ``mapping_inv_value`` and ``logdet_dinv``
+    are the warping's pullback of ``value`` and its log-Jacobian.  A
+    non-finite residual, Jacobian, factor or whitened residual, or a
+    NaN/-inf result, gives ``settings.logp_guard``."""
+    delta = mapping_inv_value - mu
+    lcho = solve_lower_triangular(cho, delta)
+    r = (-0.5 * cho.shape[0] * LOG2PI - 0.5 * torch.dot(lcho, lcho)
+         - torch.log(torch.diagonal(cho)).sum() + logdet_dinv)
+    bad = (~torch.isfinite(delta).all() | ~torch.isfinite(logdet_dinv)
+           | ~torch.isfinite(cho).all() | ~torch.isfinite(lcho).all())
+    return _guarded(r, bad)
 
 
 class GaussianProcess(EllipticalProcess):
@@ -52,12 +74,81 @@ class GaussianProcess(EllipticalProcess):
             quad, logdet_half, ok = mvn_quad_logdet(cov, tinv - mu)
             n = inputs.shape[0]
             r = -0.5 * n * LOG2PI - 0.5 * quad - logdet_half + logdet_map
-            guard = settings.logp_guard
-            bad = (ok == 0) | ~torch.isfinite(quad) | ~torch.isfinite(logdet_map)
-            return torch.where(bad, torch.full_like(r, guard),
-                               to_num(r, nan=guard, neginf=guard))
+            return _guarded(r, (ok == 0) | ~torch.isfinite(quad) | ~torch.isfinite(logdet_map))
 
         return fn
+
+    def th_loo_fn(self):
+        """Leave-one-out log pseudo-likelihood ``fn(params, space, inputs,
+        outputs)`` (GPML eq. 5.10-5.12): one factorization serves every
+        fold, with ``Kinv = L^{-T} L^{-1}`` and ``r = T^{-1}y - m``,
+
+          LOO = sum_i log N(r_i | r_i - [Kinv r]_i / Kinv_ii, 1 / Kinv_ii)
+                + log|det dT^{-1}(y)|
+
+        — the Jacobian term makes it a log-density of the observed y, so a
+        WGP's LOO compares with a GP's on the same data.  Differentiable
+        through ``mvn_loo``'s analytic backward; a non-finite ``Kinv r`` or
+        Jacobian gives ``settings.logp_guard``."""
+        mapping = self.f_mapping
+        location = self.f_location
+        kernel_noise = self.f_kernel_noise
+
+        def fn(params, space, inputs, outputs):
+            mu = location(params, inputs)
+            cov = to_cov(kernel_noise.cov(params, inputs))
+            resid = to_num(mapping.inv(params, outputs)) - mu
+            total, finite = mvn_loo(cov, resid)
+            logdet_map = mapping.logdet_dinv(params, outputs)
+            out = -0.5 * inputs.shape[0] * LOG2PI + total + logdet_map
+            return _guarded(out, ~finite | ~torch.isfinite(logdet_map))
+
+        return fn
+
+    def loo(self, params=None, space=None, inputs=None, outputs=None, **kwargs):
+        """Leave-one-out log pseudo-likelihood of the observed data (the sum
+        over folds of the held-out log predictive density, see
+        :meth:`th_loo_fn`).  Higher is better."""
+        p = self._tensor_params(self.params if params is None else params)
+        space, inputs, outputs = self._resolve_data(space, inputs, outputs)
+        with torch.no_grad():
+            return float(self.th_loo_fn()(p, space, inputs, outputs))
+
+    def th_logpredictive(self, prior=False, noise=False):
+        """Independent-marginal log predictive density of ``vector`` at the
+        space: the diagonal posterior Cholesky (noise included)."""
+        loc_fn = self.th_location(prior=prior, noise=noise)
+        sd_fn = self.th_kernel_sd(prior=prior, noise=True)
+        mapping = self.f_mapping
+
+        def fn(params, space, inputs, outputs, vector):
+            mu = loc_fn(params, space, inputs, outputs, vector)
+            sd = sd_fn(params, space, inputs, outputs, vector)
+            tinv = to_num(mapping.inv(params, vector))
+            logdet = mapping.logdet_dinv(params, vector)
+            return warped_gaussian_logp_cho(vector, mu, torch.diag(sd), tinv, logdet)
+
+        return fn
+
+    def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
+                prior=False, noise=False, rng=None):
+        """``samples`` posterior (or prior) draws at the space, (m,
+        samples): Cholesky-coloured standard normals pushed through the
+        warping.  ``rng`` draws the normals: a numpy Generator (the JAX
+        package's: the same seed gives the same normals; a fresh one when
+        None) or a ``torch.Generator`` on ``settings.device``."""
+        kw = dict(space=space, inputs=inputs, outputs=outputs, prior=prior, noise=noise)
+        loc = self.location(params, **kw)
+        m = loc.shape[0]
+        if isinstance(rng, torch.Generator):
+            rand = torch.randn((m, samples), generator=rng, dtype=loc.dtype,
+                               device=loc.device)
+        else:
+            rng = np.random.default_rng() if rng is None else rng
+            rand = as_tensor(rng.standard_normal((m, samples)).astype(settings.floatx))
+        latent = loc[:, None] + torch.matmul(self.cholesky(params, **kw), rand)
+        return self.f_mapping(self._tensor_params(self.params if params is None else params),
+                              latent)
 
     def _quantile_p(self, q):
         """Latent-space quantile coefficient: quantile = T(mu + p * sd).  Held
@@ -72,7 +163,7 @@ class GaussianProcess(EllipticalProcess):
         return p, -p
 
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
-                  prior=False, noise=False):
+                  prior=False, noise=False, simulations=None):
         """Analytic quantile T(mu + z_q sigma)."""
         p = self._quantile_p(q)
         kw = dict(space=space, inputs=inputs, outputs=outputs, prior=prior, noise=noise)
@@ -90,13 +181,19 @@ class WarpedGaussianProcess(GaussianProcess):
         super().__init__(*args, **kwargs)
 
     def _hermite_moments(self, params, mu, sd, n=None):
-        """(E[T], E[T^2]) over N(mu, sd^2)."""
+        """(E[T], Var[T]) over N(mu, sd^2), from one evaluation of T on the
+        quadrature grid.  The variance is the centred second moment
+        E[(T - E[T])^2]: E[T^2] - E[T]^2 cancels where the variance is ~eps
+        T^2 (at the observed points of a near-noiseless warped GP) and goes
+        negative in float32."""
         n = settings.quadrature_degree if n is None else n
-        m1 = gauss_hermite(lambda v: self.f_mapping(params, v), mu, sd, n=n)
-        m2 = gauss_hermite(lambda v: self.f_mapping(params, v) ** 2, mu, sd, n=n)
-        return m1, m2
+        grid, w = hermite_grid(mu, sd, n)
+        t = self.f_mapping(params, grid)
+        m1 = torch.matmul(w, t) / math.sqrt(math.pi)
+        dev = t - m1[..., None, :]
+        return m1, torch.matmul(w, dev * dev) / math.sqrt(math.pi)
 
-    def th_mean(self, prior=False, noise=False, n=None):
+    def th_mean(self, prior=False, noise=False, simulations=None, n=None):
         n = settings.quadrature_degree if n is None else n
         loc_fn = self.th_location(prior=prior, noise=noise)
         sd_fn = self.th_kernel_sd(prior=prior, noise=noise)
@@ -108,18 +205,19 @@ class WarpedGaussianProcess(GaussianProcess):
 
         return fn
 
-    def th_variance(self, prior=False, noise=False, n=None):
+    def th_variance(self, prior=False, noise=False, simulations=None, n=None):
         loc_fn = self.th_location(prior=prior, noise=noise)
         sd_fn = self.th_kernel_sd(prior=prior, noise=noise)
 
         def fn(params, space, inputs, outputs, vector):
             mu = loc_fn(params, space, inputs, outputs, vector)
             sd = sd_fn(params, space, inputs, outputs, vector)
-            m1, m2 = self._hermite_moments(params, mu, sd, n)
-            return m2 - m1 ** 2
+            return self._hermite_moments(params, mu, sd, n)[1]
 
         return fn
 
+    def th_covariance(self, prior=False, noise=False):
+        return None
+
     def _warped_moments(self, params, loc, var):
-        m1, m2 = self._hermite_moments(params, loc, torch.sqrt(var))
-        return m1, m2 - m1 ** 2
+        return self._hermite_moments(params, loc, torch.sqrt(var))

@@ -25,19 +25,22 @@ import torch
 
 from ..config import settings
 from ..utils import DictObj
+from ..bayesian.models import _row_scores
 
 __all__ = ["Predictor", "AveragedPredictor", "statistics"]
 
 
-def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False,
-               quantiles=False, quantiles_noise=False, noise=False, z=None):
+def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False, cov=False,
+               median=False, quantiles=False, quantiles_noise=False, noise=False,
+               prior=False, z=None):
     """Statistics of one query batch from a params dict ``p`` that carries
     a posterior state (same keys as ``process.predict``): ``mean``, ``std``,
-    ``variance``, ``quantile_up``/``quantile_down`` (2.5% and 97.5%) and,
-    with ``quantiles_noise``, the observation-noise bands ``noise_std``,
-    ``noise_up`` and ``noise_down``.  A dict of R rows gives (R, m).  ``z``
-    is the (up, down) pair of latent quantile coefficients (default: the
-    process's own)."""
+    ``variance``, ``covariance`` (m, m), ``median``,
+    ``quantile_up``/``quantile_down`` (2.5% and 97.5%) and, with
+    ``quantiles_noise``, the observation-noise bands ``noise_std``,
+    ``noise_up`` and ``noise_down``; with ``prior`` the prior's.  A dict of
+    R rows gives (R, m).  ``z`` is the (up, down) pair of latent quantile
+    coefficients (default: the process's own)."""
     up, down = (proc._quantile_p(0.975), proc._quantile_p(0.025)) if z is None else z
     values = DictObj()
 
@@ -46,7 +49,7 @@ def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False,
         return proc.f_mapping(p, loc + up * sd), proc.f_mapping(p, loc + down * sd)
 
     with torch.no_grad():
-        loc, latent, noise_var = proc._latent_moments(p, space, inputs, outputs)
+        loc, latent, noise_var = proc._latent_moments(p, space, inputs, outputs, prior=prior)
         lvar = latent + noise_var if noise else latent
         if mean or std or var:
             m, v = proc._warped_moments(p, loc, lvar)
@@ -56,6 +59,13 @@ def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False,
                 values["variance"] = v
             if std:
                 values["std"] = torch.sqrt(v)
+        if cov:
+            cov_fn = proc.th_covariance(prior=prior, noise=noise)
+            if cov_fn is None:
+                raise ValueError(f"{type(proc).__name__} has no analytic posterior covariance")
+            values["covariance"] = cov_fn(p, space, inputs, outputs, None)
+        if median:
+            values["median"] = proc.f_mapping(p, loc)
         if quantiles:
             values["quantile_up"], values["quantile_down"] = bands(lvar)
         if quantiles_noise:
@@ -84,6 +94,11 @@ class _Bound:
                 "factorization — rebuild it")
         return self
 
+    def _space(self, space):
+        """Query points as a device matrix; the process's space when None."""
+        return (self.process._device_data("space") if space is None
+                else self.process._as_matrix(space))
+
 
 class Predictor(_Bound):
     """Bound (process, params, factorized posterior state) for streaming
@@ -104,15 +119,41 @@ class Predictor(_Bound):
         self.state = process.posterior_state(self.params)
         self._merged = {**self.params, **self.state}
 
-    def predict(self, space, mean=True, std=True, var=False, quantiles=False,
-                quantiles_noise=False, noise=False):
-        """Statistics of one query batch (see :func:`statistics`)."""
+    def predict(self, space=None, mean=True, std=True, var=False, cov=False, median=False,
+                quantiles=False, quantiles_noise=False, samples=0, distribution=False,
+                prior=False, noise=False, simulations=None, fused=True):
+        """Statistics of one query batch (see :func:`statistics`; the
+        process's space when ``space`` is None), plus ``samples`` posterior
+        draws (m, samples) and, with ``distribution``, ``logpredictive``: a
+        function of a vector of values at the space.  ``simulations`` and
+        ``fused`` change nothing: the gaussian statistics are analytic and
+        always share one cross gram."""
         self._check()
-        return statistics(self.process, self._merged, self.process._as_matrix(space),
-                          self.inputs, self.outputs, mean=mean, std=std, var=var,
-                          quantiles=quantiles, quantiles_noise=quantiles_noise, noise=noise)
+        space = self._space(space)
+        values = statistics(self.process, self._merged, space, self.inputs, self.outputs,
+                            mean=mean, std=std, var=var, cov=cov, median=median,
+                            quantiles=quantiles, quantiles_noise=quantiles_noise,
+                            noise=noise, prior=prior)
+        if samples > 0:
+            values["samples"] = self.process.sampler(self._merged, space, samples=samples,
+                                                     prior=prior, noise=noise)
+        if distribution:
+            values["logpredictive"] = lambda v: self.logpredictive(v, space, prior=prior)
+        return values
 
     __call__ = predict
+
+    def median(self, space=None, prior=False):
+        """T(location) at the query points."""
+        return self.predict(space, mean=False, std=False, median=True, prior=prior)["median"]
+
+    def logpredictive(self, vector, space=None, prior=False):
+        """Independent-marginal log predictive density of ``vector`` at the
+        query points (noise included), from the factored state."""
+        self._check()
+        with torch.no_grad():
+            return self.process.logpredictive(self._merged, self._space(space), vector=vector,
+                                              prior=prior, noise=True)
 
 
 class AveragedPredictor(_Bound):
@@ -144,14 +185,17 @@ class AveragedPredictor(_Bound):
         """Per-row statistics (leading row axis), like
         ``process.batch_predict``, with the factorizations reused."""
         self._check()
-        space = (self.process._device_data("space") if space is None
-                 else self.process._as_matrix(space))
-        return statistics(self.process, self._merged, space, self.inputs, self.outputs,
-                          z=self.process._batch_quantile_z(), **flags)
+        return statistics(self.process, self._merged, self._space(space), self.inputs,
+                          self.outputs, z=self.process._batch_quantile_z(), **flags)
 
-    def predict(self, space=None, **flags):
-        """Row-averaged statistics (the ``average()`` keys), in float64."""
-        return DictObj({k: v.to(torch.float64).mean(dim=0)
-                        for k, v in self.batch(space=space, **flags).items()})
+    def predict(self, space=None, scores=False, **flags):
+        """Row-averaged statistics (the ``average()`` keys), in float64;
+        ``scores=True`` adds ``_l1``/``_l2`` of the rows' means against the
+        process's ``hidden`` when the query space is ``hidden``'s."""
+        batch = self.batch(space=space, **flags)
+        out = DictObj({k: v.to(torch.float64).mean(dim=0) for k, v in batch.items()})
+        if scores and "mean" in batch:
+            out.update(_row_scores(batch["mean"], self.process.hidden))
+        return out
 
     __call__ = predict

@@ -9,16 +9,18 @@ of tensors — PyTorch runs eagerly, so the builders are called directly
 instead of being jitted.  Statistics return tensors on ``settings.device``;
 ``logp`` returns a Python float.
 
-This port carries construction, data, params, ``logp`` / ``loglike``
-(over a params dict or the flat unconstrained vector), ``dlogp`` (autograd
-over that vector on the device), ``find_MAP`` with the reference's scipy
-BFGS/Powell recipe, ``predict`` and the statistic methods, and the
-hyperparameter posterior: ``logp_chain`` over (R, ndim) rows and
-``sample_hypers(method='ensemble')``, plain or parallel-tempered, into a
-datatrace.  The rows of a batched call are an explicit leading axis (the
-JAX package's ``vmap``): one batched K1 and one batched K2 call a logp
-evaluation of all rows.  NUTS/ADVI, LOO, the other ``find_MAP`` engines and
-plotting come in later slices.
+This port carries construction, data (``space``/``hidden``/``order`` for
+prediction and scoring, ``inputs``/``outputs``/``index`` for
+observations), params, ``logp`` / ``loglike`` (over a params dict or the
+flat unconstrained vector), ``dlogp`` (autograd over that vector on the
+device), ``find_MAP`` with the reference's scipy BFGS/Powell recipe on the
+marginal likelihood or the leave-one-out objective, ``predict`` and the
+statistic methods, and the hyperparameter posterior: ``logp_chain`` over
+(R, ndim) rows and ``sample_hypers(method='ensemble')``, plain or
+parallel-tempered, into a datatrace.  The rows of a batched call are an
+explicit leading axis (the JAX package's ``vmap``): one batched K1 and one
+batched K2 call a logp evaluation of all rows.  NUTS/NeuTra/ADVI, the other
+``find_MAP`` engines, model files and plotting come in later slices.
 """
 
 import numpy as np
@@ -52,13 +54,14 @@ def _prep_vector(y):
 
 def _statistic(th_name, doc):
     """A public statistic method evaluating ``th_name`` (the JAX package
-    binds the same methods at construction)."""
+    binds the same methods at construction); extra keywords go to the
+    ``th_*`` builder."""
 
     def method(self, params=None, space=None, inputs=None, outputs=None,
-               vector=None, prior=False, noise=False):
+               vector=None, prior=False, noise=False, array=False, **kwargs):
         return self._call_method(th_name, params=params, space=space, inputs=inputs,
                                  outputs=outputs, vector=vector, prior=prior,
-                                 noise=noise)
+                                 noise=noise, array=array, **kwargs)
 
     method.__name__ = th_name[3:]
     method.__doc__ = doc
@@ -68,11 +71,20 @@ def _statistic(th_name, doc):
 class StochasticProcess(BatchedModel):
     """Abstract stochastic-process model (see module docstring).
 
-    ``active`` is the :class:`GraphicalModel` to join; None makes a fresh
-    one named ``"GM_" + name``."""
+    ``active`` is the :class:`GraphicalModel` to join; False (or None)
+    makes a fresh one named ``"GM_" + name``.  ``distribution``,
+    ``precompile`` and ``compile_logp`` are the JAX package's compile
+    controls and change nothing here (PyTorch runs eagerly)."""
 
-    def __init__(self, space=None, inputs=None, outputs=None, name="SP",
-                 active=None):
+    def __init__(self, space=None, order=None, inputs=None, outputs=None, hidden=None,
+                 index=None, name="SP", distribution=None, active=False, precompile=False,
+                 file=None, load=True, compile_logp=True):
+        if file is not None:
+            raise NotImplementedError("model files (file=) are not ported yet "
+                                      "(ROADMAP Queue 1 item 15)")
+        if active is True:
+            raise NotImplementedError("the shared active registry (active=True) is not "
+                                      "ported yet (ROADMAP Queue 1 item 10)")
         ndim = 1
         if space is not None:
             if hasattr(space, "shape"):
@@ -87,15 +99,19 @@ class StochasticProcess(BatchedModel):
         self._space = default_mat.copy()
         self._inputs = default_mat.copy()
         self._outputs = np.array([0.0, 1.0], dtype=settings.floatx)
+        self._order = self._outputs.copy()
+        self._index = self._outputs.copy()
+        self.hidden = None
         self.is_observed = False
         self._device_copies = {}
 
-        self.active = active if active is not None else GraphicalModel("GM_" + self.name)
+        self.active = active if active else GraphicalModel("GM_" + self.name)
         self.active.add_component(self)
 
         self._check_hypers()
         self._register_params()
-        self.set_space(space=space, inputs=inputs, outputs=outputs)
+        self.set_space(space=space, hidden=hidden, order=order, inputs=inputs,
+                       outputs=outputs, index=index)
 
     # ------------------------------------------------------------------ hooks
     def _components(self):
@@ -142,31 +158,80 @@ class StochasticProcess(BatchedModel):
         return out
 
     # ------------------------------------------------------------------- data
-    def set_space(self, space=None, inputs=None, outputs=None):
-        """Assign domain/data arrays (host numpy in ``settings.floatx``)."""
+    def set_space(self, space=None, hidden=None, order=None, inputs=None, outputs=None,
+                  index=None):
+        """Assign domain/data arrays (host numpy in ``settings.floatx``), in
+        the JAX package's argument order: the prediction ``space``, its true
+        values ``hidden`` (what ``scores`` compares with) and plotting
+        ``order``; the observed ``inputs``/``outputs`` and their ``index``.
+        A 1-D space (inputs) is its own order (index); otherwise they
+        default to 0, 1, ..."""
         if space is not None:
             self._space = _prep_matrix(space)
+        if hidden is not None:
+            self.hidden = _prep_vector(hidden)
+        if order is not None:
+            self._order = _prep_vector(order)
+        elif self.nspace == 1 and space is not None:
+            self._order = self._space.reshape(len(self._space))
         if inputs is not None:
             self._inputs = _prep_matrix(inputs)
         if outputs is not None:
             self._outputs = _prep_vector(outputs)
+        if index is not None:
+            self._index = _prep_vector(index)
+        elif self.nspace == 1 and inputs is not None:
+            self._index = self._inputs.reshape(len(self._inputs))
+        if len(self._order) != len(self._space):
+            self._order = np.arange(len(self._space), dtype=settings.floatx)
+        if len(self._index) != len(self._inputs):
+            self._index = np.arange(len(self._inputs), dtype=settings.floatx)
 
-    def observed(self, inputs=None, outputs=None):
+    def observed(self, inputs=None, outputs=None, order=None, index=None, hidden=None):
         """Assign observations; computes nothing until asked."""
-        self.set_space(inputs=inputs, outputs=outputs)
+        self.set_space(inputs=inputs, outputs=outputs, order=order, index=index,
+                       hidden=hidden)
         self.is_observed = not (inputs is None and outputs is None)
 
     @property
     def space(self):
         return self._space
 
+    @space.setter
+    def space(self, value):
+        self.set_space(space=value)
+
     @property
     def inputs(self):
         return self._inputs
 
+    @inputs.setter
+    def inputs(self, value):
+        self.set_space(inputs=value)
+
     @property
     def outputs(self):
         return self._outputs
+
+    @outputs.setter
+    def outputs(self, value):
+        self.set_space(outputs=value)
+
+    @property
+    def order(self):
+        return self._order
+
+    @order.setter
+    def order(self, value):
+        self._order = _prep_vector(value)
+
+    @property
+    def index(self):
+        return self._index
+
+    @index.setter
+    def index(self, value):
+        self._index = _prep_vector(value)
 
     def _device_data(self, name):
         """Device copy of ``self._<name>``, made once per data change."""
@@ -201,14 +266,23 @@ class StochasticProcess(BatchedModel):
     # Each th_* returns fn(params, space, inputs, outputs, vector) -> tensor,
     # or None when the quantity is undefined for the class.
 
-    def th_mean(self, prior=False, noise=False):
+    def th_median(self, prior=False, noise=False, simulations=None):
         return None
 
-    def th_variance(self, prior=False, noise=False):
+    def th_mean(self, prior=False, noise=False, simulations=None):
         return None
 
-    def th_std(self, prior=False, noise=False):
-        var_fn = self.th_variance(prior=prior, noise=noise)
+    def th_variance(self, prior=False, noise=False, simulations=None):
+        return None
+
+    def th_covariance(self, prior=False, noise=False):
+        return None
+
+    def th_logpredictive(self, prior=False, noise=False):
+        return None
+
+    def th_std(self, *args, **kwargs):
+        var_fn = self.th_variance(*args, **kwargs)
         if var_fn is None:
             return None
 
@@ -223,10 +297,16 @@ class StochasticProcess(BatchedModel):
         return None
 
     def _call_method(self, th_name, params=None, space=None, inputs=None,
-                     outputs=None, vector=None, prior=False, noise=False):
-        if params is None:
-            params = self.params
-        params = self._tensor_params(params)
+                     outputs=None, vector=None, prior=False, noise=False, array=False,
+                     **kwargs):
+        """Evaluate the statistic ``th_name`` at ``params`` (a params dict,
+        or with ``array`` the flat unconstrained vector) on ``space``."""
+        if array:
+            reg = self.active
+            params = reg.array_to_dict_tensor(as_tensor(np.asarray(
+                reg.dict_to_array(self.params) if params is None else params)))
+        else:
+            params = self._tensor_params(self.params if params is None else params)
         if inputs is None and not self.is_observed:
             prior = True
         space, inputs, outputs = self._resolve_data(space, inputs, outputs)
@@ -234,14 +314,19 @@ class StochasticProcess(BatchedModel):
             vector = torch.zeros(space.shape[0], dtype=settings.dtype, device=space.device)
         else:
             vector = self._as_vector(vector)
-        fn = getattr(self, th_name)(prior=prior, noise=noise)
+        fn = getattr(self, th_name)(prior=prior, noise=noise, **kwargs)
         if fn is None:
             raise NotImplementedError(f"{type(self).__name__} has no {th_name[3:]}")
         return fn(params, space, inputs, outputs, vector)
 
     mean = _statistic("th_mean", "Mean of the (warped) process.")
+    median = _statistic("th_median", "Median of the (warped) process.")
     variance = _statistic("th_variance", "Marginal variance of the (warped) process.")
     std = _statistic("th_std", "Marginal standard deviation of the (warped) process.")
+    covariance = _statistic("th_covariance", "Covariance of the process over ``space``.")
+    logpredictive = _statistic(
+        "th_logpredictive", "Log predictive density of ``vector`` at ``space`` "
+        "(independent marginals).")
 
     # ----------------------------------------------------------------- logp
     def _logp_pure(self, prior=False, like_only=False):
@@ -281,7 +366,7 @@ class StochasticProcess(BatchedModel):
         return {k: as_tensor(v) for k, v in params.items()}
 
     def logp(self, params=None, space=None, inputs=None, outputs=None, prior=False,
-             array=False):
+             array=False, **kwargs):
         """Posterior (or, with ``prior``, prior) log density at ``params`` —
         a natural-space dict, or with ``array`` the flat unconstrained
         vector."""
@@ -290,7 +375,8 @@ class StochasticProcess(BatchedModel):
         with torch.no_grad():
             return float(self._logp_pure(prior=prior)(p, space, inputs, outputs))
 
-    def loglike(self, params=None, space=None, inputs=None, outputs=None, array=False):
+    def loglike(self, params=None, space=None, inputs=None, outputs=None, array=False,
+                **kwargs):
         """Observed-data loglikelihood of every process of the graphical
         model (no prior terms or potentials)."""
         p = self._eval_params(params, array)
@@ -298,21 +384,27 @@ class StochasticProcess(BatchedModel):
         with torch.no_grad():
             return float(self._logp_pure(like_only=True)(p, space, inputs, outputs))
 
-    def dlogp(self, params=None, space=None, inputs=None, outputs=None, prior=False):
+    def dlogp(self, params=None, space=None, inputs=None, outputs=None, prior=False,
+              array=True, **kwargs):
         """Gradient of logp with respect to the flat unconstrained vector
         (host float array in ``settings.floatx``): autograd on the device
         through the analytic ``mvn_quad_logdet`` backward, NaN/Inf guarded
         by ``to_num``."""
-        reg = self.active
         if params is None:
             params = self.params
+        return self._array_grad(self._logp_pure(prior=prior), params, space, inputs, outputs)
+
+    def _array_grad(self, pure, params, space=None, inputs=None, outputs=None):
+        """Gradient of ``pure(params dict, space, inputs, outputs)`` with
+        respect to the flat unconstrained vector of ``params`` (a dict or
+        that vector)."""
+        reg = self.active
         if isinstance(params, dict):
             params = reg.dict_to_array(params)
         u = as_tensor(np.asarray(params)).detach().requires_grad_(True)
         space, inputs, outputs = self._resolve_data(space, inputs, outputs)
         with torch.enable_grad():
-            total = self._logp_pure(prior=prior)(reg.array_to_dict_tensor(u),
-                                                 space, inputs, outputs)
+            total = pure(reg.array_to_dict_tensor(u), space, inputs, outputs)
             if total.requires_grad:
                 (grad,) = torch.autograd.grad(total, u)
             else:
@@ -360,8 +452,12 @@ class StochasticProcess(BatchedModel):
     def sample_hypers(self, start=None, samples=1000, chains=None, ntemps=None,
                       raw=False, noise_mult=0.1, noise_sum=0.01, burnin_tol=0.001,
                       burnin_method="multi-sum", outlayer_percentile=0.0005,
-                      clusters=None, prior=False, plot=False, file=None, seed=0,
-                      method="ensemble", reparam=None):
+                      clusters=None, prior=False, parallel=False, threads=1,
+                      plot=False, file=None, load=True, seed=0, method="ensemble",
+                      nuts_warmup=200, max_depth=8, target_accept=0.8,
+                      nuts_mass="diag", nuts_chunk=25, neutra_warmup=500,
+                      advi_steps=2000, advi_mc=8, advi_lr=0.02,
+                      advi_full_rank=True, reparam=None):
         """MCMC over the hyperparameter posterior with the affine-invariant
         ensemble sampler (parallel-tempered when ``ntemps``): ``chains``
         walkers (default 2 ndim) jittered around ``start`` (default: the
@@ -370,9 +466,19 @@ class StochasticProcess(BatchedModel):
         :class:`~g3py_tpu_torch.utils.datatrace.Datatrace` (burn-in from the
         Gelman-Rubin bisection at ``burnin_tol``, outliers at
         ``outlayer_percentile``), or with ``raw`` the ``(chain, lnprob)``
-        arrays."""
-        todo = {"method": (method != "ensemble", "item 8 (NUTS/NeuTra/ADVI)"),
-                "reparam": (reparam is not None, "item 8 (reparam='noncentered')"),
+        arrays.  ``parallel``, ``threads`` and ``load`` are accepted and
+        change nothing (the walkers of a half-ensemble already share one
+        batched call); the ``nuts_*``, ``max_depth``, ``target_accept``,
+        ``neutra_warmup`` and ``advi_*`` arguments belong to methods that
+        are not ported yet."""
+        if method in ("nuts", "neutra", "advi"):
+            raise NotImplementedError(f"sample_hypers(method={method!r}) is not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
+        if method != "ensemble":
+            raise ValueError(f"unknown method {method!r}")
+        if reparam not in (None, "noncentered"):
+            raise ValueError(f"unknown reparam {reparam!r} (None | 'noncentered')")
+        todo = {"reparam": (reparam is not None, "item 8 (reparam='noncentered')"),
                 "file": (file is not None, "item 8 (datatrace files)"),
                 "plot": (bool(plot), "item 15 (plots)"),
                 "clusters": (bool(clusters), "item 8 (datatrace clusters)")}
@@ -394,7 +500,7 @@ class StochasticProcess(BatchedModel):
         lnprob, echain = mcmc_ensemble(
             ndim, samples=samples, chains=chains, ntemps=ntemps, start=start, logp=logp,
             loglike=loglike, logprior=logprior, noise_mult=noise_mult, noise_sum=noise_sum,
-            seed=seed)
+            threads=threads, parallel=parallel, seed=seed)
         complete_chain = np.empty(echain.shape[:2] + (reg.ndim,), dtype=settings.floatx)
         complete_chain[:, :, reg.sampling_dims] = echain
         if raw:
@@ -411,20 +517,53 @@ class StochasticProcess(BatchedModel):
     def _array_dlogp_sampling(self, p):
         return self.dlogp(np.asarray(p, dtype=settings.floatx))
 
+    def _loo_objective_pure(self):
+        """The LOO objective ``fn(params, space, inputs, outputs)``: this
+        process's leave-one-out log pseudo-likelihood (``th_loo_fn``, the
+        GP family) in place of its marginal loglike, plus prior terms,
+        potentials and every other process's loglike."""
+        if not hasattr(self, "th_loo_fn"):
+            raise NotImplementedError(f"{type(self).__name__} has no th_loo_fn; "
+                                      "objective='loo' needs the GP family")
+        reg = self.active
+        loo_fn = self.th_loo_fn()
+        others = [(fn, comp) for comp in reg.components.values() if comp is not self
+                  for fn in (comp.th_loglike_fn(),) if fn is not None]
+
+        def fn(params, space, inputs, outputs):
+            total = (reg.logp_prior_dict(params) + reg.logp_potentials(params)
+                     + loo_fn(params, space, inputs, outputs))
+            for like_fn, comp in others:
+                total = total + like_fn(params, *comp._resolve_data(None, None, None))
+            return total
+
+        return fn
+
+    def _array_loo_sampling(self, p):
+        u = as_tensor(np.asarray(p, dtype=settings.floatx))
+        with torch.no_grad():
+            return float(self._loo_objective_pure()(self.active.array_to_dict_tensor(u),
+                                                    *self._resolve_data(None, None, None)))
+
+    def _array_dloo_sampling(self, p):
+        return self._array_grad(self._loo_objective_pure(),
+                                np.asarray(p, dtype=settings.floatx))
+
     # ----------------------------------------------------------------- find_MAP
     def find_MAP(self, start=None, points=1, return_points=False, plot=False,
                  display=True, powell=True, bfgs=True, init="bfgs", max_time=None,
-                 engine="scipy", objective="logp"):
+                 engine="scipy", max_iters=200, objective="logp", **kwargs):
         """Multi-start MAP search with the reference recipe: alternating
-        BFGS (with ``dlogp``) and Powell through scipy, hardened objectives
-        (:func:`~g3py_tpu_torch.bayesian.selection.optimize`).  ``start`` is
-        a params dict or a list of them; ``points`` is the number of
-        optimizer runs; returns the best params dict (and, with
-        ``return_points``, every ``(name, logp, params)`` visited)."""
-        if objective == "loo":
-            raise NotImplementedError(
-                "find_MAP(objective='loo') is not ported yet (ROADMAP Queue 1 item 6, LOO)")
-        if objective != "logp":
+        BFGS (with its gradient) and Powell through scipy, hardened
+        objectives (:func:`~g3py_tpu_torch.bayesian.selection.optimize`).
+        ``start`` is a params dict or a list of them; ``points`` is the
+        number of optimizer runs; returns the best params dict (and, with
+        ``return_points``, every ``(name, objective, params)`` visited).
+        ``objective='loo'`` (GP family) maximizes the leave-one-out log
+        pseudo-likelihood (GPML §5.4.2) in place of this process's marginal
+        loglike; prior terms, potentials and the other processes' loglikes
+        stay.  ``max_iters`` belongs to the engines that are not ported."""
+        if objective not in ("logp", "loo"):
             raise ValueError(f"unknown objective {objective!r}")
         if engine != "scipy":
             items = {"jax": "item 9 (on-device L-BFGS)", "iterative": "item 11",
@@ -434,6 +573,9 @@ class StochasticProcess(BatchedModel):
                     f"find_MAP(engine={engine!r}) is not ported yet "
                     f"(ROADMAP Queue 1 {items[engine]})")
             raise ValueError(f"unknown engine {engine!r}")
+        if kwargs:
+            raise TypeError(f"find_MAP(engine={engine!r}) got unexpected keyword arguments "
+                            f"{sorted(kwargs)}")
         if plot:
             raise NotImplementedError("plotting is not ported yet (ROADMAP Queue 1 item 15)")
         if not self.is_observed:
@@ -442,8 +584,10 @@ class StochasticProcess(BatchedModel):
         reg = self.active
         if start is None:
             start = self.params
-        logp = self._array_logp_sampling
-        dlogp = self._array_dlogp_sampling
+        if objective == "loo":
+            logp, dlogp = self._array_loo_sampling, self._array_dloo_sampling
+        else:
+            logp, dlogp = self._array_logp_sampling, self._array_dlogp_sampling
         try:
             dlogp(reg.sampling_params(start if not isinstance(start, list) else start[0]))
         except Exception as m:
@@ -507,12 +651,21 @@ class StochasticProcess(BatchedModel):
                   prior=False, noise=False):
         return None
 
-    def predict(self, params=None, space=None, inputs=None, outputs=None, mean=True,
-                std=True, var=False, quantiles=False, quantiles_noise=False,
+    def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False):
+        return None
+
+    def predict(self, params=None, space=None, inputs=None, outputs=None, mean=True,
+                std=True, var=False, cov=False, median=False, quantiles=False,
+                quantiles_noise=False, samples=0, distribution=False, prior=False,
+                noise=False, simulations=None):
         """Dict of the requested statistics (tensors), each evaluated on its
         own as in the JAX package; :meth:`predictor` serves query batches
-        from one factorization instead."""
+        from one factorization instead.  ``samples`` adds that many
+        posterior draws (``samples``, (m, samples)); ``distribution`` adds
+        ``logpredictive``, a function of a vector of values at ``space``.
+        ``simulations`` changes nothing for the gaussian families, whose
+        statistics are analytic (the JAX package ignores it there too)."""
         if params is None:
             params = self.params
         if not self.is_observed:
@@ -525,6 +678,15 @@ class StochasticProcess(BatchedModel):
             values["variance"] = self.variance(params, noise=noise, **kw)
         if std:
             values["std"] = self.std(params, noise=noise, **kw)
+        if cov:
+            if self.th_covariance() is None:
+                raise ValueError(
+                    f"{type(self).__name__} has no analytic posterior covariance (warped "
+                    "covariances have no closed form); use samples= for an empirical "
+                    "covariance")
+            values["covariance"] = self.covariance(params, noise=noise, **kw)
+        if median:
+            values["median"] = self.median(params, noise=noise, **kw)
         if quantiles:
             values["quantile_up"] = self.quantiler(params, q=0.975, noise=noise, **kw)
             values["quantile_down"] = self.quantiler(params, q=0.025, noise=noise, **kw)
@@ -532,4 +694,9 @@ class StochasticProcess(BatchedModel):
             values["noise_std"] = self.std(params, noise=True, **kw)
             values["noise_up"] = self.quantiler(params, q=0.975, noise=True, **kw)
             values["noise_down"] = self.quantiler(params, q=0.025, noise=True, **kw)
+        if samples > 0:
+            values["samples"] = self.sampler(params, samples=samples, noise=noise, **kw)
+        if distribution:
+            values["logpredictive"] = lambda x: self.logpredictive(params, vector=x,
+                                                                   noise=True, **kw)
         return values

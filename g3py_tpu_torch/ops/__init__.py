@@ -7,12 +7,13 @@ from .quadrature import gauss_hermite, hermgauss
 from .gram import weighted_sqdist, sqdist, pairwise_sum
 from .stationary_gram import stationary_gram
 from .panel_cholesky import panel_cholesky
+from .root import newton_inverse
 from .linalg import (safe_cholesky, safe_cholesky_panels, trtri_from_panels,
                      solve_lower_triangular, solve_upper_triangular, cho_solve,
-                     log_det_from_chol, mvn_quad_logdet)
+                     log_det_from_chol, mvn_quad_logdet, mvn_loo)
 
 __all__ = ["to_num", "to_cov", "to_bounded", "gauss_hermite", "hermgauss",
            "weighted_sqdist", "sqdist", "pairwise_sum", "stationary_gram",
-           "panel_cholesky", "safe_cholesky", "safe_cholesky_panels",
+           "panel_cholesky", "newton_inverse", "safe_cholesky", "safe_cholesky_panels",
            "trtri_from_panels", "solve_lower_triangular", "solve_upper_triangular",
-           "cho_solve", "log_det_from_chol", "mvn_quad_logdet"]
+           "cho_solve", "log_det_from_chol", "mvn_quad_logdet", "mvn_loo"]

@@ -48,12 +48,14 @@ def sqdist(x1, x2):
 
 
 def pairwise_sum(x1, x2, elem_fn, *per_dim):
-    """sum_d elem_fn(x1[:, d] against x2[:, d], *w_d) as (N, M)."""
+    """sum_d elem_fn(x1[:, d] against x2[:, d], *w_d) as (N, M); inputs
+    with a leading row axis give (R, N, M)."""
     x1, x2 = _as2d(x1), _as2d(x2)
-    d = x1.shape[1]
+    d = x1.shape[-1]
     per_dim = tuple(torch.broadcast_to(torch.as_tensor(w, dtype=x1.dtype, device=x1.device), (d,))
                     for w in per_dim)
-    acc = torch.zeros((x1.shape[0], x2.shape[0]), dtype=x1.dtype, device=x1.device)
+    acc = torch.zeros(torch.broadcast_shapes(x1.shape[:-2], x2.shape[:-2])
+                      + (x1.shape[-2], x2.shape[-2]), dtype=x1.dtype, device=x1.device)
     for k in range(d):
-        acc = acc + elem_fn(x1[:, k, None], x2[None, :, k], *(w[k] for w in per_dim))
+        acc = acc + elem_fn(x1[..., :, k, None], x2[..., None, :, k], *(w[k] for w in per_dim))
     return acc

@@ -19,6 +19,10 @@ counterpart of :mod:`g3py_tpu.ops.linalg`).
   quadratic form.  Its value-only path whitens by a triangular solve; the
   differentiated path builds L^{-1} from the panels and its backward is the
   analytic ``dK = -g_q alpha alpha^T + 1/2 g_l K^{-1}``, ``dr = 2 g_q alpha``.
+* :func:`mvn_loo` returns the leave-one-out terms of a gaussian (GPML
+  eq. 5.10-5.12) from the same L^{-1}, with the analytic backward of GPML
+  §5.4.2 (the JAX package differentiates through its Cholesky and
+  ``blocked_trtri`` instead).
 
 A stack of R matrices (R, n, n) — the hyperparameter rows of a sampler
 step or of an averaged predictor — goes through :func:`safe_cholesky_panels`,
@@ -36,7 +40,7 @@ from .panel_cholesky import panel_cholesky
 
 __all__ = ["safe_cholesky", "safe_cholesky_panels", "trtri_from_panels",
            "solve_lower_triangular", "solve_upper_triangular", "cho_solve",
-           "log_det_from_chol", "mvn_quad_logdet"]
+           "log_det_from_chol", "mvn_quad_logdet", "mvn_loo"]
 
 # block-column width of the K^{-1} = L^{-T} L^{-1} product (one tall
 # matmul per block column, n^3/3 flops instead of the dense 2 n^3)
@@ -282,3 +286,64 @@ def mvn_quad_logdet(k, resid, max_tries=None):
     logdet_half = torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(dim=-1)
     ok = (~failed).to(k.dtype)
     return (quad[0], logdet_half[0], ok[0]) if single else (quad, logdet_half, ok)
+
+
+class _MvnLoo(torch.autograd.Function):
+    """Leave-one-out terms from L^{-1} (built from K2's panel inverses) and
+    their analytic backward: with ``Kinv = L^{-T} L^{-1}``, ``alpha = Kinv
+    r`` and ``kd = diag(Kinv)``,
+
+      f      = sum_i 1/2 log kd_i - 1/2 alpha_i^2 / kd_i
+      r_bar  = Kinv g_alpha
+      K_bar  = -sym((Kinv g_alpha) alpha^T) - Kinv diag(g_kd) Kinv
+
+    with ``g_alpha = -alpha / kd`` and ``g_kd = 1/2 (1/kd + alpha^2/kd^2)``
+    (GPML §5.4.2, eq. 5.13); zero for K on a failed factorization."""
+
+    @staticmethod
+    def forward(ctx, k, resid, max_tries):
+        chol, dinv, failed = safe_cholesky_panels(k, max_tries)
+        linv = trtri_from_panels(chol, dinv)
+        alpha = torch.matmul(linv.T, torch.matmul(linv, resid))
+        kd_raw = (linv * linv).sum(dim=0)
+        kd = torch.clamp(kd_raw, min=1e-30)
+        total = (0.5 * torch.log(kd) - 0.5 * alpha * alpha / kd).sum()
+        finite = torch.isfinite(alpha).all()
+        ctx.failed = failed
+        ctx.save_for_backward(linv, alpha, kd, kd_raw > 1e-30)
+        ctx.mark_non_differentiable(finite)
+        return total, finite
+
+    @staticmethod
+    def backward(ctx, g_total, _g_finite):
+        linv, alpha, kd, unclipped = ctx.saved_tensors
+        need_k, need_r = ctx.needs_input_grad[:2]
+        kinv = _kinv_from_linv(linv)
+        g_alpha = -g_total * alpha / kd
+        g_kd = torch.where(unclipped, 0.5 * g_total * (1.0 / kd + alpha * alpha / (kd * kd)),
+                           torch.zeros_like(kd))
+        kinv_ga = torch.matmul(kinv, g_alpha)
+        dk = dr = None
+        if need_k:
+            if ctx.failed:
+                dk = torch.zeros_like(kinv)
+            else:
+                outer = torch.outer(kinv_ga, alpha)
+                dk = -0.5 * (outer + outer.T) - torch.matmul(kinv * g_kd, kinv)
+        if need_r:
+            dr = kinv_ga
+        return dk, dr, None
+
+
+def mvn_loo(k, resid, max_tries=None):
+    """``(total, finite)``: the leave-one-out log predictive terms of a
+    gaussian with covariance ``k`` and residual ``resid`` (GPML eq.
+    5.10-5.12, without the -n/2 log 2pi constant),
+
+      total  = sum_i 1/2 log [K^{-1}]_ii - 1/2 [K^{-1} r]_i^2 / [K^{-1}]_ii
+
+    and whether ``K^{-1} r`` is finite.  One factorization serves every
+    fold; differentiable in ``k`` and ``resid`` (analytic backward)."""
+    if max_tries is None:
+        max_tries = settings.cholesky_max_tries
+    return _MvnLoo.apply(k, resid, max_tries)

@@ -9,7 +9,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["gauss_hermite", "hermgauss"]
+__all__ = ["gauss_hermite", "hermgauss", "hermite_grid"]
 
 
 def hermgauss(n, dtype=torch.float32, device="cpu"):
@@ -19,13 +19,17 @@ def hermgauss(n, dtype=torch.float32, device="cpu"):
             torch.as_tensor(w, dtype=dtype, device=device))
 
 
+def hermite_grid(mu, sigma, n=10):
+    """``(grid, w)``: the n-point rule's nodes for N(mu, sigma^2),
+    ``grid[..., j, i] = mu[..., i] + sqrt(2) sigma[..., i] a[j]``, and its
+    weights; E[f(X)] = w @ f(grid) / sqrt(pi)."""
+    a, w = hermgauss(n, mu.dtype, mu.device)
+    return mu[..., None, :] + math.sqrt(2.0) * sigma[..., None, :] * a[:, None], w
+
+
 def gauss_hermite(f, mu, sigma, n=10):
     """E[f(X)], X ~ N(mu, sigma^2), elementwise over mu/sigma vectors (or
-    (R, m) matrices, one row per hyperparameter row).
-
-    grid[..., j, i] = mu[..., i] + sqrt(2)*sigma[..., i]*a[j];
-    result = w @ f(grid) / sqrt(pi)
-    """
-    a, w = hermgauss(n, mu.dtype, mu.device)
-    grid = mu[..., None, :] + math.sqrt(2.0) * sigma[..., None, :] * a[:, None]
+    (R, m) matrices, one row per hyperparameter row):
+    ``w @ f(grid) / sqrt(pi)`` over :func:`hermite_grid`."""
+    grid, w = hermite_grid(mu, sigma, n)
     return torch.matmul(w, f(grid)) / math.sqrt(math.pi)

@@ -1,0 +1,154 @@
+"""The port's entry points take the JAX package's arguments: the same
+keywords, the positional ones in the same order (a call written for the
+JAX package runs on the port, or raises the ``NotImplementedError`` that
+names the ROADMAP item which brings the option).
+
+Each pair is checked by signature — every named parameter of the JAX
+callable exists in the port's, a positional one at the same position — and
+a sample of them is called with the JAX package's keywords and positional
+order."""
+
+import inspect
+
+import numpy as np
+import pytest
+
+import g3py_tpu as g3
+import g3py_tpu_torch as g3t
+from g3py_tpu.bayesian import samplers as jsam
+from g3py_tpu.bayesian.selection import optimize as jopt
+from g3py_tpu.ops import linalg as jla
+from g3py_tpu.ops.root import newton_inverse as jnewton
+from g3py_tpu.utils import data as jdata, reference_io as jio
+from g3py_tpu_torch.bayesian import samplers as tsam
+from g3py_tpu_torch.bayesian.selection import optimize as topt
+from g3py_tpu_torch.ops import linalg as tla
+from g3py_tpu_torch.ops.root import newton_inverse as tnewton
+from g3py_tpu_torch.utils import data as tdata, reference_io as tio
+
+import torch_parity  # noqa: F401  (puts the port on the CPU)
+
+PROCESS_METHODS = ["set_space", "observed", "logp", "loglike", "dlogp", "logp_chain",
+                   "find_MAP", "sample_hypers", "predict", "quantiler", "sampler", "scores",
+                   "sample", "batch_predict", "average", "predictor", "averaged_predictor",
+                   "loo", "posterior_state", "th_loo_fn",
+                   "th_logpredictive", "th_median", "th_covariance", "th_kernel",
+                   "th_cholesky", "th_cholesky_diag", "th_mean", "th_variance"]
+STATISTICS = ["mean", "median", "variance", "std", "covariance", "logpredictive", "mapping",
+              "location", "kernel", "cholesky", "kernel_diag", "kernel_sd", "cholesky_diag"]
+
+PAIRS = [
+    (g3.models.stochastic.StochasticProcess.__init__,
+     g3t.models.stochastic.StochasticProcess.__init__),
+    (g3.models.elliptical.EllipticalProcess.__init__,
+     g3t.models.elliptical.EllipticalProcess.__init__),
+    (jsam.ensemble_sampler, tsam.ensemble_sampler),
+    (jsam.pt_sampler, tsam.pt_sampler),
+    (jsam.mcmc_ensemble, tsam.mcmc_ensemble),
+    (jsam.default_beta_ladder, tsam.default_beta_ladder),
+    (g3.chains_to_datatrace, g3t.chains_to_datatrace),
+    (g3.datatrace_to_chains, g3t.datatrace_to_chains),
+    (g3.gelman_rubin, g3t.gelman_rubin),
+    (g3.burn_in_samples, g3t.burn_in_samples),
+    (g3.effective_sample_min, g3t.effective_sample_min),
+    (g3.effective_sample_size, g3t.effective_sample_size),
+    (jopt, topt),
+    (jnewton, tnewton),
+    (jla.safe_cholesky, tla.safe_cholesky),
+    (jla.mvn_quad_logdet, tla.mvn_quad_logdet),
+    (jdata.data_sunspots, tdata.data_sunspots),
+    (jio.transformed_to_natural, tio.transformed_to_natural),
+    (jio.natural_to_transformed, tio.natural_to_transformed),
+    (g3.models.predictor.Predictor.predict, g3t.models.predictor.Predictor.predict),
+    (g3.models.predictor.AveragedPredictor.predict,
+     g3t.models.predictor.AveragedPredictor.predict),
+    (g3.models.predictor.AveragedPredictor.batch, g3t.models.predictor.AveragedPredictor.batch),
+] + [(getattr(g3.WGP, name), getattr(g3t.WGP, name)) for name in PROCESS_METHODS] + [
+    (getattr(g3, cls).__init__, getattr(g3t, cls).__init__)
+    for cls in ("WarpingTanh", "ArcsinhLinear", "BoxCoxLinear", "Identity", "SE", "MAT32",
+                "MAT52", "RQ", "Bias")]
+
+
+def _named(fn):
+    return [p for p in inspect.signature(fn).parameters.values()
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+def _assert_takes(jax_fn, port_fn, label):
+    port = {p.name: i for i, p in enumerate(_named(port_fn))}
+    for i, p in enumerate(_named(jax_fn)):
+        if p.name.startswith("_"):
+            continue
+        assert p.name in port, f"{label}: the port lacks {p.name!r}"
+        if p.kind is p.POSITIONAL_OR_KEYWORD:
+            assert port[p.name] == i, (f"{label}: {p.name!r} is positional argument "
+                                       f"{port[p.name]} on the port, {i} in the JAX package")
+
+
+@pytest.mark.parametrize("jax_fn,port_fn", PAIRS, ids=lambda f: getattr(f, "__qualname__", "?"))
+def test_signature_takes_jax_arguments(jax_fn, port_fn):
+    _assert_takes(jax_fn, port_fn, port_fn.__qualname__)
+
+
+def _models():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((16, 2)).astype(np.float32)
+    y = (np.sin(x[:, 0]) + 0.1 * rng.standard_normal(16)).astype(np.float32)
+    # EllipticalProcess(space, location, kernel, mapping, degree, noisy, var_noise)
+    jp = g3.GP(x, g3.Bias(), g3.SE(x), None, None, True, None, name="API_GP")
+    tp = g3t.GP(x, g3t.Bias(), g3t.SE(x), None, None, True, None, name="API_GP")
+    return jp, tp, x, y
+
+
+def test_statistic_methods_take_jax_arguments():
+    jp, tp, _, _ = _models()
+    for name in STATISTICS:
+        _assert_takes(getattr(jp, name), getattr(tp, name), name)
+
+
+def test_calls_in_jax_order_and_keywords():
+    jp, tp, x, y = _models()
+    for p in (jp, tp):
+        # set_space(space, hidden, order, inputs, outputs, index) and
+        # observed(inputs, outputs, order, index, hidden), positionally
+        p.observed(x, y, None, None, None)
+        p.set_space(x[:5], y[:5], None, None, None, None)
+        assert p.is_observed and len(p.hidden) == 5 and len(p.order) == 5
+        assert len(p.index) == 16 and np.array_equal(np.asarray(p.index), np.arange(16))
+    assert tp.name == jp.name == "API_GP"
+    params = jp.params_default
+    u = jp.active.dict_to_array(params)
+    np.testing.assert_allclose(tp.logp(params, None, None, None, False, False),
+                               jp.logp(params, None, None, None, False, False), rtol=1e-5)
+    np.testing.assert_allclose(tp.dlogp(u, None, None, None, False, True),
+                               np.asarray(jp.dlogp(u, None, None, None, False, True)),
+                               rtol=1e-4, atol=1e-5)
+    pred = tp.predict(params, None, None, None, True, True, False, False, True, False, False,
+                      0, False, False, False, None)
+    assert set(pred) == set(jp.predict(params, None, None, None, True, True, False, False, True,
+                                       False, False, 0, False, False, False, None))
+    kw = dict(start=u, samples=3, chains=6, raw=True, parallel=True, threads=4, load=False,
+              seed=1, nuts_warmup=10, max_depth=4, target_accept=0.9, nuts_mass="dense",
+              nuts_chunk=5, neutra_warmup=10, advi_steps=10, advi_mc=2, advi_lr=0.1,
+              advi_full_rank=False)
+    chain, lnprob = tp.sample_hypers(**kw)
+    assert chain.shape == (6, 3, tp.active.ndim) and np.isfinite(lnprob).all()
+    for method in ("nuts", "neutra", "advi"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            tp.sample_hypers(**dict(kw, method=method))
+    lnprob, chain = tsam.mcmc_ensemble(tp.active.ndim, 2, 6, None, u, tp._sampling_logps()[0],
+                                       None, None, 0.1, 0.01, 4, True, 3)
+    assert chain.shape == (6, 2, tp.active.ndim)
+    p0 = np.asarray(u)[None, :] * np.ones((4, 1), np.float32)
+    chain, _ = tsam.ensemble_sampler(tp._sampling_logps()[0], p0, 2, 7, 2.0, True)
+    assert chain.shape == (4, 2, tp.active.ndim)
+    pt0 = np.stack([p0, p0])
+    loglike, logprior = tp._sampling_logps(tempered=True)[1:]
+    chain, _ = tsam.pt_sampler(loglike, logprior, pt0, 2, None, 7, 2.0)
+    assert chain.shape == (4, 2, tp.active.ndim)
+    with pytest.raises(TypeError):
+        tp.find_MAP(display=False, rank=8)  # as the JAX package: scipy takes no solver knobs
+    with pytest.raises(NotImplementedError, match="item 15"):
+        g3t.GP(x, location=g3t.Bias(), kernel=g3t.SE(x), file="model.g3")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        g3t.GP(x, location=g3t.Bias(), kernel=g3t.SE(x), active=True)

@@ -1,0 +1,183 @@
+"""Port parity with the reference's own recorded experiment: the sunsets
+oracle (GP, WGP1-3, TGP1-3 on the sunspots series, the reference's MAP
+params and its recorded scores) replayed through ``g3py_tpu_torch`` at the
+JAX package's tolerances (``tests/test_parity_reference.py``), and the
+three ``sunspots_gp_*`` golden pins (``tests/golden.json``).
+
+The port reads the recorded rows from its own JSON copy
+(``g3py_tpu_torch/utils/datasets/sunsets_oracle.json``, no pandas); a test
+here holds that copy equal to the vendored pickles.  Regenerate it with:
+
+    PYTHONPATH=. python tests/test_torch_parity.py --regen
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+import g3py_tpu.utils.reference_io as jio
+from g3py_tpu.utils.data import data_sunspots as jax_sunspots
+import g3py_tpu_torch as g3t
+from g3py_tpu_torch.utils import reference_io as tio
+from g3py_tpu_torch.utils.data import data_sunspots, datasets_path
+
+import torch_parity  # noqa: F401  (puts the port on the CPU)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FRAMES = os.path.join(HERE, "data", "experiments", "sunsets.g3x")
+ORACLE = datasets_path("sunsets_oracle.json")
+# the JAX test's tolerances (tests/test_parity_reference.py)
+TEST_RTOL = 2e-3
+NLPD_RTOL = 3e-2
+MODELS = ["GP", "WGP1", "WGP2", "WGP3", "TGP1", "TGP2", "TGP3"]
+PINS = ("sunspots_gp_logp_ref_map", "sunspots_gp_pred_mean_sum", "sunspots_gp_pred_std_sum")
+
+
+def _export():
+    """The JSON form of the vendored experiment frames: every result row
+    (float32 params as exact floats, the float64 score records) and the
+    ``obs``/``test`` index arrays of each simulation."""
+    results, sims = jio.load_experiment_frames(FRAMES)
+    rows = [{"model": str(r["model"]), "n_sim": int(r["n_sim"]),
+             "params": {k: np.asarray(v, np.float32).tolist() for k, v in r["params"].items()},
+             "scores_obs": {k: float(v) for k, v in r["scores_obs"].items()},
+             "scores_test": {k: float(v) for k, v in r["scores_test"].items()}}
+            for _, r in results.iterrows()]
+    simulations = {str(int(k)): {s: np.asarray(sims.loc[k][s]).astype(int).tolist()
+                                 for s in ("obs", "test")} for k in sims.index}
+    return {"rows": rows, "simulations": simulations}
+
+
+def test_oracle_json_matches_frames():
+    with open(ORACLE) as fh:
+        assert json.load(fh) == _export()
+    rows, sims = tio.load_oracle()
+    results, frames = jio.load_experiment_frames(FRAMES)
+    assert len(rows) == len(results) == 16
+    for row, (_, want) in zip(rows, results.iterrows()):
+        assert (row["model"], row["n_sim"]) == (want["model"], want["n_sim"])
+        assert row["params"].keys() == want["params"].keys()
+        for k, v in want["params"].items():
+            np.testing.assert_array_equal(row["params"][k], np.asarray(v, np.float32))
+        for split in ("scores_obs", "scores_test"):
+            assert row[split] == {k: float(v) for k, v in want[split].items()}
+    for k in frames.index:
+        for split in ("obs", "test"):
+            np.testing.assert_array_equal(sims[int(k)][split], frames.loc[k][split])
+
+
+def test_data_sunspots_matches_jax():
+    (x, y), (jx, jy) = data_sunspots(), jax_sunspots()
+    np.testing.assert_array_equal(x, jx)
+    np.testing.assert_array_equal(y, jy)
+    assert x.dtype == jx.dtype and y.dtype == jy.dtype
+
+
+def test_param_transforms_match_jax():
+    rows, _ = tio.load_oracle()
+    for row in rows:
+        nat = tio.transformed_to_natural(row["params"])
+        want = jio.transformed_to_natural(row["params"])
+        assert nat.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(nat[k], want[k])
+        back, jback = tio.natural_to_transformed(nat), jio.natural_to_transformed(want)
+        assert back.keys() == jback.keys()
+        for k in jback:
+            np.testing.assert_array_equal(back[k], jback[k])
+
+
+def _build(model_name, x, y):
+    """The reference experiment's model zoo: SE kernel + Bias location, the
+    mapping varies (as tests/test_parity_reference.py builds it)."""
+    common = dict(space=x, location=g3t.Bias(), kernel=g3t.SE(x), name=model_name)
+    if model_name == "GP":
+        return g3t.GP(**common)
+    if model_name.startswith("WGP"):
+        return g3t.WGP(mapping=g3t.WarpingTanh(y, n=int(model_name[3:])), **common)
+    mapping = {"TGP1": lambda: g3t.BoxCoxLinear(y),
+               "TGP2": lambda: g3t.ArcsinhLinear(y),
+               "TGP3": lambda: g3t.BoxCoxLinear(y) @ g3t.ArcsinhLinear(y)}[model_name]()
+    return g3t.WGP(mapping=mapping, **common)
+
+
+@pytest.fixture(scope="module")
+def oracle():
+    rows, sims = tio.load_oracle()
+    x, y = data_sunspots()
+    return rows, sims, x.astype(np.float32), y.astype(np.float32)
+
+
+def _unique_rows(rows):
+    seen, out = set(), []
+    for row in rows:
+        key = (row["model"], row["n_sim"],
+               tuple(sorted((k, float(np.ravel(v)[0])) for k, v in row["params"].items())))
+        if key not in seen:
+            seen.add(key)
+            out.append(row)
+    return out
+
+
+@pytest.mark.parametrize("model_name", MODELS)
+def test_scores_match_reference(oracle, model_name):
+    rows, sims, x, y = oracle
+    rows = [r for r in _unique_rows(rows) if r["model"] == model_name]
+    assert rows, f"no oracle rows for {model_name}"
+    sp = _build(model_name, x, y)
+    for row in rows:
+        obs_j, test_j = sims[row["n_sim"]]["obs"], sims[row["n_sim"]]["test"]
+        params = tio.transformed_to_natural(row["params"])
+        sp.observed(x[obs_j], y[obs_j])
+
+        sp.set_space(x[test_j], hidden=y[test_j])
+        mine = sp.scores(params, logpred=True, bias=True, variance=True)
+        ref = row["scores_test"]
+        for key in ["_l1", "_l2", "_mse", "_rmse"]:
+            assert mine[key] == pytest.approx(ref[key], rel=TEST_RTOL), (
+                f"{model_name} n_sim={row['n_sim']} test {key}: mine={mine[key]!r} "
+                f"ref={ref[key]!r}")
+        assert mine["_nlpd"] == pytest.approx(ref["_nlpd"], rel=NLPD_RTOL), (
+            f"{model_name} test _nlpd: mine={mine['_nlpd']!r} ref={ref['_nlpd']!r}")
+
+        sp.set_space(x[obs_j], hidden=y[obs_j])
+        mine_obs = sp.scores(params, logpred=True, bias=True, variance=True)
+        for key in ["_l1", "_l2", "_mse", "_rmse", "_nlpd"]:
+            assert np.isfinite(mine_obs[key]) and mine_obs[key] > -1e29, (
+                f"{model_name} obs {key} hit a guard: {mine_obs[key]!r}")
+        for key in ["_mse", "_rmse"]:
+            assert mine_obs[key] == pytest.approx(row["scores_obs"][key], rel=3.0), (
+                f"{model_name} obs {key} off by >4x: mine={mine_obs[key]!r} "
+                f"ref={row['scores_obs'][key]!r}")
+
+
+def test_sunspots_pins_hold_on_port(oracle):
+    """The three pins of tests/golden.json, computed as tests/test_golden.py
+    computes them (GP, n_sim=0, the reference's MAP), at its tolerance."""
+    rows, sims, x, y = oracle
+    with open(os.path.join(HERE, "golden.json")) as fh:
+        golden = json.load(fh)
+    row = rows[1]
+    assert (row["model"], row["n_sim"]) == ("GP", 0)
+    obs_j, test_j = sims[0]["obs"], sims[0]["test"]
+    params = tio.transformed_to_natural(row["params"])
+    gp = g3t.GP(space=x, location=g3t.Bias(), kernel=g3t.SE(x), name="GP")
+    gp.observed(x[obs_j], y[obs_j])
+    gp.set_space(x[test_j], hidden=y[test_j])
+    got = {"sunspots_gp_logp_ref_map": gp.logp(params),
+           "sunspots_gp_pred_mean_sum": float(gp.mean(params).sum()),
+           "sunspots_gp_pred_std_sum": float(gp.std(params).sum())}
+    for k in PINS:
+        np.testing.assert_allclose(got[k], golden[k], rtol=2e-5, atol=1e-5,
+                                   err_msg=f"pin {k}: port {got[k]} vs {golden[k]}")
+
+
+if __name__ == "__main__":
+    import sys
+
+    if "--regen" in sys.argv:
+        with open(ORACLE, "w") as fh:
+            json.dump(_export(), fh, separators=(",", ":"))
+        print("wrote", ORACLE)

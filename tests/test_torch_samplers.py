@@ -113,7 +113,7 @@ def test_ensemble_sampler_matches_jax(feed):
             calls.append(u.shape)
             return _tlogp(u)
 
-        chain, lnprob = tsam.ensemble_sampler(logp, p0, samples, seed=seed)
+        chain, lnprob = tsam.ensemble_sampler(logp, p0, samples, key=seed)
     assert not feed.halves
     assert calls == [(8, 3)] + [(4, 3)] * (2 * samples)  # one batched call a half
     assert chain.shape == (chains, samples, 3) and lnprob.shape == (chains, samples)
@@ -138,7 +138,7 @@ def test_pt_sampler_matches_jax(feed):
             feed.swaps.append(np.stack([
                 np.asarray(jnp.log(random.uniform(ks, (chains,), dtype=jnp.float64)))
                 for ks in random.split(k_swap, ntemps - 1)]))
-        chain, lnprob = tsam.pt_sampler(_tlogp, _tprior, p0, samples, seed=seed)
+        chain, lnprob = tsam.pt_sampler(_tlogp, _tprior, p0, samples, key=seed)
     assert not feed.halves and not feed.swaps
     np.testing.assert_allclose(chain, want_chain, rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(lnprob, want_lnprob, rtol=1e-10, atol=1e-10)

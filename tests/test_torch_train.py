@@ -120,12 +120,12 @@ def test_find_map_return_points_and_unported_options():
     assert points[1][1] >= points[0][1]
     assert set(params) == set(tp.params_default)
     for kw, match in [(dict(engine="jax"), "item 9"), (dict(engine="iterative"), "item 11"),
-                      (dict(engine="distributed"), "item 16"),
-                      (dict(objective="loo"), "LOO"), (dict(plot=True), "plotting")]:
+                      (dict(engine="distributed"), "item 16"), (dict(plot=True), "plotting")]:
         with pytest.raises(NotImplementedError, match=match):
             tp.find_MAP(display=False, **kw)
-    with pytest.raises(ValueError):
-        tp.find_MAP(display=False, engine="nope")
+    for kw in (dict(engine="nope"), dict(objective="nope")):
+        with pytest.raises(ValueError):
+            tp.find_MAP(display=False, **kw)
 
 
 def test_optimize_hardening():
