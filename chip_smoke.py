@@ -1,9 +1,10 @@
 """On-card smoke run of the PyTorch/CUDA port (g3py_tpu_torch).
 
-Drives the port's two paths on one CUDA card — exact GP and warped-GP
-regression served from one factorization, and trained by ``dlogp`` and
-``find_MAP`` — through the hand-written kernels K1 (stationary gram) and
-K2 (blocked panel Cholesky), and checks them:
+Drives the port's paths on one CUDA card — exact GP and warped-GP
+regression served from one factorization, trained by ``dlogp`` and
+``find_MAP`` and sampled, and the Student-t, transport, copula and marginal
+process families — through the hand-written kernels K1 (stationary gram)
+and K2 (blocked panel Cholesky), and checks them:
 
   phase 0  require a CUDA card; print its name and power limit
   phase 1  build both kernels from csrc/ with nvcc (in parallel)
@@ -57,16 +58,35 @@ K2 (blocked panel Cholesky), and checks them:
            dlogp vs the float64 host; Predictor batches of 256 (mean,
            median, quantiles) through the Newton inverse on the card, its
            share of a batch, its idle share, the round trip T^-1(T(x))
+  phase 8  the other process families at full width (n=4096, d=8, phase 5's
+           data), each logp and dlogp against a float64 host recomputation
+           (the Student-t gradient analytic, the others' along two random
+           directions by central differences): 8a TP(Bias, SE) with
+           find_MAP and Predictor batches of 256 vs the host posterior (at
+           the MAP within 4x a float32 host witness) and its per-op
+           profile; 8b WTP(Bias, MAT52, BoxCoxLinear); 8c TGP(TLocation(Bias)
+           @ TKernel(SE, noisy)), the pure TKernel TGP vs the zero-mean GP,
+           predict(quantiles, simulations=30) at m=256 vs a float64 host
+           replay of the same numpy draws; 8d CGP and CSTP(SE, Normal), the
+           CGP's quantiles vs the host and its find_MAP, and MP(StudentT)
+           (logp vs scipy.stats.t, betainc vs scipy.special.betainc, no
+           kernel launch); 8e the TP sampler at n=125, 32 walkers x 400
+           (one batched K1 and K2 call a half-ensemble), the final walkers
+           vs the host logp (within 4x a float32 witness where nu's lgamma
+           difference cancels), the averaged predictor over 16 rows vs 16
+           single Predictors (float64)
 
 The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
 and read just after; the Bayesian path's counts are zeroed and read around
 each of its runs (the two n=125 samplers, the n=4096 sampler, the averaged
 predictor's set-up and batches), and phase 7's around each float32 run of
 the main path (the oracle scoring, LOO, find_MAP, scores, predict, the WGP's
-logp/dlogp and Predictor), so warm-ups, profiles, float64 twins and
-reference checks are not counted.  Each kernel must have launched on each path.  Every
-check raises on failure.  The last lines are the kernel record, the card
-and ``{"ok": true, "device": {...}}``.  Run from the repository root:
+logp/dlogp and Predictor), and phase 8's around each float32 family run
+(8e's batched launches go to the batched records), so warm-ups, profiles,
+float64 twins and reference checks are not counted.  Each kernel must have
+launched on each path.  Every check raises on failure.  The last lines are
+the kernel record, the card and ``{"ok": true, "device": {...}}``.  Run from
+the repository root:
 
     python3 chip_smoke.py
 """
@@ -1573,6 +1593,662 @@ def phase7c(rng, path, n=4096):
                 newton_share=share, solve_ms=t_solve, solve_busy_ms=busy, residual=resid)
 
 
+# ---------------------------------------------------------------- phase 8
+# The reference's other process families at full width (bench.py:216-220's
+# n=4096, d=8 data): Student-t (TP, WTP), transport (TGP) and copula (CGP,
+# CSTP) through K1 and K2, the marginal family (MP) through neither, and the
+# Student-t Bayesian path.  Each family's logp and dlogp are held to a
+# float64 host recomputation (numpy grams, scipy factorizations and special
+# functions): the Student-t processes' gradient analytically, the others'
+# along two random directions by central differences of the host logp.
+def host_sqdist(a, b, rate):
+    """sum_k ((a_k - b_k) rate_k)^2 by scipy's cdist (differences summed in
+    C, no norm decomposition), in the float type of ``a``."""
+    from scipy.spatial.distance import cdist
+
+    return cdist(a * rate, b * rate, "sqeuclidean").astype(a.dtype, copy=False)
+
+
+def host_se(a, b, rate, var):
+    """``host_gram`` through cdist: phase 8's central differences build
+    about twenty n=4096 grams, where the per-dimension loop of ``host_gram``
+    (kept for phase 7's float32 witness, which rounds each term) costs
+    seconds."""
+    return var * np.exp(-0.5 * host_sqdist(a, b, rate))
+
+
+def host_mat52(a, b, rate, var):
+    d5 = np.sqrt(5.0 * 0.5 * host_sqdist(a, b, rate))
+    return var * (1.0 + d5 + d5 * d5 / 3.0) * np.exp(-d5)
+
+
+def host_t_terms(nu, n, beta, dtype=np.float64):
+    """The (nu-2)-normalized multivariate t's terms but the log-determinant,
+    with the gaussian normalization from nu = 1e6 on, as the reference
+    defines it (the lgamma difference cancels there, in float64 too); in
+    ``dtype`` arithmetic, each lgamma rounded to it."""
+    from scipy.special import gammaln
+
+    f = np.dtype(dtype).type
+    nu, n, beta = f(nu), f(n), f(beta)
+    if nu >= 1e6:
+        norm = f(-0.5) * n * f(np.log(2.0 * np.pi))
+    else:
+        norm = (f(gammaln((nu + n) / f(2))) - f(gammaln(nu / f(2)))
+                - f(0.5) * n * np.log((nu - f(2)) * f(np.pi)))
+    return f(-0.5) * (nu + n) * np.log1p(beta / (nu - f(2))) + norm
+
+
+def host_tp_value(reg, u, x, y, dtype=np.float64):
+    """TP(Bias, SE) logp at ``u`` in ``dtype`` arithmetic (float32: the
+    rounding witness of the same formulas)."""
+    import scipy.linalg
+
+    p = host_params(reg, u, dtype)
+    x, y = x.astype(dtype), y.astype(dtype)
+    n = len(x)
+    chol = host_factor(host_se(x, x, p["SE_rate"], p["SE_var"])
+                       + p["Noise_var"] * np.eye(n, dtype=dtype))
+    w = scipy.linalg.solve_triangular(chol, y - p["Bias_Bias"], lower=True)
+    return float(host_t_terms(2.0 + p["Freedom_degree"], n, w @ w, dtype)
+                 - np.log(np.diag(chol)).sum())
+
+
+def host_factor(k):
+    import scipy.linalg
+
+    return scipy.linalg.cholesky(k, lower=True)
+
+
+def host_tp(reg, u, x, y):
+    """float64 logp of TP(Bias, SE) at ``u`` and its gradient there, by hand:
+    with alpha = K^-1 r, beta = r'alpha and c = (nu+n)/(2(nu-2+beta)),
+    dlogp/dK = c alpha alpha' - K^-1/2, dlogp/dr = -2c alpha, and the degree's
+    own term through digamma."""
+    import scipy.linalg
+    from scipy.special import digamma
+
+    p = host_params(reg, u)
+    n = len(x)
+    nu = 2.0 + p["Freedom_degree"]
+    k_se = host_se(x, x, p["SE_rate"], p["SE_var"])
+    chol = host_factor(k_se + p["Noise_var"] * np.eye(n))
+    r = y - p["Bias_Bias"]
+    alpha = scipy.linalg.cho_solve((chol, True), r)
+    beta = float(r @ alpha)
+    value = float(host_t_terms(nu, n, beta) - np.log(np.diag(chol)).sum())  # float64
+    kinv, info = scipy.linalg.lapack.dpotri(chol, lower=1)
+    require(info == 0, f"host TP: dpotri info {info}")
+    kinv = np.tril(kinv) + np.tril(kinv, -1).T
+    c = (nu + n) / (2.0 * (nu - 2.0 + beta))
+    w = c * np.outer(alpha, alpha) - 0.5 * kinv
+    dnu = (-0.5 * np.log1p(beta / (nu - 2.0))
+           + 0.5 * (nu + n) * beta / ((nu - 2.0) * (nu - 2.0 + beta)))
+    if nu < 1e6:
+        dnu += 0.5 * digamma((nu + n) / 2.0) - 0.5 * digamma(nu / 2.0) - 0.5 * n / (nu - 2.0)
+    grads = {"Bias_Bias": [2.0 * c * alpha.sum()], "SE_var": [np.sum(w * k_se)],
+             "Noise_var": [p["Noise_var"] * np.trace(w)],
+             "SE_rate": [np.sum(w * k_se * -((x[:, j, None] - x[None, :, j])
+                                             * p["SE_rate"][j]) ** 2)
+                         for j in range(x.shape[1])],
+             "Freedom_degree": [p["Freedom_degree"] * dnu]}
+    grad = np.concatenate([np.ravel(grads["_".join(par.name.split("_")[-2:])])
+                           for par in reg.ordered_params])
+    return value, grad
+
+
+def host_tp_posterior(p, x, y, xq, dtype=np.float64):
+    """TP(Bias, SE) posterior statistics at ``xq`` in ``dtype``, as the
+    Predictor serves them: the variance scaled by (nu+beta-2)/(nu+n-2), the
+    Student-t quantiles at nu+n on the unscaled sd."""
+    import scipy.linalg
+    from scipy import stats
+
+    x, y, xq = x.astype(dtype), y.astype(dtype), xq.astype(dtype)
+    p = {k: np.asarray(v, dtype) for k, v in p.items()}
+    n = len(x)
+    chol = host_factor(host_se(x, x, p["SE_rate"], p["SE_var"])
+                       + p["Noise_var"] * np.eye(n, dtype=dtype))
+    r = y - p["Bias_Bias"]
+    z = scipy.linalg.solve_triangular(chol, r, lower=True)
+    cross = host_se(xq, x, p["SE_rate"], p["SE_var"])
+    loc = p["Bias_Bias"] + cross @ scipy.linalg.cho_solve((chol, True), r)
+    v = scipy.linalg.solve_triangular(chol, cross.T, lower=True)
+    latent = np.maximum(p["SE_var"] - (v * v).sum(axis=0), 0.0)
+    nu = 2.0 + p["Freedom_degree"]
+    scale = (nu + z @ z - 2.0) / (nu + n - 2.0)
+    up = float(np.float32(stats.t.ppf(0.975, nu + n)))
+    down = float(np.float32(stats.t.ppf(0.025, nu + n)))
+    noisy = latent + p["Noise_var"]
+    return {"mean": loc, "std": np.sqrt(latent * scale), "quantile_up": loc + up * np.sqrt(latent),
+            "quantile_down": loc + down * np.sqrt(latent), "noise_std": np.sqrt(noisy * scale),
+            "noise_up": loc + up * np.sqrt(noisy), "noise_down": loc + down * np.sqrt(noisy)}
+
+
+def stat_gap(got, ref):
+    """max |got - ref| / max |ref| of each statistic."""
+    return {k: float(np.abs(got[k].double().cpu().numpy() - ref[k]).max() / np.abs(ref[k]).max())
+            for k in ref}
+
+
+def directional_check(proc, host_logp_fn, u, label, seed):
+    """logp at ``u`` against the float64 host, and dlogp along two random
+    unit directions against central differences (h = 1e-4) of the host
+    logp: relative gaps, limits 1e-3 and 1e-2."""
+    reg = proc.active
+    val = proc.logp(u, array=True)
+    grad = proc.dlogp(u).astype(np.float64)
+    u64 = np.asarray(u, np.float64)
+    ref = host_logp_fn(u64)
+    gaps = {"logp": abs(val - ref) / abs(ref)}
+    dirs = np.random.default_rng(seed).standard_normal((2, reg.ndim))
+    h = 1e-4
+    for i, v in enumerate(dirs / np.linalg.norm(dirs, axis=1, keepdims=True)):
+        fd = (host_logp_fn(u64 + h * v) - host_logp_fn(u64 - h * v)) / (2 * h)
+        gaps[f"dlogp_dir{i}"] = abs(grad @ v - fd) / max(abs(fd), 1e-3 * np.linalg.norm(grad))
+    print(f"  {label}: logp {val:.4f} vs host {ref:.4f}; gaps "
+          + ", ".join(f"{k}={g:.3e}" for k, g in gaps.items()), flush=True)
+    require(gaps["logp"] <= 1e-3, f"{label}: logp gap {gaps['logp']:.3e} > 1e-3")
+    require(all(g <= 1e-2 for k, g in gaps.items() if k != "logp"),
+            f"{label}: dlogp gaps {gaps}")
+    return gaps
+
+
+def timed_eval(proc, u, reps=3):
+    """Median ms of one logp + dlogp pair."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proc.logp(u, array=True)
+        proc.dlogp(u)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def family_launches(label, path, k1, k2):
+    print(f"    {label}: K1 x{k1}, K2 x{k2}", flush=True)
+    path[0] += k1
+    path[1] += k2
+
+
+def phase8a(x, y, path):
+    """TP(Bias, SE) at n=4096: logp/dlogp against the float64 host, find_MAP,
+    the Predictor's set-up and 8 batches of 256 against the host posterior
+    (float32 at the default params within 1e-3; at the MAP within the larger
+    of 1e-3 and 4x a float32 host witness's gap)."""
+    tp = g3t.TP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), name="SMOKE_TP")
+    tp.observed(x, y)
+    reg = tp.active
+    u = reg.dict_to_array(tp.params_default)
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    zero_counts()
+    t_eval = timed_eval(tp, u)
+    val, grad = tp.logp(u, array=True), tp.dlogp(u)
+    k1, k2, _ = launches()
+    ref_val, ref_grad = host_tp(reg, u, x64, y64)
+    gaps = {"logp": abs(val - ref_val) / abs(ref_val), "dlogp": rel(grad, ref_grad)}
+    print(f"  TP n={len(x)}: logp {val:.4f} vs host {ref_val:.4f}; logp+dlogp median {t_eval:.2f} "
+          f"ms; gaps {gaps}", flush=True)
+    require(gaps["logp"] <= 1e-3 and gaps["dlogp"] <= 1e-2, f"TP vs the float64 host: {gaps}")
+    require(k1 > 0 and k2 > 0, f"TP logp/dlogp: K1 x{k1}, K2 x{k2}")
+    family_launches("TP logp+dlogp", path, k1, k2)
+    top_ops(profile(lambda: (tp.logp(u, array=True), tp.dlogp(u))),
+            f"TP n={len(x)} logp+dlogp", count=8)
+
+    zero_counts()
+    before = tp.logp(u, array=True)
+    t0 = time.perf_counter()
+    tp_map = tp.find_MAP(points=1, powell=False, display=False)
+    t_fit = time.perf_counter() - t0
+    after = tp.logp(tp_map)
+    k1, k2, _ = launches()
+    print(f"  TP find_MAP: logp {before:.4f} -> {after:.4f} in {t_fit:.2f} s; nu at the MAP "
+          f"{2.0 + float(tp_map['SMOKE_TP_Freedom_degree']):.1f}", flush=True)
+    require(after > before, f"TP find_MAP did not raise logp ({before} -> {after})")
+    family_launches("TP find_MAP", path, k1, k2)
+
+    rng = np.random.default_rng(81)
+    queries = [rng.standard_normal((256, 8)).astype(np.float32) for _ in range(8)]
+    out = {}
+    for label, params in (("default", tp.params_default), ("MAP", tp_map)):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        pr = tp.predictor(params)
+        torch.cuda.synchronize()
+        t_setup = (time.perf_counter() - t0) * 1e3
+        times, outs = [], []
+        for xq in queries:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = pr(xq, quantiles=True, quantiles_noise=True)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            outs.append(o)
+        k1, k2, _ = launches()
+        family_launches(f"TP Predictor ({label})", path, k1, k2)
+        require(all(finite(o[k]) and o[k].shape == (256,) for o in outs for k in o),
+                f"TP Predictor ({label}) output is not finite")
+        p = {k: np.asarray(v, np.float64)
+             for k, v in host_params(reg, reg.dict_to_array(params)).items()}
+        ref = host_tp_posterior(p, x, y, queries[0])
+        gap = stat_gap(outs[0], ref)
+        limit = 1e-3
+        if label == "MAP":
+            witness = stat_gap({k: torch.as_tensor(v) for k, v in
+                                host_tp_posterior(p, x, y, queries[0], np.float32).items()}, ref)
+            limit = max(1e-3, 4 * max(witness.values()))
+            print(f"    float32 host witness at the MAP: max gap {max(witness.values()):.3e}",
+                  flush=True)
+        print(f"  TP Predictor ({label}): set-up {t_setup:.1f} ms; 8 batches of 256 median "
+              f"{statistics.median(times):.3f} ms; batch 0 vs the float64 host: max gap "
+              f"{max(gap.values()):.3e} ({max(gap, key=gap.get)}; limit {limit:.3e})", flush=True)
+        require(max(gap.values()) <= limit, f"TP Predictor ({label}) vs host: {gap}")
+        out[label] = dict(setup_ms=t_setup, batch_ms=statistics.median(times),
+                          gap=max(gap.values()))
+    return dict(logp_dlogp_ms=t_eval, gaps=gaps, fit_s=t_fit, map_logp=after, **out)
+
+
+def host_wtp_logp(reg, x, y):
+    """float64 logp of WTP(Bias, MAT52, BoxCoxLinear) as a function of the
+    unconstrained vector."""
+    import scipy.linalg
+
+    def fn(u):
+        p = host_params(reg, u)
+        n = len(x)
+        nu = 2.0 + p["Freedom_degree"]
+        s, sh, pw = p["BoxCoxLinear_scale"], p["BoxCoxLinear_shift"], p["BoxCoxLinear_power"]
+        shifted = s * (y + sh)
+        z = (np.sign(shifted) * np.abs(shifted) ** pw - 1.0) / pw
+        logdet = (pw - 1.0) * np.log(np.abs(shifted)).sum() + n * np.log(s)
+        chol = host_factor(host_mat52(x, x, p["MAT52_rate"], p["MAT52_var"])
+                           + p["Noise_var"] * np.eye(n))
+        w = scipy.linalg.solve_triangular(chol, z - p["Bias_Bias"], lower=True)
+        return float(host_t_terms(nu, n, w @ w) - np.log(np.diag(chol)).sum() + logdet)
+
+    return fn
+
+
+def phase8b(x, y_pos, path):
+    """WTP(Bias, MAT52, BoxCoxLinear) at n=4096 on y > 0: logp/dlogp against
+    the float64 host, and a Predictor batch of 256."""
+    wtp = g3t.WTP(space=x[:4], location=g3t.Bias(), kernel=g3t.MAT52(x),
+                  mapping=g3t.BoxCoxLinear(y_pos), name="SMOKE_WTP")
+    wtp.observed(x, y_pos)
+    u = wtp.active.dict_to_array(wtp.params_default)
+    zero_counts()
+    t_eval = timed_eval(wtp, u)
+    k1, k2, _ = launches()
+    require(k1 > 0 and k2 > 0, f"WTP logp/dlogp: K1 x{k1}, K2 x{k2}")
+    family_launches("WTP logp+dlogp", path, k1, k2)
+    gaps = directional_check(wtp, host_wtp_logp(wtp.active, x.astype(np.float64),
+                                                y_pos.astype(np.float64)), u, f"WTP n={len(x)}", 82)
+    xq = np.random.default_rng(83).standard_normal((256, 8)).astype(np.float32)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = wtp.predictor()(xq, quantiles=True, quantiles_noise=True)
+    torch.cuda.synchronize()
+    t_batch = (time.perf_counter() - t0) * 1e3
+    k1, k2, _ = launches()
+    family_launches("WTP Predictor set-up + batch", path, k1, k2)
+    require(all(finite(v) for v in out.values())
+            and bool((out["quantile_down"] <= out["quantile_up"]).all()),
+            "WTP Predictor batch is not finite or its quantiles cross")
+    print(f"  WTP n={len(x)}: logp+dlogp median {t_eval:.2f} ms; Predictor set-up + a batch of 256 "
+          f"{t_batch:.1f} ms", flush=True)
+    return dict(logp_dlogp_ms=t_eval, gaps=gaps, predictor_ms=t_batch)
+
+
+def host_tgp_logp(reg, x, y):
+    import scipy.linalg
+
+    def fn(u):
+        p = host_params(reg, u)
+        n = len(x)
+        chol = host_factor(host_se(x, x, p["SE_rate"], p["SE_var"])
+                           + p["NoiseSE_var"] * np.eye(n))
+        w = scipy.linalg.solve_triangular(chol, y - p["Bias_Bias"], lower=True)
+        return float(-0.5 * n * np.log(2 * np.pi) - 0.5 * w @ w - np.log(np.diag(chol)).sum())
+
+    return fn
+
+
+def host_tgp_draws(p, x, y, xq, rand):
+    """The TGP's posterior draws of the normals ``rand`` (m, S) in float64:
+    the observations whitened by the noisy observed block, stacked on the
+    normals and coloured by the joint Cholesky (noise-free query block),
+    plus the location."""
+    import scipy.linalg
+
+    n = len(x)
+    k_obs = host_se(x, x, p["SE_rate"], p["SE_var"]) + p["NoiseSE_var"] * np.eye(n)
+    white = scipy.linalg.solve_triangular(host_factor(k_obs), y - p["Bias_Bias"], lower=True)
+    k_cross = host_se(x, xq, p["SE_rate"], p["SE_var"])
+    joint = np.block([[k_obs, k_cross], [k_cross.T, host_se(xq, xq, p["SE_rate"], p["SE_var"])]])
+    stacked = np.concatenate([np.repeat(white[:, None], rand.shape[1], axis=1), rand])
+    return (host_factor(joint) @ stacked)[n:] + p["Bias_Bias"]
+
+
+def phase8c(x, y, path):
+    """TGP(TLocation(Bias) @ TKernel(SE, noisy=True)) at n=4096: logp/dlogp
+    against the float64 host; a pure TKernel TGP against the port's own
+    zero-mean GP; predict(quantiles=True, simulations=30) at m=256, timed and
+    counted, against a float64 host replay of the same numpy draws."""
+    tgp = g3t.TGP(space=x[:4], transport=g3t.TLocation(g3t.Bias(x))
+                  @ g3t.TKernel(g3t.SE(x), noisy=True), name="SMOKE_TGP")
+    tgp.observed(x, y)
+    reg = tgp.active
+    u = reg.dict_to_array(tgp.params_default)
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    zero_counts()
+    t_eval = timed_eval(tgp, u)
+    k1, k2, _ = launches()
+    require(k1 > 0 and k2 > 0, f"TGP logp/dlogp: K1 x{k1}, K2 x{k2}")
+    family_launches("TGP logp+dlogp", path, k1, k2)
+    gaps = directional_check(tgp, host_tgp_logp(reg, x64, y64), u, f"TGP n={len(x)}", 84)
+
+    pure = g3t.TGP(space=x[:4], transport=g3t.TKernel(g3t.SE(x), noisy=True), name="SMOKE_TGPK")
+    pure.observed(x, y)
+    gp = g3t.GP(space=x[:4], location=g3t.Zero(), kernel=g3t.SE(x), name="SMOKE_TGPGP")
+    gp.observed(x, y)
+    pt = pure.params_default
+    pg = {"SMOKE_TGPGP_SE_var": pt["SMOKE_TGPK_SE_var"],
+          "SMOKE_TGPGP_SE_rate": pt["SMOKE_TGPK_SE_rate"],
+          "SMOKE_TGPGP_Noise_var": pt["SMOKE_TGPK_NoiseSE_var"]}
+    lt, lg = pure.loglike(pt), gp.loglike(pg)
+    print(f"  pure TKernel TGP loglike {lt:.4f} vs the zero-mean GP's {lg:.4f}", flush=True)
+    require(abs(lt - lg) <= 1e-5 * abs(lg), f"TKernel TGP {lt} vs GP {lg}")
+
+    m, sims, seed = 256, 30, 85
+    xq = np.random.default_rng(86).standard_normal((m, 8)).astype(np.float32)
+    tgp.predict(space=xq[:8], quantiles=True, simulations=2, rng=np.random.default_rng(0))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = tgp.predict(space=xq, quantiles=True, simulations=sims,
+                      rng=np.random.default_rng(seed))
+    torch.cuda.synchronize()
+    t_pred = (time.perf_counter() - t0) * 1e3
+    k1, k2, _ = launches()
+    family_launches("TGP predict", path, k1, k2)
+    require(k1 > 0 and k2 > 0, f"TGP predict: K1 x{k1}, K2 x{k2}")
+    rand = np.random.default_rng(seed).standard_normal((m, sims)).astype(np.float32)
+    p = host_params(reg, u)
+    draws = host_tgp_draws(p, x64, y64, xq.astype(np.float64), rand.astype(np.float64))
+    ref = {"mean": draws.mean(axis=1), "std": draws.std(axis=1),
+           "quantile_up": np.percentile(draws, 97.5, axis=1),
+           "quantile_down": np.percentile(draws, 2.5, axis=1)}
+    gap = stat_gap(out, ref)
+    print(f"  TGP predict(quantiles, simulations={sims}) at m={m}: {t_pred:.1f} ms, K1 x{k1}, "
+          f"K2 x{k2}; vs the float64 host replay of the same draws: "
+          + ", ".join(f"{k}={g:.3e}" for k, g in gap.items()), flush=True)
+    require(max(gap.values()) <= 1e-3, f"TGP predict vs host replay: {gap}")
+    top_ops(profile(lambda: tgp.predict(space=xq, quantiles=True, simulations=sims,
+                                        rng=np.random.default_rng(seed))),
+            f"TGP predict(quantiles, simulations={sims}) m={m}", count=8)
+    return dict(logp_dlogp_ms=t_eval, gaps=gaps, predict_ms=t_pred, predict_gap=max(gap.values()))
+
+
+def host_copula_logp(reg, x, y, student):
+    """float64 logp of CGP / CSTP(SE, Normal(M, S)) as a function of the
+    unconstrained vector."""
+    import scipy.linalg
+    from scipy import special, stats
+
+    lo, hi = float(np.float32(1e-6)), float(np.float32(1.0) - np.float32(1e-6))
+
+    def fn(u):
+        p = host_params(reg, u)
+        n = len(x)
+        mu, sd = p["M_Bias"], abs(p["S_Bias"])
+        z = special.ndtri(np.clip(stats.norm.cdf((y - mu) / sd), lo, hi))
+        k = host_se(x, x, p["SE_rate"], p["SE_var"]) + p["Noise_var"] * np.eye(n)
+        d = np.sqrt(np.diag(k))
+        chol = host_factor(k / np.outer(d, d))
+        w = scipy.linalg.solve_triangular(chol, z, lower=True)
+        marg = stats.norm.logpdf(y, mu, sd).sum()
+        logdet = np.log(np.diag(chol)).sum()
+        if not student:
+            return float(-0.5 * w @ w + 0.5 * z @ z - logdet + marg)
+        nu = 2.0 + p["Freedom_degree"]
+        joint = (special.gammaln((nu + n) / 2) - special.gammaln(nu / 2) - logdet
+                 - 0.5 * (nu + n) * np.log1p(w @ w / nu))
+        indep = (n * (special.gammaln((nu + 1) / 2) - special.gammaln(nu / 2))
+                 - 0.5 * (nu + 1) * np.log1p(z ** 2 / nu).sum())
+        return float(joint - indep + marg)
+
+    return fn
+
+
+def host_copula_quantiles(p, x, y, xq):
+    """The CGP's latent posterior at ``xq`` pushed through the Normal
+    marginal's ppf at 97.5% and 2.5%, in float64."""
+    import scipy.linalg
+    from scipy import special, stats
+
+    lo, hi = float(np.float32(1e-6)), float(np.float32(1.0) - np.float32(1e-6))
+    mu, sd = p["M_Bias"], abs(p["S_Bias"])
+    z = special.ndtri(np.clip(stats.norm.cdf((y - mu) / sd), lo, hi))
+    n, diag = len(x), p["SE_var"] + p["Noise_var"]
+    chol = host_factor((host_se(x, x, p["SE_rate"], p["SE_var"])
+                        + p["Noise_var"] * np.eye(n)) / diag)
+    cross = host_se(xq, x, p["SE_rate"], p["SE_var"]) / diag
+    loc = cross @ scipy.linalg.cho_solve((chol, True), z)
+    v = scipy.linalg.solve_triangular(chol, cross.T, lower=True)
+    lsd = np.sqrt(np.maximum(1.0 - (v * v).sum(axis=0), 0.0))
+    out = {}
+    for key, q in (("quantile_up", 0.975), ("quantile_down", 0.025)):
+        u = np.clip(stats.norm.cdf(loc + float(np.float32(stats.norm.ppf(q))) * lsd), 1e-6,
+                    1 - 1e-6)
+        out[key] = stats.norm.ppf(u, mu, sd)
+    return out
+
+
+def phase8d(x, y_pos, y, path):
+    """CGP and CSTP(SE, Normal(Bias, Bias)) at n=4096 on y > 0: logp/dlogp
+    against the float64 host, the CGP's quantiles against the host latent
+    posterior, find_MAP on the CGP; then MP(StudentT) at n=4096, its logp
+    against scipy.stats.t and betainc against scipy.special.betainc, with no
+    kernel launch."""
+    from scipy import special, stats
+
+    x64, yp64 = x.astype(np.float64), y_pos.astype(np.float64)
+    out = {}
+    for cls, label in ((g3t.CGP, "CGP"), (g3t.CSTP, "CSTP")):
+        proc = cls(space=x[:4], kernel=g3t.SE(x), marginal=g3t.Normal(
+            mu=g3t.Bias(x, name="M"), sigma=g3t.Bias(x, name="S")), name=f"SMOKE_{label}")
+        proc.observed(x, y_pos)
+        u = proc.active.dict_to_array(proc.params_default)
+        zero_counts()
+        t_eval = timed_eval(proc, u)
+        k1, k2, _ = launches()
+        require(k1 > 0 and k2 > 0, f"{label} logp/dlogp: K1 x{k1}, K2 x{k2}")
+        family_launches(f"{label} logp+dlogp", path, k1, k2)
+        gaps = directional_check(proc, host_copula_logp(proc.active, x64, yp64, label == "CSTP"),
+                                 u, f"{label} n={len(x)}", 87)
+        out[label] = dict(logp_dlogp_ms=t_eval, gaps=gaps)
+        if label != "CGP":
+            continue
+        xq = np.random.default_rng(88).standard_normal((256, 8)).astype(np.float32)
+        zero_counts()
+        t0 = time.perf_counter()
+        got = proc.predict(space=xq, mean=False, std=False, quantiles=True)
+        torch.cuda.synchronize()
+        t_q = (time.perf_counter() - t0) * 1e3
+        k1, k2, _ = launches()
+        family_launches("CGP quantiles", path, k1, k2)
+        ref = host_copula_quantiles(host_params(proc.active, u), x64, yp64, xq.astype(np.float64))
+        gap = stat_gap(got, ref)
+        print(f"  CGP quantiles at m=256: {t_q:.1f} ms; vs the float64 host "
+              + ", ".join(f"{k}={g:.3e}" for k, g in gap.items()), flush=True)
+        require(max(gap.values()) <= 1e-3, f"CGP quantiles vs host: {gap}")
+        zero_counts()
+        before = proc.logp(u, array=True)
+        t0 = time.perf_counter()
+        cmap = proc.find_MAP(points=1, powell=False, display=False)
+        t_fit = time.perf_counter() - t0
+        after = proc.logp(cmap)
+        k1, k2, _ = launches()
+        family_launches("CGP find_MAP", path, k1, k2)
+        print(f"  CGP find_MAP: logp {before:.4f} -> {after:.4f} in {t_fit:.2f} s", flush=True)
+        require(after > before, f"CGP find_MAP did not raise logp ({before} -> {after})")
+        out[label].update(quantiles_ms=t_q, quantile_gap=max(gap.values()), fit_s=t_fit)
+
+    mp = g3t.MP(space=x[:4], density=g3t.StudentT(mu=g3t.Bias(x, name="M"),
+                                                  sigma=g3t.Bias(x, name="S"),
+                                                  nu=g3t.Bias(x, name="N")), name="SMOKE_MP")
+    mp.observed(x, y)
+    params = {"SMOKE_MP_M_Bias": 0.1, "SMOKE_MP_S_Bias": 0.8, "SMOKE_MP_N_Bias": 5.0}
+    y64 = y.astype(np.float64)
+    rng = np.random.default_rng(89)
+    a, b, xb = rng.uniform(0.5, 40.0, 4096), rng.uniform(0.2, 6.0, 4096), rng.uniform(0, 1, 4096)
+    args = [torch.as_tensor(v, dtype=torch.float32, device=g3t.settings.device)
+            for v in (a, b, xb)]
+    g3t.betainc(*args)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    lp = mp.logp(params)
+    cdf = mp.f_density.cdf({k: torch.tensor(v, device=g3t.settings.device)
+                            for k, v in params.items()},
+                           mp._device_data("inputs"), mp._device_data("outputs"))
+    ib = g3t.betainc(*args)
+    torch.cuda.synchronize()
+    t_mp = (time.perf_counter() - t0) * 1e3
+    k1, k2, _ = launches()
+    ref_lp = stats.t.logpdf(y64, 5.0, 0.1, 0.8).sum()
+    # scipy in float64 on the float32 inputs (its float32 loop rounds inside)
+    ib_ref = special.betainc(*[v.astype(np.float32).astype(np.float64) for v in (a, b, xb)])
+    gaps = {"logp": abs(lp - ref_lp) / abs(ref_lp),
+            "cdf": float(np.abs(cdf.double().cpu().numpy()
+                                - stats.t.cdf(y64, 5.0, 0.1, 0.8)).max()),
+            "betainc": float(np.abs(ib.double().cpu().numpy() - ib_ref).max())}
+    t_ib = event_ms(lambda: g3t.betainc(*args), reps=5, warmup=1)
+    # the continued fraction itself: float64 on the card against scipy
+    ib64 = g3t.betainc(*[t.double() for t in args]).cpu().numpy()
+    gaps["betainc_f64"] = float(np.abs(ib64 - ib_ref).max())
+    print(f"  MP(StudentT) n={len(x)}: logp {lp:.4f} vs scipy {ref_lp:.4f}; logp + cdf + betainc "
+          f"{t_mp:.1f} ms (betainc alone {t_ib:.3f} ms, events); K1 x{k1}, K2 x{k2}; gaps "
+          + ", ".join(f"{k}={g:.3e}" for k, g in gaps.items()), flush=True)
+    require(k1 == 0 and k2 == 0, f"MP launched K1 x{k1}, K2 x{k2}: it runs no kernel")
+    # values in [0, 1]: PERF.md's 1e-3 relative to the largest value, on the
+    # float32 CDF and betainc; float64 betainc to 1e-12
+    require(gaps["logp"] <= 1e-3 and gaps["cdf"] <= 1e-3 and gaps["betainc"] <= 1e-3
+            and gaps["betainc_f64"] <= 1e-12, f"MP vs scipy: {gaps}")
+    out["MP"] = dict(ms=t_mp, betainc_ms=t_ib, gaps=gaps)
+    return out
+
+
+def phase8e(path_batched):
+    """The Student-t Bayesian path: TP(Bias, SE) at n=125 on bench.py:705-714's
+    data, 32 walkers x 400 through sample_hypers (one batched K1 and one
+    batched K2 call a half-ensemble); every final walker inside the prior's
+    support against the float64 host logp; the averaged predictor over 16
+    rows against 16 single Predictors in float64."""
+    x, y = bench_wgp_data()
+    tp = g3t.TP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), name="SMOKE_BTP")
+    tp.observed(x, y)
+    start = tp.params_default
+    chains, iters = 32, 400
+    tp.sample_hypers(start=start, samples=5, chains=chains, noise_mult=0.05, seed=1)  # warm-up
+    with counted_calls(tp) as calls:
+        zero_counts()
+        t0 = time.perf_counter()
+        chain, lnprob = tp.sample_hypers(start=start, samples=iters, chains=chains,
+                                         noise_mult=0.05, seed=2, raw=True)
+        t_s = time.perf_counter() - t0
+        k1, k2, retries = launches()
+    print(f"  TP n=125, {chains} walkers x {iters}: sample_hypers {t_s:.3f} s; {len(calls)} "
+          f"batched logp calls; K1 x{k1}, K2 x{k2} ({retries} jitter retries)", flush=True)
+    require(len(calls) == 1 + 2 * iters and k1 == len(calls) and k2 - retries == len(calls),
+            f"TP sampler: K1 x{k1}, K2 x{k2} - {retries} on {len(calls)} batched calls, "
+            f"expected {1 + 2 * iters}")
+    path_batched[0] += k1
+    path_batched[1] += k2
+    require(np.isfinite(chain).all() and np.isfinite(lnprob).all(), "TP chain not finite")
+    final = chain[:, -1, :]
+    final_lp = tp.logp_chain(final)
+    inside = [w for w in range(chains) if final_lp[w] > -1e29]
+    # The degree is flat in log space and wanders to nu ~ 1e5-1e16: below
+    # the gaussian switch at 1e6 the normalization's lgamma difference
+    # cancels in float32 (lgamma(nu/2) ~ 1e6 at nu ~ 1e5).  Each walker is
+    # held to the larger of 1e-3 and 4x a float32 host recomputation's gap.
+    gaps, limits = [], []
+    nus = [2.0 + float(host_params(tp.active, final[w])["Freedom_degree"]) for w in inside]
+    for w in inside:
+        ref = host_tp_value(tp.active, final[w], x, y)
+        witness = abs(host_tp_value(tp.active, final[w], x, y, np.float32) - ref)
+        gaps.append(abs(final_lp[w] - ref) / max(1.0, abs(ref)))
+        limits.append(max(1e-3, 4 * witness / max(1.0, abs(ref))))
+    worst = int(np.argmax(np.asarray(gaps) / np.asarray(limits)))
+    print(f"  final walkers: {len(inside)} of {chains} inside the prior's support; lnprob vs "
+          f"the float64 host logp max gap {max(gaps):.3e} (the worst walker {gaps[worst]:.3e} "
+          f"against its limit {limits[worst]:.3e}; nu from {min(nus):.3g} to {max(nus):.3g})",
+          flush=True)
+    require(len(inside) >= chains // 2 and all(g <= lim for g, lim in zip(gaps, limits)),
+            f"TP final walkers vs host: {len(inside)} inside, gaps {gaps}, limits {limits}")
+
+    queries = [np.random.default_rng(90 + i).standard_normal((256, 8)).astype(np.float32)
+               for i in range(4)]
+    dtb = g3t.chains_to_datatrace(tp, chain, ll=lnprob, burnin_tol=None)
+    zero_counts()
+    t0 = time.perf_counter()
+    ap = tp.averaged_predictor(dtb, max_rows=16)
+    outs = [ap(xq, quantiles=True) for xq in queries]
+    torch.cuda.synchronize()
+    t_ap = (time.perf_counter() - t0) * 1e3
+    k1, k2, _ = launches()
+    path_batched[0] += k1
+    path_batched[1] += k2
+    require(all(finite(o[k]) for o in outs for k in o), "TP averaged predictor not finite")
+    g3t.settings.floatx = "float64"
+    try:
+        ap64 = tp.averaged_predictor(dtb, max_rows=16)
+        singles = [tp.predictor({k: v[i] for k, v in ap64.params.items()})
+                   for i in range(len(ap64.rows))]
+        machinery = 0.0
+        for xq in queries:
+            got = ap64(xq, quantiles=True)
+            refs = [pr(xq, quantiles=True) for pr in singles]
+            for key in ("mean", "std"):
+                avg = torch.stack([r[key] for r in refs]).mean(dim=0)
+                machinery = max(machinery, float((got[key] - avg).abs().max() / avg.abs().max()))
+    finally:
+        g3t.settings.floatx = "float32"
+    print(f"  TP averaged predictor, 16 rows: set-up + 4 batches of 256 {t_ap:.1f} ms, K1 x{k1}, "
+          f"K2 x{k2}; vs 16 single Predictors (float64) {machinery:.3e}", flush=True)
+    require(machinery <= 1e-4, f"TP averaged predictor vs single Predictors {machinery:.3e}")
+    return dict(sampler_s=t_s, calls=len(calls), inside=len(inside), walker_gap=max(gaps),
+                averaged_ms=t_ap, averaged_gap=machinery)
+
+
+def phase8(x, y, path, path_batched):
+    """Phase 8's runs; the single-matrix launches of 8a-8d go to ``path``,
+    the batched ones of 8e to ``path_batched``."""
+    y_pos = (np.abs(np.sin(x[:, 0])) + 0.5
+             + 0.1 * np.random.default_rng(80).standard_normal(len(x))).astype(np.float32)
+    out = {}
+    for key, run in (("TP", lambda p: phase8a(x, y, p)), ("WTP", lambda p: phase8b(x, y_pos, p)),
+                     ("TGP", lambda p: phase8c(x, y, p)),
+                     ("copula", lambda p: phase8d(x, y_pos, y, p))):
+        print(f"phase 8{'abcd'[len(out)]}: {key}", flush=True)
+        t0 = time.perf_counter()
+        fam = [0, 0]
+        out[key] = run(fam)
+        print(f"  phase 8{'abcd'[len(out) - 1]} wall {time.perf_counter() - t0:.1f} s; launches "
+              f"K1 {fam[0]}, K2 {fam[1]}", flush=True)
+        path[0] += fam[0]
+        path[1] += fam[1]
+    print("phase 8e: the Student-t Bayesian path, TP(Bias, SE) n=125", flush=True)
+    t0 = time.perf_counter()
+    out["bayes"] = phase8e(path_batched)
+    print(f"  phase 8e wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     print("phase 0: device", flush=True)
     if not torch.cuda.is_available():
@@ -1684,6 +2360,16 @@ def main():
           flush=True)
     require(k1_p7 > 0 and k2_p7 > 0, "phase 7 did not go through both kernels")
 
+    # ---- the other process families: the counts are zeroed before, and
+    # read after, each float32 family run (logp/dlogp, find_MAP, Predictor,
+    # predict, quantiles, the sampler and the averaged predictor); the host
+    # checks, the float64 twins and the profiles are not counted
+    p8, p8_batched = [0, 0], [0, 0]
+    families = phase8(x_map, y_map, p8, p8_batched)
+    print(f"  launches in phase 8: K1 {p8[0]}, K2 {p8[1]}; batched (8e) K1 {p8_batched[0]}, "
+          f"K2 {p8_batched[1]}", flush=True)
+    require(p8[0] > 0 and p8[1] > 0, "phase 8 did not go through both kernels")
+
     shape = (4096, 4096, 8)
     t_wrap, t_plain, t_dev = k1_timing[("se", shape)]
     k1_bound = shape[0] * shape[1] * 4 / PEAK_BYTES * 1e3
@@ -1692,13 +2378,13 @@ def main():
         {"name": "stationary_gram", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
          "replaces": "g3py_tpu/ops/pallas_gram.py:81",
-         "launches": k1_serve + k1_train + k1_p7, "max_abs_err": k1_worst,
+         "launches": k1_serve + k1_train + k1_p7 + p8[0], "max_abs_err": k1_worst,
          "ms": t_dev if t_dev is not None else t_wrap, "plain_ms": t_plain,
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "panel_cholesky", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
          "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
-         "launches": k2_serve + k2_train + k2_p7, "max_abs_err": k2_worst,
+         "launches": k2_serve + k2_train + k2_p7 + p8[1], "max_abs_err": k2_worst,
          "ms": k2t["ms"], "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"],
          "bound_by": "operations", "library_ms": k2t["library_ms"]}]}
     k1b = k1b_timing[(16, 4096, 4096, 8)]
@@ -1707,14 +2393,14 @@ def main():
         {"name": "stationary_gram_batched", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
          "replaces": "g3py_tpu/ops/pallas_gram.py:81",
-         "launches": k1_bayes, "max_abs_err": k1b_worst,
+         "launches": k1_bayes + p8_batched[0], "max_abs_err": k1b_worst,
          "ms": k1b["device_ms"] if k1b["device_ms"] is not None else k1b["ms"],
          "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
         {"name": "panel_cholesky_batched", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
          "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
-         "launches": k2_bayes, "max_abs_err": k2b_worst,
+         "launches": k2_bayes + p8_batched[1], "max_abs_err": k2b_worst,
          "ms": k2b["ms"], "plain_ms": k2b["plain_ms"], "bound_ms": k2b["bound_ms"],
          "bound_by": k2b["bound_by"], "library_ms": k2b["library_ms"]}]
     print(f"  K1 at {shape} SE f32: device {fmt_ms(t_dev)}, wrapper {t_wrap:.4f} ms, "
@@ -1724,6 +2410,7 @@ def main():
           flush=True)
     print(f"  phase 7: oracle {json.dumps(oracle)}; GP surface {json.dumps(surface)}; WGP "
           f"{json.dumps(warped)}", flush=True)
+    print(f"  phase 8: {json.dumps(families, default=float)}", flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

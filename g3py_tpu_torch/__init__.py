@@ -1,6 +1,8 @@
 """g3py_tpu_torch — the PyTorch/CUDA port of g3py_tpu.
 
-Exact GP and warped-GP regression, trained (``dlogp``, ``find_MAP``),
+Exact GP and warped-GP regression and the reference's other process
+families — Student-t (TP/WTP), marginal (MP), transport (TGP) and copula
+(CGP/CSTP) — trained (``dlogp``, ``find_MAP``),
 sampled (``sample_hypers``, the ensemble sampler over the hyperparameter
 posterior) and served from one factorization or averaged over a datatrace,
 with the fused stationary gram and the blocked panel Cholesky as
@@ -17,6 +19,11 @@ the card (``"cuda"``) unless the program says ``"cpu"``:
 >>> pr(x_query, quantiles=True, quantiles_noise=True)
 >>> dt = gp.sample_hypers(start=params, samples=400, chains=32)
 >>> gp.averaged_predictor(dt, max_rows=16)(x_query)
+>>> tp = g3t.TP(space=x, location=g3t.Bias(), kernel=g3t.SE(x))
+>>> tgp = g3t.TGP(space=x, transport=g3t.TLocation(g3t.Bias(x))
+...               @ g3t.TKernel(g3t.SE(x), noisy=True))
+>>> cgp = g3t.CGP(space=x, kernel=g3t.SE(x),
+...               marginal=g3t.Normal(mu=g3t.Bias(x), sigma=g3t.Bias(x, name="S")))
 """
 
 from . import config
@@ -26,8 +33,11 @@ from .utils.datatrace import Datatrace
 from .ops import (safe_cholesky, cho_solve, solve_lower_triangular,
                   solve_upper_triangular, trtri_from_panels, mvn_quad_logdet,
                   gauss_hermite, stationary_gram, panel_cholesky, newton_inverse)
+from .ops.special import betainc, gammaln, ndtri, ndtr
 from .hypers import (Hypers, Param, Prior, Flat, FlatExp, Transform,
-                     IdentityTransform, LogTransform)
+                     IdentityTransform, LogTransform, LogIdTransform, IntervalTransform,
+                     Freedom, ExpFlat, FlatPos, PositiveFlat, NonTransformLog, FlatExpId,
+                     Exponential, Uniform as UniformPrior, Null)
 from .hypers.metrics import Metric, Delta, ARD, ARD_L2
 from .hypers.kernels import (Kernel, KernelStationary, KernelComposition,
                              KernelSum, KernelNoise,
@@ -35,11 +45,21 @@ from .hypers.kernels import (Kernel, KernelStationary, KernelComposition,
 from .hypers.means import Mean, Zero, Bias
 from .hypers.mappings import (Mapping, MappingOperation, MappingComposed, Identity,
                               BoxCoxLinear, WarpingTanh, ArcsinhLinear)
+from .hypers.transports import (Transport, TransportOperation, TransportComposed, ID,
+                                TElemwise, TLinear, TNoLinear, TLocation, TScale, TMapping,
+                                TKernel, TTriangular)
 from .bayesian import (GraphicalModel, optimize, ensemble_sampler, pt_sampler,
                        default_beta_ladder, mcmc_ensemble, chains_to_datatrace,
                        datatrace_to_chains, gelman_rubin, burn_in_samples,
                        effective_sample_min, effective_sample_size)
 from .models import (StochasticProcess, EllipticalProcess, GaussianProcess,
-                     WarpedGaussianProcess, GP, WGP, Predictor, AveragedPredictor)
+                     WarpedGaussianProcess, StudentTProcess, WarpedStudentTProcess,
+                     MarginalProcess, Density, SymmetricDensity, Uniform, Normal, StudentT,
+                     TransportProcess, TransportGaussianProcess, CopulaProcess,
+                     CopulaGaussianProcess, CopulaStudentTProcess, TransformedStudentTProcess,
+                     GP, WGP, TP, WTP, MP, TGP, CGP, CSTP, Predictor, AveragedPredictor)
+
+# the reference's names (tt_to_num, cholesky_robust, makefn, ...)
+from .compat import *  # noqa: E402,F401,F403
 
 __version__ = "0.1.0"

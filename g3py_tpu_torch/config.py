@@ -37,6 +37,8 @@ class Settings:
       cholesky_jitter: relative base jitter, ``mean(diag) * cholesky_jitter``.
       logp_guard: value returned by a logp whose NaN/Inf guards trip.
       quadrature_degree: Gauss-Hermite degree of warped-process moments.
+      mc_simulations: default Monte-Carlo draws of the transport and
+        copula moments.
       device: torch device of model tensors ("cpu", "cuda", "cuda:1", ...).
     """
 
@@ -45,6 +47,7 @@ class Settings:
     cholesky_jitter: float = 1e-6
     logp_guard: float = -1e30
     quadrature_degree: int = 10
+    mc_simulations: int = 30
     device: str = "cuda"
 
     @property

@@ -8,9 +8,15 @@ registry (:mod:`g3py_tpu_torch.bayesian.registry`) owns the dict <-> flat
 array bijection and the prior logp.  Runtime values live in params dicts
 keyed by ``Param.name``; :func:`hval` turns a slot into a tensor.
 
-This slice carries the priors that exact GP/WGP regression registers:
-:class:`Flat` (means, mapping shifts) and :class:`FlatExp` (amplitudes,
-rates, noise, mapping scales and powers).
+The priors map one-to-one onto the JAX package's: :class:`Flat` and
+:class:`Null` (unbounded, flat), :class:`ExpFlat` (flat on the value,
+sampled in log space), :class:`FlatExp` (flat in log space, a wall below
+1e-6), :class:`FlatPos` (flat on (0, inf), natural-space sampling),
+:class:`FlatExpId` (the log-below-1, identity-above transform),
+:class:`Exponential` and :class:`Uniform`.  Each gives its term as a
+function of the natural value (``logp_natural``) and of the unconstrained
+value (``logp``); the two agree.  :class:`Freedom` is the Student-t
+families' degrees-of-freedom hyper.
 
 A params dict may carry a leading row axis on every value (the (R,) +
 ``Param.shape`` values of R hyperparameter rows, e.g. a sampler's walkers):
@@ -27,11 +33,22 @@ __all__ = [
     "Transform",
     "IdentityTransform",
     "LogTransform",
+    "LogIdTransform",
+    "IntervalTransform",
     "Prior",
     "Flat",
+    "Null",
+    "ExpFlat",
     "FlatExp",
+    "FlatPos",
+    "PositiveFlat",
+    "NonTransformLog",
+    "FlatExpId",
+    "Exponential",
+    "Uniform",
     "Param",
     "Hypers",
+    "Freedom",
     "hval",
     "is_param",
     "slice_dims",
@@ -60,6 +77,11 @@ class IdentityTransform(Transform):
     pass
 
 
+def _host64(v):
+    return np.asarray(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v,
+                      dtype=np.float64)
+
+
 class LogTransform(Transform):
     name = "log"
 
@@ -67,8 +89,37 @@ class LogTransform(Transform):
         return torch.exp(u)
 
     def forward(self, v):
-        return np.log(np.maximum(np.asarray(v, dtype=np.float64), 1e-38)).astype(
-            settings.floatx)
+        return np.log(np.maximum(_host64(v), 1e-38)).astype(settings.floatx)
+
+
+class LogIdTransform(Transform):
+    """log below 1, identity-1 above."""
+
+    name = "logid"
+
+    def backward(self, u):
+        return torch.where(u < 0, torch.exp(torch.clamp(u, max=0.0)), u + 1.0)
+
+    def forward(self, v):
+        v = _host64(v)
+        return np.where(v < 1, np.log(np.maximum(v, 1e-38)), v - 1.0).astype(settings.floatx)
+
+
+class IntervalTransform(Transform):
+    """(lower, upper) through the logit."""
+
+    name = "interval"
+
+    def __init__(self, lower, upper):
+        self.lower = float(lower)
+        self.upper = float(upper)
+
+    def backward(self, u):
+        return self.lower + (self.upper - self.lower) * torch.sigmoid(u)
+
+    def forward(self, v):
+        p = np.clip((_host64(v) - self.lower) / (self.upper - self.lower), 1e-12, 1 - 1e-12)
+        return np.log(p / (1 - p)).astype(settings.floatx)
 
 
 # ---------------------------------------------------------------------------
@@ -77,11 +128,15 @@ class LogTransform(Transform):
 
 
 class Prior:
-    """Transform + log-prior contribution ``logp_natural(v)``, taken from
-    the natural-space value flattened to (..., size): one term per leading
-    row (the unconstrained-space ``logp`` comes with training)."""
+    """Transform + log-prior contribution, taken from the value flattened to
+    (..., size): one term per leading row.  ``logp_natural(v)`` reads the
+    natural-space value, ``logp(u)`` the unconstrained one (density plus
+    the transform's Jacobian); ``logp(u) == logp_natural(backward(u))``."""
 
     transform = IdentityTransform()
+
+    def logp(self, u):
+        return self.logp_natural(self.transform.backward(u))
 
     def logp_natural(self, v):
         return torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
@@ -90,24 +145,126 @@ class Prior:
         return np.zeros(shape, dtype=settings.floatx)
 
 
+def _wall(bad, like):
+    """``GUARD`` where ``bad``, else 0, in ``like``'s dtype (a Python-scalar
+    where() would round the wall through float32), filled on the device (no
+    host copy, no sync)."""
+    wall = torch.full(bad.shape, GUARD, dtype=like.dtype, device=like.device)
+    return torch.where(bad, wall, torch.zeros_like(wall))
+
+
 class Flat(Prior):
     """Unbounded flat prior."""
+
+
+class Null(Flat):
+    """No-density placeholder."""
+
+
+class ExpFlat(Prior):
+    """Flat on the value, sampled in log space (Jacobian ``+u``)."""
+
+    transform = LogTransform()
+
+    def logp(self, u):
+        return u.sum(dim=-1)
+
+    def logp_natural(self, v):
+        return torch.log(v).sum(dim=-1)
+
+    def testval(self, shape):
+        return np.ones(shape, dtype=settings.floatx)
 
 
 class FlatExp(Prior):
     """Flat in log space, with a hard wall where exp(u) <= 1e-6."""
 
     transform = LogTransform()
+    _wall = float(np.log(1e-6))
+
+    def logp(self, u):
+        return _wall((u <= self._wall).any(dim=-1), u)
 
     def logp_natural(self, v):
-        bad = (v <= 1e-6).any(dim=-1)
-        # the wall in v's own dtype (a Python-scalar where() would round it
-        # through float32), filled on the device (no host copy, no sync)
-        wall = torch.full(bad.shape, GUARD, dtype=v.dtype, device=v.device)
-        return torch.where(bad, wall, torch.zeros_like(wall))
+        return _wall((v <= 1e-6).any(dim=-1), v)
 
     def testval(self, shape):
         return np.ones(shape, dtype=settings.floatx)
+
+
+class FlatPos(Prior):
+    """Flat on (0, inf), sampled in natural space."""
+
+    def logp_natural(self, v):
+        return _wall(~(v > 0).all(dim=-1), v)
+
+    logp = logp_natural
+
+    def testval(self, shape):
+        return np.ones(shape, dtype=settings.floatx)
+
+
+class FlatExpId(Prior):
+    """Flat under the LogId transform; the Jacobian term is
+    ``sum(min(u, 0))``."""
+
+    transform = LogIdTransform()
+
+    def logp(self, u):
+        return torch.clamp(u, max=0.0).sum(dim=-1)
+
+    def logp_natural(self, v):
+        return torch.where(v < 1.0, torch.log(torch.clamp(v, min=1e-38)),
+                           torch.zeros_like(v)).sum(dim=-1)
+
+    def testval(self, shape):
+        return np.ones(shape, dtype=settings.floatx)
+
+
+class Exponential(Prior):
+    """Exponential(lam), sampled in log space: sum(log lam - lam v + u)."""
+
+    transform = LogTransform()
+
+    def __init__(self, lam=1.0):
+        self.lam = float(lam)
+
+    def logp(self, u):
+        return (np.log(self.lam) - self.lam * torch.exp(u) + u).sum(dim=-1)
+
+    def logp_natural(self, v):
+        return (np.log(self.lam) - self.lam * v + torch.log(v)).sum(dim=-1)
+
+    def testval(self, shape):
+        return np.ones(shape, dtype=settings.floatx)
+
+
+class Uniform(Prior):
+    """Uniform(lower, upper), sampled in logit space: -log(U-L) + the
+    log-Jacobian; GUARD outside (lower, upper)."""
+
+    def __init__(self, lower=0.0, upper=1.0):
+        self.lower = float(lower)
+        self.upper = float(upper)
+        self.transform = IntervalTransform(lower, upper)
+
+    def logp(self, u):
+        width = np.log(self.upper - self.lower)
+        zero = torch.zeros_like(u)
+        jac = width - torch.logaddexp(zero, -u) - torch.logaddexp(zero, u)
+        return (-width + jac).sum(dim=-1)
+
+    def logp_natural(self, v):
+        width = self.upper - self.lower
+        p = (v - self.lower) / width
+        inside = ((p > 0) & (p < 1)).all(dim=-1)
+        jac = (torch.log(torch.clamp(p, 1e-38, 1.0)) + torch.log(torch.clamp(1 - p, 1e-38, 1.0))
+               + np.log(width)).sum(dim=-1)
+        value = -v.shape[-1] * np.log(width) + jac
+        return torch.where(inside, value, torch.full_like(value, GUARD))
+
+    def testval(self, shape):
+        return np.full(shape, 0.5 * (self.lower + self.upper), dtype=settings.floatx)
 
 
 # ---------------------------------------------------------------------------
@@ -266,3 +423,29 @@ class Hypers:
         return f"{type(self).__name__}[h={self.hypers}]"
 
     __repr__ = __str__
+
+
+class Freedom(Hypers):
+    """Degrees-of-freedom hyper of the Student-t families: value = bound +
+    degree, default degree = the number of observations."""
+
+    def __init__(self, x=None, name=None, degree=None, bound=2.0):
+        super().__init__(x, name)
+        self.degree = degree
+        self.bound = float(bound)
+
+    def check_hypers(self, parent=""):
+        self.degree = self._param(self.degree, parent + self.name + "_degree", FlatExp())
+
+    def default_hypers(self, x=None, y=None):
+        if is_param(self.degree):
+            return {self.degree: np.asarray(len(y), dtype=settings.floatx)}
+        return {}
+
+    def __call__(self, params, x=None):
+        return self.bound + hval(self.degree, params)
+
+
+# the reference's names for two of the classes above
+PositiveFlat = FlatPos
+NonTransformLog = LogTransform

@@ -1,9 +1,11 @@
-"""EllipticalProcess — shared posterior math of the GP family (the PyTorch
-counterpart of :mod:`g3py_tpu.models.elliptical`, subset).
+"""EllipticalProcess — shared posterior math of the GP and Student-t
+families (the PyTorch counterpart of :mod:`g3py_tpu.models.elliptical`,
+subset).
 
 Owns a location Mean, a Kernel (wrapped with an additive KernelNoise when
-``noisy=True``) and a Mapping warping.  The posterior goes through one
-robust Cholesky of the observed gram:
+``noisy=True``), a Mapping warping and, for the Student-t family, a
+Freedom degree hyper (``freedom``: nu, and nu + n on the posterior).  The
+posterior goes through one robust Cholesky of the observed gram:
 
   location* = m(s) + K_si Kii^{-1} (T^{-1}y - m(i))
   var*      = k_ss - colsum((L^{-1} K_is)^2)      (clamped at 0)
@@ -57,10 +59,8 @@ def _diag(m):
 class EllipticalProcess(StochasticProcess):
     def __init__(self, space=None, location=None, kernel=None, mapping=None, degree=None,
                  noisy=True, var_noise=None, **kwargs):
-        if degree is not None:
-            raise NotImplementedError("the degrees of freedom (degree=, the Student-t "
-                                      "family) are not ported yet (ROADMAP Queue 1 item 10)")
         self.f_location = location if location is not None else Zero()
+        self.f_degree = degree
         self.f_mapping = mapping if mapping is not None else Identity()
         self.f_kernel = kernel
         if noisy:
@@ -72,11 +72,14 @@ class EllipticalProcess(StochasticProcess):
 
     # -- registration ----------------------------------------------------------
     def _components(self):
-        return [self.f_location, self.f_kernel_noise, self.f_mapping]
+        comps = [self.f_location, self.f_kernel_noise, self.f_mapping]
+        if self.f_degree is not None:
+            comps.append(self.f_degree)
+        return comps
 
     def _check_hypers(self):
         for comp in self._components():
-            comp.check_dims(self.inputs)
+            comp.check_dims(None if comp is self.f_degree else self.inputs)
         for comp in self._components():
             comp.check_hypers(self.name + "_")
 
@@ -164,8 +167,8 @@ class EllipticalProcess(StochasticProcess):
         else:
             params, state = self.posterior_state_rows(rows, inputs, outputs)
             params = {**params, **state}
-        return statistics(self, params, space, inputs, outputs, z=self._batch_quantile_z(),
-                          prior=prior, **flags)
+        return statistics(self, params, space, inputs, outputs, prior=prior, batch=True,
+                          **flags)
 
     def _whitened_cross(self, params, inputs, cross):
         """v = L^{-1} K_is — a product with the state's inverse when one
@@ -242,7 +245,26 @@ class EllipticalProcess(StochasticProcess):
         """(mean, variance) of the observed process given latent moments."""
         return self.f_mapping(params, loc), var
 
+    def _moments_fn(self, params, inputs, outputs, prior=False):
+        """``(loc, var) -> (mean, variance)`` of the observed process at
+        these params (the Student-t process also scales the variance)."""
+        return lambda loc, var: self._warped_moments(params, loc, var)
+
     # -- selector th_* quantities ------------------------------------------------
+    def th_freedom(self, prior=False, noise=False):
+        """Degrees of freedom: nu on the prior, nu + n on the posterior
+        (None without a Freedom hyper)."""
+        if self.f_degree is None:
+            return None
+        deg = self.f_degree
+        if prior:
+            def fn(params, space, inputs, outputs, vector):
+                return deg(params)
+        else:
+            def fn(params, space, inputs, outputs, vector):
+                return deg(params) + inputs.shape[0]
+        return fn
+
     def th_mapping(self, prior=False, noise=False):
         def fn(params, space, inputs, outputs, vector):
             # forward warping of an arbitrary latent vector
@@ -317,6 +339,7 @@ class EllipticalProcess(StochasticProcess):
     def th_covariance(self, prior=False, noise=False):
         return self.th_kernel(prior=prior, noise=noise)
 
+    freedom = _statistic("th_freedom", "Degrees of freedom (the Student-t family).")
     mapping = _statistic("th_mapping", "Forward warping of ``vector``.")
     location = _statistic("th_location", "Latent (pre-warping) location.")
     kernel = _statistic("th_kernel", "Latent covariance over ``space``.")

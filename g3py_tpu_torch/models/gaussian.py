@@ -22,7 +22,7 @@ import torch
 from ..config import settings, as_tensor
 from ..ops.guards import to_num, to_cov
 from ..ops.linalg import mvn_quad_logdet, mvn_loo, solve_lower_triangular
-from ..ops.quadrature import gauss_hermite, hermite_grid
+from ..ops.quadrature import gauss_hermite, hermite_moments
 from .elliptical import EllipticalProcess
 
 __all__ = ["GaussianProcess", "WarpedGaussianProcess", "warped_gaussian_logp_cho"]
@@ -155,12 +155,15 @@ class GaussianProcess(EllipticalProcess):
         at float32 precision, as the JAX package holds it."""
         return float(np.float32(NormalDist().inv_cdf(q)))
 
-    def _batch_quantile_z(self):
-        """(up, down) latent quantile coefficients of the batched statistics:
+    def _quantile_pair(self, params, inputs, prior=False, batch=False):
+        """(up, down) latent quantile coefficients at 97.5% and 2.5%: each
+        held at float32 as ``quantiler`` holds it, or with ``batch``
         +-z_0.975 in ``settings.floatx``, as the JAX package's
         ``batch_predict`` holds them."""
-        p = float(np.asarray(NormalDist().inv_cdf(0.975), dtype=settings.floatx))
-        return p, -p
+        if batch:
+            p = float(np.asarray(NormalDist().inv_cdf(0.975), dtype=settings.floatx))
+            return p, -p
+        return self._quantile_p(0.975), self._quantile_p(0.025)
 
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
@@ -181,17 +184,10 @@ class WarpedGaussianProcess(GaussianProcess):
         super().__init__(*args, **kwargs)
 
     def _hermite_moments(self, params, mu, sd, n=None):
-        """(E[T], Var[T]) over N(mu, sd^2), from one evaluation of T on the
-        quadrature grid.  The variance is the centred second moment
-        E[(T - E[T])^2]: E[T^2] - E[T]^2 cancels where the variance is ~eps
-        T^2 (at the observed points of a near-noiseless warped GP) and goes
-        negative in float32."""
+        """(E[T], Var[T]) over N(mu, sd^2) (:func:`~g3py_tpu_torch.ops.
+        quadrature.hermite_moments`, the centred variance)."""
         n = settings.quadrature_degree if n is None else n
-        grid, w = hermite_grid(mu, sd, n)
-        t = self.f_mapping(params, grid)
-        m1 = torch.matmul(w, t) / math.sqrt(math.pi)
-        dev = t - m1[..., None, :]
-        return m1, torch.matmul(w, dev * dev) / math.sqrt(math.pi)
+        return hermite_moments(lambda v: self.f_mapping(params, v), mu, sd, n)
 
     def th_mean(self, prior=False, noise=False, simulations=None, n=None):
         n = settings.quadrature_degree if n is None else n

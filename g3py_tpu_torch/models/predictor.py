@@ -11,6 +11,10 @@ elementwise work:
   mean(s)  = T(m(s) + K_sX alpha)                    (GH quadrature for WGP)
   var(s)   = k_ss - colsum((L^{-1} K_Xs)^2)           (+ noise for bands)
 
+and a Student-t process scales the variance by (nu + z'z - 2)/(nu + n - 2)
+from the state's whitened residual z and takes Student-t quantiles at
+nu + n degrees of freedom (per row for an averaged predictor).
+
 Every requested statistic of a batch shares that one cross gram.  The
 averaged predictor holds one state per datatrace row, stacked, factored by
 one batched K2 call; its query batch is one batched K1 cross gram, one
@@ -32,16 +36,18 @@ __all__ = ["Predictor", "AveragedPredictor", "statistics"]
 
 def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False, cov=False,
                median=False, quantiles=False, quantiles_noise=False, noise=False,
-               prior=False, z=None):
+               prior=False, batch=False):
     """Statistics of one query batch from a params dict ``p`` that carries
     a posterior state (same keys as ``process.predict``): ``mean``, ``std``,
     ``variance``, ``covariance`` (m, m), ``median``,
     ``quantile_up``/``quantile_down`` (2.5% and 97.5%) and, with
     ``quantiles_noise``, the observation-noise bands ``noise_std``,
     ``noise_up`` and ``noise_down``; with ``prior`` the prior's.  A dict of
-    R rows gives (R, m).  ``z`` is the (up, down) pair of latent quantile
-    coefficients (default: the process's own)."""
-    up, down = (proc._quantile_p(0.975), proc._quantile_p(0.025)) if z is None else z
+    R rows gives (R, m).  The latent quantile coefficients and the moments
+    are the process's own (a Student-t process scales the variance by its
+    posterior factor and takes Student-t quantiles); ``batch`` takes the
+    coefficients of ``batch_predict``."""
+    up, down = proc._quantile_pair(p, inputs, prior=prior, batch=batch)
     values = DictObj()
 
     def bands(var):  # T(loc + z_q sd) at q = 97.5% and 2.5%
@@ -50,9 +56,10 @@ def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False, 
 
     with torch.no_grad():
         loc, latent, noise_var = proc._latent_moments(p, space, inputs, outputs, prior=prior)
+        moments = proc._moments_fn(p, inputs, outputs, prior=prior)
         lvar = latent + noise_var if noise else latent
         if mean or std or var:
-            m, v = proc._warped_moments(p, loc, lvar)
+            m, v = moments(loc, lvar)
             if mean:
                 values["mean"] = m
             if var:
@@ -70,7 +77,7 @@ def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False, 
             values["quantile_up"], values["quantile_down"] = bands(lvar)
         if quantiles_noise:
             nvar = latent + noise_var
-            values["noise_std"] = torch.sqrt(proc._warped_moments(p, loc, nvar)[1])
+            values["noise_std"] = torch.sqrt(moments(loc, nvar)[1])
             values["noise_up"], values["noise_down"] = bands(nvar)
     return values
 
@@ -186,7 +193,7 @@ class AveragedPredictor(_Bound):
         ``process.batch_predict``, with the factorizations reused."""
         self._check()
         return statistics(self.process, self._merged, self._space(space), self.inputs,
-                          self.outputs, z=self.process._batch_quantile_z(), **flags)
+                          self.outputs, batch=True, **flags)
 
     def predict(self, space=None, scores=False, **flags):
         """Row-averaged statistics (the ``average()`` keys), in float64;

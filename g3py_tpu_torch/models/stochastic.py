@@ -76,6 +76,13 @@ class StochasticProcess(BatchedModel):
     ``precompile`` and ``compile_logp`` are the JAX package's compile
     controls and change nothing here (PyTorch runs eagerly)."""
 
+    #: whether th_loglike_fn takes a params dict of R rows (the GP and
+    #: Student-t families); the others evaluate a (R, ndim) matrix row by row
+    _batched_rows = True
+    #: whether the statistics are Monte-Carlo over draws (``predict`` then
+    #: draws once for all of them)
+    _mc_moments = False
+
     def __init__(self, space=None, order=None, inputs=None, outputs=None, hidden=None,
                  index=None, name="SP", distribution=None, active=False, precompile=False,
                  file=None, load=True, compile_logp=True):
@@ -84,7 +91,7 @@ class StochasticProcess(BatchedModel):
                                       "(ROADMAP Queue 1 item 15)")
         if active is True:
             raise NotImplementedError("the shared active registry (active=True) is not "
-                                      "ported yet (ROADMAP Queue 1 item 10)")
+                                      "ported yet (ROADMAP Queue 1 item 10b)")
         ndim = 1
         if space is not None:
             if hasattr(space, "shape"):
@@ -413,7 +420,11 @@ class StochasticProcess(BatchedModel):
 
     def _logp_rows(self, u, prior=False, like_only=False):
         """logp (prior / loglike) of a (R, ndim) tensor of unconstrained
-        rows: a (R,) tensor, every row's gram in one batched call."""
+        rows: a (R,) tensor, every row's gram in one batched call (one row
+        at a time for a family without a row axis, ``_batched_rows``)."""
+        if not self._batched_rows and u.ndim == 2:
+            return torch.stack([self._logp_rows(row, prior=prior, like_only=like_only)
+                                for row in u])
         space, inputs, outputs = self._resolve_data(None, None, None)
         with torch.no_grad():
             out = self._logp_pure(prior=prior, like_only=like_only)(
@@ -658,26 +669,36 @@ class StochasticProcess(BatchedModel):
     def predict(self, params=None, space=None, inputs=None, outputs=None, mean=True,
                 std=True, var=False, cov=False, median=False, quantiles=False,
                 quantiles_noise=False, samples=0, distribution=False, prior=False,
-                noise=False, simulations=None):
+                noise=False, simulations=None, rng=None):
         """Dict of the requested statistics (tensors), each evaluated on its
         own as in the JAX package; :meth:`predictor` serves query batches
         from one factorization instead.  ``samples`` adds that many
         posterior draws (``samples``, (m, samples)); ``distribution`` adds
         ``logpredictive``, a function of a vector of values at ``space``.
-        ``simulations`` changes nothing for the gaussian families, whose
-        statistics are analytic (the JAX package ignores it there too)."""
+        For the Monte-Carlo families (transport, copula) an int
+        ``simulations`` draws once, from ``rng`` (a numpy Generator; a
+        fresh one when None), for every statistic that reads draws, and the
+        noise bands draw their own, as in the JAX package; the gaussian and
+        Student-t statistics are analytic and ignore both."""
         if params is None:
             params = self.params
         if not self.is_observed:
             prior = True
         kw = dict(space=space, inputs=inputs, outputs=outputs, prior=prior)
+        mc = dict(rng=rng) if self._mc_moments else {}
+        n_simulations = 1
+        if self._mc_moments and isinstance(simulations, int):
+            n_simulations = simulations
+            simulations = self.sampler(params, samples=simulations, noise=noise, rng=rng,
+                                       **kw)
         values = DictObj()
         if mean:
-            values["mean"] = self.mean(params, noise=noise, **kw)
+            values["mean"] = self.mean(params, noise=noise, simulations=simulations, **mc, **kw)
         if var:
-            values["variance"] = self.variance(params, noise=noise, **kw)
+            values["variance"] = self.variance(params, noise=noise, simulations=simulations,
+                                               **mc, **kw)
         if std:
-            values["std"] = self.std(params, noise=noise, **kw)
+            values["std"] = self.std(params, noise=noise, simulations=simulations, **mc, **kw)
         if cov:
             if self.th_covariance() is None:
                 raise ValueError(
@@ -686,14 +707,21 @@ class StochasticProcess(BatchedModel):
                     "covariance")
             values["covariance"] = self.covariance(params, noise=noise, **kw)
         if median:
-            values["median"] = self.median(params, noise=noise, **kw)
+            values["median"] = self.median(params, noise=noise, simulations=simulations,
+                                           **mc, **kw)
         if quantiles:
-            values["quantile_up"] = self.quantiler(params, q=0.975, noise=noise, **kw)
-            values["quantile_down"] = self.quantiler(params, q=0.025, noise=noise, **kw)
+            for key, q in (("quantile_up", 0.975), ("quantile_down", 0.025)):
+                values[key] = self.quantiler(params, q=q, noise=noise, simulations=simulations,
+                                             **mc, **kw)
         if quantiles_noise:
-            values["noise_std"] = self.std(params, noise=True, **kw)
-            values["noise_up"] = self.quantiler(params, q=0.975, noise=True, **kw)
-            values["noise_down"] = self.quantiler(params, q=0.025, noise=True, **kw)
+            sims_noise = (self.sampler(params, samples=n_simulations, noise=True, rng=rng, **kw)
+                          if self._mc_moments else simulations)
+            values["noise_std"] = self.std(params, noise=True, simulations=sims_noise, **mc,
+                                           **kw)
+            sims_noise = n_simulations if self._mc_moments else simulations
+            for key, q in (("noise_up", 0.975), ("noise_down", 0.025)):
+                values[key] = self.quantiler(params, q=q, noise=True, simulations=sims_noise,
+                                             **mc, **kw)
         if samples > 0:
             values["samples"] = self.sampler(params, samples=samples, noise=noise, **kw)
         if distribution:

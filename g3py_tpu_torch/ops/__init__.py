@@ -1,8 +1,9 @@
 """Numeric ops: guards, quadrature, grams, the port's two CUDA kernels (the
-fused stationary gram and the blocked panel Cholesky) and robust linear
-algebra."""
+fused stationary gram and the blocked panel Cholesky), robust linear
+algebra and the special functions of the Student-t and copula families
+(:mod:`~g3py_tpu_torch.ops.special`)."""
 
-from .guards import to_num, to_cov, to_bounded
+from .guards import to_num, inf_to_num, to_cov, to_bounded
 from .quadrature import gauss_hermite, hermgauss
 from .gram import weighted_sqdist, sqdist, pairwise_sum
 from .stationary_gram import stationary_gram
@@ -12,7 +13,7 @@ from .linalg import (safe_cholesky, safe_cholesky_panels, trtri_from_panels,
                      solve_lower_triangular, solve_upper_triangular, cho_solve,
                      log_det_from_chol, mvn_quad_logdet, mvn_loo)
 
-__all__ = ["to_num", "to_cov", "to_bounded", "gauss_hermite", "hermgauss",
+__all__ = ["to_num", "inf_to_num", "to_cov", "to_bounded", "gauss_hermite", "hermgauss",
            "weighted_sqdist", "sqdist", "pairwise_sum", "stationary_gram",
            "panel_cholesky", "newton_inverse", "safe_cholesky", "safe_cholesky_panels",
            "trtri_from_panels", "solve_lower_triangular", "solve_upper_triangular",

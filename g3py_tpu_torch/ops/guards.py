@@ -4,7 +4,7 @@ repair and clipping."""
 
 import torch
 
-__all__ = ["to_num", "to_cov", "to_bounded"]
+__all__ = ["to_num", "inf_to_num", "to_cov", "to_bounded"]
 
 _BIG = 1e10
 
@@ -12,6 +12,12 @@ _BIG = 1e10
 def to_num(x, nan=0.0, posinf=_BIG, neginf=-_BIG):
     """NaN -> 0, Inf -> +-1e10."""
     return torch.nan_to_num(x, nan=nan, posinf=posinf, neginf=neginf)
+
+
+def inf_to_num(x, posinf=_BIG, neginf=-_BIG):
+    """Inf -> +-1e10, NaN left alone."""
+    x = torch.where(torch.isposinf(x), torch.full_like(x, posinf), x)
+    return torch.where(torch.isneginf(x), torch.full_like(x, neginf), x)
 
 
 def to_cov(x, jitter=1e-6):

@@ -9,7 +9,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["gauss_hermite", "hermgauss", "hermite_grid"]
+__all__ = ["gauss_hermite", "hermgauss", "hermite_grid", "hermite_moments"]
 
 
 def hermgauss(n, dtype=torch.float32, device="cpu"):
@@ -33,3 +33,16 @@ def gauss_hermite(f, mu, sigma, n=10):
     ``w @ f(grid) / sqrt(pi)`` over :func:`hermite_grid`."""
     grid, w = hermite_grid(mu, sigma, n)
     return torch.matmul(w, f(grid)) / math.sqrt(math.pi)
+
+
+def hermite_moments(f, mu, sigma, n=10):
+    """(E[f(X)], Var[f(X)]), X ~ N(mu, sigma^2), from one evaluation of f on
+    the grid.  The variance is the centred second moment E[(f - E f)^2]:
+    E[f^2] - E[f]^2 cancels where the variance is ~eps f^2 (at the observed
+    points of a near-noiseless warped process) and goes negative in
+    float32."""
+    grid, w = hermite_grid(mu, sigma, n)
+    t = f(grid)
+    m1 = torch.matmul(w, t) / math.sqrt(math.pi)
+    dev = t - m1[..., None, :]
+    return m1, torch.matmul(w, dev * dev) / math.sqrt(math.pi)

@@ -150,5 +150,77 @@ def test_calls_in_jax_order_and_keywords():
         tp.find_MAP(display=False, rank=8)  # as the JAX package: scipy takes no solver knobs
     with pytest.raises(NotImplementedError, match="item 15"):
         g3t.GP(x, location=g3t.Bias(), kernel=g3t.SE(x), file="model.g3")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 10b"):
         g3t.GP(x, location=g3t.Bias(), kernel=g3t.SE(x), active=True)
+
+
+FAMILY_METHODS = {
+    "TP": ["th_loglike_fn", "th_variance", "th_covariance", "th_logpredictive", "quantiler",
+           "sampler", "_quantile_p", "_batch_quantile_p", "_batch_latent_rand", "th_freedom",
+           "predict", "predictor", "averaged_predictor", "batch_predict"],
+    "WTP": ["th_mean", "th_variance", "th_covariance"],
+    "MP": ["th_loglike_fn", "th_lower", "th_upper", "th_freedom", "th_median", "th_mean",
+           "th_variance", "th_covariance", "th_logpredictive", "quantiler", "sampler"],
+    "TGP": ["th_loglike_fn", "th_transport", "th_transport_diag", "th_transport_inv",
+            "mean", "std", "variance", "median", "quantiler", "sampler", "predict"],
+    "CGP": ["th_loglike_fn", "th_location", "th_kernel_sd", "quantiler", "sampler", "mean",
+            "median", "std", "variance"],
+    "CSTP": ["th_loglike_fn"],
+}
+CLASSES = ["TP", "WTP", "MP", "TGP", "CGP", "CSTP", "TransformedStudentTProcess",
+           "StudentTProcess", "WarpedStudentTProcess", "MarginalProcess",
+           "TransportGaussianProcess", "CopulaGaussianProcess", "CopulaStudentTProcess",
+           "Freedom", "ExpFlat", "FlatPos", "FlatExpId", "Exponential", "UniformPrior",
+           "Normal", "StudentT", "Uniform", "ID", "TLocation", "TScale", "TMapping",
+           "TKernel", "TTriangular", "TransportComposed"]
+TRANSPORT_METHODS = ["__call__", "diag", "inv", "logdet_dinv", "posterior"]
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_METHODS))
+def test_family_methods_take_jax_arguments(family):
+    for name in FAMILY_METHODS[family]:
+        _assert_takes(getattr(getattr(g3, family), name), getattr(getattr(g3t, family), name),
+                      f"{family}.{name}")
+
+
+@pytest.mark.parametrize("cls", CLASSES)
+def test_family_classes_take_jax_arguments(cls):
+    _assert_takes(getattr(g3, cls).__init__, getattr(g3t, cls).__init__, cls)
+    if cls.startswith("T") and hasattr(g3t.hypers.transports, cls):
+        for name in TRANSPORT_METHODS:
+            _assert_takes(getattr(getattr(g3, cls), name), getattr(getattr(g3t, cls), name),
+                          f"{cls}.{name}")
+
+
+def test_degree_and_aliases():
+    """``EllipticalProcess(degree=...)`` builds a Student-t process; the
+    reference's aliases exist (the JAX package's compat surface), and the
+    ones that need machinery not ported yet name their ROADMAP item."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((12, 1)).astype(np.float32)
+    y = np.sin(x[:, 0]).astype(np.float32)
+    ep = g3t.EllipticalProcess(x, g3t.Bias(), g3t.SE(x), None, g3t.Freedom(), True, None,
+                               name="API_EP")
+    ep.observed(x, y)
+    assert "API_EP_Freedom_degree" in ep.active.params_spec
+    assert float(ep.freedom(ep.params_default)) == 2.0 + 12 + 12
+    assert sorted(g3t.compat.__all__) == sorted(g3.compat.__all__)
+    for name in g3.compat.__all__:
+        assert callable(getattr(g3t, name)), name
+    import torch
+
+    a = torch.tensor([[4.0, 1.0], [1.0, 3.0]], dtype=torch.float64)
+    torch.testing.assert_close(g3t.cholesky_robust(a), torch.linalg.cholesky(a))
+    assert float(g3t.tt_to_num(torch.tensor(float("nan")))) == 0.0
+    assert float(g3t.inf_to_num(torch.tensor(float("inf")))) == 1e10
+    grad = g3t.gradient(lambda v: (v ** 2).sum())(torch.tensor([1.0, 2.0]))
+    torch.testing.assert_close(grad, torch.tensor([2.0, 4.0]))
+    fn = g3t.makefn(lambda v: v + 1)
+    assert fn(1) == 2 and fn.executed == 1
+    assert g3t.transformed_hypers({"GP_SE_var": 1.0}) == g3.transformed_hypers(
+        {"GP_SE_var": 1.0})
+    assert g3t.modelcontext(ep.active) is ep.active
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        g3t.modelcontext()
+    with pytest.raises(NotImplementedError, match="item 15"):
+        g3t.debug_p("trace")

@@ -1,6 +1,7 @@
 """Card-only checks of the port: the CUDA kernels (stationary gram, panel
-Cholesky) against their plain PyTorch versions, and the GP/WGP serving and
-training paths on the card against the same paths on the CPU.
+Cholesky) against their plain PyTorch versions, the GP/WGP serving and
+training paths, the Bayesian path and the Student-t, transport and copula
+families on the card against the same paths on the CPU, and ``betainc``.
 
 These skip where ``torch.cuda.is_available()`` is False.  The file imports
 neither JAX nor g3py_tpu, so it runs on a machine that has only PyTorch:
@@ -255,3 +256,59 @@ def test_bayesian_path_on_card_matches_cpu(cuda):
     for k in want:
         np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(), rtol=1e-9,
                                    atol=1e-12, err_msg=k)
+
+
+# ---------------------------------------------------------------- process families
+def _family(kind, device):
+    """logp, dlogp and a statistic of a Student-t, transport or copula
+    process in float64 on ``device``."""
+    g3t.settings.device = device
+    g3t.settings.floatx = "float64"
+    try:
+        rng = np.random.default_rng(21)
+        x = np.linspace(0, 10, 48).reshape(-1, 1)
+        y = np.sin(x[:, 0]) + 0.1 * rng.standard_normal(48)
+        if kind == "tp":
+            proc = g3t.TP(space=x, location=g3t.Bias(), kernel=g3t.SE(x), name="CF_TP")
+        elif kind == "tgp":
+            proc = g3t.TGP(space=x, transport=g3t.TLocation(g3t.Bias(x))
+                           @ g3t.TKernel(g3t.SE(x), noisy=True), name="CF_TGP")
+        else:
+            y = np.exp(0.3 * y) + 1.0
+            proc = g3t.CGP(space=x, kernel=g3t.SE(x), marginal=g3t.Normal(
+                mu=g3t.Bias(x, name="M"), sigma=g3t.Bias(x, name="S")), name="CF_CGP")
+        proc.observed(x, y)
+        xq = np.linspace(-1, 11, 17).reshape(-1, 1)
+        if kind == "tgp":
+            stat = proc.sampler(space=xq, samples=5, rng=np.random.default_rng(3))
+        else:
+            stat = proc.quantiler(space=xq)
+        return proc.logp(), proc.dlogp(), stat.cpu().numpy()
+    finally:
+        g3t.settings.floatx = "float32"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tp", "tgp", "cgp"])
+def test_family_on_card_matches_cpu(cuda, kind):
+    """TP, TGP and CGP logp/dlogp (and quantiles or draws) on the card, through
+    K1 and K2, against the CPU float64 port."""
+    want = _family(kind, "cpu")
+    k1, k2 = stationary_gram.launches, panel_cholesky.launches
+    got = _family(kind, "cuda")
+    assert stationary_gram.launches > k1 and panel_cholesky.launches > k2
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-9)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_betainc_on_card_matches_cpu(cuda, dtype, rtol):
+    from g3py_tpu_torch.ops.special import betainc
+
+    rng = np.random.default_rng(5)
+    a, b, x = rng.uniform(0.1, 40.0, 500), rng.uniform(0.1, 6.0, 500), rng.uniform(0, 1, 500)
+    want = betainc(*[torch.as_tensor(v, dtype=dtype) for v in (a, b, x)])
+    got = betainc(*[torch.as_tensor(v, dtype=dtype, device=cuda) for v in (a, b, x)])
+    torch.testing.assert_close(got.cpu(), want, rtol=rtol, atol=rtol)

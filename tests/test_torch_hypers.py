@@ -1,6 +1,7 @@
-"""Port parity: hypers (means, mappings, priors), the registry bijection and
-``params_from_jax``."""
+"""Port parity: hypers (means, mappings, every prior and transform,
+Freedom), the registry bijection and ``params_from_jax``."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -122,3 +123,51 @@ def test_params_from_jax():
         params_from_jax(tw, dict(jp, extra_hyper=np.float32(1.0)))
     with pytest.raises(ValueError, match="shape"):
         params_from_jax(tw, dict(jp, PFJ_WGP_SE_rate=np.ones(2, np.float32)))
+
+
+PRIORS = {"Flat": (), "Null": (), "ExpFlat": (), "FlatExp": (), "FlatPos": (),
+          "FlatExpId": (), "Exponential": (2.0,), "Uniform": (-1.0, 3.0)}
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("prior", sorted(PRIORS))
+def test_priors_and_transforms(prior, name):
+    """Every prior: its transform both ways, its unconstrained ``logp`` and
+    natural ``logp_natural`` (one term per row of a (R, size) stack; the JAX
+    package's on each row) and its test value."""
+    jp = getattr(g3.hypers, prior)(*PRIORS[prior])
+    tp = getattr(g3t.hypers, prior)(*PRIORS[prior])
+    assert type(tp.transform).__name__ == type(jp.transform).__name__
+    rng = np.random.default_rng(3)
+    u = rng.uniform(-2.5, 2.5, (4, 3))
+    u[1, 0] = -20.0  # below FlatExp's wall
+    with floatx(name):
+        v = np.asarray(jp.transform.backward(jax.numpy.asarray(u.astype(name))))
+        assert_close(tp.transform.backward(torch.as_tensor(u.astype(name))), v, name)
+        inside = v[2:]  # rows clear of the walls
+        assert_close(tp.transform.forward(inside), np.asarray(jp.transform.forward(inside)),
+                     name)
+        assert_close(tp.logp(torch.as_tensor(u.astype(name))),
+                     np.array([float(jp.logp(jax.numpy.asarray(r))) for r in u.astype(name)]),
+                     name)
+        assert_close(tp.logp_natural(torch.as_tensor(v.copy())),
+                     np.array([float(jp.logp_natural(jax.numpy.asarray(r))) for r in v]), name)
+        np.testing.assert_array_equal(tp.testval((2,)), jp.testval((2,)))
+
+
+def test_freedom_and_aliases():
+    x, y = _data()
+    jf, tf = g3.Freedom(), g3t.Freedom()
+    jf.check_hypers("P_")
+    tf.check_hypers("P_")
+    assert [p.name for p in tf.hypers] == [p.name for p in jf.hypers] == ["P_Freedom_degree"]
+    assert type(tf.degree.prior).__name__ == type(jf.degree.prior).__name__ == "FlatExp"
+    assert float(tf.default_hypers(x, y)[tf.degree]) == float(
+        jf.default_hypers(x, y)[jf.degree]) == len(y)
+    params = {"P_Freedom_degree": np.float32(7.0)}
+    assert_close(tf(params), np.asarray(jf(params)))
+    fixed = g3t.Freedom(degree=3.0, bound=1.0)
+    fixed.check_hypers("P_")
+    assert fixed.hypers == [] and float(fixed({})) == 4.0
+    assert g3t.PositiveFlat is g3t.FlatPos and g3t.NonTransformLog is g3t.hypers.LogTransform
+    assert g3t.UniformPrior is g3t.hypers.Uniform and g3t.Uniform is g3t.models.Uniform

@@ -2,7 +2,8 @@
 oracle (GP, WGP1-3, TGP1-3 on the sunspots series, the reference's MAP
 params and its recorded scores) replayed through ``g3py_tpu_torch`` at the
 JAX package's tolerances (``tests/test_parity_reference.py``), and the
-three ``sunspots_gp_*`` golden pins (``tests/golden.json``).
+three ``sunspots_gp_*`` golden pins and the six Student-t, transport and
+copula pins (``tests/golden.json``).
 
 The port reads the recorded rows from its own JSON copy
 (``g3py_tpu_torch/utils/datasets/sunsets_oracle.json``, no pandas); a test
@@ -172,6 +173,42 @@ def test_sunspots_pins_hold_on_port(oracle):
     for k in PINS:
         np.testing.assert_allclose(got[k], golden[k], rtol=2e-5, atol=1e-5,
                                    err_msg=f"pin {k}: port {got[k]} vs {golden[k]}")
+
+
+FAMILY_PINS = ("tp_logp_default", "tp_var_sum", "tp_mean_sum", "tp_dlogp_norm",
+               "tgp_logp_default", "cgp_logp_default")
+
+
+@pytest.fixture(scope="module")
+def family_pins():
+    """The port's values of the Student-t, transport and copula pins of
+    tests/golden.json, on tests/test_golden.py's workloads (float32)."""
+    rng = np.random.default_rng(1234)
+    x = np.linspace(0, 10, 32).astype(np.float32).reshape(-1, 1)
+    y = (np.sin(x[:, 0]) + 0.1 * rng.standard_normal(32)).astype(np.float32)
+    y_pos = (np.exp(0.3 * y) + 1.0).astype(np.float32)
+    tp = g3t.TP(space=x, location=g3t.Zero(), kernel=g3t.MAT52(x), name="GOLD_TP")
+    tp.observed(x, y)
+    tgp = g3t.TGP(space=x, transport=g3t.TLocation(g3t.Bias(x))
+                  @ g3t.TKernel(g3t.SE(x), noisy=True), name="GOLD_TGP")
+    tgp.observed(x, y)
+    cgp = g3t.CGP(space=x, kernel=g3t.SE(x),
+                  marginal=g3t.Normal(mu=g3t.Bias(x, name="M"), sigma=g3t.Bias(x, name="S")),
+                  name="GOLD_CGP")
+    cgp.observed(x, y_pos)
+    return {"tp_logp_default": tp.logp(), "tp_var_sum": float(tp.variance().sum()),
+            "tp_mean_sum": float(tp.mean().sum()),
+            "tp_dlogp_norm": float(np.linalg.norm(tp.dlogp())),
+            "tgp_logp_default": tgp.logp(), "cgp_logp_default": cgp.logp()}
+
+
+@pytest.mark.parametrize("pin", FAMILY_PINS)
+def test_family_pins_hold_on_port(family_pins, pin):
+    """Each family pin at tests/test_golden.py's 2e-5 / 1e-5."""
+    with open(os.path.join(HERE, "golden.json")) as fh:
+        want = json.load(fh)[pin]
+    np.testing.assert_allclose(family_pins[pin], want, rtol=2e-5, atol=1e-5,
+                               err_msg=f"pin {pin}: port {family_pins[pin]} vs {want}")
 
 
 if __name__ == "__main__":
