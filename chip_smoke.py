@@ -2,9 +2,10 @@
 
 Drives the port's paths on one CUDA card — exact GP and warped-GP
 regression served from one factorization, trained by ``dlogp`` and
-``find_MAP`` and sampled, and the Student-t, transport, copula and marginal
-process families — through the hand-written kernels K1 (stationary gram)
-and K2 (blocked panel Cholesky), and checks them:
+``find_MAP`` and sampled, the Student-t, transport, copula and marginal
+process families, and the whole catalogue of kernels, metrics, means and
+warpings with the shared registry — through the hand-written kernels K1
+(stationary gram) and K2 (blocked panel Cholesky), and checks them:
 
   phase 0  require a CUDA card; print its name and power limit
   phase 1  build both kernels from csrc/ with nvcc (in parallel)
@@ -75,6 +76,25 @@ and K2 (blocked panel Cholesky), and checks them:
            vs the host logp (within 4x a float32 witness where nu's lgamma
            difference cancels), the averaged predictor over 16 rows vs 16
            single Predictors (float64)
+  phase 9  the rest of the hypers catalogue at full width (phase 5's data),
+           every check against a float64 host recomputation of every factor
+           (the host walks the port's component tree with its own formulas):
+           K1 vs its plain version on the algebra's inputs (a dims-restricted
+           slice, a shared rate Param, a 0-d amplitude beside 32 rate rows);
+           9a GP(Linear + Bias, SE * SIN + 2 MAT52 + LIN + 0.1) at n=4096,
+           logp/dlogp (K1 x2 and K2 x1 each), find_MAP and 8 Predictor
+           batches of 256 from the MAP (float32 within 4x the float32 host
+           witness, float64 at 1e-5); 9b every kernel of tests/test_zoo.py's
+           KERNELS, every distance metric under SE, every dot metric under
+           KernelDot, KernelMax and the index kernels in a GP at n=4096 (logp;
+           K1 x1 for SE/MAT32/MAT52/RQ on ARD_L2, x0 for the others); 9c
+           tutorial 08, two GPs with active=True sharing one rate Param
+           (joint logp and dlogp K1 x2 and K2 x2 each, against the two host
+           logps; the joint find_MAP); 9d 9a's composite at n=125, 32 walkers
+           x 50 through sample_hypers (K1 x2 and K2 x1 a batched call), the
+           final walkers vs the host; 9e a WGP(Bias, SE) at n=4096 with each
+           other warping (logp, and dlogp along the warping's coordinates),
+           the inv-only ones served through the Newton inverse
 
 The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
 and read just after; the Bayesian path's counts are zeroed and read around
@@ -82,8 +102,9 @@ each of its runs (the two n=125 samplers, the n=4096 sampler, the averaged
 predictor's set-up and batches), and phase 7's around each float32 run of
 the main path (the oracle scoring, LOO, find_MAP, scores, predict, the WGP's
 logp/dlogp and Predictor), and phase 8's around each float32 family run
-(8e's batched launches go to the batched records), so warm-ups, profiles,
-float64 twins and reference checks are not counted.  Each kernel must have
+(8e's batched launches go to the batched records), and phase 9's around
+each float32 catalogue run (9d's to the batched records), so warm-ups,
+profiles, float64 twins and reference checks are not counted.  Each kernel must have
 launched on each path.  Every check raises on failure.  The last lines are
 the kernel record, the card and ``{"ok": true, "device": {...}}``.  Run from
 the repository root:
@@ -2249,6 +2270,713 @@ def phase8(x, y, path, path_batched):
     return out
 
 
+
+# ---------------------------------------------------------------- phase 9
+# The rest of the hypers catalogue at full width (phase 5's n=4096, d=8
+# data): a composite GP of tutorial 03's algebra (9a), the kernel zoo and
+# every metric (9b), tutorial 08's two processes sharing one rate in the
+# active registry (9c), the composite over sampler rows (9d) and the rest of
+# the warpings (9e).  The host side walks the port's component tree and
+# recomputes every factor by its own formula, in float64 torch tensors on
+# the CPU (float32 for the rounding witness); it calls no port code.
+KERNELS_9B = ["SE", "OU", "RQ", "MAT32", "MAT52", "WN", "BW", "VAR", "NIL", "LIN", "POL", "NN",
+              "COS", "SIN", "SINC", "SM", "KernelNoise"]  # tests/test_zoo.py KERNELS
+K1_FAMILIES = ("SE", "RQ", "MAT32", "MAT52")
+DISTANCE_METRICS = ("ARD_L2", "ARD_L1", "L1", "L2", "PSD_L2")  # under SE
+DOT_METRICS = ("ARD_Dot", "ARD_DotBias", "PSD_Dot")  # under KernelDot
+MAPPINGS_9E = ("LinearMapping", "LogShifted", "BoxCoxShifted", "BoxCoxLinear2", "SinhArcsinh",
+               "Logistic", "WarpingBoxCox", "MappingInvSum")
+INV_ONLY_9E = ("WarpingBoxCox", "MappingInvSum")
+
+
+def host_values(reg, u):
+    """Natural-space float64 values at the unconstrained vector ``u``, keyed
+    by the full Param name."""
+    out, start = {}, 0
+    for par in reg.ordered_params:
+        seg = np.asarray(u[start:start + par.size], np.float64).reshape(par.shape)
+        out[par.name] = np.exp(seg) if par.prior.transform.name == "log" else seg
+        start += par.size
+    return out
+
+
+def _hv(h, vals, dtype):
+    """A hyper's host value: a Param's from ``vals``, else the constant."""
+    v = vals[h.name] if isinstance(h, g3t.Param) else h
+    return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype)
+
+
+def _active(comp, a):
+    dims = comp.dims
+    if dims is None or (isinstance(dims, slice) and dims == slice(None)):
+        return a
+    return a[:, dims] if isinstance(dims, slice) else a[:, torch.as_tensor(np.asarray(dims))]
+
+
+def _per_dim(a, b, fn, reduce=torch.add, init=0.0):
+    acc = torch.full((a.shape[0], b.shape[0]), init, dtype=a.dtype)
+    for k in range(a.shape[1]):
+        acc = reduce(acc, fn(a[:, k, None] - b[None, :, k], k, a[:, k, None], b[None, :, k]))
+    return acc
+
+
+def _sq(a, b):
+    """Squared distances by one product on centred inputs (float64 keeps
+    the decomposition's cancellation far below the checks' limits)."""
+    c = 0.5 * (a.mean(0) + b.mean(0))
+    a, b = a - c, b - c
+    return torch.clamp((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2 * a @ b.T, min=0.0)
+
+
+def host_metric(m, vals, a, b, eq=()):
+    """The metric's (N, M) gram, by its definition."""
+    name = type(m).__name__
+    a, b = _active(m, a), _active(m, b)
+    dt = a.dtype
+
+    def hv(h):
+        return _hv(h, vals, dt)
+
+    if name == "ARD_L2":
+        r = hv(m.rate)
+        return 0.5 * _sq(a * r, b * r)
+    if name == "L2":
+        return 0.5 * _sq(a, b)
+    if name == "L1":
+        return torch.cdist(a, b, p=1)
+    if name == "ARD_L1":
+        r = hv(m.rate)
+        return torch.cdist(a * r, b * r, p=1)
+    if name in ("PSD_L2", "PSD_Dot"):
+        dirs, r = hv(m.directions), hv(m.rate)
+        if name == "PSD_Dot":
+            return a @ (dirs.T @ dirs + torch.diag(r * r)) @ b.T
+        amap = torch.cat([dirs, torch.diag(r)])
+        return 0.5 * _sq(a @ amap.T, b @ amap.T)
+    if name in ("ARD_Dot", "ARD_DotBias"):
+        r = hv(m.rate)
+        g = (a * r) @ (b * r).T
+        return g + hv(m.bias) if name == "ARD_DotBias" else g
+    if name == "One":
+        return torch.ones((a.shape[0], b.shape[0]), dtype=dt)
+    if name == "Delta":
+        return _per_dim(a, b, lambda d, k, u, v: (u == v).to(dt))
+    if name == "Minimum":
+        return _per_dim(a, b, lambda d, k, u, v: torch.minimum(u, v), torch.mul, 1.0)
+    if name == "DeltaEq":
+        return _per_dim(a, b, lambda d, k, u, v: ((u == eq[0]) & (v == eq[0])).to(dt))
+    if name == "DeltaEq2":
+        return _per_dim(a, b, lambda d, k, u, v: ((u == eq[0]) & (v == eq[1])).to(dt)
+                        + ((u == eq[1]) & (v == eq[0])).to(dt))
+    raise ValueError(f"host: no metric {name}")
+
+
+def host_cov(k, vals, a, b=None):
+    """The kernel's gram (square when ``b`` is None), each factor by its
+    definition."""
+    name = type(k).__name__
+    same = b is None
+    bb = a if same else b
+    dt = a.dtype
+
+    def hv(h):
+        return _hv(h, vals, dt)
+
+    parts = {"KernelSum": torch.add, "KernelProd": torch.mul, "KernelMax": torch.maximum}
+    if name in parts:
+        return parts[name](host_cov(k.k1, vals, a, b), host_cov(k.k2, vals, a, b))
+    if name == "KernelScale":
+        return hv(k.element) * host_cov(k.k_inner, vals, a, b)
+    if name == "KernelShift":
+        return hv(k.element) + host_cov(k.k_inner, vals, a, b)
+    if name in ("KernelNoise", "WN"):
+        if same:
+            return hv(k.var) * torch.eye(a.shape[0], dtype=dt)
+        if name == "KernelNoise":
+            return torch.zeros((a.shape[0], b.shape[0]), dtype=dt)
+        return hv(k.var) * host_metric(k.metric, vals, a, b)
+    if name == "KernelEquals":
+        return host_metric(k.metric, vals, a, bb, (k.eq,))
+    if name == "KernelEquals2":
+        return host_metric(k.metric, vals, a, bb, (k.eq1, k.eq2))
+    if name in ("COS", "SIN", "SINC", "SM"):
+        s1, s2 = _active(k.metric, a), _active(k.metric, bb)
+        f = hv(k.freq)
+        if name == "SIN":
+            # sum_j r_j sin^2(pi f_j (a_j - b_j)) = sum_j r_j / 2
+            #   - (cos(2 pi f a) diag(r) cos(2 pi f b)' + the same of sin) / 2
+            r = hv(k.rate)
+            p1, p2 = 2 * np.pi * f * s1, 2 * np.pi * f * s2
+            cross = (torch.cos(p1) * r) @ torch.cos(p2).T + (torch.sin(p1) * r) @ torch.sin(p2).T
+            return hv(k.var) * torch.exp(-2.0 * (0.5 * r.sum() - 0.5 * cross))
+        cosp = _per_dim(s1, s2, lambda d, j, u, v: torch.cos(2 * np.pi * d * f[j]),
+                        torch.mul, 1.0)
+        if name == "COS":
+            return hv(k.var) * cosp
+        if name == "SM":
+            r = hv(k.rate)
+            return hv(k.var) * torch.exp(-2 * np.pi ** 2 * _sq(s1 * r, s2 * r)) * cosp
+        arg = lambda d, j: 2 * np.pi ** 2 * d * f[j]  # noqa: E731
+        sinc = _per_dim(s1, s2, lambda d, j, u, v: torch.where(
+            d != 0, torch.sin(arg(d, j)) / torch.where(d != 0, arg(d, j), 1.0), 1.0),
+            torch.mul, 1.0)
+        return hv(k.var) * sinc
+    g = host_metric(k.metric, vals, a, bb)
+    if name == "VAR":
+        return hv(k.var) * torch.ones_like(g)
+    if name == "NIL":
+        return torch.zeros_like(g)
+    if name in ("KernelDot", "BW", "LIN"):
+        return hv(k.var) * g
+    if name == "POL":
+        return hv(k.var) * g ** k.p
+    if name == "NN":
+        r, bias = hv(k.metric.rate), hv(k.metric.bias)
+        d1 = bias + ((_active(k.metric, a) * r) ** 2).sum(1)
+        d2 = bias + ((_active(k.metric, bb) * r) ** 2).sum(1)
+        arg = 2 * g / torch.sqrt((1 + 2 * d1)[:, None] * (1 + 2 * d2)[None, :])
+        return hv(k.var) * torch.arcsin(torch.clamp(arg, -1.0, 1.0))
+    if name in ("SE", "OU", "KernelStationaryExponential"):
+        return hv(k.var) * torch.exp(-g)
+    if name in ("MAT32", "MAT52"):
+        c = 3.0 if name == "MAT32" else 5.0
+        s = torch.sqrt(c * g)
+        return hv(k.var) * (1 + s + (5 * g / 3 if name == "MAT52" else 0)) * torch.exp(-s)
+    if name == "RQ":
+        alpha = hv(k.alpha)
+        return hv(k.var) * (1 + g / alpha) ** -alpha
+    raise ValueError(f"host: no kernel {name}")
+
+
+def host_mean(m, vals, a):
+    name = type(m).__name__
+    dt = a.dtype
+
+    def hv(h):
+        return _hv(h, vals, dt)
+
+    if name in ("MeanSum", "MeanProd"):
+        op = torch.add if name == "MeanSum" else torch.mul
+        return op(host_mean(m.m1, vals, a), host_mean(m.m2, vals, a))
+    if name in ("MeanScale", "MeanShift"):
+        op = torch.mul if name == "MeanScale" else torch.add
+        return op(hv(m.element), host_mean(m.m, vals, a))
+    a = _active(m, a)
+    if name == "Zero":
+        return torch.zeros(a.shape[0], dtype=dt)
+    if name == "Bias":
+        return hv(m.bias) * torch.ones(a.shape[0], dtype=dt)
+    if name == "Linear":
+        return hv(m.constant) + a @ hv(m.coeff)
+    if name == "Power":
+        return hv(m.constant) + (a ** m.n) @ hv(m.coeff)
+    raise ValueError(f"host: no mean {name}")
+
+
+def host_mapping(t, vals, y):
+    """(T^-1(y), dT^-1/dy) of a warping, both elementwise, by their closed
+    forms."""
+    name = type(t).__name__
+    dt = y.dtype
+
+    def hv(h):
+        return _hv(h, vals, dt)
+
+    def signed(z, p):
+        return torch.sign(z) * z.abs() ** p
+
+    if name == "Identity":
+        return y, torch.ones_like(y)
+    if name == "MappingInvSum":
+        (i1, d1), (i2, d2) = host_mapping(t.m1, vals, y), host_mapping(t.m2, vals, y)
+        return i1 + i2, d1 + d2
+    if name == "LinearMapping":
+        s = hv(t.scale)
+        return y / s + hv(t.shift), torch.ones_like(y) / s
+    if name == "LogShifted":
+        z = y - hv(t.shift)
+        return torch.log(z), 1 / z
+    if name in ("BoxCoxShifted", "BoxCoxLinear2"):
+        p = hv(t.power)
+        s = hv(t.scale) if name == "BoxCoxLinear2" else torch.ones((), dtype=dt)
+        z = s * y + hv(t.shift)
+        return (signed(z, p) - 1) / p, s * z.abs() ** (p - 1)
+    if name == "SinhArcsinh":
+        s = hv(t.scale)
+        inner = hv(t.shift) + s * torch.arcsinh(y)
+        return torch.sinh(inner), torch.cosh(inner) * s / torch.sqrt(1 + y * y)
+    if name == "Logistic":
+        p = (y - hv(t.lower)) / hv(t.high)
+        s = hv(t.scale)
+        return hv(t.location) + s * torch.log(p / (1 - p)), s / (hv(t.high) * p * (1 - p))
+    if name == "WarpingBoxCox":
+        z = y[:, None] + hv(t.shift)
+        p, w = hv(t.power), hv(t.w)
+        return ((signed(z, p) - 1) / p) @ w, (z.abs() ** (p - 1)) @ w
+    if name == "WarpingTanh":
+        a, b, c = hv(t.a), hv(t.b), hv(t.c)
+        th = torch.tanh(b * (y[:, None] + c))
+        return y + th @ a, 1 + (1 - th * th) @ (a * b)
+    raise ValueError(f"host: no mapping {name}")
+
+
+def host_gp_logp(proc, vals, x, y, chol=None):
+    """The GP/WGP log density at ``vals`` (its priors are 0 inside their
+    support): Cholesky of the noisy gram (or the given one), the warped
+    residual, the log-Jacobian."""
+    if chol is None:
+        chol = torch.linalg.cholesky(host_cov(proc.f_kernel_noise, vals, x))
+    latent, slope = host_mapping(proc.f_mapping, vals, y)
+    resid = latent - host_mean(proc.f_location, vals, x)
+    w = torch.linalg.solve_triangular(chol, resid[:, None], upper=False)[:, 0]
+    return float(-0.5 * w @ w - torch.log(torch.diagonal(chol)).sum()
+                 - 0.5 * len(y) * np.log(2 * np.pi) + torch.log(slope).sum())
+
+
+def host_logp_fn(proc, x, y, dtype=torch.float64):
+    """``u -> logp`` on the host, in ``dtype`` arithmetic."""
+    xt = torch.as_tensor(x.astype(np.float64), dtype=dtype)
+    yt = torch.as_tensor(y.astype(np.float64), dtype=dtype)
+    return lambda u: host_gp_logp(proc, host_values(proc.active, u), xt, yt)
+
+
+def held(gap, limit, witness_fn, label):
+    """``gap`` within ``limit``, or within 4x a float32 host witness's gap
+    where float32 rounding alone goes beyond the limit (cond(K) high):
+    ``witness_fn`` is only run then.  Returns the limit applied."""
+    if gap > limit:
+        limit = max(limit, WITNESS_FACTOR * witness_fn())
+        print(f"    {label}: float32 host witness sets the limit to {limit:.3e}", flush=True)
+    require(gap <= limit, f"{label}: gap {gap:.3e} > {limit:.3e}")
+    return limit
+
+
+def composite_9a(lib, x, name):
+    """GP(Linear + Bias, SE * SIN + 2 MAT52 + LIN + 0.1): tutorial 03's
+    algebra, two K1 factors (SE, MAT52) in every gram."""
+    return lib.GP(space=x[:4], location=lib.Linear(x) + lib.Bias(),
+                  kernel=lib.SE(x) * lib.SIN(x) + 2.0 * lib.MAT52(x) + lib.LIN(x) + 0.1,
+                  name=name)
+
+
+def counted_eval(proc, u, want, label):
+    """One logp and one dlogp, each launching exactly ``want`` = (K1, K2)."""
+    for what, fn in (("logp", lambda: proc.logp(u, array=True)), ("dlogp", lambda: proc.dlogp(u))):
+        zero_counts()
+        fn()
+        k1, k2, retries = launches()
+        require((k1, k2 - retries) == want,
+                f"{label} {what}: K1 x{k1}, K2 x{k2} ({retries} retries), expected {want}")
+
+
+def phase9a(x, y, path):
+    """The composite GP at n=4096: logp and dlogp (two K1 launches and one
+    K2 each) against the float64 host, find_MAP, 8 Predictor batches of 256
+    from the MAP, batch 0 against the host posterior."""
+    gp = composite_9a(g3t, x, "SMOKE_CMP")
+    gp.observed(x, y)
+    reg = gp.active
+    u = reg.dict_to_array(gp.params_default)
+    counted_eval(gp, u, (2, 1), "9a")
+    zero_counts()
+    t_eval = timed_eval(gp, u)
+    family_launches("9a logp+dlogp (3 pairs)", path, *launches()[:2])
+    host = host_logp_fn(gp, x, y)
+    val, grad = gp.logp(u, array=True), gp.dlogp(u).astype(np.float64)
+    ref = host(np.asarray(u, np.float64))
+    gaps = {"logp": abs(val - ref) / abs(ref)}
+    dirs = np.random.default_rng(91).standard_normal((2, reg.ndim))
+    u64, h = np.asarray(u, np.float64), 1e-4
+    for i, v in enumerate(dirs / np.linalg.norm(dirs, axis=1, keepdims=True)):
+        fd = (host(u64 + h * v) - host(u64 - h * v)) / (2 * h)
+        gaps[f"dlogp_dir{i}"] = abs(grad @ v - fd) / max(abs(fd), 1e-3 * np.linalg.norm(grad))
+    witness32 = host_logp_fn(gp, x, y, torch.float32)
+    held(gaps["logp"], 1e-3, lambda: abs(witness32(u64) - ref) / abs(ref), "9a logp")
+    require(all(g <= 1e-2 for k, g in gaps.items() if k != "logp"), f"9a dlogp: {gaps}")
+    print(f"  9a composite n={len(x)}: logp {val:.4f} vs host {ref:.4f}; logp+dlogp median "
+          f"{t_eval:.2f} ms; gaps " + ", ".join(f"{k}={g:.3e}" for k, g in gaps.items()),
+          flush=True)
+    t_dev = top_ops(profile(lambda: (gp.logp(u, array=True), gp.dlogp(u))),
+                    f"9a composite n={len(x)} logp+dlogp", count=10)
+    print(f"    device {t_dev:.2f} ms of a {t_eval:.2f} ms pair: idle share "
+          f"{max(0.0, 1 - t_dev / t_eval):.2f}", flush=True)
+
+    zero_counts()
+    before = gp.logp(u, array=True)
+    t0 = time.perf_counter()
+    gp_map = gp.find_MAP(points=1, powell=False, display=False)
+    t_fit = time.perf_counter() - t0
+    after = gp.logp(gp_map)
+    family_launches("9a find_MAP", path, *launches()[:2])
+    print(f"  9a find_MAP: logp {before:.4f} -> {after:.4f} in {t_fit:.2f} s; noise variance "
+          f"{float(gp_map['SMOKE_CMP_Noise_var']):.4g}, LIN bias "
+          f"{float(gp_map['SMOKE_CMP_LIN_bias']):.4g} at the MAP", flush=True)
+    require(after > before, f"9a find_MAP did not raise logp ({before} -> {after})")
+
+    queries = [np.random.default_rng(92 + i).standard_normal((256, 8)).astype(np.float32)
+               for i in range(8)]
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    pr = gp.predictor(gp_map)
+    torch.cuda.synchronize()
+    t_setup = (time.perf_counter() - t0) * 1e3
+    times, outs = [], []
+    for xq in queries:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(pr(xq, quantiles=True))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    k1, k2, _ = launches()
+    family_launches("9a Predictor set-up + 8 batches", path, k1, k2)
+    require(k1 == 2 * (1 + 2 * len(queries)) and all(finite(o[k]) for o in outs for k in o),
+            f"9a Predictor: K1 x{k1} (2 per gram), outputs finite")
+
+    def posterior(dtype):
+        vals = host_values(reg, reg.dict_to_array(gp_map))
+        xt, yt, qt = (torch.as_tensor(a.astype(np.float64), dtype=dtype)
+                      for a in (x, y, queries[0]))
+        chol = torch.linalg.cholesky(host_cov(gp.f_kernel_noise, vals, xt))
+        resid = yt - host_mean(gp.f_location, vals, xt)
+        cross = host_cov(gp.f_kernel, vals, qt, xt)
+        alpha = torch.cholesky_solve(resid[:, None], chol)[:, 0]
+        v = torch.linalg.solve_triangular(chol, cross.T, upper=False)
+        var = torch.diagonal(host_cov(gp.f_kernel, vals, qt)) - (v * v).sum(0)
+        return {"mean": (host_mean(gp.f_location, vals, qt) + cross @ alpha).double().numpy(),
+                "std": torch.sqrt(torch.clamp(var, min=0.0)).double().numpy()}
+
+    # at the MAP the noise is small beside the constant and LIN terms
+    # (cond(K) ~ 1e6-1e7), where float32 rounding alone moves the posterior:
+    # the float32 batch is held to the float32 host witness, and the same
+    # Predictor in float64 on the card to the float64 host at 1e-5 (the
+    # host's own float64 rounding times cond(K) stays below 1e-8)
+    ref_post = posterior(torch.float64)
+    gap = stat_gap({k: outs[0][k] for k in ref_post}, ref_post)
+    worst = max(gap.values())
+    held(worst, 1e-3, lambda: max(stat_gap({k: torch.as_tensor(v) for k, v in
+                                            posterior(torch.float32).items()}, ref_post).values()),
+         "9a Predictor at the MAP")
+    g3t.settings.floatx = "float64"
+    try:
+        out64 = gp.predictor(gp_map)(queries[0])
+        gap64 = max(stat_gap({k: out64[k] for k in ref_post}, ref_post).values())
+    finally:
+        g3t.settings.floatx = "float32"
+    require(gap64 <= 1e-5, f"9a float64 Predictor at the MAP vs the float64 host: {gap64:.3e}")
+    print(f"  9a Predictor at the MAP: set-up {t_setup:.1f} ms; 8 batches of 256 median "
+          f"{statistics.median(times):.3f} ms; batch 0 vs the float64 host {gap} (float32), "
+          f"{gap64:.3e} (the Predictor in float64)", flush=True)
+    return dict(logp_dlogp_ms=t_eval, device_ms=t_dev, gaps=gaps, fit_s=t_fit,
+                map_logp=after, setup_ms=t_setup, batch_ms=statistics.median(times),
+                predictor_gap=worst, predictor_gap_f64=gap64)
+
+
+def zoo_9b(x_idx):
+    """(label, kernel builder, K1 launches per gram) of phase 9b: every
+    kernel of tests/test_zoo.py's KERNELS, every distance metric under SE
+    and every dot metric under KernelDot, and the index kernels on an index
+    column (KernelEquals2 with both indexes 1, so that the sum stays PSD);
+    the Brownian kernel BW runs on |x| (its min-product is a covariance on
+    positive inputs only)."""
+    x = x_idx[:, :8]
+    cases = [(k, (lambda k: lambda: getattr(g3t, k)(x))(k), int(k in K1_FAMILIES))
+             for k in KERNELS_9B]
+    for m in DISTANCE_METRICS:
+        cases.append((f"SE/{m}", (lambda m: lambda: g3t.SE(x, metric=getattr(g3t, m)(
+            x, **({"p": 2} if m == "PSD_L2" else {}))))(m), int(m == "ARD_L2")))
+    for m in DOT_METRICS:
+        cases.append((f"KernelDot/{m}", (lambda m: lambda: g3t.KernelDot(x, metric=getattr(
+            g3t, m)(x, **({"p": 2} if m == "PSD_Dot" else {}))))(m), 0))
+    cases.append(("KernelMax(SE,OU)", lambda: g3t.KernelMax(g3t.SE(x), g3t.OU(x)), 1))
+    cases.append(("Equals*SE+SE", lambda: g3t.KernelEquals([8], eq=1) * g3t.SE(x, name="SEg")
+                  + g3t.SE(x), 2))
+    cases.append(("Equals2*SE+SE", lambda: g3t.KernelEquals2([8], eq1=1, eq2=1)
+                  * g3t.SE(x, name="SEg") + g3t.SE(x), 2))
+    return cases
+
+
+def phase9b(x, y, path):
+    """Each case of ``zoo_9b`` in GP(Bias) at n=4096: one logp (K1 launches
+    as the case says, one K2) against the float64 host."""
+    x_idx = np.concatenate([x, (x[:, :1] > 0).astype(np.float32)], axis=1)
+    yt64 = torch.as_tensor(y.astype(np.float64))
+    out = {}
+    for label, build, k1_want in zoo_9b(x_idx):
+        xs = np.abs(x_idx) if label == "BW" else x_idx
+        gp = g3t.GP(space=xs[:4], location=g3t.Bias(), kernel=build(),
+                    name="Z9" + "".join(c for c in label if c.isalnum()))
+        gp.observed(xs, y)
+        # a PSD metric's directions default to 0, on the wall of their
+        # FlatExp prior (the reference's default): take them inside
+        params = {k: np.full_like(v, 0.3) if k.endswith("_directions") else v
+                  for k, v in gp.params_default.items()}
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        val = gp.logp(params)
+        t_ms = (time.perf_counter() - t0) * 1e3
+        k1, k2, retries = launches()
+        path[0] += k1
+        path[1] += k2
+        vals = {k: np.asarray(v, np.float64) for k, v in params.items()}
+        ref = host_gp_logp(gp, vals, torch.as_tensor(xs.astype(np.float64)), yt64)
+        gap = abs(val - ref) / abs(ref)
+        x32, y32 = (torch.as_tensor(a) for a in (xs, y))
+        held(gap, 1e-3, lambda: abs(host_gp_logp(gp, vals, x32, y32) - ref) / abs(ref),
+             f"9b {label}")
+        require((k1, k2 - retries) == (k1_want, 1),
+                f"9b {label}: K1 x{k1}, K2 x{k2} ({retries} retries), expected ({k1_want}, 1)")
+        out[label] = dict(logp=val, gap=gap, ms=t_ms, k1=k1)
+    print("  9b zoo at n=4096 (logp vs the float64 host; ms of one logp; K1 launches): "
+          + "; ".join(f"{k} {v['gap']:.1e} {v['ms']:.1f}ms K1x{v['k1']}" for k, v in out.items()),
+          flush=True)
+    return out
+
+
+def phase9c(x, y, path):
+    """Tutorial 08 at n=4096: two GPs with active=True in one registry,
+    sharing one ARD_L2 rate Param; a joint logp and a joint dlogp each
+    launch K1 x2 and K2 x2; the joint logp against the sum of the two
+    float64 host logps; the joint find_MAP."""
+    y2 = (0.8 * y + 0.1 + 0.05 * np.random.default_rng(93).standard_normal(len(y))
+          ).astype(np.float32)
+    g3t.GraphicalModel.active = None
+    try:
+        shared = g3t.Param("SMOKE_G08_shared_rate", shape=(8,), prior=g3t.FlatExp())
+        p1, p2 = (g3t.GP(space=x[:4], location=g3t.Bias(),
+                         kernel=g3t.SE(x, metric=g3t.ARD_L2(x, rate=shared)),
+                         name=name, active=True) for name in ("SMOKE_F1", "SMOKE_F2"))
+        p1.observed(x, y)
+        p2.observed(x, y2)
+        reg = p1.active
+        require(reg is p2.active is g3t.modelcontext() and reg.ndim == 2 * 3 + 8,
+                f"9c: one registry of {reg.ndim} dims expected 14")
+        start = dict(p1.params_default)
+        start["SMOKE_G08_shared_rate"] = np.full(8, 0.5, np.float32)
+        u = reg.dict_to_array(start)
+        counted_eval(p1, u, (2, 2), "9c joint")
+        zero_counts()
+        t_eval = timed_eval(p1, u)
+        family_launches("9c joint logp+dlogp (3 pairs)", path, *launches()[:2])
+        vals = host_values(reg, np.asarray(u, np.float64))
+        xt = torch.as_tensor(x.astype(np.float64))
+        ref = sum(host_gp_logp(p, vals, xt, torch.as_tensor(yy.astype(np.float64)))
+                  for p, yy in ((p1, y), (p2, y2)))
+        val = p1.logp(u, array=True)
+        gap = abs(val - ref) / abs(ref)
+        require(gap <= 1e-3, f"9c joint logp {val} vs the host sum {ref}")
+        zero_counts()
+        t0 = time.perf_counter()
+        gmap = p1.find_MAP(start=start, points=1, powell=False, display=False)
+        t_fit = time.perf_counter() - t0
+        after = p1.logp(gmap)
+        family_launches("9c joint find_MAP", path, *launches()[:2])
+        require(after > val, f"9c joint find_MAP did not raise logp ({val} -> {after})")
+        print(f"  9c tutorial 08 n={len(x)} x 2: joint logp {val:.4f} vs the two host logps "
+              f"{ref:.4f} (gap {gap:.3e}); logp+dlogp median {t_eval:.2f} ms; find_MAP "
+              f"{val:.4f} -> {after:.4f} in {t_fit:.2f} s; shared rate at the MAP "
+              f"{np.round(np.asarray(gmap['SMOKE_G08_shared_rate']), 3).tolist()}", flush=True)
+    finally:
+        g3t.GraphicalModel.active = None
+    return dict(logp_dlogp_ms=t_eval, gap=gap, fit_s=t_fit, map_logp=after)
+
+
+def phase9d(path_batched):
+    """9a's composite at the n=125 sampler data: 32 walkers x 50 through
+    sample_hypers, two batched K1 and one batched K2 a batched call; the
+    final walkers inside the prior's support against the float64 host."""
+    x, y = bench_wgp_data()
+    gp = composite_9a(g3t, x, "SMOKE_BCMP")
+    gp.observed(x, y)
+    start = gp.params_default
+    chains, iters = 32, 50
+    gp.sample_hypers(start=start, samples=3, chains=chains, noise_mult=0.05, seed=1)  # warm-up
+    with counted_calls(gp) as calls:
+        zero_counts()
+        t0 = time.perf_counter()
+        chain, lnprob = gp.sample_hypers(start=start, samples=iters, chains=chains,
+                                         noise_mult=0.05, seed=2, raw=True)
+        t_s = time.perf_counter() - t0
+        k1, k2, retries = launches()
+    require(len(calls) == 1 + 2 * iters and k1 == 2 * len(calls)
+            and k2 - retries == len(calls),
+            f"9d: K1 x{k1}, K2 x{k2} - {retries} on {len(calls)} batched calls")
+    path_batched[0] += k1
+    path_batched[1] += k2
+    require(np.isfinite(chain).all() and np.isfinite(lnprob).all(), "9d chain not finite")
+    final = chain[:, -1, :]
+    final_lp = gp.logp_chain(final)
+    host = host_logp_fn(gp, x, y)
+    witness = host_logp_fn(gp, x, y, torch.float32)
+    inside = [w for w in range(chains) if final_lp[w] > -1e29]
+    gaps, limits = [], []
+    for w in inside:
+        ref = host(final[w])
+        scale = max(1.0, abs(ref))
+        gaps.append(abs(final_lp[w] - ref) / scale)
+        limits.append(max(1e-3, WITNESS_FACTOR * abs(witness(final[w]) - ref) / scale))
+    print(f"  9d composite n=125, {chains} walkers x {iters}: sample_hypers {t_s:.3f} s; "
+          f"{len(calls)} batched calls, K1 x{k1}, K2 x{k2} ({retries} retries); {len(inside)} "
+          f"final walkers inside the support, lnprob vs the float64 host max gap "
+          f"{max(gaps):.3e}", flush=True)
+    require(len(inside) >= chains // 2 and all(g <= lim for g, lim in zip(gaps, limits)),
+            f"9d final walkers vs host: {len(inside)} inside, gaps {gaps}, limits {limits}")
+    return dict(sampler_s=t_s, calls=len(calls), inside=len(inside), walker_gap=max(gaps))
+
+
+def mapping_9e(name, y):
+    if name == "MappingInvSum":
+        return g3t.MappingInvSum(g3t.WarpingTanh(y, name="Tanh"), g3t.LinearMapping(y))
+    if name == "WarpingBoxCox":
+        return g3t.WarpingBoxCox(y, n=2)
+    return getattr(g3t, name)(y)
+
+
+def phase9e(x, y_pos, path):
+    """A WGP(Bias, SE) at n=4096 with each warping of ``MAPPINGS_9E``:
+    logp against the float64 host, dlogp along two random directions of
+    the warping's and the location's coordinates against central
+    differences of the host logp (the kernel's coordinates stay, so one
+    host factorization serves them all), and for an inv-only warping a
+    Predictor batch of 256 through the Newton inverse: the host's
+    T^-1(median) against its float64 latent location."""
+    xt = torch.as_tensor(x.astype(np.float64))
+    yt = torch.as_tensor(y_pos.astype(np.float64))
+    chols = {}
+    out = {}
+    for name in MAPPINGS_9E:
+        wgp = g3t.WGP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x),
+                      mapping=mapping_9e(name, y_pos), name="SMOKE_M" + name)
+        wgp.observed(x, y_pos)
+        reg = wgp.active
+        u = reg.dict_to_array(wgp.params_default)
+        counted_eval(wgp, u, (1, 1), f"9e {name}")
+        zero_counts()
+        t_eval = timed_eval(wgp, u, reps=2)
+        family_launches(f"9e {name} logp+dlogp", path, *launches()[:2])
+        kernel_keys = [p.name for p in wgp.f_kernel_noise.hypers]
+
+        def host(uu):
+            vals = host_values(reg, uu)
+            key = tuple(np.asarray(vals[k]).tobytes() for k in kernel_keys)
+            if key not in chols:
+                chols[key] = torch.linalg.cholesky(host_cov(wgp.f_kernel_noise, vals, xt))
+            return host_gp_logp(wgp, vals, xt, yt, chols[key])
+
+        u64 = np.asarray(u, np.float64)
+        val, grad = wgp.logp(u, array=True), wgp.dlogp(u).astype(np.float64)
+        ref = host(u64)
+        gaps = {"logp": abs(val - ref) / abs(ref)}
+        moving = np.array([not any(p.name == k for k in kernel_keys)
+                           for p in reg.ordered_params for _ in range(p.size)])
+        dirs = np.random.default_rng(94).standard_normal((2, reg.ndim)) * moving
+        for i, v in enumerate(dirs / np.linalg.norm(dirs, axis=1, keepdims=True)):
+            fd = (host(u64 + 1e-4 * v) - host(u64 - 1e-4 * v)) / 2e-4
+            gaps[f"dlogp_dir{i}"] = abs(grad @ v - fd) / max(abs(fd), 1e-3 * np.linalg.norm(grad))
+        require(gaps["logp"] <= 1e-3 and all(g <= 1e-2 for k, g in gaps.items() if k != "logp"),
+                f"9e {name} vs the float64 host: {gaps}")
+        rec = dict(logp_dlogp_ms=t_eval, gaps=gaps)
+        if name in INV_ONLY_9E:
+            xq = np.random.default_rng(95).standard_normal((256, 8)).astype(np.float32)
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            pr = wgp.predictor()
+            got = pr(xq, median=True, quantiles=True)
+            torch.cuda.synchronize()
+            t_batch = (time.perf_counter() - t0) * 1e3
+            family_launches(f"9e {name} Predictor set-up + batch", path, *launches()[:2])
+            vals = host_values(reg, u64)
+            chol = chols[tuple(np.asarray(vals[k]).tobytes() for k in kernel_keys)]
+            qt = torch.as_tensor(xq.astype(np.float64))
+            latent, _ = host_mapping(wgp.f_mapping, vals, yt)
+            resid = latent - host_mean(wgp.f_location, vals, xt)
+            loc = (host_mean(wgp.f_location, vals, qt) + host_cov(wgp.f_kernel, vals, qt, xt)
+                   @ torch.cholesky_solve(resid[:, None], chol)[:, 0])
+            back, _ = host_mapping(wgp.f_mapping, vals, got["median"].double().cpu())
+            rec["newton_gap"] = float((back - loc).abs().max() / loc.abs().max())
+            rec["batch_ms"] = t_batch
+            require(all(finite(v) for v in got.values()) and rec["newton_gap"] <= 1e-3,
+                    f"9e {name} Predictor: T^-1(median) vs the host location "
+                    f"{rec['newton_gap']:.3e}")
+        out[name] = rec
+        print(f"  9e WGP({name}) n={len(x)}: logp {val:.4f} vs host {ref:.4f}; logp+dlogp "
+              f"median {t_eval:.2f} ms; gaps " + ", ".join(f"{k}={g:.3e}" for k, g in gaps.items())
+              + (f"; Predictor set-up + a batch of 256 {rec['batch_ms']:.1f} ms, T^-1(median) vs "
+                 f"the host location {rec['newton_gap']:.3e}" if "batch_ms" in rec else ""),
+              flush=True)
+    return out
+
+
+def k1_algebra_inputs():
+    """K1 against its plain version on the inputs the kernel algebra
+    reaches, at the main path's shapes (float32; phase 2's tolerance): a
+    dims-restricted slice (SE on dims [3] of 8, n=4096), one rate Param
+    shared by two factors (SE * MAT52, whose amplitude the product pins to
+    a 0-d 1), and a 0-d amplitude beside a (R, d) rate (R=32 walkers at
+    n=125, every family).  Returns the largest |K1 - plain| of the single
+    grams and of the batched ones."""
+    rng = np.random.default_rng(96)
+    dev = g3t.settings.device
+    x = torch.as_tensor(rng.standard_normal((4096, 8)), dtype=torch.float32, device=dev)
+    rates = torch.as_tensor(rng.uniform(0.3, 1.2, (32, 8)), dtype=torch.float32, device=dev)
+    shared = g3t.Param("K1A_shared_rate", shape=(8,), prior=g3t.FlatExp())
+    k = (g3t.SE([3], name="SEd") + g3t.SE(8, name="SEa", metric=g3t.ARD_L2(8, rate=shared))
+         * g3t.MAT52(8, name="Ma", metric=g3t.ARD_L2(8, rate=shared)))
+    k.check_hypers("K1A_")
+    var = torch.tensor(1.3, device=dev)
+    one = torch.ones((), device=dev)
+    params = {"K1A_SEd_var": var, "K1A_SEd_rate": rates[0, 3:4], "K1A_SEa_var": var,
+              "K1A_shared_rate": rates[1]}
+    rtol, atol = TOL[torch.float32]
+    checks = [("dims [3] + shared rate", k.cov(params, x),
+               _plain_form("se", x[:, 3:4], x[:, 3:4], rates[0, 3:4], var)
+               + _plain_form("se", x, x, rates[1], var)
+               * _plain_form("mat52", x, x, rates[1], one),
+               2 * 1.3, "single")]
+    alpha = torch.tensor(0.8, device=dev)
+    for kind in sorted(KINDS):
+        checks.append((f"{kind} 0-d var, 32 rows", stationary_gram(kind, x[:125], x[:125], rates,
+                                                                   one, alpha),
+                       _plain_form(kind, x[:125], x[:125], rates, one.expand(32),
+                                   alpha.expand(32)), 1.0, "batched"))
+    worst = {"single": 0.0, "batched": 0.0}
+    for label, got, want, scale, kind in checks:
+        torch.cuda.synchronize()
+        err = float(((got - want).abs() - rtol * want.abs()).max())
+        worst[kind] = max(worst[kind], float((got - want).abs().max()))
+        require(err <= atol * scale, f"K1 on {label}: beyond rtol {rtol}, atol {atol} x {scale}")
+    print(f"  K1 vs plain on the algebra's inputs ({len(checks)} cases): max |K1 - plain| "
+          f"{worst}", flush=True)
+    return worst
+
+
+def phase9(x, y, path, path_batched):
+    """Phase 9's runs; the single-matrix launches of 9a-9c and 9e go to
+    ``path``, the batched ones of 9d to ``path_batched``."""
+    y_pos = (np.abs(np.sin(x[:, 0])) + 0.5
+             + 0.1 * np.random.default_rng(80).standard_normal(len(x))).astype(np.float32)
+    out = {"k1_algebra_err": k1_algebra_inputs()}
+    runs = (("9a", "composite GP", lambda p: phase9a(x, y, p)),
+            ("9b", "kernel zoo and metrics", lambda p: phase9b(x, y, p)),
+            ("9c", "tutorial 08, shared rate", lambda p: phase9c(x, y, p)),
+            ("9d", "composite sampler rows", phase9d),
+            ("9e", "warpings", lambda p: phase9e(x, y_pos, p)))
+    for key, label, run in runs:
+        print(f"phase {key}: {label}", flush=True)
+        t0 = time.perf_counter()
+        launched = [0, 0]
+        out[key] = run(launched)
+        out[key]["wall_s"] = time.perf_counter() - t0
+        print(f"  phase {key} wall {out[key]['wall_s']:.1f} s; launches K1 {launched[0]}, "
+              f"K2 {launched[1]}", flush=True)
+        target = path_batched if key == "9d" else path
+        target[0] += launched[0]
+        target[1] += launched[1]
+    return out
+
+
 def main():
     print("phase 0: device", flush=True)
     if not torch.cuda.is_available():
@@ -2370,6 +3098,17 @@ def main():
           f"K2 {p8_batched[1]}", flush=True)
     require(p8[0] > 0 and p8[1] > 0, "phase 8 did not go through both kernels")
 
+    # ---- the rest of the hypers catalogue: the counts are zeroed before,
+    # and read after, each float32 run (logp/dlogp, find_MAP, the
+    # Predictor, each zoo logp, the sampler); the host checks and the
+    # witnesses are not counted
+    p9, p9_batched = [0, 0], [0, 0]
+    catalogue = phase9(x_map, y_map, p9, p9_batched)
+    print(f"  launches in phase 9: K1 {p9[0]}, K2 {p9[1]}; batched (9d) K1 {p9_batched[0]}, "
+          f"K2 {p9_batched[1]}", flush=True)
+    require(p9[0] > 0 and p9[1] > 0 and p9_batched[0] > 0 and p9_batched[1] > 0,
+            "phase 9 did not go through both kernels")
+
     shape = (4096, 4096, 8)
     t_wrap, t_plain, t_dev = k1_timing[("se", shape)]
     k1_bound = shape[0] * shape[1] * 4 / PEAK_BYTES * 1e3
@@ -2378,13 +3117,14 @@ def main():
         {"name": "stationary_gram", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
          "replaces": "g3py_tpu/ops/pallas_gram.py:81",
-         "launches": k1_serve + k1_train + k1_p7 + p8[0], "max_abs_err": k1_worst,
+         "launches": k1_serve + k1_train + k1_p7 + p8[0] + p9[0],
+         "max_abs_err": max(k1_worst, catalogue["k1_algebra_err"]["single"]),
          "ms": t_dev if t_dev is not None else t_wrap, "plain_ms": t_plain,
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "panel_cholesky", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
          "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
-         "launches": k2_serve + k2_train + k2_p7 + p8[1], "max_abs_err": k2_worst,
+         "launches": k2_serve + k2_train + k2_p7 + p8[1] + p9[1], "max_abs_err": k2_worst,
          "ms": k2t["ms"], "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"],
          "bound_by": "operations", "library_ms": k2t["library_ms"]}]}
     k1b = k1b_timing[(16, 4096, 4096, 8)]
@@ -2393,14 +3133,15 @@ def main():
         {"name": "stationary_gram_batched", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
          "replaces": "g3py_tpu/ops/pallas_gram.py:81",
-         "launches": k1_bayes + p8_batched[0], "max_abs_err": k1b_worst,
+         "launches": k1_bayes + p8_batched[0] + p9_batched[0],
+         "max_abs_err": max(k1b_worst, catalogue["k1_algebra_err"]["batched"]),
          "ms": k1b["device_ms"] if k1b["device_ms"] is not None else k1b["ms"],
          "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
         {"name": "panel_cholesky_batched", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
          "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
-         "launches": k2_bayes + p8_batched[1], "max_abs_err": k2b_worst,
+         "launches": k2_bayes + p8_batched[1] + p9_batched[1], "max_abs_err": k2b_worst,
          "ms": k2b["ms"], "plain_ms": k2b["plain_ms"], "bound_ms": k2b["bound_ms"],
          "bound_by": k2b["bound_by"], "library_ms": k2b["library_ms"]}]
     print(f"  K1 at {shape} SE f32: device {fmt_ms(t_dev)}, wrapper {t_wrap:.4f} ms, "
@@ -2411,6 +3152,7 @@ def main():
     print(f"  phase 7: oracle {json.dumps(oracle)}; GP surface {json.dumps(surface)}; WGP "
           f"{json.dumps(warped)}", flush=True)
     print(f"  phase 8: {json.dumps(families, default=float)}", flush=True)
+    print(f"  phase 9: {json.dumps(catalogue, default=float)}", flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

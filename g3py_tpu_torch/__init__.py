@@ -1,9 +1,10 @@
 """g3py_tpu_torch — the PyTorch/CUDA port of g3py_tpu.
 
-Exact GP and warped-GP regression and the reference's other process
-families — Student-t (TP/WTP), marginal (MP), transport (TGP) and copula
-(CGP/CSTP) — trained (``dlogp``, ``find_MAP``),
-sampled (``sample_hypers``, the ensemble sampler over the hyperparameter
+Exact GP and warped-GP regression over the reference's whole catalogue of
+kernels (with their ``+``/``*`` algebra), metrics, means and warpings, and
+the reference's other process families — Student-t (TP/WTP), marginal
+(MP), transport (TGP) and copula (CGP/CSTP) — trained (``dlogp``,
+``find_MAP``), sampled (``sample_hypers``, the ensemble sampler over the hyperparameter
 posterior) and served from one factorization or averaged over a datatrace,
 with the fused stationary gram and the blocked panel Cholesky as
 hand-written CUDA kernels for Hopper (sm_90a), both batched over
@@ -19,6 +20,8 @@ the card (``"cuda"``) unless the program says ``"cpu"``:
 >>> pr(x_query, quantiles=True, quantiles_noise=True)
 >>> dt = gp.sample_hypers(start=params, samples=400, chains=32)
 >>> gp.averaged_predictor(dt, max_rows=16)(x_query)
+>>> gp2 = g3t.GP(space=x, location=g3t.Linear(x) + g3t.Bias(),
+...               kernel=g3t.SE(x) * g3t.SIN(x) + 2.0 * g3t.MAT52(x) + g3t.LIN(x) + 0.1)
 >>> tp = g3t.TP(space=x, location=g3t.Bias(), kernel=g3t.SE(x))
 >>> tgp = g3t.TGP(space=x, transport=g3t.TLocation(g3t.Bias(x))
 ...               @ g3t.TKernel(g3t.SE(x), noisy=True))
@@ -38,17 +41,25 @@ from .hypers import (Hypers, Param, Prior, Flat, FlatExp, Transform,
                      IdentityTransform, LogTransform, LogIdTransform, IntervalTransform,
                      Freedom, ExpFlat, FlatPos, PositiveFlat, NonTransformLog, FlatExpId,
                      Exponential, Uniform as UniformPrior, Null)
-from .hypers.metrics import Metric, Delta, ARD, ARD_L2
-from .hypers.kernels import (Kernel, KernelStationary, KernelComposition,
-                             KernelSum, KernelNoise,
-                             KernelStationaryExponential, SE, MAT32, MAT52, RQ)
-from .hypers.means import Mean, Zero, Bias
-from .hypers.mappings import (Mapping, MappingOperation, MappingComposed, Identity,
-                              BoxCoxLinear, WarpingTanh, ArcsinhLinear)
+from .hypers.metrics import (Metric, One, Delta, DeltaEq, DeltaEq2, Minimum, Difference, L1,
+                             L2, ARD, ARD_L1, ARD_L2, ARD_Dot, ARD_DotBias, PSD, PSD_Dot,
+                             PSD_L2)
+from .hypers.kernels import (Kernel, KernelDot, KernelStationary, KernelOperation,
+                             KernelComposition, KernelSum, KernelProd, KernelScale,
+                             KernelShift, KernelMax, KernelEquals, KernelEquals2, KernelNoise,
+                             BW, VAR, NIL, LIN, POL, NN, WN, RQ, MAT32, MAT52,
+                             KernelStationaryExponential, OU, SE, KernelPeriodic, COS, SIN,
+                             SINC, SM)
+from .hypers.means import (Mean, Location, BlackBox, MeanOperation, MeanComposition,
+                           MeanScale, MeanShift, MeanProd, MeanSum, Zero, Bias, Linear, Power)
+from .hypers.mappings import (Mapping, MappingOperation, MappingComposed, MappingInvSum,
+                              Identity, LinearMapping, LogShifted, BoxCoxShifted, BoxCoxLinear,
+                              BoxCoxLinear2, WarpingTanh, WarpingBoxCox, ArcsinhLinear,
+                              SinhArcsinh, Logistic)
 from .hypers.transports import (Transport, TransportOperation, TransportComposed, ID,
                                 TElemwise, TLinear, TNoLinear, TLocation, TScale, TMapping,
                                 TKernel, TTriangular)
-from .bayesian import (GraphicalModel, optimize, ensemble_sampler, pt_sampler,
+from .bayesian import (GraphicalModel, Model, get_model, optimize, ensemble_sampler, pt_sampler,
                        default_beta_ladder, mcmc_ensemble, chains_to_datatrace,
                        datatrace_to_chains, gelman_rubin, burn_in_samples,
                        effective_sample_min, effective_sample_size)

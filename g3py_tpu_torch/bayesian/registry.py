@@ -6,8 +6,13 @@ name-keyed dicts on the user side, an unconstrained vector on the sampler
 side), the prior logp, the potentials, and ``params_default`` assembled from
 every component's data-driven defaults.
 
-Unlike the JAX package there is no process-wide active registry: a process
-makes its own unless it is handed one (``active=``).
+``GraphicalModel.active`` is the process-wide active registry, as in the
+JAX package: every new registry becomes it (:meth:`GraphicalModel.activate`),
+a process built with ``active=True`` joins it (or creates it when it is
+None), and :func:`get_model` returns it.  Several processes joined in one
+registry share hyperparameters (the same :class:`Param` is registered once)
+and sum their loglikes in one logp.  Reset it (``GraphicalModel.active =
+None``) before building a model that must not join an earlier one.
 
 The tensor side takes rows: :meth:`GraphicalModel.array_to_dict_tensor`
 maps an (R, ndim) matrix of unconstrained rows to a dict whose values lead
@@ -24,13 +29,18 @@ from ..config import settings, asarray_x, as_tensor
 from ..utils import DictObj
 from ..hypers import Param, row_shape
 
-__all__ = ["GraphicalModel"]
+__all__ = ["GraphicalModel", "Model", "get_model"]
 
 
 class GraphicalModel:
     """Shared parameter registry + model container."""
 
-    def __init__(self, name="GM", description=None):
+    active = None  # the class-level active registry
+
+    def __init__(self, name="GM", description=None, file=None, reset=False):
+        if file is not None:
+            raise NotImplementedError("model files (file=) are not ported yet "
+                                      "(ROADMAP Queue 1 item 15)")
         self.name = name
         self.description = description if description is not None else ""
         self.components = DictObj()
@@ -40,6 +50,11 @@ class GraphicalModel:
         # fix_vars (marginalizing dims over a datatrace) is not ported: every
         # dim is a sampling dim
         self.fixed_dims = []
+        self.activate()
+
+    def activate(self):
+        """Make this registry the active one."""
+        type(self).active = self
 
     def add_component(self, component):
         self.components[component.name] = component
@@ -202,3 +217,13 @@ class GraphicalModel:
 
     def dict_from_sampling_array(self, params):
         return self.array_to_dict(params)
+
+
+Model = GraphicalModel
+
+
+def get_model():
+    """The active registry, or a new one (which becomes active)."""
+    if GraphicalModel.active is not None:
+        return GraphicalModel.active
+    return GraphicalModel()

@@ -3,13 +3,13 @@
 
 The reference flattens everything into its top-level namespace, so users
 reach for names like ``tt_to_num`` or ``makefn``.  Each name here maps onto
-the port's equivalent in torch; ``modelcontext`` and ``debug_p`` need
-machinery that is not ported yet and raise with the ROADMAP item that
-brings it.
+the port's equivalent in torch; ``debug_p`` needs machinery that is not ported
+yet and raises with the ROADMAP item that brings it.
 """
 
 import torch
 
+from .bayesian.registry import GraphicalModel
 from .ops.guards import to_num, inf_to_num, to_cov, to_bounded
 from .ops.linalg import safe_cholesky
 from .ops.root import newton_inverse
@@ -90,12 +90,11 @@ def transformed_hypers(hypers):
 
 
 def modelcontext(model=None):
-    """The enclosing model: ``model`` itself when given.  Without one it
-    would be the shared active registry, which is not ported yet."""
+    """The enclosing model: ``model`` itself when given, else the active
+    registry (``GraphicalModel.active``, None when there is none)."""
     if model is not None:
         return model
-    raise NotImplementedError("modelcontext() without a model needs the shared active "
-                              "registry, not ported yet (ROADMAP Queue 1 item 10b)")
+    return GraphicalModel.active
 
 
 def debug_p(msg):

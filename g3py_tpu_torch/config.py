@@ -31,6 +31,8 @@ class Settings:
 
     Attributes:
       floatx: compute dtype of every model tensor ("float32" or "float64").
+      strict_dtypes: if True, :func:`asarray_x` raises on a float64 input
+        instead of casting it (the reference's ``warn_float64='raise'``).
       cholesky_max_tries: bound on the factorization attempts of
         :func:`g3py_tpu_torch.ops.linalg.safe_cholesky` (one clean attempt
         plus escalating-jitter retries).
@@ -43,6 +45,7 @@ class Settings:
     """
 
     floatx: str = "float32"
+    strict_dtypes: bool = False
     cholesky_max_tries: int = 21
     cholesky_jitter: float = 1e-6
     logp_guard: float = -1e30
@@ -68,8 +71,11 @@ def set_floatx(name: str):
 
 
 def asarray_x(value):
-    """Host array in the active float dtype (numeric input only)."""
+    """Host array in the active float dtype (numeric input only); under
+    ``settings.strict_dtypes`` a float64 input is an error."""
     arr = np.asarray(value)
+    if settings.strict_dtypes and arr.dtype == np.float64:
+        raise TypeError("float64 input under strict_dtypes (reference warn_float64='raise')")
     if np.issubdtype(arr.dtype, np.floating) or np.issubdtype(arr.dtype, np.integer):
         return arr.astype(settings.floatx)
     return arr

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import settings, asarray_x, as_tensor
+from ..utils import DictObj
 
 __all__ = [
     "Transform",
@@ -53,9 +54,30 @@ __all__ = [
     "is_param",
     "slice_dims",
     "row_shape",
+    "zeros",
+    "ones",
+    "cvalues",
+    "get_hypers_floatX",
 ]
 
 GUARD = -1e30  # the reference's -1e30 NaN/Inf fallback
+
+
+def zeros(shape):
+    return np.zeros(shape, dtype=settings.floatx)
+
+
+def ones(shape):
+    return np.ones(shape, dtype=settings.floatx)
+
+
+def cvalues(shape, val):
+    return (np.ones(shape, dtype=settings.floatx) * val).astype(settings.floatx)
+
+
+def get_hypers_floatX(params):
+    """A params dict with every value a host array in ``settings.floatx``."""
+    return DictObj({k: asarray_x(v) for k, v in params.items()})
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Scalar warpings (the PyTorch counterpart of
 :mod:`g3py_tpu.hypers.mappings`): each Mapping provides ``inv`` (observed
--> latent), ``__call__`` (latent -> observed) and ``logdet_dinv`` (the
-log-Jacobian of ``inv``).  A warping without an analytic forward
-(:class:`WarpingTanh`) inverts ``inv`` numerically
+-> latent), ``__call__``/``forward`` (latent -> observed) and
+``logdet_dinv`` (the log-Jacobian of ``inv``).  A warping without an
+analytic forward (:class:`WarpingTanh`, :class:`WarpingBoxCox`,
+:class:`MappingInvSum`) inverts ``inv`` numerically
 (:func:`~g3py_tpu_torch.ops.root.newton_inverse`), and a warping without an
 analytic Jacobian takes it from autograd (:meth:`Mapping.logdet_dinv_elem`).
 ``m1 @ m2`` composes two warpings (:class:`MappingComposed`).
@@ -17,14 +18,37 @@ import torch
 
 from . import Hypers, Flat, FlatExp, hval, is_param, row_shape
 from ..config import settings
+from ..ops.guards import to_num
 from ..ops.root import newton_inverse
 
-__all__ = ["Mapping", "MappingOperation", "MappingComposed", "Identity", "BoxCoxLinear",
-           "WarpingTanh", "ArcsinhLinear"]
+__all__ = [
+    "Mapping",
+    "MappingOperation",
+    "MappingComposed",
+    "MappingInvSum",
+    "Identity",
+    "LinearMapping",
+    "LogShifted",
+    "BoxCoxShifted",
+    "BoxCoxLinear",
+    "BoxCoxLinear2",
+    "WarpingTanh",
+    "WarpingBoxCox",
+    "ArcsinhLinear",
+    "SinhArcsinh",
+    "Logistic",
+]
 
 
 def _signed_power(v, p):
     return torch.sign(v) * torch.abs(v) ** p
+
+
+def _boxcox(shifted, p):
+    """The signed Box-Cox transform of ``shifted`` at power ``p``, with the
+    log map as its p -> 0 limit below 1e-5."""
+    boxcox = (_signed_power(shifted, p) - 1.0) / torch.where(p < 1e-5, 1.0, p)
+    return torch.where(p < 1e-5, torch.log(torch.abs(shifted) + 1e-32), boxcox)
 
 
 def _over(v, x):
@@ -54,6 +78,9 @@ class Mapping(Hypers):
         flat = x.reshape(rows + (-1,))
         out = newton_inverse(lambda v: self.inv(params, v), flat, row_dims=len(rows))
         return out.reshape(x.shape)
+
+    def forward(self, params, x):
+        return self(params, x)
 
     def logdet_dinv(self, params, y):
         return self.logdet_dinv_num(params, y)
@@ -140,6 +167,18 @@ class MappingComposed(MappingOperation):
                 + self.m1.logdet_dinv(params, y))
 
 
+class MappingInvSum(MappingOperation):
+    """inv-only sum: T^{-1} = m1.inv + m2.inv; the forward is the Newton
+    inverse and the Jacobian autograd's."""
+
+    def __init__(self, m1, m2):
+        super().__init__(m1, m2)
+        self.op = "+^"
+
+    def inv(self, params, y):
+        return self.m1.inv(params, y) + self.m2.inv(params, y)
+
+
 class Identity(Mapping):
     """T(x) = x."""
 
@@ -154,6 +193,94 @@ class Identity(Mapping):
 
     def logdet_dinv(self, params, y):
         return torch.zeros((), dtype=settings.dtype, device=y.device)
+
+
+class LinearMapping(Mapping):
+    """T(x) = scale (x - shift)."""
+
+    def __init__(self, y=None, name=None, shift=None, scale=None):
+        super().__init__(y, name)
+        self.shift = shift
+        self.scale = scale
+
+    def check_hypers(self, parent=""):
+        self.shift = self._param(self.shift, parent + self.name + "_shift", Flat())
+        self.scale = self._param(self.scale, parent + self.name + "_scale", FlatExp())
+
+    def default_hypers(self, x=None, y=None):
+        out = {}
+        if is_param(self.shift):
+            out[self.shift] = np.asarray(0.0, settings.floatx)
+        if is_param(self.scale):
+            out[self.scale] = np.asarray(1.0, settings.floatx)
+        return out
+
+    def __call__(self, params, x):
+        return _over(hval(self.scale, params), x) * (x - _over(hval(self.shift, params), x))
+
+    def inv(self, params, y):
+        return y / hval(self.scale, params)[..., None] + hval(self.shift, params)[..., None]
+
+    def logdet_dinv(self, params, y):
+        return -y.shape[-1] * torch.log(hval(self.scale, params))
+
+
+class LogShifted(Mapping):
+    """T(x) = exp(x) + shift."""
+
+    def __init__(self, y=None, name=None, shift=None):
+        super().__init__(y, name)
+        self.shift = shift
+
+    def check_hypers(self, parent=""):
+        self.shift = self._param(self.shift, parent + self.name + "_shift", Flat())
+
+    def default_hypers(self, x=None, y=None):
+        if not is_param(self.shift):
+            return {}
+        return {self.shift: np.asarray(np.min(y) - 1.0, settings.floatx)}
+
+    def __call__(self, params, x):
+        return torch.exp(x) + _over(hval(self.shift, params), x)
+
+    def inv(self, params, y):
+        return torch.log(torch.clamp(y - hval(self.shift, params)[..., None], min=1e-32))
+
+    def logdet_dinv(self, params, y):
+        return -torch.log(y - hval(self.shift, params)[..., None]).sum(dim=-1)
+
+
+class BoxCoxShifted(Mapping):
+    """Signed Box-Cox with an output shift."""
+
+    def __init__(self, y=None, name="BoxShift", shift=None, power=None):
+        super().__init__(y, name)
+        self.shift = shift
+        self.power = power
+
+    def check_hypers(self, parent=""):
+        self.shift = self._param(self.shift, parent + self.name + "_shift", Flat())
+        self.power = self._param(self.power, parent + self.name + "_power", FlatExp())
+
+    def default_hypers(self, x=None, y=None):
+        out = {}
+        for h in (self.shift, self.power):
+            if is_param(h):
+                out[h] = np.asarray(1.0, settings.floatx)
+        return out
+
+    def __call__(self, params, x):
+        p = _over(hval(self.power, params), x)
+        return _signed_power(p * x + 1.0, 1.0 / p) - _over(hval(self.shift, params), x)
+
+    def inv(self, params, y):
+        shifted = y + hval(self.shift, params)[..., None]
+        return _boxcox(shifted, hval(self.power, params)[..., None])
+
+    def logdet_dinv(self, params, y):
+        p = hval(self.power, params)
+        shifted = y + hval(self.shift, params)[..., None]
+        return (p - 1.0) * torch.log(torch.abs(shifted)).sum(dim=-1)
 
 
 class BoxCoxLinear(Mapping):
@@ -185,11 +312,8 @@ class BoxCoxLinear(Mapping):
                 - _over(hval(self.shift, params), x))
 
     def inv(self, params, y):
-        p = hval(self.power, params)[..., None]
         shifted = hval(self.scale, params)[..., None] * (y + hval(self.shift, params)[..., None])
-        # power -> 0 limit is the log map
-        boxcox = (_signed_power(shifted, p) - 1.0) / torch.where(p < 1e-5, 1.0, p)
-        return torch.where(p < 1e-5, torch.log(torch.abs(shifted) + 1e-32), boxcox)
+        return _boxcox(shifted, hval(self.power, params)[..., None])
 
     def logdet_dinv(self, params, y):
         p = hval(self.power, params)
@@ -197,6 +321,44 @@ class BoxCoxLinear(Mapping):
         shifted = s[..., None] * (y + hval(self.shift, params)[..., None])
         return ((p - 1.0) * torch.log(torch.abs(shifted)).sum(dim=-1)
                 + y.shape[-1] * torch.log(s))
+
+
+class BoxCoxLinear2(Mapping):
+    """Box-Cox of scale * y + shift, with the output scaled back."""
+
+    def __init__(self, y=None, name=None, shift=None, scale=None, power=None):
+        super().__init__(y, name)
+        self.shift = shift
+        self.scale = scale
+        self.power = power
+
+    def check_hypers(self, parent=""):
+        self.shift = self._param(self.shift, parent + self.name + "_shift", Flat())
+        self.scale = self._param(self.scale, parent + self.name + "_scale", FlatExp())
+        self.power = self._param(self.power, parent + self.name + "_power", FlatExp())
+
+    def default_hypers(self, x=None, y=None):
+        out = {}
+        for h in (self.shift, self.scale, self.power):
+            if is_param(h):
+                out[h] = np.asarray(1.0, settings.floatx)
+        return out
+
+    def __call__(self, params, x):
+        p = _over(hval(self.power, params), x)
+        return ((_signed_power(p * x + 1.0, 1.0 / p) - _over(hval(self.shift, params), x))
+                / _over(hval(self.scale, params), x))
+
+    def inv(self, params, y):
+        shifted = hval(self.scale, params)[..., None] * y + hval(self.shift, params)[..., None]
+        return _boxcox(shifted, hval(self.power, params)[..., None])
+
+    def logdet_dinv(self, params, y):
+        p = hval(self.power, params)
+        s = hval(self.scale, params)
+        shifted = s[..., None] * y + hval(self.shift, params)[..., None]
+        coeff = torch.where(p < 1e-5, -1.0, p - 1.0)
+        return coeff * torch.log(torch.abs(shifted)).sum(dim=-1) + y.shape[-1] * torch.log(s)
 
 
 class WarpingTanh(Mapping):
@@ -232,6 +394,41 @@ class WarpingTanh(Mapping):
         return y + (torch.tanh(b * (y[..., None] + c)) * a).sum(dim=-1)
 
 
+class WarpingBoxCox(Mapping):
+    """Mixture-of-Box-Cox warping T^{-1}(y) = sum_k w_k ((y + shift_k)^power_k
+    - 1) / power_k (signed powers), vectors of length ``n``; inv-only, so
+    its forward is the Newton inverse and its Jacobian autograd's."""
+
+    def __init__(self, y=None, n=1, name=None, shift=None, power=None, w=None):
+        super().__init__(y, name)
+        self.n = n
+        self.shift = shift
+        self.power = power
+        self.w = w
+
+    def check_hypers(self, parent=""):
+        self.shift = self._param(self.shift, parent + self.name + "_shift", FlatExp(),
+                                 shape=self.n)
+        self.power = self._param(self.power, parent + self.name + "_power", FlatExp(),
+                                 shape=self.n)
+        self.w = self._param(self.w, parent + self.name + "_w", FlatExp(), shape=self.n)
+
+    def default_hypers(self, x=None, y=None):
+        out = {}
+        if is_param(self.w):
+            out[self.w] = np.ones(self.n, settings.floatx) / self.n
+        if is_param(self.shift):
+            out[self.shift] = np.ones(self.n, settings.floatx)
+        if is_param(self.power):
+            out[self.power] = np.ones(self.n, settings.floatx)
+        return out
+
+    def inv(self, params, y):
+        shift, power, w = (hval(h, params)[..., None, :] for h in (self.shift, self.power, self.w))
+        z = y[..., None] + shift
+        return ((_signed_power(z, power) - 1.0) / power * w).sum(dim=-1)
+
+
 class ArcsinhLinear(Mapping):
     """T(x) = sinh((x - shift) / scale)."""
 
@@ -263,3 +460,92 @@ class ArcsinhLinear(Mapping):
     def logdet_dinv(self, params, y):
         return (y.shape[-1] * torch.log(hval(self.scale, params))
                 - 0.5 * torch.log1p(y ** 2).sum(dim=-1))
+
+
+class SinhArcsinh(Mapping):
+    """Sinh-arcsinh warping (Jones & Pewsey): T(x) = sinh((arcsinh(x) -
+    shift) / scale)."""
+
+    def __init__(self, y=None, name=None, shift=None, scale=None):
+        super().__init__(y, name)
+        self.shift = shift
+        self.scale = scale
+
+    def check_hypers(self, parent=""):
+        self.shift = self._param(self.shift, parent + self.name + "_shift", Flat())
+        self.scale = self._param(self.scale, parent + self.name + "_scale", FlatExp())
+
+    def default_hypers(self, x=None, y=None):
+        out = {}
+        if is_param(self.shift):
+            out[self.shift] = np.asarray(0.0, settings.floatx)
+        if is_param(self.scale):
+            out[self.scale] = np.asarray(1.0, settings.floatx)
+        return out
+
+    def __call__(self, params, x):
+        return torch.sinh((torch.arcsinh(x) - _over(hval(self.shift, params), x))
+                          / _over(hval(self.scale, params), x))
+
+    def inv(self, params, y):
+        return torch.sinh(hval(self.shift, params)[..., None]
+                          + hval(self.scale, params)[..., None] * torch.arcsinh(y))
+
+    def logdet_dinv(self, params, y):
+        shift = hval(self.shift, params)
+        scale = hval(self.scale, params)
+        return (torch.log(torch.cosh(shift[..., None] + scale[..., None]
+                                     * torch.arcsinh(y))).sum(dim=-1)
+                + y.shape[-1] * torch.log(scale) - 0.5 * torch.log1p(y ** 2).sum(dim=-1))
+
+
+class Logistic(Mapping):
+    """Bounded logistic warping onto (lower, lower + high)."""
+
+    def __init__(self, y=None, name=None, lower=None, high=None, location=None, scale=None):
+        super().__init__(y, name)
+        self.lower = lower
+        self.high = high
+        self.location = location
+        self.scale = scale
+
+    def check_hypers(self, parent=""):
+        self.lower = self._param(self.lower, parent + self.name + "_lower", Flat())
+        self.high = self._param(self.high, parent + self.name + "_high", FlatExp())
+        self.location = self._param(self.location, parent + self.name + "_location", Flat())
+        self.scale = self._param(self.scale, parent + self.name + "_scale", FlatExp())
+
+    def default_hypers(self, x=None, y=None):
+        out = {}
+        if is_param(self.lower):
+            out[self.lower] = 1.5 * np.min(y) - 0.5 * np.max(y)
+        if is_param(self.high):
+            out[self.high] = 2.0 * (np.max(y) - np.min(y))
+        if is_param(self.location):
+            out[self.location] = np.mean(y)
+        if is_param(self.scale):
+            out[self.scale] = np.std(y)
+        return out
+
+    def __call__(self, params, x):
+        lower, high, loc, scale = (_over(hval(h, params), x) for h in
+                                   (self.lower, self.high, self.location, self.scale))
+        return lower + high * (0.5 + 0.5 * torch.tanh((x - loc) / (2 * scale)))
+
+    def _p(self, params, y):
+        """(y - lower) / high, clipped to [0, 1] by two wheres."""
+        lower = hval(self.lower, params)[..., None]
+        high = hval(self.high, params)[..., None]
+        inner = torch.where(y > lower + high, 1.0, (y - lower) / high)
+        return torch.where(y < lower, 0.0, inner)
+
+    def inv(self, params, y):
+        p = self._p(params, y)
+        return (hval(self.location, params)[..., None]
+                + hval(self.scale, params)[..., None] * to_num(torch.log(p / (1.0 - p))))
+
+    def logdet_dinv(self, params, y):
+        p = self._p(params, y)
+        high = hval(self.high, params)[..., None]
+        scale = hval(self.scale, params)[..., None]
+        return to_num(torch.log(scale / (high * p * (1.0 - p)))).sum(dim=-1)

@@ -71,10 +71,12 @@ def _statistic(th_name, doc):
 class StochasticProcess(BatchedModel):
     """Abstract stochastic-process model (see module docstring).
 
-    ``active`` is the :class:`GraphicalModel` to join; False (or None)
-    makes a fresh one named ``"GM_" + name``.  ``distribution``,
-    ``precompile`` and ``compile_logp`` are the JAX package's compile
-    controls and change nothing here (PyTorch runs eagerly)."""
+    ``active`` is the :class:`GraphicalModel` to join; True joins the
+    active registry (``GraphicalModel.active``, created when None); False
+    (or None) makes a fresh one named ``"GM_" + name``, which becomes the
+    active one.  ``distribution``, ``precompile`` and ``compile_logp`` are
+    the JAX package's compile controls and change nothing here (PyTorch
+    runs eagerly)."""
 
     #: whether th_loglike_fn takes a params dict of R rows (the GP and
     #: Student-t families); the others evaluate a (R, ndim) matrix row by row
@@ -89,9 +91,6 @@ class StochasticProcess(BatchedModel):
         if file is not None:
             raise NotImplementedError("model files (file=) are not ported yet "
                                       "(ROADMAP Queue 1 item 15)")
-        if active is True:
-            raise NotImplementedError("the shared active registry (active=True) is not "
-                                      "ported yet (ROADMAP Queue 1 item 10b)")
         ndim = 1
         if space is not None:
             if hasattr(space, "shape"):
@@ -112,6 +111,8 @@ class StochasticProcess(BatchedModel):
         self.is_observed = False
         self._device_copies = {}
 
+        if active is True:
+            active = GraphicalModel.active or GraphicalModel("GM_" + self.name)
         self.active = active if active else GraphicalModel("GM_" + self.name)
         self.active.add_component(self)
 

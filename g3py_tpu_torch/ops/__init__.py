@@ -5,7 +5,7 @@ algebra and the special functions of the Student-t and copula families
 
 from .guards import to_num, inf_to_num, to_cov, to_bounded
 from .quadrature import gauss_hermite, hermgauss
-from .gram import weighted_sqdist, sqdist, pairwise_sum
+from .gram import weighted_sqdist, sqdist, weighted_dot, pairwise_sum, pairwise_prod
 from .stationary_gram import stationary_gram
 from .panel_cholesky import panel_cholesky
 from .root import newton_inverse
@@ -14,7 +14,8 @@ from .linalg import (safe_cholesky, safe_cholesky_panels, trtri_from_panels,
                      log_det_from_chol, mvn_quad_logdet, mvn_loo)
 
 __all__ = ["to_num", "inf_to_num", "to_cov", "to_bounded", "gauss_hermite", "hermgauss",
-           "weighted_sqdist", "sqdist", "pairwise_sum", "stationary_gram",
+           "weighted_sqdist", "sqdist", "weighted_dot", "pairwise_sum", "pairwise_prod",
+           "stationary_gram",
            "panel_cholesky", "newton_inverse", "safe_cholesky", "safe_cholesky_panels",
            "trtri_from_panels", "solve_lower_triangular", "solve_upper_triangular",
            "cho_solve", "log_det_from_chol", "mvn_quad_logdet", "mvn_loo"]

@@ -166,14 +166,22 @@ def stationary_gram(kind, x1, x2, rate, var, extra=None):
     """``var * k(0.5 * sum_d (x1_d - x2_d)^2 rate_d^2)`` as an (m, n) matrix.
 
     ``kind`` is one of ``KINDS``; ``extra`` is the RQ alpha.  With a (R, d)
-    ``rate``, ``var`` and ``extra`` are (R,) and the result is the (R, m, n)
-    stack of every row's gram (``x1`` and ``x2`` may then carry the row axis
-    too).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (and raise if it cannot be built or launched)."""
+    ``rate``, ``var`` and ``extra`` are (R,), or 0-d for one value shared by
+    every row, and the result is the (R, m, n) stack of every row's gram
+    (``x1`` and ``x2`` may then carry the row axis too).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (and raise if it
+    cannot be built or launched)."""
     if kind not in KINDS:
         raise ValueError(f"stationary_gram: unknown kind {kind!r}")
     if rate.ndim == 1 and max(x1.ndim, x2.ndim) > 2:
         raise ValueError("stationary_gram: inputs with a row axis need a (R, d) rate")
+    rows = rate.shape[:-1]
+    # a fixed amplitude (a KernelProd's pinned 1, a constant) beside a rate
+    # of R rows is one value for all of them
+    if var.ndim == 0 and rows:
+        var = var.expand(rows)
+    if extra is not None and extra.ndim == 0 and rows:
+        extra = extra.expand(rows)
     if x1.device.type == "cpu":
         return _plain_form(kind, x1, x2, rate, var, extra)
     if x1.device.type != "cuda":

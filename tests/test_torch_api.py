@@ -150,8 +150,15 @@ def test_calls_in_jax_order_and_keywords():
         tp.find_MAP(display=False, rank=8)  # as the JAX package: scipy takes no solver knobs
     with pytest.raises(NotImplementedError, match="item 15"):
         g3t.GP(x, location=g3t.Bias(), kernel=g3t.SE(x), file="model.g3")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        g3t.GP(x, location=g3t.Bias(), kernel=g3t.SE(x), active=True)
+    # active=True joins the active registry (creating it when there is none)
+    g3t.GraphicalModel.active = None
+    try:
+        first = g3t.GP(x, location=g3t.Bias(), kernel=g3t.SE(x), active=True, name="API_A")
+        second = g3t.GP(x, location=g3t.Bias(), kernel=g3t.SE(x), active=True, name="API_B")
+        assert first.active is second.active is g3t.GraphicalModel.active
+        assert first.active.name == "GM_API_A"
+    finally:
+        g3t.GraphicalModel.active = None
 
 
 FAMILY_METHODS = {
@@ -220,7 +227,74 @@ def test_degree_and_aliases():
     assert g3t.transformed_hypers({"GP_SE_var": 1.0}) == g3.transformed_hypers(
         {"GP_SE_var": 1.0})
     assert g3t.modelcontext(ep.active) is ep.active
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        g3t.modelcontext()
+    # without a model: the active registry, the last one made or activated
+    assert g3t.modelcontext() is g3t.GraphicalModel.active is ep.active
+    g3t.GraphicalModel.active = None
+    assert g3t.modelcontext() is None
     with pytest.raises(NotImplementedError, match="item 15"):
         g3t.debug_p("trace")
+
+
+CATALOGUE_CLASSES = [
+    "One", "Delta", "DeltaEq", "DeltaEq2", "Minimum", "Difference", "L1", "L2", "ARD", "ARD_L1",
+    "ARD_L2", "ARD_Dot", "ARD_DotBias", "PSD", "PSD_Dot", "PSD_L2",
+    "KernelDot", "KernelStationary", "KernelSum", "KernelProd", "KernelScale", "KernelShift",
+    "KernelMax", "KernelEquals", "KernelEquals2", "KernelNoise", "BW", "VAR", "NIL", "LIN", "POL",
+    "NN", "WN", "OU", "KernelPeriodic", "COS", "SIN", "SINC", "SM",
+    "BlackBox", "Linear", "Power", "Zero",
+    "LinearMapping", "LogShifted", "BoxCoxShifted", "BoxCoxLinear2", "WarpingBoxCox",
+    "SinhArcsinh", "Logistic", "MappingComposed", "GraphicalModel"]
+CATALOGUE_MODULES = [("hypers.metrics", "Metric"), ("hypers.kernels", "Kernel"),
+                     ("hypers.means", "Mean"), ("hypers.mappings", "Mapping")]
+CATALOGUE_METHODS = {
+    "Kernel": ["cov", "input_sensitivity", "default_hypers", "check_hypers"],
+    "Metric": ["gram", "input_sensitivity"], "DeltaEq": ["gram"], "DeltaEq2": ["gram"],
+    "Mean": ["__call__", "eval"], "Mapping": ["inv", "forward", "logdet_dinv", "__call__"],
+    "GraphicalModel": ["activate", "register_param", "dict_to_array"],
+}
+
+
+@pytest.mark.parametrize("cls", CATALOGUE_CLASSES)
+def test_catalogue_classes_take_jax_arguments(cls):
+    """Every class of the catalogue exists at the port's top level under
+    the JAX package's name, with its constructor's arguments."""
+    _assert_takes(getattr(g3, cls).__init__, getattr(g3t, cls).__init__, cls)
+    for name in CATALOGUE_METHODS.get(cls, []):
+        _assert_takes(getattr(getattr(g3, cls), name), getattr(getattr(g3t, cls), name),
+                      f"{cls}.{name}")
+
+
+@pytest.mark.parametrize("module,base", CATALOGUE_MODULES)
+def test_catalogue_modules_export_jax_names(module, base):
+    """Each catalogue module of the port exports every name the JAX
+    package's does, each taking the same arguments."""
+    import importlib
+
+    jmod = importlib.import_module("g3py_tpu." + module)
+    tmod = importlib.import_module("g3py_tpu_torch." + module)
+    assert set(jmod.__all__) <= set(tmod.__all__), set(jmod.__all__) - set(tmod.__all__)
+    for name in jmod.__all__:
+        _assert_takes(getattr(jmod, name).__init__, getattr(tmod, name).__init__, name)
+    for name in CATALOGUE_METHODS[base]:
+        _assert_takes(getattr(getattr(jmod, base), name), getattr(getattr(tmod, base), name),
+                      f"{base}.{name}")
+
+
+def test_catalogue_functions_and_settings():
+    from g3py_tpu.ops import gram as jgram
+    from g3py_tpu_torch.ops import gram as tgram
+
+    for fn in ("weighted_dot", "pairwise_prod", "pairwise_sum", "_pairwise_reduce"):
+        _assert_takes(getattr(jgram, fn), getattr(tgram, fn), fn)
+    for fn in ("get_model", "modelcontext"):
+        _assert_takes(getattr(g3, fn), getattr(g3t, fn), fn)
+    assert set(g3.hypers.__all__) <= set(g3t.hypers.__all__)
+    assert g3t.settings.strict_dtypes is False
+    g3t.settings.strict_dtypes = True
+    try:
+        with pytest.raises(TypeError, match="strict_dtypes"):
+            g3t.config.asarray_x(np.zeros(2, np.float64))
+        assert g3t.config.asarray_x(np.zeros(2, np.float32)).dtype == np.float32
+    finally:
+        g3t.settings.strict_dtypes = False
+    assert g3t.config.asarray_x(np.zeros(2, np.float64)).dtype == np.dtype(g3t.settings.floatx)

@@ -312,3 +312,93 @@ def test_betainc_on_card_matches_cpu(cuda, dtype, rtol):
     want = betainc(*[torch.as_tensor(v, dtype=dtype) for v in (a, b, x)])
     got = betainc(*[torch.as_tensor(v, dtype=dtype, device=cuda) for v in (a, b, x)])
     torch.testing.assert_close(got.cpu(), want, rtol=rtol, atol=rtol)
+
+
+# ---------------------------------------------------------------- the catalogue
+def _algebra_inputs(device, dtype, seed=31):
+    rng = np.random.default_rng(seed)
+    x1 = torch.as_tensor(rng.standard_normal((300, 8)), dtype=dtype, device=device)
+    x2 = torch.as_tensor(rng.standard_normal((129, 8)), dtype=dtype, device=device)
+    rates = torch.as_tensor(rng.uniform(0.3, 1.2, (5, 8)), dtype=dtype, device=device)
+    return x1, x2, rates
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-5, 2e-6),
+                                             (torch.float64, 1e-12, 1e-14)])
+def test_kernel_on_algebra_inputs_matches_plain_form(cuda, dtype, rtol, atol):
+    """K1 on the inputs the kernel algebra reaches: a dims-restricted slice
+    (d=1 of 8), one Param rate shared by two factors, and a 0-d amplitude
+    (a product's pinned 1) beside a rate of R rows."""
+    g3t.settings.device = "cuda"
+    old = g3t.settings.floatx
+    g3t.settings.floatx = "float64" if dtype == torch.float64 else "float32"
+    try:
+        x1, x2, rates = _algebra_inputs(cuda, dtype)
+        shared = g3t.Param("C_shared_rate", shape=(8,), prior=g3t.FlatExp())
+        k = (g3t.SE([3], name="SEd")
+             + g3t.SE(8, name="SEa", metric=g3t.ARD_L2(8, rate=shared))
+             * g3t.MAT52(8, name="Ma", metric=g3t.ARD_L2(8, rate=shared)))
+        k.check_hypers("C_")
+        # the product pins MAT52's amplitude to a 0-d 1
+        assert k.k2.k2.var == 1.0
+        params = {"C_SEd_var": torch.tensor(1.3, dtype=dtype, device=cuda),
+                  "C_SEd_rate": rates[0, :1],
+                  "C_SEa_var": torch.tensor(0.7, dtype=dtype, device=cuda),
+                  "C_shared_rate": rates[1]}
+        launches = stationary_gram.launches
+        got = k.cov(params, x1, x2)
+        torch.cuda.synchronize()
+        assert stationary_gram.launches == launches + 3
+        want = (_plain_form("se", x1[:, [3]], x2[:, [3]], rates[0, :1], params["C_SEd_var"])
+                + _plain_form("se", x1, x2, rates[1], params["C_SEa_var"])
+                * _plain_form("mat52", x1, x2, rates[1], torch.ones((), dtype=dtype,
+                                                                     device=cuda)))
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+        one = torch.tensor(1.0, dtype=dtype, device=cuda)
+        for kind in sorted(KINDS):
+            alpha = torch.tensor(0.8, dtype=dtype, device=cuda)
+            rows = stationary_gram(kind, x1, x2, rates, one, alpha)
+            torch.testing.assert_close(rows, _plain_form(kind, x1, x2, rates, one.expand(5),
+                                                         alpha.expand(5)),
+                                       rtol=rtol, atol=atol)
+    finally:
+        g3t.settings.floatx = old
+
+
+def _composite(device, dtype="float64"):
+    """GP(Linear + Bias, SE * SIN + 2 MAT52 + LIN + 0.1): logp, dlogp,
+    logp_chain of four rows and predict's mean and std on ``device``."""
+    g3t.settings.device = device
+    g3t.settings.floatx = dtype
+    try:
+        rng = np.random.default_rng(32)
+        x = rng.standard_normal((96, 3))
+        y = np.sin(x[:, 0]) + 0.1 * rng.standard_normal(96)
+        gp = g3t.GP(space=x[:5], location=g3t.Linear(x) + g3t.Bias(),
+                    kernel=g3t.SE(x) * g3t.SIN(x) + 2.0 * g3t.MAT52(x) + g3t.LIN(x) + 0.1,
+                    name="CC_GP")
+        gp.observed(x, y)
+        u = gp.active.dict_to_array(gp.params_default)
+        rows = u[None, :] + 0.05 * np.random.default_rng(33).standard_normal((4, len(u)))
+        pred = gp.predict(gp.params_default, x[:17], mean=True, std=True)
+        return (gp.logp(), gp.dlogp(), gp.logp_chain(rows),
+                {k: v.cpu().numpy() for k, v in pred.items()})
+    finally:
+        g3t.settings.floatx = "float32"
+
+
+@pytest.mark.cuda
+def test_composite_gp_on_card_matches_cpu(cuda):
+    """The phase 9a composite in float64: two K1 launches (SE, MAT52) per
+    gram, one batched K1 a factor and one K2 for four rows, against the CPU
+    port."""
+    want = _composite("cpu")
+    k1, k2 = stationary_gram.launches, panel_cholesky.launches
+    got = _composite("cuda")
+    assert stationary_gram.launches > k1 and panel_cholesky.launches > k2
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-9)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-9)
+    for k in want[3]:
+        np.testing.assert_allclose(got[3][k], want[3][k], rtol=1e-9, atol=1e-12, err_msg=k)

@@ -1,4 +1,7 @@
-"""Port parity: grams and the fused stationary-gram kernel (K1).
+"""Port parity: grams (weighted distances and dots, the per-feature sum
+and product reductions) and the fused stationary-gram kernel (K1),
+including the inputs the kernel algebra reaches: a 0-d amplitude beside a
+rate of R rows, a dims-restricted slice and a shared rate Param.
 
 The JAX side of K1 is ``_xla_form`` and ``KernelStationary.cov``, which
 take the plain XLA path off the TPU; the port's CPU path is the kernel's
@@ -6,6 +9,7 @@ plain version ``_plain_form``.  The kernel itself is checked against that
 plain version on the card by tests/test_torch_cuda.py.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -139,3 +143,71 @@ def test_noise_kernel_square_and_cross():
         assert_close(tk.cov(tparams, *[torch.as_tensor(a) for a in args]),
                      np.asarray(jk.cov(params, *args)))
 
+
+
+def test_weighted_dot_and_pairwise_prod():
+    x1, x2, rate, _, _ = _inputs(9, 6, 4, 3)
+    check(lambda a, b, w: jgram.weighted_dot(a, b, w),
+          lambda a, b, w: tgram.weighted_dot(a, b, w), x1, x2, rate)
+    check(jgram.weighted_dot, tgram.weighted_dot, x1, x2)
+    check(lambda a, b, w: jgram.pairwise_prod(a, b, lambda u, v, wd: jnp.cos((u - v) * wd), w),
+          lambda a, b, w: tgram.pairwise_prod(a, b, lambda u, v, wd: torch.cos((u - v) * wd), w),
+          x1, x2, rate, name="float64")
+
+
+def test_pairwise_reductions_take_rows_of_per_dim_vectors():
+    """(R, d) per-dimension vectors give (R, N, M), each row its own."""
+    x1, x2, _, _, _ = _inputs(10, 5, 4, 3)
+    w = np.random.default_rng(11).uniform(0.5, 2.0, (3, 3))
+    with floatx("float64"):
+        t1, t2, tw = (torch.as_tensor(a) for a in (x1, x2, w))
+        for reduce in (tgram.pairwise_sum, tgram.pairwise_prod):
+            rows = reduce(t1, t2, lambda u, v, wd: torch.cos((u - v) * wd), tw)
+            assert rows.shape == (3, 5, 4)
+            for r in range(3):
+                one = reduce(t1, t2, lambda u, v, wd: torch.cos((u - v) * wd), tw[r])
+                torch.testing.assert_close(rows[r], one, rtol=1e-14, atol=0)
+        assert (tgram.pairwise_prod(t1[:, :0], t2[:, :0], torch.minimum) == 1).all()
+
+
+@pytest.mark.parametrize("kind", KIND_NAMES)
+def test_stationary_gram_shares_a_0d_var_across_rows(kind):
+    """A fixed amplitude (0-d) beside a (R, d) rate is one value for every
+    row (a product's pinned 1 under a sampler's rows)."""
+    x1, x2, _, _, alpha = _inputs(12, 6, 5, 2)
+    rates = np.random.default_rng(13).uniform(0.3, 1.2, (4, 2))
+    with floatx("float64"):
+        t1, t2, tr = (torch.as_tensor(a) for a in (x1, x2, rates))
+        one = torch.tensor(1.0, dtype=torch.float64)
+        a0 = torch.as_tensor(alpha)
+        rows = stationary_gram(kind, t1, t2, tr, one, a0)
+        assert rows.shape == (4, 6, 5)
+        for r in range(4):
+            torch.testing.assert_close(rows[r], stationary_gram(kind, t1, t2, tr[r], one, a0),
+                                       rtol=1e-14, atol=0)
+
+
+def test_dims_restricted_and_shared_rate_kernels_match_jax():
+    """SE on dims [2] of 3 and two SE factors sharing one rate Param, both
+    through the fused gram's path, against the JAX package's covs."""
+    rng = np.random.default_rng(14)
+    x1, x2 = rng.standard_normal((8, 3)), rng.standard_normal((5, 3))
+    with floatx("float64"):
+        out = []
+        for lib in (g3, g3t):
+            shared = lib.Param("P_shared_rate", shape=(3,), prior=lib.FlatExp())
+            k = (lib.SE([2], name="SEd")
+                 + lib.SE(x1, name="SEa", metric=lib.ARD_L2(x1, rate=shared))
+                 * lib.MAT52(x1, name="Ma", metric=lib.ARD_L2(x1, rate=shared)))
+            k.check_dims(x1)
+            k.check_hypers("P_")
+            out.append(k)
+        jk, tk = out
+        names = [p.name for p in tk.hypers]
+        assert names == [p.name for p in jk.hypers] and names.count("P_shared_rate") == 2
+        assert tk.k1._gram_dispatchable() == "se" and tk.k2.k1._gram_dispatchable() == "se"
+        params = {p.name: rng.uniform(0.4, 1.5, p.shape) for p in jk.hypers}
+        tparams = {k: torch.as_tensor(v) for k, v in params.items()}
+        for args in ((x1, x2), (x1,)):
+            assert_close(tk.cov(tparams, *[torch.as_tensor(a) for a in args]),
+                         np.asarray(jk.cov(params, *args)), "float64")

@@ -2,7 +2,9 @@
 (inv-only: the forward is the Newton inverse, the Jacobian autograd's),
 ``ArcsinhLinear`` and the composition ``BoxCoxLinear @ ArcsinhLinear`` —
 inv, forward, logdet and a WGP's logp and ``dlogp`` against the JAX
-package, and over a leading row axis against the rows one at a time."""
+package, and over a leading row axis against the rows one at a time.  The
+rest of the catalogue is in tests/test_torch_mappings_catalogue.py, which
+builds its warpings with :func:`_mapping` and :func:`_pair` here."""
 
 import numpy as np
 import pytest
@@ -20,7 +22,24 @@ KINDS = ["tanh3", "arcsinh", "boxcox@arcsinh"]
 NEWTON = dict(rtol=1e-8, atol=1e-8)
 
 
+# the rest of the catalogue; the last two are inv-only (Newton forward)
+CATALOGUE = ["linear", "logshifted", "boxcoxshifted", "boxcox2", "sinharcsinh", "logistic",
+             "warpingboxcox2", "invsum"]
+INV_ONLY = ("warpingboxcox2", "invsum")
+
+
 def _mapping(lib, kind, y):
+    more = {"linear": lambda: lib.LinearMapping(y),
+            "logshifted": lambda: lib.LogShifted(y),
+            "boxcoxshifted": lambda: lib.BoxCoxShifted(y),
+            "boxcox2": lambda: lib.BoxCoxLinear2(y),
+            "sinharcsinh": lambda: lib.SinhArcsinh(y),
+            "logistic": lambda: lib.Logistic(y),
+            "warpingboxcox2": lambda: lib.WarpingBoxCox(y, n=2),
+            "invsum": lambda: lib.hypers.mappings.MappingInvSum(
+                lib.WarpingTanh(y, name="Tanh"), lib.LinearMapping(y))}
+    if kind in more:
+        return more[kind]()
     if kind.startswith("tanh"):
         return lib.WarpingTanh(y, n=int(kind[4:]))
     if kind == "arcsinh":
@@ -106,3 +125,4 @@ def test_composition_names_and_defaults():
         [p.name for p in jp.active.ordered_params]
     for k, v in jp.params_default.items():
         np.testing.assert_allclose(tp.params_default[k], np.asarray(v), rtol=1e-6)
+

@@ -21,6 +21,8 @@ import torch
 
 import g3py_tpu as g3
 import g3py_tpu_torch as g3t
+import g3py_tpu_torch.hypers.kernels as tkernels
+import g3py_tpu_torch.ops.linalg as tlinalg
 
 torch.set_num_threads(1)
 g3t.settings.device = "cpu"
@@ -43,6 +45,13 @@ def floatx(name):
         finally:
             g3.set_floatx(old_j)
             g3t.set_floatx(old_t)
+
+
+def jax_eager():
+    """The JAX package op by op (``jax.disable_jit``): at these tests' sizes
+    that takes a fraction of the time of compiling every entry point of
+    every model, for the same values to rounding."""
+    return jax.disable_jit()
 
 
 def to_numpy(x):
@@ -84,3 +93,103 @@ def check(jax_fn, torch_fn, *inputs, name="float32"):
         got = to_numpy(torch_fn(*[torch.as_tensor(a) for a in arrs]))
     assert_close(got, want, name)
     return want, got
+
+
+def process_pair(build, x, y):
+    """The same model built by ``build(lib)`` in both packages (``lib`` is
+    g3py_tpu or g3py_tpu_torch), each observed on ``x``, ``y``."""
+    out = []
+    for lib in (g3, g3t):
+        proc = build(lib)
+        proc.observed(x, y)
+        out.append(proc)
+    return out
+
+
+def nudged(params, factor=0.1):
+    """``params`` moved off their defaults (where a Bias or a warping may
+    sit at a zero of its gradient) by ``factor`` relative."""
+    return {k: np.asarray(v) * (1.0 + factor * np.sign(np.asarray(v))) for k, v in params.items()}
+
+
+def zoo_data(n=16, d=2, seed=0):
+    """Positive inputs (the Brownian kernel's min-product stays PSD), a
+    sine around 1.6 and query points."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.1, 6.0, (n, d))
+    y = np.sin(x[:, 0]) + 1.6 + 0.1 * rng.standard_normal(n)
+    xq = rng.uniform(0.0, 6.5, (7, d))
+    return x, y, xq
+
+
+def check_gp(label, kernel, location=None, mapping=None, data=None, name="float64"):
+    """GP(location, kernel, mapping) built in both packages from the
+    builders ``lib -> component`` (location defaults to Bias) on
+    ``data`` (default :func:`zoo_data`): the same hyper names, the defaults
+    bit for bit, then logp (inside the priors' support), dlogp and predict
+    at nudged defaults (:func:`assert_process_matches`).  Returns the two processes and the
+    params."""
+    x, y, xq = zoo_data() if data is None else data
+    location = location if location is not None else (lambda lib: lib.Bias())
+
+    def build(lib):
+        return lib.GP(space=x, location=location(lib), kernel=kernel(lib),
+                      mapping=None if mapping is None else mapping(lib), name="T" + label)
+
+    # eager JAX pays off over several float64 models; a single float32
+    # model compiles sooner than it warms up op by op
+    eager = jax_eager() if name == "float64" else contextlib.nullcontext()
+    with floatx(name), eager:
+        jp, tp = process_pair(build, x, y)
+        assert [p.name for p in tp.active.ordered_params] == \
+            [p.name for p in jp.active.ordered_params]
+        for k, v in jp.params_default.items():
+            np.testing.assert_array_equal(tp.params_default[k], np.asarray(v), err_msg=k)
+        # a PSD metric's directions default to 0, on the wall of their
+        # FlatExp prior (logp -1e30 in both packages): take them inside
+        params = {k: np.full_like(v, 0.3) if k.endswith("_directions") else v
+                  for k, v in nudged(jp.params_default).items()}
+        assert_process_matches(jp, tp, params, xq, name, label=label)
+        assert tp.logp(params) > -1e29, label
+    return jp, tp, params
+
+
+def assert_process_matches(jp, tp, params, xq, name="float64", label=""):
+    """logp, dlogp (``jax.grad`` in the JAX package) and predict's mean and
+    std at ``xq`` of a JAX process ``jp`` and its port ``tp``, at the
+    dtype's parity tolerance (``floatx(name)`` must be active)."""
+    pairs = [("logp", jp.logp(params), tp.logp(params)),
+             ("dlogp", jp.dlogp(params), tp.dlogp(params))]
+    want = jp.predict(params, xq, mean=True, std=True)
+    got = tp.predict(params, xq, mean=True, std=True)
+    pairs += [(k, want[k], got[k]) for k in ("mean", "std")]
+    for what, w, g in pairs:
+        assert_close(g, w, name, err_msg=f"{label} {what}")
+
+
+class KernelSpy:
+    """Counts the calls of the K1 wrapper (``stationary_gram``, reached by
+    the kernels) and of the K2 wrapper (``panel_cholesky``, reached by every
+    factorization) through ``monkeypatch``: on a CPU tensor each call is one
+    plain-version evaluation, on the card one launch."""
+
+    def __init__(self, monkeypatch):
+        self.k1 = self.k2 = 0
+        k1, k2 = tkernels.stationary_gram, tlinalg.panel_cholesky
+
+        def spy_k1(*a, **kw):
+            self.k1 += 1
+            return k1(*a, **kw)
+
+        def spy_k2(*a, **kw):
+            self.k2 += 1
+            return k2(*a, **kw)
+
+        monkeypatch.setattr(tkernels, "stationary_gram", spy_k1)
+        monkeypatch.setattr(tlinalg, "panel_cholesky", spy_k2)
+
+    def take(self):
+        """The (K1, K2) counts since the last take, then zero them."""
+        out = (self.k1, self.k2)
+        self.k1 = self.k2 = 0
+        return out
