@@ -3,8 +3,10 @@
 Drives the port's paths on one CUDA card — exact GP and warped-GP
 regression served from one factorization, trained by ``dlogp`` and
 ``find_MAP`` and sampled, the Student-t, transport, copula and marginal
-process families, and the whole catalogue of kernels, metrics, means and
-warpings with the shared registry — through the hand-written kernels K1
+process families, the whole catalogue of kernels, metrics, means and
+warpings with the shared registry, streaming updates, pathwise draws, the
+exported predictor, draws over rows, ``fix_vars`` and the non-centered
+sampler — through the hand-written kernels K1
 (stationary gram) and K2 (blocked panel Cholesky), and checks them:
 
   phase 0  require a CUDA card; print its name and power limit
@@ -95,6 +97,23 @@ warpings with the shared registry — through the hand-written kernels K1
            final walkers vs the host; 9e a WGP(Bias, SE) at n=4096 with each
            other warping (logp, and dlogp along the warping's coordinates),
            the inv-only ones served through the Newton inverse
+  phase 10 the rest of serving and the device half of the Bayesian toolbox at
+           full width (phase 5's data and MAP, phase 6d's rows, phase 6c's
+           n=125 workload), each against a float64 host recomputation: 10a
+           Predictor.updated (3840 + 256 points) vs a fresh Predictor on 4096
+           (float64 at 1e-8) and the host (float32 within 4x the float32
+           witness), K2 on the 256 x 256 block only; 10b pathwise_sampler,
+           600 paths x 512 queries (moments; one seed is one path across
+           batches; K1 once a call); 10c batch_sample and particles over 16
+           rows at 1024 queries vs the host's coloured draws of the same
+           normals, average(samples=2) through the row loop; 10d fix_vars
+           over the 8 SE rates on 16 rows: fixed_logp/fixed_dlogp vs the
+           host's row mean (one batched K1 and K2 launch each), find_MAP and
+           an 8 x 10 sampler over the other dims; 10e reparam='noncentered'
+           on the n=125 workload, 32 x 400 (every _ll the logp at its row);
+           10f export of the GP, a WGP(BoxCoxLinear) and a WGP(WarpingTanh)
+           Predictor, loaded in a fresh process with no model code, batches
+           of 1, 256 and 1000 vs the live Predictors (K1 once a batch)
 
 The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
 and read just after; the Bayesian path's counts are zeroed and read around
@@ -103,7 +122,9 @@ predictor's set-up and batches), and phase 7's around each float32 run of
 the main path (the oracle scoring, LOO, find_MAP, scores, predict, the WGP's
 logp/dlogp and Predictor), and phase 8's around each float32 family run
 (8e's batched launches go to the batched records), and phase 9's around
-each float32 catalogue run (9d's to the batched records), so warm-ups,
+each float32 catalogue run (9d's to the batched records), and phase 10's
+around each float32 run (10c-10e's batched ones to the batched records,
+the artifact's query batches counted in the loading process), so warm-ups,
 profiles, float64 twins and reference checks are not counted.  Each kernel must have
 launched on each path.  Every check raises on failure.  The last lines are
 the kernel record, the card and ``{"ok": true, "device": {...}}``.  Run from
@@ -1082,8 +1103,10 @@ def phase6d(gp, gp_map, x, y):
     require(all(served32[k] <= 2 * single32[k] for k in served32),
             f"float32 averaged predictor vs float64 {served32}, more than twice the single "
             f"Predictors' float32 gaps {single32}")
+    inside = np.flatnonzero(dt["_ll"] > -1e29)
+    dt16 = dt[inside[np.linspace(0, len(inside) - 1, 16).astype(int)]]
     return dict(sampler_s=t_s, setup_ms=t_setup * 1e3, batch_ms=statistics.median(times),
-                profile=prof, single32=single32, served32=served32), path
+                profile=prof, single32=single32, served32=served32), path, dt16
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2977,6 +3000,569 @@ def phase9(x, y, path, path_batched):
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+# The rest of serving and the device half of the Bayesian toolbox at the
+# main path's full width (phase 5's GP(Bias, SE) data and MAP at n=4096,
+# d=8; phase 6c's WGP n=125 sampler data): the streaming update, pathwise
+# draws, draws over datatrace rows, fix_vars and reparam='noncentered',
+# the exported predictor.  Each sub-phase holds its result to a float64
+# host recomputation; the launches are counted around its float32 runs.
+def map_params(gp_map, name):
+    """Phase 5's MAP under another process name."""
+    return {k.replace("TRAIN_GP", name): v for k, v in gp_map.items()}
+
+
+def stat_gaps(got, ref):
+    """max |got - ref| / max |ref| for each key of ``ref``."""
+    return {k: float(np.abs(np.asarray(got[k], np.float64) - ref[k]).max()
+                     / np.abs(ref[k]).max()) for k in ref}
+
+
+def host_stats(reg, u, x, y, xq, dtype=np.float64):
+    """GP(Bias, SE) mean, std and 95% band at ``xq`` in ``dtype``."""
+    p = host_params(reg, u, dtype)
+    mean, cov, _ = host_posterior(p, x.astype(dtype), y.astype(dtype), xq.astype(dtype))
+    std = np.sqrt(np.maximum(np.diag(cov), 0.0))
+    z = 1.959964
+    return {"mean": mean, "std": std, "quantile_up": mean + z * std,
+            "quantile_down": mean - z * std}
+
+
+def phase10a(x, y, gp_map, path):
+    """Predictor.updated: 3840 points + 256 streamed, against a fresh
+    Predictor on all 4096 (float64 on the card at 1e-8) and the float64
+    host (float32 within 4x a float32 host witness); K2 once, on the
+    256 x 256 block."""
+    from g3py_tpu_torch.ops import linalg as tlinalg
+
+    n0, xq = len(x) - 256, np.random.default_rng(100).standard_normal((256, 8)).astype(np.float32)
+    flags = dict(mean=True, std=True, quantiles=True)
+    out = {}
+    shapes = []
+    inner = tlinalg.panel_cholesky
+
+    def recorded(a, *args, **kw):
+        shapes.append(tuple(a.shape))
+        return inner(a, *args, **kw)
+
+    for dtype in ("float64", "float32"):
+        g3t.settings.floatx = dtype
+        try:
+            gp = g3t.GP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), name="UPD")
+            gp.observed(x[:n0], y[:n0])
+            params = map_params(gp_map, "UPD")
+            pr = gp.predictor(params)
+            torch.cuda.synchronize()
+            tlinalg.panel_cholesky = recorded
+            shapes.clear()
+            with counted(path) if dtype == "float32" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                pr2 = pr.updated(x[n0:], y[n0:])
+                torch.cuda.synchronize()
+                t_up = time.perf_counter() - t0
+                got = pr2(xq, **flags)
+                torch.cuda.synchronize()
+            tlinalg.panel_cholesky = inner
+            require(shapes and all(sh[-2:] == (256, 256) for sh in shapes),
+                    f"updated factored {shapes}, expected the 256 x 256 block only")
+            fresh_gp = g3t.GP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), name="UPD")
+            fresh_gp.observed(x, y)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh = fresh_gp.predictor(params)
+            torch.cuda.synchronize()
+            t_fresh = time.perf_counter() - t0
+            ref = fresh(xq, **flags)
+            gaps = stat_gaps({k: v.cpu().numpy() for k, v in got.items()},
+                             {k: v.double().cpu().numpy() for k, v in ref.items()})
+            out[dtype] = dict(update_ms=t_up * 1e3, fresh_setup_ms=t_fresh * 1e3,
+                              vs_fresh=gaps)
+            print(f"  10a {dtype}: update of 256 onto 3840 {t_up * 1e3:.2f} ms, a fresh "
+                  f"Predictor on 4096 {t_fresh * 1e3:.2f} ms; gaps to the fresh one {gaps}",
+                  flush=True)
+            if dtype == "float64":
+                require(max(gaps.values()) <= 1e-8, f"10a float64 updated vs fresh {gaps}")
+        finally:
+            tlinalg.panel_cholesky = inner
+            g3t.settings.floatx = "float32"
+    reg = gp.active
+    u = reg.dict_to_array(params)
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    ref64 = host_stats(reg, u, x64, y64, xq)
+    got = {k: v.cpu().numpy() for k, v in pr2(xq, **flags).items()}
+    gaps = stat_gaps(got, ref64)
+    for k, gap in gaps.items():
+        held(gap, 1e-3, lambda k=k: stat_gaps(host_stats(reg, u, x, y, xq, np.float32),
+                                              ref64)[k], f"10a float32 {k} vs the host")
+    out["float32"]["vs_host"] = gaps
+    print(f"  10a float32 vs the float64 host: {gaps}", flush=True)
+    return out
+
+
+def phase10b(gp, gp_map, path):
+    """Pathwise draws: 600 paths, 4096 features, 512 queries at the MAP, K1
+    once a call (float32, timed and counted); one seed over two
+    overlapping batches is one path (float64 at the MAP); the moments
+    against the Predictor's at the JAX test's bounds in float64 at the
+    default params.  At the MAP (cond(K) ~ 1e5) float32 rounding of the
+    update K_sX (K + s2 I)^{-1}(...) alone moves the draws' mean by more
+    than 5 standard errors, and the posterior std falls to ~3e-3 of a
+    prior std of ~1.4, below the random features' own error
+    (O(var sqrt(2/F)) on the prior covariance), so the std ratio there
+    measures the features, not the update: both are printed."""
+    xq = np.random.default_rng(101).standard_normal((512, 8)).astype(np.float32)
+    pr = gp.predictor(gp_map)
+    torch.cuda.synchronize()
+    with counted(path):
+        t0 = time.perf_counter()
+        draws = pr.pathwise_sampler(space=xq, samples=600, key=1, n_features=4096)
+        torch.cuda.synchronize()
+        t_draw = time.perf_counter() - t0
+        per_call = stationary_gram.launches
+    require(per_call == 1, f"pathwise_sampler launched K1 {per_call} times, expected 1")
+    require(draws.shape == (512, 600) and finite(draws), "pathwise draws not finite")
+
+    def moments(pr, draws):
+        ref = pr(xq)
+        d = draws.double().cpu().numpy()
+        mu, sd = ref["mean"].double().cpu().numpy(), ref["std"].double().cpu().numpy()
+        ratio = d.std(1) / sd
+        return float(np.max(np.abs(d.mean(1) - mu) / (sd / np.sqrt(600)))), ratio
+
+    z32, ratio32 = moments(pr, draws)
+    g3t.settings.floatx = "float64"
+    try:
+        pr64 = gp.predictor(gp_map)
+        z_map, ratio_map = moments(pr64, pr64.pathwise_sampler(space=xq, samples=600, key=1,
+                                                                n_features=4096))
+        pr_def = gp.predictor(gp.params_default)
+        z, ratio = moments(pr_def, pr_def.pathwise_sampler(space=xq, samples=600, key=1,
+                                                            n_features=4096))
+        a = pr64.pathwise_sampler(space=xq[:300], samples=8, key=5, n_features=4096)
+        b = pr64.pathwise_sampler(space=xq[200:], samples=8, key=5, n_features=4096)
+        shared = float((a[200:] - b[:100]).abs().max() / a.abs().max())
+    finally:
+        g3t.settings.floatx = "float32"
+    print(f"  10b pathwise: 600 paths x 512 queries, 4096 features in {t_draw * 1e3:.1f} ms "
+          f"(float32 at the MAP: mean within {z32:.2f} standard errors, std ratio "
+          f"[{ratio32.min():.3f}, {ratio32.max():.3f}]; float64 at the MAP: {z_map:.2f}, "
+          f"[{ratio_map.min():.3f}, {ratio_map.max():.3f}]); float64 at the default params: "
+          f"mean within {z:.2f} standard errors, std ratio [{ratio.min():.3f}, "
+          f"{ratio.max():.3f}]; one seed over two batches agrees at the shared points to "
+          f"{shared:.2e}", flush=True)
+    require(z < 5 and ratio.min() > 0.8 and ratio.max() < 1.2,
+            f"pathwise moments: {z:.2f} standard errors, ratio [{ratio.min()}, {ratio.max()}]")
+    require(shared <= 1e-8, f"pathwise draws of one seed disagree at shared points {shared}")
+    return dict(draw_ms=t_draw * 1e3, z=z, ratio=[float(ratio.min()), float(ratio.max())],
+                shared=shared, z32=z32, ratio32=[float(ratio32.min()), float(ratio32.max())],
+                z_map=z_map, ratio_map=[float(ratio_map.min()), float(ratio_map.max())])
+
+
+class _Normals:
+    """Stands in for a numpy Generator: hands out fixed standard normals."""
+
+    def __init__(self, z):
+        self.z = z
+
+    def standard_normal(self, shape):
+        return self.z.reshape(shape)
+
+
+def cpu_draws(gp, rows, xq, z):
+    """``batch_sample`` of ``rows`` on the CPU in float32 (the plain forms
+    of K1 and K2) from the normals ``z``: the float32 witness of 10c."""
+    old, g3t.settings.device = g3t.settings.device, "cpu"
+    try:
+        return gp.batch_sample(rows, space=xq, noise=True, rng=_Normals(z)).numpy()
+    finally:
+        g3t.settings.device = old
+
+
+def phase10c(gp, dt16, x, y, path, path_batched):
+    """batch_sample and particles over the 16 rows at 1024 queries (noisy
+    draws, float32, timed and counted), against the float64 host's
+    coloured draws of the same normals: rows 0 and 15 in float64 on the
+    card at 1e-6, and float32 at 1e-3 at the default params.  At the MAP
+    (cond(K) ~ 1e5) float32 draws are rounding: the posterior covariance
+    K_ss - V'V cancels to ~1e-2 of its terms, and two float32
+    implementations of it (the card's and the port's on the CPU) sit
+    apart by several times their own gaps, so those gaps are printed, not
+    held.  Then average(samples=2) through the row loop against the
+    batched average."""
+    reg = gp.active
+    rows = dt16[reg.param_names()]
+    xq = np.random.default_rng(102).standard_normal((1024, 8)).astype(np.float32)
+    torch.cuda.synchronize()
+    with counted(path_batched):
+        t0 = time.perf_counter()
+        draws = gp.batch_sample(rows, space=xq, noise=True, rng=np.random.default_rng(7))
+        torch.cuda.synchronize()
+        t_draw = time.perf_counter() - t0
+        k1, k2, _ = launches()
+    require(draws.shape == (16, 1024) and finite(draws), "batch_sample not finite")
+    require((k1, k2) == (4, 2), f"batch_sample launched K1 {k1}, K2 {k2} (expected 4, 2 for "
+            "one chunk: the rows' grams and states, the cross grams, the query grams and "
+            "the 16 x 1024^2 posterior factors)")
+    zs = np.random.default_rng(7).standard_normal((16, 1024)).astype(np.float32)
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    g3t.settings.floatx = "float64"
+    try:
+        draws64 = gp.batch_sample(rows, space=xq, noise=True, rng=np.random.default_rng(7))
+    finally:
+        g3t.settings.floatx = "float32"
+    gaps, gaps64, witness = {}, {}, {}
+    for r in (0, 15):
+        _, ref = host_draws(reg, rows[r], x64, y64, xq, zs[r][:, None])
+        scale = np.abs(ref).max()
+        gaps64[r] = float(np.abs(draws64[r].cpu().numpy() - ref[:, 0]).max() / scale)
+        gaps[r] = float(np.abs(draws[r].double().cpu().numpy() - ref[:, 0]).max() / scale)
+        witness[r] = float(np.abs(cpu_draws(gp, rows[r:r + 1], xq, zs[r])[0]
+                                  - ref[:, 0]).max() / scale)
+        require(gaps64[r] <= 1e-6, f"10c row {r} float64 draws vs the host {gaps64[r]:.3e}")
+    u_def = reg.dict_to_array(gp.params_default)
+    got_def = gp.batch_sample(u_def[None], space=xq, noise=True, rng=_Normals(zs[0]))
+    _, ref = host_draws(reg, u_def, x64, y64, xq, zs[0][:, None])
+    gap_def = float(np.abs(got_def[0].double().cpu().numpy() - ref[:, 0]).max()
+                    / np.abs(ref).max())
+    require(gap_def <= 1e-3, f"10c float32 draws at the default params vs the host {gap_def}")
+    with counted(path_batched):
+        part = gp.particles(dt16, 16, space=xq, noise=True, rng=np.random.default_rng(7))
+    require(torch.allclose(part.T, draws, rtol=1e-6, atol=1e-6),
+            "particles differ from batch_sample's draws")
+    # average(samples=2) through the row loop: float32 counted; the loop's
+    # mean and std against the batched average in float64 (1e-8)
+    gp.set_space(xq[:256])
+    t0 = time.perf_counter()
+    with counted(path):  # the row loop: one row's gram and factorization a statistic
+        loop = gp.average(dt16, False, samples=2)
+    t_avg = time.perf_counter() - t0
+    require(loop["samples"].shape == (256, 2) and finite(loop["samples"])
+            and finite(loop["mean"]) and finite(loop["std"]), "average(samples=2) not finite")
+    g3t.settings.floatx = "float64"
+    try:
+        loop64 = gp.average(dt16, False, samples=2)
+        batched64 = gp.average(dt16, False)
+    finally:
+        g3t.settings.floatx = "float32"
+        gp.set_space(x[:4])
+    avg_gap = {k: float((loop64[k] - batched64[k]).abs().max() / batched64[k].abs().max())
+               for k in ("mean", "std")}
+    require(max(avg_gap.values()) <= 1e-8, f"average's row loop vs batched (float64) {avg_gap}")
+    print(f"  10c draws over 16 rows at 1024 queries: batch_sample {t_draw * 1e3:.1f} ms "
+          f"(K1 x{k1}, K2 x{k2}); gaps to the float64 host: float64 rows 0, 15 {gaps64}, "
+          f"float32 at the default params {gap_def:.2e}, float32 at the MAP {gaps} (the port "
+          f"on the CPU in float32 {witness}); particles = the same "
+          f"draws; average(samples=2) through the row loop {t_avg:.2f} s, loop vs batched "
+          f"(float64) {avg_gap}", flush=True)
+    return dict(draw_ms=t_draw * 1e3, gaps=gaps, gaps64=gaps64, gap_default=gap_def,
+                cpu_witness=witness, average_s=t_avg, loop_vs_batched=avg_gap)
+
+
+def host_grad_sampling(reg, u, x, y):
+    """GP(Bias, SE) likelihood and its gradient over (Bias, log SE_var,
+    log Noise_var) at ``u``, float64 (analytic: alpha = K^{-1} r and
+    tr(K^{-1}) from a scipy Cholesky and triangular inverse)."""
+    import scipy.linalg
+
+    p = host_params(reg, u)
+    n = len(x)
+    kse = host_gram(x, x, p["SE_rate"], p["SE_var"])
+    chol = scipy.linalg.cholesky(kse + p["Noise_var"] * np.eye(n), lower=True)
+    r = y - p["Bias_Bias"]
+    z = scipy.linalg.solve_triangular(chol, r, lower=True)
+    alpha = scipy.linalg.solve_triangular(chol.T, z, lower=False)
+    linv = scipy.linalg.solve_triangular(chol, np.eye(n), lower=True)
+    tr_kinv = float((linv * linv).sum())
+    ll = -0.5 * n * np.log(2 * np.pi) - 0.5 * z @ z - np.log(np.diag(chol)).sum()
+    nv = p["Noise_var"]
+    g_bias = alpha.sum()
+    g_var = 0.5 * (alpha @ kse @ alpha - (n - nv * tr_kinv))
+    g_noise = 0.5 * nv * (alpha @ alpha - tr_kinv)
+    return ll, np.array([g_bias, g_var, g_noise])
+
+
+def prior_terms(reg, u):
+    """The registry's prior terms and their gradient at ``u`` (float64 on
+    the CPU, the port's own priors)."""
+    old = g3t.settings.device, g3t.settings.floatx
+    g3t.settings.device, g3t.settings.floatx = "cpu", "float64"
+    try:
+        t = torch.tensor(np.asarray(u, np.float64), requires_grad=True)
+        with torch.enable_grad():
+            val = reg.logp_prior_dict(reg.array_to_dict_tensor(t))
+        grad = (torch.autograd.grad(val, t)[0] if val.requires_grad
+                else torch.zeros_like(t))
+        return float(val), grad.numpy()
+    finally:
+        g3t.settings.device, g3t.settings.floatx = old
+
+
+def phase10d(gp, gp_map, dt16, x, y, path_batched):
+    """fix_vars over the 8 SE rates on the 16 rows: fixed_logp/fixed_dlogp
+    at the MAP's sampling dims against the float64 host's row mean (1e-3,
+    1e-2), one batched K1 and K2 launch an evaluation (float32, timed and
+    counted; its value held at 1e-3; the float64 run on the card holds
+    both: at the MAP the gradient is near 0 and a float32 gradient's
+    relative gap to it is rounding, printed); find_MAP under fix_vars;
+    sample_hypers over the fixed dims, 8 walkers x 10, the final walkers
+    against the card's float64 fixed_logp and the best one against the
+    host."""
+    reg = gp.active
+    keys = [f"TRAIN_GP_SE_rate__{i}" for i in range(8)]
+    reg.fix_vars(dt16, keys)
+    try:
+        sp = reg.sampling_params(gp_map)
+        x64, y64 = x.astype(np.float64), y.astype(np.float64)
+        chain = reg.fixed_chain.astype(np.float64)
+        per_eval = {}
+        t = {}
+        for fn in ("fixed_logp", "fixed_dlogp"):
+            torch.cuda.synchronize()
+            with counted(path_batched):
+                t0 = time.perf_counter()
+                val = getattr(gp, fn)(sp)
+                torch.cuda.synchronize()
+                t[fn] = (time.perf_counter() - t0) * 1e3
+                k1, k2, retries = launches()
+            per_eval[fn] = (k1, k2 - retries)
+            require((k1, k2 - retries) == (1, 1), f"{fn}: K1 x{k1}, K2 x{k2} ({retries} "
+                    "retries), expected one batched launch of each")
+            if fn == "fixed_logp":
+                got_v = float(val)
+            else:
+                got_g = np.asarray(val, np.float64)
+        g3t.settings.floatx = "float64"
+        try:
+            got_v64, got_g64 = float(gp.fixed_logp(sp)), np.asarray(gp.fixed_dlogp(sp))
+        finally:
+            g3t.settings.floatx = "float32"
+
+        us = chain.copy()
+        us[:, reg.sampling_dims] = sp
+        priors = [prior_terms(reg, u) for u in us]  # the settings are global: not threaded
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            rows = list(pool.map(lambda u: host_grad_sampling(reg, u, x64, y64), us))
+        ref_v = float(np.mean([r[0] + p[0] for r, p in zip(rows, priors)]))
+        ref_g = np.mean([r[1] + p[1][reg.sampling_dims] for r, p in zip(rows, priors)], axis=0)
+        gap_v = abs(got_v - ref_v) / abs(ref_v)
+        gap_g = float(np.linalg.norm(got_g - ref_g) / np.linalg.norm(ref_g))
+        gap_v64 = abs(got_v64 - ref_v) / abs(ref_v)
+        gap_g64 = float(np.linalg.norm(got_g64 - ref_g) / np.linalg.norm(ref_g))
+        print(f"  10d fixed_logp {got_v:.4f} vs host {ref_v:.4f} (gap {gap_v:.2e}, "
+              f"{t['fixed_logp']:.1f} ms), fixed_dlogp gap {gap_g:.2e} (|host gradient| "
+              f"{np.linalg.norm(ref_g):.3e}, {t['fixed_dlogp']:.1f} ms); float64 gaps "
+              f"{gap_v64:.2e}, {gap_g64:.2e}; launches {per_eval}; host "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        require(gap_v <= 1e-3 and gap_v64 <= 1e-3 and gap_g64 <= 1e-2,
+                f"10d fixed logp/dlogp vs host: {gap_v:.2e}; float64 {gap_v64:.2e}, "
+                f"{gap_g64:.2e}")
+        with counted(path_batched):
+            t0 = time.perf_counter()
+            fmap = gp.find_MAP(start=gp_map, points=1, powell=False, display=False)
+            t_fit = time.perf_counter() - t0
+        after = float(gp.fixed_logp(reg.sampling_params(fmap)))
+        require(after >= got_v - 1e-3 * abs(got_v), f"find_MAP under fix_vars lowered the "
+                f"fixed logp {got_v} -> {after}")
+        with counted(path_batched):
+            t0 = time.perf_counter()
+            ch, lnprob = gp.sample_hypers(start=fmap, samples=10, chains=8, seed=5, raw=True,
+                                          noise_mult=0.02)
+            t_s = time.perf_counter() - t0
+        require(np.isfinite(ch).all() and np.isfinite(lnprob).all(),
+                "fixed-dims sampler not finite")
+        require(np.allclose(ch[:, :, reg.fixed_dims], chain[:, reg.fixed_dims].mean(0),
+                            rtol=1e-6), "fixed dims of the sampler's chain moved")
+        final = ch[:, -1, :][:, reg.sampling_dims]
+        g3t.settings.floatx = "float64"
+        try:
+            ref64 = np.array([gp.fixed_logp(w) for w in final])
+        finally:
+            g3t.settings.floatx = "float32"
+        walk_gap = float(np.max(np.abs(lnprob[:, -1] - ref64) / np.abs(ref64)))
+        best = int(np.argmax(lnprob[:, -1]))
+        sp_best = final[best]
+
+        us = chain.copy()
+        us[:, reg.sampling_dims] = sp_best
+        priors = [prior_terms(reg, u)[0] for u in us]
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            lls = list(pool.map(lambda u: host_logp(reg, u, x64, y64), us))
+        host_v = float(np.mean(np.asarray(lls) + np.asarray(priors)))
+        best_gap = abs(lnprob[best, -1] - host_v) / abs(host_v)
+        print(f"  10d find_MAP under fix_vars {t_fit:.2f} s (fixed logp {got_v:.4f} -> "
+              f"{after:.4f}); sampler 8 x 10 over 3 sampling dims {t_s:.2f} s, final walkers "
+              f"vs the card's float64 {walk_gap:.2e}, the best vs the host {best_gap:.2e}",
+              flush=True)
+        require(walk_gap <= 1e-3 and best_gap <= 1e-3,
+                f"10d final walkers: {walk_gap:.2e} / {best_gap:.2e}")
+        return dict(logp_ms=t["fixed_logp"], dlogp_ms=t["fixed_dlogp"], gap_v=gap_v,
+                    gap_g=gap_g, gap_v64=gap_v64, gap_g64=gap_g64, fit_s=t_fit,
+                    sampler_s=t_s, walk_gap=walk_gap, best_gap=best_gap)
+    finally:
+        reg.fix_vars()
+
+
+def phase10e(path_batched):
+    """reparam='noncentered' on the reference WGP n=125 workload, 32 x 400:
+    the shear round trip, every _ll the model logp at its row (the JAX
+    test's rtol 1e-4, atol 1e-3)."""
+    x, y = bench_wgp_data()
+    wgp = g3t.WGP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x),
+                  mapping=g3t.BoxCoxLinear(y), name="SMOKE_NCP")
+    wgp.observed(x, y)
+    start = wgp.params_default
+    shear, unshear = wgp._noncentered_sampling_shear()
+    ndim = wgp.active.ndim
+    u = torch.as_tensor(wgp.active.dict_to_array(start)[None]
+                        + 0.3 * np.random.default_rng(9).standard_normal((32, ndim)),
+                        dtype=torch.float32, device=g3t.settings.device)
+    sheared = shear(u)
+    trip = float((unshear(sheared) - u).abs().max()
+                 / max(float(u.abs().max()), float(sheared.abs().max())))
+    require(trip <= 1e-6, f"shear round trip {trip:.2e}")
+    with counted(path_batched):
+        t0 = time.perf_counter()
+        dt = wgp.sample_hypers(start=start, samples=400, chains=32, noise_mult=0.05, seed=2,
+                               reparam="noncentered")
+        t_s = time.perf_counter() - t0
+    rows = dt[wgp.active.param_names()]
+    ll = wgp.logp_chain(rows)
+    inside = dt["_ll"] > -1e29
+    gap = float(np.max(np.abs(ll[inside] - dt["_ll"][inside])
+                       / np.maximum(np.abs(dt["_ll"][inside]), 1.0)))
+    chain = g3t.datatrace_to_chains(wgp, dt)
+    print(f"  10e noncentered WGP n=125 32 x 400: {t_s:.2f} s, acceptance "
+          f"{moved_share(chain):.3f}, shear round trip {trip:.2e}, every _ll vs the logp at "
+          f"its row {gap:.2e} ({int(inside.sum())} rows)", flush=True)
+    # the JAX test's float32 tolerance (tests/test_samplers.py:410): the logp
+    # of a row in a batch of 16 and in one of 12800 rounds differently
+    require(inside.mean() > 0.9 and np.allclose(ll[inside], dt["_ll"][inside], rtol=1e-4,
+                                                atol=1e-3), f"10e _ll vs logp at rows: {gap:.2e}")
+    return dict(sampler_s=t_s, round_trip=trip, ll_gap=gap, acceptance=moved_share(chain))
+
+
+LOADER = r'''
+import json, sys, time
+import numpy as np, torch
+import g3py_tpu_torch.serving as serving
+from g3py_tpu_torch.ops.stationary_gram import stationary_gram as k1
+out_dir, names, device = sys.argv[1], sys.argv[2].split(","), sys.argv[3]
+sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+xq = np.load(out_dir + "/queries.npy")
+report = {}
+for name in names:
+    ep = serving.load_predictor(out_dir + "/" + name, device=device)
+    rec = {"launches": [], "ms": []}
+    for m in (1, 256, 1000):
+        ep(xq[:m]); sync()
+        before = k1.launches
+        t0 = time.perf_counter(); got = ep(xq[:m]); sync()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["launches"].append(k1.launches - before)
+        np.savez(f"{out_dir}/{name}_{m}.npz", **{k: v.cpu().numpy() for k, v in got.items()})
+    report[name] = rec
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "g3py_tpu")
+       or m in ("g3py_tpu_torch.models", "g3py_tpu_torch.hypers", "g3py_tpu_torch.bayesian")]
+report["bad_modules"] = bad
+print(json.dumps(report))
+'''
+
+
+def phase10f(gp, gp_map, x, path):
+    """Export phase 5's GP (mean, std, quantiles, quantiles_noise), a
+    WGP(BoxCoxLinear) and a WGP(WarpingTanh) Predictor on the card; load
+    them in a fresh python3 process with no model code; the loaded
+    statistics against the live Predictors' at batches 1, 256 and 1000
+    (rtol 1e-5); K1 once a query batch inside the artifact."""
+    import shutil
+
+    out_dir = ROOT / "build" / "chip_smoke_export"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    y_pos = (np.abs(np.sin(x[:, 0])) + 0.5
+             + 0.1 * np.random.default_rng(103).standard_normal(len(x))).astype(np.float32)
+    flags = dict(mean=True, std=True, quantiles=True, quantiles_noise=True)
+    models = {"gp": (gp, gp_map, flags)}
+    for name, mapping in (("boxcox", g3t.BoxCoxLinear(y_pos)),
+                          ("tanh", g3t.WarpingTanh(y_pos, n=3))):
+        w = g3t.WGP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), mapping=mapping,
+                    name="EXP_" + name.upper())
+        w.observed(x, y_pos)
+        models[name] = (w, w.params_default, flags if name == "boxcox"
+                        else dict(mean=True, std=True, quantiles=True))
+    xq = np.random.default_rng(104).standard_normal((1000, 8)).astype(np.float32)
+    np.save(out_dir / "queries.npy", xq)
+    live, t_export = {}, {}
+    for name, (proc, params, fl) in models.items():
+        pr = proc.predictor(params)
+        t0 = time.perf_counter()
+        pr.export(str(out_dir / name), **fl)
+        t_export[name] = time.perf_counter() - t0
+        live[name] = {m: {k: v.cpu().numpy() for k, v in pr(xq[:m], **fl).items()}
+                      for m in (1, 256, 1000)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pr(xq[:256], **fl)
+        torch.cuda.synchronize()
+        live[name]["ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", LOADER, str(out_dir), ",".join(models),
+                           torch.device(g3t.settings.device).type],
+                          capture_output=True, text=True, cwd=str(ROOT), timeout=600,
+                          env={**__import__("os").environ, "PYTHONPATH": str(ROOT)})
+    t_sub = time.perf_counter() - t0
+    require(proc.returncode == 0, f"loader process failed:\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(not report["bad_modules"], f"the loader imported {report['bad_modules']}")
+    out = {}
+    for name in models:
+        gaps = {}
+        for m in (1, 256, 1000):
+            got = np.load(out_dir / f"{name}_{m}.npz")
+            want = live[name][m]
+            for k in want:
+                gap = float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+                gaps[k] = max(gaps.get(k, 0.0), gap)
+        rec = report[name]
+        require(rec["launches"] == [1, 1, 1], f"{name}: K1 launched {rec['launches']} times in "
+                "the artifact's query batches, expected once each")
+        require(max(gaps.values()) <= 1e-5, f"{name}: loaded vs live {gaps}")
+        path[0] += sum(rec["launches"])
+        out[name] = dict(export_s=t_export[name], loaded_ms=rec["ms"],
+                         live_256_ms=live[name]["ms"], gap=max(gaps.values()))
+        print(f"  10f {name}: export {t_export[name]:.2f} s; loaded batches of 1/256/1000 "
+              f"{[round(t, 3) for t in rec['ms']]} ms (live batch of 256 "
+              f"{live[name]['ms']:.3f} ms), K1 {rec['launches']}, largest relative gap to "
+              f"the live Predictor {max(gaps.values()):.2e}", flush=True)
+    out["loader_process_s"] = t_sub
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return out
+
+
+def phase10(gp, gp_map, x, y, dt16, path, path_batched):
+    """Phase 10's runs; the launches of 10a, 10b and 10f go to ``path``,
+    the batched ones of 10c-10e to ``path_batched``."""
+    out = {}
+    runs = (("10a", "Predictor.updated", lambda p: phase10a(x, y, gp_map, p), path),
+            ("10b", "pathwise_sampler", lambda p: phase10b(gp, gp_map, p), path),
+            ("10c", "draws over rows", lambda p: phase10c(gp, dt16, x, y, path, p), path_batched),
+            ("10d", "fix_vars", lambda p: phase10d(gp, gp_map, dt16, x, y, p), path_batched),
+            ("10e", "reparam='noncentered'", phase10e, path_batched),
+            ("10f", "export", lambda p: phase10f(gp, gp_map, x, p), path))
+    for key, label, run, target in runs:
+        print(f"phase {key}: {label}", flush=True)
+        t0 = time.perf_counter()
+        launched = [0, 0]
+        out[key] = run(launched)
+        out[key]["wall_s"] = time.perf_counter() - t0
+        print(f"  phase {key} wall {out[key]['wall_s']:.1f} s; launches K1 {launched[0]}, "
+              f"K2 {launched[1]}", flush=True)
+        target[0] += launched[0]
+        target[1] += launched[1]
+    return out
+
+
 def main():
     print("phase 0: device", flush=True)
     if not torch.cuda.is_available():
@@ -3063,7 +3649,7 @@ def main():
     bayes, path_c = phase6c()
     print("phase 6d: full width, GP(Bias, SE) n=4096: sampler and averaged predictor",
           flush=True)
-    bayes_full, path_d = phase6d(tgp, gp_map, x_map, y_map)
+    bayes_full, path_d, dt16 = phase6d(tgp, gp_map, x_map, y_map)
     k1_bayes, k2_bayes = path_c[0] + path_d[0], path_c[1] + path_d[1]
     print(f"  launches in the Bayesian path: K1 {k1_bayes}, K2 {k2_bayes}", flush=True)
     require(k1_bayes > 0 and k2_bayes > 0, "the Bayesian path did not go through both kernels")
@@ -3109,6 +3695,18 @@ def main():
     require(p9[0] > 0 and p9[1] > 0 and p9_batched[0] > 0 and p9_batched[1] > 0,
             "phase 9 did not go through both kernels")
 
+    # ---- the rest of serving and the device half of the Bayesian toolbox:
+    # the counts are zeroed before, and read after, each float32 run
+    # (updated, pathwise, draws over rows, the fixed logps, find_MAP and
+    # sampler, the non-centered sampler, the artifact's query batches); the
+    # float64 twins, the host checks and the witnesses are not counted
+    p10, p10_batched = [0, 0], [0, 0]
+    toolbox = phase10(tgp, gp_map, x_map, y_map, dt16, p10, p10_batched)
+    print(f"  launches in phase 10: K1 {p10[0]}, K2 {p10[1]}; batched K1 {p10_batched[0]}, "
+          f"K2 {p10_batched[1]}", flush=True)
+    require(p10[0] > 0 and p10[1] > 0 and p10_batched[0] > 0 and p10_batched[1] > 0,
+            "phase 10 did not go through both kernels")
+
     shape = (4096, 4096, 8)
     t_wrap, t_plain, t_dev = k1_timing[("se", shape)]
     k1_bound = shape[0] * shape[1] * 4 / PEAK_BYTES * 1e3
@@ -3117,14 +3715,15 @@ def main():
         {"name": "stationary_gram", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
          "replaces": "g3py_tpu/ops/pallas_gram.py:81",
-         "launches": k1_serve + k1_train + k1_p7 + p8[0] + p9[0],
+         "launches": k1_serve + k1_train + k1_p7 + p8[0] + p9[0] + p10[0],
          "max_abs_err": max(k1_worst, catalogue["k1_algebra_err"]["single"]),
          "ms": t_dev if t_dev is not None else t_wrap, "plain_ms": t_plain,
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "panel_cholesky", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
          "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
-         "launches": k2_serve + k2_train + k2_p7 + p8[1] + p9[1], "max_abs_err": k2_worst,
+         "launches": k2_serve + k2_train + k2_p7 + p8[1] + p9[1] + p10[1],
+         "max_abs_err": k2_worst,
          "ms": k2t["ms"], "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"],
          "bound_by": "operations", "library_ms": k2t["library_ms"]}]}
     k1b = k1b_timing[(16, 4096, 4096, 8)]
@@ -3133,7 +3732,7 @@ def main():
         {"name": "stationary_gram_batched", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
          "replaces": "g3py_tpu/ops/pallas_gram.py:81",
-         "launches": k1_bayes + p8_batched[0] + p9_batched[0],
+         "launches": k1_bayes + p8_batched[0] + p9_batched[0] + p10_batched[0],
          "max_abs_err": max(k1b_worst, catalogue["k1_algebra_err"]["batched"]),
          "ms": k1b["device_ms"] if k1b["device_ms"] is not None else k1b["ms"],
          "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": "bytes",
@@ -3141,7 +3740,8 @@ def main():
         {"name": "panel_cholesky_batched", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
          "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
-         "launches": k2_bayes + p8_batched[1] + p9_batched[1], "max_abs_err": k2b_worst,
+         "launches": k2_bayes + p8_batched[1] + p9_batched[1] + p10_batched[1],
+         "max_abs_err": k2b_worst,
          "ms": k2b["ms"], "plain_ms": k2b["plain_ms"], "bound_ms": k2b["bound_ms"],
          "bound_by": k2b["bound_by"], "library_ms": k2b["library_ms"]}]
     print(f"  K1 at {shape} SE f32: device {fmt_ms(t_dev)}, wrapper {t_wrap:.4f} ms, "
@@ -3153,6 +3753,7 @@ def main():
           f"{json.dumps(warped)}", flush=True)
     print(f"  phase 8: {json.dumps(families, default=float)}", flush=True)
     print(f"  phase 9: {json.dumps(catalogue, default=float)}", flush=True)
+    print(f"  phase 10: {json.dumps(toolbox, default=float)}", flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,7 +27,14 @@ the card (``"cuda"``) unless the program says ``"cpu"``:
 ...               @ g3t.TKernel(g3t.SE(x), noisy=True))
 >>> cgp = g3t.CGP(space=x, kernel=g3t.SE(x),
 ...               marginal=g3t.Normal(mu=g3t.Bias(x), sigma=g3t.Bias(x, name="S")))
+
+Only the numeric core (``config``, ``utils``, ``ops``) is imported with the
+package; the catalogue, the models and the Bayesian layer load at the first
+use of any other name (``g3t.GP``, ``g3t.SE``, ...), so that a serving
+process (:mod:`g3py_tpu_torch.serving`) loads no model code.
 """
+
+import importlib
 
 from . import config
 from .config import settings, floatx, set_floatx
@@ -37,40 +44,67 @@ from .ops import (safe_cholesky, cho_solve, solve_lower_triangular,
                   solve_upper_triangular, trtri_from_panels, mvn_quad_logdet,
                   gauss_hermite, stationary_gram, panel_cholesky, newton_inverse)
 from .ops.special import betainc, gammaln, ndtri, ndtr
-from .hypers import (Hypers, Param, Prior, Flat, FlatExp, Transform,
-                     IdentityTransform, LogTransform, LogIdTransform, IntervalTransform,
-                     Freedom, ExpFlat, FlatPos, PositiveFlat, NonTransformLog, FlatExpId,
-                     Exponential, Uniform as UniformPrior, Null)
-from .hypers.metrics import (Metric, One, Delta, DeltaEq, DeltaEq2, Minimum, Difference, L1,
-                             L2, ARD, ARD_L1, ARD_L2, ARD_Dot, ARD_DotBias, PSD, PSD_Dot,
-                             PSD_L2)
-from .hypers.kernels import (Kernel, KernelDot, KernelStationary, KernelOperation,
-                             KernelComposition, KernelSum, KernelProd, KernelScale,
-                             KernelShift, KernelMax, KernelEquals, KernelEquals2, KernelNoise,
-                             BW, VAR, NIL, LIN, POL, NN, WN, RQ, MAT32, MAT52,
-                             KernelStationaryExponential, OU, SE, KernelPeriodic, COS, SIN,
-                             SINC, SM)
-from .hypers.means import (Mean, Location, BlackBox, MeanOperation, MeanComposition,
-                           MeanScale, MeanShift, MeanProd, MeanSum, Zero, Bias, Linear, Power)
-from .hypers.mappings import (Mapping, MappingOperation, MappingComposed, MappingInvSum,
-                              Identity, LinearMapping, LogShifted, BoxCoxShifted, BoxCoxLinear,
-                              BoxCoxLinear2, WarpingTanh, WarpingBoxCox, ArcsinhLinear,
-                              SinhArcsinh, Logistic)
-from .hypers.transports import (Transport, TransportOperation, TransportComposed, ID,
-                                TElemwise, TLinear, TNoLinear, TLocation, TScale, TMapping,
-                                TKernel, TTriangular)
-from .bayesian import (GraphicalModel, Model, get_model, optimize, ensemble_sampler, pt_sampler,
-                       default_beta_ladder, mcmc_ensemble, chains_to_datatrace,
-                       datatrace_to_chains, gelman_rubin, burn_in_samples,
-                       effective_sample_min, effective_sample_size)
-from .models import (StochasticProcess, EllipticalProcess, GaussianProcess,
-                     WarpedGaussianProcess, StudentTProcess, WarpedStudentTProcess,
-                     MarginalProcess, Density, SymmetricDensity, Uniform, Normal, StudentT,
-                     TransportProcess, TransportGaussianProcess, CopulaProcess,
-                     CopulaGaussianProcess, CopulaStudentTProcess, TransformedStudentTProcess,
-                     GP, WGP, TP, WTP, MP, TGP, CGP, CSTP, Predictor, AveragedPredictor)
-
-# the reference's names (tt_to_num, cholesky_robust, makefn, ...)
-from .compat import *  # noqa: E402,F401,F403
 
 __version__ = "0.1.0"
+_loaded = False
+
+
+def _load():
+    """Import the catalogue, the models and the Bayesian layer and publish
+    their names here (the reference's names from :mod:`.compat` too)."""
+    global _loaded
+    if _loaded:
+        return
+    _loaded = True  # the imports below look names up on this package
+    from .hypers import (Hypers, Param, Prior, Flat, FlatExp, Transform,
+                         IdentityTransform, LogTransform, LogIdTransform, IntervalTransform,
+                         Freedom, ExpFlat, FlatPos, PositiveFlat, NonTransformLog, FlatExpId,
+                         Exponential, Uniform as UniformPrior, Null)
+    from .hypers.metrics import (Metric, One, Delta, DeltaEq, DeltaEq2, Minimum, Difference, L1,
+                                 L2, ARD, ARD_L1, ARD_L2, ARD_Dot, ARD_DotBias, PSD, PSD_Dot,
+                                 PSD_L2)
+    from .hypers.kernels import (Kernel, KernelDot, KernelStationary, KernelOperation,
+                                 KernelComposition, KernelSum, KernelProd, KernelScale,
+                                 KernelShift, KernelMax, KernelEquals, KernelEquals2, KernelNoise,
+                                 BW, VAR, NIL, LIN, POL, NN, WN, RQ, MAT32, MAT52,
+                                 KernelStationaryExponential, OU, SE, KernelPeriodic, COS, SIN,
+                                 SINC, SM)
+    from .hypers.means import (Mean, Location, BlackBox, MeanOperation, MeanComposition,
+                               MeanScale, MeanShift, MeanProd, MeanSum, Zero, Bias, Linear, Power)
+    from .hypers.mappings import (Mapping, MappingOperation, MappingComposed, MappingInvSum,
+                                  Identity, LinearMapping, LogShifted, BoxCoxShifted, BoxCoxLinear,
+                                  BoxCoxLinear2, WarpingTanh, WarpingBoxCox, ArcsinhLinear,
+                                  SinhArcsinh, Logistic)
+    from .hypers.transports import (Transport, TransportOperation, TransportComposed, ID,
+                                    TElemwise, TLinear, TNoLinear, TLocation, TScale, TMapping,
+                                    TKernel, TTriangular)
+    from .bayesian import (GraphicalModel, Model, get_model, optimize, ensemble_sampler,
+                           pt_sampler, default_beta_ladder, mcmc_ensemble, chains_to_datatrace,
+                           datatrace_to_chains, gelman_rubin, burn_in_samples,
+                           effective_sample_min, effective_sample_size)
+    from .models import (StochasticProcess, EllipticalProcess, GaussianProcess,
+                         WarpedGaussianProcess, StudentTProcess, WarpedStudentTProcess,
+                         MarginalProcess, Density, SymmetricDensity, Uniform, Normal, StudentT,
+                         TransportProcess, TransportGaussianProcess, CopulaProcess,
+                         CopulaGaussianProcess, CopulaStudentTProcess, TransformedStudentTProcess,
+                         GP, WGP, TP, WTP, MP, TGP, CGP, CSTP, Predictor, AveragedPredictor)
+    from .serving import ExportedPredictor, load_predictor
+    compat = importlib.import_module(__name__ + ".compat")
+    names = dict(locals())
+    names.update({k: getattr(compat, k) for k in compat.__all__})
+    globals().update(names)
+
+
+def __getattr__(name):
+    if name.startswith("__"):
+        raise AttributeError(name)
+    _load()
+    try:
+        return globals()[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+
+
+def __dir__():
+    _load()
+    return sorted(globals())

@@ -10,7 +10,13 @@ evaluated a datatrace by looping ``predict`` once per row.  The JAX package
 unconstrained rows into one params dict of rows, factors every row's
 posterior in ONE batched call, and evaluates every statistic for all rows
 at once.  :meth:`BatchedModel.average` is its mean over the rows, with the
-rows' ``_l1``/``_l2`` against ``hidden``.
+rows' ``_l1``/``_l2`` against ``hidden``; an option the batched form does
+not take (``samples``, ``distribution``, ``simulations``) falls back to the
+row loop :meth:`BatchedModel._average_loop`, as in the JAX package.
+:meth:`BatchedModel.batch_sample` draws one warped posterior sample per
+row from one batched factorization of the rows' states and one of their
+posterior covariances (per chunk of rows), and :meth:`BatchedModel.particles`
+cycles a datatrace's rows through it.
 """
 
 import numpy as np
@@ -80,6 +86,13 @@ class BatchedModel:
             out["_loo"] = self.loo(params)
         return out
 
+    def eval_params(self, params=None):
+        """``params`` with its logp (``_ll``) and :meth:`scores`."""
+        r = DictObj(params)
+        r["_ll"] = self.logp(self.filter_params(params))
+        r.update(self.scores(params))
+        return r
+
     def _datatrace_rows(self, datatrace):
         return np.asarray(datatrace[self.active.param_names()], dtype=settings.floatx)
 
@@ -111,8 +124,12 @@ class BatchedModel:
         Bayesian model average), every row factored in one batched call;
         float64 tensors on ``settings.device``.  With ``scores``, ``_l1``
         and ``_l2`` of every row's mean against ``hidden`` when the space
-        is ``hidden``'s."""
-        batch = self.batch_predict(self._datatrace_rows(datatrace), *args, **kwargs)
+        is ``hidden``'s.  Options the batched form does not take go through
+        the row loop (:meth:`_average_loop`)."""
+        try:
+            batch = self.batch_predict(self._datatrace_rows(datatrace), *args, **kwargs)
+        except NotImplementedError:
+            return self._average_loop(datatrace, scores, *args, **kwargs)
         out = DictObj({k: v.to(torch.float64).mean(dim=0) for k, v in batch.items()})
         if scores:
             mean_rows = batch.get("mean")
@@ -123,3 +140,86 @@ class BatchedModel:
                                                std=False, **flags)["mean"]
             out.update(_row_scores(mean_rows, self.hidden))
         return out
+
+    def _average_loop(self, datatrace, scores=True, *args, **kwargs):
+        """The per-row fallback of :meth:`average`: ``predict`` (and with
+        ``scores`` :meth:`scores`) at every row, summed and divided by the
+        number of rows, as the JAX package's loop does (tensors in
+        float64, scores as floats)."""
+        total = None
+        for _, row in datatrace.iterrows():
+            params = self.active.params_serie(row)
+            pred = self.predict(params, *args, **kwargs)
+            if scores:
+                pred.update(self.scores(params, *args, **kwargs))
+            pred = {k: v.to(torch.float64) if isinstance(v, torch.Tensor) else v
+                    for k, v in pred.items()}
+            if total is None:
+                total = DictObj(pred)
+            else:
+                for key in pred:
+                    total[key] = total[key] + pred[key]
+        for key in total:
+            total[key] = total[key] / len(datatrace)
+        return total
+
+    def _batch_latent_rand(self, rows, n, rng, space=None, inputs=None, outputs=None,
+                           prior=False, noise=False):
+        """Per-row latent innovations (R, n), or None when the family's
+        sampler is not a coloured-normal form."""
+        return None
+
+    def batch_sample(self, rows, space=None, inputs=None, outputs=None, prior=False,
+                     noise=False, rng=None, chunk=None, **extra):
+        """One warped posterior draw per row of an (R, ndim) matrix of
+        unconstrained rows, (R, m) on ``settings.device``: the innovations
+        come from ``rng`` (numpy's Generator, a fresh one when None), and
+        each chunk of rows (``chunk``, by default what keeps the (chunk, m,
+        m) posterior covariances under ~256 MB at float32) is one batched
+        factorization of the rows' states and one of their posterior
+        covariances."""
+        if extra.pop("samples", 1) not in (None, 1) or any(extra.values()):
+            # e.g. samples=3: a per-row-only option, left to the row loop
+            raise NotImplementedError(
+                f"batch_sample does not support {sorted(extra) or 'samples>1'}")
+        if rng is None:
+            rng = np.random.default_rng()
+        if inputs is None and not self.is_observed:
+            prior = True
+        rows = np.asarray(rows, dtype=settings.floatx)
+        m = len(self.space if space is None else space)
+        if chunk is None:
+            chunk = max(1, int(2 ** 26 // max(m * m, 1)))
+        outs = []
+        for lo in range(0, len(rows), chunk):
+            sub = rows[lo:lo + chunk]
+            rand = self._batch_latent_rand(sub, m, rng, space=space, inputs=inputs,
+                                           outputs=outputs, prior=prior, noise=noise)
+            if rand is None:
+                raise NotImplementedError("no colored-normal sampler form")
+            outs.append(self._batch_draws(sub, rand, space, inputs, outputs, prior=prior,
+                                          noise=noise))
+        return torch.cat(outs, dim=0)
+
+    def particles(self, datatrace, nsamples=None, *args, **kwargs):
+        """Posterior sample curves over the datatrace's rows, (m,
+        nsamples): the rows cycled to ``nsamples`` (default: one a row)
+        through :meth:`batch_sample`, or one ``sample`` a row when the
+        batched form does not apply."""
+        rows = self._datatrace_rows(datatrace)
+        if nsamples is None:
+            nsamples = len(rows)
+        idx = np.resize(np.arange(len(rows)), nsamples)
+        try:
+            return self.batch_sample(rows[idx], *args, **kwargs).T
+        except NotImplementedError:
+            pass
+        particles = []
+        left = nsamples
+        while left > 0:
+            for _, row in datatrace.iterrows():
+                particles.append(self.sample(self.active.params_serie(row), *args, **kwargs))
+                left -= 1
+                if not left > 0:
+                    break
+        return torch.cat(particles, dim=1)

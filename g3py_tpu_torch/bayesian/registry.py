@@ -47,8 +47,10 @@ class GraphicalModel:
         self.params_spec = {}  # name -> Param, insertion-ordered
         self.potentials = DictObj()  # name -> callable(params_dict) -> scalar
         self.current_params = None
-        # fix_vars (marginalizing dims over a datatrace) is not ported: every
-        # dim is a sampling dim
+        # fix_vars: dims pinned to a datatrace's rows (none by default)
+        self.fixed_keys = []
+        self.fixed_datatrace = None
+        self.fixed_chain = None
         self.fixed_dims = []
         self.activate()
 
@@ -143,6 +145,16 @@ class GraphicalModel:
         return out
 
     # -- prior logp -----------------------------------------------------------
+    def logp_prior_array(self, u):
+        """Sum of the per-param prior terms in unconstrained space, from the
+        flat vector (one sum a row for a (R, ndim) matrix of rows)."""
+        total = torch.zeros(u.shape[:-1], dtype=u.dtype, device=u.device)
+        start = 0
+        for p in self.ordered_params:
+            total = total + p.prior.logp(u[..., start:start + p.size])
+            start += p.size
+        return total
+
     def logp_prior_dict(self, params):
         """Sum of per-param prior terms from a natural-space dict (one sum
         a row for a dict of rows)."""
@@ -199,10 +211,89 @@ class GraphicalModel:
                         np.reshape(np.asarray(v), self.params_spec[key].shape))
         return default
 
+    def params_random(self, mean=None, sigma=0.1, prop=True, rng=None):
+        """Random perturbation of a params dict (the defaults when None):
+        ``v (1 + sigma e)`` with ``prop``, else ``v + sigma e``, e standard
+        normal draws of ``rng`` (numpy's Generator; a fresh one when None)."""
+        if mean is None:
+            mean = self.params_default
+        if rng is None:
+            rng = np.random.default_rng()
+        out = DictObj(mean)
+        for k, v in out.items():
+            v = np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+            noise = rng.standard_normal(v.size).reshape(v.shape)
+            out[k] = asarray_x(v * (1 + sigma * noise) if prop else v + sigma * noise)
+        return out
+
+    def params_datatrace(self, dt, loc=None, iloc=None):
+        """A datatrace row (``loc`` or ``iloc``: a row position of the
+        numpy datatrace, which has no row labels) or, with neither, the
+        mean of its rows -> natural-space params dict."""
+        values = dt[self.param_names()]
+        pos = loc if loc is not None else iloc
+        row = values[pos] if pos is not None else values.astype(np.float64).mean(axis=0)
+        return self.array_to_dict(np.asarray(row, dtype=settings.floatx))
+
+    def params_serie(self, serie):
+        """One datatrace row (a mapping of column name -> value, as
+        :meth:`Datatrace.iterrows` yields) -> natural-space params dict."""
+        return self.array_to_dict(np.asarray([serie[c] for c in self.param_names()],
+                                             dtype=settings.floatx))
+
+    # -- transformed views ------------------------------------------------------
+    @property
+    def original_to_transformed_names(self):
+        return {p.name: f"{p.name}_{p.prior.transform.name}_" for p in self.ordered_params
+                if p.prior.transform.name != "id"}
+
+    @property
+    def transformed_to_original_names(self):
+        return {v: k for k, v in self.original_to_transformed_names.items()}
+
+    def transform_params(self, params, to_dict=True, to_transformed=True, complete=False):
+        """Natural <-> transformed (unconstrained) views of a params dict
+        (or of the flat vector): a transformed hyper takes the name
+        ``<name>_<transform>_``; ``complete`` starts from the current params;
+        ``to_dict=False`` returns the flat unconstrained vector."""
+        if not isinstance(params, dict):
+            params = self.array_to_dict(params)
+        r = DictObj(self.params) if (complete or not to_dict) else DictObj()
+        fwd = self.original_to_transformed_names
+        bwd = self.transformed_to_original_names
+        for k, v in params.items():
+            if to_transformed and k in fwd:
+                r[fwd[k]] = np.asarray(self.params_spec[k].prior.transform.forward(
+                    np.asarray(v)))
+            elif not to_transformed and k in bwd:
+                orig = bwd[k]
+                back = self.params_spec[orig].prior.transform.backward(
+                    torch.as_tensor(np.asarray(v)))
+                r[orig] = np.asarray(back)
+            else:
+                r[k] = v
+        if not to_dict:
+            r = self.dict_to_array(r)
+        return r
+
+    # -- fix_vars: dims pinned to a datatrace ------------------------------------
     def fix_vars(self, datatrace=None, keys=None):
-        raise NotImplementedError(
-            "fix_vars (marginalizing dims over a datatrace) is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+        """Pin the ``keys`` columns to a datatrace's rows: the other dims are
+        then optimized and sampled against the logp averaged over those rows
+        (the Rao-Blackwellized ``fixed_*`` logps).  None for either
+        argument unpins every dim."""
+        if datatrace is None or keys is None:
+            self.fixed_keys = []
+            self.fixed_datatrace = None
+            self.fixed_chain = None
+            self.fixed_dims = []
+        else:
+            cols = self.param_names()
+            self.fixed_keys = list(keys)
+            self.fixed_datatrace = datatrace.copy()
+            self.fixed_chain = np.asarray(self.fixed_datatrace[cols],
+                                          dtype=settings.floatx).copy()
+            self.fixed_dims = sorted(cols.index(k) for k in keys)
 
     # -- sampling view ----------------------------------------------------------
     @property
@@ -216,7 +307,13 @@ class GraphicalModel:
         return np.asarray(params)[self.sampling_dims]
 
     def dict_from_sampling_array(self, params):
-        return self.array_to_dict(params)
+        """Params dict of a vector over the sampling dims (the fixed dims at
+        the current params)."""
+        if self.fixed_datatrace is None:
+            return self.array_to_dict(params)
+        r = self.dict_to_array(self.params)
+        r[self.sampling_dims] = params
+        return self.array_to_dict(r)
 
 
 Model = GraphicalModel

@@ -76,8 +76,17 @@ class Mapping(Hypers):
         dict of rows stopping on its own, with implicit gradients."""
         rows = self._rows(params)
         flat = x.reshape(rows + (-1,))
-        out = newton_inverse(lambda v: self.inv(params, v), flat, row_dims=len(rows))
+        out = newton_inverse(lambda v: self.inv(params, v), flat, row_dims=len(rows),
+                             dfunc=lambda v: self.inv_slope(params, v))
         return out.reshape(x.shape)
+
+    def inv_slope(self, params, y):
+        """Elementwise ``dT^{-1}/dy`` (autograd's; a warping with an
+        analytic slope overrides it, which ``torch.export`` can trace)."""
+        with torch.enable_grad():
+            v = y.detach().requires_grad_(True)
+            (slope,) = torch.autograd.grad(self.inv(params, v).sum(), v)
+        return slope
 
     def forward(self, params, x):
         return self(params, x)
@@ -177,6 +186,9 @@ class MappingInvSum(MappingOperation):
 
     def inv(self, params, y):
         return self.m1.inv(params, y) + self.m2.inv(params, y)
+
+    def inv_slope(self, params, y):
+        return self.m1.inv_slope(params, y) + self.m2.inv_slope(params, y)
 
 
 class Identity(Mapping):
@@ -393,6 +405,11 @@ class WarpingTanh(Mapping):
         a, b, c = (hval(h, params)[..., None, :] for h in (self.a, self.b, self.c))
         return y + (torch.tanh(b * (y[..., None] + c)) * a).sum(dim=-1)
 
+    def inv_slope(self, params, y):
+        a, b, c = (hval(h, params)[..., None, :] for h in (self.a, self.b, self.c))
+        t = torch.tanh(b * (y[..., None] + c))
+        return 1.0 + (a * (1.0 - t * t) * b).sum(dim=-1)
+
 
 class WarpingBoxCox(Mapping):
     """Mixture-of-Box-Cox warping T^{-1}(y) = sum_k w_k ((y + shift_k)^power_k
@@ -427,6 +444,10 @@ class WarpingBoxCox(Mapping):
         shift, power, w = (hval(h, params)[..., None, :] for h in (self.shift, self.power, self.w))
         z = y[..., None] + shift
         return ((_signed_power(z, power) - 1.0) / power * w).sum(dim=-1)
+
+    def inv_slope(self, params, y):
+        shift, power, w = (hval(h, params)[..., None, :] for h in (self.shift, self.power, self.w))
+        return (torch.abs(y[..., None] + shift) ** (power - 1.0) * w).sum(dim=-1)
 
 
 class ArcsinhLinear(Mapping):

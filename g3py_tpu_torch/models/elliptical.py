@@ -24,12 +24,18 @@ Every piece takes a params dict of R hyperparameter rows as well: the
 state is then stacked (R, n, n), (R, n), (R, n), from one batched K2
 factorization (:meth:`posterior_state_rows`), and every statistic gains a
 leading row axis — the Bayesian model average of a datatrace
-(:meth:`averaged_predictor`, ``batch_predict``, ``average``).
+(:meth:`averaged_predictor`, ``batch_predict``, ``average``) and one draw
+a row (``batch_sample``).  A state extends to new observations by the
+block-Cholesky identity (:meth:`_posterior_state_update_pure`, behind
+``Predictor.updated``), and :meth:`_noncentered_sampling_shear` is the
+non-centered reparameterization of ``sample_hypers``.
 """
 
+import numpy as np
 import torch
 
-from ..hypers.kernels import KernelSum, KernelNoise
+from ..hypers import LogTransform, hval
+from ..hypers.kernels import KernelSum, KernelNoise, KernelStationary
 from ..hypers.means import Zero
 from ..hypers.mappings import Identity
 from ..config import as_tensor
@@ -90,6 +96,63 @@ class EllipticalProcess(StochasticProcess):
             out.update(comp.default_hypers_dims(x, y))
         return out
 
+    def _noncentered_sampling_shear(self):
+        """Non-centered reparameterization for ``sample_hypers(reparam=
+        'noncentered')``: every amplitude hyper (``<name>_*_var`` on a log
+        transform) is sampled relative to the data scale, the unit-Jacobian
+        shear
+
+            theta_var = v_var + log Var[g^{-1}(y; v_mapping)]
+
+        of the unconstrained vector (the shifted dims never feed the shift,
+        so the map is unit lower-triangular and the density needs no
+        correction).  Returns ``(shear, unshear)`` over (R, nsampling)
+        tensors of the sampling dims, or None when no amplitude hyper is
+        sampled."""
+        reg = self.active
+        slices = reg.slices()
+        prefix = self.name + "_"
+        dims_full = []
+        for p in reg.ordered_params:
+            if (p.name.startswith(prefix) and p.name.endswith("_var")
+                    and isinstance(p.prior.transform, LogTransform)):
+                s0, s1, _ = slices[p.name]
+                dims_full.extend(range(s0, s1))
+        sampling = list(reg.sampling_dims)
+        pos = {d: i for i, d in enumerate(sampling)}
+        tgt = [pos[d] for d in dims_full if d in pos]
+        if not tgt:
+            return None
+        full = as_tensor(reg.dict_to_array(reg.params))
+        sdims = torch.as_tensor(sampling, device=full.device)
+        tgt = torch.as_tensor(tgt, device=full.device)
+        y = self._device_data("outputs")
+
+        def logscale(v):
+            if len(sampling) == reg.ndim:
+                u = v
+            else:
+                u = full.expand(v.shape[:-1] + full.shape).clone()
+                u[..., sdims] = v
+            z = self.f_mapping.inv(reg.array_to_dict_tensor(u), y)
+            var = torch.var(z, dim=-1, unbiased=False)
+            return torch.log(torch.clamp(var, min=1e-20))
+
+        def shifted(v, sign):
+            out = v.clone()
+            out[..., tgt] = out[..., tgt] + sign * logscale(v)[..., None]
+            return out
+
+        def shear(v):
+            return shifted(v, 1.0)
+
+        def unshear(v):
+            # the mapping dims are untouched by the shear, so the shift at
+            # theta equals the shift at v
+            return shifted(v, -1.0)
+
+        return shear, unshear
+
     # -- shared math -------------------------------------------------------------
     def _latent_obs(self, params, outputs):
         """T^{-1} y."""
@@ -125,6 +188,37 @@ class EllipticalProcess(StochasticProcess):
             alpha = _mv(linv.transpose(-1, -2), z)
         return {STATE_OBS_LINV: linv, STATE_OBS_ALPHA: alpha, STATE_OBS_Z: z}
 
+    def _posterior_state_update_pure(self, p, state, x_old, x_new, y_new):
+        """The state of the observed data extended by ``m`` new
+        observations, from the state of the old ones, with no n x n
+        factorization.  Block-Cholesky identity: with L_aug = [[L, 0],
+        [C, S]], C = K_new,X L^{-T} and S = chol(K_newnew - C C^T),
+
+          linv_aug  = [[L^{-1}, 0], [-S^{-1} C L^{-1}, S^{-1}]]
+          z_aug     = [z, S^{-1}(r_new - C z)]
+          alpha_aug = linv_aug^T z_aug
+
+        — one cross gram (m, n) and one m x m gram through K1, one m x m
+        factorization through K2 (``safe_cholesky``)."""
+        with torch.no_grad():
+            linv, z = state[STATE_OBS_LINV], state[STATE_OBS_Z]
+            m, n = x_new.shape[0], linv.shape[-1]
+            k_cross = to_num(self.f_kernel_noise.cov(p, x_new, x_old))   # (m, n)
+            k_new = to_cov(self.f_kernel_noise.cov(p, x_new))             # (m, m)
+            c = torch.matmul(k_cross, linv.T)                              # (m, n)
+            s_chol = safe_cholesky(k_new - torch.matmul(c, c.T))
+            s_inv = solve_lower_triangular(
+                s_chol, torch.eye(m, dtype=s_chol.dtype, device=s_chol.device))
+            r_new = self._latent_obs(p, y_new) - self.f_location(p, x_new)
+            z_b = torch.matmul(s_inv, r_new - torch.matmul(c, z))
+            linv_aug = torch.zeros((n + m, n + m), dtype=linv.dtype, device=linv.device)
+            linv_aug[:n, :n] = linv
+            linv_aug[n:, :n] = -torch.matmul(s_inv, torch.matmul(c, linv))
+            linv_aug[n:, n:] = s_inv
+            z_aug = torch.cat([z, z_b])
+            alpha_aug = torch.matmul(linv_aug.T, z_aug)
+        return {STATE_OBS_LINV: linv_aug, STATE_OBS_ALPHA: alpha_aug, STATE_OBS_Z: z_aug}
+
     def posterior_state_rows(self, rows, inputs=None, outputs=None):
         """``(params, state)`` of an (R, ndim) matrix of unconstrained
         parameter rows: the natural-space params dict with a leading row
@@ -156,6 +250,19 @@ class EllipticalProcess(StochasticProcess):
         from .predictor import AveragedPredictor
         return AveragedPredictor(self, datatrace, max_rows=max_rows)
 
+    def clustered_predictors(self, datatrace, max_rows=64):
+        """One :class:`~g3py_tpu_torch.models.predictor.AveragedPredictor`
+        per posterior cluster, ``{label: predictor}`` ordered by label: the
+        datatrace needs the ``_cluster`` column (set by clustering, or by
+        hand)."""
+        from .predictor import AveragedPredictor
+        if "_cluster" not in datatrace:
+            raise ValueError("datatrace has no _cluster column — run "
+                             "cluster_datatrace(process, dt) first")
+        labels = datatrace["_cluster"]
+        return {int(c): AveragedPredictor(self, datatrace[labels == c], max_rows=max_rows)
+                for c in np.unique(labels)}
+
     def _batch_statistics(self, rows, space, inputs, outputs, prior=False, **flags):
         """Statistics of every row of ``rows`` at ``space``, each with a
         leading row axis (the hook of ``batch_predict``): the posterior's
@@ -169,6 +276,23 @@ class EllipticalProcess(StochasticProcess):
             params = {**params, **state}
         return statistics(self, params, space, inputs, outputs, prior=prior, batch=True,
                           **flags)
+
+    def _batch_draws(self, rows, rand, space, inputs, outputs, prior=False, noise=False):
+        """The hook of ``batch_sample``: T(loc + chol(cov) rand) for every
+        row, the posterior states of all rows from one batched
+        factorization, their (R, m, m) covariances from another; ``rand``
+        (R, m) holds the rows' latent innovations."""
+        space, inputs, outputs = self._resolve_data(space, inputs, outputs)
+        with torch.no_grad():
+            if prior:
+                p = self.active.array_to_dict_tensor(as_tensor(rows))
+            else:
+                p, state = self.posterior_state_rows(rows, inputs, outputs)
+                p = {**p, **state}
+            loc = self.th_location(prior=prior, noise=noise)(p, space, inputs, outputs, None)
+            cho = self.th_cholesky(prior=prior, noise=noise)(p, space, inputs, outputs, None)
+            latent = loc.expand(rand.shape) + _mv(cho, as_tensor(rand))
+            return self.f_mapping(p, latent)
 
     def _whitened_cross(self, params, inputs, cross):
         """v = L^{-1} K_is — a product with the state's inverse when one
@@ -190,8 +314,20 @@ class EllipticalProcess(StochasticProcess):
         """``k_ss - v'v`` clamped at 0: f32 cancellation lands it a few ulp
         negative where the space meets the observed inputs."""
         v = self._whitened_cross(params, inputs, cross)
-        k_diag = _diag(self.f_kernel.cov(params, space))
-        return to_bounded(k_diag - (v * v).sum(dim=-2), 0.0)
+        return to_bounded(self._query_diag(params, space) - (v * v).sum(dim=-2), 0.0)
+
+    def _query_diag(self, params, space):
+        """The diagonal of the signal kernel's gram at ``space``.  In a
+        traced bundle (``Predictor.export``) a K1 kernel's is its amplitude,
+        var k(0) = var, the value the gram's diagonal holds, with no launch;
+        eagerly it is read off the gram."""
+        k = self.f_kernel
+        if (torch.compiler.is_exporting() and isinstance(k, KernelStationary)
+                and k._gram_dispatchable() is not None):
+            var = hval(k.var, params)
+            return var[..., None] * torch.ones(space.shape[0], dtype=var.dtype,
+                                               device=var.device)
+        return _diag(k.cov(params, space))
 
     def _posterior_location(self, params, space, inputs, outputs, noise):
         kernel = self.f_kernel_noise if noise else self.f_kernel

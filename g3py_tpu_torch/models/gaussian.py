@@ -165,6 +165,11 @@ class GaussianProcess(EllipticalProcess):
             return p, -p
         return self._quantile_p(0.975), self._quantile_p(0.025)
 
+    def _batch_latent_rand(self, rows, n, rng, space=None, inputs=None, outputs=None,
+                           prior=False, noise=False):
+        """Per-row latent innovations (R, n): standard normals from ``rng``."""
+        return rng.standard_normal((len(rows), n)).astype(settings.floatx)
+
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
         """Analytic quantile T(mu + z_q sigma)."""

@@ -22,7 +22,18 @@ batched query gram and batched products for all rows, averaged over the
 rows.  The JAX package bakes the state into per-statistic jitted closures
 to dodge a TPU runtime's per-argument dispatch cost; eager PyTorch has no
 such cost, so these predictors are plain objects holding tensors.
+
+A Predictor also absorbs new observations without refactorizing the old
+ones (:meth:`Predictor.updated`, the block-Cholesky identity), draws
+posterior paths that are consistent across query batches
+(:meth:`Predictor.pathwise_sampler`, random Fourier features and
+Matheron's update) and writes itself out as a serving artifact that loads
+without model code (:meth:`Predictor.export`, ``torch.export``; loaded by
+:func:`g3py_tpu_torch.serving.load_predictor`).
 """
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -36,7 +47,7 @@ __all__ = ["Predictor", "AveragedPredictor", "statistics"]
 
 def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False, cov=False,
                median=False, quantiles=False, quantiles_noise=False, noise=False,
-               prior=False, batch=False):
+               prior=False, batch=False, pair=None):
     """Statistics of one query batch from a params dict ``p`` that carries
     a posterior state (same keys as ``process.predict``): ``mean``, ``std``,
     ``variance``, ``covariance`` (m, m), ``median``,
@@ -46,8 +57,10 @@ def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False, 
     R rows gives (R, m).  The latent quantile coefficients and the moments
     are the process's own (a Student-t process scales the variance by its
     posterior factor and takes Student-t quantiles); ``batch`` takes the
-    coefficients of ``batch_predict``."""
-    up, down = proc._quantile_pair(p, inputs, prior=prior, batch=batch)
+    coefficients of ``batch_predict``; ``pair`` gives the (up, down)
+    coefficients instead (an exported bundle bakes them)."""
+    up, down = (proc._quantile_pair(p, inputs, prior=prior, batch=batch)
+                if pair is None and (quantiles or quantiles_noise) else pair or (None, None))
     values = DictObj()
 
     def bands(var):  # T(loc + z_q sd) at q = 97.5% and 2.5%
@@ -118,13 +131,173 @@ class Predictor(_Bound):
     changing them later (``observed``) invalidates the predictor, which then
     raises — rebuild it with ``process.predictor(params)``."""
 
-    def __init__(self, process, params=None):
+    def __init__(self, process, params=None, _state=None):
         if params is None:
             params = process.params
         self._bind(process)
         self.params = process._tensor_params(process.filter_params(params))
-        self.state = process.posterior_state(self.params)
+        # _state: a state computed elsewhere (``updated``): no factorization
+        self.state = process.posterior_state(self.params) if _state is None else _state
         self._merged = {**self.params, **self.state}
+
+    # ------------------------------------------------------------ streaming
+    def updated(self, x_new, y_new):
+        """Absorb m new observations with no n x n refactorization: the
+        state's factor is extended by the block-Cholesky identity
+        (``EllipticalProcess._posterior_state_update_pure``: one (m, n)
+        cross gram, one m x m gram and one m x m factorization) and a new
+        Predictor is returned around it.  The process's observed data
+        advance to the concatenation, so this predictor becomes stale (it
+        raises) and the returned one takes over."""
+        from ..hypers.kernels import WN, KernelNoise
+        self._check()
+        proc = self.process
+        # the update builds cross grams: a delta kernel (WN, KernelNoise)
+        # gives var at coincident points on the square gram a refactorization
+        # uses but 0 on a cross gram, so a streamed duplicate would diverge
+        stack = [proc.f_kernel]
+        while stack:
+            k = stack.pop()
+            if isinstance(k, (WN, KernelNoise)):
+                raise ValueError(
+                    "Predictor.updated does not support white-noise terms "
+                    "(WN/KernelNoise) inside the signal kernel: their "
+                    "cross-covariance semantics differ from the square "
+                    "gram a full refactorization uses — rebuild with "
+                    "process.predictor(params) instead")
+            stack.extend(sub for sub in (getattr(k, a, None) for a in ("k1", "k2", "k_inner"))
+                         if sub is not None)
+        x_host = np.asarray(proc._as_matrix(x_new).cpu().numpy(), dtype=settings.floatx)
+        y_host = np.asarray(proc._as_vector(y_new).cpu().numpy(), dtype=settings.floatx)
+        new_state = proc._posterior_state_update_pure(
+            self.params, self.state, self.inputs, proc._as_matrix(x_host),
+            proc._as_vector(y_host))
+        proc.observed(np.concatenate([proc._inputs, x_host]),
+                      np.concatenate([proc._outputs, y_host]))
+        return Predictor(proc, self.params, _state=new_state)
+
+    # ------------------------------------------------------------ pathwise
+    def pathwise_sampler(self, space=None, samples=1, key=0, n_features=2048, noise=False):
+        """Joint posterior draws (len(space), samples) by Matheron's
+        pathwise update (Wilson et al. 2020) against this predictor's state:
+
+          f* = m + g_prior + K_sX (K + s2 I)^{-1} (r - g_X - eps)
+
+        with the prior paths g from random Fourier features of the signal
+        kernel (SE/MAT32/MAT52/RQ on ARD_L2, sums of them, each over its
+        active dims; :func:`g3py_tpu_torch.ops.rff.rff_prior_fn`), the
+        update a product pair with the state's L^{-1} and one cross gram
+        (K1), pushed through the warping.  ``key`` is a seed (draws from a
+        ``torch.Generator`` on ``settings.device``: the same seed gives one
+        continuous sample path however the queries are batched), a
+        ``torch.Generator``, or a dict of the draws (``parts``: one
+        :func:`~g3py_tpu_torch.ops.rff.draw_rff` dict per feature block;
+        ``eps`` (n, samples); ``noise`` (m, samples) with ``noise``)."""
+        from ..hypers import hval
+        from ..hypers.kernels import KernelSum, KernelNoise
+        from ..ops.guards import to_num
+        from ..ops.rff import _generator
+        from .elliptical import STATE_OBS_LINV
+        from .studentt import StudentTProcess
+
+        self._check()
+        proc, p = self.process, self._merged
+        if isinstance(proc, StudentTProcess):
+            raise ValueError(
+                "pathwise sampling draws gaussian paths; the Student-t "
+                "posterior needs the scale-mixture sampler statistic "
+                "(pr.sampler / process.sampler) instead")
+        if any(k.startswith("_state_sgp") for k in self.state):
+            raise NotImplementedError("pathwise sampling of a sparse (SGPR) state is not "
+                                      "ported yet (ROADMAP Queue 1 item 12)")
+        xq = self._space(space)
+        kn = proc.f_kernel_noise
+        nv = (hval(kn.k2.var, p) if isinstance(kn, KernelSum) and isinstance(kn.k2, KernelNoise)
+              else torch.zeros((), dtype=settings.dtype, device=settings.device))
+        draws = key if isinstance(key, dict) else None
+        gen = None if draws is not None else _generator(key)
+        x = self.inputs
+        prior = _rff_prior(proc.f_kernel, p, x, n_features, samples,
+                           draws["parts"] if draws is not None else gen)
+        with torch.no_grad():
+            resid = proc._latent_obs(p, self.outputs) - proc.f_location(p, x)
+            g_x = prior(x)
+            eps_std = (torch.as_tensor(np.array(draws["eps"]), dtype=g_x.dtype, device=g_x.device)
+                       if draws is not None else
+                       torch.randn(g_x.shape, generator=gen, dtype=g_x.dtype, device=g_x.device))
+            linv = self.state[STATE_OBS_LINV]
+            a = torch.matmul(linv.T, torch.matmul(linv, resid[:, None] - g_x
+                                                  - torch.sqrt(nv) * eps_std))
+            cross = to_num(proc.f_kernel.cov(p, xq, x))
+            latent = proc.f_location(p, xq)[..., None] + prior(xq) + torch.matmul(cross, a)
+            if noise:
+                e = (torch.as_tensor(np.array(draws["noise"]), dtype=latent.dtype,
+                                     device=latent.device)
+                     if draws is not None else
+                     torch.randn(latent.shape, generator=gen, dtype=latent.dtype,
+                                 device=latent.device))
+                latent = latent + torch.sqrt(nv) * e
+            return proc.f_mapping(p, latent.reshape(-1)).reshape(latent.shape)
+
+    # ----------------------------------------------------------- AOT export
+    def export(self, path, mean=True, std=True, var=False, cov=False, median=False,
+               quantiles=False, quantiles_noise=False, noise=False, prior=False, batch=None,
+               platforms=("cpu", "cuda")):
+        """Write this predictor as a self-contained serving artifact: the
+        statistic bundle traced by ``torch.export`` (``path/bundle.pt2``,
+        K1 recorded as the operator ``g3py_tpu_torch::stationary_gram``),
+        the hypers, state and observed data (``path/state.npz``) and
+        ``path/manifest.json`` — loadable with
+        :func:`g3py_tpu_torch.serving.load_predictor` with no model code, no
+        hypers and no refactorization.  ``batch=None`` traces a symbolic
+        query batch (any number of points, one artifact), an int pins it.
+        The bundle is traced on ``settings.device``; ``platforms`` lists the
+        devices the loader may serve it on (it moves the program there).
+        The statistic flags are ``predict``'s; the loaded artifact returns a
+        dict with the same keys.  Raises when the bundle cannot be traced."""
+        self._check()
+        proc = self.process
+        flags = dict(mean=mean, std=std, var=var, cov=cov, median=median, quantiles=quantiles,
+                     quantiles_noise=quantiles_noise, noise=noise, prior=prior)
+        keys = _bundle_keys(**flags)
+        if not keys:
+            raise ValueError("export needs at least one statistic flag")
+        if cov and proc.th_covariance(prior=prior, noise=noise) is None:
+            raise ValueError(
+                f"{type(proc).__name__} has no analytic posterior covariance (warped "
+                "covariances have no closed form); use samples= for an empirical covariance")
+        if (quantiles or quantiles_noise) and not hasattr(proc, "_quantile_p"):
+            raise ValueError(
+                f"{type(proc).__name__} has no analytic latent-quantile hook (_quantile_p): "
+                "exported quantiles are unavailable — export mean/std/var only")
+        pair = (proc._quantile_pair(self._merged, self.inputs, prior=prior)
+                if quantiles or quantiles_noise else None)
+        merged = {k: v.detach().contiguous() for k, v in self._merged.items()}
+        ndim = int(self.inputs.shape[1])
+        m0 = 4 if batch is None else int(batch)
+        space = torch.zeros((m0, ndim), dtype=settings.dtype, device=settings.device)
+        vector = torch.zeros((m0,), dtype=settings.dtype, device=settings.device)
+        if batch is None:
+            b = torch.export.Dim("b", min=1)
+            dyn = ({k: None for k in merged}, None, None, {0: b}, {0: b})
+        else:
+            dyn = None
+        with torch.no_grad():
+            program = torch.export.export(_Bundle(proc, pair, flags),
+                                          (merged, self.inputs, self.outputs, space, vector),
+                                          dynamic_shapes=dyn)
+        os.makedirs(path, exist_ok=True)
+        torch.export.save(program, os.path.join(path, "bundle.pt2"))
+        flat = {"inputs": self.inputs.cpu().numpy(), "outputs": self.outputs.cpu().numpy()}
+        flat.update({"merged/" + k: v.cpu().numpy() for k, v in merged.items()})
+        np.savez(os.path.join(path, "state.npz"), **flat)
+        with open(os.path.join(path, "manifest.json"), "w") as fh:
+            json.dump({"format": 1, "process": type(proc).__name__, "statistics": keys,
+                       "platforms": list(platforms), "symbolic_batch": batch is None,
+                       "batch": batch, "n_obs": int(self.inputs.shape[0]), "ndim": ndim,
+                       "dtype": str(np.dtype(settings.floatx)),
+                       "device": torch.device(settings.device).type}, fh, indent=1)
+        return path
 
     def predict(self, space=None, mean=True, std=True, var=False, cov=False, median=False,
                 quantiles=False, quantiles_noise=False, samples=0, distribution=False,
@@ -161,6 +334,82 @@ class Predictor(_Bound):
         with torch.no_grad():
             return self.process.logpredictive(self._merged, self._space(space), vector=vector,
                                               prior=prior, noise=True)
+
+
+def _bundle_keys(mean=True, std=True, var=False, cov=False, median=False, quantiles=False,
+                 quantiles_noise=False, noise=False, prior=False):
+    """The output keys of :func:`statistics` for these flags, in its order."""
+    keys = [k for k, on in (("mean", mean), ("variance", var), ("std", std),
+                            ("covariance", cov), ("median", median)) if on]
+    if quantiles:
+        keys += ["quantile_up", "quantile_down"]
+    if quantiles_noise:
+        keys += ["noise_std", "noise_up", "noise_down"]
+    return keys
+
+
+class _Bundle(torch.nn.Module):
+    """The exported statistic bundle: ``(merged params + state, observed
+    inputs and outputs, query space, vector) -> dict of statistics``, with
+    the quantile coefficients baked in."""
+
+    def __init__(self, process, pair, flags):
+        super().__init__()
+        self.process, self.pair, self.flags = process, pair, flags
+
+    def forward(self, merged, inputs, outputs, space, vector):
+        return dict(statistics(self.process, merged, space, inputs, outputs, pair=self.pair,
+                               **self.flags))
+
+
+def _rff_prior(kernel, p, x_like, n_features, samples, key):
+    """The random-Fourier prior paths of ``kernel``: ``prior(z) ->
+    (len(z), samples)``.  SE/MAT32/MAT52/RQ on ARD_L2 and sums of them (the
+    spectra add: one feature block a part, ``max(n_features // parts,
+    64)`` features each), each block drawn over its part's active dims only
+    (a dims-restricted kernel would otherwise get frequencies on columns it
+    ignores).  ``key`` is a ``torch.Generator`` (the blocks drawn in
+    order) or a list of draws dicts, one a block."""
+    from ..hypers import hval, slice_dims
+    from ..hypers.kernels import SE, MAT32, MAT52, RQ, KernelSum
+    from ..hypers.metrics import ARD_L2
+    from ..ops.rff import rff_prior_fn
+
+    nu_of = {SE: None, MAT32: 1.5, MAT52: 2.5, RQ: None}
+
+    def flatten_sum(k):
+        if isinstance(k, KernelSum):
+            return flatten_sum(k.k1) + flatten_sum(k.k2)
+        if type(k).__name__ == "DeepKernel":
+            raise NotImplementedError("pathwise sampling of a DeepKernel is not ported yet "
+                                      "(ROADMAP Queue 1 item 12)")
+        if type(k) not in nu_of or type(k.metric) is not ARD_L2:
+            raise ValueError(
+                "pathwise sampling needs SE/MAT32/MAT52/RQ (ARD_L2) signal kernels, sums "
+                "of them, or a DeepKernel over one (their spectral densities are what the "
+                f"Fourier features draw from); got {type(k).__name__}")
+        return [k]
+
+    parts = flatten_sum(kernel)
+    f_each = max(n_features // len(parts), 64)
+    priors = []
+    for i, k in enumerate(parts):
+        dims = k.metric.dims
+        ndim = slice_dims(x_like, dims).shape[1]
+        rq_alpha = hval(k.alpha, p) if type(k) is RQ else None
+        part_key = key[i] if isinstance(key, (list, tuple)) else key
+        fn = rff_prior_fn(part_key, ndim, f_each, hval(k.metric.rate, p), hval(k.var, p),
+                          samples, nu=nu_of[type(k)], rq_alpha=rq_alpha)
+        priors.append((fn, dims))
+
+    def prior(z):
+        out = None
+        for fn, dims in priors:
+            term = fn(slice_dims(z, dims))
+            out = term if out is None else out + term
+        return out
+
+    return prior
 
 
 class AveragedPredictor(_Bound):

@@ -19,8 +19,13 @@ statistic methods, and the hyperparameter posterior: ``logp_chain`` over
 (R, ndim) rows and ``sample_hypers(method='ensemble')``, plain or
 parallel-tempered, into a datatrace.  The rows of a batched call are an
 explicit leading axis (the JAX package's ``vmap``): one batched K1 and one
-batched K2 call a logp evaluation of all rows.  NUTS/NeuTra/ADVI, the other
-``find_MAP`` engines, model files and plotting come in later slices.
+batched K2 call a logp evaluation of all rows.  ``fix_vars`` pins dims to a
+chain's rows: the ``fixed_*`` logps (and ``dlogp``, through the batched
+analytic backward) are one batched evaluation over those rows, used by
+``find_MAP`` and ``sample_hypers``; ``sample_hypers(reparam='noncentered')``
+samples the amplitude hypers relative to the data scale.  NUTS/NeuTra/ADVI,
+the other ``find_MAP`` engines, model files and plotting come in later
+slices.
 """
 
 import numpy as np
@@ -50,6 +55,15 @@ def _prep_vector(y):
     if y.ndim > 1:
         y = y.reshape(len(y))
     return y
+
+
+def _map_rows(fn, arr):
+    """``fn`` (a map of (R, ndim) tensors) over the last axis of a host
+    array of any leading shape; host array in ``settings.floatx``."""
+    arr = np.asarray(arr, dtype=settings.floatx)
+    with torch.no_grad():
+        out = fn(as_tensor(arr.reshape(-1, arr.shape[-1])))
+    return out.cpu().numpy().reshape(arr.shape).astype(settings.floatx)
 
 
 def _statistic(th_name, doc):
@@ -405,16 +419,18 @@ class StochasticProcess(BatchedModel):
     def _array_grad(self, pure, params, space=None, inputs=None, outputs=None):
         """Gradient of ``pure(params dict, space, inputs, outputs)`` with
         respect to the flat unconstrained vector of ``params`` (a dict or
-        that vector)."""
+        that vector; or a (R, ndim) matrix of rows, each row's gradient of
+        its own value)."""
         reg = self.active
         if isinstance(params, dict):
             params = reg.dict_to_array(params)
-        u = as_tensor(np.asarray(params)).detach().requires_grad_(True)
+        u = as_tensor(params if isinstance(params, torch.Tensor) else np.asarray(params))
+        u = u.detach().requires_grad_(True)
         space, inputs, outputs = self._resolve_data(space, inputs, outputs)
         with torch.enable_grad():
             total = pure(reg.array_to_dict_tensor(u), space, inputs, outputs)
             if total.requires_grad:
-                (grad,) = torch.autograd.grad(total, u)
+                (grad,) = torch.autograd.grad(total.sum(), u)
             else:
                 grad = torch.zeros_like(u)
         return to_num(grad).cpu().numpy()
@@ -439,27 +455,93 @@ class StochasticProcess(BatchedModel):
         u = as_tensor(np.asarray(chain, dtype=settings.floatx))
         return self._logp_rows(u, prior=prior).cpu().numpy()
 
+    def _rows_grad(self, u, prior=False, like_only=False):
+        """Gradient of the logp (prior / loglike) of each row of a (R,
+        ndim) tensor of unconstrained rows with respect to its own row,
+        (R, ndim) on the host: one batched evaluation and one backward
+        through the batched analytic ``mvn_quad_logdet`` (the JAX package's
+        ``vmap`` of ``grad``); one row at a time for a family without a row
+        axis (``_batched_rows``)."""
+        pure = self._logp_pure(prior=prior, like_only=like_only)
+        if not self._batched_rows:
+            return np.stack([self._array_grad(pure, row) for row in u.cpu().numpy()])
+        return self._array_grad(pure, u)
+
+    # ------------------------------------------------ fixed (marginalized)
+    def _fixed_eval(self, kind, sampling_params, return_array):
+        """``kind`` (logp, dlogp, loglike, logprior) at ``sampling_params``
+        for every row of the fixed chain, from one batched evaluation: the
+        row values (``return_array``) or their mean."""
+        reg = self.active
+        chain = reg.fixed_chain.copy()
+        chain[:, reg.sampling_dims] = np.asarray(sampling_params, dtype=settings.floatx)
+        u = as_tensor(chain)
+        flags = dict(prior=kind == "logprior", like_only=kind == "loglike")
+        if kind == "dlogp":
+            r = self._rows_grad(u)[:, reg.sampling_dims]
+        else:
+            r = self._logp_rows(u, **flags).cpu().numpy()
+        if return_array:
+            return r
+        return np.mean(r, axis=0)
+
+    def fixed_logp(self, sampling_params, return_array=False):
+        """Posterior logp at the sampling dims ``sampling_params``, averaged
+        over the rows of the chain that ``fix_vars`` pinned (the
+        Rao-Blackwellized logp); ``return_array`` gives every row's."""
+        return self._fixed_eval("logp", sampling_params, return_array)
+
+    def fixed_dlogp(self, sampling_params, return_array=False):
+        """Gradient of :meth:`fixed_logp` over the sampling dims."""
+        return self._fixed_eval("dlogp", sampling_params, return_array)
+
+    def fixed_loglike(self, sampling_params, return_array=False):
+        return self._fixed_eval("loglike", sampling_params, return_array)
+
+    def fixed_logprior(self, sampling_params, return_array=False):
+        return self._fixed_eval("logprior", sampling_params, return_array)
+
     def _sampling_logps(self, prior=False, tempered=False):
-        """Batched (logp | loglike, logprior) of (R, ndim) rows over the
-        sampling dims (every dim: ``fix_vars`` is not ported)."""
-        if self.active.fixed_dims:
-            raise NotImplementedError("sampling with fixed dims (fix_vars) is not "
-                                      "ported yet (ROADMAP Queue 1 item 8)")
+        """Batched (logp | loglike, logprior) of (R, nsampling) rows over
+        the sampling dims; under ``fix_vars`` each row's value is the mean
+        over the fixed chain's C rows, all R x C rows in one batched
+        evaluation."""
+        reg = self.active
+        if reg.fixed_datatrace is None:
+            def mk(flags):
+                return lambda u: self._logp_rows(u, **flags)
+        else:
+            chain = as_tensor(reg.fixed_chain)
+            dims = torch.as_tensor(reg.sampling_dims, device=chain.device)
 
-        def logp(u):
-            return self._logp_rows(u, prior=prior)
+            def mk(flags):
+                def f(u):
+                    lead = u.shape[:-1]
+                    flat = u.reshape(-1, u.shape[-1])
+                    rows = chain.expand((flat.shape[0],) + chain.shape).clone()
+                    rows[:, :, dims] = flat[:, None, :].to(chain.dtype)
+                    vals = self._logp_rows(rows.reshape(-1, chain.shape[-1]), **flags)
+                    return vals.reshape(flat.shape[0], chain.shape[0]).mean(dim=-1).reshape(lead)
+                return f
 
-        def logprior(u):
-            return self._logp_rows(u, prior=True)
+        logp = mk(dict(prior=prior))
+        logprior = mk(dict(prior=True))
+        like = mk(dict(like_only=True))
 
         def loglike(u):
             if prior:
                 return torch.zeros(u.shape[:-1], dtype=u.dtype, device=u.device)
-            return self._logp_rows(u, like_only=True)
+            return like(u)
 
         if not tempered:
             return logp, None, None
         return None, loglike, logprior
+
+    def _noncentered_sampling_shear(self):
+        """``(shear, unshear)`` of the non-centered reparameterization over
+        the sampling-dims vector, or None when it does not apply (the
+        elliptical families override it)."""
+        return None
 
     def sample_hypers(self, start=None, samples=1000, chains=None, ntemps=None,
                       raw=False, noise_mult=0.1, noise_sum=0.01, burnin_tol=0.001,
@@ -482,7 +564,13 @@ class StochasticProcess(BatchedModel):
         change nothing (the walkers of a half-ensemble already share one
         batched call); the ``nuts_*``, ``max_depth``, ``target_accept``,
         ``neutra_warmup`` and ``advi_*`` arguments belong to methods that
-        are not ported yet."""
+        are not ported yet.  ``reparam='noncentered'`` (elliptical families)
+        samples every amplitude (``*_var``) hyper relative to the data scale
+        ``log Var[g^{-1}(y)]``, a unit-Jacobian shear of the log density; the
+        chain is mapped back to the model's parameterization.  Under
+        ``fix_vars`` the walkers move over the sampling dims against the
+        logp averaged over the fixed chain, and the fixed dims of the result
+        hold the fixed chain's mean."""
         if method in ("nuts", "neutra", "advi"):
             raise NotImplementedError(f"sample_hypers(method={method!r}) is not ported yet "
                                       "(ROADMAP Queue 1 item 9)")
@@ -490,8 +578,7 @@ class StochasticProcess(BatchedModel):
             raise ValueError(f"unknown method {method!r}")
         if reparam not in (None, "noncentered"):
             raise ValueError(f"unknown reparam {reparam!r} (None | 'noncentered')")
-        todo = {"reparam": (reparam is not None, "item 8 (reparam='noncentered')"),
-                "file": (file is not None, "item 8 (datatrace files)"),
+        todo = {"file": (file is not None, "item 8 (datatrace files)"),
                 "plot": (bool(plot), "item 15 (plots)"),
                 "clusters": (bool(clusters), "item 8 (datatrace clusters)")}
         for name, (asked, item) in todo.items():
@@ -509,12 +596,27 @@ class StochasticProcess(BatchedModel):
         start = np.asarray(start, dtype=settings.floatx)[..., reg.sampling_dims]
         logp, loglike, logprior = self._sampling_logps(prior=prior,
                                                        tempered=ntemps is not None)
+        shear = None
+        if reparam == "noncentered":
+            pair = self._noncentered_sampling_shear()
+            if pair is None:
+                raise ValueError(
+                    f"{type(self).__name__} has no amplitude hyper in the "
+                    "sampling dims — reparam='noncentered' does not apply")
+            shear, unshear = pair
+            logp, loglike, logprior = (None if f is None else (lambda v, _f=f: _f(shear(v)))
+                                       for f in (logp, loglike, logprior))
+            start = _map_rows(unshear, start)
         lnprob, echain = mcmc_ensemble(
             ndim, samples=samples, chains=chains, ntemps=ntemps, start=start, logp=logp,
             loglike=loglike, logprior=logprior, noise_mult=noise_mult, noise_sum=noise_sum,
             threads=threads, parallel=parallel, seed=seed)
+        if shear is not None:  # back to the model's parameterization
+            echain = _map_rows(shear, echain)
         complete_chain = np.empty(echain.shape[:2] + (reg.ndim,), dtype=settings.floatx)
         complete_chain[:, :, reg.sampling_dims] = echain
+        if reg.fixed_datatrace is not None:
+            complete_chain[:, :, reg.fixed_dims] = reg.fixed_chain[:, reg.fixed_dims].mean(axis=0)
         if raw:
             return complete_chain, lnprob
         return chains_to_datatrace(
@@ -523,10 +625,15 @@ class StochasticProcess(BatchedModel):
             outlayer_percentile=outlayer_percentile)
 
     def _array_logp_sampling(self, p):
-        """logp over the sampling dims (every dim: fix_vars is not ported)."""
+        """logp over the sampling dims (every dim when nothing is fixed; the
+        fixed chain's mean under ``fix_vars``)."""
+        if self.active.fixed_datatrace is not None:
+            return float(self.fixed_logp(p))
         return self.logp(np.asarray(p, dtype=settings.floatx), array=True)
 
     def _array_dlogp_sampling(self, p):
+        if self.active.fixed_datatrace is not None:
+            return self.fixed_dlogp(p)
         return self.dlogp(np.asarray(p, dtype=settings.floatx))
 
     def _loo_objective_pure(self):
@@ -597,6 +704,9 @@ class StochasticProcess(BatchedModel):
         if start is None:
             start = self.params
         if objective == "loo":
+            if reg.fixed_datatrace is not None:
+                raise ValueError("objective='loo' does not compose with "
+                                 "fix_vars marginalization")
             logp, dlogp = self._array_loo_sampling, self._array_dloo_sampling
         else:
             logp, dlogp = self._array_logp_sampling, self._array_dlogp_sampling

@@ -30,7 +30,8 @@ step or of an averaged predictor — goes through :func:`safe_cholesky_panels`,
 batch: one K2 factorization of all rows, then each retry re-factors only
 the rows that failed, with their own diagonal fix and jitter, and one host
 sync a try for the whole batch (the JAX package's ``vmap`` of
-``_safe_cholesky_impl``).
+``_safe_cholesky_impl``); the differentiated :func:`mvn_quad_logdet` takes
+the stack too, its backward batched over the rows.
 """
 
 import torch
@@ -182,18 +183,19 @@ def trtri_from_panels(chol, dinv):
 
 
 def _kinv_from_linv(linv, block=_KINV_BLOCK):
-    """K^{-1} = L^{-T} L^{-1} for lower-triangular L^{-1}: block column j of
-    the upper half is ``W[j0:, :j1]^T W[j0:, j0:j1]`` (rows above j0 are zero
-    in W), mirrored into the lower half."""
+    """K^{-1} = L^{-T} L^{-1} for lower-triangular L^{-1} (or a stack of
+    them, leading row axes): block column j of the upper half is
+    ``W[j0:, :j1]^T W[j0:, j0:j1]`` (rows above j0 are zero in W), mirrored
+    into the lower half."""
     n = linv.shape[-1]
     if n <= block:
-        return torch.matmul(linv.T, linv)
+        return torch.matmul(linv.transpose(-1, -2), linv)
     out = torch.empty_like(linv)
     for j0 in range(0, n, block):
         j1 = min(j0 + block, n)
-        colblk = torch.matmul(linv[j0:, :j1].T, linv[j0:, j0:j1])
-        out[:j1, j0:j1] = colblk
-        out[j0:j1, :j0] = colblk[:j0].T
+        colblk = torch.matmul(linv[..., j0:, :j1].transpose(-1, -2), linv[..., j0:, j0:j1])
+        out[..., :j1, j0:j1] = colblk
+        out[..., j0:j1, :j0] = colblk[..., :j0, :].transpose(-1, -2)
     return out
 
 
@@ -221,42 +223,49 @@ def log_det_from_chol(chol):
     return 2.0 * torch.log(torch.diagonal(chol)).sum()
 
 
-def _ok_flag(failed, k):
-    return torch.tensor(0.0 if failed else 1.0, dtype=k.dtype, device=k.device)
-
-
 class _MvnQuadLogdet(torch.autograd.Function):
     """Differentiated path: L^{-1} from the panels, analytic backward
-    (JAX linalg.py:477-518)."""
+    (JAX linalg.py:477-518).  A (R, n, n) stack takes one batched
+    factorization and one batched L^{-1}; its backward runs over the row
+    axis (the JAX package's ``vmap`` of ``grad``), a failed row getting a
+    zero gradient as a failed single matrix does.  A (n,) ``resid`` shared
+    by every row gets the sum of the rows' gradients."""
 
     @staticmethod
     def forward(ctx, k, resid, max_tries):
         chol, dinv, failed = safe_cholesky_panels(k, max_tries)
         linv = trtri_from_panels(chol, dinv)
-        z = torch.matmul(linv, resid)
-        ok = _ok_flag(failed, k)
+        rhs = resid.expand(linv.shape[:-1])
+        z = torch.matmul(linv, rhs[..., None])[..., 0]
+        ok = ((~failed) if k.ndim > 2 else torch.tensor(not failed, device=k.device)).to(k.dtype)
         ctx.failed = failed
+        ctx.resid_shape = resid.shape
         ctx.save_for_backward(linv, z)
         ctx.mark_non_differentiable(ok)
-        return torch.dot(z, z), torch.log(torch.diagonal(chol)).sum(), ok
+        quad = (z * z).sum(dim=-1)
+        logdet_half = torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(dim=-1)
+        return quad, logdet_half, ok
 
     @staticmethod
     def backward(ctx, g_quad, g_logdet, _g_ok):
         linv, z = ctx.saved_tensors
         need_k, need_r = ctx.needs_input_grad[:2]
+        keep = (~ctx.failed if linv.ndim > 2
+                else torch.tensor(not ctx.failed, device=linv.device))
         dk = dr = None
-        if ctx.failed:
-            n = linv.shape[-1]
-            if need_k:
-                dk = torch.zeros((n, n), dtype=linv.dtype, device=linv.device)
-            if need_r:
-                dr = torch.zeros_like(z)
-            return dk, dr, None
-        alpha = torch.matmul(linv.T, z)
+        # a failed row's factor is 1e-10 I: its products overflow float32,
+        # so its gradient is selected away, not multiplied by 0
+        alpha = torch.matmul(linv.transpose(-1, -2), z[..., None])[..., 0]
         if need_k:
-            dk = (0.5 * g_logdet) * _kinv_from_linv(linv) - g_quad * torch.outer(alpha, alpha)
+            dk = ((0.5 * g_logdet)[..., None, None] * _kinv_from_linv(linv)
+                  - g_quad[..., None, None] * (alpha[..., :, None] * alpha[..., None, :]))
+            dk = torch.where(keep[..., None, None], dk, torch.zeros((), dtype=dk.dtype,
+                                                                    device=dk.device))
         if need_r:
-            dr = (2.0 * g_quad) * alpha
+            dr = torch.where(keep[..., None], (2.0 * g_quad)[..., None] * alpha,
+                             torch.zeros((), dtype=alpha.dtype, device=alpha.device))
+            if len(ctx.resid_shape) < dr.ndim:  # one residual shared by every row
+                dr = dr.sum(dim=tuple(range(dr.ndim - len(ctx.resid_shape))))
         return dk, dr, None
 
 
@@ -270,13 +279,12 @@ def mvn_quad_logdet(k, resid, max_tries=None):
     Differentiable in ``k`` and ``resid`` (analytic backward, zero on
     failure); without gradients it whitens by one triangular solve.  A
     (R, n, n) ``k`` (with a (R, n) or (n,) ``resid``) gives (R,) values
-    from one batched factorization; that form has no gradient."""
+    from one batched factorization, and under grad one batched L^{-1}
+    from the same factorization's panels for the backward."""
     if max_tries is None:
         max_tries = settings.cholesky_max_tries
     single = k.ndim == 2
     if torch.is_grad_enabled() and (k.requires_grad or resid.requires_grad):
-        if not single:
-            raise NotImplementedError("mvn_quad_logdet: the batched form has no gradient")
         return _MvnQuadLogdet.apply(k, resid, max_tries)
     stack = k[None] if single else k
     chol, _, failed = safe_cholesky_panels(stack, max_tries)

@@ -20,6 +20,12 @@ predictor go through it this way.  The port of the TPU kernel
 * The gradient is a ``torch.autograd.Function`` whose backward
   differentiates the plain form, as the TPU package's ``_gram_hybrid``
   replays the vjp of its XLA form.
+* The launch is registered as the operator ``g3py_tpu_torch::stationary_gram``
+  (``torch.library``: the launch on CUDA tensors, the plain form on CPU
+  tensors, a shape function for tracing), and the autograd Function
+  calls it, so that ``torch.export`` records K1 as one node: an exported
+  predictor (:mod:`g3py_tpu_torch.serving`) calls the same kernel when it
+  is loaded on the card.
 """
 
 import ctypes
@@ -131,21 +137,49 @@ def _plain_form(kind, x1, x2, rate, var, extra=None, exact=True):
     return _rowwise(var, rows) * _KFORMS[kind](dm, _rowwise(extra, rows))
 
 
+# K1 as a registered operator: the gram of (m, d) or (R, m, d) ``x1`` and
+# ``x2`` at a (d,) or (R, d) ``rate`` (see :func:`stationary_gram`), the
+# launch on CUDA tensors and the plain form on CPU tensors.  A
+# ``torch.library.Library`` definition dispatches in about half the host
+# time of a ``custom_op`` one.
+_LIB = torch.library.Library("g3py_tpu_torch", "DEF")
+_LIB.define("stationary_gram(str kind, Tensor x1, Tensor x2, Tensor rate, Tensor var, "
+            "Tensor? extra) -> Tensor")
+
+
+def _gram_op_cpu(kind, x1, x2, rate, var, extra):
+    return _plain_form(kind, x1, x2, rate, var, extra)
+
+
+def _gram_op_cuda(kind, x1, x2, rate, var, extra):
+    single = rate.ndim == 1
+    r = rate[None] if single else rate  # (R, d)
+    s1 = x1 * r[:, None, :]
+    s2 = x2 * r[:, None, :]
+    center = 0.5 * (s1.mean(dim=-2) + s2.mean(dim=-2))[:, None, :]
+    out = _launch(kind, (s1 - center).contiguous(), (s2 - center).contiguous(), var, extra)
+    return out[0] if single else out
+
+
+_LIB.impl("stationary_gram", _gram_op_cpu, "CPU")
+_LIB.impl("stationary_gram", _gram_op_cuda, "CUDA")
+
+
+@torch.library.register_fake("g3py_tpu_torch::stationary_gram", lib=_LIB)
+def _gram_op_fake(kind, x1, x2, rate, var, extra):
+    return x1.new_empty(rate.shape[:-1] + (x1.shape[-2], x2.shape[-2]))
+
+
 class _StationaryGram(torch.autograd.Function):
-    """Kernel forward; backward through the autograd of the norm-decomposition
-    form, as the TPU package's ``_gram_hybrid`` replays its XLA form's vjp:
-    one matmul and a few (m, n) passes, where the feature-by-feature form's
-    graph takes d of them (+16% on logp+dlogp at n=16384 on the card)."""
+    """Kernel forward (the registered operator); backward through the
+    autograd of the norm-decomposition form, as the TPU package's
+    ``_gram_hybrid`` replays its XLA form's vjp: one matmul and a few (m, n)
+    passes, where the feature-by-feature form's graph takes d of them (+16%
+    on logp+dlogp at n=16384 on the card)."""
 
     @staticmethod
     def forward(ctx, kind, x1, x2, rate, var, extra):
-        single = rate.ndim == 1
-        r = rate[None] if single else rate  # (R, d)
-        s1 = x1 * r[:, None, :]
-        s2 = x2 * r[:, None, :]
-        center = 0.5 * (s1.mean(dim=-2) + s2.mean(dim=-2))[:, None, :]
-        out = _launch(kind, (s1 - center).contiguous(), (s2 - center).contiguous(), var, extra)
-        out = out[0] if single else out
+        out = torch.ops.g3py_tpu_torch.stationary_gram(kind, x1, x2, rate, var, extra)
         ctx.kind = kind
         ctx.save_for_backward(x1, x2, rate, var, extra)
         return out
@@ -170,7 +204,8 @@ def stationary_gram(kind, x1, x2, rate, var, extra=None):
     every row, and the result is the (R, m, n) stack of every row's gram
     (``x1`` and ``x2`` may then carry the row axis too).  CPU tensors take
     the plain version; CUDA tensors launch the kernel (and raise if it
-    cannot be built or launched)."""
+    cannot be built or launched).  Under ``torch.export`` the registered
+    operator is recorded, whatever the device."""
     if kind not in KINDS:
         raise ValueError(f"stationary_gram: unknown kind {kind!r}")
     if rate.ndim == 1 and max(x1.ndim, x2.ndim) > 2:
@@ -182,6 +217,8 @@ def stationary_gram(kind, x1, x2, rate, var, extra=None):
         var = var.expand(rows)
     if extra is not None and extra.ndim == 0 and rows:
         extra = extra.expand(rows)
+    if torch.compiler.is_exporting():
+        return torch.ops.g3py_tpu_torch.stationary_gram(kind, x1, x2, rate, var, extra)
     if x1.device.type == "cpu":
         return _plain_form(kind, x1, x2, rate, var, extra)
     if x1.device.type != "cuda":

@@ -20,7 +20,8 @@ class Datatrace:
       those columns; ``dt[mask]`` (a boolean or integer array) a new
       Datatrace of those rows.
     * ``dt["name"] = values`` adds or replaces a column; :meth:`insert`
-      puts a new one at a position."""
+      puts a new one at a position; :meth:`copy` and :meth:`iterrows` as
+      in pandas."""
 
     def __init__(self, columns=None):
         self._cols = {}
@@ -61,6 +62,16 @@ class Datatrace:
         items = list(self._cols.items())
         items.insert(position, (name, self._column(values)))
         self._cols = dict(items)
+
+    def copy(self):
+        """A Datatrace of copies of the columns."""
+        return Datatrace({k: v.copy() for k, v in self._cols.items()})
+
+    def iterrows(self):
+        """``(position, row)`` pairs, each row a dict of column -> value
+        (pandas' ``iterrows``)."""
+        for i in range(len(self)):
+            yield i, {k: v[i] for k, v in self._cols.items()}
 
     def __repr__(self):
         return f"Datatrace({len(self)} rows, columns={self.columns})"

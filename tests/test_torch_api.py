@@ -17,12 +17,12 @@ import g3py_tpu as g3
 import g3py_tpu_torch as g3t
 from g3py_tpu.bayesian import samplers as jsam
 from g3py_tpu.bayesian.selection import optimize as jopt
-from g3py_tpu.ops import linalg as jla
+from g3py_tpu.ops import linalg as jla, rff as jrff
 from g3py_tpu.ops.root import newton_inverse as jnewton
 from g3py_tpu.utils import data as jdata, reference_io as jio
 from g3py_tpu_torch.bayesian import samplers as tsam
 from g3py_tpu_torch.bayesian.selection import optimize as topt
-from g3py_tpu_torch.ops import linalg as tla
+from g3py_tpu_torch.ops import linalg as tla, rff as trff
 from g3py_tpu_torch.ops.root import newton_inverse as tnewton
 from g3py_tpu_torch.utils import data as tdata, reference_io as tio
 
@@ -31,7 +31,9 @@ import torch_parity  # noqa: F401  (puts the port on the CPU)
 PROCESS_METHODS = ["set_space", "observed", "logp", "loglike", "dlogp", "logp_chain",
                    "find_MAP", "sample_hypers", "predict", "quantiler", "sampler", "scores",
                    "sample", "batch_predict", "average", "predictor", "averaged_predictor",
-                   "loo", "posterior_state", "th_loo_fn",
+                   "loo", "posterior_state", "th_loo_fn", "fixed_logp", "fixed_dlogp",
+                   "fixed_loglike", "fixed_logprior", "batch_sample", "particles",
+                   "clustered_predictors", "eval_params",
                    "th_logpredictive", "th_median", "th_covariance", "th_kernel",
                    "th_cholesky", "th_cholesky_diag", "th_mean", "th_variance"]
 STATISTICS = ["mean", "median", "variance", "std", "covariance", "logpredictive", "mapping",
@@ -63,6 +65,22 @@ PAIRS = [
     (g3.models.predictor.AveragedPredictor.predict,
      g3t.models.predictor.AveragedPredictor.predict),
     (g3.models.predictor.AveragedPredictor.batch, g3t.models.predictor.AveragedPredictor.batch),
+    (g3.models.predictor.Predictor.updated, g3t.models.predictor.Predictor.updated),
+    (g3.models.predictor.Predictor.export, g3t.models.predictor.Predictor.export),
+    (g3.models.predictor.Predictor.pathwise_sampler,
+     g3t.models.predictor.Predictor.pathwise_sampler),
+    (g3.models.predictor.load_predictor, g3t.load_predictor),
+    (g3.models.predictor.ExportedPredictor.predict, g3t.ExportedPredictor.predict),
+    (jrff.spectral_rff, trff.spectral_rff),
+    (jrff.se_spectral_rff, trff.se_spectral_rff),
+    (jrff.rff_prior_fn, trff.rff_prior_fn),
+    (g3.GraphicalModel.fix_vars, g3t.GraphicalModel.fix_vars),
+    (g3.GraphicalModel.params_random, g3t.GraphicalModel.params_random),
+    (g3.GraphicalModel.params_datatrace, g3t.GraphicalModel.params_datatrace),
+    (g3.GraphicalModel.params_serie, g3t.GraphicalModel.params_serie),
+    (g3.GraphicalModel.transform_params, g3t.GraphicalModel.transform_params),
+    (g3.GraphicalModel.logp_prior_array, g3t.GraphicalModel.logp_prior_array),
+    (g3.GraphicalModel.dict_from_sampling_array, g3t.GraphicalModel.dict_from_sampling_array),
 ] + [(getattr(g3.WGP, name), getattr(g3t.WGP, name)) for name in PROCESS_METHODS] + [
     (getattr(g3, cls).__init__, getattr(g3t, cls).__init__)
     for cls in ("WarpingTanh", "ArcsinhLinear", "BoxCoxLinear", "Identity", "SE", "MAT32",

@@ -127,7 +127,9 @@ def test_average_and_averaged_predictor_match_jax(kind, name):
 
 def test_sample_hypers_end_to_end():
     """A short WGP run: the datatrace's shape and columns, raw arrays,
-    tempering, and the options that are not ported raising."""
+    tempering, and the options that are not ported raising (``reparam``
+    and ``fix_vars`` are ported: tests/test_torch_noncentered.py and
+    tests/test_torch_fixed.py)."""
     jp, tp = _pair("wgp", "SH_WGP", n=16)
     u0 = tp.active.dict_to_array(tp.params_default)
     dt = tp.sample_hypers(start=u0, samples=12, chains=8, burnin_tol=0.5)
@@ -142,10 +144,7 @@ def test_sample_hypers_end_to_end():
                                rtol=1e-5, atol=1e-4)
     chain, lnprob = tp.sample_hypers(start=u0, samples=4, chains=8, ntemps=3, raw=True)
     assert chain.shape == (8, 4, tp.active.ndim) and lnprob.shape == (8, 4)
-    for kw, item in (({"method": "nuts"}, "item 9"), ({"reparam": "noncentered"}, "item 8"),
-                     ({"file": "x.pkl"}, "item 8"), ({"plot": True}, "item 15"),
-                     ({"clusters": 3}, "item 8")):
+    for kw, item in (({"method": "nuts"}, "item 9"), ({"file": "x.pkl"}, "item 8"),
+                     ({"plot": True}, "item 15"), ({"clusters": 3}, "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             tp.sample_hypers(start=u0, samples=2, chains=8, **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tp.active.fix_vars(dt)

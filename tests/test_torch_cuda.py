@@ -402,3 +402,104 @@ def test_composite_gp_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(got[2], want[2], rtol=1e-9)
     for k in want[3]:
         np.testing.assert_allclose(got[3][k], want[3][k], rtol=1e-9, atol=1e-12, err_msg=k)
+
+
+# ---------------------------------------------------------------- serving and toolbox
+def _toolbox(device, tmp):
+    """Every path of the streaming/pathwise/export/rows/fix_vars slice on
+    ``device`` in float64, on the same data, draws and rows."""
+    g3t.settings.device = device
+    g3t.settings.floatx = "float64"
+    try:
+        rng = np.random.default_rng(31)
+        x = rng.standard_normal((60, 2))
+        y = np.sin(x[:, 0]) + 0.1 * rng.standard_normal(60)
+        xq = rng.standard_normal((9, 2))
+        gp = g3t.GP(space=xq, location=g3t.Bias(), kernel=g3t.SE(x), name="CT_GP")
+        gp.observed(x[:52], y[:52])
+        params = gp.params_default
+        out = {}
+        pr = gp.predictor(params)
+        draws = {"parts": [{k: np.random.default_rng(i).standard_normal(s)
+                            for i, (k, s) in enumerate((("z", (64, 2)), ("b", (64,)),
+                                                        ("theta", (64, 3))))}],
+                 "eps": np.random.default_rng(9).standard_normal((52, 3))}
+        out["pathwise"] = pr.pathwise_sampler(space=xq, samples=3, key=draws, n_features=64)
+        out["updated"] = pr.updated(x[52:], y[52:])(xq, quantiles=True)["quantile_up"]
+        path = pr.__class__(gp, params).export(str(tmp / device), quantiles=True)
+        out["exported"] = g3t.load_predictor(path)(xq)["quantile_down"]
+        u0 = gp.active.dict_to_array(params)
+        rows = u0 + 0.05 * rng.standard_normal((4, len(u0)))
+        out["batch_sample"] = gp.batch_sample(rows, rng=np.random.default_rng(2))
+        cols = {c: rows[:, i] for i, c in enumerate(gp.active.param_names())}
+        gp.active.fix_vars(g3t.Datatrace(cols), ["CT_GP_SE_rate__0"])
+        sp = gp.active.sampling_params(u0)
+        out["fixed_logp"] = gp.fixed_logp(sp, return_array=True)
+        out["fixed_dlogp"] = gp.fixed_dlogp(sp, return_array=True)
+        gp.active.fix_vars()
+        shear, _ = gp._noncentered_sampling_shear()
+        out["shear"] = shear(torch.as_tensor(rows, device=device))
+        return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
+    finally:
+        g3t.settings.floatx = "float32"
+
+
+@pytest.mark.cuda
+def test_toolbox_on_card_matches_cpu(cuda, tmp_path):
+    """Pathwise draws, the streaming update, an exported and reloaded
+    predictor, draws over rows, the fixed-chain logps and gradients and the
+    non-centered shear, on the card (through K1 and K2, the artifact's K1 as
+    the registered operator) against the CPU float64 port."""
+    want = _toolbox("cpu", tmp_path)
+    k1 = stationary_gram.launches
+    got = _toolbox("cuda", tmp_path)
+    assert stationary_gram.launches > k1
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-8, atol=1e-10, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_cpu_artifact_served_on_card(cuda, tmp_path):
+    """An artifact exported on the CPU loads onto the card (the program is
+    moved there) and calls K1 once a query batch."""
+    g3t.settings.device = "cpu"
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((40, 3)).astype(np.float32)
+    y = np.sin(x[:, 0]).astype(np.float32)
+    gp = g3t.GP(space=x, location=g3t.Bias(), kernel=g3t.SE(x), name="CT_EX")
+    gp.observed(x, y)
+    pr = gp.predictor()
+    path = pr.export(str(tmp_path / "cpu"), quantiles=True)
+    want = pr(x[:7], quantiles=True)
+    ep = g3t.load_predictor(path, device="cuda")
+    k1 = stationary_gram.launches
+    got = ep(x[:7])
+    assert stationary_gram.launches == k1 + 1
+    for k in want:
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_batched_mvn_backward_on_card_matches_cpu(cuda, dtype, rtol):
+    """The batched analytic backward of mvn_quad_logdet: one batched K2
+    launch on the card against the plain form on the CPU."""
+    from g3py_tpu_torch.ops.linalg import mvn_quad_logdet
+
+    rng = np.random.default_rng(8)
+    a = rng.standard_normal((5, 130, 130))
+    k = a @ a.transpose(0, 2, 1) + 130 * np.eye(130)
+    r = rng.standard_normal((5, 130))
+    grads = {}
+    for device in ("cpu", "cuda"):
+        kt = torch.tensor(k, dtype=dtype, device=device, requires_grad=True)
+        rt = torch.tensor(r, dtype=dtype, device=device, requires_grad=True)
+        k2 = panel_cholesky.launches
+        quad, logdet, _ = mvn_quad_logdet(kt, rt)
+        (quad.sum() + 2 * logdet.sum()).backward()
+        if device == "cuda":
+            assert panel_cholesky.launches == k2 + 1
+        grads[device] = (kt.grad.cpu(), rt.grad.cpu())
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=rtol, atol=rtol * 1e-2)
