@@ -103,13 +103,17 @@ sampler — through the hand-written kernels K1
            Predictor.updated (3840 + 256 points) vs a fresh Predictor on 4096
            (float64 at 1e-8) and the host (float32 within 4x the float32
            witness), K2 on the 256 x 256 block only; 10b pathwise_sampler,
-           600 paths x 512 queries (moments; one seed is one path across
-           batches; K1 once a call); 10c batch_sample and particles over 16
-           rows at 1024 queries vs the host's coloured draws of the same
-           normals, average(samples=2) through the row loop; 10d fix_vars
-           over the 8 SE rates on 16 rows: fixed_logp/fixed_dlogp vs the
-           host's row mean (one batched K1 and K2 launch each), find_MAP and
-           an 8 x 10 sampler over the other dims; 10e reparam='noncentered'
+           600 paths x 512 queries (K1 once a call; injected draws vs the
+           host's replay of Matheron's update, float32 within 4x the
+           float32 witness; moments; one seed is one path across batches);
+           10c batch_sample and particles over 16 rows at 1024 queries vs
+           the host's coloured draws of the same normals (float32 within 4x
+           the card's float32 witness through torch), average(samples=2)
+           through the row loop; 10d fix_vars over the 8 SE rates on 16
+           rows: fixed_logp/fixed_dlogp vs the host's row mean (one batched
+           K1 and K2 launch each; the float32 gradient within 4x the card's
+           witness), find_MAP and an 8 x 10 sampler over the other dims;
+           10e reparam='noncentered'
            on the n=125 workload, 32 x 400 (every _ll the logp at its row);
            10f export of the GP, a WGP(BoxCoxLinear) and a WGP(WarpingTanh)
            Predictor, loaded in a fresh process with no model code, batches
@@ -2563,13 +2567,14 @@ def host_logp_fn(proc, x, y, dtype=torch.float64):
     return lambda u: host_gp_logp(proc, host_values(proc.active, u), xt, yt)
 
 
-def held(gap, limit, witness_fn, label):
-    """``gap`` within ``limit``, or within 4x a float32 host witness's gap
-    where float32 rounding alone goes beyond the limit (cond(K) high):
-    ``witness_fn`` is only run then.  Returns the limit applied."""
+def held(gap, limit, witness_fn, label, witness="float32 host witness"):
+    """``gap`` within ``limit``, or within 4x a float32 witness's gap (the
+    host's unless ``witness`` names another) where float32 rounding alone
+    goes beyond the limit (cond(K) high): ``witness_fn`` is only run then.
+    Returns the limit applied."""
     if gap > limit:
         limit = max(limit, WITNESS_FACTOR * witness_fn())
-        print(f"    {label}: float32 host witness sets the limit to {limit:.3e}", flush=True)
+        print(f"    {label}: {witness} sets the limit to {limit:.3e}", flush=True)
     require(gap <= limit, f"{label}: gap {gap:.3e} > {limit:.3e}")
     return limit
 
@@ -3099,17 +3104,53 @@ def phase10a(x, y, gp_map, path):
     return out
 
 
+def host_pathwise(reg, u, x, y, xq, draws, dtype=np.float64):
+    """Matheron's update of the injected draws ``draws`` (one SE feature
+    block) for GP(Bias, SE) at ``u`` on the host in ``dtype``, with scipy's
+    Cholesky and triangular solves: the paths (m, S), and in float64 also
+    the paths' standard deviation given the features (over the weights
+    theta and the noise eps; the mean given the features is the posterior
+    mean), sqrt(|B_i|^2 + s2 |c_i|^2) with c = K_sX (K + s2 I)^{-1} and
+    B = Phi_s - c Phi_X."""
+    import scipy.linalg
+
+    p = host_params(reg, u, dtype)
+    x, y, xq = x.astype(dtype), y.astype(dtype), xq.astype(dtype)
+    part = draws["parts"][0]
+    w = part["z"].astype(dtype) * p["SE_rate"][None, :]
+    scale = np.sqrt(2 * p["SE_var"] / len(w)).astype(dtype)
+    b = part["b"].astype(dtype)[None, :]
+    theta = part["theta"].astype(dtype)
+    nv = p["Noise_var"]
+    phi_x, phi_q = (scale * np.cos(a @ w.T + b) for a in (x, xq))
+    chol = (scipy.linalg.cholesky(host_gram(x, x, p["SE_rate"], p["SE_var"])
+                                  + nv * np.eye(len(x), dtype=dtype), lower=True), True)
+    rhs = (y - p["Bias_Bias"])[:, None] - phi_x @ theta - np.sqrt(nv) * draws["eps"].astype(dtype)
+    cross = host_gram(xq, x, p["SE_rate"], p["SE_var"])
+    paths = p["Bias_Bias"] + phi_q @ theta + cross @ scipy.linalg.cho_solve(chol, rhs)
+    if dtype != np.float64:
+        return paths, None
+    c = scipy.linalg.cho_solve(chol, cross.T).T
+    sd = np.sqrt(((phi_q - c @ phi_x) ** 2).sum(1) + nv * (c ** 2).sum(1))
+    return paths, sd
+
+
 def phase10b(gp, gp_map, path):
     """Pathwise draws: 600 paths, 4096 features, 512 queries at the MAP, K1
-    once a call (float32, timed and counted); one seed over two
-    overlapping batches is one path (float64 at the MAP); the moments
-    against the Predictor's at the JAX test's bounds in float64 at the
-    default params.  At the MAP (cond(K) ~ 1e5) float32 rounding of the
-    update K_sX (K + s2 I)^{-1}(...) alone moves the draws' mean by more
-    than 5 standard errors, and the posterior std falls to ~3e-3 of a
-    prior std of ~1.4, below the random features' own error
-    (O(var sqrt(2/F)) on the prior covariance), so the std ratio there
-    measures the features, not the update: both are printed."""
+    once a call (float32 from a seed, timed and counted).  At the MAP the
+    draws from injected numpy draws against the float64 host's replay of
+    Matheron's update: float64 on the card at 1e-6 (10c's limit: the
+    host takes the parameters through their float32 transform), float32 within 1e-3
+    or 4x a float32 host witness (cond(K) ~ 1e6: rounding of the update
+    K_sX (K + s2 I)^{-1}(...) alone moves a float32 path by more than the
+    posterior std, ~3e-3 of the prior's); the float64 draws' mean within
+    5 standard errors of the posterior mean and their std in (0.8, 1.2) of
+    the std given the features, the JAX test's bounds (the posterior std
+    there is below the random features' own error, O(var sqrt(2/F)), so
+    the ratio to the Predictor's std measures the features: printed).  At
+    the default params the JAX test's bounds against the Predictor, in
+    float64 from a seed; one seed over two overlapping batches is one path
+    (float64 at the MAP)."""
     xq = np.random.default_rng(101).standard_normal((512, 8)).astype(np.float32)
     pr = gp.predictor(gp_map)
     torch.cuda.synchronize()
@@ -3122,40 +3163,76 @@ def phase10b(gp, gp_map, path):
     require(per_call == 1, f"pathwise_sampler launched K1 {per_call} times, expected 1")
     require(draws.shape == (512, 600) and finite(draws), "pathwise draws not finite")
 
-    def moments(pr, draws):
-        ref = pr(xq)
+    def moments(draws, mu, sd):
         d = draws.double().cpu().numpy()
-        mu, sd = ref["mean"].double().cpu().numpy(), ref["std"].double().cpu().numpy()
-        ratio = d.std(1) / sd
-        return float(np.max(np.abs(d.mean(1) - mu) / (sd / np.sqrt(600)))), ratio
+        return float(np.max(np.abs(d.mean(1) - mu) / (sd / np.sqrt(600)))), d.std(1) / sd
 
-    z32, ratio32 = moments(pr, draws)
+    def stats(pr):
+        ref = pr(xq)
+        return ref["mean"].double().cpu().numpy(), ref["std"].double().cpu().numpy()
+
+    z32, ratio32 = moments(draws, *stats(pr))
+    reg = gp.active
+    u = reg.dict_to_array(gp_map)
+    x, y = (np.asarray(a, np.float32) for a in (gp.inputs, gp.outputs))
+    rng = np.random.default_rng(11)
+    inj = {"parts": [{"z": rng.standard_normal((4096, 8)).astype(np.float32),
+                      "b": (2 * np.pi * rng.random(4096)).astype(np.float32),
+                      "theta": rng.standard_normal((4096, 600)).astype(np.float32)}],
+           "eps": rng.standard_normal((len(x), 600)).astype(np.float32)}
+    t0 = time.perf_counter()
+    ref, sd_feat = host_pathwise(reg, u, x, y, xq, inj)
+    t_host = time.perf_counter() - t0
+    scale = np.abs(ref).max()
+    got32 = pr.pathwise_sampler(space=xq, samples=600, key=inj, n_features=4096)
+    gap32 = float(np.abs(got32.double().cpu().numpy() - ref).max() / scale)
+    witness = {}
+
+    def witness_fn():
+        witness["gap"] = float(np.abs(host_pathwise(reg, u, x, y, xq, inj, np.float32)[0]
+                                      - ref).max() / scale)
+        return witness["gap"]
+
+    limit32 = held(gap32, 1e-3, witness_fn, "10b float32 paths at the MAP vs the host")
     g3t.settings.floatx = "float64"
     try:
         pr64 = gp.predictor(gp_map)
-        z_map, ratio_map = moments(pr64, pr64.pathwise_sampler(space=xq, samples=600, key=1,
-                                                                n_features=4096))
+        got64 = pr64.pathwise_sampler(space=xq, samples=600, key=inj, n_features=4096)
+        mu_map, sd_map = stats(pr64)
         pr_def = gp.predictor(gp.params_default)
-        z, ratio = moments(pr_def, pr_def.pathwise_sampler(space=xq, samples=600, key=1,
-                                                            n_features=4096))
+        z, ratio = moments(pr_def.pathwise_sampler(space=xq, samples=600, key=1,
+                                                   n_features=4096), *stats(pr_def))
         a = pr64.pathwise_sampler(space=xq[:300], samples=8, key=5, n_features=4096)
         b = pr64.pathwise_sampler(space=xq[200:], samples=8, key=5, n_features=4096)
         shared = float((a[200:] - b[:100]).abs().max() / a.abs().max())
     finally:
         g3t.settings.floatx = "float32"
+    gap64 = float(np.abs(got64.cpu().numpy() - ref).max() / scale)
+    z_map, ratio_map = moments(got64, mu_map, sd_feat)
+    _, ratio_pred = moments(got64, mu_map, sd_map)
     print(f"  10b pathwise: 600 paths x 512 queries, 4096 features in {t_draw * 1e3:.1f} ms "
-          f"(float32 at the MAP: mean within {z32:.2f} standard errors, std ratio "
-          f"[{ratio32.min():.3f}, {ratio32.max():.3f}]; float64 at the MAP: {z_map:.2f}, "
-          f"[{ratio_map.min():.3f}, {ratio_map.max():.3f}]); float64 at the default params: "
-          f"mean within {z:.2f} standard errors, std ratio [{ratio.min():.3f}, "
-          f"{ratio.max():.3f}]; one seed over two batches agrees at the shared points to "
-          f"{shared:.2e}", flush=True)
+          f"(float32 at the MAP from a seed: mean within {z32:.2f} standard errors of the "
+          f"Predictor's, std ratio [{ratio32.min():.3f}, {ratio32.max():.3f}]); at the MAP from "
+          f"injected draws vs the float64 host replay ({t_host:.1f} s): float64 {gap64:.2e}, "
+          f"float32 {gap32:.2e} (limit {limit32:.2e}, the float32 host's "
+          f"{witness.get('gap', float('nan')):.2e}); float64 mean within {z_map:.2f} standard "
+          f"errors, std ratio to the std given the features [{ratio_map.min():.3f}, "
+          f"{ratio_map.max():.3f}], to the Predictor's [{ratio_pred.min():.3f}, "
+          f"{ratio_pred.max():.3f}]; float64 at the default params: mean within {z:.2f} "
+          f"standard errors, std ratio [{ratio.min():.3f}, {ratio.max():.3f}]; one seed over "
+          f"two batches agrees at the shared points to {shared:.2e}", flush=True)
+    require(gap64 <= 1e-6, f"10b float64 paths at the MAP vs the host replay {gap64:.2e}")
+    require(z_map < 5 and ratio_map.min() > 0.8 and ratio_map.max() < 1.2,
+            f"pathwise moments at the MAP: {z_map:.2f} standard errors, ratio to the std "
+            f"given the features [{ratio_map.min()}, {ratio_map.max()}]")
     require(z < 5 and ratio.min() > 0.8 and ratio.max() < 1.2,
             f"pathwise moments: {z:.2f} standard errors, ratio [{ratio.min()}, {ratio.max()}]")
     require(shared <= 1e-8, f"pathwise draws of one seed disagree at shared points {shared}")
     return dict(draw_ms=t_draw * 1e3, z=z, ratio=[float(ratio.min()), float(ratio.max())],
                 shared=shared, z32=z32, ratio32=[float(ratio32.min()), float(ratio32.max())],
-                z_map=z_map, ratio_map=[float(ratio_map.min()), float(ratio_map.max())])
+                gap32=gap32, limit32=limit32, witness32=witness.get("gap"), gap64=gap64,
+                z_map=z_map, ratio_map=[float(ratio_map.min()), float(ratio_map.max())],
+                ratio_map_predictor=[float(ratio_pred.min()), float(ratio_pred.max())])
 
 
 class _Normals:
@@ -3168,27 +3245,85 @@ class _Normals:
         return self.z.reshape(shape)
 
 
-def cpu_draws(gp, rows, xq, z):
-    """``batch_sample`` of ``rows`` on the CPU in float32 (the plain forms
-    of K1 and K2) from the normals ``z``: the float32 witness of 10c."""
-    old, g3t.settings.device = g3t.settings.device, "cpu"
-    try:
-        return gp.batch_sample(rows, space=xq, noise=True, rng=_Normals(z)).numpy()
-    finally:
-        g3t.settings.device = old
+def torch_rows(reg, rows):
+    """Per-row float32 natural values of GP(Bias, SE) on ``settings.device``
+    ((R, size) each) and their feature-by-feature SE gram ``gram(a, b)``
+    (R, len(a), len(b)) in torch alone: the card witnesses' inputs."""
+    f32 = dict(dtype=torch.float32, device=g3t.settings.device)
+    ps = [host_params(reg, u, np.float32) for u in rows]
+    col = {k: torch.as_tensor(np.stack([p[k].reshape(-1) for p in ps]), **f32) for k in ps[0]}
+
+    def gram(a, b):
+        acc = 0.0
+        for k in range(a.shape[1]):
+            acc = acc + ((a[None, :, k, None] - b[None, None, :, k])
+                         * col["SE_rate"][:, k, None, None]) ** 2
+        return col["SE_var"][:, :, None] * torch.exp(-0.5 * acc)
+
+    return col, gram, f32
+
+
+def card_witness_draws(reg, rows, x, y, xq, zs):
+    """The noisy GP(Bias, SE) draws loc + chol(C) z of ``rows`` from the
+    normals ``zs`` in float32 on the card through torch alone (a
+    feature-by-feature gram, ``torch.linalg.cholesky``, triangular solves
+    and products: cuSOLVER and cuBLAS, no kernel or code of the port),
+    every row in one batch as the port batches them: the witness of what
+    float32 rounding does on the card's arithmetic."""
+    col, gram, f32 = torch_rows(reg, rows)
+    xt, xqt, yt = (torch.as_tensor(a, **f32) for a in (x, xq, y))
+    nv = col["Noise_var"][:, :, None]
+    chol = torch.linalg.cholesky(gram(xt, xt) + nv * torch.eye(len(x), **f32))
+    cross = gram(xqt, xt)
+    alpha = torch.cholesky_solve((yt[None, :] - col["Bias_Bias"])[..., None], chol)
+    v = torch.linalg.solve_triangular(chol, cross.transpose(-1, -2), upper=False)
+    cov = gram(xqt, xqt) + nv * torch.eye(len(xq), **f32) - v.transpose(-1, -2) @ v
+    mean = col["Bias_Bias"] + (cross @ alpha)[..., 0]
+    draws = mean + (torch.linalg.cholesky(cov) @ torch.as_tensor(zs, **f32)[..., None])[..., 0]
+    return draws.double().cpu().numpy()
+
+
+def card_witness_grad(reg, rows, x, y, wide=torch.float32):
+    """Each row's GP(Bias, SE) likelihood gradient over (Bias, log SE_var,
+    log Noise_var), (R, 3), in float32 on the card through torch alone
+    (``torch.linalg.cholesky``, L^{-1} by a triangular solve, K^{-1} =
+    L^{-T} L^{-1} and the port's contraction 0.5 (alpha alpha' - K^{-1}) :
+    dK, every row in one batch); with ``wide=torch.float64`` the product
+    K^{-1} and the contraction are formed in float64 from the float32
+    factor."""
+    col, gram, f32 = torch_rows(reg, rows)
+    xt, yt = (torch.as_tensor(a, **f32) for a in (x, y))
+    eye = torch.eye(len(x), **f32)
+    kse = gram(xt, xt)
+    nv = col["Noise_var"][:, 0]
+    chol = torch.linalg.cholesky(kse + nv[:, None, None] * eye)
+    alpha = torch.cholesky_solve((yt[None, :] - col["Bias_Bias"])[..., None], chol)[..., 0]
+    linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False).to(wide)
+    del chol
+    kinv = linv.transpose(-1, -2) @ linv
+    del linv
+    a = alpha.to(wide)
+    g_var = 0.5 * torch.stack([((a[i, :, None] * a[i, None, :] - kinv[i]) * kse[i]).sum()
+                               for i in range(len(a))])
+    g_noise = 0.5 * nv.to(wide) * ((a * a).sum(-1) - kinv.diagonal(dim1=-2, dim2=-1).sum(-1))
+    return torch.stack([a.sum(-1), g_var, g_noise], -1).double().cpu().numpy()
 
 
 def phase10c(gp, dt16, x, y, path, path_batched):
     """batch_sample and particles over the 16 rows at 1024 queries (noisy
     draws, float32, timed and counted), against the float64 host's
     coloured draws of the same normals: rows 0 and 15 in float64 on the
-    card at 1e-6, and float32 at 1e-3 at the default params.  At the MAP
-    (cond(K) ~ 1e5) float32 draws are rounding: the posterior covariance
-    K_ss - V'V cancels to ~1e-2 of its terms, and two float32
-    implementations of it (the card's and the port's on the CPU) sit
-    apart by several times their own gaps, so those gaps are printed, not
-    held.  Then average(samples=2) through the row loop against the
-    batched average."""
+    card at 1e-6; float32 at 1e-3 at the default params, and at the rows
+    (cond(K) ~ 7e5) within 1e-3 or 4x the card's float32 witness.  There
+    the posterior covariance K_ss + s2 I - V'V cancels to ~1/200 of V'V,
+    and the float32 products V = L^{-1} K_Xs and V'V on the card are what
+    the draws' gap is made of (``python3 -m g3py_tpu_torch.tools.f32_draws``
+    swaps each stage: K1's grams, K2's factor and L^{-1} move it by
+    nothing, the same products in float64 cut it 16-fold): so the witness
+    is the same draws in float32 through torch on the card, batched as
+    the port batches them (cuSOLVER, cuBLAS), and a scipy float32
+    witness's gap is printed beside it.  Then average(samples=2) through
+    the row loop against the batched average."""
     reg = gp.active
     rows = dt16[reg.param_names()]
     xq = np.random.default_rng(102).standard_normal((1024, 8)).astype(np.float32)
@@ -3210,15 +3345,20 @@ def phase10c(gp, dt16, x, y, path, path_batched):
         draws64 = gp.batch_sample(rows, space=xq, noise=True, rng=np.random.default_rng(7))
     finally:
         g3t.settings.floatx = "float32"
-    gaps, gaps64, witness = {}, {}, {}
+    card32 = card_witness_draws(reg, rows, x, y, xq, zs)
+    gaps, gaps64, witness, host32, limits = {}, {}, {}, {}, {}
     for r in (0, 15):
         _, ref = host_draws(reg, rows[r], x64, y64, xq, zs[r][:, None])
+        ref = ref[:, 0]
         scale = np.abs(ref).max()
-        gaps64[r] = float(np.abs(draws64[r].cpu().numpy() - ref[:, 0]).max() / scale)
-        gaps[r] = float(np.abs(draws[r].double().cpu().numpy() - ref[:, 0]).max() / scale)
-        witness[r] = float(np.abs(cpu_draws(gp, rows[r:r + 1], xq, zs[r])[0]
-                                  - ref[:, 0]).max() / scale)
+        gaps64[r] = float(np.abs(draws64[r].cpu().numpy() - ref).max() / scale)
+        gaps[r] = float(np.abs(draws[r].double().cpu().numpy() - ref).max() / scale)
+        witness[r] = float(np.abs(card32[r] - ref).max() / scale)
+        host32[r] = float(np.abs(host_draws(reg, rows[r], x, y, xq, zs[r][:, None],
+                                            np.float32)[1][:, 0] - ref).max() / scale)
         require(gaps64[r] <= 1e-6, f"10c row {r} float64 draws vs the host {gaps64[r]:.3e}")
+        limits[r] = held(gaps[r], 1e-3, lambda r=r: witness[r],
+                         f"10c row {r} float32 draws vs the host", "the card's float32 witness")
     u_def = reg.dict_to_array(gp.params_default)
     got_def = gp.batch_sample(u_def[None], space=xq, noise=True, rng=_Normals(zs[0]))
     _, ref = host_draws(reg, u_def, x64, y64, xq, zs[0][:, None])
@@ -3250,35 +3390,41 @@ def phase10c(gp, dt16, x, y, path, path_batched):
     require(max(avg_gap.values()) <= 1e-8, f"average's row loop vs batched (float64) {avg_gap}")
     print(f"  10c draws over 16 rows at 1024 queries: batch_sample {t_draw * 1e3:.1f} ms "
           f"(K1 x{k1}, K2 x{k2}); gaps to the float64 host: float64 rows 0, 15 {gaps64}, "
-          f"float32 at the default params {gap_def:.2e}, float32 at the MAP {gaps} (the port "
-          f"on the CPU in float32 {witness}); particles = the same "
-          f"draws; average(samples=2) through the row loop {t_avg:.2f} s, loop vs batched "
-          f"(float64) {avg_gap}", flush=True)
-    return dict(draw_ms=t_draw * 1e3, gaps=gaps, gaps64=gaps64, gap_default=gap_def,
-                cpu_witness=witness, average_s=t_avg, loop_vs_batched=avg_gap)
+          f"float32 at the default params {gap_def:.2e}, float32 at the rows {gaps} (limits "
+          f"{limits}; the card's float32 witness {witness}, scipy's in float32 {host32}); "
+          f"particles = the same draws; average(samples=2) through the row loop "
+          f"{t_avg:.2f} s, loop vs batched (float64) {avg_gap}", flush=True)
+    return dict(draw_ms=t_draw * 1e3, gaps=gaps, limits=limits, gaps64=gaps64,
+                gap_default=gap_def, card_witness=witness, host_witness=host32,
+                average_s=t_avg, loop_vs_batched=avg_gap)
 
 
-def host_grad_sampling(reg, u, x, y):
+def host_grad_sampling(reg, u, x, y, dtype=np.float64):
     """GP(Bias, SE) likelihood and its gradient over (Bias, log SE_var,
-    log Noise_var) at ``u``, float64 (analytic: alpha = K^{-1} r and
-    tr(K^{-1}) from a scipy Cholesky and triangular inverse)."""
+    log Noise_var) at ``u`` in ``dtype`` (float64: the reference; float32:
+    the rounding witness), analytic: alpha = K^{-1} r and tr(K^{-1}) from a
+    scipy Cholesky and triangular inverse."""
     import scipy.linalg
 
-    p = host_params(reg, u)
+    p = host_params(reg, u, dtype)
+    x, y = x.astype(dtype), y.astype(dtype)
     n = len(x)
     kse = host_gram(x, x, p["SE_rate"], p["SE_var"])
-    chol = scipy.linalg.cholesky(kse + p["Noise_var"] * np.eye(n), lower=True)
+    chol = scipy.linalg.cholesky(kse + p["Noise_var"] * np.eye(n, dtype=dtype), lower=True)
     r = y - p["Bias_Bias"]
     z = scipy.linalg.solve_triangular(chol, r, lower=True)
     alpha = scipy.linalg.solve_triangular(chol.T, z, lower=False)
-    linv = scipy.linalg.solve_triangular(chol, np.eye(n), lower=True)
+    linv = scipy.linalg.solve_triangular(chol, np.eye(n, dtype=dtype), lower=True)
     tr_kinv = float((linv * linv).sum())
     ll = -0.5 * n * np.log(2 * np.pi) - 0.5 * z @ z - np.log(np.diag(chol)).sum()
     nv = p["Noise_var"]
     g_bias = alpha.sum()
-    g_var = 0.5 * (alpha @ kse @ alpha - (n - nv * tr_kinv))
+    if dtype == np.float64:
+        g_var = 0.5 * (alpha @ kse @ alpha - (n - nv * tr_kinv))
+    else:  # the port's form: 0.5 (alpha alpha' - K^{-1}) contracted with dK/dlog(var)
+        g_var = 0.5 * ((np.outer(alpha, alpha) - linv.T @ linv) * kse).sum()
     g_noise = 0.5 * nv * (alpha @ alpha - tr_kinv)
-    return ll, np.array([g_bias, g_var, g_noise])
+    return float(ll), np.array([g_bias, g_var, g_noise], np.float64).ravel()
 
 
 def prior_terms(reg, u):
@@ -3301,9 +3447,14 @@ def phase10d(gp, gp_map, dt16, x, y, path_batched):
     """fix_vars over the 8 SE rates on the 16 rows: fixed_logp/fixed_dlogp
     at the MAP's sampling dims against the float64 host's row mean (1e-3,
     1e-2), one batched K1 and K2 launch an evaluation (float32, timed and
-    counted; its value held at 1e-3; the float64 run on the card holds
-    both: at the MAP the gradient is near 0 and a float32 gradient's
-    relative gap to it is rounding, printed); find_MAP under fix_vars;
+    counted; the float64 run on the card too).  At the MAP the gradient is
+    near 0 (|g| ~ 2 against terms ~ n): the float32 gradient is held
+    within 1e-2 or 4x the card's float32 witness, the port's contraction
+    0.5 (alpha alpha' - K^{-1}) : dK through torch on the card, batched as
+    the port batches it; printed beside it, the same with K^{-1} = L^{-T}
+    L^{-1} formed in float64 (the float32 product on the card is what
+    the gap is made of) and scipy's in float32 on the host;
+    find_MAP under fix_vars;
     sample_hypers over the fixed dims, 8 walkers x 10, the final walkers
     against the card's float64 fixed_logp and the best one against the
     host."""
@@ -3357,6 +3508,24 @@ def phase10d(gp, gp_map, dt16, x, y, path_batched):
         require(gap_v <= 1e-3 and gap_v64 <= 1e-3 and gap_g64 <= 1e-2,
                 f"10d fixed logp/dlogp vs host: {gap_v:.2e}; float64 {gap_v64:.2e}, "
                 f"{gap_g64:.2e}")
+
+        def row_mean_gap(rows_g):
+            g = np.mean([r + p[1][reg.sampling_dims] for r, p in zip(rows_g, priors)], axis=0)
+            return float(np.linalg.norm(g - ref_g) / np.linalg.norm(ref_g))
+
+        # the witnesses: the same contraction in float32 on the card through
+        # torch (held), with its K^{-1} product in float64 (the cause), and
+        # on the host through scipy
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            host32 = list(pool.map(lambda u: host_grad_sampling(reg, u, x64, y64, np.float32),
+                                   us))
+        witness = {"card": row_mean_gap(card_witness_grad(reg, us, x, y)),
+                   "card, K^-1 in float64": row_mean_gap(card_witness_grad(reg, us, x, y,
+                                                                           torch.float64)),
+                   "scipy": row_mean_gap([r[1] for r in host32])}
+        print(f"  10d float32 fixed_dlogp's witnesses at the MAP: {witness}", flush=True)
+        limit_g = held(gap_g, 1e-2, lambda: witness["card"],
+                       "10d float32 fixed_dlogp at the MAP", "the card's float32 witness")
         with counted(path_batched):
             t0 = time.perf_counter()
             fmap = gp.find_MAP(start=gp_map, points=1, powell=False, display=False)
@@ -3397,7 +3566,8 @@ def phase10d(gp, gp_map, dt16, x, y, path_batched):
         require(walk_gap <= 1e-3 and best_gap <= 1e-3,
                 f"10d final walkers: {walk_gap:.2e} / {best_gap:.2e}")
         return dict(logp_ms=t["fixed_logp"], dlogp_ms=t["fixed_dlogp"], gap_v=gap_v,
-                    gap_g=gap_g, gap_v64=gap_v64, gap_g64=gap_g64, fit_s=t_fit,
+                    gap_g=gap_g, gap_g_witness=witness, limit_g=limit_g,
+                    gap_v64=gap_v64, gap_g64=gap_g64, fit_s=t_fit,
                     sampler_s=t_s, walk_gap=walk_gap, best_gap=best_gap)
     finally:
         reg.fix_vars()

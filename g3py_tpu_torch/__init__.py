@@ -56,6 +56,14 @@ def _load():
     if _loaded:
         return
     _loaded = True  # the imports below look names up on this package
+    try:
+        _import_all()
+    except BaseException:
+        _loaded = False  # the next use raises the import's error again
+        raise
+
+
+def _import_all():
     from .hypers import (Hypers, Param, Prior, Flat, FlatExp, Transform,
                          IdentityTransform, LogTransform, LogIdTransform, IntervalTransform,
                          Freedom, ExpFlat, FlatPos, PositiveFlat, NonTransformLog, FlatExpId,
@@ -96,6 +104,9 @@ def _load():
 
 
 def __getattr__(name):
+    if name == "__all__":  # ``from g3py_tpu_torch import *`` loads every name
+        _load()
+        return sorted(k for k in globals() if not k.startswith("_"))
     if name.startswith("__"):
         raise AttributeError(name)
     _load()

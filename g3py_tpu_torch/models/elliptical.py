@@ -317,14 +317,13 @@ class EllipticalProcess(StochasticProcess):
         return to_bounded(self._query_diag(params, space) - (v * v).sum(dim=-2), 0.0)
 
     def _query_diag(self, params, space):
-        """The diagonal of the signal kernel's gram at ``space``.  In a
-        traced bundle (``Predictor.export``) a K1 kernel's is its amplitude,
-        var k(0) = var, the value the gram's diagonal holds, with no launch;
-        eagerly it is read off the gram."""
+        """The diagonal of the signal kernel's gram at ``space``.  A K1
+        kernel's is its amplitude, var k(0) = var, the value its gram's
+        diagonal holds (the distance of a point to itself is an exact 0),
+        with no launch; any other kernel's is read off its gram."""
         k = self.f_kernel
-        if (torch.compiler.is_exporting() and isinstance(k, KernelStationary)
-                and k._gram_dispatchable() is not None):
-            var = hval(k.var, params)
+        if isinstance(k, KernelStationary) and k._gram_dispatchable() is not None:
+            var = hval(k.var, params).expand(hval(k.metric.rate, params).shape[:-1])
             return var[..., None] * torch.ones(space.shape[0], dtype=var.dtype,
                                                device=var.device)
         return _diag(k.cov(params, space))

@@ -12,11 +12,13 @@ on the host and every step stays on the device: the loop condition is a
 device flag, a step whose condition fails leaves the state as it was, and
 the host reads the flags once every ``CHECK_EVERY`` steps.  The iterates are
 those of the JAX loop (the steps past its exit change nothing), at one host
-sync per ``CHECK_EVERY`` steps instead of one per step.  With ``traced``
-(the default under ``torch.export``, which cannot trace a host read) both
-loops are ``while_loop`` operators with their conditions on the device, as
-in the JAX package: a step leaves converged rows frozen, so the values are
-those of the host loop.  ``dfunc``, the slope of ``func``, replaces
+sync per ``CHECK_EVERY`` steps instead of one per step.  Under
+``torch.export``, which cannot trace a host read, both loops are
+``while_loop`` operators with their conditions on the device, as in the JAX
+package: a step leaves converged rows frozen, so the values are those of
+the host loop.  Eagerly the host loop stays: an eager ``while_loop`` goes
+through ``torch.compile``, which refuses some warpings' steps (the
+MappingInvSum's, as aliasing).  ``dfunc``, the slope of ``func``, replaces
 autograd's (which ``torch.export`` cannot trace either).
 
 Gradient: the root is found without a graph, then one differentiable
@@ -115,7 +117,7 @@ def _solve(g, x_init, tol, max_steps, alpha, row_dims, dg=None, traced=False):
 
 
 def newton_inverse(func, z, tol=1e-6, max_steps=100, alpha=1.0, x0=None, row_dims=0,
-                   dfunc=None, traced=None):
+                   dfunc=None):
     """Solve ``func(x) = z`` elementwise for x, ``func`` monotone increasing
     and elementwise (its Jacobian is diagonal).
 
@@ -123,11 +125,8 @@ def newton_inverse(func, z, tol=1e-6, max_steps=100, alpha=1.0, x0=None, row_dim
     axes of ``z`` are rows that stop on their own (hyperparameter rows that
     ``func`` maps with their own parameters); the JAX package gets the same
     from ``vmap``.  ``dfunc`` is the elementwise slope of ``func`` (autograd's
-    when None); ``traced`` runs both loops as ``while_loop`` operators
-    (True under ``torch.export`` when None).  Differentiable in ``z``
-    and in every tensor ``func`` closes over (see the module docstring)."""
-    if traced is None:
-        traced = torch.compiler.is_exporting()
+    when None).  Differentiable in ``z`` and in every tensor ``func`` closes
+    over (see the module docstring)."""
     z = torch.as_tensor(z)
 
     def g(x):
@@ -137,7 +136,8 @@ def newton_inverse(func, z, tol=1e-6, max_steps=100, alpha=1.0, x0=None, row_dim
              else torch.broadcast_to(torch.as_tensor(x0, dtype=z.dtype, device=z.device),
                                      z.shape))
     with torch.no_grad():
-        root = _solve(g, start, tol, max_steps, alpha, row_dims, dfunc, traced)
+        root = _solve(g, start, tol, max_steps, alpha, row_dims, dfunc,
+                      torch.compiler.is_exporting())
     if not torch.is_grad_enabled():
         return root
     gx = g(root)

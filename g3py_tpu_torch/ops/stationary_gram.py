@@ -204,8 +204,9 @@ def stationary_gram(kind, x1, x2, rate, var, extra=None):
     every row, and the result is the (R, m, n) stack of every row's gram
     (``x1`` and ``x2`` may then carry the row axis too).  CPU tensors take
     the plain version; CUDA tensors launch the kernel (and raise if it
-    cannot be built or launched).  Under ``torch.export`` the registered
-    operator is recorded, whatever the device."""
+    cannot be built or launched).  Under ``torch.export`` a CPU tensor takes
+    the operator's route too, so that the registered operator is recorded
+    whatever the device."""
     if kind not in KINDS:
         raise ValueError(f"stationary_gram: unknown kind {kind!r}")
     if rate.ndim == 1 and max(x1.ndim, x2.ndim) > 2:
@@ -217,11 +218,9 @@ def stationary_gram(kind, x1, x2, rate, var, extra=None):
         var = var.expand(rows)
     if extra is not None and extra.ndim == 0 and rows:
         extra = extra.expand(rows)
-    if torch.compiler.is_exporting():
-        return torch.ops.g3py_tpu_torch.stationary_gram(kind, x1, x2, rate, var, extra)
-    if x1.device.type == "cpu":
+    if x1.device.type == "cpu" and not torch.compiler.is_exporting():
         return _plain_form(kind, x1, x2, rate, var, extra)
-    if x1.device.type != "cuda":
+    if x1.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stationary_gram: no kernel for device {x1.device}")
     return _StationaryGram.apply(kind, x1, x2, rate, var, extra)
 

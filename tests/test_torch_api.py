@@ -316,3 +316,34 @@ def test_catalogue_functions_and_settings():
     finally:
         g3t.settings.strict_dtypes = False
     assert g3t.config.asarray_x(np.zeros(2, np.float64)).dtype == np.dtype(g3t.settings.floatx)
+
+
+def test_lazy_names_star_import_and_a_failed_load():
+    """A load that fails raises its own error again at the next use (not an
+    AttributeError from a half-loaded package), and once the failure is
+    gone the lazily loaded names come with ``from g3py_tpu_torch import *``."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import sys\n"
+        "sys.modules['g3py_tpu_torch.compat'] = None\n"
+        "import g3py_tpu_torch as g3t\n"
+        "for _ in range(2):\n"
+        "    try:\n"
+        "        g3t.GP\n"
+        "    except ImportError:\n"
+        "        pass\n"
+        "    else:\n"
+        "        raise AssertionError('a failed load was hidden')\n"
+        "del sys.modules['g3py_tpu_torch.compat']\n"
+        "ns = {}\n"
+        "exec('from g3py_tpu_torch import *', ns)\n"
+        "assert all(k in ns for k in ('GP', 'SE', 'Predictor', 'load_predictor', 'settings'))\n"
+        "print('ok')\n")
+    root = str(Path(__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=root, env={"PYTHONPATH": root, "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]

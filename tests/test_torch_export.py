@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import g3py_tpu_torch as g3t
-from g3py_tpu_torch.ops.root import newton_inverse
+from g3py_tpu_torch.ops.root import _solve, newton_inverse
 from g3py_tpu_torch.serving import load_predictor
 
 from torch_parity import assert_close, floatx, nudged, process_pair
@@ -159,9 +159,16 @@ def test_traced_newton_equals_the_host_loop(name):
         for rows in (0, 1):
             params = p if rows == 0 else {k: torch.stack([v, 1.5 * v]) for k, v in p.items()}
             zz = z if rows == 0 else torch.stack([z, z + 1.0])
-            host = newton_inverse(lambda v: wt.inv(params, v), zz, row_dims=rows,
-                                  dfunc=lambda v: wt.inv_slope(params, v), traced=False)
-            traced = newton_inverse(lambda v: wt.inv(params, v), zz, row_dims=rows,
-                                    dfunc=lambda v: wt.inv_slope(params, v), traced=True)
+            def g(v):
+                return wt.inv(params, v) - zz
+
+            loops = [_solve(g, torch.zeros_like(zz), 1e-6, 100, 1.0, rows,
+                            lambda v: wt.inv_slope(params, v), traced)
+                     for traced in (False, True)]
+            host, traced = loops
             torch.testing.assert_close(traced, host, rtol=0, atol=0)
+            torch.testing.assert_close(newton_inverse(lambda v: wt.inv(params, v), zz,
+                                                      row_dims=rows,
+                                                      dfunc=lambda v: wt.inv_slope(params, v)),
+                                       host, rtol=0, atol=0)
             assert float((wt.inv(params, host) - zz).abs().max()) < 1e-3
