@@ -6,7 +6,8 @@ regression served from one factorization, trained by ``dlogp`` and
 process families, the whole catalogue of kernels, metrics, means and
 warpings with the shared registry, streaming updates, pathwise draws, the
 exported predictor, draws over rows, ``fix_vars`` and the non-centered
-sampler — through the hand-written kernels K1
+sampler, NUTS, NeuTra, ADVI, HMC and the batched L-BFGS of
+``find_MAP(engine='jax')`` — through the hand-written kernels K1
 (stationary gram) and K2 (blocked panel Cholesky), and checks them:
 
   phase 0  require a CUDA card; print its name and power limit
@@ -118,6 +119,21 @@ sampler — through the hand-written kernels K1
            10f export of the GP, a WGP(BoxCoxLinear) and a WGP(WarpingTanh)
            Predictor, loaded in a fresh process with no model code, batches
            of 1, 256 and 1000 vs the live Predictors (K1 once a batch)
+  phase 11 the gradient half of the Bayesian toolbox, every chain, MC row or
+           start of an evaluation in one batched K1 and K2 launch, each
+           run's launches equal to its predicted evaluations: 11a NUTS on
+           the n=125 sampler workload (non-centered, dense mass, 0.95, depth
+           7, 4 chains, warmup 20 + 20 samples), ESS/s, a leaf's wall and
+           device time, every 10th lnprob vs a float64 host logp; 11b the
+           same sampler through sample_hypers in float64 on the card and
+           replayed on the CPU from the same numpy draws (1e-8); 11c NUTS on
+           GP n=4096 from phase 5's MAP in float32 and float64; 11d
+           find_MAP(engine='jax') by logp and by LOO at n=4096 vs the scipy
+           optima; 11e ADVI at n=125; 11f NeuTra through neutra_nuts
+           (ensemble warmup, a 6-coupling flow, NUTS in latent space) and
+           its replay through the same flow (float64 card vs CPU at 1e-8,
+           float32 beside it); 11g HMC 4 x 50 x 10; 11h
+           sample_hypers(method='nuts' | 'advi' | 'neutra') non-centered
 
 The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
 and read just after; the Bayesian path's counts are zeroed and read around
@@ -128,7 +144,8 @@ logp/dlogp and Predictor), and phase 8's around each float32 family run
 (8e's batched launches go to the batched records), and phase 9's around
 each float32 catalogue run (9d's to the batched records), and phase 10's
 around each float32 run (10c-10e's batched ones to the batched records,
-the artifact's query batches counted in the loading process), so warm-ups,
+the artifact's query batches counted in the loading process), and phase
+11's around each float32 run (to the batched records), so warm-ups,
 profiles, float64 twins and reference checks are not counted.  Each kernel must have
 launched on each path.  Every check raises on failure.  The last lines are
 the kernel record, the card and ``{"ok": true, "device": {...}}``.  Run from
@@ -139,6 +156,7 @@ the repository root:
 
 import concurrent.futures
 import contextlib
+import copy
 import json
 import math
 import statistics
@@ -573,7 +591,7 @@ def train(proc, rng, label, reps, fit=True):
     require(per_eval[0] >= 2 and per_eval[1] >= 2,
             f"{label}: an evaluation did not launch both kernels")
     if not fit:
-        return med, None
+        return med, None, None
     before = proc.logp(u, array=True)
     t0 = time.perf_counter()
     params, points = proc.find_MAP(points=1, powell=False, display=False, return_points=True)
@@ -583,7 +601,7 @@ def train(proc, rng, label, reps, fit=True):
           f"({[p[0] for p in points]})", flush=True)
     require(after > before, f"{label}: find_MAP did not raise logp ({before} -> {after})")
     serve(proc, rng, batches=8, m=256, d=8, label=f"{label} trained", params=params)
-    return med, params
+    return med, params, t_fit
 
 
 def host_params(reg, u, dtype=np.float64):
@@ -667,22 +685,23 @@ def phase5(rng):
     y = (np.sin(x[:, 0]) + 0.1 * brng.standard_normal(n)).astype(np.float32)
     gp = g3t.GP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), name="TRAIN_GP")
     gp.observed(x, y)
-    t_gp, gp_map = train(gp, rng, "GP n=4096", reps=10)
+    t_gp, gp_map, map_s = train(gp, rng, "GP n=4096", reps=10)
 
     x2 = rng.standard_normal((n, d)).astype(np.float32)
     y2 = (np.abs(np.sin(x2[:, 0])) + 0.5 + 0.1 * rng.standard_normal(n)).astype(np.float32)
     wgp = g3t.WGP(space=x2[:4], location=g3t.Bias(), kernel=g3t.MAT52(x2),
                   mapping=g3t.BoxCoxLinear(y2), name="TRAIN_WGP")
     wgp.observed(x2, y2)
-    t_wgp, _ = train(wgp, rng, "WGP n=4096", reps=10)
+    t_wgp, _, _ = train(wgp, rng, "WGP n=4096", reps=10)
 
     n16 = 16384
     x16 = rng.standard_normal((n16, d)).astype(np.float32)
     y16 = (np.sin(x16[:, 0]) + 0.1 * rng.standard_normal(n16)).astype(np.float32)
     gp16 = g3t.GP(space=x16[:4], location=g3t.Bias(), kernel=g3t.SE(x16), name="TRAIN_GP16")
     gp16.observed(x16, y16)
-    t_gp16, _ = train(gp16, rng, "GP n=16384", reps=3, fit=False)
-    return {"gp4096": t_gp, "wgp4096": t_wgp, "gp16384": t_gp16}, (gp, gp16, gp_map, x, y)
+    t_gp16, _, _ = train(gp16, rng, "GP n=16384", reps=3, fit=False)
+    return {"gp4096": t_gp, "wgp4096": t_wgp, "gp16384": t_gp16}, (gp, gp16, gp_map, x, y,
+                                                                   map_s)
 
 
 def where_time_goes(gp, gp16):
@@ -3733,6 +3752,661 @@ def phase10(gp, gp_map, x, y, dt16, path, path_batched):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+# The gradient half of the Bayesian toolbox (ROADMAP item 9): NUTS with a
+# dense or diagonal mass, NeuTra, ADVI, HMC and find_MAP(engine='jax'), every
+# chain, MC row or start of an evaluation in one batched K1 and K2 launch
+# and one batched analytic backward.  Each run builds its model on the card
+# (``settings.device``); only the replays of 11b and 11f build one on the
+# CPU (replay_on_cpu), to compare with.  Each run's batched launches are
+# predicted from its evaluations (a NUTS call: its leaves plus one for its
+# starting points) and must match.
+def card_only(fn):
+    """Marks a phase-11 run: its model and tensors live on the card."""
+    fn.card_only = True
+    return fn
+
+
+def cpu_replay(fn):
+    """Marks the one phase-11 site that builds a model on the CPU: the
+    replay a card run is compared with."""
+    fn.cpu_replay = True
+    return fn
+
+
+def host_prior_wall(reg, u):
+    """The prior of the GP/WGP workloads (Flat and FlatExp terms): 0 inside
+    the support, -1e30 where a FlatExp value is at or below 1e-6."""
+    start, wall = 0, 0.0
+    for par in reg.ordered_params:
+        seg = np.asarray(u[start:start + par.size], np.float64)
+        if type(par.prior).__name__ == "FlatExp" and (np.exp(seg) <= 1e-6).any():
+            wall = -1e30
+        start += par.size
+    return wall
+
+
+def host_boxcox_logp(reg, u, x, y):
+    """float64 logp of WGP(Bias, SE, BoxCoxLinear) at ``u``: the gaussian of
+    z = boxcox(scale (y + shift), power) plus the log-Jacobian (power - 1)
+    sum log|scale (y + shift)| + n log scale, plus the prior's wall."""
+    import scipy.linalg
+
+    p = host_params(reg, u)
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    s, pw = p["BoxCoxLinear_scale"], p["BoxCoxLinear_power"]
+    shifted = s * (y + p["BoxCoxLinear_shift"])
+    if pw < 1e-5:
+        z = np.log(np.abs(shifted) + 1e-32)
+    else:
+        z = (np.sign(shifted) * np.abs(shifted) ** pw - 1.0) / pw
+    n = len(x)
+    k = host_gram(x, x, p["SE_rate"], p["SE_var"]) + p["Noise_var"] * np.eye(n)
+    chol = scipy.linalg.cholesky(k, lower=True)
+    r = scipy.linalg.solve_triangular(chol, z - p["Bias_Bias"], lower=True)
+    value = (-0.5 * n * np.log(2 * np.pi) - 0.5 * r @ r - np.log(np.diag(chol)).sum()
+             + (pw - 1.0) * np.log(np.abs(shifted)).sum() + n * np.log(s))
+    return float(value) + host_prior_wall(reg, u)
+
+
+def lnprob_gap(reg, rows, lnprob, host_fn, x, y, threads=4):
+    """Largest relative gap of ``lnprob`` to the float64 host logp at the
+    (m, ndim) ``rows`` inside the prior's support, and how many were
+    inside."""
+    inside = [i for i in range(len(rows)) if lnprob[i] > -1e29]
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        refs = list(pool.map(lambda i: host_fn(reg, rows[i], x, y), inside))
+    gaps = [abs(lnprob[i] - ref) / max(abs(ref), 1.0) for i, ref in zip(inside, refs)]
+    return (max(gaps) if gaps else float("inf")), len(inside)
+
+
+class GradCounts:
+    """The phase-11 counters: batched value-and-gradient evaluations, NUTS
+    leaves and host reads, L-BFGS evaluations, kernel launches and K2's
+    jitter retries, zeroed on entry and read on exit."""
+
+    def __enter__(self):
+        from g3py_tpu_torch.bayesian import nuts, samplers
+
+        self.nuts, self.samplers = nuts.nuts_sampler, samplers.value_and_grad
+        self.nuts.leaves = self.nuts.reads = self.samplers.calls = 0
+        zero_counts()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+        self.k1, self.k2, self.retries = launches()
+        self.evals, self.leaves, self.reads = (self.samplers.calls, self.nuts.leaves,
+                                               self.nuts.reads)
+
+    def check(self, label, predicted, path):
+        """The run's K1 launches equal ``predicted`` and its K2 launches
+        ``predicted`` plus the jitter retries; both above zero.  Adds them
+        to ``path``."""
+        print(f"  {label}: K1 x{self.k1}, K2 x{self.k2} ({self.retries} jitter retries); "
+              f"predicted {predicted} (value-and-gradient calls {self.evals}, NUTS leaves "
+              f"{self.leaves}, host reads {self.reads})", flush=True)
+        require(self.k1 == predicted and self.k2 - self.retries == predicted
+                and self.k1 > 0 and self.k2 > 0,
+                f"{label}: K1 x{self.k1}, K2 x{self.k2} - {self.retries} retries, predicted "
+                f"{predicted}")
+        path[0] += self.k1
+        path[1] += self.k2
+
+
+def bench_wgp(name):
+    """The JAX package's sampler workload on the card: WGP(Bias, SE,
+    BoxCoxLinear), n=125, d=8 (bench.py:697-714)."""
+    x, y = bench_wgp_data()
+    wgp = g3t.WGP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x),
+                  mapping=g3t.BoxCoxLinear(y), name=name)
+    wgp.observed(x, y)
+    return wgp, x, y
+
+
+def card_rows(a):
+    """A host array as rows on ``settings.device`` in ``settings.floatx``."""
+    return torch.as_tensor(np.asarray(a), dtype=g3t.settings.dtype, device=g3t.settings.device)
+
+
+def nuts_info(info):
+    return {k: np.round(np.asarray(v, np.float64), 4).tolist() for k, v in info.items()}
+
+
+def leaf_profile(logp, z, label):
+    """Wall and device ms of one leaf's evaluation (every chain's rows in
+    one batched value-and-gradient call) over 20 leaves, and the device's
+    idle share."""
+    from g3py_tpu_torch.bayesian.samplers import value_and_grad
+
+    def leaves():
+        for _ in range(20):
+            value_and_grad(logp, z)
+        torch.cuda.synchronize()
+
+    busy = top_ops(profile(leaves), f"{label}: 20 leaves", count=8) / 20
+    t0 = time.perf_counter()
+    leaves()
+    wall = (time.perf_counter() - t0) * 1e3 / 20
+    idle = max(0.0, 1.0 - busy / wall)
+    print(f"    {label}: one leaf {wall:.3f} ms wall, {busy:.3f} ms on the device, idle "
+          f"share {idle:.3f}", flush=True)
+    return dict(leaf_wall_ms=wall, leaf_device_ms=busy, idle_share=idle)
+
+
+@card_only
+def phase11a(path_batched, warmup=20, samples=20):
+    """The JAX package's sampler workload on NUTS (bench.py:769-800, cut
+    from 400 warmup and 300 samples for time: its trees sit at depth ~7, a
+    leaf is ~12 ms of host-bound wall): WGP n=125 non-centered, dense mass,
+    target_accept 0.95, max_depth 7, 4 chains, through nuts_sampler as
+    bench.py calls it, from the non-centered start that sample_hypers
+    jitters (sample_hypers(method='nuts') itself runs in 11b and 11h)."""
+    from g3py_tpu_torch.bayesian.average import _mESS
+
+    wgp, x, y = bench_wgp("P11_NUTS")
+    reg = wgp.active
+    shear, unshear = wgp._noncentered_sampling_shear()
+    logp = wgp._sampling_logps()[0]
+    u0 = card_rows(reg.dict_to_array(wgp.params_default)[None])
+    jitter = np.random.default_rng(1).standard_normal((4, reg.ndim))
+    with torch.no_grad():
+        v0 = unshear(u0).cpu().numpy() * (1 + 0.05 * jitter)
+    with GradCounts() as cnt:
+        vchain, lnprob, info = g3t.nuts_sampler(lambda v: logp(shear(v)), v0, samples,
+                                                warmup=warmup, key=1, max_depth=7, chains=4,
+                                                target_accept=0.95, adapt_mass="dense")
+    cnt.check("11a NUTS n=125", 1 + cnt.leaves, path_batched)
+    with torch.no_grad():  # back to the model's parameterization, as bench.py maps it
+        chain = shear(card_rows(vchain.reshape(-1, reg.ndim))).cpu().numpy().reshape(
+            vchain.shape)
+    require(np.isfinite(chain).all() and np.isfinite(lnprob).all(), "11a: chain not finite")
+    ess = sum(_mESS(chain[c, samples // 2:, :].astype(np.float64)) for c in range(4))
+    frac = (samples / 2) / (samples + warmup)
+    rows = chain[:, ::10, :].reshape(-1, reg.ndim)
+    gap, inside = lnprob_gap(reg, rows, lnprob[:, ::10].ravel(), host_boxcox_logp, x, y)
+    moved = moved_share(chain)
+    out = dict(nuts_s=cnt.seconds, leaves=cnt.leaves, reads=cnt.reads,
+               ms_per_leaf=cnt.seconds * 1e3 / cnt.leaves, ess=ess,
+               ess_per_s=ess / (cnt.seconds * frac), info=nuts_info(info), lnprob_gap=gap,
+               moved=moved)
+    print(f"  11a NUTS WGP n=125, 4 chains, warmup {warmup} + {samples}: {cnt.seconds:.2f} s, "
+          f"{cnt.leaves} leaves ({out['ms_per_leaf']:.3f} ms a leaf, {cnt.reads} host reads), "
+          f"mESS (second half) {ess:.1f}, {out['ess_per_s']:.2f} ESS/s; acceptance "
+          f"{out['info']['accept_rate']}, mean tree depth {out['info']['mean_tree_depth']}, "
+          f"divergences {out['info']['divergences']}, step sizes {out['info']['step_size']}, "
+          f"moved {moved:.3f} of the steps; every 10th lnprob vs the float64 host {gap:.2e} "
+          f"({inside} of {len(rows)} rows)", flush=True)
+    require(inside >= len(rows) // 2 and gap <= 1e-3, f"11a lnprob vs host {gap:.2e}")
+    require(moved > 0, "11a: no chain moved")
+    out.update(leaf_profile(lambda v: logp(shear(v)), card_rows(vchain[:, -1, :]),
+                            "11a NUTS n=125 leaf (4 rows)"))
+    return out
+
+
+class HostDraws:
+    """NUTS's draws made by numpy on the host from one seed and handed to
+    the port's draw functions on the chains' device: the same numbers for a
+    run on the card and its replay."""
+
+    names = ("momentum", "direction", "select", "swap")
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+
+    def momentum(self, gen, shape, dtype, device):
+        return torch.as_tensor(self.rng.standard_normal(shape), dtype=dtype, device=device)
+
+    def direction(self, gen, shape, device):
+        return torch.as_tensor(self.rng.random(shape) < 0.5, device=device)
+
+    def select(self, gen, shape, dtype, device):
+        return torch.as_tensor(self.rng.random(shape), dtype=dtype, device=device)
+
+    swap = select
+
+    def __enter__(self):
+        from g3py_tpu_torch.bayesian import nuts
+
+        self.saved = {k: getattr(nuts, f"_{k}_draws") for k in self.names}
+        for k in self.names:
+            setattr(nuts, f"_{k}_draws", getattr(self, k))
+        return self
+
+    def __exit__(self, *exc):
+        from g3py_tpu_torch.bayesian import nuts
+
+        for k, fn in self.saved.items():
+            setattr(nuts, f"_{k}_draws", fn)
+
+
+REPLAY = dict(samples=10, chains=2, method="nuts", nuts_warmup=10, max_depth=5,
+              target_accept=0.9, nuts_mass="dense", reparam="noncentered", noise_mult=0.05,
+              raw=True, seed=2)
+
+
+@cpu_replay
+def replay_on_cpu(run, name, flow=None):
+    """A card run's comparison: ``run(model, flow)`` in float64 on the n=125
+    workload built on the CPU, where the kernels' plain forms run, with
+    ``flow`` (a NeuTra flow, when given) carried there."""
+    old = g3t.settings.device, g3t.settings.floatx
+    g3t.settings.device, g3t.settings.floatx = "cpu", "float64"
+    try:
+        wgp, _, _ = bench_wgp(name)
+        if flow is not None:
+            flow = copy.deepcopy(flow).to(device="cpu", dtype=torch.float64)
+        return run(wgp, flow)
+    finally:
+        g3t.settings.device, g3t.settings.floatx = old
+
+
+@card_only
+def phase11b(path_batched):
+    """Card against CPU: the 11a sampler through sample_hypers in float64 (2
+    chains, warmup 10, samples 10, max_depth 5) on the card and replayed on
+    the CPU from the same numpy draws; the chains agree to 1e-8."""
+
+    def run(wgp, _):
+        with HostDraws(11):
+            return wgp.sample_hypers(start=wgp.params_default, **REPLAY)
+
+    old = g3t.settings.floatx
+    g3t.settings.floatx = "float64"
+    try:
+        wgp, _, _ = bench_wgp("P11_REPLAY")
+        with GradCounts() as cnt:
+            card = run(wgp, None)
+    finally:
+        g3t.settings.floatx = old
+    cnt.check("11b float64 NUTS on the card", 1 + cnt.leaves, [0, 0])
+    t0 = time.perf_counter()
+    cpu = replay_on_cpu(run, "P11_REPLAY_CPU")
+    t_cpu = time.perf_counter() - t0
+    gap, gap_lp = (float(np.abs(a - b).max() / max(np.abs(b).max(), 1.0))
+                   for a, b in zip(card, cpu))
+    moved = moved_share(card[0])
+    print(f"  11b card vs CPU replay (float64, {cnt.leaves} leaves): chain gap {gap:.2e}, "
+          f"lnprob gap {gap_lp:.2e}, moved {moved:.3f} of the steps; card {cnt.seconds:.2f} s, "
+          f"CPU {t_cpu:.2f} s", flush=True)
+    require(gap <= 1e-8 and gap_lp <= 1e-8 and moved > 0,
+            f"11b card vs CPU: {gap:.2e} / {gap_lp:.2e} (moved {moved:.3f})")
+    return dict(chain_gap=gap, lnprob_gap=gap_lp, leaves=cnt.leaves, card_s=cnt.seconds,
+                cpu_s=t_cpu)
+
+
+def host_gp_posterior(reg, u, x, y):
+    return host_logp(reg, u, x, y) + host_prior_wall(reg, u)
+
+
+@card_only
+def phase11c(gp, gp_map, x, y, path_batched):
+    """NUTS at full width: GP(Bias, SE), n=4096, from phase 5's MAP, 4
+    chains, diagonal mass, max_depth 4, warmup 10, samples 10, in float32
+    (counted) and float64, through nuts_sampler from the start that
+    sample_hypers jitters; the final states' lnprob against the float64
+    host logp."""
+    reg = gp.active
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    # sample_hypers' start: the MAP jittered by noise_mult 0.02 from default_rng(seed)
+    z0 = reg.dict_to_array(gp_map)[None] * (
+        1 + 0.02 * np.random.default_rng(3).standard_normal((4, reg.ndim)))
+    out = {}
+    for dtype in ("float32", "float64"):
+        g3t.settings.floatx = dtype
+        try:
+            with GradCounts() as cnt:
+                chain, lnprob, info = g3t.nuts_sampler(gp._sampling_logps()[0], z0, 10,
+                                                       warmup=10, key=3, max_depth=4, chains=4)
+        finally:
+            g3t.settings.floatx = "float32"
+        if dtype == "float32":
+            cnt.check("11c NUTS n=4096 float32", 1 + cnt.leaves, path_batched)
+        else:
+            cnt.check("11c NUTS n=4096 float64", 1 + cnt.leaves, [0, 0])
+        info = nuts_info(info)
+        require(np.isfinite(chain).all() and np.isfinite(lnprob).all(), "11c not finite")
+        gap, inside = lnprob_gap(reg, chain[:, -1, :], lnprob[:, -1], host_gp_posterior,
+                                 x64, y64)
+        out[dtype] = dict(nuts_s=cnt.seconds, leaves=cnt.leaves,
+                          ms_per_leaf=cnt.seconds * 1e3 / cnt.leaves, lnprob_gap=gap,
+                          info=info)
+        print(f"  11c NUTS GP n=4096 {dtype}: {cnt.seconds:.2f} s, {cnt.leaves} leaves "
+              f"({out[dtype]['ms_per_leaf']:.2f} ms a leaf), acceptance "
+              f"{info['accept_rate']}, divergences {info['divergences']}, step sizes "
+              f"{info['step_size']}; final lnprob vs the float64 host {gap:.2e} ({inside} of "
+              "4 inside the support)", flush=True)
+        require(inside >= 2 and gap <= 1e-3, f"11c {dtype} final lnprob vs host {gap:.2e}")
+    z = torch.as_tensor(chain[:, -1, :], dtype=torch.float32, device=g3t.settings.device)
+    out.update(leaf_profile(gp._sampling_logps()[0], z, "11c NUTS n=4096 leaf (4 rows)"))
+    return out
+
+
+@card_only
+def phase11d(gp, x, y, map_logp, map_s, loo_opt, path_batched):
+    """find_MAP(engine='jax') at full width on phase 5's data: points=4,
+    max_iters 100, float32, against phase 5's scipy optimum (rtol 1e-2,
+    atol 0.5, tests/test_analytics.py's tolerance), then objective='loo'
+    against phase 7b's scipy LOO optimum less 0.5 (tests/test_gp.py); the
+    float64 twin of the logp fit."""
+    from g3py_tpu_torch.bayesian.optimize_jax import lbfgs_maximize
+
+    out = {}
+    for objective in ("logp", "loo"):
+        with GradCounts() as cnt:
+            fit = gp.find_MAP(points=4, engine="jax", max_iters=100, display=False,
+                              objective=objective)
+        cnt.check(f"11d find_MAP(engine='jax', objective={objective!r})",
+                  lbfgs_maximize.evaluations, path_batched)
+        value = float(gp.logp(fit) if objective == "logp" else gp.loo(fit))
+        out[objective] = dict(fit_s=cnt.seconds, value=value, evaluations=cnt.evals,
+                              iterations=lbfgs_maximize.iterations)
+    g3t.settings.floatx = "float64"
+    try:
+        t0 = time.perf_counter()
+        fit64 = gp.find_MAP(points=4, engine="jax", max_iters=100, display=False)
+        out["logp64"] = dict(fit_s=time.perf_counter() - t0, value=float(gp.logp(fit64)),
+                             iterations=lbfgs_maximize.iterations)
+    finally:
+        g3t.settings.floatx = "float32"
+    print(f"  11d find_MAP(engine='jax') n=4096, 4 starts: logp {out['logp']['value']:.4f} in "
+          f"{out['logp']['fit_s']:.2f} s ({out['logp']['evaluations']} batched evaluations, "
+          f"{out['logp']['iterations']} iterations) against scipy's {map_logp:.4f} in "
+          f"{map_s:.2f} s (phase 5); float64 twin {out['logp64']['value']:.4f} in "
+          f"{out['logp64']['fit_s']:.2f} s; LOO {out['loo']['value']:.4f} in "
+          f"{out['loo']['fit_s']:.2f} s ({out['loo']['evaluations']} evaluations) against "
+          f"scipy's {loo_opt:.4f} (phase 7b)", flush=True)
+    require(abs(out["logp"]["value"] - map_logp) <= 0.5 + 1e-2 * abs(map_logp),
+            f"11d logp {out['logp']['value']} vs scipy {map_logp}")
+    require(out["loo"]["value"] >= loo_opt - 0.5,
+            f"11d LOO {out['loo']['value']} vs scipy {loo_opt}")
+    out["scipy_fit_s"] = map_s
+    return out
+
+
+@card_only
+def phase11e(path_batched, steps=500):
+    """ADVI on the n=125 workload: fit_advi over 500 steps, mc 8, full rank,
+    then 4 x 50 draws and their logp, as sample_hypers(method='advi') makes
+    them (which itself runs in 11h); the ELBO trace finite, scale_tril
+    positive definite, the draws' lnprob against the float64 host."""
+    wgp, x, y = bench_wgp("P11_ADVI")
+    reg = wgp.active
+    logp = wgp._sampling_logps()[0]
+    with GradCounts() as cnt:
+        t0 = time.perf_counter()
+        fit = g3t.fit_advi(logp, reg.dict_to_array(wgp.params_default), steps=steps, mc=8,
+                           lr=0.02, full_rank=True, seed=4)
+        t_fit = time.perf_counter() - t0
+        chain = g3t.advi_draws(fit, 4, 50, seed=5)
+        with torch.no_grad():
+            lnprob = logp(card_rows(chain.reshape(-1, reg.ndim))).cpu().numpy().reshape(4, 50)
+    cnt.check("11e ADVI n=125", steps + 1, path_batched)
+    eig = np.linalg.eigvalsh(fit.scale_tril @ fit.scale_tril.T)
+    rows = chain[:, ::10, :].reshape(-1, reg.ndim)
+    gap, inside = lnprob_gap(reg, rows, lnprob[:, ::10].ravel(), host_boxcox_logp, x, y)
+    out = dict(fit_s=t_fit, ms_per_step=t_fit * 1e3 / steps,
+               elbo_first=float(fit.elbo[0]), elbo_last=float(fit.elbo[-1]),
+               converged=bool(fit.converged), min_eig=float(eig.min()), lnprob_gap=gap)
+    print(f"  11e ADVI WGP n=125, {steps} steps x mc 8: {t_fit:.2f} s "
+          f"({out['ms_per_step']:.3f} ms a step), ELBO {fit.elbo[0]:.3f} -> {fit.elbo[-1]:.3f}, "
+          f"converged {fit.converged}, smallest eigenvalue of the covariance {eig.min():.3e}; "
+          f"draws' lnprob vs the float64 host {gap:.2e} ({inside} of {len(rows)})", flush=True)
+    require(np.isfinite(fit.elbo).all() and eig.min() > 0 and np.isfinite(chain).all(),
+            "11e ADVI fit not finite or not positive definite")
+    require(inside >= len(rows) // 2 and gap <= 1e-3, f"11e lnprob vs host {gap:.2e}")
+    return out
+
+
+NEUTRA_REPLAY = dict(warmup=10, key=0, chains=2, max_depth=5, target_accept=0.95,
+                     adapt_mass="dense")
+
+
+def neutra_probe(z0, rows, eps):
+    """The float64 probes of 11f's replay on one model (the card's or the
+    CPU's) through one flow: the pullback's value and gradient at ``rows``,
+    then fixed-step NUTS (``eps``, unit mass, 2 chains, 5 samples, depth 5,
+    HostDraws(13)) from ``z0`` and from ``z0`` + 1e-12."""
+
+    def probe(wgp, flow):
+        from g3py_tpu_torch.bayesian.samplers import value_and_grad
+
+        logp = g3t.neutra_logp(wgp._sampling_logps()[0], flow)
+        value, grad = value_and_grad(logp, card_rows(rows))
+        chains = []
+        for start in (z0, z0 + 1e-12):
+            with HostDraws(13):
+                chains.append(g3t.nuts_sampler(logp, start, 5, eps=eps, key=0, chains=2,
+                                               max_depth=5)[0])
+        return value.cpu().numpy(), grad.cpu().numpy(), chains
+
+    return probe
+
+
+def neutra_replay(flow, draws, path_batched):
+    """11f's replay through ``flow`` (neutra_logp) on the n=125 workload from
+    the latent images of two ensemble draws, with host draws.  Adapted NUTS
+    (NEUTRA_REPLAY, 10 samples) on the card in float64 and float32, and in
+    float64 through the whitening alone (no coupling): their step sizes
+    tell float32 rounding and the couplings apart from the geometry of the
+    draws.  The latent dynamics there is chaotic (a 1e-12 nudge to a start
+    moves the CPU's own chain by ~1e-2 within a few transitions), so the
+    card is held to the CPU in float64 (a) pointwise: the pullback's value
+    and gradient at the adapted chain's states, to 1e-10; (b) along a
+    fixed-step replay (the smallest adapted step size) to 1e-8, over the
+    leading samples where the CPU's nudged replay stays within 1e-6 of its
+    own (at least one)."""
+    with torch.no_grad():
+        flow64 = copy.deepcopy(flow).to(dtype=torch.float64)
+        z0 = g3t.flow_inverse(flow64, torch.as_tensor(draws[:2], dtype=torch.float64,
+                                                      device=flow64.mean.device))[0]
+    z0 = z0.cpu().numpy()
+    whitening, _ = g3t.fit_flow(draws, n_couplings=0)
+    adapted = {}
+    for label, fl, dtype in (("float64", flow, "float64"), ("float32", flow, "float32"),
+                             ("whitening float64", whitening, "float64")):
+        g3t.settings.floatx = dtype
+        try:
+            wgp, _, _ = bench_wgp(f"P11_NEUTRA_REPLAY_{len(adapted)}")
+            fl = copy.deepcopy(fl).to(dtype=getattr(torch, dtype))
+            with HostDraws(12), GradCounts() as cnt:
+                adapted[label] = g3t.nuts_sampler(
+                    g3t.neutra_logp(wgp._sampling_logps()[0], fl), z0, 10, **NEUTRA_REPLAY)
+        finally:
+            g3t.settings.floatx = "float32"
+        cnt.check(f"11f NeuTra replay {label} on the card", 1 + cnt.leaves,
+                  path_batched if dtype == "float32" else [0, 0])
+    rows = adapted["float64"][0].reshape(-1, z0.shape[-1])
+    eps = float(adapted["float64"][2]["step_size"].min())
+    probe = neutra_probe(z0, rows, eps)
+    g3t.settings.floatx = "float64"
+    try:
+        wgp, _, _ = bench_wgp("P11_NEUTRA_PROBE")
+        with GradCounts() as cnt:
+            card = probe(wgp, flow64)
+    finally:
+        g3t.settings.floatx = "float32"
+    cnt.check("11f NeuTra probes on the card", 3 + cnt.leaves, [0, 0])
+    t0 = time.perf_counter()
+    cpu = replay_on_cpu(probe, "P11_NEUTRA_PROBE_CPU", flow)
+    t_cpu = time.perf_counter() - t0
+    gap_v, gap_g = (float(np.abs(a - b).max() / max(np.abs(b).max(), 1.0))
+                    for a, b in zip(card[:2], cpu[:2]))
+    per_card = np.abs(card[2][0] - cpu[2][0]).max(axis=(0, 2))
+    per_self = np.abs(cpu[2][1] - cpu[2][0]).max(axis=(0, 2))
+    horizon = int(np.argmax(np.append(per_self, np.inf) > 1e-6))
+    steps = {k: np.round(np.asarray(v[2]["step_size"], np.float64), 5).tolist()
+             for k, v in adapted.items()}
+    moved = {k: moved_share(v[0]) for k, v in adapted.items()}
+    print(f"  11f NeuTra replay: adapted step sizes on the card {steps}, moved {moved}; "
+          f"float64 card vs CPU: the pullback at the {len(rows)} adapted states, value gap "
+          f"{gap_v:.2e}, gradient gap {gap_g:.2e}; fixed step {eps:.5f}, per sample card vs "
+          f"CPU {np.array2string(per_card, precision=2)}, CPU vs its 1e-12-nudged start "
+          f"{np.array2string(per_self, precision=2)} (held over {horizon}); CPU {t_cpu:.2f} s",
+          flush=True)
+    require(gap_v <= 1e-10 and gap_g <= 1e-10 and horizon >= 1
+            and (per_card[:horizon] <= 1e-8).all() and min(moved.values()) > 0,
+            f"11f NeuTra card vs CPU: pullback {gap_v:.2e} / {gap_g:.2e}, fixed-step "
+            f"{per_card} over {horizon} (moved {moved})")
+    return dict(step_size=steps, moved=moved, value_gap=gap_v, grad_gap=gap_g, eps=eps,
+                fixed_step_gap=per_card.tolist(), nudge_gap=per_self.tolist(),
+                horizon=horizon, cpu_s=t_cpu)
+
+
+@card_only
+def phase11f(path_batched, warmup=20, samples=20):
+    """NeuTra on the n=125 workload: 32 walkers x 200 ensemble warmup, then
+    neutra_nuts on its second half with bench.py:827-828's flow (6
+    couplings, hidden 32, 1500 steps) and NUTS in the latent space (depth 6,
+    target_accept 0.95, dense mass, 4 chains, warmup 20, samples 20: cut
+    from 60 + 60 for time, its trees at depth ~6).  The same fit alone,
+    timed, gives the round trip and the NLL; its flow feeds the replay."""
+    wgp, x, y = bench_wgp("P11_NEUTRA")
+    reg = wgp.active
+    with counted_calls(wgp) as calls, GradCounts() as ens:
+        wchain, _ = wgp.sample_hypers(start=wgp.params_default, samples=200, chains=32,
+                                      noise_mult=0.05, raw=True, seed=5)
+    ens.check("11f ensemble warmup", len(calls), path_batched)
+    draws = wchain[:, 100:, :].reshape(-1, reg.ndim)
+    t0 = time.perf_counter()
+    flow, losses = g3t.fit_flow(draws, n_couplings=6, hidden=32, steps=1500, key=0)
+    t_fit = time.perf_counter() - t0
+    theta = card_rows(np.random.default_rng(6).standard_normal((7, reg.ndim)) * 0.5
+                      + draws.mean(0))
+    with torch.no_grad():
+        z, ld_inv = g3t.flow_inverse(flow, theta)
+        back, ld_fwd = g3t.flow_forward(flow, z)
+    trip = float((back - theta).abs().max())
+    trip_ld = float((ld_fwd + ld_inv).abs().max())
+    require(trip <= 2e-4 + 2e-4 * float(theta.abs().max()) and trip_ld <= 1e-4 + 1e-4 * float(
+        ld_fwd.abs().max()), f"11f flow round trip {trip:.2e} / {trip_ld:.2e}")
+    require(np.isfinite(losses).all() and losses[-1] < losses[0],
+            f"11f NLL {losses[0]} -> {losses[-1]}")
+    with GradCounts() as cnt:
+        chain, lnprob, info = g3t.neutra_nuts(
+            wgp._sampling_logps()[0], draws, samples, chains=4, warmup=warmup, key=7,
+            max_depth=6, target_accept=0.95, n_couplings=6, hidden=32, fit_steps=1500,
+            adapt_mass="dense")
+    cnt.check("11f neutra_nuts", 1 + cnt.leaves, path_batched)
+    rows = chain[:, ::10, :].reshape(-1, reg.ndim)
+    gap, inside = lnprob_gap(reg, rows, lnprob[:, ::10].ravel(), host_boxcox_logp, x, y)
+    moved = moved_share(chain)
+    fit_nll = info.pop("fit_nll")
+    info = nuts_info(info)
+    out = dict(fit_s=t_fit, nll_first=float(losses[0]), nll_last=float(losses[-1]),
+               round_trip=trip, neutra_nuts_s=cnt.seconds, fit_nll=fit_nll, leaves=cnt.leaves,
+               lnprob_gap=gap, moved=moved, info=info)
+    print(f"  11f NeuTra WGP n=125: ensemble 32 x 200 {ens.seconds:.2f} s; fit_flow 1500 steps "
+          f"alone {t_fit:.2f} s (NLL {losses[0]:.3f} -> {losses[-1]:.3f}), round trip "
+          f"{trip:.2e}; neutra_nuts {cnt.seconds:.2f} s (its own fit and NUTS; the fit's NLL "
+          f"{fit_nll:.3f}), {cnt.leaves} leaves, acceptance {info['accept_rate']}, mean tree "
+          f"depth {info['mean_tree_depth']}, divergences {info['divergences']}, step sizes "
+          f"{info['step_size']}, moved {moved:.3f}; lnprob vs the float64 host {gap:.2e} "
+          f"({inside} of {len(rows)})", flush=True)
+    require(np.isfinite(chain).all() and inside >= len(rows) // 2 and gap <= 1e-3,
+            f"11f lnprob vs host {gap:.2e}")
+    require(moved > 0, "11f: no chain moved")
+    out["replay"] = neutra_replay(flow, draws, path_batched)
+    return out
+
+
+@card_only
+def phase11g(path_batched, samples=50, steps=10):
+    """hmc_sampler on the n=125 workload: 4 chains x 50 samples x 10
+    leapfrog steps, one batched evaluation a leapfrog step."""
+    wgp, x, y = bench_wgp("P11_HMC")
+    reg = wgp.active
+    u0 = reg.dict_to_array(wgp.params_default)
+    with GradCounts() as cnt:
+        chain, lnprob = g3t.hmc_sampler(wgp._sampling_logps()[0], u0, samples, key=8,
+                                        step_size=0.01, leapfrog_steps=steps, chains=4)
+    cnt.check("11g HMC n=125", 1 + samples * steps, path_batched)
+    gap, inside = lnprob_gap(reg, chain[:, -1, :], lnprob[:, -1], host_boxcox_logp, x, y)
+    moved = moved_share(chain)
+    print(f"  11g HMC WGP n=125, 4 x {samples} x {steps}: {cnt.seconds:.2f} s "
+          f"({cnt.seconds * 1e3 / cnt.evals:.3f} ms an evaluation), moved {moved:.3f}, final "
+          f"lnprob vs the float64 host {gap:.2e}", flush=True)
+    require(np.isfinite(lnprob).all() and inside == 4 and gap <= 1e-3,
+            f"11g lnprob vs host {gap:.2e}")
+    return dict(hmc_s=cnt.seconds, moved=moved, lnprob_gap=gap)
+
+
+METHODS_11H = {
+    "nuts": (dict(samples=6, nuts_warmup=6, max_depth=4, nuts_mass="dense",
+                  target_accept=0.95), lambda leaves: 1 + leaves),
+    "advi": (dict(samples=6, advi_steps=50), lambda leaves: 50 + 1),
+    "neutra": (dict(samples=4, neutra_warmup=20, nuts_warmup=4, max_depth=4),
+               lambda leaves: 2 * 20 + 1 + 1 + leaves)}
+
+
+@card_only
+def phase11h(path_batched):
+    """sample_hypers(method=...) itself on the card: each gradient method on
+    the n=125 workload with reparam='noncentered', 4 chains and a few
+    iterations (METHODS_11H; 'neutra' with its default flow, after 20
+    iterations of its ensemble).  Each run's launches equal its evaluations
+    (NUTS: one a leaf and one for the starts; ADVI: one a step and one for
+    the draws' lnprob; NeuTra: the ensemble's two a iteration and one for
+    its starts, then NUTS's), every draw's lnprob against the float64
+    host."""
+    wgp, x, y = bench_wgp("P11_METHODS")
+    reg = wgp.active
+    out = {}
+    for seed, (method, (kw, predict)) in enumerate(METHODS_11H.items(), start=9):
+        with GradCounts() as cnt:
+            chain, lnprob = wgp.sample_hypers(start=wgp.params_default, chains=4, method=method,
+                                              reparam="noncentered", noise_mult=0.05,
+                                              raw=True, seed=seed, **kw)
+        cnt.check(f"11h sample_hypers(method={method!r})", predict(cnt.leaves), path_batched)
+        rows = chain.reshape(-1, reg.ndim)
+        gap, inside = lnprob_gap(reg, rows, lnprob.ravel(), host_boxcox_logp, x, y)
+        moved = moved_share(chain)
+        out[method] = dict(s=cnt.seconds, leaves=cnt.leaves, lnprob_gap=gap, moved=moved)
+        print(f"  11h sample_hypers(method={method!r}) WGP n=125 non-centered, 4 x "
+              f"{chain.shape[1]}: {cnt.seconds:.2f} s, lnprob vs the float64 host {gap:.2e} "
+              f"({inside} of {len(rows)}), moved {moved:.3f}", flush=True)
+        require(chain.shape == (4, kw["samples"], reg.ndim) and np.isfinite(chain).all()
+                and inside >= len(rows) // 2 and gap <= 1e-3 and moved > 0,
+                f"11h sample_hypers(method={method!r}): lnprob vs host {gap:.2e}, moved "
+                f"{moved:.3f}")
+    return out
+
+
+PHASE11_RUNS = (phase11a, phase11b, phase11c, phase11d, phase11e, phase11f, phase11g,
+                phase11h)
+
+
+def phase11(gp, gp_map, x, y, map_s, loo_opt, path_batched):
+    """Phase 11's runs; their batched launches go to ``path_batched``."""
+    map_logp = float(gp.logp(gp_map))
+    runs = (("11a", "NUTS, the n=125 sampler workload", lambda p: phase11a(p)),
+            ("11b", "NUTS card vs CPU replay (float64)", lambda p: phase11b(p)),
+            ("11c", "NUTS at n=4096", lambda p: phase11c(gp, gp_map, x, y, p)),
+            ("11d", "find_MAP(engine='jax') at n=4096",
+             lambda p: phase11d(gp, x, y, map_logp, map_s, loo_opt, p)),
+            ("11e", "ADVI at n=125", lambda p: phase11e(p)),
+            ("11f", "NeuTra at n=125", lambda p: phase11f(p)),
+            ("11g", "HMC at n=125", lambda p: phase11g(p)),
+            ("11h", "sample_hypers(method=...) at n=125", lambda p: phase11h(p)))
+    out = {}
+    for key, label, run in runs:
+        print(f"phase {key}: {label}", flush=True)
+        t0 = time.perf_counter()
+        launched = [0, 0]
+        out[key] = run(launched)
+        out[key]["wall_s"] = time.perf_counter() - t0
+        print(f"  phase {key} wall {out[key]['wall_s']:.1f} s; batched launches K1 "
+              f"{launched[0]}, K2 {launched[1]}", flush=True)
+        path_batched[0] += launched[0]
+        path_batched[1] += launched[1]
+    div = {k: sum(out[k]["info"]["divergences"]) for k in ("11a", "11f")}
+    print(f"  divergences of the 4 chains: NeuTra (11f) {div['11f']:g} against NUTS (11a) "
+          f"{div['11a']:g}", flush=True)
+    return out
+
+
 def main():
     print("phase 0: device", flush=True)
     if not torch.cuda.is_available():
@@ -3795,7 +4469,7 @@ def main():
     # ---- training path
     stationary_gram.launches = 0
     panel_cholesky.launches = 0
-    train_ms, (tgp, tgp16, gp_map, x_map, y_map) = phase5(rng)
+    train_ms, (tgp, tgp16, gp_map, x_map, y_map, map_s) = phase5(rng)
     k1_train, k2_train = stationary_gram.launches, panel_cholesky.launches
     print(f"  launches in training: K1 {k1_train}, K2 {k2_train}", flush=True)
     require(k1_train > 0 and k2_train > 0, "training did not go through both kernels")
@@ -3877,6 +4551,20 @@ def main():
     require(p10[0] > 0 and p10[1] > 0 and p10_batched[0] > 0 and p10_batched[1] > 0,
             "phase 10 did not go through both kernels")
 
+    # ---- the gradient half of the Bayesian toolbox: the counts are zeroed
+    # before, and read after, each float32 run (NUTS at n=125 and n=4096,
+    # find_MAP(engine='jax') by logp and LOO, ADVI, NeuTra's ensemble warmup
+    # and NUTS and its float32 replay, HMC, sample_hypers' methods), each
+    # against its predicted evaluations; the float64 card runs of 11b and of
+    # 11f's replay and 11c's float64 twin are checked but not counted
+    p11_batched = [0, 0]
+    gradient = phase11(tgp, gp_map, x_map, y_map, map_s, surface["fits"]["loo_fit"],
+                       p11_batched)
+    print(f"  launches in phase 11: batched K1 {p11_batched[0]}, K2 {p11_batched[1]}",
+          flush=True)
+    require(p11_batched[0] > 0 and p11_batched[1] > 0,
+            "phase 11 did not go through both batched kernels")
+
     shape = (4096, 4096, 8)
     t_wrap, t_plain, t_dev = k1_timing[("se", shape)]
     k1_bound = shape[0] * shape[1] * 4 / PEAK_BYTES * 1e3
@@ -3902,7 +4590,8 @@ def main():
         {"name": "stationary_gram_batched", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
          "replaces": "g3py_tpu/ops/pallas_gram.py:81",
-         "launches": k1_bayes + p8_batched[0] + p9_batched[0] + p10_batched[0],
+         "launches": (k1_bayes + p8_batched[0] + p9_batched[0] + p10_batched[0]
+                      + p11_batched[0]),
          "max_abs_err": max(k1b_worst, catalogue["k1_algebra_err"]["batched"]),
          "ms": k1b["device_ms"] if k1b["device_ms"] is not None else k1b["ms"],
          "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": "bytes",
@@ -3910,7 +4599,8 @@ def main():
         {"name": "panel_cholesky_batched", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
          "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
-         "launches": k2_bayes + p8_batched[1] + p9_batched[1] + p10_batched[1],
+         "launches": (k2_bayes + p8_batched[1] + p9_batched[1] + p10_batched[1]
+                      + p11_batched[1]),
          "max_abs_err": k2b_worst,
          "ms": k2b["ms"], "plain_ms": k2b["plain_ms"], "bound_ms": k2b["bound_ms"],
          "bound_by": k2b["bound_by"], "library_ms": k2b["library_ms"]}]
@@ -3924,6 +4614,7 @@ def main():
     print(f"  phase 8: {json.dumps(families, default=float)}", flush=True)
     print(f"  phase 9: {json.dumps(catalogue, default=float)}", flush=True)
     print(f"  phase 10: {json.dumps(toolbox, default=float)}", flush=True)
+    print(f"  phase 11: {json.dumps(gradient, default=float)}", flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

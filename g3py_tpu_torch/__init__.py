@@ -4,8 +4,8 @@ Exact GP and warped-GP regression over the reference's whole catalogue of
 kernels (with their ``+``/``*`` algebra), metrics, means and warpings, and
 the reference's other process families — Student-t (TP/WTP), marginal
 (MP), transport (TGP) and copula (CGP/CSTP) — trained (``dlogp``,
-``find_MAP``), sampled (``sample_hypers``, the ensemble sampler over the hyperparameter
-posterior) and served from one factorization or averaged over a datatrace,
+``find_MAP``, with scipy or the batched on-device L-BFGS), sampled (``sample_hypers``:
+the ensemble sampler, NUTS, NeuTra or ADVI over the hyperparameter posterior) and served from one factorization or averaged over a datatrace,
 with the fused stationary gram and the blocked panel Cholesky as
 hand-written CUDA kernels for Hopper (sm_90a), both batched over
 hyperparameter rows.
@@ -38,7 +38,7 @@ import importlib
 
 from . import config
 from .config import settings, floatx, set_floatx
-from .utils import DictObj, MaxTime, nan_to_high, params_from_jax
+from .utils import DictObj, MaxTime, nan_to_high, params_from_jax, flow_from_jax
 from .utils.datatrace import Datatrace
 from .ops import (safe_cholesky, cho_solve, solve_lower_triangular,
                   solve_upper_triangular, trtri_from_panels, mvn_quad_logdet,
@@ -87,7 +87,10 @@ def _import_all():
                                     TElemwise, TLinear, TNoLinear, TLocation, TScale, TMapping,
                                     TKernel, TTriangular)
     from .bayesian import (GraphicalModel, Model, get_model, optimize, ensemble_sampler,
-                           pt_sampler, default_beta_ladder, mcmc_ensemble, chains_to_datatrace,
+                           pt_sampler, default_beta_ladder, mcmc_ensemble, hmc_sampler,
+                           nuts_sampler, nuts_warmup, fit_flow, flow_forward, flow_inverse,
+                           neutra_logp, neutra_nuts, fit_advi, advi_draws, lbfgs_maximize,
+                           chains_to_datatrace,
                            datatrace_to_chains, gelman_rubin, burn_in_samples,
                            effective_sample_min, effective_sample_size)
     from .models import (StochasticProcess, EllipticalProcess, GaussianProcess,

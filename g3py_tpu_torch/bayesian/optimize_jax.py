@@ -1,0 +1,213 @@
+"""Multi-start L-BFGS MAP training on the device, the engine behind
+``find_MAP(engine='jax')`` (the PyTorch counterpart of
+:mod:`g3py_tpu.bayesian.optimize_jax`; the module keeps the JAX package's
+name because the API calls the engine ``'jax'``).
+
+The JAX package ``vmap``-s ``optax.lbfgs()`` over the starts.  Here every
+start is a row of one batched L-BFGS: memory 10, the scaled initial
+preconditioner (``min(1, 1/|g|)`` at the first step, ``s'y / y'y`` after),
+and a line search that accepts a step on the strong Wolfe conditions (slope
+tolerance 1e-4, curvature 0.9) or Hager and Zhang's approximate ones, from a
+first guess of 1, doubling to bracket and then zooming by safeguarded cubic
+interpolation, at most 20 evaluations.  Each evaluation of the objective is
+one batched value-and-gradient call over the starts that are still
+searching; the line searches' bookkeeping runs on the host (one read of
+the values and slopes an evaluation).  A start stops when max|g| <= ``tol``,
+when its line search finds no decrease, or at ``max_iters``.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from ..config import settings
+from .samplers import value_and_grad
+
+__all__ = ["lbfgs_maximize"]
+
+_MEMORY = 10
+_SLOPE_RTOL, _CURV_RTOL, _APPROX_DEC_RTOL = 1e-4, 0.9, 1e-6
+_MAX_LINESEARCH_STEPS = 20
+
+
+def _wolfe(f0, s0, a, f, s):
+    """(sufficient decrease, curvature) of step ``a`` with value ``f`` and
+    slope ``s``, as optax's zoom line search tests them."""
+    armijo = f - f0 - _SLOPE_RTOL * a * s0
+    approx = max(s - (2 * _SLOPE_RTOL - 1.0) * s0, f - f0 - _APPROX_DEC_RTOL * abs(f0))
+    dec = min(armijo, approx)
+    return (not math.isnan(dec) and dec <= 0.0), abs(s) <= _CURV_RTOL * abs(s0)
+
+
+def _cubic(a_lo, f_lo, s_lo, a_hi, f_hi, s_hi):
+    """Minimizer of the cubic through both ends, safeguarded to the middle
+    80% of the interval (bisection otherwise)."""
+    lo, hi = min(a_lo, a_hi), max(a_lo, a_hi)
+    width = hi - lo
+    try:
+        d1 = s_lo + s_hi - 3.0 * (f_lo - f_hi) / (a_lo - a_hi)
+        d2 = math.copysign(math.sqrt(d1 * d1 - s_lo * s_hi), a_hi - a_lo)
+        a = a_hi - (a_hi - a_lo) * (s_hi + d2 - d1) / (s_hi - s_lo + 2.0 * d2)
+    except (ValueError, ZeroDivisionError, OverflowError):
+        a = math.nan
+    if not (math.isfinite(a) and lo + 0.1 * width <= a <= hi - 0.1 * width):
+        a = 0.5 * (lo + hi)
+    return a
+
+
+def _line_search(f0, s0):
+    """One start's line search along a descent direction (slope ``s0`` < 0
+    at step 0, value ``f0``), as a generator: it yields a step, receives
+    ``(value, slope, payload)`` of that step, and returns ``(step,
+    payload)`` of the step it accepts (``(0, None)`` when none
+    decreases)."""
+    lo = (0.0, f0, s0, None)
+    a, steps = 1.0, 0
+    hi = None
+    while steps < _MAX_LINESEARCH_STEPS:  # bracketing
+        f, s, pay = yield a
+        steps += 1
+        dec, curv = _wolfe(f0, s0, a, f, s)
+        if not dec or (steps > 1 and f >= lo[1]):
+            hi = (a, f, s, pay)
+            break
+        if curv:
+            return a, pay
+        if s >= 0:
+            hi, lo = lo, (a, f, s, pay)
+            break
+        lo = (a, f, s, pay)
+        a *= 2.0
+    while hi is not None and steps < _MAX_LINESEARCH_STEPS:  # zoom
+        a = _cubic(lo[0], lo[1], lo[2], hi[0], hi[1], hi[2])
+        f, s, pay = yield a
+        steps += 1
+        dec, curv = _wolfe(f0, s0, a, f, s)
+        if not dec or f >= lo[1]:
+            hi = (a, f, s, pay)
+        else:
+            if curv:
+                return a, pay
+            if s * (hi[0] - lo[0]) >= 0:
+                hi = lo
+            lo = (a, f, s, pay)
+        if abs(hi[0] - lo[0]) <= 1e-12 * max(1.0, abs(lo[0])):
+            break
+    return lo[0], lo[3]
+
+
+def _direction(g, mem_s, mem_y, mem_rho, gamma):
+    """-H g by the two-loop recursion over the (starts, memory, ndim)
+    chronological memory (unused slots are zero and drop out)."""
+    q = g.clone()
+    alphas = []
+    for i in reversed(range(mem_s.shape[1])):
+        alpha = mem_rho[:, i] * (mem_s[:, i] * q).sum(-1)
+        q = q - alpha[:, None] * mem_y[:, i]
+        alphas.append(alpha)
+    r = gamma[:, None] * q
+    for i, alpha in zip(range(mem_s.shape[1]), reversed(alphas)):
+        beta = mem_rho[:, i] * (mem_y[:, i] * r).sum(-1)
+        r = r + (alpha - beta)[:, None] * mem_s[:, i]
+    return -r
+
+
+def lbfgs_maximize(logp_fn, starts, max_iters=200, tol=1e-5):
+    """Maximize a batched log density ``logp_fn`` ((R, ndim) tensor -> (R,),
+    differentiable by torch autograd) from every row of ``starts`` at once.
+
+    The objective is -logp with a non-finite value read as 1e30 (and its
+    gradient as 0); a step that lands on non-finite parameters is rejected
+    and its start stops, as in the JAX package.  Returns host arrays
+    ``(points (k, ndim), values (k,))``; ``lbfgs_maximize.evaluations``
+    counts the batched evaluations and ``lbfgs_maximize.iterations`` the
+    L-BFGS iterations of the last call."""
+    x = torch.as_tensor(np.atleast_2d(np.asarray(starts, settings.floatx)),
+                        device=settings.device)
+    k, ndim = x.shape
+    lbfgs_maximize.evaluations = 0
+
+    def objective(rows):
+        lbfgs_maximize.evaluations += 1
+        v, g = value_and_grad(logp_fn, rows)
+        finite = torch.isfinite(v)
+        return (torch.where(finite, -v, torch.full_like(v, 1e30)),
+                torch.where(finite[:, None], -g, torch.zeros_like(g)))
+
+    f, g = objective(x)
+    mem_s = x.new_zeros((k, _MEMORY, ndim))
+    mem_y = torch.zeros_like(mem_s)
+    mem_rho = x.new_zeros((k, _MEMORY))
+    x_prev, g_prev = x.clone(), g.clone()
+    count = 0
+    active = (g.abs().amax(dim=-1) > tol).cpu().numpy()
+    it = 0
+    while it < max_iters and active.any():
+        # 1. the memory and the initial scaling (optax's scale_by_lbfgs)
+        if count > 0:
+            s, y = x - x_prev, g - g_prev
+            sy = (s * y).sum(-1)
+            rho = torch.where(sy == 0, torch.zeros_like(sy), 1.0 / sy)
+            upd = torch.as_tensor(active, device=x.device)
+            mem_s = torch.where(upd[:, None, None], torch.cat([mem_s[:, 1:], s[:, None]], 1),
+                                mem_s)
+            mem_y = torch.where(upd[:, None, None], torch.cat([mem_y[:, 1:], y[:, None]], 1),
+                                mem_y)
+            mem_rho = torch.where(upd[:, None], torch.cat([mem_rho[:, 1:], rho[:, None]], 1),
+                                  mem_rho)
+            yy = (y * y).sum(-1)
+            gamma = torch.where(yy > 0, sy / torch.where(yy > 0, yy, torch.ones_like(yy)),
+                                torch.ones_like(yy))
+        else:
+            gamma = torch.clamp(1.0 / torch.linalg.vector_norm(g, dim=-1), max=1.0)
+        d = _direction(g, mem_s, mem_y, mem_rho, gamma)
+        slope0 = (g * d).sum(-1)
+        # a direction that does not descend (negative curvature in the
+        # memory): steepest descent, memory cleared
+        bad = (slope0 >= 0) | ~torch.isfinite(slope0)
+        if bool(bad.any()):
+            scale = torch.clamp(1.0 / torch.linalg.vector_norm(g, dim=-1), max=1.0)
+            d = torch.where(bad[:, None], -scale[:, None] * g, d)
+            keep = ~bad
+            mem_s, mem_y = mem_s * keep[:, None, None], mem_y * keep[:, None, None]
+            mem_rho = mem_rho * keep[:, None]
+            slope0 = (g * d).sum(-1)
+        # 2. the line searches, every searching start in one evaluation
+        f0, s0 = f.cpu().numpy(), slope0.cpu().numpy()
+        searches, steps, done = {}, {}, {}
+        for i in np.flatnonzero(active):
+            searches[i] = _line_search(float(f0[i]), float(s0[i]))
+            steps[i] = next(searches[i])
+        while steps:
+            idx = sorted(steps)
+            rows = torch.as_tensor(idx, device=x.device)
+            alpha = torch.as_tensor([steps[i] for i in idx], dtype=x.dtype, device=x.device)
+            pts = x[rows] + alpha[:, None] * d[rows]
+            fv, gv = objective(pts)
+            sv = (gv * d[rows]).sum(-1)
+            host = torch.stack([fv, sv]).cpu().numpy()
+            for j, i in enumerate(idx):
+                try:
+                    steps[i] = searches[i].send((float(host[0, j]), float(host[1, j]),
+                                                 (pts[j], fv[j], gv[j])))
+                except StopIteration as stop:
+                    done[i] = stop.value
+                    del steps[i]
+        # 3. the step (a rejected or empty one stops its start)
+        x_prev, g_prev = x.clone(), g.clone()
+        for i, (a, pay) in done.items():
+            if pay is None or not bool(torch.isfinite(pay[0]).all()):
+                g[i] = 0.0
+                active[i] = False
+                continue
+            x[i], f[i], g[i] = pay
+        count += 1
+        it += 1
+        active &= (g.abs().amax(dim=-1) > tol).cpu().numpy()
+    lbfgs_maximize.iterations = it
+    return x.cpu().numpy(), (-f).cpu().numpy()
+
+
+lbfgs_maximize.evaluations = 0
+lbfgs_maximize.iterations = 0

@@ -5,6 +5,8 @@
   emcee's two-half update scheme;
 * :func:`pt_sampler` — parallel tempering: the stretch move at every
   temperature of a ladder, then adjacent-temperature swaps;
+* :func:`hmc_sampler` — leapfrog HMC, every chain in one batched
+  value-and-gradient evaluation a leapfrog step;
 * :func:`mcmc_ensemble` — the reference's entry point: jitter a start into an
   initial ensemble, run the (tempered) sampler, return ``(lnprob, chain)``.
 
@@ -18,11 +20,14 @@ together, so a chain of ``samples`` iterations makes ``1 + 2 * samples``
 calls whatever the number of walkers — and accept/reject.  Nothing waits
 for the device except what the log density itself waits for.
 
-Each log density here maps an (R, ndim) tensor of rows to an (R,) tensor.
-The draws of a half-ensemble come from :func:`_half_draws` and the swap
-draws from :func:`_swap_draws`; a test can replace them to feed the JAX
+Each log density here maps an (R, ndim) tensor of rows to an (R,) tensor;
+the gradient samplers (HMC here, NUTS, ADVI, the L-BFGS engine) also
+differentiate it with torch autograd (:func:`value_and_grad`: the model's
+sampling log densities make one batched value-and-gradient evaluation
+for the forward and the backward together).  The draws of a half-ensemble
+come from :func:`_half_draws`, the swap draws from :func:`_swap_draws` and
+HMC's from :func:`_hmc_draws`; a test can replace them to feed the JAX
 package's draws (the two generators give different numbers).
-``hmc_sampler`` comes with the NUTS slice (ROADMAP Queue 1 item 9).
 """
 
 import numpy as np
@@ -30,7 +35,27 @@ import torch
 
 from ..config import settings
 
-__all__ = ["ensemble_sampler", "pt_sampler", "default_beta_ladder", "mcmc_ensemble"]
+__all__ = ["ensemble_sampler", "pt_sampler", "default_beta_ladder", "hmc_sampler",
+           "mcmc_ensemble", "value_and_grad"]
+
+
+def value_and_grad(logp, z):
+    """``(logp(z), d logp / dz)`` of a batched log density at the (R, ndim)
+    rows ``z``, both detached; ``value_and_grad.calls`` counts the calls
+    (each is one batched evaluation of a model's log density)."""
+    value_and_grad.calls += 1
+    with torch.enable_grad():
+        z = z.detach().requires_grad_(True)
+        v = logp(z)
+        grad = None
+        if v.requires_grad:
+            (grad,) = torch.autograd.grad(v.sum(), z, allow_unused=True)
+    if grad is None:  # a density that does not depend on z
+        grad = torch.zeros_like(z)
+    return v.detach(), grad
+
+
+value_and_grad.calls = 0
 
 
 def _half_draws(gen, shape, n_other, dtype, device):
@@ -103,6 +128,16 @@ def _start(p0):
     if p0.shape[-2] % 2:
         raise ValueError("chains must be even for the two-half stretch move")
     return p0
+
+
+def _chain_starts(z0, chains):
+    """The (chains, ndim) starting rows of a gradient sampler on
+    ``settings.device``: ``z0`` (ndim,) repeated ``chains`` times, or
+    (chains, ndim) as given."""
+    z0 = torch.as_tensor(np.asarray(z0), dtype=settings.dtype, device=settings.device)
+    if z0.ndim == 1:
+        z0 = z0[None, :].expand(chains, -1)
+    return z0.contiguous()
 
 
 def _finish(chain, lnprob):
@@ -190,6 +225,52 @@ def pt_sampler(loglike, logprior, p0, samples, betas=None, key=None, a=2.0, shar
         x, _, (like, prior) = _ensemble_step(gen, x, lp, (like, prior), logp_rows, a)
         _swap(x, like, prior, betas, _swap_draws(gen, (ntemps - 1, chains), x.dtype, x.device))
         chain[it], lnprob[it] = x[0], like[0] + prior[0]
+    return _finish(chain, lnprob)
+
+
+def _hmc_draws(gen, shape, dtype, device):
+    """The draws of one HMC step for (chains, ndim) ``shape``: the momentum
+    normals and the uniform of the acceptance test, one a chain."""
+    p = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+    u = torch.rand(shape[:-1], generator=gen, dtype=dtype, device=device)
+    return p, u
+
+
+def hmc_sampler(logp, p0, samples, key=None, step_size=0.05, leapfrog_steps=10,
+                chains=1):
+    """Vanilla HMC over the unconstrained parameter vector, every chain at
+    once: a leapfrog step is one batched value-and-gradient evaluation of
+    all chains (the gradient at the current state is carried from the
+    step before), so a run makes ``1 + samples * leapfrog_steps``.  As in
+    the JAX package a non-finite logp reads as -inf (its gradient 0) and
+    is rejected.  ``key`` as in :func:`ensemble_sampler`.  Returns host
+    arrays ``chain (chains, samples, ndim)`` and ``lnprob (chains,
+    samples)``."""
+    q = _chain_starts(p0, chains)
+    gen = _generator(key, q.device)
+
+    def evaluate(x):
+        v, g = value_and_grad(logp, x)
+        finite = torch.isfinite(v)
+        return (torch.where(finite, v, torch.full_like(v, -torch.inf)),
+                torch.where(finite[:, None], g, torch.zeros_like(g)))
+
+    lq, gq = evaluate(q)
+    chain = torch.empty((samples,) + q.shape, dtype=q.dtype, device=q.device)
+    lnprob = torch.empty((samples, q.shape[0]), dtype=q.dtype, device=q.device)
+    for it in range(samples):
+        p, u = _hmc_draws(gen, q.shape, q.dtype, q.device)
+        x, r, g = q, p + 0.5 * step_size * gq, gq
+        for step in range(leapfrog_steps):
+            x = x + step_size * r
+            lx, g = evaluate(x)
+            r = r + (0.5 if step == leapfrog_steps - 1 else 1.0) * step_size * g
+        log_accept = lx - lq - 0.5 * ((r * r).sum(-1) - (p * p).sum(-1))
+        accept = torch.log(u) < log_accept
+        q = torch.where(accept[:, None], x, q)
+        lq = torch.where(accept, lx, lq)
+        gq = torch.where(accept[:, None], g, gq)
+        chain[it], lnprob[it] = q, lq
     return _finish(chain, lnprob)
 
 

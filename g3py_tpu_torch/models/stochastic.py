@@ -23,9 +23,13 @@ batched K2 call a logp evaluation of all rows.  ``fix_vars`` pins dims to a
 chain's rows: the ``fixed_*`` logps (and ``dlogp``, through the batched
 analytic backward) are one batched evaluation over those rows, used by
 ``find_MAP`` and ``sample_hypers``; ``sample_hypers(reparam='noncentered')``
-samples the amplitude hypers relative to the data scale.  NUTS/NeuTra/ADVI,
-the other ``find_MAP`` engines, model files and plotting come in later
-slices.
+samples the amplitude hypers relative to the data scale.  The gradient
+samplers (``sample_hypers(method='nuts' | 'neutra' | 'advi')``) and
+``find_MAP(engine='jax')`` differentiate the batched sampling log densities
+with torch autograd: a batched value-and-gradient evaluation of all chains,
+MC rows or starts is one batched K1 and K2 call and one batched analytic
+backward.  The iterative and distributed ``find_MAP`` engines, model files
+and plotting come in later slices.
 """
 
 import numpy as np
@@ -38,6 +42,10 @@ from ..bayesian.registry import GraphicalModel
 from ..bayesian.selection import optimize
 from ..bayesian.models import BatchedModel
 from ..bayesian.samplers import mcmc_ensemble
+from ..bayesian.nuts import nuts_sampler
+from ..bayesian.neutra import neutra_nuts
+from ..bayesian.advi import fit_advi, advi_draws
+from ..bayesian.optimize_jax import lbfgs_maximize
 from ..bayesian.average import chains_to_datatrace
 
 __all__ = ["StochasticProcess"]
@@ -80,6 +88,37 @@ def _statistic(th_name, doc):
     method.__name__ = th_name[3:]
     method.__doc__ = doc
     return method
+
+
+class _RowsLogp(torch.autograd.Function):
+    """A batched log density of (..., ndim) rows whose forward is one
+    value-and-gradient evaluation ``value_and_grad(u) -> (value, grad)``
+    and whose backward scales the saved gradients by the cotangent: autograd
+    through it (a shear, a flow, an ELBO) costs no second evaluation."""
+
+    @staticmethod
+    def forward(ctx, u, value_and_grad):
+        value, grad = value_and_grad(u.detach())
+        ctx.save_for_backward(grad)
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        (grad,) = ctx.saved_tensors
+        return g[..., None] * grad, None
+
+
+def _differentiable(value, value_and_grad):
+    """A batched log density: ``value(u)`` on rows that need no gradient,
+    :class:`_RowsLogp` over ``value_and_grad`` on rows that require grad
+    under grad mode."""
+
+    def f(u):
+        if torch.is_grad_enabled() and u.requires_grad:
+            return _RowsLogp.apply(u, value_and_grad)
+        return value(u)
+
+    return f
 
 
 class StochasticProcess(BatchedModel):
@@ -420,20 +459,41 @@ class StochasticProcess(BatchedModel):
         """Gradient of ``pure(params dict, space, inputs, outputs)`` with
         respect to the flat unconstrained vector of ``params`` (a dict or
         that vector; or a (R, ndim) matrix of rows, each row's gradient of
-        its own value)."""
-        reg = self.active
+        its own value), on the host in ``settings.floatx``."""
         if isinstance(params, dict):
-            params = reg.dict_to_array(params)
+            params = self.active.dict_to_array(params)
         u = as_tensor(params if isinstance(params, torch.Tensor) else np.asarray(params))
-        u = u.detach().requires_grad_(True)
+        _, grad = self._value_and_grad(pure, u, space, inputs, outputs)
+        return grad.cpu().numpy()
+
+    def _value_and_grad(self, pure, u, space=None, inputs=None, outputs=None):
+        """``pure``'s value at the unconstrained rows ``u`` ((ndim,) or (R,
+        ndim) tensor) and its gradient with respect to each row, both on the
+        device: one (batched) forward and one backward through the batched
+        analytic ``mvn_quad_logdet``; NaN/Inf gradients guarded by
+        ``to_num`` (a failed row's gradient is 0).  One row at a time for a
+        family without a row axis (``_batched_rows``)."""
+        if not self._batched_rows and u.ndim == 2:
+            pairs = [self._value_and_grad(pure, row, space, inputs, outputs) for row in u]
+            return torch.stack([v for v, _ in pairs]), torch.stack([g for _, g in pairs])
         space, inputs, outputs = self._resolve_data(space, inputs, outputs)
+        u = u.detach().requires_grad_(True)
         with torch.enable_grad():
-            total = pure(reg.array_to_dict_tensor(u), space, inputs, outputs)
+            total = pure(self.active.array_to_dict_tensor(u), space, inputs, outputs)
             if total.requires_grad:
                 (grad,) = torch.autograd.grad(total.sum(), u)
             else:
                 grad = torch.zeros_like(u)
-        return to_num(grad).cpu().numpy()
+        return total.detach().expand(u.shape[:-1]), to_num(grad)
+
+    def _rows_value_and_grad(self, u, prior=False, like_only=False):
+        """logp (prior / loglike) of each row of a (R, ndim) tensor of
+        unconstrained rows and its gradient with respect to its own row:
+        ``(R,)`` and ``(R, ndim)`` tensors on the device, from one batched
+        forward and one backward (the JAX package's ``vmap`` of
+        ``value_and_grad``)."""
+        return self._value_and_grad(self._logp_pure(prior=prior, like_only=like_only),
+                                    as_tensor(u))
 
     def _logp_rows(self, u, prior=False, like_only=False):
         """logp (prior / loglike) of a (R, ndim) tensor of unconstrained
@@ -458,14 +518,8 @@ class StochasticProcess(BatchedModel):
     def _rows_grad(self, u, prior=False, like_only=False):
         """Gradient of the logp (prior / loglike) of each row of a (R,
         ndim) tensor of unconstrained rows with respect to its own row,
-        (R, ndim) on the host: one batched evaluation and one backward
-        through the batched analytic ``mvn_quad_logdet`` (the JAX package's
-        ``vmap`` of ``grad``); one row at a time for a family without a row
-        axis (``_batched_rows``)."""
-        pure = self._logp_pure(prior=prior, like_only=like_only)
-        if not self._batched_rows:
-            return np.stack([self._array_grad(pure, row) for row in u.cpu().numpy()])
-        return self._array_grad(pure, u)
+        (R, ndim) on the host (:meth:`_rows_value_and_grad`)."""
+        return self._rows_value_and_grad(u, prior=prior, like_only=like_only)[1].cpu().numpy()
 
     # ------------------------------------------------ fixed (marginalized)
     def _fixed_eval(self, kind, sampling_params, return_array):
@@ -505,24 +559,40 @@ class StochasticProcess(BatchedModel):
         """Batched (logp | loglike, logprior) of (R, nsampling) rows over
         the sampling dims; under ``fix_vars`` each row's value is the mean
         over the fixed chain's C rows, all R x C rows in one batched
-        evaluation."""
+        evaluation.  Each is differentiable by torch autograd: called on
+        rows that require grad under grad mode it makes one batched
+        value-and-gradient evaluation (:meth:`_rows_value_and_grad`; under
+        ``fix_vars`` the gradient is the mean of the C rows' gradients at
+        the sampling dims), so a gradient sampler's ``backward`` costs no
+        second evaluation; otherwise one value-only evaluation."""
         reg = self.active
         if reg.fixed_datatrace is None:
             def mk(flags):
-                return lambda u: self._logp_rows(u, **flags)
+                return _differentiable(lambda u: self._logp_rows(u, **flags),
+                                       lambda u: self._rows_value_and_grad(u, **flags))
         else:
             chain = as_tensor(reg.fixed_chain)
             dims = torch.as_tensor(reg.sampling_dims, device=chain.device)
 
+            def rows(flat):  # (R, nsampling) -> (R * C, ndim)
+                out = chain.expand((flat.shape[0],) + chain.shape).clone()
+                out[:, :, dims] = flat[:, None, :].to(chain.dtype)
+                return out.reshape(-1, chain.shape[-1])
+
             def mk(flags):
-                def f(u):
-                    lead = u.shape[:-1]
+                def value(u):
                     flat = u.reshape(-1, u.shape[-1])
-                    rows = chain.expand((flat.shape[0],) + chain.shape).clone()
-                    rows[:, :, dims] = flat[:, None, :].to(chain.dtype)
-                    vals = self._logp_rows(rows.reshape(-1, chain.shape[-1]), **flags)
-                    return vals.reshape(flat.shape[0], chain.shape[0]).mean(dim=-1).reshape(lead)
-                return f
+                    vals = self._logp_rows(rows(flat), **flags)
+                    return vals.reshape(flat.shape[0], -1).mean(dim=-1).reshape(u.shape[:-1])
+
+                def value_and_grad(u):
+                    flat = u.reshape(-1, u.shape[-1])
+                    vals, grads = self._rows_value_and_grad(rows(flat), **flags)
+                    vals = vals.reshape(flat.shape[0], -1).mean(dim=-1)
+                    grads = grads.reshape(flat.shape[0], chain.shape[0], -1)[:, :, dims]
+                    return vals.reshape(u.shape[:-1]), grads.mean(dim=1).reshape(u.shape)
+
+                return _differentiable(value, value_and_grad)
 
         logp = mk(dict(prior=prior))
         logprior = mk(dict(prior=True))
@@ -552,29 +622,37 @@ class StochasticProcess(BatchedModel):
                       nuts_mass="diag", nuts_chunk=25, neutra_warmup=500,
                       advi_steps=2000, advi_mc=8, advi_lr=0.02,
                       advi_full_rank=True, reparam=None):
-        """MCMC over the hyperparameter posterior with the affine-invariant
-        ensemble sampler (parallel-tempered when ``ntemps``): ``chains``
-        walkers (default 2 ndim) jittered around ``start`` (default: the
-        ``find_MAP`` point), ``samples`` iterations, every half-ensemble's
-        logp one batched evaluation on the device.  Returns a
+        """MCMC over the hyperparameter posterior.  ``method='ensemble'``
+        (default) is the affine-invariant ensemble sampler (parallel-tempered
+        when ``ntemps``): ``chains`` walkers (default 2 ndim) jittered around
+        ``start`` (default: the ``find_MAP`` point), ``samples``
+        iterations, every half-ensemble's logp one batched evaluation on the
+        device.  ``method='nuts'`` runs the No-U-Turn sampler
+        (:func:`~g3py_tpu_torch.bayesian.nuts.nuts_sampler`: ``chains``
+        chains from the start jittered by ``noise_mult``, ``nuts_warmup``
+        warmup iterations, ``max_depth``, ``target_accept``,
+        ``nuts_mass`` 'diag' or 'dense'), every chain's leaf one batched
+        value-and-gradient evaluation; ``nuts_chunk`` is accepted and
+        changes nothing.  ``method='neutra'`` runs NUTS through a transport
+        fitted to the second half of ``neutra_warmup`` ensemble iterations
+        (:func:`~g3py_tpu_torch.bayesian.neutra.neutra_nuts`).
+        ``method='advi'`` fits a Gaussian variational approximation
+        (``advi_steps``, ``advi_mc``, ``advi_lr``, ``advi_full_rank``) and
+        fills the chain with iid draws from it.  Returns a
         :class:`~g3py_tpu_torch.utils.datatrace.Datatrace` (burn-in from the
         Gelman-Rubin bisection at ``burnin_tol``, outliers at
         ``outlayer_percentile``), or with ``raw`` the ``(chain, lnprob)``
         arrays.  ``parallel``, ``threads`` and ``load`` are accepted and
-        change nothing (the walkers of a half-ensemble already share one
-        batched call); the ``nuts_*``, ``max_depth``, ``target_accept``,
-        ``neutra_warmup`` and ``advi_*`` arguments belong to methods that
-        are not ported yet.  ``reparam='noncentered'`` (elliptical families)
-        samples every amplitude (``*_var``) hyper relative to the data scale
-        ``log Var[g^{-1}(y)]``, a unit-Jacobian shear of the log density; the
-        chain is mapped back to the model's parameterization.  Under
-        ``fix_vars`` the walkers move over the sampling dims against the
-        logp averaged over the fixed chain, and the fixed dims of the result
-        hold the fixed chain's mean."""
-        if method in ("nuts", "neutra", "advi"):
-            raise NotImplementedError(f"sample_hypers(method={method!r}) is not ported yet "
-                                      "(ROADMAP Queue 1 item 9)")
-        if method != "ensemble":
+        change nothing (the walkers of a half-ensemble, and the chains of a
+        gradient sampler, already share one batched call).
+        ``reparam='noncentered'`` (elliptical families) samples every
+        amplitude (``*_var``) hyper relative to the data scale ``log
+        Var[g^{-1}(y)]``, a unit-Jacobian shear of the log density, with
+        every method; the chain is mapped back to the model's
+        parameterization.  Under ``fix_vars`` the chains move over the
+        sampling dims against the logp averaged over the fixed chain, and
+        the fixed dims of the result hold the fixed chain's mean."""
+        if method not in ("ensemble", "nuts", "neutra", "advi"):
             raise ValueError(f"unknown method {method!r}")
         if reparam not in (None, "noncentered"):
             raise ValueError(f"unknown reparam {reparam!r} (None | 'noncentered')")
@@ -607,10 +685,45 @@ class StochasticProcess(BatchedModel):
             logp, loglike, logprior = (None if f is None else (lambda v, _f=f: _f(shear(v)))
                                        for f in (logp, loglike, logprior))
             start = _map_rows(unshear, start)
-        lnprob, echain = mcmc_ensemble(
-            ndim, samples=samples, chains=chains, ntemps=ntemps, start=start, logp=logp,
-            loglike=loglike, logprior=logprior, noise_mult=noise_mult, noise_sum=noise_sum,
-            threads=threads, parallel=parallel, seed=seed)
+        if method != "ensemble" and logp is None:
+            logp = (lambda v: loglike(v) + logprior(v))
+        if method == "advi":
+            center = start if start.ndim == 1 else np.mean(start.reshape(-1, ndim), axis=0)
+            fit = fit_advi(logp, center, steps=advi_steps, mc=advi_mc, lr=advi_lr,
+                           full_rank=advi_full_rank, seed=seed)
+            if not fit.converged:
+                print("sample_hypers(method='advi'): ELBO still improving "
+                      "at the last decile — consider more advi_steps")
+            echain = advi_draws(fit, chains, samples, seed=seed + 1)
+            with torch.no_grad():
+                lnprob = logp(as_tensor(echain.reshape(-1, ndim))).reshape(
+                    echain.shape[:2]).cpu().numpy()
+        elif method == "neutra":
+            n_walk = max(2 * ndim, 16)
+            n_walk += n_walk % 2
+            wstart = start if start.ndim == 2 else np.tile(start[None, :], (n_walk, 1))
+            _, wchain = mcmc_ensemble(ndim, samples=neutra_warmup, chains=n_walk, start=wstart,
+                                      logp=logp, noise_mult=noise_mult, noise_sum=noise_sum,
+                                      seed=seed)
+            draws = wchain[:, neutra_warmup // 2:, :].reshape(-1, ndim)
+            echain, lnprob, _ = neutra_nuts(
+                logp, draws, samples, chains=chains, warmup=nuts_warmup, key=seed,
+                max_depth=max_depth, target_accept=target_accept,
+                adapt_mass="dense" if nuts_mass == "dense" else True)
+        elif method == "nuts":
+            jitter = np.random.default_rng(seed)
+            z0 = start if start.ndim == 2 else (
+                start[None, :] * (1 + noise_mult * jitter.standard_normal((chains, ndim))
+                                  ).astype(settings.floatx))
+            echain, lnprob, _ = nuts_sampler(
+                logp, z0, samples, warmup=nuts_warmup, key=seed, max_depth=max_depth,
+                chains=chains, target_accept=target_accept,
+                adapt_mass="dense" if nuts_mass == "dense" else True, chunk=nuts_chunk)
+        else:
+            lnprob, echain = mcmc_ensemble(
+                ndim, samples=samples, chains=chains, ntemps=ntemps, start=start, logp=logp,
+                loglike=loglike, logprior=logprior, noise_mult=noise_mult,
+                noise_sum=noise_sum, threads=threads, parallel=parallel, seed=seed)
         if shear is not None:  # back to the model's parameterization
             echain = _map_rows(shear, echain)
         complete_chain = np.empty(echain.shape[:2] + (reg.ndim,), dtype=settings.floatx)
@@ -658,11 +771,29 @@ class StochasticProcess(BatchedModel):
 
         return fn
 
+    def _sampling_loo_objective(self):
+        """The LOO objective over (R, nsampling) rows, batched and
+        differentiable as :meth:`_sampling_logps` (one batched
+        value-and-gradient evaluation of the rows): the ``engine='jax'``
+        counterpart of ``objective='loo'``.  Refused under ``fix_vars``, as
+        in the JAX package."""
+        if self.active.fixed_datatrace is not None:
+            raise ValueError("objective='loo' does not compose with "
+                             "fix_vars/fixed chains")
+        pure = self._loo_objective_pure()
+
+        def value(u):
+            u = as_tensor(u)
+            with torch.no_grad():
+                out = pure(self.active.array_to_dict_tensor(u),
+                           *self._resolve_data(None, None, None))
+            return out.expand(u.shape[:-1])
+
+        return _differentiable(value, lambda u: self._value_and_grad(pure, as_tensor(u)))
+
     def _array_loo_sampling(self, p):
-        u = as_tensor(np.asarray(p, dtype=settings.floatx))
-        with torch.no_grad():
-            return float(self._loo_objective_pure()(self.active.array_to_dict_tensor(u),
-                                                    *self._resolve_data(None, None, None)))
+        return float(self._sampling_loo_objective()(as_tensor(np.asarray(p,
+                                                                         dtype=settings.floatx))))
 
     def _array_dloo_sampling(self, p):
         return self._array_grad(self._loo_objective_pure(),
@@ -681,12 +812,19 @@ class StochasticProcess(BatchedModel):
         ``objective='loo'`` (GP family) maximizes the leave-one-out log
         pseudo-likelihood (GPML §5.4.2) in place of this process's marginal
         loglike; prior terms, potentials and the other processes' loglikes
-        stay.  ``max_iters`` belongs to the engines that are not ported."""
+        stay.  ``engine='jax'`` optimizes every start at once with the
+        batched L-BFGS of :func:`~g3py_tpu_torch.bayesian.optimize_jax.
+        lbfgs_maximize` (``max_iters`` iterations at most): ``points``
+        starts, the first ``start`` and jittered copies of it, each
+        evaluation of the objective one batched call over the starts."""
         if objective not in ("logp", "loo"):
             raise ValueError(f"unknown objective {objective!r}")
+        if engine == "jax":
+            return self._find_map_jax(start=start, points=points, return_points=return_points,
+                                      display=display, max_iters=max_iters,
+                                      objective=objective, **kwargs)
         if engine != "scipy":
-            items = {"jax": "item 9 (on-device L-BFGS)", "iterative": "item 11",
-                     "distributed": "item 16"}
+            items = {"iterative": "item 11", "distributed": "item 16"}
             if engine in items:
                 raise NotImplementedError(
                     f"find_MAP(engine={engine!r}) is not ported yet "
@@ -767,6 +905,38 @@ class StochasticProcess(BatchedModel):
         if return_points is False:
             return params
         return params, points_list
+
+    def _find_map_jax(self, start=None, points=1, return_points=False, display=True,
+                      max_iters=200, objective="logp"):
+        """Every start optimized at once on the device (the JAX package's
+        ``_find_map_jax``): the starts are ``start`` (a params dict, a flat
+        vector or a list of them) and, up to ``points``, copies of the first
+        jittered by 20% from ``np.random.default_rng(0)``."""
+        reg = self.active
+        if start is None:
+            start = self.params
+        starts = start if isinstance(start, list) else [start]
+        starts = [reg.sampling_params(s) if isinstance(s, dict) else
+                  np.asarray(s)[reg.sampling_dims] if np.ndim(s) == 1 and
+                  len(s) == reg.ndim else np.asarray(s) for s in starts]
+        rng = np.random.default_rng(0)
+        while len(starts) < points:
+            starts.append(starts[0] * (1 + 0.2 * rng.standard_normal(
+                len(starts[0]))).astype(settings.floatx))
+        if objective == "loo":
+            logp = self._sampling_loo_objective()
+        else:
+            logp, _, _ = self._sampling_logps(prior=False)
+        pts, vals = lbfgs_maximize(logp, np.stack(starts), max_iters=max_iters)
+        best = int(np.argmax(vals))
+        params = DictObj(reg.dict_from_sampling_array(pts[best]))
+        if display:
+            print("find_MAP(jax)", {"logp": float(vals[best])})
+        if return_points:
+            plist = [(f"start{i}_lbfgs", float(vals[i]), reg.dict_from_sampling_array(pts[i]))
+                     for i in range(len(vals))]
+            return params, plist
+        return params
 
     # ----------------------------------------------------------------- predict
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,

@@ -306,18 +306,22 @@ class _MvnLoo(torch.autograd.Function):
       K_bar  = -sym((Kinv g_alpha) alpha^T) - Kinv diag(g_kd) Kinv
 
     with ``g_alpha = -alpha / kd`` and ``g_kd = 1/2 (1/kd + alpha^2/kd^2)``
-    (GPML §5.4.2, eq. 5.13); zero for K on a failed factorization."""
+    (GPML §5.4.2, eq. 5.13); zero for K on a failed factorization.  A (R,
+    n, n) stack (with a (R, n) or (n,) ``resid``) takes one batched
+    factorization and gives (R,) values, each row's gradient its own."""
 
     @staticmethod
     def forward(ctx, k, resid, max_tries):
         chol, dinv, failed = safe_cholesky_panels(k, max_tries)
         linv = trtri_from_panels(chol, dinv)
-        alpha = torch.matmul(linv.T, torch.matmul(linv, resid))
-        kd_raw = (linv * linv).sum(dim=0)
+        rhs = resid.expand(linv.shape[:-1])[..., None]
+        alpha = torch.matmul(linv.transpose(-1, -2), torch.matmul(linv, rhs))[..., 0]
+        kd_raw = (linv * linv).sum(dim=-2)
         kd = torch.clamp(kd_raw, min=1e-30)
-        total = (0.5 * torch.log(kd) - 0.5 * alpha * alpha / kd).sum()
-        finite = torch.isfinite(alpha).all()
+        total = (0.5 * torch.log(kd) - 0.5 * alpha * alpha / kd).sum(dim=-1)
+        finite = torch.isfinite(alpha).all(dim=-1)
         ctx.failed = failed
+        ctx.resid_shape = resid.shape
         ctx.save_for_backward(linv, alpha, kd, kd_raw > 1e-30)
         ctx.mark_non_differentiable(finite)
         return total, finite
@@ -327,19 +331,23 @@ class _MvnLoo(torch.autograd.Function):
         linv, alpha, kd, unclipped = ctx.saved_tensors
         need_k, need_r = ctx.needs_input_grad[:2]
         kinv = _kinv_from_linv(linv)
+        g_total = g_total[..., None]
         g_alpha = -g_total * alpha / kd
         g_kd = torch.where(unclipped, 0.5 * g_total * (1.0 / kd + alpha * alpha / (kd * kd)),
                            torch.zeros_like(kd))
-        kinv_ga = torch.matmul(kinv, g_alpha)
+        kinv_ga = torch.matmul(kinv, g_alpha[..., None])[..., 0]
         dk = dr = None
         if need_k:
-            if ctx.failed:
-                dk = torch.zeros_like(kinv)
-            else:
-                outer = torch.outer(kinv_ga, alpha)
-                dk = -0.5 * (outer + outer.T) - torch.matmul(kinv * g_kd, kinv)
+            outer = kinv_ga[..., :, None] * alpha[..., None, :]
+            dk = -0.5 * (outer + outer.transpose(-1, -2)) - torch.matmul(
+                kinv * g_kd[..., None, :], kinv)
+            keep = (~ctx.failed if linv.ndim > 2
+                    else torch.tensor(not ctx.failed, device=linv.device))
+            dk = torch.where(keep[..., None, None], dk, torch.zeros_like(dk))
         if need_r:
             dr = kinv_ga
+            if len(ctx.resid_shape) < dr.ndim:  # one residual shared by every row
+                dr = dr.sum(dim=tuple(range(dr.ndim - len(ctx.resid_shape))))
         return dk, dr, None
 
 
@@ -351,7 +359,8 @@ def mvn_loo(k, resid, max_tries=None):
       total  = sum_i 1/2 log [K^{-1}]_ii - 1/2 [K^{-1} r]_i^2 / [K^{-1}]_ii
 
     and whether ``K^{-1} r`` is finite.  One factorization serves every
-    fold; differentiable in ``k`` and ``resid`` (analytic backward)."""
+    fold; differentiable in ``k`` and ``resid`` (analytic backward); a (R,
+    n, n) ``k`` gives (R,) values from one batched factorization."""
     if max_tries is None:
         max_tries = settings.cholesky_max_tries
     return _MvnLoo.apply(k, resid, max_tries)

@@ -7,13 +7,16 @@
   package (numpy arrays keyed by hyper name) into this package's dict of
   tensors on ``settings.device``, checked against the process's registry.
   It takes plain numpy input and imports nothing of JAX.
+* :func:`flow_from_jax` — carry a NeuTra flow's params from the JAX package
+  into this package's :class:`~g3py_tpu_torch.bayesian.neutra.Flow`, with
+  the same checks.
 """
 
 import time
 
 import numpy as np
 
-__all__ = ["DictObj", "MaxTime", "nan_to_high", "params_from_jax"]
+__all__ = ["DictObj", "MaxTime", "nan_to_high", "params_from_jax", "flow_from_jax"]
 
 
 class DictObj(dict):
@@ -85,3 +88,44 @@ def params_from_jax(process, params):
                              f"expected {p.shape}")
         out[name] = as_tensor(v)
     return out
+
+
+def flow_from_jax(params):
+    """The JAX package's flow params (``mean``, ``chol``, ``masks`` and a
+    list of ``layers``, each ``w1``/``b1``/``w2``/``b2``; numpy arrays or
+    anything ``np.asarray`` takes) -> a :class:`Flow` on
+    ``settings.device`` in ``settings.floatx``.  Raises ``KeyError`` on a
+    missing or extra name and ``ValueError`` on a wrongly shaped value, as
+    :func:`params_from_jax` does."""
+    from ..bayesian.neutra import Coupling, Flow
+    from ..config import as_tensor
+
+    top = {"mean", "chol", "masks", "layers"}
+    missing, extra = sorted(top - set(params)), sorted(set(params) - top)
+    if missing or extra:
+        raise KeyError(f"flow_from_jax: missing {missing}, unexpected {extra}")
+    mean = np.asarray(params["mean"])
+    if mean.ndim != 1:
+        raise ValueError(f"flow_from_jax: mean has shape {mean.shape}, expected (ndim,)")
+    ndim, layers = mean.shape[0], list(params["layers"])
+    shapes = {"chol": (ndim, ndim), "masks": (len(layers), ndim)}
+    for name, shape in shapes.items():
+        if np.shape(params[name]) != shape:
+            raise ValueError(f"flow_from_jax: {name} has shape {np.shape(params[name])}, "
+                             f"expected {shape}")
+    couplings = []
+    for i, layer in enumerate(layers):
+        names = {"w1", "b1", "w2", "b2"}
+        missing, extra = sorted(names - set(layer)), sorted(set(layer) - names)
+        if missing or extra:
+            raise KeyError(f"flow_from_jax: layers[{i}] missing {missing}, unexpected {extra}")
+        hidden = np.shape(layer["w1"])[-1]
+        want = {"w1": (ndim, hidden), "b1": (hidden,), "w2": (hidden, 2 * ndim),
+                "b2": (2 * ndim,)}
+        for name, shape in want.items():
+            if np.shape(layer[name]) != shape:
+                raise ValueError(f"flow_from_jax: layers[{i}].{name} has shape "
+                                 f"{np.shape(layer[name])}, expected {shape}")
+        couplings.append(Coupling(*(as_tensor(layer[k]) for k in ("w1", "b1", "w2", "b2"))))
+    flow = Flow(as_tensor(mean), as_tensor(params["chol"]), as_tensor(params["masks"]), couplings)
+    return flow.requires_grad_(False)

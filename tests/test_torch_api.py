@@ -15,12 +15,13 @@ import pytest
 
 import g3py_tpu as g3
 import g3py_tpu_torch as g3t
-from g3py_tpu.bayesian import samplers as jsam
+from g3py_tpu.bayesian import advi as jadvi, neutra as jneutra, nuts as jnuts
+from g3py_tpu.bayesian import optimize_jax as jlbfgs, samplers as jsam
 from g3py_tpu.bayesian.selection import optimize as jopt
 from g3py_tpu.ops import linalg as jla, rff as jrff
 from g3py_tpu.ops.root import newton_inverse as jnewton
 from g3py_tpu.utils import data as jdata, reference_io as jio
-from g3py_tpu_torch.bayesian import samplers as tsam
+from g3py_tpu_torch.bayesian import neutra as tneutra, samplers as tsam
 from g3py_tpu_torch.bayesian.selection import optimize as topt
 from g3py_tpu_torch.ops import linalg as tla, rff as trff
 from g3py_tpu_torch.ops.root import newton_inverse as tnewton
@@ -81,6 +82,18 @@ PAIRS = [
     (g3.GraphicalModel.transform_params, g3t.GraphicalModel.transform_params),
     (g3.GraphicalModel.logp_prior_array, g3t.GraphicalModel.logp_prior_array),
     (g3.GraphicalModel.dict_from_sampling_array, g3t.GraphicalModel.dict_from_sampling_array),
+    (jsam.hmc_sampler, tsam.hmc_sampler),
+    (jnuts.nuts_sampler, g3t.nuts_sampler),
+    (jnuts.nuts_warmup, g3t.nuts_warmup),
+    (jneutra.fit_flow, g3t.fit_flow),
+    (jneutra.flow_forward, g3t.flow_forward),
+    (jneutra.flow_inverse, g3t.flow_inverse),
+    (jneutra.init_flow, tneutra.init_flow),
+    (jneutra.neutra_logp, g3t.neutra_logp),
+    (jneutra.neutra_nuts, g3t.neutra_nuts),
+    (jadvi.fit_advi, g3t.fit_advi),
+    (jadvi.advi_draws, g3t.advi_draws),
+    (jlbfgs.lbfgs_maximize, g3t.lbfgs_maximize),
 ] + [(getattr(g3.WGP, name), getattr(g3t.WGP, name)) for name in PROCESS_METHODS] + [
     (getattr(g3, cls).__init__, getattr(g3t, cls).__init__)
     for cls in ("WarpingTanh", "ArcsinhLinear", "BoxCoxLinear", "Identity", "SE", "MAT32",
@@ -152,8 +165,8 @@ def test_calls_in_jax_order_and_keywords():
     chain, lnprob = tp.sample_hypers(**kw)
     assert chain.shape == (6, 3, tp.active.ndim) and np.isfinite(lnprob).all()
     for method in ("nuts", "neutra", "advi"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tp.sample_hypers(**dict(kw, method=method))
+        chain, lnprob = tp.sample_hypers(**dict(kw, method=method))
+        assert chain.shape == (6, 3, tp.active.ndim) and np.isfinite(lnprob).all(), method
     lnprob, chain = tsam.mcmc_ensemble(tp.active.ndim, 2, 6, None, u, tp._sampling_logps()[0],
                                        None, None, 0.1, 0.01, 4, True, 3)
     assert chain.shape == (6, 2, tp.active.ndim)

@@ -144,7 +144,7 @@ def test_sample_hypers_end_to_end():
                                rtol=1e-5, atol=1e-4)
     chain, lnprob = tp.sample_hypers(start=u0, samples=4, chains=8, ntemps=3, raw=True)
     assert chain.shape == (8, 4, tp.active.ndim) and lnprob.shape == (8, 4)
-    for kw, item in (({"method": "nuts"}, "item 9"), ({"file": "x.pkl"}, "item 8"),
+    for kw, item in (({"file": "x.pkl"}, "item 8"),
                      ({"plot": True}, "item 15"), ({"clusters": 3}, "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             tp.sample_hypers(start=u0, samples=2, chains=8, **kw)

@@ -85,7 +85,7 @@ def test_tempered_noncentered_and_refusals():
         chain, lnprob = tp.sample_hypers(start=u0, samples=4, chains=8, ntemps=2, raw=True,
                                          reparam="noncentered")
         assert chain.shape[-1] == tp.active.ndim and np.all(np.isfinite(lnprob))
-        for kw, err in (({"method": "nuts"}, NotImplementedError),
+        for kw, err in (({"method": "slice"}, ValueError),
                         ({"reparam": "centered"}, ValueError)):
             with pytest.raises(err):
                 tp.sample_hypers(start=u0, samples=2, chains=8, **kw)

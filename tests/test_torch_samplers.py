@@ -176,3 +176,33 @@ def test_mcmc_ensemble_start_matches_jax(monkeypatch, ntemps, start_kind):
 def test_chains_must_be_even():
     with pytest.raises(ValueError, match="even"):
         tsam.ensemble_sampler(_tlogp, np.zeros((5, 3)), 2)
+
+
+def test_hmc_sampler_matches_jax(monkeypatch):
+    """Batched HMC fed the JAX package's draws (its per-chain key splits):
+    every leapfrog step one batched value-and-gradient call of all
+    chains."""
+    chains, samples, steps, seed = 3, 12, 4, 2
+    with floatx("float64"):
+        p0 = _walkers(6, chains)
+        want_chain, want_lnprob = jsam.hmc_sampler(_jlogp, p0, samples, key=seed,
+                                                   step_size=0.6, leapfrog_steps=steps)
+        draws = [[random.split(k) for k in random.split(kc, samples)]
+                 for kc in random.split(random.PRNGKey(seed), chains)]
+
+        def hmc_draws(gen, shape, dtype, device):
+            pairs = [d.pop(0) for d in draws]
+            p = np.stack([np.asarray(random.normal(k1, shape[1:], dtype=jnp.float64))
+                          for k1, _ in pairs])
+            u = np.array([float(random.uniform(k2, dtype=jnp.float64)) for _, k2 in pairs])
+            return torch.as_tensor(p), torch.as_tensor(u)
+
+        monkeypatch.setattr(tsam, "_hmc_draws", hmc_draws)
+        calls0 = tsam.value_and_grad.calls
+        chain, lnprob = tsam.hmc_sampler(_tlogp, p0, samples, key=seed, step_size=0.6,
+                                         leapfrog_steps=steps)
+    assert tsam.value_and_grad.calls - calls0 == 1 + samples * steps
+    np.testing.assert_allclose(chain, np.asarray(want_chain), rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(lnprob, np.asarray(want_lnprob), rtol=1e-10, atol=1e-10)
+    moved = (np.diff(chain, axis=1) != 0).any(-1)
+    assert 0.0 < moved.mean() < 1.0  # moves accepted and rejected

@@ -119,7 +119,7 @@ def test_find_map_return_points_and_unported_options():
     assert [p[0] for p in points] == ["start", "start_bfgs"]
     assert points[1][1] >= points[0][1]
     assert set(params) == set(tp.params_default)
-    for kw, match in [(dict(engine="jax"), "item 9"), (dict(engine="iterative"), "item 11"),
+    for kw, match in [(dict(engine="iterative"), "item 11"),
                       (dict(engine="distributed"), "item 16"), (dict(plot=True), "plotting")]:
         with pytest.raises(NotImplementedError, match=match):
             tp.find_MAP(display=False, **kw)
