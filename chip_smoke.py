@@ -7,7 +7,9 @@ process families, the whole catalogue of kernels, metrics, means and
 warpings with the shared registry, streaming updates, pathwise draws, the
 exported predictor, draws over rows, ``fix_vars`` and the non-centered
 sampler, NUTS, NeuTra, ADVI, HMC and the batched L-BFGS of
-``find_MAP(engine='jax')`` — through the hand-written kernels K1
+``find_MAP(engine='jax')``, and the matrix-free path at n=50,000
+(``nll_iterative``, ``find_MAP(engine='iterative')``, the
+``IterativePredictor``) — through the hand-written kernels K1
 (stationary gram) and K2 (blocked panel Cholesky), and checks them:
 
   phase 0  require a CUDA card; print its name and power limit
@@ -123,17 +125,34 @@ sampler, NUTS, NeuTra, ADVI, HMC and the batched L-BFGS of
            start of an evaluation in one batched K1 and K2 launch, each
            run's launches equal to its predicted evaluations: 11a NUTS on
            the n=125 sampler workload (non-centered, dense mass, 0.95, depth
-           7, 4 chains, warmup 20 + 20 samples), ESS/s, a leaf's wall and
+           7, 4 chains, warmup 12 + 12 samples), ESS/s, a leaf's wall and
            device time, every 10th lnprob vs a float64 host logp; 11b the
            same sampler through sample_hypers in float64 on the card and
            replayed on the CPU from the same numpy draws (1e-8); 11c NUTS on
            GP n=4096 from phase 5's MAP in float32 and float64; 11d
            find_MAP(engine='jax') by logp and by LOO at n=4096 vs the scipy
            optima; 11e ADVI at n=125; 11f NeuTra through neutra_nuts
-           (ensemble warmup, a 6-coupling flow, NUTS in latent space) and
-           its replay through the same flow (float64 card vs CPU at 1e-8,
-           float32 beside it); 11g HMC 4 x 50 x 10; 11h
-           sample_hypers(method='nuts' | 'advi' | 'neutra') non-centered
+           (ensemble warmup 32 x 200, a 6-coupling flow fitted once, NUTS in
+           latent space, 12 + 12) and its replay through the same flow
+           (float64 card vs CPU at 1e-8, float32 beside it); 11g HMC 4 x 50
+           x 10; 11h sample_hypers(method='nuts' | 'advi' | 'neutra')
+           non-centered
+  phase 12 the matrix-free path (ops/iterative.py) at bench.py's
+           mo_gp_nll_grad_evals_per_sec_n50k_p2 workload, an ICM GP over 2
+           outputs of 25,000 points (rank 80, block 2048, cg_iters 100,
+           probes 8): 12a every function of ops/iterative.py in float64 at
+           n=2048, card vs CPU (1e-8); K1 at the slab shape (2048,50000,2)
+           against its plain form and its bound; 12b nll_iterative value
+           and gradient at n=50,000: seconds an evaluation, K1 launches
+           against the slab passes' prediction, host reads, peak allocated
+           memory below 5.0 GB, the float64 value of the same estimator;
+           12c nll_iterative against the exact NLL (K2) of GP(Bias, SE) at
+           n=16384 in float64, a step along -gradient, the gradient's error;
+           12d find_MAP(engine='iterative') with loop='host' and 'device' at
+           n=4096; 12e IterativePredictor against the dense Predictor at
+           n=4096 (float32 and dtype='float64'), its pathwise draws'
+           moments, and at n=50,000 its set-up, a batch of 256 with each
+           exact_var and the peak memory
 
 The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
 and read just after; the Bayesian path's counts are zeroed and read around
@@ -145,8 +164,10 @@ logp/dlogp and Predictor), and phase 8's around each float32 family run
 each float32 catalogue run (9d's to the batched records), and phase 10's
 around each float32 run (10c-10e's batched ones to the batched records,
 the artifact's query batches counted in the loading process), and phase
-11's around each float32 run (to the batched records), so warm-ups,
-profiles, float64 twins and reference checks are not counted.  Each kernel must have
+11's around each float32 run (to the batched records), and phase 12's
+around 12b's timed evaluations, 12d's fits and 12e's float32 predictors
+(the slab record), so warm-ups, profiles, float64 twins and reference
+checks are not counted.  Each kernel must have
 launched on each path.  Every check raises on failure.  The last lines are
 the kernel record, the card and ``{"ok": true, "device": {...}}``.  Run from
 the repository root:
@@ -169,6 +190,7 @@ import numpy as np
 import torch
 
 import g3py_tpu_torch as g3t
+import g3py_tpu_torch.ops.iterative as ITER
 from g3py_tpu_torch.ops import _build
 from g3py_tpu_torch.ops.linalg import mvn_loo, safe_cholesky_panels
 from g3py_tpu_torch.tools.k2_chain import timeline
@@ -176,6 +198,7 @@ from g3py_tpu_torch.ops.panel_cholesky import panel_cholesky, _plain_form as k2_
 from g3py_tpu_torch.ops.stationary_gram import KINDS, stationary_gram, _plain_form
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 SHAPES = [(4096, 4096, 8), (256, 16384, 8), (1000, 777, 8), (300, 200, 1), (129, 65, 37)]
 TIMED_SHAPES = SHAPES[:2]
 TOL = {torch.float32: (1e-5, 1e-6), torch.float64: (1e-12, 1e-14)}  # rtol, atol/var
@@ -3897,7 +3920,7 @@ def leaf_profile(logp, z, label):
 
 
 @card_only
-def phase11a(path_batched, warmup=20, samples=20):
+def phase11a(path_batched, warmup=12, samples=12):
     """The JAX package's sampler workload on NUTS (bench.py:769-800, cut
     from 400 warmup and 300 samples for time: its trees sit at depth ~7, a
     leaf is ~12 ms of host-bound wall): WGP n=125 non-centered, dense mass,
@@ -4256,20 +4279,23 @@ def neutra_replay(flow, draws, path_batched):
 
 
 @card_only
-def phase11f(path_batched, warmup=20, samples=20):
+def phase11f(path_batched, warmup=12, samples=12, ensemble=200):
     """NeuTra on the n=125 workload: 32 walkers x 200 ensemble warmup, then
-    neutra_nuts on its second half with bench.py:827-828's flow (6
-    couplings, hidden 32, 1500 steps) and NUTS in the latent space (depth 6,
-    target_accept 0.95, dense mass, 4 chains, warmup 20, samples 20: cut
-    from 60 + 60 for time, its trees at depth ~6).  The same fit alone,
-    timed, gives the round trip and the NLL; its flow feeds the replay."""
+    neutra_nuts on its second half through bench.py:827-828's flow (6
+    couplings, hidden 32, 1500 steps), fitted once, timed, and NUTS in the
+    latent space (depth 6, target_accept 0.95, dense mass, 4 chains, warmup
+    12, samples 12: cut from 60 + 60 for time, its trees at depth ~6); the
+    same flow gives the round trip and feeds the replay.  The ensemble's
+    draws set the replay's latent geometry: 120 iterations gave a flow
+    whose CPU replay left its own 1e-12-nudged twin at the first sample,
+    so the replay had no horizon to hold; the ensemble costs ~1 s."""
     wgp, x, y = bench_wgp("P11_NEUTRA")
     reg = wgp.active
     with counted_calls(wgp) as calls, GradCounts() as ens:
-        wchain, _ = wgp.sample_hypers(start=wgp.params_default, samples=200, chains=32,
+        wchain, _ = wgp.sample_hypers(start=wgp.params_default, samples=ensemble, chains=32,
                                       noise_mult=0.05, raw=True, seed=5)
     ens.check("11f ensemble warmup", len(calls), path_batched)
-    draws = wchain[:, 100:, :].reshape(-1, reg.ndim)
+    draws = wchain[:, ensemble // 2:, :].reshape(-1, reg.ndim)
     t0 = time.perf_counter()
     flow, losses = g3t.fit_flow(draws, n_couplings=6, hidden=32, steps=1500, key=0)
     t_fit = time.perf_counter() - t0
@@ -4288,20 +4314,21 @@ def phase11f(path_batched, warmup=20, samples=20):
         chain, lnprob, info = g3t.neutra_nuts(
             wgp._sampling_logps()[0], draws, samples, chains=4, warmup=warmup, key=7,
             max_depth=6, target_accept=0.95, n_couplings=6, hidden=32, fit_steps=1500,
-            adapt_mass="dense")
+            adapt_mass="dense", flow=flow)
     cnt.check("11f neutra_nuts", 1 + cnt.leaves, path_batched)
     rows = chain[:, ::10, :].reshape(-1, reg.ndim)
     gap, inside = lnprob_gap(reg, rows, lnprob[:, ::10].ravel(), host_boxcox_logp, x, y)
     moved = moved_share(chain)
-    fit_nll = info.pop("fit_nll")
+    info.pop("fit_nll")  # NaN: the flow came fitted
+    fit_nll = float(losses[-1])
     info = nuts_info(info)
     out = dict(fit_s=t_fit, nll_first=float(losses[0]), nll_last=float(losses[-1]),
                round_trip=trip, neutra_nuts_s=cnt.seconds, fit_nll=fit_nll, leaves=cnt.leaves,
                lnprob_gap=gap, moved=moved, info=info)
-    print(f"  11f NeuTra WGP n=125: ensemble 32 x 200 {ens.seconds:.2f} s; fit_flow 1500 steps "
-          f"alone {t_fit:.2f} s (NLL {losses[0]:.3f} -> {losses[-1]:.3f}), round trip "
-          f"{trip:.2e}; neutra_nuts {cnt.seconds:.2f} s (its own fit and NUTS; the fit's NLL "
-          f"{fit_nll:.3f}), {cnt.leaves} leaves, acceptance {info['accept_rate']}, mean tree "
+    print(f"  11f NeuTra WGP n=125: ensemble 32 x {ensemble} {ens.seconds:.2f} s; fit_flow 1500 "
+          f"steps {t_fit:.2f} s (NLL {losses[0]:.3f} -> {losses[-1]:.3f}), round trip "
+          f"{trip:.2e}; neutra_nuts through that flow {cnt.seconds:.2f} s, "
+          f"{cnt.leaves} leaves, acceptance {info['accept_rate']}, mean tree "
           f"depth {info['mean_tree_depth']}, divergences {info['divergences']}, step sizes "
           f"{info['step_size']}, moved {moved:.3f}; lnprob vs the float64 host {gap:.2e} "
           f"({inside} of {len(rows)})", flush=True)
@@ -4404,6 +4431,445 @@ def phase11(gp, gp_map, x, y, map_s, loo_opt, path_batched):
     div = {k: sum(out[k]["info"]["divergences"]) for k in ("11a", "11f")}
     print(f"  divergences of the 4 chains: NeuTra (11f) {div['11f']:g} against NUTS (11a) "
           f"{div['11a']:g}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase 12
+# The matrix-free path (ROADMAP item 11) at bench.py's
+# mo_gp_nll_grad_evals_per_sec_n50k_p2 workload (bench.py:562-600): an ICM
+# GP over 2 outputs of 25,000 points, SE([0]) + SE([0]) * KernelDot([1],
+# Delta), noisy, Bias, Time_rate 0.3; rank 80, block 2048, cg_iters 100,
+# probes 8.
+MO_KW = dict(rank=80, block=2048, cg_iters=100, probes=8)
+MO_N = 25_000           # points an output (n = 50,000)
+CARD = "cuda"
+PEAK_GB = 5.0           # half of one float32 50k x 50k gram
+CARD_CPU_RTOL = 1e-8    # 12a: float64 card vs CPU, relative to each result's scale
+
+
+def icm_data(n_mo, seed=0):
+    """bench.py:566-575's data: one time axis, two outputs (the second
+    0.6 x the first + 0.3), noise 0.05."""
+    rng = np.random.default_rng(seed)
+    t_ax = np.sort(rng.uniform(0, 100, n_mo)).astype(np.float32)
+    x = np.concatenate([np.stack([t_ax, np.zeros(n_mo, np.float32)], 1),
+                        np.stack([t_ax, np.ones(n_mo, np.float32)], 1)])
+    f = np.sin(0.3 * t_ax)
+    y = np.concatenate([f, 0.6 * f + 0.3]).astype(np.float32)
+    y += 0.05 * rng.standard_normal(2 * n_mo).astype(np.float32)
+    return x, y
+
+
+def icm_gp(x, y, name):
+    """bench.py:576-583's model and start (Time_rate 0.3) on the device and
+    dtype of ``g3t.settings``."""
+    from g3py_tpu_torch.hypers.kernels import KernelDot
+    from g3py_tpu_torch.hypers.metrics import Delta
+
+    se = g3t.SE([0], name="Time")
+    gp = g3t.GP(space=x[:4], location=g3t.Bias(),
+                kernel=se + se * KernelDot([1], metric=Delta, name="Coreg"), noisy=True,
+                name=name)
+    gp.observed(x, y)
+    params = dict(gp.params_default)
+    params[f"{name}_Time_rate"] = np.asarray([0.3], np.float32)
+    return gp, params
+
+
+def probe_draws(seed, probes, n):
+    """Rademacher probes drawn by numpy on the host: the same numbers for
+    every dtype and device (``slq`` and ``grad``, (probes, n))."""
+    rng = np.random.default_rng(seed)
+    return {k: rng.choice([-1.0, 1.0], size=(probes, n)) for k in ("slq", "grad")}
+
+
+@contextlib.contextmanager
+def port_on(device, floatx):
+    """``g3t.settings`` on ``device`` in ``floatx`` for the block."""
+    old = g3t.settings.device, g3t.settings.floatx
+    g3t.settings.device, g3t.settings.floatx = device, floatx
+    try:
+        yield
+    finally:
+        g3t.settings.device, g3t.settings.floatx = old
+
+
+def grams_k1(kernel, params, x):
+    """K1 launches of one gram of ``kernel`` (2 for the ICM, 1 for an SE)."""
+    stationary_gram.launches = 0
+    kernel.cov(params, x[:4], x[:4])
+    out = stationary_gram.launches
+    stationary_gram.launches = 0
+    return out
+
+
+def predicted_k1(counts, n, block, per_gram):
+    """K1 launches the slab passes predict: every lazy matvec and the
+    gradient's pass build ceil(n / block) slabs, plus the diagonal's blocks
+    and the pivot columns, each gram ``per_gram`` launches."""
+    slabs = -(-n // block)
+    return per_gram * ((counts["matvecs"] + counts["grad_passes"]) * slabs
+                       + counts["diag_blocks"] + counts["columns"])
+
+
+def rel_gap(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def iterative_suite(x, y):
+    """Every function of ops/iterative.py at the ICM's default params (and
+    Time_rate 0.3) on n = len(x), on ``g3t.settings``' device and dtype,
+    with host draws: results as host float64 arrays."""
+    gp, p = icm_gp(x, y, "P12A")
+    pt = gp._tensor_params(p)
+    kern, xs = gp.f_kernel, gp._device_data("inputs")
+    n, nv = xs.shape[0], pt["P12A_Noise_var"]
+    rng = np.random.default_rng(12)
+    v = g3t.config.as_tensor(rng.standard_normal((n, 4)))
+    draws = probe_draws(13, 16, n)
+    out = {"lazy_kernel_matvec": ITER.lazy_kernel_matvec(kern, pt, xs, v, block=600)}
+
+    def mv(w):
+        return ITER.lazy_kernel_matvec(kern, pt, xs, w, block=600) + nv * w
+
+    diag = ITER._kernel_diag(kern, pt, xs, 600)
+    lf = ITER.pivoted_cholesky(ITER._kernel_column(kern, pt, xs), diag, MO_KW["rank"])
+    out["pivoted_cholesky"] = lf
+    p_inv, p_isqrt, logdet_p = ITER.woodbury_preconditioner(lf, nv)
+    out["woodbury_preconditioner"] = torch.cat([p_inv(v).ravel(), p_isqrt(v).ravel(),
+                                                logdet_p.reshape(1)])
+    out["cg_solve"] = ITER.cg_solve(mv, v.T, maxiter=300)
+    out["pcg_solve"] = ITER.pcg_solve(mv, v[:, 0], p_inv, maxiter=100)
+    out["pcg_solve (multi-RHS)"] = ITER.pcg_solve(mv, v.T, p_inv, maxiter=100)
+    out["slq_logdet"] = ITER.slq_logdet(lambda w: p_isqrt(mv(p_isqrt(w))), n,
+                                        g3t.config.as_tensor(draws["slq"]), lanczos_iters=25)
+    k = (kern.cov(pt, xs) + nv * torch.eye(n, dtype=xs.dtype, device=xs.device)
+         ).requires_grad_(True)
+    r = g3t.config.as_tensor(y - y.mean()).requires_grad_(True)
+    val = ITER.iterative_gp_nll(k, r, probes=16, cg_iters=300, lanczos_iters=30, seed=draws)
+    val.backward()
+    out["iterative_gp_nll"] = torch.cat([val.detach().reshape(1), k.grad.ravel(), r.grad])
+    leaves = {name: t.detach().clone().requires_grad_(True) for name, t in pt.items()}
+    nvl = leaves["P12A_Noise_var"]
+    yl = g3t.config.as_tensor(y).requires_grad_(True)
+    mean = (0.1 * torch.cos(0.05 * xs[:, 0])).requires_grad_(True)
+    nll, info = ITER.preconditioned_gp_nll(kern, leaves, xs, yl, nvl, mean=mean,
+                                           seed=probe_draws(14, 8, n), lanczos_iters=25,
+                                           **MO_KW | dict(block=600))
+    names = sorted(name for name in leaves if name != "P12A_Noise_var")
+    grads = torch.autograd.grad(nll, [leaves[k] for k in names] + [nvl, yl, mean],
+                                allow_unused=True)
+    out["preconditioned_gp_nll"] = torch.cat(
+        [nll.detach().reshape(1), info["cg_rel_residual"].reshape(1)]
+        + [torch.zeros(1, dtype=xs.dtype, device=xs.device) if g is None else g.reshape(-1)
+           for g in grads])
+    return {key: t.detach().cpu().numpy().astype(np.float64) for key, t in out.items()}
+
+
+def phase12a():
+    """Every function of ops/iterative.py, float64, at n=2048 (bench's ICM,
+    1024 points an output; blocks of 600, the last ragged): the card
+    (K1 on every slab) against the CPU (K1's plain form), each result
+    within CARD_CPU_RTOL of the CPU's scale; no launch counted."""
+    x, y = icm_data(1024, seed=1)
+    t0 = time.perf_counter()
+    with port_on(CARD, "float64"):
+        card = iterative_suite(x, y)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with port_on("cpu", "float64"):
+        cpu = iterative_suite(x, y)
+    t_cpu = time.perf_counter() - t0
+    gaps = {k: rel_gap(card[k], cpu[k]) for k in cpu}
+    print(f"  12a float64 card vs CPU at n=2048 (card {t_card:.2f} s, CPU {t_cpu:.2f} s), "
+          f"relative gaps: " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()), flush=True)
+    require(all(v <= CARD_CPU_RTOL for v in gaps.values()),
+            f"12a card vs CPU above {CARD_CPU_RTOL:g}: {gaps}")
+    return dict(gaps=gaps, card_s=t_card, cpu_s=t_cpu)
+
+
+def slab_k1(path):
+    """K1 at the slab shape (2048, 50000, 2), float32, SE: profiler device
+    time, CUDA-event wrapper time, the plain version's, the bound (output
+    bytes / 3.35 TB/s) and the gap to the plain form."""
+    gen = torch.Generator(device=CARD).manual_seed(12)
+    m, n, d = 2048, 2 * MO_N, 2
+    x1 = torch.randn(m, d, generator=gen, device=CARD)
+    x2 = torch.randn(n, d, generator=gen, device=CARD)
+    rate = torch.tensor([0.3, 0.7], device=CARD)
+    var = torch.tensor(1.3, device=CARD)
+    out = stationary_gram("se", x1, x2, rate, var)
+    ref = _plain_form("se", x1, x2, rate, var)
+    err = float((out - ref).abs().max())
+    require(err <= 1e-5 * 1.3 and finite(out), f"K1 slab vs plain {err:.2e}")
+    call = lambda: stationary_gram("se", x1, x2, rate, var)
+    t_wrap = event_ms(call)
+    t_plain = event_ms(lambda: _plain_form("se", x1, x2, rate, var), reps=10)
+    t_dev = device_ms(profile(call, reps=10), ("stationary_gram_kernel",), 10)
+    bound = m * n * 4 / PEAK_BYTES * 1e3
+    print(f"  K1 slab (2048,50000,2) SE f32: device {fmt_ms(t_dev)}, wrapper {t_wrap:.4f} ms, "
+          f"plain {t_plain:.4f} ms, bound {bound:.4f} ms, max_abs_err {err:.2e}", flush=True)
+    return dict(ms=t_dev if t_dev is not None else t_wrap, wrapper_ms=t_wrap, plain_ms=t_plain,
+                bound_ms=bound, max_abs_err=err)
+
+
+def phase12b(path):
+    """nll_iterative value and gradient at n=50,000 (bench's workload,
+    float32): a warm evaluation, then timed ones, each with its K1
+    launches held to the slab passes' prediction; peak allocated memory
+    below PEAK_GB, the CG residual below 5e-2, a finite gradient, the value
+    within 1e-2 of the same estimator in float64 (the same host draws)."""
+    from g3py_tpu_torch.ops.iterative import _trace_grads
+
+    x, y = icm_data(MO_N)
+    n = len(x)
+    gp, p = icm_gp(x, y, "P12B")
+    reg = gp.active
+    u0 = reg.dict_to_array(p)
+    draws = probe_draws(7, MO_KW["probes"], n)
+    xs = gp._device_data("inputs")
+    per_gram = grams_k1(gp.f_kernel, gp._tensor_params(p), xs)
+
+    def evaluate():
+        u = torch.tensor(u0, device=CARD, requires_grad=True)
+        value, info = gp.nll_iterative(reg.array_to_dict_tensor(u), seed=draws, **MO_KW)
+        (grad,) = torch.autograd.grad(value, u)
+        torch.cuda.synchronize()
+        return value.detach(), info, grad
+
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    evaluate()  # warm
+    times, runs = [], []
+    for _ in range(2):
+        zero_counts()
+        ITER.reset_counts()
+        t0 = time.perf_counter()
+        value, info, grad = evaluate()
+        times.append(time.perf_counter() - t0)
+        counts = dict(ITER.counts)
+        k1 = stationary_gram.launches
+        want = predicted_k1(counts, n, MO_KW["block"], per_gram)
+        runs.append(dict(k1=k1, predicted=want, **counts))
+        require(k1 == want, f"12b K1 x{k1}, predicted {want} from {counts}")
+        path[0] += k1
+        path[1] += panel_cholesky.launches
+    peak = torch.cuda.max_memory_allocated()
+    t_eval = statistics.median(times)
+    resid = float(info["cg_rel_residual"])
+    require(peak < PEAK_GB * 1e9, f"12b peak allocated {peak / 1e9:.2f} GB >= {PEAK_GB} GB")
+    require(resid < 5e-2 and finite(grad) and math.isfinite(float(value)),
+            f"12b residual {resid:.2e}, gradient {grad}")
+    # the slab-wise gradient pass alone, and one forward matvec, at the
+    # evaluation's shapes: the pass less the matvec is the backward of the
+    # slabs (the autograd of K1's plain form and the ICM's products)
+    params = gp._tensor_params(p)
+    leaves = [t.detach().clone().requires_grad_(True) for t in params.values()]
+    w = torch.ones((n, MO_KW["probes"] + 1), device=CARD)
+    t0 = time.perf_counter()
+    _trace_grads(gp.f_kernel, list(params), leaves, xs, w, w, MO_KW["block"])
+    torch.cuda.synchronize()
+    t_grad_pass = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ITER.lazy_kernel_matvec(gp.f_kernel, params, xs, w, block=MO_KW["block"])
+    torch.cuda.synchronize()
+    t_matvec = time.perf_counter() - t0
+    with port_on(CARD, "float64"), torch.no_grad():
+        gp64, p64 = icm_gp(x, y, "P12B64")
+        value64, info64 = gp64.nll_iterative(p64, seed=draws, **MO_KW)
+    gap64 = abs(float(value) - float(value64)) / abs(float(value64))
+    print(f"  12b nll_iterative value+gradient, ICM n={n} float32: {t_eval:.3f} s an "
+          f"evaluation ({1 / t_eval:.3f} evals/s; all {[round(t, 3) for t in times]}); value "
+          f"{float(value):.4f} (float64 {float(value64):.4f}, gap {gap64:.2e}); CG residual "
+          f"{resid:.2e}; |grad| {float(grad.norm()):.4e}; peak allocated {peak / 1e9:.3f} GB "
+          f"({(peak - before) / 1e9:.3f} GB above the {before / 1e9:.3f} GB before); per "
+          f"evaluation {runs[-1]}; K1 launches a gram {per_gram}; the gradient's slab pass "
+          f"{t_grad_pass:.3f} s against a forward matvec {t_matvec:.3f} s "
+          f"(their difference {100 * (t_grad_pass - t_matvec) / t_eval:.1f}% of an "
+          f"evaluation)", flush=True)
+    require(gap64 <= 1e-2, f"12b float32 vs float64 value gap {gap64:.2e}")
+    return dict(eval_s=t_eval, evals_per_s=1 / t_eval, times=times, value=float(value),
+                value64=float(value64), gap64=gap64, residual=resid, peak_gb=peak / 1e9,
+                runs=runs, per_gram=per_gram, grad_pass_s=t_grad_pass, matvec_s=t_matvec,
+                backward_share=(t_grad_pass - t_matvec) / t_eval)
+
+
+def phase12c(x, y):
+    """GP(Bias, SE) at phase 3's n=16384, d=8, float64, probes 32: the
+    matrix-free NLL against the exact -loglike through K2 (tut09's 5e-2), a
+    step along its -gradient lowers the exact NLL, and its gradient's
+    relative error against the exact dlogp."""
+    kw = dict(rank=40, cg_iters=200, probes=32)
+    with port_on(CARD, "float64"):
+        gp = g3t.GP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), name="P12C")
+        gp.observed(x, y)
+        reg = gp.active
+        u0 = torch.tensor(reg.dict_to_array(gp.params_default), device=CARD,
+                          requires_grad=True)
+        t0 = time.perf_counter()
+        value, info = gp.nll_iterative(reg.array_to_dict_tensor(u0), seed=3, **kw)
+        (grad,) = torch.autograd.grad(value, u0)
+        value = value.detach()
+        torch.cuda.synchronize()
+        t_it = time.perf_counter() - t0
+        u = u0.detach().cpu().numpy()
+        exact = -gp.loglike(u, array=True)
+        # -dlogp less the prior's gradient is the exact -dloglike
+        prior_grad = gp._array_grad(gp._logp_pure(prior=True), u)
+        exact_grad = -(gp.dlogp(u) - prior_grad)
+        g = grad.cpu().numpy()
+        step = u - 1e-3 * g / max(np.abs(g).max(), 1.0)
+        lowered = -gp.loglike(step, array=True)
+    gap = abs(float(value) - exact) / abs(exact)
+    grad_err = float(np.linalg.norm(g - exact_grad) / np.linalg.norm(exact_grad))
+    print(f"  12c GP(Bias, SE) n={len(x)} d={x.shape[1]} float64, probes 32: nll_iterative "
+          f"{float(value):.4f} against the exact {exact:.4f} (gap {gap:.2e}), CG residual "
+          f"{float(info['cg_rel_residual']):.2e}, {t_it:.2f} s; gradient vs exact: relative "
+          f"error {grad_err:.3e}; exact NLL after a step along -grad {lowered:.4f} "
+          f"({lowered - exact:+.4e})", flush=True)
+    require(gap <= 5e-2, f"12c nll_iterative vs exact {gap:.2e}")
+    require(lowered < exact, f"12c a step along -grad did not lower the NLL ({exact} -> {lowered})")
+    return dict(value=float(value), exact=exact, gap=gap, grad_rel_err=grad_err,
+                step_delta=lowered - exact, s=t_it)
+
+
+def phase12d(gp, x, y, map_logp, map_s, path):
+    """find_MAP(engine='iterative') at phase 5's n=4096 (float32), loop
+    'host' and 'device', a few iterations each: both end trusted, the
+    exact logp rises from the start, the gap to phase 5's scipy MAP; each
+    run's K1 launches equal its slab passes' prediction (the device loop:
+    one gradient pass an evaluation)."""
+    from g3py_tpu_torch.bayesian.optimize_jax import lbfgs_minimize_guarded
+
+    kw = dict(rank=64, block=2048, cg_iters=100, probes=8)
+    start = gp.logp(gp.params_default)
+    per_gram = grams_k1(gp.f_kernel, gp._tensor_params(gp.params_default),
+                        gp._device_data("inputs"))
+    out = {}
+    for loop, iters in (("host", 4), ("device", 4)):
+        zero_counts()
+        ITER.reset_counts()
+        lbfgs_minimize_guarded.evaluations = 0
+        t0 = time.perf_counter()
+        params = gp.find_MAP(engine="iterative", loop=loop, max_iters=iters, display=False, **kw)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        counts = dict(ITER.counts)
+        k1 = stationary_gram.launches
+        want = predicted_k1(counts, len(x), kw["block"], per_gram)
+        path[0] += k1
+        path[1] += panel_cholesky.launches
+        after = gp.logp(params)
+        out[loop] = dict(fit_s=t_fit, logp=after, k1=k1, predicted=want, **counts)
+        evals = (lbfgs_minimize_guarded.evaluations if loop == "device"
+                 else counts["grad_passes"])
+        print(f"  12d find_MAP(engine='iterative', loop={loop!r}, max_iters={iters}) n={len(x)}: "
+              f"logp {start:.4f} -> {after:.4f} in {t_fit:.2f} s (scipy MAP {map_logp:.4f} in "
+              f"{map_s:.2f} s, gap {map_logp - after:.4f}); {evals} evaluations, K1 x{k1}, "
+              f"predicted {want} from {counts}", flush=True)
+        require(after > start and math.isfinite(after), f"12d {loop}: logp {start} -> {after}")
+        require(k1 == want and counts["grad_passes"] == evals > 0,
+                f"12d {loop}: K1 x{k1}, predicted {want}, {evals} evaluations, {counts}")
+    return out
+
+
+def phase12e(gp, gp_map, x, path):
+    """IterativePredictor: at n=4096 (phase 5's GP at its MAP) against the
+    dense Predictor (tut09's 5e-3) with exact_var=True, in float32 and with
+    dtype='float64', and its pathwise sampler's moments; at n=50,000 (the
+    ICM at bench's start) the set-up, a batch of 256 with each exact_var,
+    the peak memory."""
+    rng = np.random.default_rng(21)
+    xq = rng.standard_normal((256, x.shape[1])).astype(np.float32)
+    dense = gp.predictor(gp_map)(xq)
+    out = {}
+    for dtype in (None, "float64"):
+        zero_counts()
+        t0 = time.perf_counter()
+        pr = gp.predictor_iterative(gp_map, rank=64, cg_iters=200, dtype=dtype)
+        got = pr(xq, exact_var=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        path[0] += stationary_gram.launches
+        gaps = {k: float((got[k] - dense[k]).abs().max()
+                         / (5e-3 + 5e-3 * float(dense[k].abs().max()))) for k in ("mean", "std")}
+        out[dtype or "float32"] = dict(s=t, residual=pr.cg_rel_residual, gaps=gaps)
+        print(f"  12e IterativePredictor n=4096 ({dtype or 'float32'}): set-up + a batch of "
+              f"256 {t:.3f} s, CG residual {pr.cg_rel_residual:.2e}; vs the dense Predictor "
+              f"(share of 5e-3 + 5e-3 |x|) {gaps}", flush=True)
+        require(max(gaps.values()) <= 1.0, f"12e n=4096 {dtype}: {gaps}")
+    # pathwise draws against the predictor's moments
+    samples = 512
+    zero_counts()
+    draws = pr.sampler(space=xq[:64], samples=samples, key=0, n_features=4096)
+    path[0] += stationary_gram.launches
+    mu, sd = pr.mean(xq[:64]), pr.std(xq[:64])
+    z_mean = float(((draws.mean(1) - mu).abs() / (sd / math.sqrt(samples))).max())
+    z_std = float(((draws.std(1) - sd).abs() / (sd / math.sqrt(2 * samples))).max())
+    print(f"  12e sampler: {samples} paths at 64 points, |mean - mu| {z_mean:.2f} and |std - sd| "
+          f"{z_std:.2f} standard errors at most", flush=True)
+    require(finite(draws) and z_mean <= 5 and z_std <= 5,
+            f"12e sampler moments {z_mean:.2f} / {z_std:.2f} standard errors")
+    out["sampler"] = dict(z_mean=z_mean, z_std=z_std)
+    # n = 50,000: bench's ICM at its start
+    xm, ym = icm_data(MO_N)
+    mo, p = icm_gp(xm, ym, "P12E")
+    xq = np.stack([np.linspace(0, 100, 256), np.arange(256) % 2], 1).astype(np.float32)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    pr = mo.predictor_iterative(p, rank=80, block=2048, cg_iters=200)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    batch = {}
+    for exact in (True, False):
+        t0 = time.perf_counter()
+        got = pr(xq, exact_var=exact)
+        torch.cuda.synchronize()
+        batch[exact] = time.perf_counter() - t0
+        require(all(finite(v) for v in got.values()) and bool((got["std"] > 0).all()),
+                f"12e n=50000 exact_var={exact}: statistics not finite and positive")
+    path[0] += stationary_gram.launches
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  12e IterativePredictor ICM n=50000: set-up {t_setup:.3f} s (CG residual "
+          f"{pr.cg_rel_residual:.2e}), a batch of 256 exact_var=True {batch[True]:.3f} s, "
+          f"exact_var=False {batch[False]:.3f} s; peak allocated {peak / 1e9:.3f} GB",
+          flush=True)
+    require(peak < PEAK_GB * 1e9, f"12e peak allocated {peak / 1e9:.2f} GB")
+    out["n50000"] = dict(setup_s=t_setup, batch_exact_s=batch[True], batch_sketch_s=batch[False],
+                         peak_gb=peak / 1e9, residual=pr.cg_rel_residual)
+    return out
+
+
+def phase12(tgp, gp_map, x_map, y_map, map_s, x3, y3, path):
+    """Phase 12's runs; the K1 launches of 12b's timed evaluations, 12d's
+    fits and 12e's float32 predictors go to ``path``."""
+    print(f"  float32 products: torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, float32_matmul_precision="
+          f"{torch.get_float32_matmul_precision()!r} (ops/iterative.py sets 'highest' inside)",
+          flush=True)
+    map_logp = float(tgp.logp(gp_map))
+    out = {}
+    runs = (("12a", "float64 card vs CPU at n=2048", lambda: phase12a()),
+            ("12k", "K1 at the slab shape", lambda: slab_k1(path)),
+            ("12b", "nll_iterative at n=50000", lambda: phase12b(path)),
+            ("12c", "nll_iterative vs exact at n=16384", lambda: phase12c(x3, y3)),
+            ("12d", "find_MAP(engine='iterative') at n=4096",
+             lambda: phase12d(tgp, x_map, y_map, map_logp, map_s, path)),
+            ("12e", "IterativePredictor", lambda: phase12e(tgp, gp_map, x_map, path)))
+    for key, label, run in runs:
+        print(f"phase {key}: {label}", flush=True)
+        t0 = time.perf_counter()
+        out[key] = run()
+        out[key]["wall_s"] = time.perf_counter() - t0
+        print(f"  phase {key} wall {out[key]['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -4565,6 +5031,18 @@ def main():
     require(p11_batched[0] > 0 and p11_batched[1] > 0,
             "phase 11 did not go through both batched kernels")
 
+    # ---- the matrix-free path: the counts are zeroed before, and read
+    # after, 12b's timed evaluations, 12d's fits and 12e's float32
+    # predictors (12a's float64 card-vs-CPU suite, the slab timing and 12c's
+    # float64 checks are not counted); each of 12b's evaluations and 12d's
+    # fits is held to the launches its slab passes predict
+    p12 = [0, 0]
+    t12 = time.perf_counter()
+    matrix_free = phase12(tgp, gp_map, x_map, y_map, map_s, x, y, p12)
+    t12 = time.perf_counter() - t12
+    print(f"  launches in phase 12: K1 {p12[0]}, K2 {p12[1]}; phase 12 {t12:.1f} s", flush=True)
+    require(p12[0] > 0, "phase 12 did not go through K1")
+
     shape = (4096, 4096, 8)
     t_wrap, t_plain, t_dev = k1_timing[("se", shape)]
     k1_bound = shape[0] * shape[1] * 4 / PEAK_BYTES * 1e3
@@ -4573,14 +5051,14 @@ def main():
         {"name": "stationary_gram", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
          "replaces": "g3py_tpu/ops/pallas_gram.py:81",
-         "launches": k1_serve + k1_train + k1_p7 + p8[0] + p9[0] + p10[0],
+         "launches": k1_serve + k1_train + k1_p7 + p8[0] + p9[0] + p10[0] + p12[0],
          "max_abs_err": max(k1_worst, catalogue["k1_algebra_err"]["single"]),
          "ms": t_dev if t_dev is not None else t_wrap, "plain_ms": t_plain,
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "panel_cholesky", "route": "cuda",
          "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
          "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
-         "launches": k2_serve + k2_train + k2_p7 + p8[1] + p9[1] + p10[1],
+         "launches": k2_serve + k2_train + k2_p7 + p8[1] + p9[1] + p10[1] + p12[1],
          "max_abs_err": k2_worst,
          "ms": k2t["ms"], "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"],
          "bound_by": "operations", "library_ms": k2t["library_ms"]}]}
@@ -4604,6 +5082,13 @@ def main():
          "max_abs_err": k2b_worst,
          "ms": k2b["ms"], "plain_ms": k2b["plain_ms"], "bound_ms": k2b["bound_ms"],
          "bound_by": k2b["bound_by"], "library_ms": k2b["library_ms"]}]
+    slab = matrix_free["12k"]
+    record["kernels"].append(
+        {"name": "stationary_gram_slab", "route": "cuda",
+         "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
+         "replaces": "g3py_tpu/ops/pallas_gram.py:81", "launches": p12[0],
+         "max_abs_err": slab["max_abs_err"], "ms": slab["ms"], "plain_ms": slab["plain_ms"],
+         "bound_ms": slab["bound_ms"], "bound_by": "bytes", "library_ms": None})
     print(f"  K1 at {shape} SE f32: device {fmt_ms(t_dev)}, wrapper {t_wrap:.4f} ms, "
           f"plain {t_plain:.4f} ms, bound {k1_bound:.4f} ms", flush=True)
     print(f"  training logp+dlogp medians (ms): {train_ms}", flush=True)
@@ -4615,6 +5100,9 @@ def main():
     print(f"  phase 9: {json.dumps(catalogue, default=float)}", flush=True)
     print(f"  phase 10: {json.dumps(toolbox, default=float)}", flush=True)
     print(f"  phase 11: {json.dumps(gradient, default=float)}", flush=True)
+    print(f"  phase 12: {json.dumps(matrix_free, default=float)}", flush=True)
+    print(f"  command time {time.perf_counter() - T_START:.1f} s (phase 12 {t12:.1f} s)",
+          flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

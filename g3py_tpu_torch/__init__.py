@@ -4,7 +4,8 @@ Exact GP and warped-GP regression over the reference's whole catalogue of
 kernels (with their ``+``/``*`` algebra), metrics, means and warpings, and
 the reference's other process families — Student-t (TP/WTP), marginal
 (MP), transport (TGP) and copula (CGP/CSTP) — trained (``dlogp``,
-``find_MAP``, with scipy or the batched on-device L-BFGS), sampled (``sample_hypers``:
+``find_MAP``, with scipy or the batched on-device L-BFGS, or matrix-free at
+large n), sampled (``sample_hypers``:
 the ensemble sampler, NUTS, NeuTra or ADVI over the hyperparameter posterior) and served from one factorization or averaged over a datatrace,
 with the fused stationary gram and the blocked panel Cholesky as
 hand-written CUDA kernels for Hopper (sm_90a), both batched over
@@ -98,7 +99,8 @@ def _import_all():
                          MarginalProcess, Density, SymmetricDensity, Uniform, Normal, StudentT,
                          TransportProcess, TransportGaussianProcess, CopulaProcess,
                          CopulaGaussianProcess, CopulaStudentTProcess, TransformedStudentTProcess,
-                         GP, WGP, TP, WTP, MP, TGP, CGP, CSTP, Predictor, AveragedPredictor)
+                         GP, WGP, TP, WTP, MP, TGP, CGP, CSTP, Predictor, AveragedPredictor,
+                         IterativePredictor)
     from .serving import ExportedPredictor, load_predictor
     compat = importlib.import_module(__name__ + ".compat")
     names = dict(locals())

@@ -200,23 +200,28 @@ def _start_draws(gen, m, chains, device):
 
 def neutra_nuts(logp, draws, samples, chains=4, warmup=200, key=None, max_depth=8,
                 target_accept=0.8, n_couplings=4, hidden=32, fit_steps=1000, fit_lr=1e-2,
-                adapt_mass=True):
+                adapt_mass=True, flow=None):
     """NUTS through a transport fitted to ``draws``: fit the flow, start
     each chain at the latent image of a random draw, run the warmup and
     NUTS in latent space and map the chain back.  ``logp`` and ``key`` as in
     :func:`~g3py_tpu_torch.bayesian.nuts.nuts_sampler` (one generator
-    serves the fit's initialization, the starts and the sampler).
+    serves the fit's initialization, the starts and the sampler).  A
+    ``flow`` already fitted to ``draws`` (:func:`fit_flow`'s) is used as it
+    is, with no fit.
 
     Returns (chain (chains, samples, ndim) in the original space, lnprob
     (chains, samples) of the original-space density, info with the NUTS
-    diagnostics and ``fit_nll``, the flow's final training NLL)."""
+    diagnostics and ``fit_nll``, the flow's final training NLL, NaN for a
+    given ``flow``)."""
     from .nuts import nuts_sampler
 
     dev = torch.device(settings.device)
     gen = _generator(key, dev)
     draws = _tensor(draws)
-    flow, losses = fit_flow(draws, n_couplings=n_couplings, hidden=hidden, steps=fit_steps,
-                            lr=fit_lr, key=gen)
+    losses = []
+    if flow is None:
+        flow, losses = fit_flow(draws, n_couplings=n_couplings, hidden=hidden,
+                                steps=fit_steps, lr=fit_lr, key=gen)
     idx = _start_draws(gen, draws.shape[0], chains, dev)
     with torch.no_grad():
         z0, _ = flow_inverse(flow, draws[idx])

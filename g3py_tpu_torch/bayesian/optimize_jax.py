@@ -14,6 +14,11 @@ one batched value-and-gradient call over the starts that are still
 searching; the line searches' bookkeeping runs on the host (one read of
 the values and slopes an evaluation).  A start stops when max|g| <= ``tol``,
 when its line search finds no decrease, or at ``max_iters``.
+
+:func:`lbfgs_minimize_guarded` is the device loop of
+``find_MAP(engine='iterative', loop='device')``: the same pieces on one
+start at a time, against an objective whose trust signal (the matrix-free
+NLL's CG residual) guards it.
 """
 
 import math
@@ -24,7 +29,7 @@ import torch
 from ..config import settings
 from .samplers import value_and_grad
 
-__all__ = ["lbfgs_maximize"]
+__all__ = ["lbfgs_maximize", "lbfgs_minimize_guarded"]
 
 _MEMORY = 10
 _SLOPE_RTOL, _CURV_RTOL, _APPROX_DEC_RTOL = 1e-4, 0.9, 1e-6
@@ -56,16 +61,16 @@ def _cubic(a_lo, f_lo, s_lo, a_hi, f_hi, s_hi):
     return a
 
 
-def _line_search(f0, s0):
+def _line_search(f0, s0, max_steps=_MAX_LINESEARCH_STEPS):
     """One start's line search along a descent direction (slope ``s0`` < 0
     at step 0, value ``f0``), as a generator: it yields a step, receives
     ``(value, slope, payload)`` of that step, and returns ``(step,
     payload)`` of the step it accepts (``(0, None)`` when none
-    decreases)."""
+    decreases); at most ``max_steps`` evaluations."""
     lo = (0.0, f0, s0, None)
     a, steps = 1.0, 0
     hi = None
-    while steps < _MAX_LINESEARCH_STEPS:  # bracketing
+    while steps < max_steps:  # bracketing
         f, s, pay = yield a
         steps += 1
         dec, curv = _wolfe(f0, s0, a, f, s)
@@ -79,7 +84,7 @@ def _line_search(f0, s0):
             break
         lo = (a, f, s, pay)
         a *= 2.0
-    while hi is not None and steps < _MAX_LINESEARCH_STEPS:  # zoom
+    while hi is not None and steps < max_steps:  # zoom
         a = _cubic(lo[0], lo[1], lo[2], hi[0], hi[1], hi[2])
         f, s, pay = yield a
         steps += 1
@@ -211,3 +216,120 @@ def lbfgs_maximize(logp_fn, starts, max_iters=200, tol=1e-5):
 
 lbfgs_maximize.evaluations = 0
 lbfgs_maximize.iterations = 0
+
+
+def lbfgs_minimize_guarded(obj_fn, starts, max_iters=200, chunk=8, tol=1e-5, resid_tol=5e-2,
+                           display=False, linesearch_steps=None, dispatch_budget=None):
+    """L-BFGS on the device for guarded stochastic-estimator objectives, one
+    start at a time.  ``obj_fn(u) -> (value, trust_residual)`` takes a
+    (ndim,) tensor and is differentiable by torch autograd (e.g. the
+    matrix-free NLL, whose CG relative residual is the trust signal).
+
+    The hardening of the JAX package's engine: a point with a non-finite
+    value or ``trust_residual > resid_tol`` reads as 1e10 with a zero
+    gradient, the zero selected (``torch.where``), never multiplied, so a
+    NaN gradient there cannot leak; a step that lands non-finite, at a
+    guarded value (>= 1e9) or with a non-finite gradient is rejected, and
+    the memory is reset at the unchanged iterate (the next direction is
+    steepest descent: a restored memory would retry the same step).  A run
+    stops at max|g| < ``tol``, a non-finite gradient, ``max_iters``
+    iterations, or after two flat iterations in a row (value change below
+    1e-7 relative).  ``linesearch_steps`` caps the line search's
+    evaluations; ``chunk`` and ``dispatch_budget`` are accepted and change
+    nothing (every iteration is a chunk of one; they size the JAX
+    package's jitted dispatches).
+
+    Returns host arrays ``(points (k, ndim), values (k,), iters (k,))``:
+    the values are the guarded objective (1e10 marks a start that never
+    reached a trusted point).  ``lbfgs_minimize_guarded.evaluations``
+    counts the objective evaluations of the last call."""
+    starts = np.atleast_2d(np.asarray(starts, settings.floatx))
+    max_ls = _MAX_LINESEARCH_STEPS if linesearch_steps is None else int(linesearch_steps)
+    lbfgs_minimize_guarded.evaluations = 0
+
+    def value_and_grad(u):
+        lbfgs_minimize_guarded.evaluations += 1
+        u = u.detach().requires_grad_(True)
+        with torch.enable_grad():
+            v, resid = obj_fn(u)
+            (g,) = torch.autograd.grad(v, u)
+        ok = torch.isfinite(v.detach()) & (torch.as_tensor(resid).detach() <= resid_tol)
+        return (torch.where(ok, v.detach(), torch.full_like(v.detach(), 1e10)),
+                torch.where(ok, g, torch.zeros_like(g)))
+
+    points, values, iters = [], [], []
+    for x0 in starts:
+        x = torch.as_tensor(x0, device=settings.device)[None]
+        ndim = x.shape[1]
+        v, g = value_and_grad(x[0])
+        v, g = v.reshape(1), g[None]
+        mem_s = x.new_zeros((1, _MEMORY, ndim))
+        mem_y, mem_rho = torch.zeros_like(mem_s), x.new_zeros((1, _MEMORY))
+        fresh = True
+        it, v_prev, flat = 0, float("inf"), 0
+        while it < max_iters:
+            gamma = (torch.clamp(1.0 / torch.linalg.vector_norm(g, dim=-1), max=1.0) if fresh
+                     else _gamma(mem_s[:, -1], mem_y[:, -1]))
+            d = _direction(g, mem_s, mem_y, mem_rho, gamma)
+            slope0 = float((g * d).sum())
+            if not (slope0 < 0):  # no descent: steepest descent, memory cleared
+                mem_s.zero_(), mem_y.zero_(), mem_rho.zero_()
+                d = -torch.clamp(1.0 / torch.linalg.vector_norm(g, dim=-1), max=1.0) * g
+                slope0 = float((g * d).sum())
+            search = _line_search(float(v), slope0, max_ls)
+            step = next(search)
+            try:
+                while True:
+                    pt = x + step * d
+                    fv, gv = value_and_grad(pt[0])
+                    step = search.send((float(fv), float((gv * d[0]).sum()), (pt, fv, gv)))
+            except StopIteration as stop:
+                _, pay = stop.value
+            ok = pay is not None
+            if ok:
+                x_new, v_new, g_new = pay[0], pay[1].reshape(1), pay[2][None]
+                ok = (bool(torch.isfinite(v_new).all()) and float(v_new) < 1e9
+                      and bool(torch.isfinite(x_new).all())
+                      and bool(torch.isfinite(g_new).all()))
+            if ok:
+                s_k, y_k = x_new - x, g_new - g
+                sy = (s_k * y_k).sum(-1)
+                rho = torch.where(sy == 0, torch.zeros_like(sy), 1.0 / sy)
+                mem_s = torch.cat([mem_s[:, 1:], s_k[:, None]], 1)
+                mem_y = torch.cat([mem_y[:, 1:], y_k[:, None]], 1)
+                mem_rho = torch.cat([mem_rho[:, 1:], rho[:, None]], 1)
+                x, v, g, fresh = x_new, v_new, g_new, False
+            else:  # rejected: reset the memory at the unchanged iterate
+                mem_s, mem_y, mem_rho = (torch.zeros_like(mem_s), torch.zeros_like(mem_y),
+                                         torch.zeros_like(mem_rho))
+                fresh = True
+            it += 1
+            v_host, gmax = float(v), float(g.abs().max())
+            if display:
+                print(f"  iter {it}: value {v_host:.6g} |g|max {gmax:.3g}", flush=True)
+            if not np.isfinite(gmax) or gmax < tol:
+                break
+            if abs(v_prev - v_host) < 1e-7 * max(1.0, abs(v_host)):
+                # two flat iterations in a row: a single flat one may be a
+                # rejected step whose reset has not had its retry yet
+                flat += 1
+                if flat >= 2:
+                    break
+            else:
+                flat = 0
+            v_prev = v_host
+        points.append(x[0].detach().cpu().numpy().astype(settings.floatx))
+        values.append(float(v))
+        iters.append(it)
+    return np.stack(points), np.asarray(values), np.asarray(iters)
+
+
+def _gamma(s, y):
+    """The initial scaling s'y / y'y of the newest memory pair (1 where
+    y'y = 0)."""
+    sy, yy = (s * y).sum(-1), (y * y).sum(-1)
+    return torch.where(yy > 0, sy / torch.where(yy > 0, yy, torch.ones_like(yy)),
+                       torch.ones_like(yy))
+
+
+lbfgs_minimize_guarded.evaluations = 0

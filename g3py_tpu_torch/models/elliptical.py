@@ -62,6 +62,19 @@ def _diag(m):
     return torch.diagonal(m, dim1=-2, dim2=-1)
 
 
+def _contains_kernel_noise(kernel, kinds=KernelNoise):
+    """True when a KernelNoise term (or one of ``kinds``) hides anywhere in
+    a kernel tree."""
+    stack = [kernel]
+    while stack:
+        k = stack.pop()
+        if isinstance(k, kinds):
+            return True
+        stack.extend(sub for sub in (getattr(k, a, None) for a in ("k1", "k2", "k_inner"))
+                     if sub is not None)
+    return False
+
+
 class EllipticalProcess(StochasticProcess):
     def __init__(self, space=None, location=None, kernel=None, mapping=None, degree=None,
                  noisy=True, var_noise=None, **kwargs):
@@ -406,6 +419,11 @@ class EllipticalProcess(StochasticProcess):
             return self.f_mapping(params, vector)
         return fn
 
+    def th_mapping_inv(self, prior=False, noise=False):
+        def fn(params, space, inputs, outputs, vector):
+            return self._latent_obs(params, outputs)
+        return fn
+
     def th_location(self, prior=False, noise=False):
         if prior:
             def fn(params, space, inputs, outputs, vector):
@@ -476,6 +494,7 @@ class EllipticalProcess(StochasticProcess):
 
     freedom = _statistic("th_freedom", "Degrees of freedom (the Student-t family).")
     mapping = _statistic("th_mapping", "Forward warping of ``vector``.")
+    mapping_inv = _statistic("th_mapping_inv", "Inverse warping of the observed outputs.")
     location = _statistic("th_location", "Latent (pre-warping) location.")
     kernel = _statistic("th_kernel", "Latent covariance over ``space``.")
     cholesky = _statistic("th_cholesky", "Cholesky factor of the latent covariance.")

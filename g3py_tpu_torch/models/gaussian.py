@@ -21,11 +21,12 @@ import torch
 
 from ..config import settings, as_tensor
 from ..ops.guards import to_num, to_cov
-from ..ops.linalg import mvn_quad_logdet, mvn_loo, solve_lower_triangular
+from ..ops.linalg import mvn_quad_logdet, mvn_loo, solve_lower_triangular, cho_solve
 from ..ops.quadrature import gauss_hermite, hermite_moments
-from .elliptical import EllipticalProcess
+from .elliptical import EllipticalProcess, _contains_kernel_noise
 
-__all__ = ["GaussianProcess", "WarpedGaussianProcess", "warped_gaussian_logp_cho"]
+__all__ = ["GaussianProcess", "WarpedGaussianProcess", "warped_gaussian_logp_cho",
+           "WarpedGaussianDistribution"]
 
 LOG2PI = math.log(2.0 * math.pi)
 
@@ -50,12 +51,21 @@ def warped_gaussian_logp_cho(value, mu, cho, mapping_inv_value, logdet_dinv):
     return _guarded(r, bad)
 
 
+class WarpedGaussianDistribution:
+    """Namespace kept for the reference's API."""
+
+    logp_cho = staticmethod(warped_gaussian_logp_cho)
+
+
 class GaussianProcess(EllipticalProcess):
     """Exact (optionally warped-observation) Gaussian process regression."""
 
     def __init__(self, *args, **kwargs):
         kwargs.setdefault("name", "GP")
         super().__init__(*args, **kwargs)
+
+    def th_define_process(self):
+        self.distribution = WarpedGaussianDistribution
 
     def th_loglike_fn(self):
         """Observed-data loglikelihood: the warped MVN over the prior moments
@@ -149,6 +159,189 @@ class GaussianProcess(EllipticalProcess):
         latent = loc[:, None] + torch.matmul(self.cholesky(params, **kw), rand)
         return self.f_mapping(self._tensor_params(self.params if params is None else params),
                               latent)
+
+    def th_cross_mean(self, prior=False, noise=False, cross_kernel=None):
+        """Posterior mean at the space through an explicit cross kernel
+        (the signal kernel by default): m(s) + K_cross(s, X) K^{-1} (T^{-1}y
+        - m(X))."""
+        cross_kernel = self.f_kernel if cross_kernel is None else cross_kernel
+        location = self.f_location
+
+        def fn(params, space, inputs, outputs, vector):
+            if prior:
+                return location(params, space)
+            cross = to_num(cross_kernel.cov(params, space, inputs))
+            resid = self._latent_obs(params, outputs) - location(params, inputs)
+            return location(params, space) + torch.matmul(
+                cross, cho_solve(self._obs_chol(params, inputs), resid))
+
+        return fn
+
+    def predictor_iterative(self, params=None, rank=64, block=2048, cg_iters=200, tol=1e-6,
+                            dtype=None):
+        """Matrix-free serving for training sets too large to factor: one
+        preconditioned-CG solve and a rank-``rank`` pivoted Cholesky, then
+        every statistic from blocked cross grams — no O(n^3) factorization
+        and no n x n matrix (:class:`~g3py_tpu_torch.models.predictor.
+        IterativePredictor`).  ``dtype='float64'`` runs the whole solve in
+        float64 (for near-interpolation grams beyond float32 CG's reach);
+        the statistics come back in ``settings.floatx``."""
+        from .predictor import IterativePredictor
+
+        return IterativePredictor(self, params, rank=rank, block=block, cg_iters=cg_iters,
+                                  tol=tol, dtype=dtype)
+
+    def nll_iterative(self, params=None, rank=64, block=2048, cg_iters=100, probes=8,
+                      lanczos_iters=25, seed=0):
+        """Matrix-free negative loglikelihood for training sets too large to
+        factor (:func:`~g3py_tpu_torch.ops.iterative.preconditioned_gp_nll`):
+        the gram read lazily in (block, n) slabs, the quadratic form by
+        preconditioned CG, the log det by batched SLQ, the gradient by the
+        stochastic-trace backward — torch autograd of this trains the model
+        with no n x n matrix in either pass.  ``seed`` as there (an int, a
+        ``torch.Generator`` or a dict of the draws).
+
+        Needs the noisy=True construction (the noise variance is the
+        KernelNoise term's hyper) and no KernelNoise inside the signal
+        kernel.  Includes the warping Jacobian, as ``loglike`` does (no hyper
+        priors).  Returns ``(nll, info)``, tensors on the device."""
+        from ..hypers import hval
+        from ..hypers.kernels import KernelSum, KernelNoise
+        from ..ops.iterative import preconditioned_gp_nll
+
+        if params is None:
+            params = self.params
+        params = {k: as_tensor(v) for k, v in self.filter_params(params).items()}
+        kn = self.f_kernel_noise
+        if not (isinstance(kn, KernelSum) and isinstance(kn.k2, KernelNoise)):
+            raise ValueError("nll_iterative needs the noisy=True "
+                             "KernelSum(kernel, KernelNoise) construction")
+        if _contains_kernel_noise(self.f_kernel):
+            # KernelNoise adds 0 to every CROSS covariance: the slab matvec
+            # would drop it from the quadratic form and the log det
+            raise ValueError("nll_iterative does not support KernelNoise terms inside the "
+                             "signal kernel (the lazy matvec sees only cross-covariances)")
+        noise_var = hval(kn.k2.var, params)
+        inputs = self._device_data("inputs")
+        outputs = self._device_data("outputs")
+        latent = self._latent_obs(params, outputs)
+        mean = self.f_location(params, inputs)
+        nll, info = preconditioned_gp_nll(
+            self.f_kernel, params, inputs, latent, noise_var, rank=rank, block=block,
+            cg_iters=cg_iters, probes=probes, lanczos_iters=lanczos_iters, seed=seed,
+            mean=mean)
+        # the warping Jacobian: loglike = log N(T^{-1}y) + log det dT^{-1}/dy
+        return nll - self.f_mapping.logdet_dinv(params, outputs), info
+
+    def _find_map_iterative(self, start=None, points=1, return_points=False, display=True,
+                            max_iters=200, rank=64, block=2048, cg_iters=100, probes=8,
+                            lanczos_iters=25, seed=0, loop="host", chunk=1,
+                            linesearch_steps=None, dispatch_budget=None, **_):
+        """MAP search on the matrix-free NLL plus the hyper priors
+        (``find_MAP(engine='iterative')``), L-BFGS over its stochastic-trace
+        gradient.  ``probes`` sets the trace estimator's bias, and so bounds
+        the optimum it reaches.  ``loop='host'`` is scipy's L-BFGS-B with
+        one value-and-gradient evaluation a call (the start point's repeat
+        read from a memo); ``loop='device'`` is
+        :func:`~g3py_tpu_torch.bayesian.optimize_jax.lbfgs_minimize_guarded`.
+        Both read a point whose NLL is not finite or whose CG residual is
+        above 5e-2 as 1e10 with a zero gradient.  ``chunk`` and
+        ``dispatch_budget`` change nothing here.  The starts are ``start``
+        (``params_default`` when None; a list of them) and, up to
+        ``points``, ``params_random`` around the first (sigma 0.15, from
+        ``np.random.default_rng(0)``)."""
+        import scipy.optimize as spo
+        from ..bayesian.optimize_jax import lbfgs_minimize_guarded
+
+        reg = self.active
+        if start is None:
+            start = self.params_default
+        starts = list(start) if isinstance(start, list) else [start]
+        rng = np.random.default_rng(0)
+        while len(starts) < points:
+            starts.append(self.params_random(mean=starts[0], sigma=0.15, prop=True, rng=rng))
+        prior_pure = self._logp_pure(prior=True)
+        space, inputs, outputs = self._resolve_data(None, None, None)
+
+        def objective(u):
+            p = reg.array_to_dict_tensor(u)
+            nll, info = self.nll_iterative(p, rank=rank, block=block, cg_iters=cg_iters,
+                                           probes=probes, lanczos_iters=lanczos_iters, seed=seed)
+            return nll - prior_pure(p, space, inputs, outputs), info["cg_rel_residual"]
+
+        if loop == "device":
+            u0s = np.stack([np.asarray(reg.dict_to_array(s), settings.floatx) for s in starts])
+            pts, vals, iters = lbfgs_minimize_guarded(
+                objective, u0s, max_iters=max_iters, chunk=chunk, display=display,
+                linesearch_steps=linesearch_steps, dispatch_budget=dispatch_budget)
+            results = []
+            for i in range(len(vals)):
+                if vals[i] >= 1e10:
+                    print(f"start{i + 1}: never reached a trusted region (non-finite NLL or "
+                          "CG residual > 5e-2) — dropped; raise cg_iters/rank or move the start")
+                    continue
+                if display:
+                    print(f"start{i + 1} done (-logp): {vals[i]:.6g} ({int(iters[i])} iters)")
+                results.append((f"iterative{i + 1}", float(vals[i]), reg.array_to_dict(pts[i])))
+            if not results:
+                raise ValueError(
+                    "find_MAP(engine='iterative', loop='device'): every start point was "
+                    "untrusted; raise cg_iters/rank/probes or provide a better start")
+        elif loop == "host":
+            memo = {}
+
+            def f_and_g(u):
+                key = u.tobytes()
+                if key in memo:  # scipy re-evaluates the start point
+                    return memo[key]
+                ut = torch.as_tensor(u, dtype=settings.dtype,
+                                     device=settings.device).requires_grad_(True)
+                with torch.enable_grad():
+                    v, resid = objective(ut)
+                    (g,) = torch.autograd.grad(v, ut)
+                v, g = float(v.detach()), g.detach().cpu().numpy().astype(np.float64)
+                if not np.isfinite(v) or not np.all(np.isfinite(g)) or float(resid) > 5e-2:
+                    # an overshoot into a numerically dead region, or a
+                    # point where the CG solve is untrusted, reads as very
+                    # bad: unguarded, L-BFGS chases the estimator's
+                    # breakdown to fake optima
+                    out = (1e10, np.zeros_like(g))
+                else:
+                    out = (v, g)
+                memo.clear()  # the most recent point only
+                memo[key] = out
+                return out
+
+            results = []
+            for i, s in enumerate(starts, start=1):
+                u0 = np.asarray(reg.dict_to_array(s), np.float64)
+                v0 = f_and_g(u0)[0]
+                if v0 >= 1e10:
+                    # a zero gradient at an untrusted start would make
+                    # L-BFGS-B a silent no-op
+                    print(f"start{i}: untrusted at the start point (non-finite NLL or CG "
+                          "residual > 5e-2) — skipped; raise cg_iters/rank or move the start")
+                    continue
+                if display:
+                    print(f"start{i} (-logp): {v0:.6g}")
+                res = spo.minimize(f_and_g, u0, jac=True, method="L-BFGS-B",
+                                   options={"maxiter": max_iters})
+                results.append((f"iterative{i}", float(res.fun),
+                                reg.array_to_dict(np.asarray(res.x, settings.floatx))))
+                if display:
+                    print(f"start{i} done (-logp): {res.fun:.6g}")
+            if not results:
+                raise ValueError(
+                    "find_MAP(engine='iterative'): every start point was untrusted "
+                    "(non-finite NLL or CG residual > 5e-2); raise cg_iters/rank/probes or "
+                    "provide a better start")
+        else:
+            raise ValueError(f"unknown loop {loop!r} ('host' | 'device')")
+        results.sort(key=lambda t: t[1])
+        best = results[0][2]
+        if return_points:
+            return best, [(n_, -v, p) for n_, v, p in results]
+        return best
 
     def _quantile_p(self, q):
         """Latent-space quantile coefficient: quantile = T(mu + p * sd).  Held

@@ -30,19 +30,25 @@ posterior paths that are consistent across query batches
 Matheron's update) and writes itself out as a serving artifact that loads
 without model code (:meth:`Predictor.export`, ``torch.export``; loaded by
 :func:`g3py_tpu_torch.serving.load_predictor`).
+
+:class:`IterativePredictor` serves training sets too large to factor: one
+preconditioned-CG solve, then blocked cross grams only
+(:mod:`g3py_tpu_torch.ops.iterative`).
 """
 
+import contextlib
 import json
+import math
 import os
 
 import numpy as np
 import torch
 
-from ..config import settings
+from ..config import settings, as_tensor
 from ..utils import DictObj
 from ..bayesian.models import _row_scores
 
-__all__ = ["Predictor", "AveragedPredictor", "statistics"]
+__all__ = ["Predictor", "AveragedPredictor", "IterativePredictor", "statistics"]
 
 
 def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False, cov=False,
@@ -150,23 +156,19 @@ class Predictor(_Bound):
         advance to the concatenation, so this predictor becomes stale (it
         raises) and the returned one takes over."""
         from ..hypers.kernels import WN, KernelNoise
+        from .elliptical import _contains_kernel_noise
         self._check()
         proc = self.process
         # the update builds cross grams: a delta kernel (WN, KernelNoise)
         # gives var at coincident points on the square gram a refactorization
         # uses but 0 on a cross gram, so a streamed duplicate would diverge
-        stack = [proc.f_kernel]
-        while stack:
-            k = stack.pop()
-            if isinstance(k, (WN, KernelNoise)):
-                raise ValueError(
-                    "Predictor.updated does not support white-noise terms "
-                    "(WN/KernelNoise) inside the signal kernel: their "
-                    "cross-covariance semantics differ from the square "
-                    "gram a full refactorization uses — rebuild with "
-                    "process.predictor(params) instead")
-            stack.extend(sub for sub in (getattr(k, a, None) for a in ("k1", "k2", "k_inner"))
-                         if sub is not None)
+        if _contains_kernel_noise(proc.f_kernel, (WN, KernelNoise)):
+            raise ValueError(
+                "Predictor.updated does not support white-noise terms "
+                "(WN/KernelNoise) inside the signal kernel: their "
+                "cross-covariance semantics differ from the square "
+                "gram a full refactorization uses — rebuild with "
+                "process.predictor(params) instead")
         x_host = np.asarray(proc._as_matrix(x_new).cpu().numpy(), dtype=settings.floatx)
         y_host = np.asarray(proc._as_vector(y_new).cpu().numpy(), dtype=settings.floatx)
         new_state = proc._posterior_state_update_pure(
@@ -455,3 +457,279 @@ class AveragedPredictor(_Bound):
         return out
 
     __call__ = predict
+
+
+class IterativePredictor(_Bound):
+    """Streaming serving for training sets too large to factor: no O(n^3)
+    factorization and no n x n matrix, ever — the serving counterpart of
+    ``find_MAP(engine='iterative')``.
+
+    State (one preconditioned-CG solve and one rank-R pivoted Cholesky):
+
+      alpha = (K + sigma^2 I)^{-1} (T^{-1}y - m)     (PCG, to ``tol``)
+      L_R   = rank-R pivoted Cholesky of K           (the preconditioner)
+
+    A query batch costs blocked cross grams:
+
+      mean(s) = T-moment of mu* = m(s) + K_sX alpha
+      var(s)  = k_ss - diag(K_sX (K + sigma^2 I)^{-1} K_Xs)
+
+    the variance EXACT by default (``exact_var=True``: one multi-RHS PCG
+    solve against the cross gram, every query point a column), or with
+    ``exact_var=False`` the rank-R Woodbury sketch k_ss - diag(K_sX P^{-1}
+    K_Xs), P = L_R L_R^T + sigma^2 I — a quick look only: in float32 the
+    pivoted factors degrade and the sketch can read far above the noise
+    floor.  Warped moments are Gauss-Hermite quadratures of T, quantiles
+    ``T(mu + z_q sd)``.  ``dtype='float64'`` runs the whole solve pipeline
+    (state, matvecs, cross grams) in float64, for near-interpolation grams
+    beyond float32 CG's reach; statistics come back in ``settings.floatx``.
+    A state whose CG residual is above 5e-2 is refused."""
+
+    def __init__(self, process, params=None, rank=64, block=2048, cg_iters=200, tol=1e-6,
+                 dtype=None):
+        from ..hypers import hval
+        from ..hypers.kernels import KernelSum, KernelNoise
+        from ..ops.iterative import (pivoted_cholesky, pcg_solve, woodbury_preconditioner,
+                                     _kernel_diag, _kernel_column, full_fp32)
+        from .elliptical import _contains_kernel_noise
+        from .gaussian import GaussianProcess
+
+        if not isinstance(process, GaussianProcess):
+            raise ValueError("IterativePredictor implements the gaussian posterior algebra "
+                             "(GP/WGP family); the Student-t posterior needs the dense path")
+        if params is None:
+            params = process.params
+        kn = process.f_kernel_noise
+        if not (isinstance(kn, KernelSum) and isinstance(kn.k2, KernelNoise)):
+            raise ValueError("IterativePredictor needs the noisy=True "
+                             "KernelSum(kernel, KernelNoise) construction")
+        if _contains_kernel_noise(process.f_kernel):
+            raise ValueError("IterativePredictor does not support KernelNoise terms inside "
+                             "the signal kernel (cross-covariances would silently drop it)")
+        self.floatx = settings.floatx if dtype is None else np.dtype(dtype).name
+        self.rank, self.block, self.cg_iters = rank, block, cg_iters
+        self._kernel = process.f_kernel
+        # the statistics' params, in settings.floatx
+        self.stat_params = process._tensor_params(process.filter_params(params))
+        with self._precision():
+            self._bind(process)
+            self.params = process._tensor_params(process.filter_params(params))
+            p, x = self.params, self.inputs
+            self._noise_var = hval(kn.k2.var, p)
+            with torch.no_grad():
+                resid = process._latent_obs(p, self.outputs) - process.f_location(p, x)
+                self.l_factor = pivoted_cholesky(_kernel_column(self._kernel, p, x),
+                                                 _kernel_diag(self._kernel, p, x, block), rank)
+                self._p_inv = woodbury_preconditioner(self.l_factor, self._noise_var)[0]
+                self.alpha = pcg_solve(self._mv, resid, self._p_inv, tol=tol,
+                                       maxiter=cg_iters)
+                with full_fp32():
+                    rel = torch.linalg.vector_norm(self._mv(self.alpha) - resid) / torch.clamp(
+                        torch.linalg.vector_norm(resid), min=1e-30)
+        self.cg_rel_residual = float(rel)
+        if not np.isfinite(self.cg_rel_residual) or self.cg_rel_residual > 5e-2:
+            # an unconverged solve would serve garbage statistics
+            raise ValueError(
+                "IterativePredictor: the preconditioned CG solve did not converge (relative "
+                f"residual {self.cg_rel_residual:.2e}); raise cg_iters/rank, or check the "
+                "hyperparameters — an ill-conditioned gram (near-zero noise or extreme "
+                "lengthscales) can exceed float32 CG's reach (dtype='float64' serves it)")
+
+    def _precision(self):
+        """``settings.floatx`` switched to the solve's dtype for the block."""
+        if self.floatx == settings.floatx:
+            return contextlib.nullcontext()
+        return _floatx(self.floatx)
+
+    def _mv(self, v):
+        from ..ops.iterative import lazy_kernel_matvec
+        return (lazy_kernel_matvec(self._kernel, self.params, self.inputs, v, block=self.block)
+                + self._noise_var * v)
+
+    def _query(self, space):
+        """Query points as a host array (the process's space when None)."""
+        if space is None:
+            return np.asarray(self.process._space)
+        if isinstance(space, torch.Tensor):
+            space = space.detach().cpu().numpy()
+        space = np.asarray(space)
+        return space.reshape(len(space), -1)
+
+    def _moments(self, space, noise=False, exact_var=True, chunk=4096):
+        """Latent ``(mu, sd)`` at the host query array ``space``, tensors
+        in ``settings.dtype``: ``chunk`` query points a cross gram."""
+        from ..ops.iterative import pcg_solve, _kernel_diag, full_fp32
+
+        self._check()
+        out_dt, out_dev = settings.dtype, settings.device
+        if len(space) == 0:
+            e = torch.zeros(0, dtype=out_dt, device=out_dev)
+            return e, e
+        proc, p, x = self.process, self.params, self.inputs
+        mus, vs = [], []
+        with self._precision(), torch.no_grad(), full_fp32():
+            for lo in range(0, len(space), chunk):
+                s = proc._as_matrix(space[lo:lo + chunk])
+                cross = self._kernel.cov(p, s, x)  # (m, n)
+                mu = proc.f_location(p, s) + torch.matmul(cross, self.alpha)
+                kss = _kernel_diag(self._kernel, p, s, self.block)
+                if exact_var:
+                    z = pcg_solve(self._mv, cross, self._p_inv, maxiter=self.cg_iters)
+                    var = kss - (cross * z).sum(dim=1)
+                else:
+                    var = kss - (cross.T * self._p_inv(cross.T)).sum(dim=0)
+                mus.append(mu)
+                vs.append(torch.clamp(var, min=0.0))
+            var = torch.cat(vs)
+            if noise:
+                var = var + self._noise_var
+            sd = torch.sqrt(torch.clamp(var, min=1e-30))
+        return (torch.cat(mus).to(dtype=out_dt, device=out_dev),
+                sd.to(dtype=out_dt, device=out_dev))
+
+    def _moments_memo(self, space, noise=False, **kw):
+        """``_moments`` memoized by (space, noise, options): ``predict``
+        derives every statistic of a batch from one (mu, sd), so the solve
+        runs once a batch, not once a statistic."""
+        self._check()
+        space = self._query(space)
+        key = (space.tobytes(), space.shape, bool(noise), tuple(sorted(kw.items())))
+        cache = self.__dict__.setdefault("_mom_cache", {})
+        if key not in cache:
+            if len(cache) >= 8:
+                cache.pop(next(iter(cache)))
+            cache[key] = self._moments(space, noise=noise, **kw)
+        return cache[key]
+
+    def _is_identity(self):
+        from ..hypers.mappings import Identity
+        return isinstance(self.process.f_mapping, Identity)
+
+    def _warped(self, mu, sd):
+        from ..ops.quadrature import hermite_moments
+
+        mapping, p = self.process.f_mapping, self.stat_params
+        with torch.no_grad():
+            return hermite_moments(lambda v: mapping(p, v), mu, sd,
+                                   settings.quadrature_degree)
+
+    def mean(self, space=None, noise=False, **kw):
+        mu, sd = self._moments_memo(space, noise=noise, **kw)
+        return mu if self._is_identity() else self._warped(mu, sd)[0]
+
+    def std(self, space=None, noise=False, **kw):
+        mu, sd = self._moments_memo(space, noise=noise, **kw)
+        return sd if self._is_identity() else torch.sqrt(self._warped(mu, sd)[1])
+
+    def variance(self, space=None, noise=False, **kw):
+        return self.std(space, noise=noise, **kw) ** 2
+
+    def quantiler(self, space=None, q=0.975, noise=False, **kw):
+        mu, sd = self._moments_memo(space, noise=noise, **kw)
+        with torch.no_grad():
+            return self.process.f_mapping(self.stat_params,
+                                          mu + self.process._quantile_p(q) * sd)
+
+    def median(self, space=None, **kw):
+        mu, _ = self._moments_memo(space, **kw)
+        with torch.no_grad():
+            return self.process.f_mapping(self.stat_params, mu)
+
+    def logpredictive(self, vector, space=None, **kw):
+        """Independent-marginal log predictive density of ``vector`` at the
+        query points (noise included): the latent normal density of the
+        warping's pullback at (mu, sd) plus the pullback's log-Jacobian."""
+        mu, sd = self._moments_memo(space, noise=True, **kw)
+        mapping, p = self.process.f_mapping, self.stat_params
+        with torch.no_grad():
+            v = self.process._as_vector(vector)
+            z = (mapping.inv(p, v) - mu) / sd
+            return float((-0.5 * math.log(2.0 * math.pi) - torch.log(sd) - 0.5 * z * z).sum()
+                         + mapping.logdet_dinv(p, v))
+
+    def predict(self, space=None, mean=True, std=True, var=False, median=False,
+                quantiles=False, quantiles_noise=False, noise=False, distribution=False,
+                samples=0, **kw):
+        """The statistics of one query batch (``exact_var`` among ``kw``),
+        every one from the same latent moments."""
+        values = DictObj()
+        if samples > 0:
+            values["samples"] = self.sampler(space=space, samples=samples, noise=noise)
+        if distribution:
+            values["logpredictive"] = (lambda v, _s=space, _kw=dict(kw):
+                                       self.logpredictive(v, space=_s, **_kw))
+        if mean:
+            values["mean"] = self.mean(space, noise=noise, **kw)
+        if std:
+            values["std"] = self.std(space, noise=noise, **kw)
+        if var:
+            values["variance"] = self.variance(space, noise=noise, **kw)
+        if median:
+            values["median"] = self.median(space, **kw)
+        if quantiles:
+            values["quantile_up"] = self.quantiler(space, q=0.975, noise=noise, **kw)
+            values["quantile_down"] = self.quantiler(space, q=0.025, noise=noise, **kw)
+        if quantiles_noise:
+            values["noise_std"] = self.std(space, noise=True, **kw)
+            values["noise_up"] = self.quantiler(space, q=0.975, noise=True, **kw)
+            values["noise_down"] = self.quantiler(space, q=0.025, noise=True, **kw)
+        return values
+
+    __call__ = predict
+
+    def sampler(self, space=None, samples=1, key=0, n_features=2048, noise=False):
+        """Joint posterior draws (len(space), samples) with no factorization:
+        Matheron's pathwise update over random-Fourier prior paths of the
+        signal kernel (:func:`_rff_prior`), the update one multi-RHS PCG
+        solve for every path at once, pushed through the warping.  ``key``
+        is a seed, a ``torch.Generator``, or a dict of the draws (``parts``,
+        ``eps`` (n, samples) and, with ``noise``, ``noise`` (m, samples)),
+        as for ``Predictor.pathwise_sampler``.  A solve whose worst relative
+        residual is above 5e-2 raises."""
+        from ..ops.iterative import pcg_solve, full_fp32
+        from ..ops.rff import _generator
+
+        self._check()
+        space = self._query(space)
+        proc = self.process
+        draws = key if isinstance(key, dict) else None
+        with self._precision(), torch.no_grad(), full_fp32():
+            p, x = self.params, self.inputs
+            gen = None if draws is not None else _generator(key)
+            prior = _rff_prior(self._kernel, p, x, n_features, samples,
+                               draws["parts"] if draws is not None else gen)
+            resid = proc._latent_obs(p, self.outputs) - proc.f_location(p, x)
+            g_x = prior(x)  # (n, S)
+            eps = (as_tensor(np.array(draws["eps"])) if draws is not None else
+                   torch.randn(g_x.shape, generator=gen, dtype=g_x.dtype, device=g_x.device))
+            rhs = resid[:, None] - g_x - torch.sqrt(self._noise_var) * eps
+            a = pcg_solve(self._mv, rhs.T, self._p_inv, maxiter=self.cg_iters).T
+            res = self._mv(a) - rhs
+            rel = float((torch.linalg.vector_norm(res, dim=0) / torch.clamp(
+                torch.linalg.vector_norm(rhs, dim=0), min=1e-30)).max())
+            if not np.isfinite(rel) or rel > 5e-2:
+                raise ValueError(
+                    "pathwise sampler: the multi-RHS PCG solve did not converge (worst relative "
+                    f"residual {rel:.2e}); raise cg_iters (path right-hand sides carry white-"
+                    "noise components that need more iterations than the data solve) or rank")
+            xq = proc._as_matrix(space)
+            cross_a = torch.cat([torch.matmul(self._kernel.cov(p, xq[lo:lo + 4096], x), a)
+                                 for lo in range(0, xq.shape[0], 4096)])
+            latent = proc.f_location(p, xq)[:, None] + prior(xq) + cross_a
+            if noise:
+                e = (as_tensor(np.array(draws["noise"])) if draws is not None else
+                     torch.randn(latent.shape, generator=gen, dtype=latent.dtype,
+                                 device=latent.device))
+                latent = latent + torch.sqrt(self._noise_var) * e
+            out = proc.f_mapping(p, latent.reshape(-1)).reshape(latent.shape)
+        return out.to(dtype=settings.dtype, device=settings.device)
+
+
+@contextlib.contextmanager
+def _floatx(name):
+    old = settings.floatx
+    settings.floatx = name
+    try:
+        yield
+    finally:
+        settings.floatx = old

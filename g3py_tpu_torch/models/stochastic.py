@@ -28,8 +28,9 @@ samplers (``sample_hypers(method='nuts' | 'neutra' | 'advi')``) and
 ``find_MAP(engine='jax')`` differentiate the batched sampling log densities
 with torch autograd: a batched value-and-gradient evaluation of all chains,
 MC rows or starts is one batched K1 and K2 call and one batched analytic
-backward.  The iterative and distributed ``find_MAP`` engines, model files
-and plotting come in later slices.
+backward.  ``find_MAP(engine='iterative')`` (GP family) trains through the
+matrix-free NLL.  The distributed ``find_MAP`` engine, model files and
+plotting come in later slices.
 """
 
 import numpy as np
@@ -127,9 +128,10 @@ class StochasticProcess(BatchedModel):
     ``active`` is the :class:`GraphicalModel` to join; True joins the
     active registry (``GraphicalModel.active``, created when None); False
     (or None) makes a fresh one named ``"GM_" + name``, which becomes the
-    active one.  ``distribution``, ``precompile`` and ``compile_logp`` are
-    the JAX package's compile controls and change nothing here (PyTorch
-    runs eagerly)."""
+    active one.  ``precompile`` and ``compile_logp`` are the JAX package's
+    compile controls and change nothing here (PyTorch runs eagerly):
+    ``compiles`` stays an empty dict.  ``distribution`` is kept as given,
+    until the family's ``th_define_process`` names its own."""
 
     #: whether th_loglike_fn takes a params dict of R rows (the GP and
     #: Student-t families); the others evaluate a (R, ndim) matrix row by row
@@ -153,6 +155,10 @@ class StochasticProcess(BatchedModel):
                 ndim = int(space)
         self.nspace = ndim
         self.name = name
+        self.description = {"title": name, "x": "x", "y": "y"}
+        self.distribution = distribution
+        self.precompile = precompile
+        self.compiles = DictObj()
 
         default_mat = np.array([[0.0, 1.0]] * self.nspace, dtype=settings.floatx).T
         self._space = default_mat.copy()
@@ -160,7 +166,7 @@ class StochasticProcess(BatchedModel):
         self._outputs = np.array([0.0, 1.0], dtype=settings.floatx)
         self._order = self._outputs.copy()
         self._index = self._outputs.copy()
-        self.hidden = None
+        self.np_hidden = None
         self.is_observed = False
         self._device_copies = {}
 
@@ -171,6 +177,7 @@ class StochasticProcess(BatchedModel):
 
         self._check_hypers()
         self._register_params()
+        self.th_define_process()
         self.set_space(space=space, hidden=hidden, order=order, inputs=inputs,
                        outputs=outputs, index=index)
 
@@ -181,6 +188,9 @@ class StochasticProcess(BatchedModel):
 
     def _check_hypers(self):
         pass
+
+    def th_define_process(self):
+        """Family hook run at construction (names ``distribution``)."""
 
     def default_hypers(self):
         return {}
@@ -197,6 +207,36 @@ class StochasticProcess(BatchedModel):
     def set_params(self, params=None):
         return self.active.set_params(params)
 
+    def params_random(self, *args, **kwargs):
+        return self.active.params_random(*args, **kwargs)
+
+    def params_datatrace(self, *args, **kwargs):
+        return self.active.params_datatrace(*args, **kwargs)
+
+    def transform_params(self, *args, **kwargs):
+        return self.active.transform_params(*args, **kwargs)
+
+    def params_process(self, process=None, params=None, current=None, fixed=False):
+        """Another process's params mapped onto this one by name prefix: the
+        keys of ``params`` (``process.params`` by default) with
+        ``process.name`` replaced by this process's name, where ``current``
+        (this process's params by default) has them, and ``current``'s
+        values for the rest."""
+        if process is None:
+            process = self
+        if params is None:
+            params = process.params
+        if current is None:
+            current = self.params
+        renamed = {k.replace(process.name, self.name, 1): v for k, v in params.items()}
+        out = DictObj({k: v for k, v in renamed.items() if k in current})
+        out.update({k: v for k, v in current.items() if k not in renamed})
+        return out
+
+    @property
+    def model(self):
+        return self.active
+
     @property
     def params(self):
         return self.active.params
@@ -204,6 +244,22 @@ class StochasticProcess(BatchedModel):
     @property
     def params_default(self):
         return self.active.params_default
+
+    @property
+    def params_test(self):
+        return self.active.params_test
+
+    @property
+    def ndim(self):
+        return self.active.ndim
+
+    @property
+    def transformations(self):
+        return self.active.original_to_transformed_names
+
+    @property
+    def potentials(self):
+        return self.active.potentials
 
     def filter_params(self, params):
         return DictObj({p.name: params[p.name] for p in self.active.ordered_params
@@ -261,6 +317,14 @@ class StochasticProcess(BatchedModel):
     @space.setter
     def space(self, value):
         self.set_space(space=value)
+
+    @property
+    def hidden(self):
+        return self.np_hidden
+
+    @hidden.setter
+    def hidden(self, value):
+        self.np_hidden = value
 
     @property
     def inputs(self):
@@ -342,6 +406,9 @@ class StochasticProcess(BatchedModel):
     def th_logpredictive(self, prior=False, noise=False):
         return None
 
+    def th_cross_mean(self, prior=False, noise=False, cross_kernel=None):
+        return None
+
     def th_std(self, *args, **kwargs):
         var_fn = self.th_variance(*args, **kwargs)
         if var_fn is None:
@@ -356,6 +423,37 @@ class StochasticProcess(BatchedModel):
         """Observed-data loglikelihood ``fn(params, space, inputs, outputs)``
         of THIS process (subclass hook)."""
         return None
+
+    def th_error_l1(self, prior=False, noise=False):
+        """Mean absolute error of the process mean against ``vector``."""
+        mean_fn = self.th_mean(prior=prior, noise=noise)
+        if mean_fn is None:
+            return None
+
+        def fn(params, space, inputs, outputs, vector):
+            return torch.mean(torch.abs(vector - mean_fn(params, space, inputs, outputs, vector)))
+
+        return fn
+
+    def th_error_l2(self, prior=False, noise=False):
+        """Mean squared error of the process mean against ``vector``."""
+        mean_fn = self.th_mean(prior=prior, noise=noise)
+        if mean_fn is None:
+            return None
+
+        def fn(params, space, inputs, outputs, vector):
+            return torch.mean((vector - mean_fn(params, space, inputs, outputs, vector)) ** 2)
+
+        return fn
+
+    def th_error_mse(self, prior=False, noise=False):
+        """mean(a)^2 + var(a) of a = |vector - outputs| (the reference's
+        ``mse``)."""
+        def fn(params, space, inputs, outputs, vector):
+            a = torch.abs(vector - outputs)
+            return torch.mean(a) ** 2 + torch.var(a, unbiased=False)
+
+        return fn
 
     def _call_method(self, th_name, params=None, space=None, inputs=None,
                      outputs=None, vector=None, prior=False, noise=False, array=False,
@@ -388,6 +486,11 @@ class StochasticProcess(BatchedModel):
     logpredictive = _statistic(
         "th_logpredictive", "Log predictive density of ``vector`` at ``space`` "
         "(independent marginals).")
+    cross_mean = _statistic("th_cross_mean", "Posterior mean at ``space`` through "
+                            "``cross_kernel`` (the process's own kernel by default).")
+    error_l1 = _statistic("th_error_l1", "Mean absolute error of the mean against ``vector``.")
+    error_l2 = _statistic("th_error_l2", "Mean squared error of the mean against ``vector``.")
+    error_mse = _statistic("th_error_mse", "mean(a)^2 + var(a), a = |vector - outputs|.")
 
     # ----------------------------------------------------------------- logp
     def _logp_pure(self, prior=False, like_only=False):
@@ -816,19 +919,30 @@ class StochasticProcess(BatchedModel):
         batched L-BFGS of :func:`~g3py_tpu_torch.bayesian.optimize_jax.
         lbfgs_maximize` (``max_iters`` iterations at most): ``points``
         starts, the first ``start`` and jittered copies of it, each
-        evaluation of the objective one batched call over the starts."""
+        evaluation of the objective one batched call over the starts.
+        ``engine='iterative'`` (GP family) trains through the matrix-free
+        NLL of ``nll_iterative`` (``_find_map_iterative`` takes its solver
+        keywords: ``rank``, ``block``, ``cg_iters``, ``probes``,
+        ``lanczos_iters``, ``seed``, ``loop`` and ``linesearch_steps``)."""
         if objective not in ("logp", "loo"):
             raise ValueError(f"unknown objective {objective!r}")
         if engine == "jax":
             return self._find_map_jax(start=start, points=points, return_points=return_points,
                                       display=display, max_iters=max_iters,
                                       objective=objective, **kwargs)
+        if objective == "loo" and engine not in ("scipy", "jax"):
+            raise ValueError("objective='loo' is wired into the scipy and jax engines only")
+        if engine == "iterative":
+            if not hasattr(self, "_find_map_iterative"):
+                raise ValueError(f"engine='iterative' needs the GP family, not "
+                                 f"{type(self).__name__}")
+            return self._find_map_iterative(start=start, points=points,
+                                            return_points=return_points, display=display,
+                                            max_iters=max_iters, **kwargs)
         if engine != "scipy":
-            items = {"iterative": "item 11", "distributed": "item 16"}
-            if engine in items:
-                raise NotImplementedError(
-                    f"find_MAP(engine={engine!r}) is not ported yet "
-                    f"(ROADMAP Queue 1 {items[engine]})")
+            if engine == "distributed":
+                raise NotImplementedError("find_MAP(engine='distributed') is not ported yet "
+                                          "(ROADMAP Queue 1 item 16)")
             raise ValueError(f"unknown engine {engine!r}")
         if kwargs:
             raise TypeError(f"find_MAP(engine={engine!r}) got unexpected keyword arguments "

@@ -86,6 +86,9 @@ class StudentTProcess(EllipticalProcess):
             kwargs["degree"] = Freedom()
         super().__init__(*args, **kwargs)
 
+    def th_define_process(self):
+        self.distribution = WarpedStudentTDistribution
+
     def th_loglike_fn(self):
         """Observed-data loglikelihood: the warped multivariate t over the
         prior moments of the inputs, through ``mvn_quad_logdet``.  A failed

@@ -111,6 +111,9 @@ class TransportGaussianProcess(TransportProcess):
         kwargs.setdefault("name", "TGP")
         super().__init__(*args, **kwargs)
 
+    def th_define_process(self):
+        self.distribution = TransportGaussianDistribution
+
     def th_loglike_fn(self):
         t = self.f_transport
 

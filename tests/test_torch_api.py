@@ -18,12 +18,13 @@ import g3py_tpu_torch as g3t
 from g3py_tpu.bayesian import advi as jadvi, neutra as jneutra, nuts as jnuts
 from g3py_tpu.bayesian import optimize_jax as jlbfgs, samplers as jsam
 from g3py_tpu.bayesian.selection import optimize as jopt
-from g3py_tpu.ops import linalg as jla, rff as jrff
+from g3py_tpu.ops import iterative as jit_ops, linalg as jla, rff as jrff
 from g3py_tpu.ops.root import newton_inverse as jnewton
 from g3py_tpu.utils import data as jdata, reference_io as jio
 from g3py_tpu_torch.bayesian import neutra as tneutra, samplers as tsam
 from g3py_tpu_torch.bayesian.selection import optimize as topt
-from g3py_tpu_torch.ops import linalg as tla, rff as trff
+from g3py_tpu_torch.bayesian import optimize_jax as tlbfgs
+from g3py_tpu_torch.ops import iterative as tit_ops, linalg as tla, rff as trff
 from g3py_tpu_torch.ops.root import newton_inverse as tnewton
 from g3py_tpu_torch.utils import data as tdata, reference_io as tio
 
@@ -36,9 +37,19 @@ PROCESS_METHODS = ["set_space", "observed", "logp", "loglike", "dlogp", "logp_ch
                    "fixed_loglike", "fixed_logprior", "batch_sample", "particles",
                    "clustered_predictors", "eval_params",
                    "th_logpredictive", "th_median", "th_covariance", "th_kernel",
-                   "th_cholesky", "th_cholesky_diag", "th_mean", "th_variance"]
+                   "th_cholesky", "th_cholesky_diag", "th_mean", "th_variance",
+                   "nll_iterative", "predictor_iterative", "_find_map_iterative",
+                   "params_random", "params_datatrace", "transform_params", "params_process",
+                   "th_cross_mean", "th_error_l1", "th_error_l2", "th_error_mse",
+                   "th_mapping_inv", "th_define_process"]
 STATISTICS = ["mean", "median", "variance", "std", "covariance", "logpredictive", "mapping",
-              "location", "kernel", "cholesky", "kernel_diag", "kernel_sd", "cholesky_diag"]
+              "location", "kernel", "cholesky", "kernel_diag", "kernel_sd", "cholesky_diag",
+              "cross_mean", "error_l1", "error_l2", "error_mse", "mapping_inv"]
+ITERATIVE_OPS = ["cg_solve", "slq_logdet", "lazy_kernel_matvec", "iterative_gp_nll",
+                 "pivoted_cholesky", "woodbury_preconditioner", "pcg_solve",
+                 "preconditioned_gp_nll"]
+ITERATIVE_PREDICTOR = ["__init__", "predict", "sampler", "mean", "std", "variance",
+                       "quantiler", "median", "logpredictive"]
 
 PAIRS = [
     (g3.models.stochastic.StochasticProcess.__init__,
@@ -94,7 +105,10 @@ PAIRS = [
     (jadvi.fit_advi, g3t.fit_advi),
     (jadvi.advi_draws, g3t.advi_draws),
     (jlbfgs.lbfgs_maximize, g3t.lbfgs_maximize),
-] + [(getattr(g3.WGP, name), getattr(g3t.WGP, name)) for name in PROCESS_METHODS] + [
+    (jlbfgs.lbfgs_minimize_guarded, tlbfgs.lbfgs_minimize_guarded),
+] + [(getattr(jit_ops, name), getattr(tit_ops, name)) for name in ITERATIVE_OPS] + [
+    (getattr(g3.IterativePredictor, name), getattr(g3t.IterativePredictor, name))
+    for name in ITERATIVE_PREDICTOR] + [(getattr(g3.WGP, name), getattr(g3t.WGP, name)) for name in PROCESS_METHODS] + [
     (getattr(g3, cls).__init__, getattr(g3t, cls).__init__)
     for cls in ("WarpingTanh", "ArcsinhLinear", "BoxCoxLinear", "Identity", "SE", "MAT32",
                 "MAT52", "RQ", "Bias")]

@@ -119,11 +119,13 @@ def test_find_map_return_points_and_unported_options():
     assert [p[0] for p in points] == ["start", "start_bfgs"]
     assert points[1][1] >= points[0][1]
     assert set(params) == set(tp.params_default)
-    for kw, match in [(dict(engine="iterative"), "item 11"),
-                      (dict(engine="distributed"), "item 16"), (dict(plot=True), "plotting")]:
+    for kw, match in [(dict(engine="distributed"), "item 16"), (dict(plot=True), "plotting")]:
         with pytest.raises(NotImplementedError, match=match):
             tp.find_MAP(display=False, **kw)
-    for kw in (dict(engine="nope"), dict(objective="nope")):
+    # engine='iterative' is ported (tests/test_torch_iterative_gp.py): an
+    # unknown loop reaches its own check
+    for kw in (dict(engine="nope"), dict(objective="nope"),
+               dict(engine="iterative", loop="nope")):
         with pytest.raises(ValueError):
             tp.find_MAP(display=False, **kw)
 
