@@ -9,7 +9,9 @@ exported predictor, draws over rows, ``fix_vars`` and the non-centered
 sampler, NUTS, NeuTra, ADVI, HMC and the batched L-BFGS of
 ``find_MAP(engine='jax')``, and the matrix-free path at n=50,000
 (``nll_iterative``, ``find_MAP(engine='iterative')``, the
-``IterativePredictor``) — through the hand-written kernels K1
+``IterativePredictor``), and the sparse families at n=100,000 (the SGPR
+collapsed bound, its Predictor and ``fit_svgp``, the sparse variational
+processes) — through the hand-written kernels K1
 (stationary gram) and K2 (blocked panel Cholesky), and checks them:
 
   phase 0  require a CUDA card; print its name and power limit
@@ -125,7 +127,7 @@ sampler, NUTS, NeuTra, ADVI, HMC and the batched L-BFGS of
            start of an evaluation in one batched K1 and K2 launch, each
            run's launches equal to its predicted evaluations: 11a NUTS on
            the n=125 sampler workload (non-centered, dense mass, 0.95, depth
-           7, 4 chains, warmup 12 + 12 samples), ESS/s, a leaf's wall and
+           7, 4 chains, warmup 8 + 8 samples), ESS/s, a leaf's wall and
            device time, every 10th lnprob vs a float64 host logp; 11b the
            same sampler through sample_hypers in float64 on the card and
            replayed on the CPU from the same numpy draws (1e-8); 11c NUTS on
@@ -134,7 +136,8 @@ sampler, NUTS, NeuTra, ADVI, HMC and the batched L-BFGS of
            optima; 11e ADVI at n=125; 11f NeuTra through neutra_nuts
            (ensemble warmup 32 x 200, a 6-coupling flow fitted once, NUTS in
            latent space, 12 + 12) and its replay through the same flow
-           (float64 card vs CPU at 1e-8, float32 beside it); 11g HMC 4 x 50
+           (float64 card vs CPU at 1e-8, float32 and the whitening beside
+           it, 6 + 3); 11g HMC 4 x 50
            x 10; 11h sample_hypers(method='nuts' | 'advi' | 'neutra')
            non-centered
   phase 12 the matrix-free path (ops/iterative.py) at bench.py's
@@ -153,6 +156,23 @@ sampler, NUTS, NeuTra, ADVI, HMC and the batched L-BFGS of
            n=4096 (float32 and dtype='float64'), its pathwise draws'
            moments, and at n=50,000 its set-up, a batch of 256 with each
            exact_var and the peak memory
+  phase 13 the sparse families at bench.py's
+           sgpr_elbo_grad_evals_per_sec_n100k_m512 workload, SGP(Bias, SE)
+           at n=100,000, d=8, m=512 trainable inducing inputs: 13a the
+           collapsed bound and its gradient (into the inducing inputs
+           through K1's backward) against a float64 host recomputation
+           (1e-3, and 1e-2 along two random directions), seconds an
+           evaluation, K1 x2 and K2 x2 an evaluation, peak memory; K1 at
+           (512,100000,8) and K2 at m=512 against their plain forms and
+           bounds, K2 beside cholesky_ex; 13b the SGP Predictor (batches of
+           256 vs the host's sparse posterior), updated with 256 points vs a
+           fresh state, 512 pathwise paths' moments; 13c fit_svgp, Adam and
+           natgrad=0.2 at batch 1024 (the loss falls), and natgrad=1.0 in
+           full batch at n=4096 (one step is the collapsed optimum); 13d
+           SVP(StudentTLik), SVP(BernoulliLik), MulticlassSVP(3 classes) and
+           HeteroscedasticSVP at n=100,000, m=512: ELBO and gradient vs the
+           float64 host; 13e sample_hypers on SGP at n=4096, m=256, 16 x 20,
+           one batched K1 and K2 call a half-ensemble
 
 The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
 and read just after; the Bayesian path's counts are zeroed and read around
@@ -166,7 +186,9 @@ around each float32 run (10c-10e's batched ones to the batched records,
 the artifact's query batches counted in the loading process), and phase
 11's around each float32 run (to the batched records), and phase 12's
 around 12b's timed evaluations, 12d's fits and 12e's float32 predictors
-(the slab record), so warm-ups, profiles, float64 twins and reference
+(the slab record), and phase 13's around 13a's timed evaluations, 13b's
+serving, 13c's fits, 13d's evaluations (the cross-gram and m=512 records)
+and 13e's sampler (the batched records), so warm-ups, profiles, float64 twins and reference
 checks are not counted.  Each kernel must have
 launched on each path.  Every check raises on failure.  The last lines are
 the kernel record, the card and ``{"ok": true, "device": {...}}``.  Run from
@@ -195,7 +217,8 @@ from g3py_tpu_torch.ops import _build
 from g3py_tpu_torch.ops.linalg import mvn_loo, safe_cholesky_panels
 from g3py_tpu_torch.tools.k2_chain import timeline
 from g3py_tpu_torch.ops.panel_cholesky import panel_cholesky, _plain_form as k2_plain_form
-from g3py_tpu_torch.ops.stationary_gram import KINDS, stationary_gram, _plain_form
+from g3py_tpu_torch.ops.stationary_gram import (KINDS, stationary_gram, _launch, _plain_form,
+                                                _prepare)
 
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
@@ -259,12 +282,71 @@ def profile(fn, reps=1):
     return prof.key_averages()
 
 
-def device_ms(averages, names, reps=1):
-    """Profiler device time per call (ms) of the events whose name holds one
-    of ``names``; None when the profiler saw no device time."""
+def per_call_ms(averages, names, once):
+    """Profiler device time a call (ms): the device time of the events whose
+    name holds one of ``names``, over the count of the events named
+    ``once``, a kernel that each call launches once, so that a trace which
+    kept only some of the calls (torch clears events at the end of each
+    cycle) still reads a call's time; None when the profiler saw none."""
+    calls = sum(e.count for e in averages if _on_device(e) and once in e.key)
     total = sum(_self_device_us(e) for e in averages
                 if _on_device(e) and any(n in e.key for n in names))
-    return total / 1e3 / reps if total > 0 else None
+    return total / 1e3 / calls if calls and total > 0 else None
+
+
+def launch_ms(averages, name):
+    """Profiler device time a launch (ms) of the kernel events named ``name``."""
+    return per_call_ms(averages, (name,), name)
+
+
+def back_to_back_ms(fn, calls=20, reps=5):
+    """CUDA-event time a call of ``fn`` over ``calls`` calls back to back on
+    the device: the stream first sleeps until the host has enqueued every
+    call (the sleep doubles until the start event is still pending when the
+    last call is in), so the events time the device's work and not the
+    host's enqueue rate (a K1 launch takes more host time than the kernel
+    at (256,16384,8))."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, times = 1 << 24, []
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        ahead = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if ahead or cycles >= 1 << 32:
+            times.append(start.elapsed_time(end) / calls)
+        else:
+            cycles *= 2
+    return statistics.median(times)
+
+
+def k1_kernel(kind, x1, x2, rate, var, extra=None):
+    """A callable that launches K1's kernel alone, on the inputs that the
+    wrapper prepares (the port's ``_prepare``: rate-scaled, centred)."""
+    s1, s2 = _prepare(x1, x2, rate)
+    return lambda: _launch(kind, s1, s2, var, extra)
+
+
+def k1_bound_ms(m, n, d, rows=1, width=4):
+    """K1's bound: the inputs read once and the (rows, m, n) grams written
+    once, over 3.35 TB/s (the work is a few flop an output)."""
+    return (rows * m * n + (m + n) * d) * width / PEAK_BYTES * 1e3
+
+
+def k2_bound(n, width=4, rows=1, peak=PEAK_FP32, block=128):
+    """K2's bound (ms) and what sets it: the larger of rows n^3/3 flop over
+    the peak and the bytes a factorization must move (the lower triangle
+    read, L and the diagonal-panel inverses written) over 3.35 TB/s."""
+    nb = -(-n // block)
+    t_flop = rows * n ** 3 / 3 / peak * 1e3
+    t_byte = rows * (n * (n + 1) // 2 + n * n + nb * block * block) * width / PEAK_BYTES * 1e3
+    return max(t_flop, t_byte), "operations" if t_flop >= t_byte else "bytes"
 
 
 def _on_device(evt):
@@ -330,11 +412,14 @@ def phase2():
                     t_p = event_ms(lambda: _plain_form(kind, x1, x2, rate, var, extra))
                     t_pn = event_ms(lambda: _plain_form(kind, x1, x2, rate, var, extra,
                                                         exact=False))
-                    t_dev = device_ms(profile(call, reps=10), ("stationary_gram_kernel",), 10)
-                    timing[(kind, (m, n, d))] = (t_k, t_p, t_dev)
-                    print(f"    time f32 {kind} ({m},{n},{d}): wrapper {t_k:.4f} ms, "
-                          f"kernel device {fmt_ms(t_dev)}, plain {t_p:.4f} ms (norm "
-                          f"decomposition {t_pn:.4f} ms)", flush=True)
+                    t_dev = launch_ms(profile(call, reps=10), "stationary_gram_kernel")
+                    t_b2b = back_to_back_ms(k1_kernel(kind, x1, x2, rate, var, extra))
+                    timing[(kind, (m, n, d))] = dict(ms=t_b2b, device_ms=t_dev,
+                                                     wrapper_ms=t_k, plain_ms=t_p)
+                    print(f"    time f32 {kind} ({m},{n},{d}): kernel {t_b2b:.4f} ms (events, "
+                          f"back to back), device {fmt_ms(t_dev)} (profiler, a launch), "
+                          f"wrapper {t_k:.4f} ms, plain {t_p:.4f} ms (norm decomposition "
+                          f"{t_pn:.4f} ms)", flush=True)
     # autograd: the Function's backward vs the plain form's autograd
     for kind in ("se", "rq"):
         m, n, d = 129, 65, 37
@@ -462,17 +547,16 @@ def phase2b():
                 reps = 10 if n == 4096 else 3
                 t_k = event_ms(lambda: panel_cholesky(a), reps=reps, warmup=1)
                 prof = profile(lambda: panel_cholesky(a), reps=reps)
-                t_dev = device_ms(prof, K2_NAMES, reps)
-                parts = {nm: device_ms(prof, (nm,), reps) for nm in K2_NAMES}
+                t_dev = per_call_ms(prof, K2_NAMES, "prep_kernel")
+                parts = {nm: per_call_ms(prof, (nm,), "prep_kernel") for nm in K2_NAMES}
                 t_p = event_ms(lambda: k2_plain_form(a), reps=reps, warmup=1)
                 t_lib = event_ms(lambda: torch.linalg.cholesky_ex(a), reps=reps, warmup=1)
                 flops = n ** 3 / 3
-                nbytes = (2 * n * n + nb * bs * bs) * 4
-                bound = max(flops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+                bound, bound_by = k2_bound(n, block=bs)
                 timing[n] = dict(ms=t_k, device_ms=t_dev, plain_ms=t_p, library_ms=t_lib,
-                                 bound_ms=bound)
+                                 bound_ms=bound, bound_by=bound_by)
                 print(f"    time f32 n={n}: kernel {t_k:.4f} ms (events), device "
-                      f"{fmt_ms(t_dev)} (profiler); plain {t_p:.4f} ms; cholesky_ex "
+                      f"{fmt_ms(t_dev)} (profiler, a call); plain {t_p:.4f} ms; cholesky_ex "
                       f"{t_lib:.4f} ms; bound {bound:.4f} ms ({flops / t_k / 1e9:.1f} "
                       f"TFLOP/s)", flush=True)
                 print("    K2 device time by kernel (ms per factorization): "
@@ -777,14 +861,15 @@ def phase6a():
                     t_p = event_ms(lambda: _plain_form(kind, x1, x2, rate, var, extra))
                     t_pn = event_ms(lambda: _plain_form(kind, x1, x2, rate, var, extra,
                                                         exact=False))
-                    t_dev = device_ms(profile(call, reps=10), ("stationary_gram_kernel",), 10)
-                    bound = rows * m * n * 4 / PEAK_BYTES * 1e3
-                    timing[(rows, m, n, d)] = dict(ms=t_k, device_ms=t_dev, plain_ms=t_p,
-                                                   bound_ms=bound)
-                    print(f"    time f32 se R={rows} ({m},{n},{d}): wrapper {t_k:.4f} ms, kernel "
-                          f"device {fmt_ms(t_dev)} a launch, plain {t_p:.4f} ms (norm "
-                          f"decomposition {t_pn:.4f} ms), bound "
-                          f"{bound:.4f} ms", flush=True)
+                    t_dev = launch_ms(profile(call, reps=10), "stationary_gram_kernel")
+                    t_b2b = back_to_back_ms(k1_kernel(kind, x1, x2, rate, var, extra))
+                    bound = k1_bound_ms(m, n, d, rows)
+                    timing[(rows, m, n, d)] = dict(ms=t_b2b, device_ms=t_dev, wrapper_ms=t_k,
+                                                   plain_ms=t_p, bound_ms=bound)
+                    print(f"    time f32 se R={rows} ({m},{n},{d}): kernel {t_b2b:.4f} ms "
+                          f"(events, back to back), device {fmt_ms(t_dev)} (profiler, a "
+                          f"launch), wrapper {t_k:.4f} ms, plain {t_p:.4f} ms (norm "
+                          f"decomposition {t_pn:.4f} ms), bound {bound:.4f} ms", flush=True)
             print(f"  batched K1 {str(dtype)[6:]} R={rows} ({m},{n},{d}): 4 families match "
                   "the plain form", flush=True)
     return worst, timing
@@ -826,19 +911,16 @@ def phase6b():
                           warmup=1)
         t_lib = event_ms(lambda: torch.linalg.cholesky_ex(a), reps=reps, warmup=1)
         t_p = event_ms(lambda: k2_plain_form(a), reps=2, warmup=1)
-        t_dev = device_ms(profile(lambda: panel_cholesky(a), reps=reps), K2_NAMES, reps)
-        width = 4 if dtype == torch.float32 else 8
-        nb = -(-n // 128)
-        flops = rows * n ** 3 / 3
-        nbytes = rows * (2 * n * n + nb * 128 * 128) * width
-        peak = PEAK_FP32 if dtype == torch.float32 else PEAK_FP64
-        bound = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
+        t_dev = per_call_ms(profile(lambda: panel_cholesky(a), reps=reps), K2_NAMES,
+                            "prep_kernel")
+        f32 = dtype == torch.float32
+        bound, bound_by = k2_bound(n, 4 if f32 else 8, rows, PEAK_FP32 if f32 else PEAK_FP64,
+                                   dinv.shape[-1])
         timing[(str(dtype)[6:], rows, n)] = dict(
             ms=t_k, device_ms=t_dev, loop_ms=t_loop, library_ms=t_lib, plain_ms=t_p,
-            bound_ms=bound, bound_by="operations" if flops / peak > nbytes / PEAK_BYTES
-            else "bytes")
+            bound_ms=bound, bound_by=bound_by)
         print(f"    time {str(dtype)[6:]} R={rows} n={n}: batched K2 {t_k:.4f} ms (events), "
-              f"device {fmt_ms(t_dev)}; {rows} single K2 calls {t_loop:.4f} ms; cholesky_ex "
+              f"device {fmt_ms(t_dev)} (profiler, a call); {rows} single K2 calls {t_loop:.4f} ms; cholesky_ex "
               f"on the batch {t_lib:.4f} ms; plain {t_p:.4f} ms; bound {bound:.4f} ms",
               flush=True)
     # one failing row: only its info is set, the other rows are untouched
@@ -3920,10 +4002,11 @@ def leaf_profile(logp, z, label):
 
 
 @card_only
-def phase11a(path_batched, warmup=12, samples=12):
+def phase11a(path_batched, warmup=8, samples=8):
     """The JAX package's sampler workload on NUTS (bench.py:769-800, cut
-    from 400 warmup and 300 samples for time: its trees sit at depth ~7, a
-    leaf is ~12 ms of host-bound wall): WGP n=125 non-centered, dense mass,
+    from 400 warmup and 300 samples for time, to 8 + 8 since the sparse
+    phase 13 came: its trees sit at depth ~7, a leaf is ~12 ms of
+    host-bound wall): WGP n=125 non-centered, dense mass,
     target_accept 0.95, max_depth 7, 4 chains, through nuts_sampler as
     bench.py calls it, from the non-centered start that sample_hypers
     jitters (sample_hypers(method='nuts') itself runs in 11b and 11h)."""
@@ -4228,15 +4311,21 @@ def neutra_replay(flow, draws, path_batched):
     z0 = z0.cpu().numpy()
     whitening, _ = g3t.fit_flow(draws, n_couplings=0)
     adapted = {}
-    for label, fl, dtype in (("float64", flow, "float64"), ("float32", flow, "float32"),
-                             ("whitening float64", whitening, "float64")):
+    # the float64 replay (its states and smallest step size feed the probes)
+    # takes NEUTRA_REPLAY's 10 + 10; the float32 and whitening ones, read
+    # for their adapted step sizes only, 6 + 3 (cut for time)
+    for label, fl, dtype, samples, warmup in (
+            ("float64", flow, "float64", 10, NEUTRA_REPLAY["warmup"]),
+            ("float32", flow, "float32", 3, 6),
+            ("whitening float64", whitening, "float64", 3, 6)):
         g3t.settings.floatx = dtype
         try:
             wgp, _, _ = bench_wgp(f"P11_NEUTRA_REPLAY_{len(adapted)}")
             fl = copy.deepcopy(fl).to(dtype=getattr(torch, dtype))
             with HostDraws(12), GradCounts() as cnt:
                 adapted[label] = g3t.nuts_sampler(
-                    g3t.neutra_logp(wgp._sampling_logps()[0], fl), z0, 10, **NEUTRA_REPLAY)
+                    g3t.neutra_logp(wgp._sampling_logps()[0], fl), z0, samples,
+                    **dict(NEUTRA_REPLAY, warmup=warmup))
         finally:
             g3t.settings.floatx = "float32"
         cnt.check(f"11f NeuTra replay {label} on the card", 1 + cnt.leaves,
@@ -4589,29 +4678,37 @@ def phase12a():
     return dict(gaps=gaps, card_s=t_card, cpu_s=t_cpu)
 
 
-def slab_k1(path):
-    """K1 at the slab shape (2048, 50000, 2), float32, SE: profiler device
-    time, CUDA-event wrapper time, the plain version's, the bound (output
-    bytes / 3.35 TB/s) and the gap to the plain form."""
-    gen = torch.Generator(device=CARD).manual_seed(12)
-    m, n, d = 2048, 2 * MO_N, 2
-    x1 = torch.randn(m, d, generator=gen, device=CARD)
-    x2 = torch.randn(n, d, generator=gen, device=CARD)
-    rate = torch.tensor([0.3, 0.7], device=CARD)
-    var = torch.tensor(1.3, device=CARD)
+def k1_record(x1, x2, rate, var, label):
+    """K1 on float32 (x1, x2), SE, against its plain form: the kernel's
+    CUDA-event time over 20 launches back to back (the record's), its
+    profiler time a launch, the wrapper's and the plain form's CUDA-event
+    times, and the bound (inputs read and output written once over 3.35
+    TB/s)."""
     out = stationary_gram("se", x1, x2, rate, var)
     ref = _plain_form("se", x1, x2, rate, var)
     err = float((out - ref).abs().max())
-    require(err <= 1e-5 * 1.3 and finite(out), f"K1 slab vs plain {err:.2e}")
+    require(err <= 1e-5 * float(var) and finite(out), f"{label} vs plain {err:.2e}")
     call = lambda: stationary_gram("se", x1, x2, rate, var)
     t_wrap = event_ms(call)
     t_plain = event_ms(lambda: _plain_form("se", x1, x2, rate, var), reps=10)
-    t_dev = device_ms(profile(call, reps=10), ("stationary_gram_kernel",), 10)
-    bound = m * n * 4 / PEAK_BYTES * 1e3
-    print(f"  K1 slab (2048,50000,2) SE f32: device {fmt_ms(t_dev)}, wrapper {t_wrap:.4f} ms, "
-          f"plain {t_plain:.4f} ms, bound {bound:.4f} ms, max_abs_err {err:.2e}", flush=True)
-    return dict(ms=t_dev if t_dev is not None else t_wrap, wrapper_ms=t_wrap, plain_ms=t_plain,
-                bound_ms=bound, max_abs_err=err)
+    t_dev = launch_ms(profile(call, reps=10), "stationary_gram_kernel")
+    t_k = back_to_back_ms(k1_kernel("se", x1, x2, rate, var))
+    (m, d), n = x1.shape, x2.shape[0]
+    bound = k1_bound_ms(m, n, d)
+    print(f"  {label} ({m},{n},{d}) SE f32: kernel {t_k:.4f} ms (events, back to back), "
+          f"device {fmt_ms(t_dev)} (profiler, a launch), wrapper {t_wrap:.4f} ms, plain "
+          f"{t_plain:.4f} ms, bound {bound:.4f} ms, max_abs_err {err:.2e}", flush=True)
+    return dict(ms=t_k, device_ms=t_dev, wrapper_ms=t_wrap, plain_ms=t_plain, bound_ms=bound,
+                max_abs_err=err)
+
+
+def slab_k1():
+    """K1 at the matrix-free path's slab shape (2048, 50000, 2)."""
+    gen = torch.Generator(device=CARD).manual_seed(12)
+    x1 = torch.randn(2048, 2, generator=gen, device=CARD)
+    x2 = torch.randn(2 * MO_N, 2, generator=gen, device=CARD)
+    return k1_record(x1, x2, torch.tensor([0.3, 0.7], device=CARD),
+                     torch.tensor(1.3, device=CARD), "K1 slab")
 
 
 def phase12b(path):
@@ -4858,12 +4955,514 @@ def phase12(tgp, gp_map, x_map, y_map, map_s, x3, y3, path):
     map_logp = float(tgp.logp(gp_map))
     out = {}
     runs = (("12a", "float64 card vs CPU at n=2048", lambda: phase12a()),
-            ("12k", "K1 at the slab shape", lambda: slab_k1(path)),
+            ("12k", "K1 at the slab shape", slab_k1),
             ("12b", "nll_iterative at n=50000", lambda: phase12b(path)),
             ("12c", "nll_iterative vs exact at n=16384", lambda: phase12c(x3, y3)),
             ("12d", "find_MAP(engine='iterative') at n=4096",
              lambda: phase12d(tgp, x_map, y_map, map_logp, map_s, path)),
             ("12e", "IterativePredictor", lambda: phase12e(tgp, gp_map, x_map, path)))
+    for key, label, run in runs:
+        print(f"phase {key}: {label}", flush=True)
+        t0 = time.perf_counter()
+        out[key] = run()
+        out[key]["wall_s"] = time.perf_counter() - t0
+        print(f"  phase {key} wall {out[key]['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase 13
+# The sparse families (ROADMAP item 12's first half) at bench.py's
+# sgpr_elbo_grad_evals_per_sec_n100k_m512 workload (bench.py:512-554): n =
+# 100,000 points, d = 8, m = 512 explicit inducing inputs x[::195][:512]
+# (trainable), SGP(Bias, SE).  Every check is against a float64
+# recomputation on the host (torch on the CPU, the script's own formulas,
+# differentiated by autograd for the gradient checks).
+SP_N, SP_M, SP_D = 100_000, 512, 8
+SP_SVGP_STEPS = 200       # 13c: fit_svgp steps a mode at batch 1024
+HOST_THREADS = 8
+
+
+def sparse_data(n=None, seed=13):
+    """bench.py:518-523's data (its own rng stream) and inducing inputs."""
+    n = SP_N if n is None else n
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, SP_D)).astype(np.float32)
+    y = (np.sin(x[:, 0]) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    return x, y, x[::max(n // SP_M, 1)][:SP_M].copy()
+
+
+def host_tvalues(reg, u):
+    """Natural-space float64 CPU tensors at the unconstrained float64 tensor
+    ``u`` (differentiable), keyed by the full Param name."""
+    out, start = {}, 0
+    for par in reg.ordered_params:
+        seg = u[start:start + par.size].reshape(par.shape)
+        out[par.name] = torch.exp(seg) if par.prior.transform.name == "log" else seg
+        start += par.size
+    return out
+
+
+def host_se64(a, b, rate, var):
+    """var exp(-|(a - b) rate|^2 / 2) in float64 on the host."""
+    return var * torch.exp(-0.5 * _sq(a * rate, b * rate))
+
+
+def host_whitened(v, name, z, x):
+    """(Luu, V = Luu^{-1} Kuf) of an SE signal kernel."""
+    rate, var = v[f"{name}_SE_rate"], v[f"{name}_SE_var"]
+    luu = torch.linalg.cholesky(host_se64(z, z, rate, var))
+    return luu, torch.linalg.solve_triangular(luu, host_se64(z, x, rate, var), upper=False)
+
+
+def host_sgp_bound(reg, u, x, y, name):
+    """The collapsed bound of SGP(Bias, SE) (Titsias 2009) at ``u``, float64:
+    log N(r | 0, V'V + s2 I) - tr(Kff - V'V) / (2 s2) by Woodbury."""
+    v = host_tvalues(reg, u)
+    s2, var = v[f"{name}_Noise_var"], v[f"{name}_SE_var"]
+    _, vv = host_whitened(v, name, v[f"{name}_Inducing_z"], x)
+    m, n = vv.shape
+    r = y - v[f"{name}_Bias_Bias"]
+    lbt = torch.linalg.cholesky(s2 * torch.eye(m, dtype=x.dtype) + vv @ vv.T)
+    cw = torch.linalg.solve_triangular(lbt, (vv @ r)[:, None], upper=False)[:, 0]
+    quad = r @ r - cw @ cw
+    trace = (var - (vv * vv).sum(0)).sum()
+    return (-0.5 * n * math.log(2 * math.pi) - 0.5 * (n - m) * torch.log(s2)
+            - torch.log(torch.diagonal(lbt)).sum() - 0.5 * (quad + trace) / s2)
+
+
+def host_value_grad(fn, u):
+    """``fn`` and its autograd gradient at the host float64 vector ``u``."""
+    ut = torch.tensor(np.asarray(u, np.float64), requires_grad=True)
+    with torch.enable_grad():
+        val = fn(ut)
+        (grad,) = torch.autograd.grad(val, ut)
+    return float(val.detach()), grad.numpy()
+
+
+def directional_gaps(g, ref, seed):
+    """Relative gaps of the card gradient ``g`` to the host's ``ref`` along
+    two random directions, and of the whole vector (2-norm)."""
+    dirs = np.random.default_rng(seed).standard_normal((2, len(ref)))
+    gaps = [abs(float(d @ g) - float(d @ ref)) / abs(float(d @ ref)) for d in dirs]
+    return gaps, float(np.linalg.norm(g - ref) / np.linalg.norm(ref))
+
+
+def card_value_grad(proc, u, like_only=True):
+    """The card's float32 loglike (or logp) and gradient at ``u``, synced."""
+    val, grad = proc._value_and_grad(proc._logp_pure(like_only=like_only),
+                                     torch.as_tensor(u, dtype=torch.float32, device=CARD))
+    torch.cuda.synchronize()
+    return float(val), grad.cpu().numpy().astype(np.float64)
+
+
+def with_host_threads(fn):
+    old = torch.get_num_threads()
+    torch.set_num_threads(HOST_THREADS)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(old)
+
+
+def sparse_k2(a):
+    """K2 at m=512 on the SGP's B~ (4 panels of 128), float32: against its
+    plain form; its CUDA-event time over 20 calls back to back (the
+    record's), one call's, its profiler time a call, beside cholesky_ex's
+    and the plain form's; and the bound (:func:`k2_bound`)."""
+    n = a.shape[0]
+    lk, dinv, info = panel_cholesky(a)
+    lp, dinv_p, info_p = k2_plain_form(a)
+    require(int(info) == 0 and int(info_p) == 0, f"13 K2 info {int(info)} at m={n}")
+    res, d_err = k2_checks(lk, dinv, a)
+    err = float((lk - lp).abs().max())
+    l_gap = float(torch.linalg.matrix_norm(lk - lp) / torch.linalg.matrix_norm(lp))
+    require(res <= 4 * math.sqrt(n) * torch.finfo(a.dtype).eps and l_gap <= K2_TOL[a.dtype][0]
+            and d_err <= K2_TOL[a.dtype][1], f"13 K2 m={n}: residual {res:.2e}, |L-Lp| "
+            f"{l_gap:.2e}, panels {d_err:.2e}")
+    t_k = back_to_back_ms(lambda: panel_cholesky(a))
+    t_one = event_ms(lambda: panel_cholesky(a), reps=20)
+    t_dev = per_call_ms(profile(lambda: panel_cholesky(a), reps=10), K2_NAMES, "prep_kernel")
+    t_p = event_ms(lambda: k2_plain_form(a), reps=10)
+    t_lib = back_to_back_ms(lambda: torch.linalg.cholesky_ex(a))
+    t_lib_one = event_ms(lambda: torch.linalg.cholesky_ex(a), reps=20)
+    bound, bound_by = k2_bound(n, block=dinv.shape[-1])
+    print(f"  K2 m={n} f32 (B~ = s2 I + V V'): kernel {t_k:.4f} ms (events, back to back; "
+          f"one call {t_one:.4f} ms), device {fmt_ms(t_dev)} (profiler, a call); plain "
+          f"{t_p:.4f} ms; cholesky_ex {t_lib:.4f} ms back to back ({t_lib_one:.4f} ms one "
+          f"call); bound {bound:.5f} ms ({bound_by}); residual {res:.2e}, max abs err "
+          f"{err:.2e}", flush=True)
+    return dict(ms=t_k, one_call_ms=t_one, device_ms=t_dev, plain_ms=t_p, library_ms=t_lib,
+                library_one_call_ms=t_lib_one, bound_ms=bound, bound_by=bound_by,
+                max_abs_err=err)
+
+
+def phase13a(x, y, z, path):
+    """SGP(Bias, SE) at bench's n=100,000, d=8, m=512 (trainable inducing
+    inputs), float32: the bound's value and gradient (through K1's backward
+    into the inducing inputs) against the float64 host; seconds an
+    evaluation (logp + gradient, as bench.py times it, the median of 5
+    after a warm one), K1 and K2 launches an evaluation against the
+    prediction (Kuu and Kuf: 2 K1; Kuu and B~: 2 K2; the diagonal none),
+    the peak allocated memory; then K1 at (512, 100000, 8) and K2 at m=512."""
+    sgp = g3t.SGP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), inducing=z,
+                  name="P13A")
+    sgp.observed(x, y)
+    reg = sgp.active
+    params = sgp.params_default
+    u = reg.dict_to_array(params)
+    pure = sgp._logp_pure()
+    ut = torch.as_tensor(u, device=CARD)
+
+    def evaluate():
+        val, grad = sgp._value_and_grad(pure, ut)
+        torch.cuda.synchronize()
+        return val, grad
+
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    evaluate()  # warm
+    times, per_eval = [], []
+    for _ in range(5):
+        zero_counts()
+        t0 = time.perf_counter()
+        val, grad = evaluate()
+        times.append(time.perf_counter() - t0)
+        k1, k2, retries = launches()
+        per_eval.append((k1, k2, retries))
+        path[0] += k1
+        path[1] += k2
+        require(k1 == 2 and k2 == 2 + retries, f"13a an evaluation launched K1 x{k1}, K2 x{k2} "
+                f"({retries} jitter retries), predicted K1 x2, K2 x2 + retries")
+    peak = torch.cuda.max_memory_allocated()
+    t_eval = statistics.median(times)
+    require(math.isfinite(float(val)) and finite(grad), "13a value or gradient not finite")
+    # where an evaluation's time goes: its device events by kernel
+    t_dev = top_ops(profile(evaluate, reps=3), "13a SGP logp + gradient n=100000 (3 evaluations)")
+    idle = None if t_dev <= 0 else max(0.0, 1.0 - t_dev / 3 / (t_eval * 1e3))
+    # the bound alone (no prior terms) against the float64 host
+    got, g = card_value_grad(sgp, u)
+    x64, y64, z64 = (torch.as_tensor(a, dtype=torch.float64) for a in (x, y, z))
+    t0 = time.perf_counter()
+    ref, g_ref = with_host_threads(lambda: host_value_grad(
+        lambda uu: host_sgp_bound(reg, uu, x64, y64, "P13A"), u))
+    t_host = time.perf_counter() - t0
+    gap = abs(got - ref) / abs(ref)
+    dgaps, norm_gap = directional_gaps(g, g_ref, 13)
+    z_grad = float(np.linalg.norm(g[-SP_M * SP_D:]))
+    print(f"  13a SGP(Bias, SE) n={len(x)} d={x.shape[1]} m={len(z)} float32: logp + gradient "
+          f"{t_eval * 1e3:.1f} ms an evaluation ({1 / t_eval:.2f} evals/s; all "
+          f"{[round(t * 1e3, 1) for t in times]} ms); K1/K2/retries an evaluation {per_eval}; "
+          f"peak allocated {peak / 1e9:.3f} GB ({(peak - before) / 1e9:.3f} GB above the "
+          f"{before / 1e9:.3f} GB before); bound {got:.4f} vs the float64 host {ref:.4f} (gap "
+          f"{gap:.2e}); gradient along two directions {[f'{v:.2e}' for v in dgaps]}, whole "
+          f"{norm_gap:.2e}, |d/dz| {z_grad:.3e}; device {t_dev / 3:.2f} ms an evaluation "
+          f"(idle share {'not measured' if idle is None else f'{idle:.3f}'}); host "
+          f"{t_host:.1f} s", flush=True)
+    require(gap <= 1e-3 and max(dgaps) <= 1e-2,
+            f"13a bound vs host {gap:.2e}, gradient {dgaps}")
+    require(z_grad > 0, "13a no gradient reached the inducing inputs")
+    p = sgp._tensor_params(params)
+    k1rec = k1_record(torch.as_tensor(z, device=CARD), sgp._device_data("inputs"),
+                      p["P13A_SE_rate"], p["P13A_SE_var"], "13 K1 cross gram")
+    state = sgp.posterior_state(params)
+    k2rec = sparse_k2(state["_state_sgp_bt"].contiguous())
+    out = dict(eval_s=t_eval, evals_per_s=1 / t_eval, times=times, launches=per_eval,
+               peak_gb=peak / 1e9, bound=got, bound64=ref, gap=gap, grad_gaps=dgaps,
+               grad_norm_gap=norm_gap, host_s=t_host, device_ms=t_dev / 3, idle=idle,
+               k1=k1rec, k2=k2rec)
+    return sgp, params, out
+
+
+def host_sparse_posterior(reg, u, x, y, xq, name):
+    """The SGPR posterior mean and latent std at ``xq`` in float64:
+    loc + u2' cw and sqrt(var - |tmp1|^2 + s2 |u2|^2)."""
+    v = host_tvalues(reg, torch.as_tensor(u, dtype=torch.float64))
+    z = v[f"{name}_Inducing_z"]
+    s2, var = v[f"{name}_Noise_var"], v[f"{name}_SE_var"]
+    luu, vv = host_whitened(v, name, z, x)
+    m = vv.shape[0]
+    lbt = torch.linalg.cholesky(s2 * torch.eye(m, dtype=x.dtype) + vv @ vv.T)
+    cw = torch.linalg.solve_triangular(lbt, (vv @ (y - v[f"{name}_Bias_Bias"]))[:, None],
+                                       upper=False)[:, 0]
+    tmp1 = torch.linalg.solve_triangular(luu, host_se64(z, xq, v[f"{name}_SE_rate"], var),
+                                         upper=False)
+    u2 = torch.linalg.solve_triangular(lbt, tmp1, upper=False)
+    mean = v[f"{name}_Bias_Bias"] + u2.T @ cw
+    std = torch.sqrt(torch.clamp(var - (tmp1 * tmp1).sum(0) + s2 * (u2 * u2).sum(0), min=0.0))
+    return mean.numpy(), std.numpy()
+
+
+def phase13b(sgp, params, x, y, z, path):
+    """The SGP Predictor from 13a's params: 8 batches of 256 (mean, std,
+    quantiles) against the float64 host's sparse posterior; ``updated``
+    with 256 new points against a fresh state on all the points; 512
+    pathwise paths at 64 points against the predictor's moments."""
+    reg = sgp.active
+    u = reg.dict_to_array(params)
+    rng = np.random.default_rng(131)
+    with counted(path):
+        t0 = time.perf_counter()
+        pr = sgp.predictor(params)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+    x64, y64 = torch.as_tensor(x, dtype=torch.float64), torch.as_tensor(y, dtype=torch.float64)
+    times, gaps = [], []
+    for b in range(8):
+        xq = rng.standard_normal((256, SP_D)).astype(np.float32)
+        with counted(path):
+            t0 = time.perf_counter()
+            out = pr(xq, quantiles=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if b < 2:
+            mean, std = with_host_threads(lambda: host_sparse_posterior(
+                reg, u, x64, y64, torch.as_tensor(xq, dtype=torch.float64), "P13A"))
+            gaps.append({k: rel_gap(out[k].cpu().numpy(), ref)
+                         for k, ref in (("mean", mean), ("std", std))})
+    worst = {k: max(g[k] for g in gaps) for k in gaps[0]}
+    print(f"  13b SGP Predictor n={len(x)} m={len(z)}: set-up {t_setup * 1e3:.1f} ms, a batch "
+          f"of 256 (mean, std, quantiles) median {statistics.median(times) * 1e3:.2f} ms; vs "
+          f"the float64 host (2 batches) {worst}", flush=True)
+    require(max(worst.values()) <= 1e-3, f"13b predictor vs host {worst}")
+    # streaming: 256 new points onto the first n - 256
+    n0 = len(x) - 256
+    old = g3t.SGP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), inducing=z, name="P13A")
+    old.observed(x[:n0], y[:n0])
+    base = old.predictor(params)
+    with counted(path):
+        t0 = time.perf_counter()
+        upd = base.updated(x[n0:], y[n0:])
+        torch.cuda.synchronize()
+        t_upd = time.perf_counter() - t0
+    xq = rng.standard_normal((256, SP_D)).astype(np.float32)
+    got, fresh = upd(xq), pr(xq)
+    upd_gap = {k: rel_gap(got[k].cpu().numpy(), fresh[k].cpu().numpy()) for k in ("mean", "std")}
+    print(f"  13b updated: 256 points onto {n0} in {t_upd * 1e3:.2f} ms (a fresh set-up "
+          f"{t_setup * 1e3:.1f} ms); vs the fresh state {upd_gap}", flush=True)
+    require(max(upd_gap.values()) <= 1e-3, f"13b updated vs fresh {upd_gap}")
+    # pathwise draws of the sparse state
+    samples = 512
+    with counted(path):
+        t0 = time.perf_counter()
+        draws = pr.pathwise_sampler(space=xq[:64], samples=samples, key=0, n_features=4096)
+        torch.cuda.synchronize()
+        t_path = time.perf_counter() - t0
+    mu, sd = fresh["mean"][:64], fresh["std"][:64]
+    z_mean = float(((draws.mean(1) - mu).abs() / (sd / math.sqrt(samples))).max())
+    z_std = float(((draws.std(1) - sd).abs() / (sd / math.sqrt(2 * samples))).max())
+    print(f"  13b pathwise: {samples} paths at 64 points in {t_path * 1e3:.1f} ms; |mean - mu| "
+          f"{z_mean:.2f} and |std - sd| {z_std:.2f} standard errors at most", flush=True)
+    require(finite(draws) and z_mean <= 5 and z_std <= 5,
+            f"13b pathwise moments {z_mean:.2f} / {z_std:.2f} standard errors")
+    return dict(setup_s=t_setup, batch_s=statistics.median(times), host_gaps=worst,
+                updated_s=t_upd, updated_gaps=upd_gap, pathwise_s=t_path, z_mean=z_mean,
+                z_std=z_std)
+
+
+def phase13c(sgp, x_map, y_map, path):
+    """fit_svgp at bench's n=100,000 (batch 1024, SP_SVGP_STEPS steps, Adam
+    and natgrad=0.2): the loss falls, the launches a step as predicted
+    (Adam: K1 x2, K2 x1; natgrad: K1 x2, K2 x2); at phase 5's n=4096 in
+    full batch, natgrad=1.0: one step is the collapsed optimum (its loss is
+    -logp at the start, 1e-3)."""
+    out = {}
+    for natgrad, k2_step in ((None, 1), (0.2, 2)):
+        zero_counts()
+        t0 = time.perf_counter()
+        _, losses = sgp.fit_svgp(batch_size=1024, steps=SP_SVGP_STEPS, lr=1e-2, key=3,
+                                 natgrad=natgrad, display=False)
+        t_fit = time.perf_counter() - t0
+        k1, k2, retries = launches()
+        path[0] += k1
+        path[1] += k2
+        k = max(SP_SVGP_STEPS // 10, 1)
+        head, tail = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+        mode = "adam" if natgrad is None else f"natgrad {natgrad}"
+        out[mode] = dict(s=t_fit, ms_step=t_fit * 1e3 / SP_SVGP_STEPS, loss_head=head,
+                         loss_tail=tail, k1=k1, k2=k2)
+        print(f"  13c fit_svgp[{mode}] n={len(sgp.inputs)} batch 1024, {SP_SVGP_STEPS} steps: "
+              f"{t_fit:.2f} s ({t_fit * 1e3 / SP_SVGP_STEPS:.2f} ms a step), -elbo (mean of {k}) "
+              f"{head:.1f} -> {tail:.1f}; K1 x{k1}, K2 x{k2} ({retries} retries)", flush=True)
+        require(np.isfinite(losses).all() and tail < head, f"13c {mode}: loss {head} -> {tail}")
+        require(k1 == 2 * SP_SVGP_STEPS and k2 == k2_step * SP_SVGP_STEPS + retries,
+                f"13c {mode}: K1 x{k1}, K2 x{k2}, predicted {2 * SP_SVGP_STEPS} / "
+                f"{k2_step * SP_SVGP_STEPS} + {retries}")
+    small = g3t.SGP(space=x_map[:4], location=g3t.Bias(), kernel=g3t.SE(x_map),
+                    inducing=x_map[::8][:SP_M], name="P13C")
+    small.observed(x_map, y_map)
+    p0 = small.params_default
+    with counted(path):
+        _, losses = small.fit_svgp(batch_size=len(x_map), steps=1, lr=1e-12, natgrad=1.0,
+                                   display=False)
+    logp = small.logp(p0)
+    gap = abs(-float(losses[0]) - logp) / abs(logp)
+    print(f"  13c fit_svgp natgrad=1.0 full batch n={len(x_map)} m={SP_M}: one step's -loss "
+          f"{-float(losses[0]):.4f} vs the collapsed logp {logp:.4f} (gap {gap:.2e})",
+          flush=True)
+    require(gap <= 1e-3, f"13c natgrad one step vs the collapsed optimum {gap:.2e}")
+    out["collapsed_gap"] = gap
+    return out
+
+
+def host_svp_elbo(reg, u, x, y, name, kind):
+    """The uncollapsed ELBO of an SVP(Bias | Zero, SE) with whitened q in
+    float64: sum_i E_q[log p(y_i | f_i)] - KL(q || N(0, I)), the expectation
+    by 20-point Gauss-Hermite (StudentT, Bernoulli) or in closed form
+    (the heteroscedastic lognormal moments, the categorical Jensen
+    bound)."""
+    v = host_tvalues(reg, u)
+    z = v[f"{name}_Inducing_z"]
+    _, vv = host_whitened(v, name, z, x)
+    qm, ql = v[f"{name}_Q_qm"], v[f"{name}_Q_ql"]
+    heads = qm.shape[0] if qm.ndim == 2 else None
+    qm_h = qm if heads else qm[None]
+    ql_h = ql if heads else ql[None]
+    lq = torch.tril(ql_h, -1) + torch.diag_embed(torch.exp(torch.diagonal(ql_h, dim1=-2,
+                                                                          dim2=-1)))
+    loc = v.get(f"{name}_Bias_Bias", torch.zeros((), dtype=x.dtype))
+    mf = loc + qm_h @ vv                                       # (H, n)
+    lv = lq.transpose(-1, -2) @ vv                             # (H, m, n)
+    varf = torch.clamp(v[f"{name}_SE_var"] - (vv * vv).sum(0), min=0.0) + (lv * lv).sum(1)
+    kl = 0.5 * ((qm_h * qm_h).sum() + (lq * lq).sum()
+                - 2.0 * torch.diagonal(ql_h, dim1=-2, dim2=-1).sum() - qm_h.numel())
+    if kind == "multiclass":
+        ell = (torch.gather(mf, 0, y.long()[None])[0]
+               - torch.logsumexp(mf + 0.5 * varf, dim=0)).sum()
+        return ell - kl
+    if kind == "heteroscedastic":
+        b = v[f"{name}_HetLik_bias"]
+        m1, m2, v1, v2 = mf[0], mf[1] + b, varf[0], varf[1]
+        prec = torch.exp(torch.clamp(-m2 + 0.5 * v2, -30.0, 30.0))
+        ell = (-0.5 * (math.log(2 * math.pi) + m2) - 0.5 * ((y - m1) ** 2 + v1) * prec).sum()
+        return ell - kl
+    a, w = np.polynomial.hermite.hermgauss(20)
+    a, w = torch.as_tensor(a), torch.as_tensor(w) / math.sqrt(math.pi)
+    f = mf[0][None, :] + math.sqrt(2.0) * torch.sqrt(varf[0])[None, :] * a[:, None]
+    if kind == "studentt":
+        s2, nu = v[f"{name}_StudentTLik_var"], v[f"{name}_StudentTLik_nu"]
+        lp = (torch.lgamma((nu + 1) / 2) - torch.lgamma(nu / 2) - 0.5 * torch.log(nu * math.pi * s2)
+              - (nu + 1) / 2 * torch.log1p((y[None, :] - f) ** 2 / s2 / nu))
+    else:  # bernoulli (probit)
+        lp = torch.special.log_ndtr((2.0 * y[None, :] - 1.0) * f)
+    return (w @ lp).sum() - kl
+
+
+def svp_model(kind, x, y, z):
+    name = "P13D_" + kind
+    if kind == "multiclass":
+        return g3t.MulticlassSVP(space=x[:4], kernel=g3t.SE(x), classes=3, inducing=z, name=name)
+    if kind == "heteroscedastic":
+        return g3t.HeteroscedasticSVP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x),
+                                      inducing=z, name=name)
+    lik = g3t.StudentTLik() if kind == "studentt" else g3t.BernoulliLik()
+    return g3t.SVP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x), likelihood=lik,
+                   inducing=z, name=name)
+
+
+def phase13d(x, f_true, z, path):
+    """The sparse variational family at n=100,000, m=512, float32: SVP with
+    StudentTLik (robust regression) and BernoulliLik (probit),
+    MulticlassSVP (3 classes) and HeteroscedasticSVP, each at a q off the
+    prior (seeded): the ELBO and its gradient against the float64 host (1e-3
+    / 1e-2 along two random directions), K1 x2 and K2 x1 an evaluation,
+    its seconds."""
+    rng = np.random.default_rng(134)
+    targets = {
+        "studentt": f_true + 0.1 * rng.standard_t(3.0, len(f_true)),
+        "bernoulli": (f_true + 0.3 * rng.standard_normal(len(f_true)) > 0).astype(np.float64),
+        "multiclass": np.digitize(f_true, [-0.5, 0.5]).astype(np.float64),
+        "heteroscedastic": f_true + (0.05 + 0.1 * np.abs(x[:, 1])) * rng.standard_normal(
+            len(f_true))}
+    x64 = torch.as_tensor(x, dtype=torch.float64)
+    z64 = torch.as_tensor(z, dtype=torch.float64)
+    out = {}
+    for i, (kind, y) in enumerate(targets.items()):
+        y = y.astype(np.float32)
+        proc = svp_model(kind, x, y, z)
+        proc.observed(x, y)
+        reg = proc.active
+        params = dict(proc.params_default)
+        qr = np.random.default_rng(135 + i)
+        for k, val in params.items():
+            if k.endswith("_qm"):
+                params[k] = (0.1 * qr.standard_normal(np.shape(val))).astype(np.float32)
+            elif k.endswith("_ql"):
+                params[k] = (0.05 * qr.standard_normal(np.shape(val))).astype(np.float32)
+        u = reg.dict_to_array(params)
+        card_value_grad(proc, u)  # warm
+        zero_counts()
+        t0 = time.perf_counter()
+        got, g = card_value_grad(proc, u)
+        t_eval = time.perf_counter() - t0
+        k1, k2, retries = launches()
+        path[0] += k1
+        path[1] += k2
+        y64 = torch.as_tensor(y, dtype=torch.float64)
+        t0 = time.perf_counter()
+        ref, g_ref = with_host_threads(lambda: host_value_grad(
+            lambda uu: host_svp_elbo(reg, uu, x64, y64, proc.name, kind), u))
+        t_host = time.perf_counter() - t0
+        gap = abs(got - ref) / abs(ref)
+        dgaps, norm_gap = directional_gaps(g, g_ref, 136 + i)
+        out[kind] = dict(eval_s=t_eval, elbo=got, elbo64=ref, gap=gap, grad_gaps=dgaps,
+                         grad_norm_gap=norm_gap, k1=k1, k2=k2, host_s=t_host)
+        print(f"  13d {type(proc).__name__}({kind}) n={len(x)} m={len(z)} float32: ELBO + "
+              f"gradient {t_eval * 1e3:.1f} ms; K1 x{k1}, K2 x{k2} ({retries} retries); ELBO "
+              f"{got:.4f} vs the float64 host {ref:.4f} (gap {gap:.2e}); gradient along two "
+              f"directions {[f'{v:.2e}' for v in dgaps]}, whole {norm_gap:.2e}; host "
+              f"{t_host:.1f} s", flush=True)
+        require(k1 == 2 and k2 == 1 + retries, f"13d {kind}: K1 x{k1}, K2 x{k2}")
+        require(gap <= 1e-3 and max(dgaps) <= 1e-2,
+                f"13d {kind}: ELBO vs host {gap:.2e}, gradient {dgaps}")
+    return out
+
+
+def phase13e(x_map, y_map, path_batched):
+    """sample_hypers on SGP(Bias, SE) at phase 5's n=4096 data, m=256 fixed
+    inducing inputs: 16 walkers x 20 iterations, each half-ensemble one
+    batched call (K1 x2: Kuu and Kuf of all rows; K2 x2: Kuu and B~ of all
+    rows, plus jitter retries)."""
+    sgp = g3t.SGP(space=x_map[:4], location=g3t.Bias(), kernel=g3t.SE(x_map),
+                  inducing=x_map[::16][:256], learn_inducing=False, name="P13E")
+    sgp.observed(x_map, y_map)
+    with counted_calls(sgp) as calls:
+        zero_counts()
+        t0 = time.perf_counter()
+        chain, lnprob = sgp.sample_hypers(start=sgp.params_default, samples=20, chains=16,
+                                          noise_mult=0.05, raw=True, seed=13)
+        t_s = time.perf_counter() - t0
+        k1, k2, retries = launches()
+    path_batched[0] += k1
+    path_batched[1] += k2
+    moved = moved_share(chain)
+    print(f"  13e SGP sampler n={len(x_map)} m=256, 16 x 20: {t_s:.2f} s, {len(calls)} batched "
+          f"calls of {sorted(set(calls))} rows; K1 x{k1}, K2 x{k2} ({retries} retries); moved "
+          f"{moved:.3f}", flush=True)
+    require(np.isfinite(lnprob).all() and moved > 0, "13e: lnprob not finite or no move")
+    require(k1 == 2 * len(calls) and k2 == 2 * len(calls) + retries,
+            f"13e K1 x{k1}, K2 x{k2} for {len(calls)} batched calls ({retries} retries)")
+    return dict(s=t_s, calls=len(calls), k1=k1, k2=k2, moved=moved)
+
+
+def phase13(x_map, y_map, path, path_batched):
+    """Phase 13's runs; the launches of 13a's timed evaluations, 13b's
+    predictor, 13c's fits and 13d's evaluations go to ``path``, 13e's
+    batched ones to ``path_batched``."""
+    x, y, z = sparse_data()
+    out = {}
+    print("phase 13a: SGP n=100000 m=512, the bound and its gradient", flush=True)
+    t0 = time.perf_counter()
+    sgp, params, out["13a"] = phase13a(x, y, z, path)
+    out["13a"]["wall_s"] = time.perf_counter() - t0
+    runs = (("13b", "the SGP Predictor, updated and pathwise",
+             lambda: phase13b(sgp, params, x, y, z, path)),
+            ("13c", "fit_svgp", lambda: phase13c(sgp, x_map, y_map, path)),
+            ("13d", "the SVP family at n=100000",
+             lambda: phase13d(x, np.sin(x[:, 0]).astype(np.float64), z, path)),
+            ("13e", "the SGP sampler at n=4096", lambda: phase13e(x_map, y_map, path_batched)))
     for key, label, run in runs:
         print(f"phase {key}: {label}", flush=True)
         t0 = time.perf_counter()
@@ -5043,54 +5642,61 @@ def main():
     print(f"  launches in phase 12: K1 {p12[0]}, K2 {p12[1]}; phase 12 {t12:.1f} s", flush=True)
     require(p12[0] > 0, "phase 12 did not go through K1")
 
+    # ---- the sparse families: the counts are zeroed before, and read after,
+    # 13a's timed evaluations, 13b's predictor set-up, batches, update and
+    # paths, 13c's fits, 13d's timed evaluations and 13e's sampler (to the
+    # batched records); the warm-ups, the float64 host checks and the
+    # kernel timings are not counted
+    p13, p13_batched = [0, 0], [0, 0]
+    t13 = time.perf_counter()
+    sparse = phase13(x_map, y_map, p13, p13_batched)
+    t13 = time.perf_counter() - t13
+    print(f"  launches in phase 13: K1 {p13[0]}, K2 {p13[1]}; batched (13e) K1 "
+          f"{p13_batched[0]}, K2 {p13_batched[1]}; phase 13 {t13:.1f} s", flush=True)
+    require(p13[0] > 0 and p13[1] > 0 and p13_batched[0] > 0 and p13_batched[1] > 0,
+            "phase 13 did not go through both kernels")
+
     shape = (4096, 4096, 8)
-    t_wrap, t_plain, t_dev = k1_timing[("se", shape)]
-    k1_bound = shape[0] * shape[1] * 4 / PEAK_BYTES * 1e3
-    k2t = k2_timing[4096]
+    k1t = dict(k1_timing[("se", shape)], bound_ms=k1_bound_ms(*shape), bound_by="bytes")
+    k1b = dict(k1b_timing[(16, 4096, 4096, 8)], bound_by="bytes")
+    slab = dict(matrix_free["12k"], bound_by="bytes")
+    cross = dict(sparse["13a"]["k1"], bound_by="bytes")
+    k2t, k2b, k2m = k2_timing[4096], k2b_timing[("float32", 11, 4096)], sparse["13a"]["k2"]
+    k1_src = dict(route="cuda", source="g3py_tpu_torch/csrc/stationary_gram.cu",
+                  replaces="g3py_tpu/ops/pallas_gram.py:81")
+    k2_src = dict(route="cuda", source="g3py_tpu_torch/csrc/panel_cholesky.cu",
+                  replaces="g3py_tpu/ops/pallas_cholesky.py:165")
+
+    def timed(t):
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
+
     record = {"kernels": [
-        {"name": "stationary_gram", "route": "cuda",
-         "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
-         "replaces": "g3py_tpu/ops/pallas_gram.py:81",
-         "launches": k1_serve + k1_train + k1_p7 + p8[0] + p9[0] + p10[0] + p12[0],
-         "max_abs_err": max(k1_worst, catalogue["k1_algebra_err"]["single"]),
-         "ms": t_dev if t_dev is not None else t_wrap, "plain_ms": t_plain,
-         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
-        {"name": "panel_cholesky", "route": "cuda",
-         "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
-         "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
-         "launches": k2_serve + k2_train + k2_p7 + p8[1] + p9[1] + p10[1] + p12[1],
-         "max_abs_err": k2_worst,
-         "ms": k2t["ms"], "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"],
-         "bound_by": "operations", "library_ms": k2t["library_ms"]}]}
-    k1b = k1b_timing[(16, 4096, 4096, 8)]
-    k2b = k2b_timing[("float32", 11, 4096)]
-    record["kernels"] += [
-        {"name": "stationary_gram_batched", "route": "cuda",
-         "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
-         "replaces": "g3py_tpu/ops/pallas_gram.py:81",
+        {"name": "stationary_gram", **k1_src,
+         "launches": (k1_serve + k1_train + k1_p7 + p8[0] + p9[0] + p10[0] + p12[0]
+                      + p13[0]),
+         "max_abs_err": max(k1_worst, catalogue["k1_algebra_err"]["single"]), **timed(k1t)},
+        {"name": "panel_cholesky", **k2_src,
+         "launches": (k2_serve + k2_train + k2_p7 + p8[1] + p9[1] + p10[1] + p12[1]
+                      + p13[1]),
+         "max_abs_err": k2_worst, **timed(k2t)},
+        {"name": "stationary_gram_batched", **k1_src,
          "launches": (k1_bayes + p8_batched[0] + p9_batched[0] + p10_batched[0]
-                      + p11_batched[0]),
-         "max_abs_err": max(k1b_worst, catalogue["k1_algebra_err"]["batched"]),
-         "ms": k1b["device_ms"] if k1b["device_ms"] is not None else k1b["ms"],
-         "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
-        {"name": "panel_cholesky_batched", "route": "cuda",
-         "source": "g3py_tpu_torch/csrc/panel_cholesky.cu",
-         "replaces": "g3py_tpu/ops/pallas_cholesky.py:165",
+                      + p11_batched[0] + p13_batched[0]),
+         "max_abs_err": max(k1b_worst, catalogue["k1_algebra_err"]["batched"]), **timed(k1b)},
+        {"name": "panel_cholesky_batched", **k2_src,
          "launches": (k2_bayes + p8_batched[1] + p9_batched[1] + p10_batched[1]
-                      + p11_batched[1]),
-         "max_abs_err": k2b_worst,
-         "ms": k2b["ms"], "plain_ms": k2b["plain_ms"], "bound_ms": k2b["bound_ms"],
-         "bound_by": k2b["bound_by"], "library_ms": k2b["library_ms"]}]
-    slab = matrix_free["12k"]
-    record["kernels"].append(
-        {"name": "stationary_gram_slab", "route": "cuda",
-         "source": "g3py_tpu_torch/csrc/stationary_gram.cu",
-         "replaces": "g3py_tpu/ops/pallas_gram.py:81", "launches": p12[0],
-         "max_abs_err": slab["max_abs_err"], "ms": slab["ms"], "plain_ms": slab["plain_ms"],
-         "bound_ms": slab["bound_ms"], "bound_by": "bytes", "library_ms": None})
-    print(f"  K1 at {shape} SE f32: device {fmt_ms(t_dev)}, wrapper {t_wrap:.4f} ms, "
-          f"plain {t_plain:.4f} ms, bound {k1_bound:.4f} ms", flush=True)
+                      + p11_batched[1] + p13_batched[1]),
+         "max_abs_err": k2b_worst, **timed(k2b)},
+        {"name": "stationary_gram_slab", **k1_src, "launches": p12[0],
+         "max_abs_err": slab["max_abs_err"], **timed(slab)},
+        {"name": "stationary_gram_cross", **k1_src, "launches": p13[0],
+         "max_abs_err": cross["max_abs_err"], **timed(cross)},
+        {"name": "panel_cholesky_m512", **k2_src, "launches": p13[1],
+         "max_abs_err": k2m["max_abs_err"], **timed(k2m)}]}
+    print(f"  K1 at {shape} SE f32: kernel {k1t['ms']:.4f} ms (events, back to back), device "
+          f"{fmt_ms(k1t['device_ms'])} (profiler, a launch), wrapper {k1t['wrapper_ms']:.4f} "
+          f"ms, plain {k1t['plain_ms']:.4f} ms, bound {k1t['bound_ms']:.4f} ms", flush=True)
     print(f"  training logp+dlogp medians (ms): {train_ms}", flush=True)
     print(f"  Bayesian path: {json.dumps(bayes)}; full width {json.dumps(bayes_full)}",
           flush=True)
@@ -5101,8 +5707,9 @@ def main():
     print(f"  phase 10: {json.dumps(toolbox, default=float)}", flush=True)
     print(f"  phase 11: {json.dumps(gradient, default=float)}", flush=True)
     print(f"  phase 12: {json.dumps(matrix_free, default=float)}", flush=True)
-    print(f"  command time {time.perf_counter() - T_START:.1f} s (phase 12 {t12:.1f} s)",
-          flush=True)
+    print(f"  phase 13: {json.dumps(sparse, default=float)}", flush=True)
+    print(f"  command time {time.perf_counter() - T_START:.1f} s (phase 12 {t12:.1f} s, "
+          f"phase 13 {t13:.1f} s)", flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,9 @@ kernels (with their ``+``/``*`` algebra), metrics, means and warpings, and
 the reference's other process families — Student-t (TP/WTP), marginal
 (MP), transport (TGP) and copula (CGP/CSTP) — trained (``dlogp``,
 ``find_MAP``, with scipy or the batched on-device L-BFGS, or matrix-free at
-large n), sampled (``sample_hypers``:
+large n, or through the sparse families: the SGPR collapsed bound and
+the sparse variational processes over non-gaussian likelihoods), sampled
+(``sample_hypers``:
 the ensemble sampler, NUTS, NeuTra or ADVI over the hyperparameter posterior) and served from one factorization or averaged over a datatrace,
 with the fused stationary gram and the blocked panel Cholesky as
 hand-written CUDA kernels for Hopper (sm_90a), both batched over
@@ -100,7 +102,12 @@ def _import_all():
                          TransportProcess, TransportGaussianProcess, CopulaProcess,
                          CopulaGaussianProcess, CopulaStudentTProcess, TransformedStudentTProcess,
                          GP, WGP, TP, WTP, MP, TGP, CGP, CSTP, Predictor, AveragedPredictor,
-                         IterativePredictor)
+                         IterativePredictor, Likelihood, GaussianLik, StudentTLik, BernoulliLik,
+                         PoissonLik, NegBinomialLik, OrdinalLik, CategoricalLik,
+                         HeteroscedasticLik, InducingPoints, SparseGaussianProcess,
+                         SparseWarpedGaussianProcess, select_inducing, VariationalQ,
+                         VariationalQHeads, SparseVariationalProcess, MulticlassSVP,
+                         HeteroscedasticSVP, SGP, SWGP, SVP)
     from .serving import ExportedPredictor, load_predictor
     compat = importlib.import_module(__name__ + ".compat")
     names = dict(locals())

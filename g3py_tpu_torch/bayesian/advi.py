@@ -48,33 +48,52 @@ def _unpack(theta, ndim, full_rank):
 
 
 class _Adam:
-    """``clip_by_global_norm(10)`` then Adam (b1 0.9, b2 0.999, eps 1e-8)
-    at the rate ``lr * 0.05 ** (count / steps)`` (optax's
-    ``exponential_decay``, continuous), the update written out as optax
-    writes it."""
+    """``optax.adam(lr)`` written out as optax writes it (b1 0.9, b2 0.999,
+    eps 1e-8, a constant rate) over one flat parameter vector: optax's
+    update is elementwise, so a pytree of leaves is their concatenation."""
 
-    b1, b2, eps, max_norm = 0.9, 0.999, 1e-8, 10.0
+    b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def __init__(self, theta, lr, steps):
+    def __init__(self, theta, lr):
         self.m = torch.zeros_like(theta)
         self.v = torch.zeros_like(theta)
-        self.lr, self.steps, self.count = float(lr), int(steps), 0
+        self.lr, self.count = float(lr), 0
+
+    def _rate(self):
+        return self.lr
 
     def step(self, theta, g):
-        norm = torch.sqrt((g * g).sum())
-        g = torch.where(norm < self.max_norm, g, g / norm * self.max_norm)
-        # the rate in float32, as optax's schedule computes it whatever the
-        # parameters' dtype (compiled, count / steps is count * (1 / steps))
-        f32 = dict(dtype=torch.float32)
-        rate = float(torch.tensor(self.lr, **f32) * torch.pow(
-            torch.tensor(0.05, **f32),
-            torch.tensor(self.count, **f32) * (torch.tensor(1.0, **f32) / self.steps)))
+        rate = self._rate()
         self.count += 1
         self.m = (1 - self.b1) * g + self.b1 * self.m
         self.v = (1 - self.b2) * (g * g) + self.b2 * self.v
         m_hat = self.m / (1 - self.b1 ** self.count)
         v_hat = self.v / (1 - self.b2 ** self.count)
         return theta - rate * (m_hat / (torch.sqrt(v_hat) + self.eps))
+
+
+class _ClippedDecayAdam(_Adam):
+    """``clip_by_global_norm(10)`` then Adam at the rate ``lr * 0.05 **
+    (count / steps)`` (optax's ``exponential_decay``, continuous)."""
+
+    max_norm = 10.0
+
+    def __init__(self, theta, lr, steps):
+        super().__init__(theta, lr)
+        self.steps = int(steps)
+
+    def _rate(self):
+        # the rate in float32, as optax's schedule computes it whatever the
+        # parameters' dtype (compiled, count / steps is count * (1 / steps))
+        f32 = dict(dtype=torch.float32)
+        return float(torch.tensor(self.lr, **f32) * torch.pow(
+            torch.tensor(0.05, **f32),
+            torch.tensor(self.count, **f32) * (torch.tensor(1.0, **f32) / self.steps)))
+
+    def step(self, theta, g):
+        norm = torch.sqrt((g * g).sum())
+        g = torch.where(norm < self.max_norm, g, g / norm * self.max_norm)
+        return super().step(theta, g)
 
 
 def fit_advi(logp, z0, steps=2000, mc=8, lr=0.02, full_rank=True, seed=0, sigma0=0.1):
@@ -99,7 +118,7 @@ def fit_advi(logp, z0, steps=2000, mc=8, lr=0.02, full_rank=True, seed=0, sigma0
         parts.append(z0.new_zeros(ndim * ndim))
     theta = torch.cat(parts)
     gen = _generator(seed, z0.device)
-    opt = _Adam(theta, lr, steps)
+    opt = _ClippedDecayAdam(theta, lr, steps)
     tail_start = int(steps) - max(int(steps) // 5, 1)
     acc, cnt = torch.zeros_like(theta), 0
     elbo = theta.new_empty(int(steps))

@@ -337,14 +337,15 @@ def row_shape(h, value):
 
 
 def slice_dims(x, dims):
-    """Select a component's active input columns."""
+    """Select a component's active input columns (the last axis: inputs
+    with a leading row axis, such as a stack of inducing sets, keep it)."""
     if x.ndim == 1:
         x = x[:, None]
     if dims is None:
         return x
     if isinstance(dims, slice):
-        return x[:, dims]
-    return x[:, torch.as_tensor(np.asarray(dims), device=x.device)]
+        return x[..., dims]
+    return x[..., torch.as_tensor(np.asarray(dims), device=x.device)]
 
 
 # ---------------------------------------------------------------------------

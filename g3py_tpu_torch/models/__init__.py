@@ -1,8 +1,10 @@
 """Process layer: the stochastic-process base, the elliptical posterior
 core, GP/WGP and the Student-t TP/WTP, the marginal (MP), transport (TGP)
 and copula (CGP/CSTP) families, the serving Predictor and the
-datatrace-averaged AveragedPredictor, and the matrix-free
-IterativePredictor."""
+datatrace-averaged AveragedPredictor, the matrix-free
+IterativePredictor, and the sparse families: the SGPR collapsed bound
+(SGP/SWGP) and the sparse variational processes (SVP, MulticlassSVP,
+HeteroscedasticSVP) over the observation likelihoods."""
 
 from .stochastic import StochasticProcess
 from .elliptical import EllipticalProcess
@@ -17,6 +19,13 @@ from .transport import (TransportProcess, TransportGaussianProcess,
 from .copula import (CopulaProcess, CopulaGaussianProcess, CopulaStudentTProcess,
                      TransformedStudentTProcess)
 from .predictor import Predictor, AveragedPredictor, IterativePredictor
+from .likelihoods import (Likelihood, GaussianLik, StudentTLik, BernoulliLik, PoissonLik,
+                          NegBinomialLik, OrdinalLik, CategoricalLik, HeteroscedasticLik,
+                          sample_conditional)
+from .sparse import (InducingPoints, SparseGaussianProcess, SparseWarpedGaussianProcess,
+                     select_inducing)
+from .svgp import (VariationalQ, VariationalQHeads, SparseVariationalProcess, MulticlassSVP,
+                   HeteroscedasticSVP)
 
 GP = GaussianProcess
 WGP = WarpedGaussianProcess
@@ -26,6 +35,9 @@ MP = MarginalProcess
 TGP = TransportGaussianProcess
 CGP = CopulaGaussianProcess
 CSTP = CopulaStudentTProcess
+SGP = SparseGaussianProcess
+SWGP = SparseWarpedGaussianProcess
+SVP = SparseVariationalProcess
 
 __all__ = ["StochasticProcess", "EllipticalProcess", "GaussianProcess",
            "WarpedGaussianProcess", "warped_gaussian_logp_cho", "WarpedGaussianDistribution",
@@ -35,5 +47,10 @@ __all__ = ["StochasticProcess", "EllipticalProcess", "GaussianProcess",
            "TransportProcess", "TransportGaussianProcess", "TransportGaussianDistribution",
            "transport_gaussian_logp_t", "CopulaProcess", "CopulaGaussianProcess",
            "CopulaStudentTProcess", "TransformedStudentTProcess", "Predictor",
-           "AveragedPredictor", "IterativePredictor", "GP", "WGP", "TP", "WTP", "MP", "TGP",
-           "CGP", "CSTP"]
+           "AveragedPredictor", "IterativePredictor", "Likelihood", "GaussianLik",
+           "StudentTLik", "BernoulliLik", "PoissonLik", "NegBinomialLik", "OrdinalLik",
+           "CategoricalLik", "HeteroscedasticLik", "sample_conditional", "InducingPoints",
+           "SparseGaussianProcess", "SparseWarpedGaussianProcess", "select_inducing",
+           "VariationalQ", "VariationalQHeads", "SparseVariationalProcess", "MulticlassSVP",
+           "HeteroscedasticSVP", "GP", "WGP", "TP", "WTP", "MP", "TGP", "CGP", "CSTP", "SGP",
+           "SWGP", "SVP"]

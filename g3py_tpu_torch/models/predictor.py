@@ -65,6 +65,10 @@ def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False, 
     posterior factor and takes Student-t quantiles); ``batch`` takes the
     coefficients of ``batch_predict``; ``pair`` gives the (up, down)
     coefficients instead (an exported bundle bakes them)."""
+    if not hasattr(proc, "_latent_moments"):
+        return _th_statistics(proc, p, space, inputs, outputs, mean=mean, std=std, var=var,
+                              cov=cov, median=median, quantiles=quantiles or quantiles_noise,
+                              noise=noise, prior=prior)
     up, down = (proc._quantile_pair(p, inputs, prior=prior, batch=batch)
                 if pair is None and (quantiles or quantiles_noise) else pair or (None, None))
     values = DictObj()
@@ -98,6 +102,31 @@ def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False, 
             nvar = latent + noise_var
             values["noise_std"] = torch.sqrt(moments(loc, nvar)[1])
             values["noise_up"], values["noise_down"] = bands(nvar)
+    return values
+
+
+def _th_statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False,
+                   cov=False, median=False, quantiles=False, noise=False, prior=False):
+    """The statistics of a process with no fused latent-moment path (the
+    sparse variational family), each from its own ``th_*`` builder, as the
+    JAX package's bundle builds them; quantiles need the latent-quantile
+    hook such a process lacks."""
+    if quantiles:
+        raise ValueError(
+            f"{type(proc).__name__} has no analytic latent-quantile hook (_quantile_p): "
+            "fused/exported quantiles are unavailable — use the process-level quantiler "
+            "(Monte Carlo) or export mean/std/var only")
+    values = DictObj()
+    vector = torch.zeros(space.shape[0], dtype=space.dtype, device=space.device)
+    with torch.no_grad():
+        for key, th_name, on in (("mean", "th_mean", mean), ("variance", "th_variance", var),
+                                 ("std", "th_std", std), ("covariance", "th_covariance", cov),
+                                 ("median", "th_median", median)):
+            if on:
+                fn = getattr(proc, th_name)(prior=prior, noise=noise)
+                if fn is None:
+                    raise ValueError(f"{type(proc).__name__} has no {key}")
+                values[key] = fn(p, space, inputs, outputs, vector)
     return values
 
 
@@ -189,17 +218,22 @@ class Predictor(_Bound):
         kernel (SE/MAT32/MAT52/RQ on ARD_L2, sums of them, each over its
         active dims; :func:`g3py_tpu_torch.ops.rff.rff_prior_fn`), the
         update a product pair with the state's L^{-1} and one cross gram
-        (K1), pushed through the warping.  ``key`` is a seed (draws from a
+        (K1), pushed through the warping.  A sparse (SGPR) state draws the
+        inducing values from q(u) in whitened coordinates instead, eps_s =
+        LB~^{-T}(cw + s xi), and f* = m + g(x*) + V_s'(eps_s - Luu^{-1} g(z)):
+        O(m^2) a path, nothing n-sized.  ``key`` is a seed (draws from a
         ``torch.Generator`` on ``settings.device``: the same seed gives one
         continuous sample path however the queries are batched), a
         ``torch.Generator``, or a dict of the draws (``parts``: one
         :func:`~g3py_tpu_torch.ops.rff.draw_rff` dict per feature block;
-        ``eps`` (n, samples); ``noise`` (m, samples) with ``noise``)."""
+        ``eps`` (n, samples), or for a sparse state ``xi`` (m_u, samples);
+        ``noise`` (m, samples) with ``noise``)."""
         from ..hypers import hval
         from ..hypers.kernels import KernelSum, KernelNoise
         from ..ops.guards import to_num
         from ..ops.rff import _generator
         from .elliptical import STATE_OBS_LINV
+        from .sparse import STATE_SGP_LBT, STATE_SGP_LUU, STATE_SGP_CW, STATE_SGP_Z, STATE_SGP_S2
         from .studentt import StudentTProcess
 
         self._check()
@@ -209,36 +243,48 @@ class Predictor(_Bound):
                 "pathwise sampling draws gaussian paths; the Student-t "
                 "posterior needs the scale-mixture sampler statistic "
                 "(pr.sampler / process.sampler) instead")
-        if any(k.startswith("_state_sgp") for k in self.state):
-            raise NotImplementedError("pathwise sampling of a sparse (SGPR) state is not "
-                                      "ported yet (ROADMAP Queue 1 item 12)")
         xq = self._space(space)
         kn = proc.f_kernel_noise
         nv = (hval(kn.k2.var, p) if isinstance(kn, KernelSum) and isinstance(kn.k2, KernelNoise)
               else torch.zeros((), dtype=settings.dtype, device=settings.device))
         draws = key if isinstance(key, dict) else None
         gen = None if draws is not None else _generator(key)
-        x = self.inputs
+
+        def normals(name, shape, like):
+            if draws is not None:
+                return torch.as_tensor(np.array(draws[name]), dtype=like.dtype,
+                                       device=like.device)
+            return torch.randn(shape, generator=gen, dtype=like.dtype, device=like.device)
+
+        sparse = STATE_SGP_LBT in self.state
+        x = self.state[STATE_SGP_Z] if sparse else self.inputs
         prior = _rff_prior(proc.f_kernel, p, x, n_features, samples,
                            draws["parts"] if draws is not None else gen)
         with torch.no_grad():
-            resid = proc._latent_obs(p, self.outputs) - proc.f_location(p, x)
-            g_x = prior(x)
-            eps_std = (torch.as_tensor(np.array(draws["eps"]), dtype=g_x.dtype, device=g_x.device)
-                       if draws is not None else
-                       torch.randn(g_x.shape, generator=gen, dtype=g_x.dtype, device=g_x.device))
-            linv = self.state[STATE_OBS_LINV]
-            a = torch.matmul(linv.T, torch.matmul(linv, resid[:, None] - g_x
-                                                  - torch.sqrt(nv) * eps_std))
-            cross = to_num(proc.f_kernel.cov(p, xq, x))
-            latent = proc.f_location(p, xq)[..., None] + prior(xq) + torch.matmul(cross, a)
+            if sparse:
+                # u_s ~ q(u) in whitened coordinates, eps_s = LB~^{-T}(cw + s xi)
+                # (covariance s2 B~^{-1}), then f* = g(x*) + V_s'(eps_s - Luu^{-1} g(z)):
+                # O(m^2 S), no n-sized work
+                st = self.state
+                luu, lbt, cw = st[STATE_SGP_LUU], st[STATE_SGP_LBT], st[STATE_SGP_CW]
+                xi = normals("xi", (cw.shape[0], samples), cw)
+                eps_s = torch.linalg.solve_triangular(
+                    lbt.T, cw[:, None] + torch.sqrt(st[STATE_SGP_S2]) * xi, upper=True)
+                h = eps_s - torch.linalg.solve_triangular(luu, prior(x), upper=False)
+                v_s = torch.linalg.solve_triangular(luu, to_num(proc.f_kernel.cov(p, x, xq)),
+                                                    upper=False)
+                latent = proc.f_location(p, xq)[..., None] + prior(xq) + torch.matmul(v_s.T, h)
+            else:
+                resid = proc._latent_obs(p, self.outputs) - proc.f_location(p, x)
+                g_x = prior(x)
+                eps_std = normals("eps", g_x.shape, g_x)
+                linv = self.state[STATE_OBS_LINV]
+                a = torch.matmul(linv.T, torch.matmul(linv, resid[:, None] - g_x
+                                                      - torch.sqrt(nv) * eps_std))
+                cross = to_num(proc.f_kernel.cov(p, xq, x))
+                latent = proc.f_location(p, xq)[..., None] + prior(xq) + torch.matmul(cross, a)
             if noise:
-                e = (torch.as_tensor(np.array(draws["noise"]), dtype=latent.dtype,
-                                     device=latent.device)
-                     if draws is not None else
-                     torch.randn(latent.shape, generator=gen, dtype=latent.dtype,
-                                 device=latent.device))
-                latent = latent + torch.sqrt(nv) * e
+                latent = latent + torch.sqrt(nv) * normals("noise", latent.shape, latent)
             return proc.f_mapping(p, latent.reshape(-1)).reshape(latent.shape)
 
     # ----------------------------------------------------------- AOT export

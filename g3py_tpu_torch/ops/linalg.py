@@ -110,7 +110,9 @@ safe_cholesky_panels.retries = 0
 
 
 class _SafeCholesky(torch.autograd.Function):
-    """Robust factorization forward; Murray backward (JAX linalg.py:110-124)."""
+    """Robust factorization forward; Murray backward (JAX linalg.py:110-124).
+    A (R, n, n) stack is factored as one batch and differentiated row by
+    row in one batched backward, a failed row getting a zero gradient."""
 
     @staticmethod
     def forward(ctx, a, max_tries):
@@ -122,16 +124,23 @@ class _SafeCholesky(torch.autograd.Function):
     @staticmethod
     def backward(ctx, chol_bar):
         (chol,) = ctx.saved_tensors
-        if ctx.failed:
+        if chol.ndim == 2 and ctx.failed:
             return torch.zeros_like(chol), None
-        m = torch.matmul(chol.T, chol_bar)
-        phi = torch.tril(m) - 0.5 * torch.diag(torch.diagonal(m))
+        lt = chol.transpose(-1, -2)
+        m = torch.matmul(lt, chol_bar)
+        phi = torch.tril(m) - 0.5 * torch.diag_embed(torch.diagonal(m, dim1=-2, dim2=-1))
         # S = L^{-T} phi L^{-1} via two upper-triangular solves
-        tmp = torch.linalg.solve_triangular(chol.T, phi.T, upper=True)
-        s = torch.linalg.solve_triangular(chol.T, tmp.T, upper=True)
-        a_bar = torch.tril(s + s.T) - torch.diag(torch.diagonal(s))
+        tmp = torch.linalg.solve_triangular(lt, phi.transpose(-1, -2), upper=True)
+        s = torch.linalg.solve_triangular(lt, tmp.transpose(-1, -2), upper=True)
+        a_bar = torch.tril(s + s.transpose(-1, -2)) - torch.diag_embed(
+            torch.diagonal(s, dim1=-2, dim2=-1))
         # symmetrized, as d/dA of cholesky(A) for a full (square) input
-        return 0.5 * (a_bar + a_bar.T), None
+        out = 0.5 * (a_bar + a_bar.transpose(-1, -2))
+        if chol.ndim > 2:
+            # a failed row's factor is 1e-10 I: its products overflow, so
+            # its gradient is selected away, not multiplied by 0
+            out = torch.where(ctx.failed[:, None, None], torch.zeros_like(out), out)
+        return out, None
 
 
 def safe_cholesky(a, max_tries=None):
@@ -200,16 +209,17 @@ def _kinv_from_linv(linv, block=_KINV_BLOCK):
 
 
 def solve_lower_triangular(chol, b):
-    """L x = b for a vector or matrix right-hand side."""
-    if b.ndim == 1:
-        return torch.linalg.solve_triangular(chol, b[:, None], upper=False)[:, 0]
+    """L x = b for a vector or matrix right-hand side (or stacks of both:
+    a (R, m) right-hand side of an (R, m, m) factor is R vectors)."""
+    if b.ndim == chol.ndim - 1:
+        return torch.linalg.solve_triangular(chol, b[..., None], upper=False)[..., 0]
     return torch.linalg.solve_triangular(chol, b, upper=False)
 
 
 def solve_upper_triangular(u, b):
-    """U x = b for a vector or matrix right-hand side."""
-    if b.ndim == 1:
-        return torch.linalg.solve_triangular(u, b[:, None], upper=True)[:, 0]
+    """U x = b for a vector or matrix right-hand side (or stacks of both)."""
+    if b.ndim == u.ndim - 1:
+        return torch.linalg.solve_triangular(u, b[..., None], upper=True)[..., 0]
     return torch.linalg.solve_triangular(u, b, upper=True)
 
 

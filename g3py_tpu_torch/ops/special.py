@@ -2,9 +2,10 @@
 port's copy of what the JAX package takes from ``jax.scipy.special`` and
 ``jax.scipy.stats.norm``).
 
-* :func:`gammaln`, :func:`ndtri` and :func:`ndtr` are torch's own
-  (``torch.lgamma``, ``torch.special``); :func:`norm_cdf` is the normal
-  CDF with a location and a scale.
+* :func:`gammaln` and :func:`ndtri` are torch's own (``torch.lgamma``,
+  ``torch.special``); :func:`ndtr` is the JAX package's two-tailed
+  erf/erfc form (torch's cancels in the lower tail); :func:`norm_cdf` is
+  the normal CDF with a location and a scale.
 * :func:`betainc` is the regularized incomplete beta I_x(a, b), which torch
   lacks: the continued fraction of DLMF 8.17.23 by the modified Lentz
   method, with the symmetry swap of DLMF 8.17.4 where x > (a+1)/(a+b+2),
@@ -16,6 +17,8 @@ port's copy of what the JAX package takes from ``jax.scipy.special`` and
   x^(a-1) (1-x)^(b-1) / B(a, b); a gradient in a or b raises the JAX
   package's ``ValueError``.
 """
+
+import math
 
 import torch
 
@@ -35,14 +38,24 @@ def ndtri(p):
 
 
 def ndtr(x):
-    """The standard normal CDF."""
-    return torch.special.ndtr(x)
+    """The standard normal CDF, 0.5 (1 + erf(w)) for |w| < 1/sqrt(2) and
+    0.5 erfc(|w|) (or 1 - 0.5 erfc(w)) beyond, w = x / sqrt(2) — the form
+    of ``jax.scipy.special.ndtr`` (and scipy's), which keeps both tails.
+    ``torch.special.ndtr`` takes 1 + erf throughout, which cancels in the
+    lower tail: 2% off at x = -8 and 0 below -8.3 in float64, 4% off at
+    x = -5 in float32."""
+    half_sqrt_2 = 0.5 * math.sqrt(2.0)
+    w = x * half_sqrt_2
+    z = torch.abs(w)
+    y = torch.where(z < half_sqrt_2, 1.0 + torch.erf(w),
+                    torch.where(w > 0.0, 2.0 - torch.erfc(z), torch.erfc(z)))
+    return 0.5 * y
 
 
 def norm_cdf(x, loc=0.0, scale=1.0):
     """The normal CDF at ``x`` with location ``loc`` and scale ``scale``
     (``jax.scipy.stats.norm.cdf``)."""
-    return torch.special.ndtr((x - loc) / scale)
+    return ndtr((x - loc) / scale)
 
 
 def betaln(a, b):

@@ -151,14 +151,20 @@ def _gram_op_cpu(kind, x1, x2, rate, var, extra):
     return _plain_form(kind, x1, x2, rate, var, extra)
 
 
-def _gram_op_cuda(kind, x1, x2, rate, var, extra):
-    single = rate.ndim == 1
-    r = rate[None] if single else rate  # (R, d)
+def _prepare(x1, x2, rate):
+    """The kernel's inputs: ``x1`` and ``x2`` scaled by a (d,) or (R, d)
+    ``rate`` and centred on one mean, as contiguous (R, m, d) and (R, n, d)
+    tensors (R = 1 for a (d,) rate)."""
+    r = rate[None] if rate.ndim == 1 else rate  # (R, d)
     s1 = x1 * r[:, None, :]
     s2 = x2 * r[:, None, :]
     center = 0.5 * (s1.mean(dim=-2) + s2.mean(dim=-2))[:, None, :]
-    out = _launch(kind, (s1 - center).contiguous(), (s2 - center).contiguous(), var, extra)
-    return out[0] if single else out
+    return (s1 - center).contiguous(), (s2 - center).contiguous()
+
+
+def _gram_op_cuda(kind, x1, x2, rate, var, extra):
+    out = _launch(kind, *_prepare(x1, x2, rate), var, extra)
+    return out[0] if rate.ndim == 1 else out
 
 
 _LIB.impl("stationary_gram", _gram_op_cpu, "CPU")

@@ -374,3 +374,72 @@ def test_lazy_names_star_import_and_a_failed_load():
                          cwd=root, env={"PYTHONPATH": root, "PATH": "/usr/bin:/bin"},
                          timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+LIKELIHOODS = ["Likelihood", "GaussianLik", "StudentTLik", "BernoulliLik", "PoissonLik",
+               "NegBinomialLik", "OrdinalLik", "CategoricalLik", "HeteroscedasticLik"]
+LIKELIHOOD_METHODS = ["logp_elem", "cond_mean", "cond_var", "expected_logp",
+                      "predictive_moments", "noise_var", "check_targets", "latent_guess",
+                      "default_hypers", "check_hypers"]
+SPARSE_METHODS = {
+    "SGP": ["__init__", "observed", "th_loglike_fn", "th_loglike_masked_fn", "fit_svgp",
+            "predictor", "posterior_state", "predict", "sample_hypers", "find_MAP"],
+    "SWGP": ["__init__", "fit_svgp", "th_mean", "th_variance"],
+    "SVP": ["__init__", "observed", "th_loglike_fn", "th_location", "th_kernel_diag", "th_mean",
+            "th_median", "th_variance", "th_covariance", "th_logpredictive", "posterior_state",
+            "predictor", "predict_proba", "predict_class", "sampler", "quantiler", "fit_svgp"],
+    "MulticlassSVP": ["__init__", "th_mean", "th_variance", "th_covariance",
+                      "th_logpredictive", "predict_proba", "predict_class", "sampler",
+                      "quantiler", "scores", "fit_svgp"],
+    "HeteroscedasticSVP": ["__init__", "th_mean", "th_variance", "th_covariance",
+                           "th_logpredictive", "noise_field", "sampler", "quantiler"],
+    "InducingPoints": ["__init__", "check_hypers", "default_hypers", "value", "resolve"],
+    "VariationalQ": ["__init__", "factors", "kl"],
+    "VariationalQHeads": ["__init__", "factors", "kl"],
+}
+
+
+def test_sparse_names_exposed():
+    """The JAX package's sparse-family names (and aliases) on the port's top
+    level, the aliases the same classes."""
+    for name in LIKELIHOODS + list(SPARSE_METHODS) + [
+            "SparseGaussianProcess", "SparseWarpedGaussianProcess", "SparseVariationalProcess",
+            "select_inducing"]:
+        assert hasattr(g3, name) and hasattr(g3t, name), name
+    assert g3t.SGP is g3t.SparseGaussianProcess and g3t.SWGP is g3t.SparseWarpedGaussianProcess
+    assert g3t.SVP is g3t.SparseVariationalProcess
+    assert g3t.models.SGP is g3t.SGP and g3t.models.SVP is g3t.SVP
+
+
+@pytest.mark.parametrize("cls", sorted(SPARSE_METHODS))
+def test_sparse_classes_take_jax_arguments(cls):
+    for name in SPARSE_METHODS[cls]:
+        _assert_takes(getattr(getattr(g3, cls), name), getattr(getattr(g3t, cls), name),
+                      f"{cls}.{name}")
+
+
+@pytest.mark.parametrize("cls", LIKELIHOODS)
+def test_likelihoods_take_jax_arguments(cls):
+    for name in ["__init__"] + LIKELIHOOD_METHODS:
+        _assert_takes(getattr(getattr(g3, cls), name), getattr(getattr(g3t, cls), name),
+                      f"{cls}.{name}")
+    for name in ("probs", "log_predictive", "noise_mean", "_grid", "_split", "_cuts"):
+        if hasattr(getattr(g3, cls), name):
+            _assert_takes(getattr(getattr(g3, cls), name), getattr(getattr(g3t, cls), name),
+                          f"{cls}.{name}")
+
+
+def test_sparse_functions_take_jax_arguments():
+    from g3py_tpu.models import likelihoods as jlik, sparse as jsp
+    from g3py_tpu_torch.models import likelihoods as tlik, sparse as tsp
+
+    for jf, tf in ((jsp.select_inducing, tsp.select_inducing),
+                   (jsp.make_inducing, tsp.make_inducing),
+                   (jsp.signal_kernel_diag, tsp.signal_kernel_diag),
+                   (jlik.sample_conditional, tlik.sample_conditional)):
+        _assert_takes(jf, tf, tf.__qualname__)
+    # the data-parallel trainers name their ROADMAP item (16)
+    for fn, args in ((tsp._sharded_data_layout, (2, None, None)),
+                     (tsp._sharded_draw_factory, (4, 2, True))):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            fn(*args)

@@ -4,7 +4,8 @@ query batch, the manifest and the files (the JAX package's keys), the
 refusals (no statistic, a stale predictor, a warped covariance, quantiles
 without ``_quantile_p``), the loaded GP, WGP(BoxCoxLinear) and
 WGP(WarpingTanh) statistics against the live predictor and the JAX
-package's, K1 recorded as the registered operator, the loader in a fresh
+package's, an SGP's sparse state likewise, K1 recorded as the registered
+operator, the loader in a fresh
 process importing no model code, and the traced Newton (the
 ``while_loop`` form an exported warping runs) against the host loop."""
 
@@ -42,13 +43,16 @@ MODELS = {
                                         mapping=lib.BoxCoxLinear(y), name="XB"),
     "tanh": lambda lib, x, y: lib.WGP(space=x, location=lib.Bias(), kernel=lib.SE(x),
                                       mapping=lib.WarpingTanh(y, n=2), name="XT"),
+    # the sparse (SGPR) state: (Luu, LB~, cw, ...) m-sized, one (m, s) cross gram a batch
+    "sgp": lambda lib, x, y: lib.SGP(space=x, location=lib.Bias(), kernel=lib.SE(x),
+                                     inducing=x[::5] + 0.01, name="XS"),
 }
 
 
 @pytest.mark.parametrize("model", sorted(MODELS))
 def test_loaded_statistics_match_live_and_jax(model, tmp_path):
     x, y, xq = _data()
-    if model != "gp":
+    if model in ("boxcox", "tanh"):
         y = np.exp(0.3 * y) + 1.0
     flags = FLAGS if model != "tanh" else dict(mean=True, std=True, quantiles=True)
     with floatx("float32"):

@@ -106,6 +106,22 @@ def process_pair(build, x, y):
     return out
 
 
+def jax_logp_dlogp(proc, params):
+    """A JAX process's ``logp`` and ``dlogp`` at the params dict ``params``
+    from one jit of ``jax.value_and_grad`` over the process's own pure logp,
+    where its ``logp`` and ``dlogp`` compile a program each."""
+    from g3py_tpu.ops.guards import to_num
+
+    reg = proc.active
+    pure = proc._logp_pure(prior=False)
+    fn = jax.jit(jax.value_and_grad(
+        lambda u, s, i, o, v: pure(reg.array_to_dict_jax(u), s, i, o, v)))
+    floatx = g3.settings.floatx
+    u = np.asarray(reg.dict_to_array(params), dtype=floatx)
+    val, grad = fn(u, *proc._resolve_data(None, None, None), np.zeros(0, dtype=floatx))
+    return float(val), np.asarray(to_num(grad))
+
+
 def nudged(params, factor=0.1):
     """``params`` moved off their defaults (where a Bias or a warping may
     sit at a zero of its gradient) by ``factor`` relative."""
