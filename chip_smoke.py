@@ -11,7 +11,8 @@ sampler, NUTS, NeuTra, ADVI, HMC and the batched L-BFGS of
 (``nll_iterative``, ``find_MAP(engine='iterative')``, the
 ``IterativePredictor``), and the sparse families at n=100,000 (the SGPR
 collapsed bound, its Predictor and ``fit_svgp``, the sparse variational
-processes) — through the hand-written kernels K1
+processes, the linear model of coregionalization), deep kernels, the
+datatrace toolkit and the Experiment harness — through the hand-written kernels K1
 (stationary gram) and K2 (blocked panel Cholesky), and checks them:
 
   phase 0  require a CUDA card; print its name and power limit
@@ -117,7 +118,7 @@ processes) — through the hand-written kernels K1
            through the row loop; 10d fix_vars over the 8 SE rates on 16
            rows: fixed_logp/fixed_dlogp vs the host's row mean (one batched
            K1 and K2 launch each; the float32 gradient within 4x the card's
-           witness), find_MAP and an 8 x 10 sampler over the other dims;
+           witness), find_MAP and an 8 x 5 sampler over the other dims;
            10e reparam='noncentered'
            on the n=125 workload, 32 x 400 (every _ll the logp at its row);
            10f export of the GP, a WGP(BoxCoxLinear) and a WGP(WarpingTanh)
@@ -135,7 +136,7 @@ processes) — through the hand-written kernels K1
            find_MAP(engine='jax') by logp and by LOO at n=4096 vs the scipy
            optima; 11e ADVI at n=125; 11f NeuTra through neutra_nuts
            (ensemble warmup 32 x 200, a 6-coupling flow fitted once, NUTS in
-           latent space, 12 + 12) and its replay through the same flow
+           latent space, 8 + 8) and its replay through the same flow
            (float64 card vs CPU at 1e-8, float32 and the whitening beside
            it, 6 + 3); 11g HMC 4 x 50
            x 10; 11h sample_hypers(method='nuts' | 'advi' | 'neutra')
@@ -173,6 +174,35 @@ processes) — through the hand-written kernels K1
            HeteroscedasticSVP at n=100,000, m=512: ELBO and gradient vs the
            float64 host; 13e sample_hypers on SGP at n=4096, m=256, 16 x 20,
            one batched K1 and K2 call a half-ensemble
+  phase 14 items 8 and 12 (deep kernels, the LMC, the SVP family's rows, the
+           datatrace toolkit, the Experiment harness), each against a float64
+           host recomputation (values 1e-3, gradients 1e-2 along two random
+           directions): 14a GP(Bias, DeepKernel(SE, widths=(32, 32, 2))) at
+           phase 5's n=4096: logp and dlogp (K1 x1 over the features, K2 x1
+           an evaluation), K1's gradient into both inputs of the square gram
+           against its plain form, find_MAP(engine='jax') raising the logp,
+           a Predictor batch of 256 vs the host posterior, the moments of 512
+           pathwise paths; 14b LMCSVP at bench's sparse width (P=2 outputs of
+           50,000 rows, d=8, m=512, Q=2), one shared SE kernel and one a
+           latent: ELBO and gradient (K1 x2, K2 x1 an evaluation: the
+           latents' grams one batched K1 launch each, their Kuu one batched
+           K2 launch), seconds an evaluation, peak memory, fit_svgp at batch
+           1024 for 50 steps (the loss falls), task_correlations; the
+           per-latent K1 launches at (2,512,512,8) and (2,512,100000,8) and
+           the K2 launch over the (2,512,512) Kuu, as the model makes them,
+           against their plain forms row by row, timed beside their bounds
+           (the latents records); 14c
+           sample_hypers on SVP(GaussianLik) at n=4096, m=256, 16 x 20 (K1
+           x2, K2 x1 a half-ensemble), 16 rows of logp_chain vs 16 single
+           logps; 14d on phase 6c's datatrace both mixtures through
+           cluster_datatrace, a KDE round trip of 1000 draws (K1 and K2 once
+           a refill), find_candidates, a .npz round trip, then
+           errors_datatrace over phase 6d's 16 rows at n=4096 (one batched
+           factorization) vs the host's 16 single-row errors; 14e the
+           Experiment harness, GP(Bias, SE) and WGP(Bias, MAT52,
+           BoxCoxLinear) at n=4096, p=0.5, 2 simulations, engines 'scipy'
+           and 'jax' (every row finite; a second run from the same file adds
+           no row)
 
 The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
 and read just after; the Bayesian path's counts are zeroed and read around
@@ -188,8 +218,16 @@ the artifact's query batches counted in the loading process), and phase
 around 12b's timed evaluations, 12d's fits and 12e's float32 predictors
 (the slab record), and phase 13's around 13a's timed evaluations, 13b's
 serving, 13c's fits, 13d's evaluations (the cross-gram and m=512 records)
-and 13e's sampler (the batched records), so warm-ups, profiles, float64 twins and reference
-checks are not counted.  Each kernel must have
+and 13e's sampler (the batched records), and phase 14's around 14a's
+evaluations, Predictor and paths, 14b's shared-kernel evaluations and
+fits and 14e's scipy experiments (the single records), 14a's and 14e's
+find_MAP(engine='jax'), 14b's per-latent ones (the latents a launch's
+rows), 14c's sampler and rows, 14d's KDE refills and errors (the batched
+records), so warm-ups, profiles, float64 twins and reference
+checks are not counted.  The shape records count a subset of the two
+totals of their kernel: the slab (phase 12's), the cross gram and m=512
+(phase 13's), the features (14a's timed evaluations) and the latents
+(14b's per-latent launches).  Each kernel must have
 launched on each path.  Every check raises on failure.  The last lines are
 the kernel record, the card and ``{"ok": true, "device": {...}}``.  Run from
 the repository root:
@@ -1061,8 +1099,9 @@ def host_profile(proc, rows, label, calls=50):
 def phase6c():
     """The reference sampler workload: WGP(Bias, SE, BoxCoxLinear), n=125,
     d=8, 32 walkers x 400 iterations through sample_hypers, then 4
-    temperatures x 50.  Returns the measurements and the launches of the
-    two runs (the warm-up and the profiles are not counted)."""
+    temperatures x 50.  Returns the measurements, the launches of the two
+    runs (the warm-up and the profiles are not counted) and the process
+    with its datatrace (phase 14d's)."""
     x, y = bench_wgp_data()
     wgp = g3t.WGP(space=x[:4], location=g3t.Bias(), kernel=g3t.SE(x),
                   mapping=g3t.BoxCoxLinear(y), name="SMOKE_BWGP")
@@ -1120,7 +1159,7 @@ def phase6c():
     out["tempered_s"] = t_t
     out["profile"] = iteration_profile(wgp, chain[:, -1, :], "WGP n=125 iteration (R=16)")
     out["host_ms"] = host_profile(wgp, chain[:, -1, :], "WGP n=125 batched logp (R=16)")
-    return out, path
+    return out, path, (wgp, dt)
 
 
 def predictor_gaps(got, refs, scale):
@@ -3567,6 +3606,9 @@ def prior_terms(reg, u):
         g3t.settings.device, g3t.settings.floatx = old
 
 
+SAMPLER_10D = 5  # 10d's sampler iterations (cut from 10 for the script's time)
+
+
 def phase10d(gp, gp_map, dt16, x, y, path_batched):
     """fix_vars over the 8 SE rates on the 16 rows: fixed_logp/fixed_dlogp
     at the MAP's sampling dims against the float64 host's row mean (1e-3,
@@ -3579,7 +3621,7 @@ def phase10d(gp, gp_map, dt16, x, y, path_batched):
     L^{-1} formed in float64 (the float32 product on the card is what
     the gap is made of) and scipy's in float32 on the host;
     find_MAP under fix_vars;
-    sample_hypers over the fixed dims, 8 walkers x 10, the final walkers
+    sample_hypers over the fixed dims, 8 walkers x 5, the final walkers
     against the card's float64 fixed_logp and the best one against the
     host."""
     reg = gp.active
@@ -3616,7 +3658,7 @@ def phase10d(gp, gp_map, dt16, x, y, path_batched):
         us[:, reg.sampling_dims] = sp
         priors = [prior_terms(reg, u) for u in us]  # the settings are global: not threaded
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        with concurrent.futures.ThreadPoolExecutor(HOST_THREADS) as pool:
             rows = list(pool.map(lambda u: host_grad_sampling(reg, u, x64, y64), us))
         ref_v = float(np.mean([r[0] + p[0] for r, p in zip(rows, priors)]))
         ref_g = np.mean([r[1] + p[1][reg.sampling_dims] for r, p in zip(rows, priors)], axis=0)
@@ -3640,7 +3682,7 @@ def phase10d(gp, gp_map, dt16, x, y, path_batched):
         # the witnesses: the same contraction in float32 on the card through
         # torch (held), with its K^{-1} product in float64 (the cause), and
         # on the host through scipy
-        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        with concurrent.futures.ThreadPoolExecutor(HOST_THREADS) as pool:
             host32 = list(pool.map(lambda u: host_grad_sampling(reg, u, x64, y64, np.float32),
                                    us))
         witness = {"card": row_mean_gap(card_witness_grad(reg, us, x, y)),
@@ -3659,8 +3701,8 @@ def phase10d(gp, gp_map, dt16, x, y, path_batched):
                 f"fixed logp {got_v} -> {after}")
         with counted(path_batched):
             t0 = time.perf_counter()
-            ch, lnprob = gp.sample_hypers(start=fmap, samples=10, chains=8, seed=5, raw=True,
-                                          noise_mult=0.02)
+            ch, lnprob = gp.sample_hypers(start=fmap, samples=SAMPLER_10D, chains=8, seed=5,
+                                          raw=True, noise_mult=0.02)
             t_s = time.perf_counter() - t0
         require(np.isfinite(ch).all() and np.isfinite(lnprob).all(),
                 "fixed-dims sampler not finite")
@@ -3679,12 +3721,12 @@ def phase10d(gp, gp_map, dt16, x, y, path_batched):
         us = chain.copy()
         us[:, reg.sampling_dims] = sp_best
         priors = [prior_terms(reg, u)[0] for u in us]
-        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        with concurrent.futures.ThreadPoolExecutor(HOST_THREADS) as pool:
             lls = list(pool.map(lambda u: host_logp(reg, u, x64, y64), us))
         host_v = float(np.mean(np.asarray(lls) + np.asarray(priors)))
         best_gap = abs(lnprob[best, -1] - host_v) / abs(host_v)
         print(f"  10d find_MAP under fix_vars {t_fit:.2f} s (fixed logp {got_v:.4f} -> "
-              f"{after:.4f}); sampler 8 x 10 over 3 sampling dims {t_s:.2f} s, final walkers "
+              f"{after:.4f}); sampler 8 x {SAMPLER_10D} over 3 sampling dims {t_s:.2f} s, final walkers "
               f"vs the card's float64 {walk_gap:.2e}, the best vs the host {best_gap:.2e}",
               flush=True)
         require(walk_gap <= 1e-3 and best_gap <= 1e-3,
@@ -4150,7 +4192,8 @@ def host_gp_posterior(reg, u, x, y):
 @card_only
 def phase11c(gp, gp_map, x, y, path_batched):
     """NUTS at full width: GP(Bias, SE), n=4096, from phase 5's MAP, 4
-    chains, diagonal mass, max_depth 4, warmup 10, samples 10, in float32
+    chains, diagonal mass, max_depth 4, warmup 8, samples 8 (cut from 10 +
+    10 for the script's time), in float32
     (counted) and float64, through nuts_sampler from the start that
     sample_hypers jitters; the final states' lnprob against the float64
     host logp."""
@@ -4164,8 +4207,8 @@ def phase11c(gp, gp_map, x, y, path_batched):
         g3t.settings.floatx = dtype
         try:
             with GradCounts() as cnt:
-                chain, lnprob, info = g3t.nuts_sampler(gp._sampling_logps()[0], z0, 10,
-                                                       warmup=10, key=3, max_depth=4, chains=4)
+                chain, lnprob, info = g3t.nuts_sampler(gp._sampling_logps()[0], z0, 8,
+                                                       warmup=8, key=3, max_depth=4, chains=4)
         finally:
             g3t.settings.floatx = "float32"
         if dtype == "float32":
@@ -4368,12 +4411,12 @@ def neutra_replay(flow, draws, path_batched):
 
 
 @card_only
-def phase11f(path_batched, warmup=12, samples=12, ensemble=200):
+def phase11f(path_batched, warmup=8, samples=8, ensemble=200):
     """NeuTra on the n=125 workload: 32 walkers x 200 ensemble warmup, then
     neutra_nuts on its second half through bench.py:827-828's flow (6
     couplings, hidden 32, 1500 steps), fitted once, timed, and NUTS in the
     latent space (depth 6, target_accept 0.95, dense mass, 4 chains, warmup
-    12, samples 12: cut from 60 + 60 for time, its trees at depth ~6); the
+    8, samples 8: cut from 60 + 60 for time, its trees at depth ~6); the
     same flow gives the round trip and feeds the replay.  The ensemble's
     draws set the replay's latent geometry: 120 iterations gave a flow
     whose CPU replay left its own 1e-12-nudged twin at the first sample,
@@ -5472,6 +5515,641 @@ def phase13(x_map, y_map, path, path_batched):
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+# Items 8 and 12 of the port: deep kernel learning, the linear model of
+# coregionalization, the SVP family's batched rows, the datatrace toolkit
+# and the Experiment harness, each on K1 and K2 at full width against a
+# float64 host recomputation.
+DKL_WIDTHS = (32, 32, 2)
+LMC_M = 512               # 14b: inducing inputs (bench's sparse width)
+LMC_STEPS = 50            # 14b: fit_svgp steps at batch 1024
+PATH_FEATURES = 16384     # 14a: random Fourier features of the pathwise prior (at 4096
+#                           the fitted posterior sd is below the features' own error)
+
+
+def host_dkl(v, name, x, widths=DKL_WIDTHS):
+    """The DeepKernel's tanh MLP features of ``x`` from the natural values
+    ``v`` (float64 on the host)."""
+    h = x
+    for i in range(len(widths)):
+        h = h @ v[f"{name}_DeepKernel_w{i}"] + v[f"{name}_DeepKernel_b{i}"]
+        if i < len(widths) - 1:
+            h = torch.tanh(h)
+    return h
+
+
+def host_dkl_parts(v, name, x):
+    f = host_dkl(v, name, x)
+    rate, var = v[f"{name}_DeepKernel_SE_rate"], v[f"{name}_DeepKernel_SE_var"]
+    return f, rate, var
+
+
+def host_dkl_loglike(reg, u, x, y, name):
+    """GP(Bias, DeepKernel(SE)) loglike at ``u`` in float64 on the host."""
+    v = host_tvalues(reg, u)
+    f, rate, var = host_dkl_parts(v, name, x)
+    k = host_se64(f, f, rate, var) + v[f"{name}_Noise_var"] * torch.eye(len(x),
+                                                                      dtype=x.dtype)
+    chol = torch.linalg.cholesky(k)
+    r = y - v[f"{name}_Bias_Bias"]
+    z = torch.linalg.solve_triangular(chol, r[:, None], upper=False)[:, 0]
+    return (-0.5 * len(x) * math.log(2 * math.pi) - 0.5 * z @ z
+            - torch.log(torch.diagonal(chol)).sum())
+
+
+def host_dkl_posterior(reg, u, x, y, xq, name, dtype=torch.float64):
+    """The posterior mean and latent std at ``xq`` in ``dtype`` on the host."""
+    with torch.no_grad():
+        v = {k: t.to(dtype) for k, t in host_tvalues(reg, torch.as_tensor(
+            np.asarray(u, np.float64))).items()}
+        x, y, xq = (torch.as_tensor(a, dtype=dtype) for a in (x, y, xq))
+        f, rate, var = host_dkl_parts(v, name, x)
+        fq = host_dkl(v, name, xq)
+        k = host_se64(f, f, rate, var) + v[f"{name}_Noise_var"] * torch.eye(len(x), dtype=dtype)
+        chol = torch.linalg.cholesky(k)
+        cross = host_se64(fq, f, rate, var)
+        alpha = torch.cholesky_solve((y - v[f"{name}_Bias_Bias"])[:, None], chol)[:, 0]
+        w = torch.linalg.solve_triangular(chol, cross.T, upper=False)
+        mean = v[f"{name}_Bias_Bias"] + cross @ alpha
+        std = torch.sqrt(torch.clamp(var - (w * w).sum(0), min=0.0))
+    return {"mean": mean.numpy(), "std": std.numpy()}
+
+
+def pickled_tensors(obj, seen=None):
+    """Every tensor reachable from ``obj`` through dicts, lists, tuples and
+    the port's objects' attributes."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return []
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        items = list(obj.values())
+    elif isinstance(obj, (list, tuple)):
+        items = list(obj)
+    elif type(obj).__module__.startswith("g3py_tpu_torch") and hasattr(obj, "__dict__"):
+        items = list(vars(obj).values())
+    else:
+        return []
+    return [t for item in items for t in pickled_tensors(item, seen)]
+
+
+def phase14a(x, y, path, path_batched):
+    """GP(Bias, DeepKernel(SE, widths=(32, 32, 2))) at phase 5's n=4096,
+    d=8, float32: logp and dlogp (K1 x1 over the features, K2 x1 an
+    evaluation) against the float64 host (1e-3; 1e-2 along two random
+    directions), K1's gradient into both inputs of the square gram against
+    its plain form, find_MAP(engine='jax') raising the logp, a Predictor
+    batch of 256 against the host posterior, 512 pathwise paths' moments,
+    and the registry pickled with CPU tensors only; then K1 at the square
+    (4096, 4096, 2) gram of the features against its plain form and its
+    bound (the features record's, whose launches are those of the timed
+    evaluations, one square gram each).  find_MAP's batched L-BFGS goes
+    to ``path_batched`` (as 11d's and 14e's), the rest to ``path``."""
+    name = "P14A"
+    dgp = g3t.GP(space=x[:4], location=g3t.Bias(),
+                 kernel=g3t.DeepKernel(g3t.SE, x, widths=DKL_WIDTHS), name=name)
+    dgp.observed(x, y)
+    reg = dgp.active
+    params = dgp.params_default
+    u = reg.dict_to_array(params)
+    card_value_grad(dgp, u)  # warm
+    times, per_eval = [], []
+    for _ in range(3):
+        with counted(path):
+            t0 = time.perf_counter()
+            got, g = card_value_grad(dgp, u)
+            times.append(time.perf_counter() - t0)
+            k1, k2, retries = launches()
+        per_eval.append((k1, k2, retries))
+        require(k1 == 1 and k2 == 1 + retries, f"14a logp+dlogp launched K1 x{k1}, K2 x{k2}")
+    x64, y64 = torch.as_tensor(x, dtype=torch.float64), torch.as_tensor(y, dtype=torch.float64)
+    t0 = time.perf_counter()
+    ref, g_ref = with_host_threads(lambda: host_value_grad(
+        lambda uu: host_dkl_loglike(reg, uu, x64, y64, name), u))
+    t_host = time.perf_counter() - t0
+    gap = abs(got - ref) / abs(ref)
+    dgaps, norm_gap = directional_gaps(g, g_ref, 141)
+    print(f"  14a DKL GP n={len(x)} widths {DKL_WIDTHS} ({reg.ndim} params) float32: logp + "
+          f"dlogp {statistics.median(times) * 1e3:.1f} ms; K1/K2/retries {per_eval}; loglike "
+          f"{got:.4f} vs the float64 host {ref:.4f} (gap {gap:.2e}); gradient along two "
+          f"directions {[f'{v:.2e}' for v in dgaps]}, whole {norm_gap:.2e}; host "
+          f"{t_host:.1f} s", flush=True)
+    require(gap <= 1e-3 and max(dgaps) <= 1e-2, f"14a vs host {gap:.2e}, gradient {dgaps}")
+    # K1's gradient into both inputs of the square gram (the features)
+    dk = dgp.f_kernel
+    p = dgp._tensor_params(params)
+    rate, var = p[f"{name}_DeepKernel_SE_rate"], p[f"{name}_DeepKernel_SE_var"]
+    with torch.enable_grad():
+        f = dk.features(p, dgp._device_data("inputs")).detach().requires_grad_(True)
+        cot = torch.randn(len(x), len(x), device=CARD, generator=torch.Generator(
+            device=CARD).manual_seed(14))
+        (g_k1,) = torch.autograd.grad(stationary_gram("se", f, f, rate, var), f, cot)
+        (g_plain,) = torch.autograd.grad(_plain_form("se", f, f, rate, var), f, cot)
+    both_gap = rel_gap(g_k1.cpu().numpy(), g_plain.cpu().numpy())
+    print(f"  14a K1 gradient into both inputs ({len(x)} x {f.shape[1]} features): vs the plain form "
+          f"{both_gap:.2e}", flush=True)
+    require(finite(g_k1) and both_gap <= 1e-3, f"14a K1 both-input gradient {both_gap:.2e}")
+    k1rec = k1_record(f.detach(), f.detach(), rate, var, "14a K1 square gram over the features")
+    # find_MAP by the batched L-BFGS
+    before = dgp.logp(params)
+    with counted(path_batched):
+        t0 = time.perf_counter()
+        fit = dgp.find_MAP(start=params, points=1, engine="jax", max_iters=20, display=False)
+        t_fit = time.perf_counter() - t0
+        k1_fit, k2_fit, _ = launches()
+    require(k1_fit > 0 and k2_fit > 0, f"14a find_MAP launched K1 x{k1_fit}, K2 x{k2_fit}")
+    after = dgp.logp(fit)
+    print(f"  14a find_MAP(engine='jax', 20 iterations) {t_fit:.2f} s: logp {before:.2f} -> "
+          f"{after:.2f}", flush=True)
+    require(after > before, f"14a find_MAP did not raise the logp ({before} -> {after})")
+    # a Predictor batch and pathwise paths from the fitted params
+    uf = reg.dict_to_array(fit)
+    xq = np.random.default_rng(142).standard_normal((256, x.shape[1])).astype(np.float32)
+    with counted(path):
+        pr = dgp.predictor(fit)
+        out = pr(xq)
+        torch.cuda.synchronize()
+    ref_s = host_dkl_posterior(reg, uf, x, y, xq, name)
+    gaps = {k: rel_gap(out[k].cpu().numpy(), ref_s[k]) for k in ref_s}
+
+    def witness():
+        w32 = host_dkl_posterior(reg, uf, x, y, xq, name, torch.float32)
+        return max(rel_gap(w32[k], ref_s[k]) for k in ref_s)
+
+    limit = held(max(gaps.values()), 1e-3, witness, "14a Predictor batch vs host")
+    samples = 512
+    with counted(path):
+        t0 = time.perf_counter()
+        draws = pr.pathwise_sampler(space=xq, samples=samples, key=0, n_features=PATH_FEATURES)
+        torch.cuda.synchronize()
+        t_path = time.perf_counter() - t0
+    mu, sd = out["mean"], out["std"]
+    z_mean = float(((draws.mean(1) - mu).abs() / (sd / math.sqrt(samples))).max())
+    z_std = float(((draws.std(1) - sd).abs() / (sd / math.sqrt(2 * samples))).max())
+    print(f"  14a Predictor batch of 256 vs the float64 host {gaps} (limit {limit:.1e}); "
+          f"{samples} pathwise paths in {t_path * 1e3:.1f} ms, |mean - mu| {z_mean:.2f} and "
+          f"|std - sd| {z_std:.2f} standard errors at most", flush=True)
+    require(finite(draws) and z_mean <= 5 and z_std <= 5,
+            f"14a pathwise moments {z_mean:.2f} / {z_std:.2f} standard errors")
+    # the registry pickles with every tensor on the CPU (a CPU host loads it)
+    import pickle
+
+    blob = pickle.dumps(reg)
+    devices = {t.device.type for t in pickled_tensors(pickle.loads(blob))}
+    loaded = pickle.loads(blob)
+    reload_gap = abs(loaded.components[name].logp(fit) - after) / abs(after)
+    print(f"  14a the registry pickled ({len(blob) / 1e6:.2f} MB): tensor devices {devices}; "
+          f"the reloaded process's logp vs the live one {reload_gap:.1e}", flush=True)
+    require(devices <= {"cpu"} and reload_gap <= 1e-6, f"14a registry pickle: {devices}, "
+            f"{reload_gap:.1e}")
+    return dict(eval_s=statistics.median(times), launches=per_eval, loglike=got, loglike64=ref,
+                gap=gap, grad_gaps=dgaps, both_inputs_gap=both_gap, fit_s=t_fit,
+                logp=[before, after], predictor_gaps=gaps, pathwise_s=t_path, z_mean=z_mean,
+                z_std=z_std, host_s=t_host, k1=k1rec,
+                features_launches=sum(e[0] for e in per_eval))
+
+
+def lmc_data():
+    """bench's sparse data split into P=2 outputs of 50,000 rows (the second
+    a scaled, shifted mixture of the first's signal), its inducing
+    features."""
+    x, y, z = sparse_data()
+    half = len(x) // 2
+    y1 = (-0.6 * np.sin(x[half:, 0]) + 0.3 * np.cos(x[half:, 1]) + 0.5
+          + 0.1 * np.random.default_rng(143).standard_normal(len(x) - half)).astype(np.float32)
+    xs, ys = g3t.stack_outputs([x[:half], x[half:]], [y[:half], y1])
+    return xs.astype(np.float32), ys.astype(np.float32), z[:LMC_M]
+
+
+def host_lmc_elbo(reg, u, x, y, name, kernels):
+    """The LMC's uncollapsed ELBO in float64 on the host: whitened heads of
+    each latent's SE kernel (``kernels`` their names, one shared or one a
+    latent), mixed per output, the analytic gaussian expectation, minus
+    the heads' KL."""
+    v = host_tvalues(reg, u)
+    z, xf, idx = v[f"{name}_Inducing_z"], x[:, :-1], x[:, -1].long()
+    qm, ql = v[f"{name}_Q_qm"], v[f"{name}_Q_ql"]
+    lq = torch.tril(ql, -1) + torch.diag_embed(torch.exp(torch.diagonal(ql, dim1=-2, dim2=-1)))
+    mfs, varfs, cache = [], [], {}
+    for q in range(qm.shape[0]):
+        kname = kernels[q % len(kernels)]
+        if kname not in cache:
+            rate, var = v[f"{name}_{kname}_rate"], v[f"{name}_{kname}_var"]
+            luu = torch.linalg.cholesky(host_se64(z, z, rate, var))
+            cache[kname] = (var, torch.linalg.solve_triangular(luu, host_se64(z, xf, rate, var),
+                                                               upper=False))
+        var, vv = cache[kname]
+        lv = lq[q].T @ vv
+        mfs.append(qm[q] @ vv)
+        varfs.append(torch.clamp(var - (vv * vv).sum(0), min=0.0) + (lv * lv).sum(0))
+    w, b = v[f"{name}_Mix_w"], v[f"{name}_Mix_b"]
+    s2 = torch.clamp(v[f"{name}_MultiGaussLik_var"], min=1e-10)[idx]
+    wr = w[idx]
+    mg = v[f"{name}_Bias_Bias"] + b[idx] + sum(wr[:, q] * mfs[q] for q in range(len(mfs)))
+    vg = sum(wr[:, q] ** 2 * varfs[q] for q in range(len(mfs)))
+    ell = (-0.5 * (math.log(2 * math.pi) + torch.log(s2)) - ((y - mg) ** 2 + vg) / (2 * s2)).sum()
+    kl = 0.5 * ((qm * qm).sum() + (lq * lq).sum()
+                - 2.0 * torch.diagonal(ql, dim1=-2, dim2=-1).sum() - qm.numel())
+    return ell - kl
+
+
+def captured_latent_calls(lmc, u):
+    """One (uncounted) evaluation of ``lmc`` at ``u`` with its K1 calls and
+    its factorization's input recorded: the arguments that the kernels
+    module hands to the fused gram (the latents' stacked rates and
+    amplitudes on the shared inputs) and the (Q, m, m) Kuu stack that
+    ``safe_cholesky`` factors."""
+    import g3py_tpu_torch.hypers.kernels as kmod
+    import g3py_tpu_torch.models.lmc as lmod
+
+    grams, kuus = [], []
+    inner_k1, inner_chol = kmod.stationary_gram, lmod.safe_cholesky
+
+    def k1_spy(kind, x1, x2, rate, var, extra=None):
+        grams.append((kind, x1.detach(), x2.detach(), rate.detach(), var.detach(),
+                      None if extra is None else extra.detach()))
+        return inner_k1(kind, x1, x2, rate, var, extra)
+
+    def chol_spy(a, *args, **kw):
+        kuus.append(a.detach())
+        return inner_chol(a, *args, **kw)
+
+    kmod.stationary_gram, lmod.safe_cholesky = k1_spy, chol_spy
+    try:
+        card_value_grad(lmc, u)
+    finally:
+        kmod.stationary_gram, lmod.safe_cholesky = inner_k1, inner_chol
+    return grams, kuus
+
+
+def latent_k1_record(grams, m, n):
+    """The per-latent LMC's K1 launches (the latents' rates and amplitudes
+    as rows on shared 2-D inputs), at the Kuu (Q, m, m) and Kuf (Q, m, n)
+    shapes, against the plain form row by row (phase 6a's tolerance); the
+    Kuf launch's CUDA-event time over 20 launches back to back (the
+    record's), the wrapper's and the plain form's, and the bound."""
+    rtol, atol_rel = TOL[torch.float32]
+    err, shapes = 0.0, []
+    for kind, x1, x2, rate, var, extra in grams:
+        require(x1.ndim == 2 and rate.ndim == 2, f"14b latents' K1 inputs {tuple(x1.shape)}, "
+                f"rates {tuple(rate.shape)}: expected shared inputs and a rate a latent")
+        out = stationary_gram(kind, x1, x2, rate, var, extra)
+        for q in range(rate.shape[0]):
+            ref = _plain_form(kind, x1, x2, rate[q], var[q],
+                              None if extra is None else extra[q])
+            gap = (out[q] - ref).abs()
+            require(bool((gap <= atol_rel * var.max() + rtol * ref.abs()).all())
+                    and finite(out[q]), f"14b latent {q} K1 ({x1.shape[0]},{x2.shape[0]}) vs "
+                    f"plain {float(gap.max()):.2e}")
+            err = max(err, float(gap.max()))
+        shapes.append((rate.shape[0], x1.shape[0], x2.shape[0], x1.shape[1]))
+    require(sorted(s[2] for s in shapes) == [m, n], f"14b latents' K1 shapes {shapes}")
+    kind, x1, x2, rate, var, extra = next(g for g in grams if g[2].shape[0] == n)
+    q, d = rate.shape
+    t_k = back_to_back_ms(k1_kernel(kind, x1, x2, rate, var, extra))
+    t_wrap = event_ms(lambda: stationary_gram(kind, x1, x2, rate, var, extra), reps=10)
+    t_plain = event_ms(lambda: _plain_form(kind, x1, x2, rate, var, extra), reps=5)
+    bound = k1_bound_ms(m, n, d, q)
+    print(f"  14b K1 over the latents {shapes} {kind} f32: every row matches the plain form "
+          f"(max abs err {err:.2e}); at ({q},{m},{n},{d}) kernel {t_k:.4f} ms (events, back to "
+          f"back), wrapper {t_wrap:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms",
+          flush=True)
+    return dict(ms=t_k, wrapper_ms=t_wrap, plain_ms=t_plain, bound_ms=bound, bound_by="bytes",
+                library_ms=None, max_abs_err=err, shapes=shapes)
+
+
+def latent_k2_record(a):
+    """The per-latent LMC's one batched K2 launch over the Q Kuu, against
+    the plain form row by row (phase 6b's checks); its CUDA-event time over
+    20 calls back to back (the record's), the plain form's, cholesky_ex's
+    on the same stack (a call: the batched call waits on the host, so back
+    to back would time the stream's sleep) and the bound."""
+    q, m = a.shape[0], a.shape[-1]
+    l_tol, d_tol = K2_TOL[a.dtype]
+    lk, dinv, info = panel_cholesky(a)
+    require(lk.shape == (q, m, m) and not bool(info.any()), f"14b latents' K2 info {info}")
+    err = 0.0
+    for r in range(q):
+        lp, _, info_p = k2_plain_form(a[r])
+        res, d_err = k2_checks(lk[r], dinv[r], a[r])
+        l_gap = float(torch.linalg.matrix_norm(lk[r] - lp) / torch.linalg.matrix_norm(lp))
+        require(res <= 4 * math.sqrt(m) * torch.finfo(a.dtype).eps and l_gap <= l_tol
+                and d_err <= d_tol and int(info_p) == 0, f"14b latent {r} K2: residual "
+                f"{res:.2e}, |L-Lp|/|Lp| {l_gap:.2e}, panels {d_err:.2e}")
+        err = max(err, float((lk[r] - lp).abs().max()))
+    t_k = back_to_back_ms(lambda: panel_cholesky(a))
+    t_p = event_ms(lambda: k2_plain_form(a), reps=5)
+    t_lib = event_ms(lambda: torch.linalg.cholesky_ex(a))
+    bound, bound_by = k2_bound(m, rows=q, block=dinv.shape[-1])
+    print(f"  14b K2 over the {q} Kuu ({q},{m},{m}) f32: every row matches the plain form "
+          f"(max abs err {err:.2e}); kernel {t_k:.4f} ms (events, back to back), plain "
+          f"{t_p:.4f} ms, cholesky_ex {t_lib:.4f} ms a call, bound {bound:.5f} ms ({bound_by})",
+          flush=True)
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_lib, bound_ms=bound, bound_by=bound_by,
+                max_abs_err=err)
+
+
+def phase14b(path, path_batched):
+    """LMCSVP at bench's sparse width: P=2 outputs of 50,000 rows (n=100,000),
+    d=8, m=512, Q=2, float32, with one shared SE kernel and with one SE
+    kernel a latent: the ELBO and its gradient against the float64 host
+    (1e-3; 1e-2 along two random directions), K1 x2 and K2 x1 an
+    evaluation (the per-latent grams one batched K1 launch each, the two
+    Kuu one batched K2 launch), seconds an evaluation, the peak allocated
+    memory, fit_svgp at batch 1024 (the loss falls) and
+    task_correlations; for per-latent kernels, the captured K1 launches
+    (Kuu and Kuf) and the Kuu stack's K2 launch against their plain forms
+    row by row (the latents records).  The shared kernel's launches go to
+    ``path``, the per-latent ones (the latents are a batched launch's rows)
+    to ``path_batched``, and are returned as the latents records'
+    launches."""
+    x, y, z = lmc_data()
+    x64, y64 = torch.as_tensor(x, dtype=torch.float64), torch.as_tensor(y, dtype=torch.float64)
+    out = {}
+    for mode, kernels in (("shared", ("SE",)), ("per_latent", ("SA", "SB"))):
+        name = "P14B_" + mode
+        record = path if mode == "shared" else path_batched
+        feats = x[:, :-1]
+        kernel = (g3t.SE(feats) if mode == "shared"
+                  else [g3t.SE(feats, name="SA"), g3t.SE(feats, name="SB")])
+        lmc = g3t.LMCSVP(space=x[:4], location=g3t.Bias(), kernel=kernel, outputs_dim=2,
+                         latents=2, inducing=z, name=name)
+        lmc.observed(x, y)
+        reg = lmc.active
+        params = dict(lmc.params_default)
+        qr = np.random.default_rng(144)
+        for k, val in params.items():
+            if k.endswith("_qm"):
+                params[k] = (0.1 * qr.standard_normal(np.shape(val))).astype(np.float32)
+            elif k.endswith("_ql"):
+                params[k] = (0.05 * qr.standard_normal(np.shape(val))).astype(np.float32)
+        u = reg.dict_to_array(params)
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if mode == "per_latent":  # warms, and captures the launches' inputs
+            grams, kuus = captured_latent_calls(lmc, u)
+        else:
+            card_value_grad(lmc, u)  # warm
+        times, per_eval = [], []
+        for _ in range(3):
+            with counted(record):
+                t0 = time.perf_counter()
+                got, g = card_value_grad(lmc, u)
+                times.append(time.perf_counter() - t0)
+                k1, k2, retries = launches()
+            per_eval.append((k1, k2, retries))
+            require(k1 == 2 and k2 == 1 + retries,
+                    f"14b {mode}: an evaluation launched K1 x{k1}, K2 x{k2}")
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        ref, g_ref = with_host_threads(lambda: host_value_grad(
+            lambda uu: host_lmc_elbo(reg, uu, x64, y64, name, kernels), u))
+        t_host = time.perf_counter() - t0
+        gap = abs(got - ref) / abs(ref)
+        dgaps, norm_gap = directional_gaps(g, g_ref, 145)
+        with counted(record):
+            t0 = time.perf_counter()
+            fit, losses = lmc.fit_svgp(batch_size=1024, steps=LMC_STEPS, lr=0.01, start=params,
+                                       key=0, display=False)
+            t_fit = time.perf_counter() - t0
+            k1f, k2f, retries_f = launches()
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        corr = lmc.task_correlations(fit)
+        print(f"  14b LMCSVP {mode} n={len(x)} P=2 Q=2 m={len(z)} float32: ELBO + gradient "
+              f"{statistics.median(times) * 1e3:.1f} ms an evaluation; K1/K2/retries "
+              f"{per_eval}; peak allocated {peak / 1e9:.3f} GB; ELBO {got:.2f} vs the float64 "
+              f"host {ref:.2f} (gap {gap:.2e}); gradient along two directions "
+              f"{[f'{v:.2e}' for v in dgaps]}, whole {norm_gap:.2e}; host {t_host:.1f} s; "
+              f"fit_svgp {LMC_STEPS} steps at batch 1024 {t_fit:.2f} s (K1 x{k1f}, K2 x{k2f}), "
+              f"-ELBO {first:.1f} -> {last:.1f}; task correlation {corr[0, 1]:.4f}", flush=True)
+        require(gap <= 1e-3 and max(dgaps) <= 1e-2,
+                f"14b {mode}: ELBO vs host {gap:.2e}, gradient {dgaps}")
+        require(np.isfinite(losses).all() and last < first,
+                f"14b {mode}: fit_svgp loss did not fall ({first} -> {last})")
+        require(np.allclose(np.diagonal(corr), 1.0) and np.allclose(corr, corr.T)
+                and np.all(np.abs(corr) <= 1 + 1e-6), f"14b {mode}: task correlations {corr}")
+        out[mode] = dict(eval_s=statistics.median(times), launches=per_eval, peak_gb=peak / 1e9,
+                         elbo=got, elbo64=ref, gap=gap, grad_gaps=dgaps,
+                         grad_norm_gap=norm_gap, host_s=t_host, fit_s=t_fit,
+                         fit_launches=[k1f, k2f], loss=[first, last],
+                         task_correlation=float(corr[0, 1]))
+        if mode == "per_latent":
+            require(len(grams) == 2 and len(kuus) == 1 and kuus[0].shape == (2, len(z), len(z)),
+                    f"14b per-latent evaluation: {len(grams)} K1 calls, Kuu stacks "
+                    f"{[tuple(k.shape) for k in kuus]}")
+            out[mode]["k1_latents"] = latent_k1_record(grams, len(z), len(x))
+            out[mode]["k2_latents"] = latent_k2_record(kuus[0])
+            out[mode]["latent_launches"] = [sum(e[0] for e in per_eval) + k1f,
+                                            sum(e[1] for e in per_eval) + k2f]
+    return out
+
+
+def phase14c(x_map, y_map, path_batched):
+    """sample_hypers on SVP(Bias, SE, GaussianLik) at phase 5's n=4096, m=256
+    fixed inducing inputs: 16 walkers x 20, each half-ensemble one batched
+    call (K1 x2: Kuu and Kuf of all rows; K2 x1); then 16 rows of
+    logp_chain against 16 single logps."""
+    svp = g3t.SVP(space=x_map[:4], location=g3t.Bias(), kernel=g3t.SE(x_map),
+                  likelihood=g3t.GaussianLik(), inducing=x_map[::16][:256],
+                  learn_inducing=False, name="P14C")
+    svp.observed(x_map, y_map)
+    with counted_calls(svp) as calls:
+        zero_counts()
+        t0 = time.perf_counter()
+        chain, lnprob = svp.sample_hypers(start=svp.params_default, samples=20, chains=16,
+                                          noise_mult=0.05, raw=True, seed=14)
+        t_s = time.perf_counter() - t0
+        k1, k2, retries = launches()
+    path_batched[0] += k1
+    path_batched[1] += k2
+    moved = moved_share(chain)
+    rows = chain[:, -1, :]
+    with counted(path_batched):
+        batched = svp.logp_chain(rows)
+        k1r, k2r, _ = launches()
+    single = np.array([svp.logp(r, array=True) for r in rows])
+    gap = rel_gap(batched, single)
+    print(f"  14c SVP sampler n={len(x_map)} m=256 ({svp.active.ndim} dims), 16 x 20: "
+          f"{t_s:.2f} s, {len(calls)} batched calls of {sorted(set(calls))} rows; K1 x{k1}, "
+          f"K2 x{k2} ({retries} retries); moved {moved:.3f}; 16 rows of logp_chain (K1 x{k1r}, "
+          f"K2 x{k2r}) vs 16 single logps {gap:.2e}", flush=True)
+    require(np.isfinite(lnprob).all() and moved > 0, "14c: lnprob not finite or no move")
+    require(k1 == 2 * len(calls) and k2 == len(calls) + retries,
+            f"14c K1 x{k1}, K2 x{k2} for {len(calls)} batched calls ({retries} retries)")
+    require(k1r == 2 and gap <= 1e-4, f"14c logp_chain: K1 x{k1r}, vs single {gap:.2e}")
+    return dict(s=t_s, calls=len(calls), k1=k1, k2=k2, moved=moved, rows_gap=gap)
+
+
+def phase14d(trace_6c, gp, dt16, x_map, y_map, path_batched):
+    """The datatrace toolkit on phase 6c's datatrace (WGP n=125, 32 x 400):
+    both mixtures through cluster_datatrace, a KDE (over each chain's second
+    half) round trip of 1000 draws (each refill one batched logp_chain call:
+    K1 and K2 once), the
+    candidates and a .npz round trip; then errors_datatrace over phase 6d's
+    16 rows at n=4096 on 1024 query points (one batched factorization)
+    against the float64 host's 16 single-row errors."""
+    import tempfile
+
+    wgp, dt = trace_6c
+    out = {}
+    for bayesian in (True, False):
+        np.random.seed(14)
+        t0 = time.perf_counter()
+        g3t.cluster_datatrace(wgp, dt, n_components=5, bayesian=bayesian)
+        t_c = time.perf_counter() - t0
+        sizes = np.bincount(dt["_cluster"], minlength=5)
+        out["bayesian" if bayesian else "ml"] = dict(s=t_c, sizes=sizes.tolist())
+        print(f"  14d cluster_datatrace({'variational' if bayesian else 'maximum likelihood'}) "
+              f"over {len(dt)} rows: {t_c:.2f} s, cluster sizes {sizes.tolist()}", flush=True)
+        require(sizes.sum() == len(dt) and sizes[0] > 0, "14d clusters")
+    # 6c's bisection at its tol 0.001 keeps no row (|R-hat - 1| ~0.05 over
+    # 400 iterations): the density is fitted to each chain's second half,
+    # the rows 6c's mESS reads
+    half = dt.copy()
+    half["_burnin"] = half["_niter"] >= (half["_niter"].max() + 1) // 2
+    kde = g3t.datatrace_to_kde(wgp, half)
+    calls = []
+    inner = wgp.logp_chain
+
+    def counted_chain(chain, prior=False):
+        calls.append(len(chain))
+        return inner(chain, prior=prior)
+
+    wgp.logp_chain = counted_chain
+    try:
+        np.random.seed(15)
+        with counted(path_batched):
+            t0 = time.perf_counter()
+            kdt = g3t.kde_to_datatrace(wgp, kde, nsamples=1000)
+            t_k = time.perf_counter() - t0
+            k1, k2, retries = launches()
+    finally:
+        del wgp.logp_chain
+    print(f"  14d KDE round trip (tophat 0.02): 1000 draws in {t_k:.2f} s, {len(calls)} batched "
+          f"logp_chain calls of {calls} rows; K1 x{k1}, K2 x{k2} ({retries} retries)",
+          flush=True)
+    require(len(kdt) == 1000 and np.all(kdt["_ll"] > kde.min_ll) and "_cluster" in kdt,
+            "14d KDE datatrace")
+    require(k1 == len(calls) and k2 == len(calls) + retries,
+            f"14d KDE refills: K1 x{k1}, K2 x{k2} for {len(calls)} calls")
+    cand = g3t.find_candidates(dt, ll=2, mean=True)
+    require(len(cand) > 0 and np.isfinite(cand["_ll"]).all(), "14d candidates")
+    path_npz = str(Path(tempfile.mkdtemp()) / "dt14.npz")
+    t0 = time.perf_counter()
+    g3t.save_datatrace(dt, path_npz)
+    back = g3t.load_datatrace(path_npz)
+    t_io = time.perf_counter() - t0
+    require(back.columns == dt.columns and all(np.array_equal(back[c], dt[c])
+                                               for c in dt.columns), "14d .npz round trip")
+    print(f"  14d find_candidates: {len(cand)} rows {list(cand.index)}; .npz round trip of "
+          f"{len(dt)} x {len(dt.columns)} in {t_io * 1e3:.1f} ms", flush=True)
+    out.update(kde_s=t_k, kde_calls=calls, candidates=len(cand), npz_ms=t_io * 1e3)
+    # errors over phase 6d's 16 rows
+    xq, yq = x_map[:1024], y_map[:1024]
+    edt = dt16.copy()
+    with counted(path_batched):
+        t0 = time.perf_counter()
+        g3t.errors_datatrace(gp, edt, space=xq, hidden=yq)
+        t_e = time.perf_counter() - t0
+        k1, k2, retries = launches()
+    reg = gp.active
+    rows = np.asarray(dt16[reg.param_names()], np.float64)
+
+    def host_errors(dtype):
+        def one(u):
+            mean = host_stats(reg, u, x_map, y_map, xq, dtype)["mean"]
+            return np.mean(np.abs(yq - mean)), np.mean((yq - mean) ** 2)
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            return np.array(list(pool.map(one, rows)))
+
+    ref = host_errors(np.float64)
+    gaps = [rel_gap(edt["_l1"], ref[:, 0]), rel_gap(edt["_l2"], ref[:, 1])]
+    limit = held(max(gaps), 1e-3, lambda: max(rel_gap(w, r) for w, r in zip(
+        host_errors(np.float32).T, ref.T)), "14d errors_datatrace vs host")
+    print(f"  14d errors_datatrace over 16 rows at n={len(x_map)}, 1024 points: {t_e * 1e3:.1f} "
+          f"ms; K1 x{k1}, K2 x{k2} ({retries} retries); _l1/_l2 vs the float64 host's single "
+          f"rows {[f'{v:.2e}' for v in gaps]} (limit {limit:.1e})", flush=True)
+    require(k2 == 1 + retries and k1 == 3, f"14d errors: K1 x{k1}, K2 x{k2}, expected the "
+            "observed gram and two cross grams (K1 x3) and one factorization")
+    out.update(errors_ms=t_e * 1e3, errors_launches=[k1, k2], errors_gaps=gaps)
+    return out
+
+
+def phase14e(x_map, y_map, path, path_batched):
+    """The Experiment harness: GP(Bias, SE) and WGP(Bias, MAT52, BoxCoxLinear)
+    on phase 5's inputs (positive targets) at n=4096, split p=0.5, 2
+    simulations, engine 'scipy' and 'jax': every result row finite; a second
+    run from the same file adds no row.  The scipy runs' launches go to
+    ``path``, the jax engine's (batched over starts) to ``path_batched``."""
+    import tempfile
+
+    y_pos = (np.abs(np.sin(x_map[:, 0])) + 0.5
+             + 0.1 * np.random.default_rng(146).standard_normal(len(x_map))).astype(np.float32)
+    folder = Path(tempfile.mkdtemp())
+    out = {}
+
+    def models():
+        return [g3t.GP(space=x_map[:4], location=g3t.Bias(), kernel=g3t.SE(x_map),
+                       name="P14E_GP"),
+                g3t.WGP(space=x_map[:4], location=g3t.Bias(), kernel=g3t.MAT52(x_map),
+                        mapping=g3t.BoxCoxLinear(y_pos), name="P14E_WGP")]
+
+    for engine in ("scipy", "jax"):
+        file = str(folder / f"{engine}.pkl")
+        e = g3t.Experiment(models=models(), file=file)
+        e.set_data(x_map, y_pos, p=0.5)
+        e.set_selection(engine=engine, points=1, powell=False)
+        with counted(path if engine == "scipy" else path_batched):
+            t0 = time.perf_counter()
+            res = e.run(n_simulations=2)
+            t_run = time.perf_counter() - t0
+            k1, k2, _ = launches()
+        require(k1 > 0 and k2 > 0, f"14e {engine}: the run launched K1 x{k1}, K2 x{k2}")
+        cols = [c for c in res.columns if c.startswith(("obs_", "test_"))]
+        values = np.array([res[c].astype(np.float64) for c in cols])
+        again = g3t.Experiment(models=models(), file=file)
+        again.run(n_simulations=2)
+        pivot = again.describe("test_l2")
+        print(f"  14e Experiment engine={engine!r}: 2 models x 2 simulations in {t_run:.1f} s "
+              f"(K1 x{k1}, K2 x{k2}); "
+              f"{len(res)} rows, test_l2 {dict((m, pivot[m].tolist()) for m in pivot.columns[1:])}; "
+              f"resumed from the file: {len(again.results)} rows", flush=True)
+        require(len(res) == 4 and np.isfinite(values).all(), f"14e {engine}: result rows")
+        require(len(again.results) == 4, f"14e {engine}: the resumed run added rows")
+        out[engine] = dict(s=t_run, launches=[k1, k2],
+                           test_l2={m: pivot[m].tolist() for m in pivot.columns[1:]})
+    return out
+
+
+def phase14(trace_6c, gp, dt16, x_map, y_map, path, path_batched):
+    """Phase 14's runs; the launches of 14a's evaluations and serving, 14b's
+    shared-kernel evaluations and fits and 14e's scipy experiments go to
+    ``path``; 14a's find_MAP(engine='jax'), 14b's per-latent ones, 14c's
+    sampler and rows, 14d's refills and errors and 14e's jax-engine
+    experiments to ``path_batched``."""
+    out = {}
+    runs = (("14a", "deep kernel learning at n=4096",
+             lambda: phase14a(x_map, y_map, path, path_batched)),
+            ("14b", "LMCSVP at n=100000", lambda: phase14b(path, path_batched)),
+            ("14c", "the SVP sampler rows at n=4096",
+             lambda: phase14c(x_map, y_map, path_batched)),
+            ("14d", "the datatrace toolkit",
+             lambda: phase14d(trace_6c, gp, dt16, x_map, y_map, path_batched)),
+            ("14e", "the Experiment harness",
+             lambda: phase14e(x_map, y_map, path, path_batched)))
+    for key, label, run in runs:
+        print(f"phase {key}: {label}", flush=True)
+        t0 = time.perf_counter()
+        out[key] = run()
+        out[key]["wall_s"] = time.perf_counter() - t0
+        print(f"  phase {key} wall {out[key]['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     print("phase 0: device", flush=True)
     if not torch.cuda.is_available():
@@ -5555,7 +6233,7 @@ def main():
     # predictor at n=4096); the checks and profiles between them are not
     # counted
     print("phase 6c: ensemble sampler, WGP(Bias, SE, BoxCoxLinear) n=125 d=8", flush=True)
-    bayes, path_c = phase6c()
+    bayes, path_c, trace_6c = phase6c()
     print("phase 6d: full width, GP(Bias, SE) n=4096: sampler and averaged predictor",
           flush=True)
     bayes_full, path_d, dt16 = phase6d(tgp, gp_map, x_map, y_map)
@@ -5656,11 +6334,30 @@ def main():
     require(p13[0] > 0 and p13[1] > 0 and p13_batched[0] > 0 and p13_batched[1] > 0,
             "phase 13 did not go through both kernels")
 
+    # ---- items 8 and 12: the counts are zeroed before, and read after,
+    # 14a's evaluations, Predictor and paths, 14b's shared-kernel runs and
+    # 14e's scipy experiments (to the single records), 14a's
+    # find_MAP(engine='jax'), 14b's per-latent runs, 14c's sampler and rows,
+    # 14d's KDE refills and errors and 14e's jax-engine experiments (to the
+    # batched records); the warm-ups, the float64 host checks, K1's
+    # both-input check and the latents' plain-form checks are not counted
+    p14, p14_batched = [0, 0], [0, 0]
+    t14 = time.perf_counter()
+    items = phase14(trace_6c, tgp, dt16, x_map, y_map, p14, p14_batched)
+    t14 = time.perf_counter() - t14
+    print(f"  launches in phase 14: K1 {p14[0]}, K2 {p14[1]}; batched K1 {p14_batched[0]}, "
+          f"K2 {p14_batched[1]}; phase 14 {t14:.1f} s", flush=True)
+    require(p14[0] > 0 and p14[1] > 0 and p14_batched[0] > 0 and p14_batched[1] > 0,
+            "phase 14 did not go through both kernels")
+
     shape = (4096, 4096, 8)
     k1t = dict(k1_timing[("se", shape)], bound_ms=k1_bound_ms(*shape), bound_by="bytes")
     k1b = dict(k1b_timing[(16, 4096, 4096, 8)], bound_by="bytes")
     slab = dict(matrix_free["12k"], bound_by="bytes")
     cross = dict(sparse["13a"]["k1"], bound_by="bytes")
+    features = dict(items["14a"]["k1"], bound_by="bytes")
+    latent = items["14b"]["per_latent"]
+    k1q, k2q = latent["k1_latents"], latent["k2_latents"]
     k2t, k2b, k2m = k2_timing[4096], k2b_timing[("float32", 11, 4096)], sparse["13a"]["k2"]
     k1_src = dict(route="cuda", source="g3py_tpu_torch/csrc/stationary_gram.cu",
                   replaces="g3py_tpu/ops/pallas_gram.py:81")
@@ -5674,26 +6371,38 @@ def main():
     record = {"kernels": [
         {"name": "stationary_gram", **k1_src,
          "launches": (k1_serve + k1_train + k1_p7 + p8[0] + p9[0] + p10[0] + p12[0]
-                      + p13[0]),
-         "max_abs_err": max(k1_worst, catalogue["k1_algebra_err"]["single"]), **timed(k1t)},
+                      + p13[0] + p14[0]),
+         "max_abs_err": max(k1_worst, catalogue["k1_algebra_err"]["single"],
+                            slab["max_abs_err"], cross["max_abs_err"],
+                            features["max_abs_err"]), **timed(k1t)},
         {"name": "panel_cholesky", **k2_src,
          "launches": (k2_serve + k2_train + k2_p7 + p8[1] + p9[1] + p10[1] + p12[1]
-                      + p13[1]),
+                      + p13[1] + p14[1]),
          "max_abs_err": k2_worst, **timed(k2t)},
         {"name": "stationary_gram_batched", **k1_src,
          "launches": (k1_bayes + p8_batched[0] + p9_batched[0] + p10_batched[0]
-                      + p11_batched[0] + p13_batched[0]),
-         "max_abs_err": max(k1b_worst, catalogue["k1_algebra_err"]["batched"]), **timed(k1b)},
+                      + p11_batched[0] + p13_batched[0] + p14_batched[0]),
+         "max_abs_err": max(k1b_worst, catalogue["k1_algebra_err"]["batched"],
+                            k1q["max_abs_err"]), **timed(k1b)},
         {"name": "panel_cholesky_batched", **k2_src,
          "launches": (k2_bayes + p8_batched[1] + p9_batched[1] + p10_batched[1]
-                      + p11_batched[1] + p13_batched[1]),
-         "max_abs_err": k2b_worst, **timed(k2b)},
+                      + p11_batched[1] + p13_batched[1] + p14_batched[1]),
+         "max_abs_err": max(k2b_worst, k2q["max_abs_err"]), **timed(k2b)},
         {"name": "stationary_gram_slab", **k1_src, "launches": p12[0],
          "max_abs_err": slab["max_abs_err"], **timed(slab)},
         {"name": "stationary_gram_cross", **k1_src, "launches": p13[0],
          "max_abs_err": cross["max_abs_err"], **timed(cross)},
         {"name": "panel_cholesky_m512", **k2_src, "launches": p13[1],
-         "max_abs_err": k2m["max_abs_err"], **timed(k2m)}]}
+         "max_abs_err": k2m["max_abs_err"], **timed(k2m)},
+        {"name": "stationary_gram_features", **k1_src,
+         "launches": items["14a"]["features_launches"],
+         "max_abs_err": features["max_abs_err"], **timed(features)},
+        {"name": "stationary_gram_latents", **k1_src,
+         "launches": latent["latent_launches"][0],
+         "max_abs_err": k1q["max_abs_err"], **timed(k1q)},
+        {"name": "panel_cholesky_latents", **k2_src,
+         "launches": latent["latent_launches"][1],
+         "max_abs_err": k2q["max_abs_err"], **timed(k2q)}]}
     print(f"  K1 at {shape} SE f32: kernel {k1t['ms']:.4f} ms (events, back to back), device "
           f"{fmt_ms(k1t['device_ms'])} (profiler, a launch), wrapper {k1t['wrapper_ms']:.4f} "
           f"ms, plain {k1t['plain_ms']:.4f} ms, bound {k1t['bound_ms']:.4f} ms", flush=True)
@@ -5708,8 +6417,9 @@ def main():
     print(f"  phase 11: {json.dumps(gradient, default=float)}", flush=True)
     print(f"  phase 12: {json.dumps(matrix_free, default=float)}", flush=True)
     print(f"  phase 13: {json.dumps(sparse, default=float)}", flush=True)
+    print(f"  phase 14: {json.dumps(items, default=float)}", flush=True)
     print(f"  command time {time.perf_counter() - T_START:.1f} s (phase 12 {t12:.1f} s, "
-          f"phase 13 {t13:.1f} s)", flush=True)
+          f"phase 13 {t13:.1f} s, phase 14 {t14:.1f} s)", flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

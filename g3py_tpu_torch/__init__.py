@@ -5,15 +5,18 @@ kernels (with their ``+``/``*`` algebra), metrics, means and warpings, and
 the reference's other process families — Student-t (TP/WTP), marginal
 (MP), transport (TGP) and copula (CGP/CSTP) — trained (``dlogp``,
 ``find_MAP``, with scipy or the batched on-device L-BFGS, or matrix-free at
-large n, or through the sparse families: the SGPR collapsed bound and
-the sparse variational processes over non-gaussian likelihoods), sampled
+large n, or through the sparse families: the SGPR collapsed bound, the
+sparse variational processes over non-gaussian likelihoods and the linear
+model of coregionalization; deep kernels over any of them), sampled
 (``sample_hypers``:
 the ensemble sampler, NUTS, NeuTra or ADVI over the hyperparameter posterior) and served from one factorization or averaged over a datatrace,
 with the fused stationary gram and the blocked panel Cholesky as
 hand-written CUDA kernels for Hopper (sm_90a), both batched over
 hyperparameter rows.
 It imports neither JAX nor g3py_tpu.  Tensors live on ``settings.device``,
-the card (``"cuda"``) unless the program says ``"cpu"``:
+the card (``"cuda"``) unless the program says ``"cpu"``.  The datatrace
+toolkit (densities, clusters, errors, candidates; ``.npz`` files) and the
+``Experiment`` model-selection harness run on the host around them:
 
 >>> import g3py_tpu_torch as g3t
 >>> gp = g3t.GP(space=x, location=g3t.Bias(), kernel=g3t.SE(x))
@@ -41,7 +44,9 @@ import importlib
 
 from . import config
 from .config import settings, floatx, set_floatx
-from .utils import DictObj, MaxTime, nan_to_high, params_from_jax, flow_from_jax
+from .utils import (DictObj, MaxTime, clone, nan_to_high, save_pkl, load_pkl, save_datatrace,
+                    load_datatrace, save_json, random_state, params_from_jax, flow_from_jax)
+from .utils.data import random_obs, uniform_obs
 from .utils.datatrace import Datatrace
 from .ops import (safe_cholesky, cho_solve, solve_lower_triangular,
                   solve_upper_triangular, trtri_from_panels, mvn_quad_logdet,
@@ -80,6 +85,7 @@ def _import_all():
                                  BW, VAR, NIL, LIN, POL, NN, WN, RQ, MAT32, MAT52,
                                  KernelStationaryExponential, OU, SE, KernelPeriodic, COS, SIN,
                                  SINC, SM)
+    from .hypers.features import DeepKernel
     from .hypers.means import (Mean, Location, BlackBox, MeanOperation, MeanComposition,
                                MeanScale, MeanShift, MeanProd, MeanSum, Zero, Bias, Linear, Power)
     from .hypers.mappings import (Mapping, MappingOperation, MappingComposed, MappingInvSum,
@@ -93,9 +99,13 @@ def _import_all():
                            pt_sampler, default_beta_ladder, mcmc_ensemble, hmc_sampler,
                            nuts_sampler, nuts_warmup, fit_flow, flow_forward, flow_inverse,
                            neutra_logp, neutra_nuts, fit_advi, advi_draws, lbfgs_maximize,
-                           chains_to_datatrace,
-                           datatrace_to_chains, gelman_rubin, burn_in_samples,
-                           effective_sample_min, effective_sample_size)
+                           Experiment, chains_to_datatrace, datatrace_to_chains,
+                           datatrace_to_kde, kde_to_datatrace, cluster_datatrace,
+                           errors_datatrace, marginal_datatrace, conditional_datatrace,
+                           marginal, conditional, find_candidates, gelman_rubin,
+                           burn_in_samples, effective_sample_min, effective_sample_size,
+                           plot_datatrace, plot_clusters, kde_datatrace, hist_datatrace,
+                           scatter_datatrace)
     from .models import (StochasticProcess, EllipticalProcess, GaussianProcess,
                          WarpedGaussianProcess, StudentTProcess, WarpedStudentTProcess,
                          MarginalProcess, Density, SymmetricDensity, Uniform, Normal, StudentT,
@@ -107,7 +117,8 @@ def _import_all():
                          HeteroscedasticLik, InducingPoints, SparseGaussianProcess,
                          SparseWarpedGaussianProcess, select_inducing, VariationalQ,
                          VariationalQHeads, SparseVariationalProcess, MulticlassSVP,
-                         HeteroscedasticSVP, SGP, SWGP, SVP)
+                         HeteroscedasticSVP, SGP, SWGP, SVP, Mixing, MultiGaussianLik, LMCSVP,
+                         with_output, stack_outputs)
     from .serving import ExportedPredictor, load_predictor
     compat = importlib.import_module(__name__ + ".compat")
     names = dict(locals())

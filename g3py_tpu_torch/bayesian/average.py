@@ -1,5 +1,6 @@
-"""Datatrace construction and convergence diagnostics (the PyTorch
-counterpart of :mod:`g3py_tpu.bayesian.average`, subset).
+"""The datatrace toolkit: chain post-processing, convergence diagnostics
+and posterior analytics (the PyTorch counterpart of
+:mod:`g3py_tpu.bayesian.average`).
 
 * :func:`chains_to_datatrace` / :func:`datatrace_to_chains` — chains
   (nchain, niter, ndim) <-> a flat :class:`~g3py_tpu_torch.utils.datatrace.
@@ -10,24 +11,56 @@ counterpart of :mod:`g3py_tpu.bayesian.average`, subset).
   :func:`effective_sample_min`, :func:`effective_sample_size` and the mESS
   estimators (mIS, adjusted mIS, batch means).
 
-All host numpy.  The JAX package runs the autocovariance, batch-means and
-univariate R-hat cores in C++ (``g3py_tpu/native.py``) with numpy
-fallbacks; the port keeps its own copy of the numpy forms.  KDE,
-clustering, candidate search and the plots are not ported yet (ROADMAP
-Queue 1 item 8).
+* :func:`datatrace_to_kde` / :func:`kde_to_datatrace` — a kernel density
+  over the post-burn-in rows, and rejection-refilled draws from it whose
+  logps are one batched ``logp_chain`` call a refill.
+* :func:`cluster_datatrace` — a gaussian mixture (maximum likelihood or
+  variational with Dirichlet-process weights) over the rows, labels
+  relabelled by cluster size (0 the largest), and a ``_cluster`` labeler
+  attached to the process.
+* :func:`errors_datatrace` — every row's prediction errors (``_l1``,
+  ``_l2``, ``_nlpd``, ``_mse``) from one batched evaluation of the
+  process's ``th_error_*``/``th_logpredictive`` over all the rows: a
+  params dict of R rows with their posterior states, factored together.
+* :func:`marginal_datatrace`, :func:`conditional_datatrace`,
+  :func:`find_candidates` — column and row filters and the best rows by
+  criterion and cluster.
+
+The host parts are numpy.  The JAX package runs the autocovariance,
+batch-means and univariate R-hat cores in C++ (``g3py_tpu/native.py``) with
+numpy fallbacks, and the densities and mixtures through scikit-learn; the
+port keeps its own copy of the numpy forms and of those algorithms
+(:mod:`.density`).  The plots wait for ROADMAP Queue 1 item 15.
 """
 
 import numpy as np
+import torch
 
+from ..config import settings, as_tensor
 from ..utils.datatrace import Datatrace
+from .density import BayesianGaussianMixture, GaussianMixture, KernelDensity
 
 __all__ = [
     "chains_to_datatrace",
     "datatrace_to_chains",
+    "datatrace_to_kde",
+    "kde_to_datatrace",
+    "cluster_datatrace",
+    "errors_datatrace",
+    "marginal_datatrace",
+    "conditional_datatrace",
+    "marginal",
+    "conditional",
+    "find_candidates",
     "gelman_rubin",
     "burn_in_samples",
     "effective_sample_min",
     "effective_sample_size",
+    "plot_datatrace",
+    "plot_clusters",
+    "kde_datatrace",
+    "hist_datatrace",
+    "scatter_datatrace",
 ]
 
 
@@ -39,10 +72,8 @@ def chains_to_datatrace(process, chains, ll=None, transforms=True, burnin_tol=0.
     ``_nchain/_niter/_ll``, the burn-in flag (``_niter > nburn``, nburn from
     the Gelman-Rubin bisection), the outlier flag (inside the
     ``outlayer_percentile`` quantiles of every param and of ``_ll``, and
-    finite) and the transformed param columns."""
-    if clusters is not None and clusters > 0:
-        raise NotImplementedError("datatrace clustering is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+    finite), the transformed param columns and, with ``clusters``, the
+    ``_cluster`` labels of :func:`cluster_datatrace`."""
     columns = process.active.param_names()
     n_vars = len(columns)
     chains = np.asarray(chains)
@@ -94,6 +125,8 @@ def chains_to_datatrace(process, chains, ll=None, transforms=True, burnin_tol=0.
                 dt.insert(ncolumn, c.replace(p.name, f"{p.name}_{tname}_"),
                           p.prior.transform.forward(dt[c]))
                 ncolumn += 1
+    if clusters is not None and clusters > 0:
+        cluster_datatrace(process, dt, clusters)
     return dt
 
 
@@ -107,6 +140,205 @@ def datatrace_to_chains(process, dt, flat=False, burnin=False):
         return values
     nchain = len(np.unique(chain["_nchain"]))
     return values.reshape(nchain, len(chain) // nchain, process.active.ndim)
+
+
+# ---------------------------------------------------------------------------
+# posterior analytics
+# ---------------------------------------------------------------------------
+
+
+def datatrace_to_kde(process, dt, kernel="tophat", bandwidth=0.02, min_ll=-1e6):
+    """Kernel density over the post-burn-in rows with a finite ``_ll``
+    above ``min_ll``; ``min_ll`` of the result is their smallest ``_ll``
+    (the refill threshold of :func:`kde_to_datatrace`)."""
+    if "_ll" in dt:
+        dt = dt[np.isfinite(dt["_ll"])]
+        dt = dt[dt["_ll"] > min_ll]
+    sel = dt[dt["_burnin"]] if "_burnin" in dt else dt
+    kde = KernelDensity(kernel=kernel, bandwidth=bandwidth).fit(
+        sel[process.active.param_names()])
+    kde.min_ll = sel["_ll"].min() if "_ll" in sel else -np.inf
+    return kde
+
+
+def kde_to_datatrace(process, kde, nsamples=1000, prior=False):
+    """``nsamples`` draws of ``kde`` whose logp exceeds ``kde.min_ll``,
+    refilled until there are enough (each refill's logps one batched
+    ``logp_chain`` call), as a one-chain datatrace, every row past the
+    burn-in (and labelled by the process's ``_cluster`` when one is
+    attached)."""
+    samples = kde.sample(n_samples=1)
+    ll = np.asarray(process.logp_chain(samples, prior=prior))
+    keep = ll > kde.min_ll
+    samples, ll = samples[keep], ll[keep]
+    while len(samples) < nsamples:
+        new = kde.sample(n_samples=nsamples - len(samples))
+        new_ll = np.asarray(process.logp_chain(new, prior=prior))
+        keep = new_ll > kde.min_ll
+        samples = np.concatenate([samples, new[keep]])
+        ll = np.concatenate([ll, new_ll[keep]])
+    kde_dt = chains_to_datatrace(process, samples[None, :, :], ll=ll[None, :])
+    if hasattr(process, "_cluster"):
+        process._cluster(kde_dt)
+    kde_dt["_burnin"] = np.ones(len(kde_dt), dtype=bool)
+    return kde_dt
+
+
+def cluster_datatrace(process, dt, n_components=5, bayesian=True, burnin=True,
+                      outlayer=True, n_init=1, max_iter=5000):
+    """Fit a full-covariance gaussian mixture (``bayesian``: variational,
+    with Dirichlet-process weights) to the rows past the burn-in and inside
+    the outlier bounds (all rows when none is), then label every row of
+    ``dt`` in a ``_cluster`` column, 0 the most populous cluster of the
+    fit.  The labeler is attached to the process as ``_cluster`` and
+    returned.  The k-means initialisation draws from numpy's global
+    ``RandomState``."""
+    cols = process.active.param_names()
+    sel = dt
+    if burnin and "_burnin" in sel:
+        tmp = sel[sel["_burnin"]]
+        if len(tmp) > 0:
+            sel = tmp
+    if outlayer and "_outlayer" in sel:
+        tmp = sel[sel["_outlayer"]]
+        if len(tmp) > 0:
+            sel = tmp
+    data = sel[cols]
+    method = BayesianGaussianMixture if bayesian else GaussianMixture
+    gm = method(n_components=n_components, max_iter=max_iter, n_init=n_init).fit(data)
+    labels = gm.predict(data)
+    argsort = np.argsort(np.bincount(labels, minlength=n_components))
+    argsorted = sorted(np.arange(n_components), reverse=True)
+
+    def _cluster(datatrace):
+        pred = gm.predict(datatrace[cols])
+        datatrace["_cluster"] = (pred == argsort[:, None]).T.dot(argsorted)
+
+    _cluster(dt)
+    process._cluster = _cluster
+    return _cluster
+
+
+def errors_datatrace(process, dt, inputs=None, outputs=None, space=None, hidden=None,
+                     l1=True, l2=True, nlpd=False, mse=False):
+    """Every row's prediction errors at ``space`` against ``hidden`` (zeros
+    when None, as in the JAX package), as columns ``_l1``, ``_l2``,
+    ``_nlpd`` (the negative log predictive density a point) and ``_mse``
+    of ``dt`` (float32).  All rows are one params dict of rows: a process
+    with posterior states factors them together (one batched K2 launch),
+    and each statistic is one batched evaluation of its ``th_*`` builder.
+    A row whose params are not finite gives NaN (or the logp guard); a
+    structural error raises."""
+    reg = process.active
+    rows = np.asarray(dt[reg.param_names()], dtype=settings.floatx)
+    prior = inputs is None and not process.is_observed
+    s, i, o = process._resolve_data(space, inputs, outputs)
+    with torch.no_grad():
+        if prior or not hasattr(process, "posterior_state_rows"):
+            params = reg.array_to_dict_tensor(as_tensor(rows))
+        else:
+            p, state = process.posterior_state_rows(rows, i, o)
+            params = {**p, **state}
+        vector = (torch.zeros(s.shape[0], dtype=s.dtype, device=s.device) if hidden is None
+                  else process._as_vector(hidden))
+
+        def batch(th_name, **kw):
+            out = getattr(process, th_name)(prior=prior, **kw)(params, s, i, o, vector)
+            out = np.asarray(out.detach().cpu().numpy(), dtype=np.float32)
+            if th_name == "th_error_mse":
+                # the targets' own spread: no params, one value for every row
+                out = np.broadcast_to(out, (len(rows),)).copy()
+            if out.shape != (len(rows),):
+                raise ValueError(f"{th_name} gave shape {out.shape} for {len(rows)} rows")
+            return out
+
+        if l1:
+            dt["_l1"] = batch("th_error_l1")
+        if l2:
+            dt["_l2"] = batch("th_error_l2")
+        if nlpd:
+            dt["_nlpd"] = -batch("th_logpredictive", noise=True) / s.shape[0]
+        if mse:
+            dt["_mse"] = batch("th_error_mse")
+    return dt
+
+
+def marginal_datatrace(dt, items=None, like=None, regex=None, drop=None, samples=None):
+    """The columns ``drop`` leaves, filtered by ``items``/``like``/``regex``
+    (:meth:`Datatrace.filter`), and ``samples`` random rows of them (drawn
+    from numpy's global ``RandomState``) when fewer than all."""
+    if drop is not None:
+        dt = dt.drop(drop, axis=1)
+    if items is None and like is None and regex is None:
+        df = dt
+    else:
+        df = dt.filter(items=items, like=like, regex=regex)
+    if samples is None or samples > len(df):
+        return df
+    return df.sample(samples)
+
+
+def conditional_datatrace(dt, lambda_df):
+    """The rows a boolean array, or a callable of the datatrace returning
+    one, selects."""
+    out = dt[lambda_df]
+    print("#" + str(len(out)) + " (" + str(100 * len(out) / len(dt)) + " %)")
+    return out
+
+
+def marginal(dt, items=None, like=None, regex=None, drop=None, samples=None):
+    return marginal_datatrace(dt, items=items, like=like, regex=regex, drop=drop,
+                              samples=samples)
+
+
+def conditional(dt, lambda_df):
+    return conditional_datatrace(dt, lambda_df)
+
+
+def _in_order(values):
+    """The distinct values in order of first appearance."""
+    _, first = np.unique(values, return_index=True)
+    return values[np.sort(first)]
+
+
+def find_candidates(dt, ll=1, l1=0, l2=0, nlpd=0, mse=0, mean=False, median=False,
+                    by_cluster=True, rand=0):
+    """The best rows by each criterion (the ``ll`` largest ``_ll``, the
+    ``l1``/``l2``/``nlpd``/``mse`` smallest errors), per cluster when the
+    datatrace has one, among the rows distinct on the params, with the
+    column ``n`` holding each row's label; ``mean``/``median`` add the
+    numeric columns' means/medians, ``rand`` random rows.  The result's
+    ``index`` names each row (``ll0``, ``l21``, ``mean``, ... or a random
+    row's label), sorted by ``_ll`` descending when it has one."""
+    dt_full = dt.drop_duplicates(subset=[k for k in dt.columns if not k.startswith("_")])
+    clustered = by_cluster and "_cluster" in dt_full
+    groups = _in_order(dt_full["_cluster"]) if clustered else [0]
+    rows, names = [], []
+    for c in groups:
+        sel = dt_full[dt_full["_cluster"] == c] if clustered else dt_full
+        for crit, count, largest in [("_ll", ll, True), ("_l1", l1, False), ("_l2", l2, False),
+                                     ("_nlpd", nlpd, False), ("_mse", mse, False)]:
+            if crit in sel and count:
+                best = sel.nlargest(count, crit) if largest else sel.nsmallest(count, crit)
+                for label, (_, row) in zip(best.index, best.iterrows()):
+                    rows.append(dict(row, n=label))
+                    names.append(crit.lstrip("_") + str(c))
+        if mean:
+            rows.append(sel.mean(numeric_only=True))
+            names.append("mean")
+        if median:
+            rows.append(sel.median(numeric_only=True))
+            names.append("median")
+    if rand:
+        extra = dt.sample(rand)
+        rows += [row for _, row in extra.iterrows()]
+        names += list(extra.index)
+    index = np.empty(len(names), dtype=object)
+    index[:] = names
+    out = Datatrace.from_rows(rows, list(dt.columns) + ["n"], index=index)
+    if "_ll" in out:
+        out = out.sort_values(by="_ll", ascending=False)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -297,3 +529,32 @@ def _sigma_mIS_adj(chain):
         sigma_cov_adj = sigma_cov_adj + update_adj
         m += 1
     return sigma_cov_adj
+
+
+# ---------------------------------------------------------------------------
+# plots (ROADMAP Queue 1 item 15)
+# ---------------------------------------------------------------------------
+
+
+_NO_PLOTS = "{} is a plot; plotting is not ported yet (ROADMAP Queue 1 item 15)"
+
+
+def plot_datatrace(datatrace, varnames=None, burnin=True, outlayer=True, combined=False,
+                   figsize=None):
+    raise NotImplementedError(_NO_PLOTS.format("plot_datatrace"))
+
+
+def plot_clusters(process, dt, clusters=None, *args, **kwargs):
+    raise NotImplementedError(_NO_PLOTS.format("plot_clusters"))
+
+
+def kde_datatrace(dt, varnames=None, size=6):
+    raise NotImplementedError(_NO_PLOTS.format("kde_datatrace"))
+
+
+def hist_datatrace(dt, varnames=None, bins=50, reference=None, figsize=None):
+    raise NotImplementedError(_NO_PLOTS.format("hist_datatrace"))
+
+
+def scatter_datatrace(dt, varnames=None, samples=1000):
+    raise NotImplementedError(_NO_PLOTS.format("scatter_datatrace"))

@@ -18,6 +18,10 @@ The tensor side takes rows: :meth:`GraphicalModel.array_to_dict_tensor`
 maps an (R, ndim) matrix of unconstrained rows to a dict whose values lead
 with the row axis, and the prior and the potentials of such a dict are (R,)
 — the counterpart of the JAX package's ``vmap`` over parameter rows.
+
+A registry pickles (:meth:`GraphicalModel.save`, :meth:`GraphicalModel.load`,
+``GraphicalModel(file=)``) with every tensor moved to the CPU, so that a
+registry saved on the card loads on a host without one.
 """
 
 import warnings
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from ..config import settings, asarray_x, as_tensor
-from ..utils import DictObj
+from ..utils import DictObj, save_pkl, load_pkl
 from ..hypers import Param, row_shape
 
 __all__ = ["GraphicalModel", "Model", "get_model"]
@@ -38,9 +42,13 @@ class GraphicalModel:
     active = None  # the class-level active registry
 
     def __init__(self, name="GM", description=None, file=None, reset=False):
-        if file is not None:
-            raise NotImplementedError("model files (file=) are not ported yet "
-                                      "(ROADMAP Queue 1 item 15)")
+        if file is not None and not reset:
+            try:
+                self.reset(file)
+                self.activate()
+                return
+            except Exception:
+                print("Not found model in " + str(file))
         self.name = name
         self.description = description if description is not None else ""
         self.components = DictObj()
@@ -52,6 +60,12 @@ class GraphicalModel:
         self.fixed_datatrace = None
         self.fixed_chain = None
         self.fixed_dims = []
+        if file is not None:
+            self.file = file
+            try:
+                self.save()
+            except Exception:
+                print("Error in file " + str(file))
         self.activate()
 
     def activate(self):
@@ -314,6 +328,49 @@ class GraphicalModel:
         r = self.dict_to_array(self.params)
         r[self.sampling_dims] = params
         return self.array_to_dict(r)
+
+    # -- persistence ------------------------------------------------------------
+    def __getstate__(self):
+        """Pickled state with every tensor on the CPU (a registry saved on
+        the card loads on a CPU host)."""
+        return _to_cpu(dict(self.__dict__))
+
+    @classmethod
+    def load(cls, path):
+        r = load_pkl(path)
+        print("Loaded model " + path)
+        r.activate()
+        return r
+
+    def reset(self, path=None):
+        if path is None:
+            path = self.file
+        load = self.load(path)
+        self.__dict__.update(load.__dict__)
+        self.activate()
+        return self
+
+    def save(self, path=None):
+        if path is None:
+            path = self.file
+        try:
+            save_pkl(self, path)
+            print("Saved model " + path)
+        except Exception as details:
+            print("Error saving model " + str(path), details)
+
+
+def _to_cpu(obj):
+    """``obj`` with the tensors of its dicts, lists and tuples on the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, DictObj):
+        return DictObj({k: _to_cpu(v) for k, v in obj.items()})
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
 
 
 Model = GraphicalModel

@@ -3,8 +3,9 @@ core, GP/WGP and the Student-t TP/WTP, the marginal (MP), transport (TGP)
 and copula (CGP/CSTP) families, the serving Predictor and the
 datatrace-averaged AveragedPredictor, the matrix-free
 IterativePredictor, and the sparse families: the SGPR collapsed bound
-(SGP/SWGP) and the sparse variational processes (SVP, MulticlassSVP,
-HeteroscedasticSVP) over the observation likelihoods."""
+(SGP/SWGP), the sparse variational processes (SVP, MulticlassSVP,
+HeteroscedasticSVP) over the observation likelihoods and the linear model
+of coregionalization over them (LMCSVP)."""
 
 from .stochastic import StochasticProcess
 from .elliptical import EllipticalProcess
@@ -26,6 +27,7 @@ from .sparse import (InducingPoints, SparseGaussianProcess, SparseWarpedGaussian
                      select_inducing)
 from .svgp import (VariationalQ, VariationalQHeads, SparseVariationalProcess, MulticlassSVP,
                    HeteroscedasticSVP)
+from .lmc import Mixing, MultiGaussianLik, LMCSVP, with_output, stack_outputs
 
 GP = GaussianProcess
 WGP = WarpedGaussianProcess
@@ -53,4 +55,5 @@ __all__ = ["StochasticProcess", "EllipticalProcess", "GaussianProcess",
            "SparseGaussianProcess", "SparseWarpedGaussianProcess", "select_inducing",
            "VariationalQ", "VariationalQHeads", "SparseVariationalProcess", "MulticlassSVP",
            "HeteroscedasticSVP", "GP", "WGP", "TP", "WTP", "MP", "TGP", "CGP", "CSTP", "SGP",
-           "SWGP", "SVP"]
+           "SWGP", "SVP", "Mixing", "MultiGaussianLik", "LMCSVP", "with_output",
+           "stack_outputs"]

@@ -41,14 +41,23 @@ def warped_gaussian_logp_cho(value, mu, cho, mapping_inv_value, logdet_dinv):
     diagonal) of its dispersion; ``mapping_inv_value`` and ``logdet_dinv``
     are the warping's pullback of ``value`` and its log-Jacobian.  A
     non-finite residual, Jacobian, factor or whitened residual, or a
-    NaN/-inf result, gives ``settings.logp_guard``."""
+    NaN/-inf result, gives ``settings.logp_guard``.  Stacks of R densities
+    ((R, m) residuals, (R, m, m) factors) give (R,)."""
     delta = mapping_inv_value - mu
     lcho = solve_lower_triangular(cho, delta)
-    r = (-0.5 * cho.shape[0] * LOG2PI - 0.5 * torch.dot(lcho, lcho)
-         - torch.log(torch.diagonal(cho)).sum() + logdet_dinv)
-    bad = (~torch.isfinite(delta).all() | ~torch.isfinite(logdet_dinv)
-           | ~torch.isfinite(cho).all() | ~torch.isfinite(lcho).all())
-    return _guarded(r, bad)
+    r = (-0.5 * cho.shape[-1] * LOG2PI - 0.5 * (lcho * lcho).sum(dim=-1)
+         - torch.log(torch.diagonal(cho, dim1=-2, dim2=-1)).sum(dim=-1) + logdet_dinv)
+    return _guarded(r, _any_nonfinite(delta, logdet_dinv, cho, lcho))
+
+
+def _any_nonfinite(delta, logdet, cho, lcho):
+    """Whether any of a logp's pieces is non-finite, one flag a density
+    (the rows of a stack of densities lead each piece, and broadcast)."""
+    def flag(t, event):
+        bad = ~torch.isfinite(t)
+        return bad.flatten(start_dim=bad.ndim - event).any(dim=-1) if event else bad
+
+    return flag(delta, 1) | flag(logdet, 0) | flag(cho, 2) | flag(lcho, 1)
 
 
 class WarpedGaussianDistribution:
@@ -136,7 +145,7 @@ class GaussianProcess(EllipticalProcess):
             sd = sd_fn(params, space, inputs, outputs, vector)
             tinv = to_num(mapping.inv(params, vector))
             logdet = mapping.logdet_dinv(params, vector)
-            return warped_gaussian_logp_cho(vector, mu, torch.diag(sd), tinv, logdet)
+            return warped_gaussian_logp_cho(vector, mu, torch.diag_embed(sd), tinv, logdet)
 
         return fn
 

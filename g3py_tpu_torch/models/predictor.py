@@ -412,48 +412,57 @@ class _Bundle(torch.nn.Module):
 
 def _rff_prior(kernel, p, x_like, n_features, samples, key):
     """The random-Fourier prior paths of ``kernel``: ``prior(z) ->
-    (len(z), samples)``.  SE/MAT32/MAT52/RQ on ARD_L2 and sums of them (the
-    spectra add: one feature block a part, ``max(n_features // parts,
-    64)`` features each), each block drawn over its part's active dims only
-    (a dims-restricted kernel would otherwise get frequencies on columns it
-    ignores).  ``key`` is a ``torch.Generator`` (the blocks drawn in
+    (len(z), samples)``.  SE/MAT32/MAT52/RQ on ARD_L2, a DeepKernel over
+    one of them, and sums of these (the spectra add: one feature block a
+    part, ``max(n_features // parts, 64)`` features each).  A stationary
+    part's block is drawn over its active dims only (a dims-restricted
+    kernel would otherwise get frequencies on columns it ignores); a
+    DeepKernel's is drawn in feature space, the queries pushed through its
+    extractor.  ``key`` is a ``torch.Generator`` (the blocks drawn in
     order) or a list of draws dicts, one a block."""
     from ..hypers import hval, slice_dims
+    from ..hypers.features import DeepKernel
     from ..hypers.kernels import SE, MAT32, MAT52, RQ, KernelSum
     from ..hypers.metrics import ARD_L2
     from ..ops.rff import rff_prior_fn
 
     nu_of = {SE: None, MAT32: 1.5, MAT52: 2.5, RQ: None}
 
-    def flatten_sum(k):
-        if isinstance(k, KernelSum):
-            return flatten_sum(k.k1) + flatten_sum(k.k2)
-        if type(k).__name__ == "DeepKernel":
-            raise NotImplementedError("pathwise sampling of a DeepKernel is not ported yet "
-                                      "(ROADMAP Queue 1 item 12)")
+    def check_family(k):
         if type(k) not in nu_of or type(k.metric) is not ARD_L2:
             raise ValueError(
                 "pathwise sampling needs SE/MAT32/MAT52/RQ (ARD_L2) signal kernels, sums "
                 "of them, or a DeepKernel over one (their spectral densities are what the "
                 f"Fourier features draw from); got {type(k).__name__}")
+
+    def flatten_sum(k):
+        if isinstance(k, KernelSum):
+            return flatten_sum(k.k1) + flatten_sum(k.k2)
+        check_family(k.base if isinstance(k, DeepKernel) else k)
         return [k]
 
     parts = flatten_sum(kernel)
     f_each = max(n_features // len(parts), 64)
     priors = []
     for i, k in enumerate(parts):
-        dims = k.metric.dims
-        ndim = slice_dims(x_like, dims).shape[1]
-        rq_alpha = hval(k.alpha, p) if type(k) is RQ else None
+        if isinstance(k, DeepKernel):
+            inner, ndim = k.base, k.widths[-1]
+            transform = (lambda z, kk=k: kk.features(p, z))
+        else:
+            inner, dims = k, k.metric.dims
+            ndim = slice_dims(x_like, dims).shape[1]
+            transform = (lambda z, d=dims: slice_dims(z, d))
+        rq_alpha = hval(inner.alpha, p) if type(inner) is RQ else None
         part_key = key[i] if isinstance(key, (list, tuple)) else key
-        fn = rff_prior_fn(part_key, ndim, f_each, hval(k.metric.rate, p), hval(k.var, p),
-                          samples, nu=nu_of[type(k)], rq_alpha=rq_alpha)
-        priors.append((fn, dims))
+        fn = rff_prior_fn(part_key, ndim, f_each, hval(inner.metric.rate, p),
+                          hval(inner.var, p), samples, nu=nu_of[type(inner)],
+                          rq_alpha=rq_alpha)
+        priors.append((fn, transform))
 
     def prior(z):
         out = None
-        for fn, dims in priors:
-            term = fn(slice_dims(z, dims))
+        for fn, transform in priors:
+            term = fn(transform(z))
             out = term if out is None else out + term
         return out
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..bayesian.advi import _Adam
+from ..bayesian.density import kmeans
 from ..config import settings, as_tensor
 from ..hypers import Hypers, Flat, hval
 from ..hypers.kernels import (KernelMax, KernelNoise, KernelProd, KernelScale, KernelShift,
@@ -113,10 +114,10 @@ def _sharded_draw_factory(nloc, bs_local, full_batch):
 
 
 def select_inducing(x, m, seed=0):
-    """Data-driven inducing inputs: k-means centers of ``x`` (sklearn's
-    KMeans, 4 inits, ``random_state=seed``), or where sklearn is missing or
-    fails a seeded random subset; fewer points than ``m`` are tiled with a
-    tiny jitter."""
+    """Data-driven inducing inputs: the k-means centers of ``x``
+    (scikit-learn's ``KMeans(m, n_init=4, random_state=seed)``, computed by
+    the port's own copy, :func:`~g3py_tpu_torch.bayesian.density.kmeans`);
+    fewer points than ``m`` are tiled with a tiny jitter."""
     x = np.asarray(x, np.float64)
     if x.ndim == 1:
         x = x[:, None]
@@ -128,15 +129,7 @@ def select_inducing(x, m, seed=0):
         z = np.tile(x, (reps, 1))[:m]
         z = z + 1e-3 * (x.std(axis=0, keepdims=True) + 1e-6) * rng.standard_normal(z.shape)
         return z.astype(settings.floatx)
-    try:
-        from sklearn.cluster import KMeans
-
-        km = KMeans(n_clusters=m, n_init=4, random_state=seed).fit(x)
-        return km.cluster_centers_.astype(settings.floatx)
-    except Exception:
-        rng = np.random.default_rng(seed)
-        idx = np.sort(rng.choice(n, m, replace=False))
-        return x[idx].astype(settings.floatx)
+    return kmeans(x, m, n_init=4, random_state=seed)[0].astype(settings.floatx)
 
 
 class InducingPoints(Hypers):

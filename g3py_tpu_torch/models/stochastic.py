@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..config import settings, asarray_x, as_tensor
-from ..utils import DictObj
+from ..utils import DictObj, save_datatrace, load_datatrace
 from ..ops.guards import to_num
 from ..bayesian.registry import GraphicalModel
 from ..bayesian.selection import optimize
@@ -180,6 +180,17 @@ class StochasticProcess(BatchedModel):
         self.th_define_process()
         self.set_space(space=space, hidden=hidden, order=order, inputs=inputs,
                        outputs=outputs, index=index)
+
+    def __getstate__(self):
+        """Pickled state: the device copies of the data (rebuilt on use) and
+        the cluster labeler (a closure) are left out, tensors go to the
+        CPU."""
+        from ..bayesian.registry import _to_cpu
+
+        state = self.__dict__.copy()
+        state["_device_copies"] = {}
+        state.pop("_cluster", None)
+        return _to_cpu(state)
 
     # ------------------------------------------------------------------ hooks
     def _components(self):
@@ -425,13 +436,16 @@ class StochasticProcess(BatchedModel):
         return None
 
     def th_error_l1(self, prior=False, noise=False):
-        """Mean absolute error of the process mean against ``vector``."""
+        """Mean absolute error of the process mean against ``vector`` (one
+        a row for a params dict of rows that carries their posterior
+        states)."""
         mean_fn = self.th_mean(prior=prior, noise=noise)
         if mean_fn is None:
             return None
 
         def fn(params, space, inputs, outputs, vector):
-            return torch.mean(torch.abs(vector - mean_fn(params, space, inputs, outputs, vector)))
+            return torch.mean(torch.abs(vector - mean_fn(params, space, inputs, outputs, vector)),
+                              dim=-1)
 
         return fn
 
@@ -442,7 +456,8 @@ class StochasticProcess(BatchedModel):
             return None
 
         def fn(params, space, inputs, outputs, vector):
-            return torch.mean((vector - mean_fn(params, space, inputs, outputs, vector)) ** 2)
+            return torch.mean((vector - mean_fn(params, space, inputs, outputs, vector)) ** 2,
+                              dim=-1)
 
         return fn
 
@@ -451,7 +466,7 @@ class StochasticProcess(BatchedModel):
         ``mse``)."""
         def fn(params, space, inputs, outputs, vector):
             a = torch.abs(vector - outputs)
-            return torch.mean(a) ** 2 + torch.var(a, unbiased=False)
+            return torch.mean(a, dim=-1) ** 2 + torch.var(a, dim=-1, unbiased=False)
 
         return fn
 
@@ -744,10 +759,14 @@ class StochasticProcess(BatchedModel):
         fills the chain with iid draws from it.  Returns a
         :class:`~g3py_tpu_torch.utils.datatrace.Datatrace` (burn-in from the
         Gelman-Rubin bisection at ``burnin_tol``, outliers at
-        ``outlayer_percentile``), or with ``raw`` the ``(chain, lnprob)``
-        arrays.  ``parallel``, ``threads`` and ``load`` are accepted and
-        change nothing (the walkers of a half-ensemble, and the chains of a
-        gradient sampler, already share one batched call).
+        ``outlayer_percentile``, ``clusters`` mixture components labelled
+        by :func:`~g3py_tpu_torch.bayesian.average.cluster_datatrace`), or
+        with ``raw`` the ``(chain, lnprob)`` arrays.  With ``file`` (an
+        ``.npz`` path) the datatrace is written there, and with ``load`` a
+        datatrace already there of ``chains`` x ``samples`` rows is
+        returned instead of sampling.  ``parallel`` and ``threads`` are
+        accepted and change nothing (the walkers of a half-ensemble, and
+        the chains of a gradient sampler, already share one batched call).
         ``reparam='noncentered'`` (elliptical families) samples every
         amplitude (``*_var``) hyper relative to the data scale ``log
         Var[g^{-1}(y)]``, a unit-Jacobian shear of the log density, with
@@ -759,17 +778,18 @@ class StochasticProcess(BatchedModel):
             raise ValueError(f"unknown method {method!r}")
         if reparam not in (None, "noncentered"):
             raise ValueError(f"unknown reparam {reparam!r} (None | 'noncentered')")
-        todo = {"file": (file is not None, "item 8 (datatrace files)"),
-                "plot": (bool(plot), "item 15 (plots)"),
-                "clusters": (bool(clusters), "item 8 (datatrace clusters)")}
-        for name, (asked, item) in todo.items():
-            if asked:
-                raise NotImplementedError(f"sample_hypers({name}=...) is not ported yet "
-                                          f"(ROADMAP Queue 1 {item})")
+        if plot:
+            raise NotImplementedError("sample_hypers(plot=...) is not ported yet "
+                                      "(ROADMAP Queue 1 item 15 (plots))")
         reg = self.active
         ndim = len(reg.sampling_dims)
         if chains is None:
             chains = 2 * ndim
+        if file is not None and load:
+            datatrace = load_datatrace(file)
+            if (datatrace is not None and datatrace["_niter"].max() == samples - 1
+                    and datatrace["_nchain"].max() == chains - 1):
+                return datatrace
         if start is None:
             start = self.find_MAP(display=False)
         if isinstance(start, dict):
@@ -835,10 +855,13 @@ class StochasticProcess(BatchedModel):
             complete_chain[:, :, reg.fixed_dims] = reg.fixed_chain[:, reg.fixed_dims].mean(axis=0)
         if raw:
             return complete_chain, lnprob
-        return chains_to_datatrace(
+        datatrace = chains_to_datatrace(
             self, complete_chain, ll=lnprob, burnin_tol=burnin_tol,
             burnin_method=burnin_method, burnin_dims=reg.sampling_dims,
-            outlayer_percentile=outlayer_percentile)
+            outlayer_percentile=outlayer_percentile, clusters=clusters)
+        if file is not None:
+            save_datatrace(datatrace, file)
+        return datatrace
 
     def _array_logp_sampling(self, p):
         """logp over the sampling dims (every dim when nothing is fixed; the

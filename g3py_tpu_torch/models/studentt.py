@@ -31,7 +31,7 @@ from ..ops.linalg import mvn_quad_logdet, solve_lower_triangular
 from ..ops.quadrature import gauss_hermite, hermite_moments
 from ..ops.special import gammaln
 from .elliptical import EllipticalProcess, STATE_OBS_Z
-from .gaussian import _guarded
+from .gaussian import _any_nonfinite, _guarded
 
 __all__ = ["StudentTProcess", "WarpedStudentTProcess",
            "warped_studentt_logp_cho", "WarpedStudentTDistribution"]
@@ -62,13 +62,11 @@ def warped_studentt_logp_cho(value, mu, cho, freedom, mapping_inv_value, logdet_
     gives ``settings.logp_guard``."""
     delta = mapping_inv_value - mu
     lcho = solve_lower_triangular(cho, delta)
-    beta = torch.dot(lcho, lcho)
+    beta = (lcho * lcho).sum(dim=-1)
     r = (_t_terms(torch.as_tensor(freedom, dtype=beta.dtype, device=beta.device),
-                  cho.shape[0], beta)
-         - torch.log(torch.diagonal(cho)).sum() + logdet_dinv)
-    bad = (~torch.isfinite(delta).all() | ~torch.isfinite(logdet_dinv)
-           | ~torch.isfinite(cho).all() | ~torch.isfinite(lcho).all())
-    return _guarded(r, bad)
+                  cho.shape[-1], beta)
+         - torch.log(torch.diagonal(cho, dim1=-2, dim2=-1)).sum(dim=-1) + logdet_dinv)
+    return _guarded(r, _any_nonfinite(delta, logdet_dinv, cho, lcho))
 
 
 class WarpedStudentTDistribution:
@@ -178,7 +176,7 @@ class StudentTProcess(EllipticalProcess):
             nu = free_fn(params, space, inputs, outputs, vector)
             tinv = to_num(mapping.inv(params, vector))
             logdet = mapping.logdet_dinv(params, vector)
-            return warped_studentt_logp_cho(vector, mu, torch.diag(sd), nu, tinv, logdet)
+            return warped_studentt_logp_cho(vector, mu, torch.diag_embed(sd), nu, tinv, logdet)
 
         return fn
 

@@ -22,8 +22,11 @@ moments (prior or posterior); ``mean`` the predictive E[y];
 ``variance``/``std`` Var[f] with ``noise=False``, the predictive Var[y]
 with ``noise=True``.  The sampler and quantiles run on the host (numpy).
 
-Hyperparameter rows are evaluated one at a time (``_batched_rows =
-False``), and ``mesh=`` waits for ROADMAP item 16.
+A params dict of R hyperparameter rows (a sampler's walkers, a datatrace)
+gives R bounds and (R, n) moments: the rows' grams are one batched K1
+launch each (Kuu and Kuf) and their Kuu factors one batched K2 launch; the
+likelihood's elementwise terms run under ``torch.func.vmap`` over the rows.
+``mesh=`` waits for ROADMAP item 16.
 """
 
 import numpy as np
@@ -52,6 +55,11 @@ STATE_SVP_LUU = "_state_svp_luu"
 
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _sum_last(t, k):
+    """Sum over the last ``k`` axes."""
+    return t.flatten(start_dim=t.ndim - k).sum(dim=-1)
 
 
 def _logsumexp_w(lp, w):
@@ -91,11 +99,12 @@ class VariationalQ(Hypers):
 
     def kl(self, params):
         """KL(q(w) || N(0, I)) = (|qm|^2 + |Lq|_F^2 - 2 sum log diag - m) / 2,
-        summed over heads."""
+        summed over heads (one a row for a params dict of rows)."""
         qm, lq = self.factors(params)
         ld = torch.diagonal(hval(self.ql, params), dim1=-2, dim2=-1)
-        return 0.5 * ((qm * qm).sum() + (lq * lq).sum() - 2.0 * ld.sum()
-                      - self.m * getattr(self, "heads", 1))
+        k = 1 + hasattr(self, "heads")  # the event axes of qm: (m,) or (heads, m)
+        return 0.5 * (_sum_last(qm * qm, k) + _sum_last(lq * lq, k + 1)
+                      - 2.0 * _sum_last(ld, k) - self.m * getattr(self, "heads", 1))
 
 
 class VariationalQHeads(VariationalQ):
@@ -132,7 +141,9 @@ class SparseVariationalProcess(StochasticProcess):
     The signal kernel must be noise-free (the noise is the likelihood's);
     ``inducing`` follows the sparse family's conventions."""
 
-    _batched_rows = False
+    #: the axes of one row's latent mean: (n,) here, (n, heads) for the
+    #: multi-head variants; one more leading axis is the hyperparameter rows
+    _event_ndim = 1
 
     def __init__(self, space=None, location=None, kernel=None, likelihood: Likelihood = None,
                  inducing=32, learn_inducing=True, *args, **kwargs):
@@ -191,18 +202,27 @@ class SparseVariationalProcess(StochasticProcess):
         return z, solve_lower_triangular(luu, to_num(self.f_kernel.cov(params, z, xq)))
 
     def _latent(self, params, xq, want_cov=False):
-        """Latent q(f) moments at xq: (mf, varf[, covf])."""
+        """Latent q(f) moments at xq: (mf, varf[, covf]), with a leading
+        row axis for a params dict of rows."""
         _, v = self._whitened(params, xq)
         qm, lq = self.f_q.factors(params)
-        mf = self.f_location(params, xq) + torch.matmul(v.T, qm)
-        lv = torch.matmul(lq.T, v)
+        mf = self.f_location(params, xq) + torch.einsum("...mn,...m->...n", v, qm)
+        lv = torch.matmul(lq.transpose(-1, -2), v)
         if want_cov:
-            covf = (to_cov(self.f_kernel.cov(params, xq)) - torch.matmul(v.T, v)
-                    + torch.matmul(lv.T, lv))
-            return mf, torch.diagonal(covf), covf
-        varf = to_bounded(self._kernel_diag_only(params, xq) - (v * v).sum(dim=0), 0.0) \
-            + (lv * lv).sum(dim=0)
+            covf = (to_cov(self.f_kernel.cov(params, xq)) - torch.matmul(v.transpose(-1, -2), v)
+                    + torch.matmul(lv.transpose(-1, -2), lv))
+            return mf, torch.diagonal(covf, dim1=-2, dim2=-1), covf
+        varf = to_bounded(self._kernel_diag_only(params, xq) - (v * v).sum(dim=-2), 0.0) \
+            + (lv * lv).sum(dim=-2)
         return mf, varf
+
+    def _per_row(self, fn, params, *moments):
+        """``fn(params, *moments)`` of one row's params and moments; under
+        ``torch.func.vmap`` over the rows when the moments carry a row axis
+        (the likelihoods' elementwise terms are written for one row)."""
+        if moments[0].ndim <= self._event_ndim:
+            return fn(params, *moments)
+        return torch.func.vmap(fn)(params, *moments)
 
     def _prior_moments(self, params, space):
         return (self.f_location(params, space),
@@ -213,10 +233,11 @@ class SparseVariationalProcess(StochasticProcess):
         """The expected log-likelihood summed over a batch of rows (the
         ELBO's data term); ``w`` weights the rows."""
         mf, varf = self._latent(params, xb)
-        e = self.f_likelihood.expected_logp(params, yb, mf, varf)
+        e = self._per_row(lambda p, m, v: self.f_likelihood.expected_logp(p, yb, m, v),
+                          params, mf, varf)
         if w is not None:
             e = e * w
-        return e.sum()
+        return e.sum(dim=-1)
 
     def th_loglike_fn(self):
         """The uncollapsed ELBO (this process's ``loglike``); non-finite
@@ -244,10 +265,13 @@ class SparseVariationalProcess(StochasticProcess):
             return self._moments(params, space, prior)[1]
         return fn
 
+    def _predictive(self, params, mf, varf):
+        """The likelihood's predictive (mean, variance), one a row."""
+        return self._per_row(self.f_likelihood.predictive_moments, params, mf, varf)
+
     def th_mean(self, prior=False, noise=False, simulations=None):
         def fn(params, space, inputs, outputs, vector):
-            mf, varf = self._moments(params, space, prior)
-            return self.f_likelihood.predictive_moments(params, mf, varf)[0]
+            return self._predictive(params, *self._moments(params, space, prior))[0]
         return fn
 
     def th_median(self, prior=False, noise=False, simulations=None):
@@ -260,7 +284,7 @@ class SparseVariationalProcess(StochasticProcess):
         def fn(params, space, inputs, outputs, vector):
             mf, varf = self._moments(params, space, prior)
             if noise:
-                return self.f_likelihood.predictive_moments(params, mf, varf)[1]
+                return self._predictive(params, mf, varf)[1]
             return varf
         return fn
 
@@ -290,9 +314,11 @@ class SparseVariationalProcess(StochasticProcess):
         lik = self.f_likelihood
 
         def fn(params, space, inputs, outputs, vector):
-            mf, varf = self._moments(params, space, prior)
-            f, w = lik._grid(mf, varf)
-            return _logsumexp_w(lik.logp_elem(params, vector[None, :], f), w).sum()
+            def one(params, mf, varf):
+                f, w = lik._grid(mf, varf)
+                return _logsumexp_w(lik.logp_elem(params, vector[None, :], f), w).sum()
+
+            return self._per_row(one, params, *self._moments(params, space, prior))
 
         return fn
 
@@ -442,14 +468,14 @@ def _whitened_head_moments(kernel, kdiag_fn, params, z, xq, qm, lq, want_cov=Fal
     if luu is None:
         luu = safe_cholesky(to_cov(kernel.cov(params, z)))
     v = solve_lower_triangular(luu, to_num(kernel.cov(params, z, xq)))
-    mf = torch.einsum("mn,cm->nc", v, qm)
-    lv = torch.einsum("cji,jn->cin", lq, v)
+    mf = torch.einsum("...mn,...cm->...nc", v, qm)
+    lv = torch.einsum("...cji,...jn->...cin", lq, v)
     if want_cov:
-        base = to_cov(kernel.cov(params, xq)) - torch.matmul(v.T, v)
-        covf = base[None, :, :] + torch.einsum("cin,cip->cnp", lv, lv)
-        return mf, torch.diagonal(covf, dim1=-2, dim2=-1).T, covf
-    base = to_bounded(kdiag_fn(params, xq) - (v * v).sum(dim=0), 0.0)
-    return mf, base[:, None] + (lv * lv).sum(dim=1).T
+        base = to_cov(kernel.cov(params, xq)) - torch.matmul(v.transpose(-1, -2), v)
+        covf = base[..., None, :, :] + torch.einsum("...cin,...cip->...cnp", lv, lv)
+        return mf, torch.diagonal(covf, dim1=-2, dim2=-1).transpose(-1, -2), covf
+    base = to_bounded(kdiag_fn(params, xq) - (v * v).sum(dim=-2), 0.0)
+    return mf, base[..., None] + (lv * lv).sum(dim=-2).transpose(-1, -2)
 
 
 class _MultiHeadLatent:
@@ -457,6 +483,7 @@ class _MultiHeadLatent:
     one kernel and inducing set; q(u) is :class:`VariationalQHeads`."""
 
     n_heads = None  # set by the subclass before StochasticProcess.__init__
+    _event_ndim = 2
 
     def _make_q(self, m):
         return VariationalQHeads(m, self.n_heads)
@@ -468,15 +495,15 @@ class _MultiHeadLatent:
         out = _whitened_head_moments(self.f_kernel, self._kernel_diag_only, params,
                                      self.f_inducing.value(params), xq, qm, lq,
                                      want_cov=want_cov, luu=params.get(STATE_SVP_LUU))
-        loc = self.f_location(params, xq)[:, None]
+        loc = self.f_location(params, xq)[..., None]
         return (loc + out[0],) + tuple(out[1:])
 
     def _moments(self, params, space, prior):
         """(mf, varf), both (n, H); the prior is the scalar GP prior a head."""
         if prior:
             mf0, var0 = self._prior_moments(params, space)
-            shp = (mf0.shape[0], self.n_heads)
-            return mf0[:, None].expand(shp), var0[:, None].expand(shp)
+            shp = mf0.shape + (self.n_heads,)
+            return mf0[..., None].expand(shp), var0[..., None].expand(shp)
         return self._latent(params, space)
 
 
@@ -499,7 +526,8 @@ class MulticlassSVP(_MultiHeadLatent, SparseVariationalProcess):
 
     def th_mean(self, prior=False, noise=False, simulations=None):
         def fn(params, space, inputs, outputs, vector):
-            return self.f_likelihood.probs(params, *self._moments(params, space, prior))
+            return self._per_row(self.f_likelihood.probs, params,
+                                 *self._moments(params, space, prior))
         return fn
 
     def th_median(self, prior=False, noise=False, simulations=None):
@@ -530,8 +558,10 @@ class MulticlassSVP(_MultiHeadLatent, SparseVariationalProcess):
     def th_logpredictive(self, prior=False, noise=False):
         """sum_i log E_q[softmax(f_i)_{y_i}] (fixed common-random-number MC)."""
         def fn(params, space, inputs, outputs, vector):
-            mf, varf = self._moments(params, space, prior)
-            return self.f_likelihood.log_predictive(params, vector, mf, varf).sum()
+            def one(params, mf, varf):
+                return self.f_likelihood.log_predictive(params, vector, mf, varf).sum()
+
+            return self._per_row(one, params, *self._moments(params, space, prior))
         return fn
 
     def predict_proba(self, params=None, space=None, prior=False):
@@ -619,8 +649,7 @@ class HeteroscedasticSVP(_MultiHeadLatent, SparseVariationalProcess):
 
     def th_mean(self, prior=False, noise=False, simulations=None):
         def fn(params, space, inputs, outputs, vector):
-            return self.f_likelihood.predictive_moments(
-                params, *self._moments(params, space, prior))[0]
+            return self._predictive(params, *self._moments(params, space, prior))[0]
         return fn
 
     def th_median(self, prior=False, noise=False, simulations=None):
@@ -630,8 +659,8 @@ class HeteroscedasticSVP(_MultiHeadLatent, SparseVariationalProcess):
         def fn(params, space, inputs, outputs, vector):
             mf, varf = self._moments(params, space, prior)
             if noise:
-                return self.f_likelihood.predictive_moments(params, mf, varf)[1]
-            return varf[:, 0]
+                return self._predictive(params, mf, varf)[1]
+            return varf[..., 0]
         return fn
 
     def th_covariance(self, prior=False, noise=False):
@@ -658,12 +687,15 @@ class HeteroscedasticSVP(_MultiHeadLatent, SparseVariationalProcess):
         lik = self.f_likelihood
 
         def fn(params, space, inputs, outputs, vector):
-            m1, m2, v1, v2 = lik._split(*self._moments(params, space, prior), params)
-            g, w = lik._grid(m2, v2)
-            tot = v1[None, :] + torch.exp(torch.clamp(g, -30.0, 30.0))
-            lp = -0.5 * (LOG2PI + torch.log(tot)) - 0.5 * (vector[None, :] - m1[None, :]) ** 2 \
-                / tot
-            return _logsumexp_w(lp, w).sum()
+            def one(params, mf, varf):
+                m1, m2, v1, v2 = lik._split(mf, varf, params)
+                g, w = lik._grid(m2, v2)
+                tot = v1[None, :] + torch.exp(torch.clamp(g, -30.0, 30.0))
+                lp = -0.5 * (LOG2PI + torch.log(tot)) \
+                    - 0.5 * (vector[None, :] - m1[None, :]) ** 2 / tot
+                return _logsumexp_w(lp, w).sum()
+
+            return self._per_row(one, params, *self._moments(params, space, prior))
 
         return fn
 

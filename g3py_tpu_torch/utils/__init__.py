@@ -10,13 +10,24 @@
 * :func:`flow_from_jax` — carry a NeuTra flow's params from the JAX package
   into this package's :class:`~g3py_tpu_torch.bayesian.neutra.Flow`, with
   the same checks.
+* persistence: :func:`save_pkl`/:func:`load_pkl`, :func:`save_json`, and
+  :func:`save_datatrace`/:func:`load_datatrace` for the port's
+  :class:`~g3py_tpu_torch.utils.datatrace.Datatrace` in numpy's ``.npz``
+  format (the JAX package writes pandas frames as parquet or HDF5; the port
+  has neither pandas nor h5py), the column order kept.
 """
 
+import json
+import os
+import pickle
 import time
+from copy import copy
 
 import numpy as np
 
-__all__ = ["DictObj", "MaxTime", "nan_to_high", "params_from_jax", "flow_from_jax"]
+__all__ = ["DictObj", "MaxTime", "clone", "nan_to_high", "save_pkl", "load_pkl",
+           "save_datatrace", "load_datatrace", "save_json", "random_state",
+           "params_from_jax", "flow_from_jax"]
 
 
 class DictObj(dict):
@@ -59,10 +70,85 @@ class MaxTime:
             raise TimeoutError("Terminating: time limit reached")
 
 
+def clone(c):
+    """A shallow copy."""
+    return copy(c)
+
+
 def nan_to_high(x):
     """Replace non-finite entries with 1e100 so scipy optimizers never see
     NaN/Inf."""
     return np.where(np.isfinite(x), x, 1.0e100)
+
+
+def _ensure_dir(path):
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+
+
+def save_pkl(to_pkl, path="file.pkl"):
+    _ensure_dir(path)
+    with open(path, "wb") as f:
+        pickle.dump(to_pkl, f, protocol=-1)
+
+
+def load_pkl(path="file.pkl"):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def save_json(dict_to_json, path="file.json"):
+    _ensure_dir(path)
+    with open(path, "w") as f:
+        json.dump(dict_to_json, fp=f)
+
+
+def random_state(seed=None):
+    """A numpy Generator, the host-side RNG."""
+    return np.random.default_rng(seed)
+
+
+_NPZ_ONLY = ("the port writes datatraces as numpy .npz files (no pandas/h5py); "
+             "got {path!r}")
+
+
+def save_datatrace(dt, path="datatrace.npz", key="datatrace", mode="w"):
+    """Write a :class:`~g3py_tpu_torch.utils.datatrace.Datatrace` to an
+    ``.npz`` file: one array a column, under ``<key>/<position>``, and the
+    column names in order under ``<key>/columns``.  ``mode`` 'w' writes a
+    new file; 'a' keeps the file's other keys.  A ``.parquet``/``.h5`` path
+    raises ``ValueError`` (the JAX package's formats)."""
+    if not path.endswith(".npz"):
+        raise ValueError(_NPZ_ONLY.format(path=path))
+    _ensure_dir(path)
+    arrays = {}
+    if mode == "a" and os.path.exists(path):
+        with np.load(path, allow_pickle=False) as old:
+            arrays = {k: old[k] for k in old.files if not k.startswith(key + "/")}
+    arrays[key + "/columns"] = np.asarray(dt.columns, dtype=str)
+    for i, c in enumerate(dt.columns):
+        arrays[f"{key}/{i}"] = np.asarray(dt[c])
+    with open(path, "wb") as f:  # np.savez would append .npz to another suffix
+        np.savez(f, **arrays)
+
+
+def load_datatrace(path="datatrace.npz"):
+    """The Datatrace of an ``.npz`` file written by :func:`save_datatrace`
+    (the file's first key), or None (the error printed) when the file
+    cannot be read, as the JAX package's loader forgives."""
+    from .datatrace import Datatrace
+
+    try:
+        if not path.endswith(".npz"):
+            raise ValueError(_NPZ_ONLY.format(path=path))
+        with np.load(path, allow_pickle=False) as f:
+            key = next(k for k in f.files if k.endswith("/columns"))[:-len("/columns")]
+            cols = [str(c) for c in f[key + "/columns"]]
+            return Datatrace({c: f[f"{key}/{i}"] for i, c in enumerate(cols)})
+    except Exception as e:
+        print(e)
+        return None
 
 
 def params_from_jax(process, params):

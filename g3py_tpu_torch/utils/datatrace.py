@@ -5,7 +5,11 @@ every chain).  The port keeps no pandas dependency: :class:`Datatrace`
 holds equal-length numpy columns in order, under the same names (every
 scalar dim of the params, the transformed columns, ``_nchain``,
 ``_niter``, ``_burnin``, ``_ll``, ``_outlayer``), and offers what the
-sampler, the diagnostics and the averaged predictor read from it.
+sampler, the diagnostics, the averaged predictor and the datatrace toolkit
+(:mod:`g3py_tpu_torch.bayesian.average`) read from it: row labels
+(``index``, the row positions of the datatrace a selection came from),
+column filters, random and ordered row selections, duplicates and the
+column means and medians.
 """
 
 import numpy as np
@@ -21,12 +25,21 @@ class Datatrace:
       Datatrace of those rows.
     * ``dt["name"] = values`` adds or replaces a column; :meth:`insert`
       puts a new one at a position; :meth:`copy` and :meth:`iterrows` as
-      in pandas."""
+      in pandas.
+    * ``dt[fn]`` with a callable selects the rows ``fn(dt)`` (a boolean or
+      integer array) selects (pandas' ``loc`` with a callable).
+    * ``index`` holds the rows' labels: 0..len-1 for a new Datatrace, the
+      parent's labels for a row selection."""
 
-    def __init__(self, columns=None):
+    def __init__(self, columns=None, index=None):
         self._cols = {}
         for name, values in (columns or {}).items():
             self[name] = values
+        self._index = None if index is None else np.asarray(index)
+
+    @property
+    def index(self):
+        return np.arange(len(self)) if self._index is None else self._index
 
     @property
     def columns(self):
@@ -50,7 +63,10 @@ class Datatrace:
             return self._cols[key]
         if isinstance(key, list):
             return np.column_stack([self._cols[k] for k in key])
-        return Datatrace({k: v[np.asarray(key)] for k, v in self._cols.items()})
+        if callable(key):
+            key = key(self)
+        key = np.asarray(key)
+        return Datatrace({k: v[key] for k, v in self._cols.items()}, index=self.index[key])
 
     def __setitem__(self, name, values):
         self._cols[name] = self._column(values)
@@ -65,7 +81,117 @@ class Datatrace:
 
     def copy(self):
         """A Datatrace of copies of the columns."""
-        return Datatrace({k: v.copy() for k, v in self._cols.items()})
+        return Datatrace({k: v.copy() for k, v in self._cols.items()}, index=self._index)
+
+    # -- column filters ----------------------------------------------------
+    def drop(self, columns, axis=1):
+        """A Datatrace without ``columns`` (a name or a list of names)."""
+        if axis != 1:
+            raise ValueError("Datatrace.drop drops columns only (axis=1)")
+        columns = [columns] if isinstance(columns, str) else list(columns)
+        missing = [c for c in columns if c not in self._cols]
+        if missing:
+            raise KeyError(f"Datatrace.drop: no columns {missing}")
+        return Datatrace({k: v for k, v in self._cols.items() if k not in columns},
+                         index=self._index)
+
+    def filter(self, items=None, like=None, regex=None):
+        """The columns named in ``items`` (in that order, absent ones
+        skipped), or whose name contains ``like``, or matches ``regex``
+        (``re.search``), as pandas' ``filter``: exactly one of them."""
+        import re
+
+        if sum(a is not None for a in (items, like, regex)) != 1:
+            raise TypeError("Datatrace.filter takes exactly one of items, like, regex")
+        if items is not None:
+            names = [c for c in items if c in self._cols]
+        elif like is not None:
+            names = [c for c in self._cols if like in c]
+        else:
+            names = [c for c in self._cols if re.search(regex, c)]
+        return Datatrace({k: self._cols[k] for k in names}, index=self._index)
+
+    # -- row selections ----------------------------------------------------
+    def sample(self, n, rng=None):
+        """``n`` rows drawn without replacement in draw order, from numpy's
+        ``RandomState`` ``rng`` (numpy's global one when None, as pandas'
+        ``sample`` draws)."""
+        rng = np.random.mtrand._rand if rng is None else rng
+        return self[rng.choice(len(self), size=n, replace=False)]
+
+    def drop_duplicates(self, subset=None):
+        """The first row of every set of rows equal on ``subset`` (every
+        column when None), in row order."""
+        cols = self.columns if subset is None else list(subset)
+        seen, keep = set(), []
+        for i, row in enumerate(zip(*(self._cols[c].tolist() for c in cols))):
+            if row not in seen:
+                seen.add(row)
+                keep.append(i)
+        return self[np.asarray(keep, dtype=np.int64)]
+
+    def _ordered(self, n, column, largest):
+        v = np.asarray(self._cols[column], dtype=np.float64)
+        pos = np.flatnonzero(~np.isnan(v))
+        order = np.argsort(-v[pos] if largest else v[pos], kind="stable")
+        return self[pos[order[:n]]]
+
+    def nlargest(self, n, column):
+        """The ``n`` rows of largest ``column`` in descending order, ties
+        in row order (pandas' ``keep='first'``); NaN rows left out."""
+        return self._ordered(n, column, True)
+
+    def nsmallest(self, n, column):
+        """The ``n`` rows of smallest ``column`` in ascending order."""
+        return self._ordered(n, column, False)
+
+    def sort_values(self, by, ascending=True):
+        """Rows ordered by column ``by`` with pandas' default rule (NaN
+        last; a descending order reverses an ascending sort of the reversed
+        rows, so that ties keep their row order)."""
+        v = np.asarray(self._cols[by], dtype=np.float64)
+        pos = np.flatnonzero(~np.isnan(v))
+        vals = v[pos]
+        if not ascending:
+            vals, pos = vals[::-1], pos[::-1]
+        order = pos[np.argsort(vals, kind="quicksort")]
+        if not ascending:
+            order = order[::-1]
+        return self[np.concatenate([order, np.flatnonzero(np.isnan(v))])]
+
+    # -- reductions ----------------------------------------------------------
+    def _numeric(self):
+        return {k: v for k, v in self._cols.items()
+                if v.dtype.kind in "biuf"}
+
+    def mean(self, numeric_only=True):
+        """The mean of every numeric (bool, integer or float) column, a
+        dict in column order."""
+        return {k: float(np.mean(v.astype(np.float64))) for k, v in self._numeric().items()}
+
+    def median(self, numeric_only=True):
+        """The median of every numeric column, NaN left out, a dict in
+        column order."""
+        return {k: float(np.nanmedian(v.astype(np.float64))) for k, v in self._numeric().items()}
+
+    @classmethod
+    def from_rows(cls, rows, columns, index=None):
+        """A Datatrace of ``rows`` (mappings of column -> value) over
+        ``columns``; a column a row lacks is NaN there (float64 columns
+        unless every value is of one other numpy kind)."""
+        data = {}
+        for c in columns:
+            vals = [r.get(c, np.nan) for r in rows]
+            try:
+                arr = np.asarray(vals)
+            except ValueError:  # values of several shapes
+                arr = np.empty(0, dtype=object)
+            if arr.dtype.kind not in "biufUS" or arr.ndim != 1:
+                arr = np.empty(len(vals), dtype=object)
+                for i, v in enumerate(vals):
+                    arr[i] = v
+            data[c] = arr
+        return cls(data, index=index)
 
     def iterrows(self):
         """``(position, row)`` pairs, each row a dict of column -> value

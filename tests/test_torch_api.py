@@ -20,12 +20,14 @@ from g3py_tpu.bayesian import optimize_jax as jlbfgs, samplers as jsam
 from g3py_tpu.bayesian.selection import optimize as jopt
 from g3py_tpu.ops import iterative as jit_ops, linalg as jla, rff as jrff
 from g3py_tpu.ops.root import newton_inverse as jnewton
+import g3py_tpu.utils as jutils
 from g3py_tpu.utils import data as jdata, reference_io as jio
 from g3py_tpu_torch.bayesian import neutra as tneutra, samplers as tsam
 from g3py_tpu_torch.bayesian.selection import optimize as topt
 from g3py_tpu_torch.bayesian import optimize_jax as tlbfgs
 from g3py_tpu_torch.ops import iterative as tit_ops, linalg as tla, rff as trff
 from g3py_tpu_torch.ops.root import newton_inverse as tnewton
+import g3py_tpu_torch.utils as tutils
 from g3py_tpu_torch.utils import data as tdata, reference_io as tio
 
 import torch_parity  # noqa: F401  (puts the port on the CPU)
@@ -50,6 +52,18 @@ ITERATIVE_OPS = ["cg_solve", "slq_logdet", "lazy_kernel_matvec", "iterative_gp_n
                  "preconditioned_gp_nll"]
 ITERATIVE_PREDICTOR = ["__init__", "predict", "sampler", "mean", "std", "variance",
                        "quantiler", "median", "logpredictive"]
+
+TOOLKIT = ["datatrace_to_kde", "kde_to_datatrace", "cluster_datatrace", "errors_datatrace",
+           "marginal_datatrace", "conditional_datatrace", "marginal", "conditional",
+           "find_candidates", "plot_datatrace", "plot_clusters", "kde_datatrace",
+           "hist_datatrace", "scatter_datatrace"]
+UTILS = ["save_pkl", "load_pkl", "save_datatrace", "load_datatrace", "save_json", "clone",
+         "random_state"]
+EXPERIMENT = ["__init__", "add_model", "set_data", "set_scores", "set_selection", "save",
+              "new_data", "select_model", "calc_scores", "add_result", "run", "run_fanout",
+              "describe", "plot"]
+LMC = ["__init__", "task_correlations", "sampler", "quantiler", "predict_proba",
+       "fit_svgp", "predictor", "th_covariance", "th_logpredictive"]
 
 PAIRS = [
     (g3.models.stochastic.StochasticProcess.__init__,
@@ -106,7 +120,18 @@ PAIRS = [
     (jadvi.advi_draws, g3t.advi_draws),
     (jlbfgs.lbfgs_maximize, g3t.lbfgs_maximize),
     (jlbfgs.lbfgs_minimize_guarded, tlbfgs.lbfgs_minimize_guarded),
-] + [(getattr(jit_ops, name), getattr(tit_ops, name)) for name in ITERATIVE_OPS] + [
+] + [(getattr(g3, name), getattr(g3t, name)) for name in TOOLKIT] + [
+    (getattr(jutils, name), getattr(tutils, name)) for name in UTILS] + [
+    (jdata.random_obs, tdata.random_obs), (jdata.uniform_obs, tdata.uniform_obs)] + [
+    (getattr(g3.GraphicalModel, name), getattr(g3t.GraphicalModel, name))
+    for name in ("__init__", "load", "reset", "save")] + [
+    (getattr(g3.Experiment, name), getattr(g3t.Experiment, name)) for name in EXPERIMENT] + [
+    (getattr(g3.DeepKernel, name), getattr(g3t.DeepKernel, name))
+    for name in ("__init__", "features", "cov", "input_sensitivity", "default_hypers")] + [
+    (getattr(g3.LMCSVP, name), getattr(g3t.LMCSVP, name)) for name in LMC] + [
+    (g3.Mixing.__init__, g3t.Mixing.__init__),
+    (g3.MultiGaussianLik.__init__, g3t.MultiGaussianLik.__init__),
+    (g3.with_output, g3t.with_output), (g3.stack_outputs, g3t.stack_outputs)] + [(getattr(jit_ops, name), getattr(tit_ops, name)) for name in ITERATIVE_OPS] + [
     (getattr(g3.IterativePredictor, name), getattr(g3t.IterativePredictor, name))
     for name in ITERATIVE_PREDICTOR] + [(getattr(g3.WGP, name), getattr(g3t.WGP, name)) for name in PROCESS_METHODS] + [
     (getattr(g3, cls).__init__, getattr(g3t, cls).__init__)

@@ -127,9 +127,9 @@ def test_average_and_averaged_predictor_match_jax(kind, name):
 
 def test_sample_hypers_end_to_end():
     """A short WGP run: the datatrace's shape and columns, raw arrays,
-    tempering, and the options that are not ported raising (``reparam``
-    and ``fix_vars`` are ported: tests/test_torch_noncentered.py and
-    tests/test_torch_fixed.py)."""
+    tempering, clusters, and the options that are not ported raising
+    (``reparam`` and ``fix_vars`` are ported: tests/test_torch_noncentered.py
+    and tests/test_torch_fixed.py)."""
     jp, tp = _pair("wgp", "SH_WGP", n=16)
     u0 = tp.active.dict_to_array(tp.params_default)
     dt = tp.sample_hypers(start=u0, samples=12, chains=8, burnin_tol=0.5)
@@ -144,7 +144,11 @@ def test_sample_hypers_end_to_end():
                                rtol=1e-5, atol=1e-4)
     chain, lnprob = tp.sample_hypers(start=u0, samples=4, chains=8, ntemps=3, raw=True)
     assert chain.shape == (8, 4, tp.active.ndim) and lnprob.shape == (8, 4)
-    for kw, item in (({"file": "x.pkl"}, "item 8"),
-                     ({"plot": True}, "item 15"), ({"clusters": 3}, "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            tp.sample_hypers(start=u0, samples=2, chains=8, **kw)
+    # file= and clusters= are ported (tests/test_torch_registry_io.py): a
+    # parquet path is the JAX package's format, refused; plots wait
+    with pytest.raises(ValueError, match=".npz"):
+        tp.sample_hypers(start=u0, samples=2, chains=8, file="x.parquet", load=False)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tp.sample_hypers(start=u0, samples=2, chains=8, plot=True)
+    dt = tp.sample_hypers(start=u0, samples=12, chains=8, burnin_tol=0.5, clusters=2)
+    assert set(np.unique(dt["_cluster"])) <= {0, 1}

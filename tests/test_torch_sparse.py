@@ -5,7 +5,7 @@ V-parametrization), the sparse posterior moments and covariance, the
 serving state (``predictor``, ``updated``, the pathwise draws from the JAX
 package's injected normals, ``batch_predict`` over rows), ``fit_svgp``
 (Adam and ``natgrad``, full batch and the JAX package's minibatch indices
-injected), ``select_inducing`` with sklearn and without it,
+injected), ``select_inducing``'s own k-means against scikit-learn's,
 ``signal_kernel_diag``'s two routes, and batched rows: one K1 launch a gram
 and one K2 launch a factorization for all rows.  float64 against JAX x64
 at 1e-10 (fit_svgp's loss trajectories at 1e-8), float32 at rtol 1e-4 /
@@ -267,8 +267,14 @@ def test_natgrad_one_full_step_is_the_collapsed_optimum():
 
 
 def test_select_inducing_both_branches(monkeypatch):
-    """k-means (sklearn) and, with sklearn hidden, the seeded subset — each
-    the JAX package's; fewer points than slots tile with a jitter."""
+    """The port's own k-means gives the JAX package's k-means centers
+    (scikit-learn's KMeans, 4 inits): exactly where the rows are one of
+    scikit-learn's chunks (256), within 1e-10 over several; fewer points
+    than slots tile with a jitter.  With scikit-learn hidden the port takes
+    the same path (the card has no scikit-learn), where the JAX package
+    falls back to a seeded subset."""
+    from sklearn.cluster import KMeans
+
     from g3py_tpu.models.sparse import select_inducing as j_sel
 
     x = np.random.default_rng(4).standard_normal((80, 2))
@@ -276,11 +282,18 @@ def test_select_inducing_both_branches(monkeypatch):
         with floatx(name):
             np.testing.assert_array_equal(g3t.select_inducing(x, 7), j_sel(x, 7))
             np.testing.assert_array_equal(g3t.select_inducing(x[:5], 7), j_sel(x[:5], 7))
+    wide = np.random.default_rng(5).standard_normal((1000, 8))
+    with floatx("float64"):
+        np.testing.assert_allclose(
+            g3t.select_inducing(wide, 64, seed=3),
+            KMeans(n_clusters=64, n_init=4, random_state=3).fit(wide).cluster_centers_,
+            rtol=1e-10, atol=1e-10)
+    want = g3t.select_inducing(x, 7, seed=2)
     monkeypatch.setitem(sys.modules, "sklearn.cluster", None)
-    got, want = g3t.select_inducing(x, 7, seed=2), j_sel(x, 7, seed=2)
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(g3t.select_inducing(x, 7, seed=2), want)
+    subset = j_sel(x, 7, seed=2)
     rows = np.asarray(x, np.float32)
-    assert all(any(np.array_equal(r, q) for q in rows) for r in got)
+    assert all(any(np.array_equal(r, q) for q in rows) for r in subset)
 
 
 def _algebra(lib, x):

@@ -8,7 +8,8 @@ the classification scores), ``fit_svgp`` with the JAX package's minibatch
 indices injected, the predictor and its params-only export, and the five
 ``golden_families.json`` pins of the family on the port in float32 at
 ``test_golden_families.py``'s own rtol/atol of 5e-5.  float64 against JAX
-x64 at 1e-10."""
+x64 at 1e-10.  A params dict of R rows is one batched K1 pair and one K2
+call (the plain versions' call counters), each row equal to its own."""
 
 import json
 import os
@@ -259,3 +260,57 @@ def test_predictor_and_params_only_export(tmp_path):
         np.testing.assert_allclose(out["std"].numpy(), got["std"].numpy(), rtol=1e-12)
         data = np.load(os.path.join(path, "state.npz"))
         assert max(data[k].size for k in data.files if k.startswith("merged/")) == 25
+
+
+ROW_FAMILIES = {
+    "gauss": lambda lib, x: lib.SVP(space=x[:4], location=lib.Bias(), kernel=lib.SE(x),
+                                    likelihood=lib.GaussianLik(), inducing=Z, name="RW_g"),
+    "studentt": lambda lib, x: lib.SVP(space=x[:4], location=lib.Bias(), kernel=lib.SE(x),
+                                       likelihood=lib.StudentTLik(), inducing=Z, name="RW_t"),
+    "ordinal": lambda lib, x: lib.SVP(space=x[:4], location=lib.Bias(), kernel=lib.SE(x),
+                                      likelihood=lib.OrdinalLik(4), inducing=Z, name="RW_o"),
+    "multiclass": lambda lib, x: lib.MulticlassSVP(space=x[:4], kernel=lib.SE(x), classes=3,
+                                                   inducing=Z, name="RW_c"),
+    "heteroscedastic": lambda lib, x: lib.HeteroscedasticSVP(
+        space=x[:4], location=lib.Bias(), kernel=lib.SE(x), inducing=Z, name="RW_h"),
+}
+
+
+@pytest.mark.parametrize("family", sorted(ROW_FAMILIES))
+def test_svp_rows_are_one_batched_call(family, monkeypatch):
+    """A (R, ndim) matrix of rows: one K1 pair (Kuu, Kuf) and one K2 call
+    (the plain versions' call counters), each row's logp, gradient, mean
+    and log predictive equal to its own (float64, 1e-10), and equal to the
+    JAX package's ``vmap`` over the rows."""
+    from torch_parity import KernelSpy
+
+    x, f, xq, rng = _data()
+    kind = {"multiclass": "ordinal", "heteroscedastic": "gauss"}.get(family, family)
+    y = _targets(kind, f, rng)
+    if family == "multiclass":
+        y = np.minimum(y, 2.0)
+    with floatx("float64"):
+        jp, tp = process_pair(lambda lib: ROW_FAMILIES[family](lib, x), x, y)
+        u = tp.active.dict_to_array(_q_params(nudged(jp.params_default)))
+        rows = u[None, :] + 0.05 * np.random.default_rng(2).standard_normal((5, len(u)))
+        spy = KernelSpy(monkeypatch)
+        got = tp.logp_chain(rows)
+        assert spy.take() == (2, 1)
+        _, grad = tp._rows_value_and_grad(rows)
+        assert spy.take() == (2, 1)
+        np.testing.assert_allclose(got, [tp.logp(r, array=True) for r in rows], rtol=1e-10)
+        np.testing.assert_allclose(grad.numpy(), np.stack([tp.dlogp(r) for r in rows]),
+                                   rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(got, np.asarray(jp.logp_chain(rows)), rtol=1e-10)
+        reg = tp.active
+        p = reg.array_to_dict_tensor(torch.as_tensor(rows))
+        space, inputs, outputs = tp._resolve_data(xq, None, None)
+        vector = torch.as_tensor(y[:len(xq)])
+        spy.take()
+        mean = tp.th_mean()(p, space, inputs, outputs, vector)
+        logpred = tp.th_logpredictive()(p, space, inputs, outputs, vector)
+        assert spy.take() == (4, 2)
+        for r, row in enumerate(rows):
+            one = reg.array_to_dict(row)
+            assert_close(mean[r], tp.mean(one, xq), "float64")
+            assert_close(logpred[r], tp.logpredictive(one, xq, vector=y[:len(xq)]), "float64")
