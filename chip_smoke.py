@@ -12,7 +12,9 @@ sampler, NUTS, NeuTra, ADVI, HMC and the batched L-BFGS of
 ``IterativePredictor``), and the sparse families at n=100,000 (the SGPR
 collapsed bound, its Predictor and ``fit_svgp``, the sparse variational
 processes, the linear model of coregionalization), deep kernels, the
-datatrace toolkit and the Experiment harness — through the hand-written kernels K1
+datatrace toolkit and the Experiment harness, and the state-space families
+(exact O(n) time-series GPs by parallel Kalman scans, their multi-output
+and spatio-temporal forms) — through the hand-written kernels K1
 (stationary gram) and K2 (blocked panel Cholesky), and checks them:
 
   phase 0  require a CUDA card; print its name and power limit
@@ -203,6 +205,26 @@ datatrace toolkit and the Experiment harness — through the hand-written kernel
            BoxCoxLinear) at n=4096, p=0.5, 2 simulations, engines 'scipy'
            and 'jax' (every row finite; a second run from the same file adds
            no row)
+  phase 15 the state-space families (item 13's gaussian half), each against
+           a float64 witness (the port on the CPU for 15a-c and 15f, the card
+           in float64 for 15d-e; values 1e-3, gradients 1e-2 along two random
+           directions): 15a bench.py:352-381's StateSpaceGP(MAT32 + OU) at
+           n=16384, default params, logp and gradient (ms an evaluation,
+           device events, idle share, peak memory); 15b bench.py:392-428's
+           MultiStateSpaceGP, 9830 + 6554 events, measured the same way; 15c
+           serving on 15a's model: a Predictor batch of mean and variance at
+           1024 query times, quantiler, 16 joint sampler draws (host normals;
+           float32 draws within 4x the CPU's own float32 gap); 15d
+           SpatioTemporalSSGP at m=32 sites in 2-D (MAT32 x SE, S=64) with
+           512 events a site: logp and gradient (K1 x1, K2 x1 an evaluation),
+           the field at 256 off-site points (K1 x2, K2 x1), one evaluation of
+           SparseSpatioTemporalSSGP with 16384 off-site rows (K1 x2, K2 x1),
+           K1 at (32,32,2) and (32,256,2) and K2 at m=32 against their plain
+           forms; 15e StateSpaceGP at n=2,097,152, the chunked NLL (8 blocks)
+           and its gradient against parallel_kalman_nll in float64, the
+           chunked smoother at 1024 queries against the plain one; 15f one
+           batched evaluation over 16 rows at n=16384 against its 16 single
+           evaluations
 
 The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
 and read just after; the Bayesian path's counts are zeroed and read around
@@ -223,11 +245,15 @@ evaluations, Predictor and paths, 14b's shared-kernel evaluations and
 fits and 14e's scipy experiments (the single records), 14a's and 14e's
 find_MAP(engine='jax'), 14b's per-latent ones (the latents a launch's
 rows), 14c's sampler and rows, 14d's KDE refills and errors (the batched
-records), so warm-ups, profiles, float64 twins and reference
-checks are not counted.  The shape records count a subset of the two
+records), and phase 15's around 15d's float32 evaluations, field and sparse
+evaluation (15a-c, 15e and 15f are held to no launch: their Matern time
+kernels have no K1 gram), so warm-ups, profiles, float64 twins and reference
+checks are not counted.  10f's loader process runs beside phase 11 and is
+read after it.  The shape records count a subset of the two
 totals of their kernel: the slab (phase 12's), the cross gram and m=512
-(phase 13's), the features (14a's timed evaluations) and the latents
-(14b's per-latent launches).  Each kernel must have
+(phase 13's), the features (14a's timed evaluations), the latents
+(14b's per-latent launches) and the sites (15d's site grams, its cross
+grams and its m=32 factorizations).  Each kernel must have
 launched on each path.  Every check raises on failure.  The last lines are
 the kernel record, the card and ``{"ok": true, "device": {...}}``.  Run from
 the repository root:
@@ -3808,9 +3834,10 @@ print(json.dumps(report))
 def phase10f(gp, gp_map, x, path):
     """Export phase 5's GP (mean, std, quantiles, quantiles_noise), a
     WGP(BoxCoxLinear) and a WGP(WarpingTanh) Predictor on the card; load
-    them in a fresh python3 process with no model code; the loaded
-    statistics against the live Predictors' at batches 1, 256 and 1000
-    (rtol 1e-5); K1 once a query batch inside the artifact."""
+    them in a fresh python3 process with no model code (started here and
+    read by :func:`finish_phase10f`); the loaded statistics against the live
+    Predictors' at batches 1, 256 and 1000 (rtol 1e-5); K1 once a query
+    batch inside the artifact."""
     import shutil
 
     out_dir = ROOT / "build" / "chip_smoke_export"
@@ -3842,16 +3869,28 @@ def phase10f(gp, gp_map, x, path):
         pr(xq[:256], **fl)
         torch.cuda.synchronize()
         live[name]["ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", LOADER, str(out_dir), ",".join(models),
-                           torch.device(g3t.settings.device).type],
-                          capture_output=True, text=True, cwd=str(ROOT), timeout=600,
-                          env={**__import__("os").environ, "PYTHONPATH": str(ROOT)})
+    # the loader process runs beside phase 11 (its ~26 s are mostly the
+    # process's start and the artifacts' load); finish_phase10f reads it
+    proc = subprocess.Popen([sys.executable, "-c", LOADER, str(out_dir), ",".join(models),
+                             torch.device(g3t.settings.device).type],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=str(ROOT),
+                            env={**__import__("os").environ, "PYTHONPATH": str(ROOT)})
+    return dict(_pending=(proc, time.perf_counter(), out_dir, list(models), live, t_export))
+
+
+def finish_phase10f(rec, path):
+    """Wait for 10f's loader process and hold the loaded statistics against
+    the live Predictors' (rtol 1e-5) and K1 to once a query batch inside
+    the artifact; its launches go to ``path``."""
+    import shutil
+
+    proc, t0, out_dir, models, live, t_export = rec.pop("_pending")
+    stdout, stderr = proc.communicate(timeout=600)
     t_sub = time.perf_counter() - t0
-    require(proc.returncode == 0, f"loader process failed:\n{proc.stderr[-3000:]}")
-    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(proc.returncode == 0, f"loader process failed:\n{stderr[-3000:]}")
+    report = json.loads(stdout.strip().splitlines()[-1])
     require(not report["bad_modules"], f"the loader imported {report['bad_modules']}")
-    out = {}
     for name in models:
         gaps = {}
         for m in (1, 256, 1000):
@@ -3860,20 +3899,20 @@ def phase10f(gp, gp_map, x, path):
             for k in want:
                 gap = float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
                 gaps[k] = max(gaps.get(k, 0.0), gap)
-        rec = report[name]
-        require(rec["launches"] == [1, 1, 1], f"{name}: K1 launched {rec['launches']} times in "
-                "the artifact's query batches, expected once each")
+        loaded = report[name]
+        require(loaded["launches"] == [1, 1, 1], f"{name}: K1 launched {loaded['launches']} "
+                "times in the artifact's query batches, expected once each")
         require(max(gaps.values()) <= 1e-5, f"{name}: loaded vs live {gaps}")
-        path[0] += sum(rec["launches"])
-        out[name] = dict(export_s=t_export[name], loaded_ms=rec["ms"],
+        path[0] += sum(loaded["launches"])
+        rec[name] = dict(export_s=t_export[name], loaded_ms=loaded["ms"],
                          live_256_ms=live[name]["ms"], gap=max(gaps.values()))
         print(f"  10f {name}: export {t_export[name]:.2f} s; loaded batches of 1/256/1000 "
-              f"{[round(t, 3) for t in rec['ms']]} ms (live batch of 256 "
-              f"{live[name]['ms']:.3f} ms), K1 {rec['launches']}, largest relative gap to "
+              f"{[round(t, 3) for t in loaded['ms']]} ms (live batch of 256 "
+              f"{live[name]['ms']:.3f} ms), K1 {loaded['launches']}, largest relative gap to "
               f"the live Predictor {max(gaps.values()):.2e}", flush=True)
-    out["loader_process_s"] = t_sub
+    rec["loader_process_s"] = t_sub
     shutil.rmtree(out_dir, ignore_errors=True)
-    return out
+    return rec
 
 
 def phase10(gp, gp_map, x, y, dt16, path, path_batched):
@@ -4410,11 +4449,15 @@ def neutra_replay(flow, draws, path_batched):
                 horizon=horizon, cpu_s=t_cpu)
 
 
+FLOW_STEPS = 500   # 11f's flow fit (bench.py:827-828 fits 1500; cut for time)
+
+
 @card_only
 def phase11f(path_batched, warmup=8, samples=8, ensemble=200):
     """NeuTra on the n=125 workload: 32 walkers x 200 ensemble warmup, then
     neutra_nuts on its second half through bench.py:827-828's flow (6
-    couplings, hidden 32, 1500 steps), fitted once, timed, and NUTS in the
+    couplings, hidden 32; FLOW_STEPS steps, cut from 1500 for time), fitted
+    once, timed, and NUTS in the
     latent space (depth 6, target_accept 0.95, dense mass, 4 chains, warmup
     8, samples 8: cut from 60 + 60 for time, its trees at depth ~6); the
     same flow gives the round trip and feeds the replay.  The ensemble's
@@ -4429,7 +4472,7 @@ def phase11f(path_batched, warmup=8, samples=8, ensemble=200):
     ens.check("11f ensemble warmup", len(calls), path_batched)
     draws = wchain[:, ensemble // 2:, :].reshape(-1, reg.ndim)
     t0 = time.perf_counter()
-    flow, losses = g3t.fit_flow(draws, n_couplings=6, hidden=32, steps=1500, key=0)
+    flow, losses = g3t.fit_flow(draws, n_couplings=6, hidden=32, steps=FLOW_STEPS, key=0)
     t_fit = time.perf_counter() - t0
     theta = card_rows(np.random.default_rng(6).standard_normal((7, reg.ndim)) * 0.5
                       + draws.mean(0))
@@ -4445,7 +4488,7 @@ def phase11f(path_batched, warmup=8, samples=8, ensemble=200):
     with GradCounts() as cnt:
         chain, lnprob, info = g3t.neutra_nuts(
             wgp._sampling_logps()[0], draws, samples, chains=4, warmup=warmup, key=7,
-            max_depth=6, target_accept=0.95, n_couplings=6, hidden=32, fit_steps=1500,
+            max_depth=6, target_accept=0.95, n_couplings=6, hidden=32, fit_steps=FLOW_STEPS,
             adapt_mass="dense", flow=flow)
     cnt.check("11f neutra_nuts", 1 + cnt.leaves, path_batched)
     rows = chain[:, ::10, :].reshape(-1, reg.ndim)
@@ -4457,8 +4500,8 @@ def phase11f(path_batched, warmup=8, samples=8, ensemble=200):
     out = dict(fit_s=t_fit, nll_first=float(losses[0]), nll_last=float(losses[-1]),
                round_trip=trip, neutra_nuts_s=cnt.seconds, fit_nll=fit_nll, leaves=cnt.leaves,
                lnprob_gap=gap, moved=moved, info=info)
-    print(f"  11f NeuTra WGP n=125: ensemble 32 x {ensemble} {ens.seconds:.2f} s; fit_flow 1500 "
-          f"steps {t_fit:.2f} s (NLL {losses[0]:.3f} -> {losses[-1]:.3f}), round trip "
+    print(f"  11f NeuTra WGP n=125: ensemble 32 x {ensemble} {ens.seconds:.2f} s; fit_flow "
+          f"{FLOW_STEPS} steps {t_fit:.2f} s (NLL {losses[0]:.3f} -> {losses[-1]:.3f}), round trip "
           f"{trip:.2e}; neutra_nuts through that flow {cnt.seconds:.2f} s, "
           f"{cnt.leaves} leaves, acceptance {info['accept_rate']}, mean tree "
           f"depth {info['mean_tree_depth']}, divergences {info['divergences']}, step sizes "
@@ -5107,20 +5150,20 @@ def with_host_threads(fn):
         torch.set_num_threads(old)
 
 
-def sparse_k2(a):
-    """K2 at m=512 on the SGP's B~ (4 panels of 128), float32: against its
-    plain form; its CUDA-event time over 20 calls back to back (the
+def sparse_k2(a, label="B~ = s2 I + V V'"):
+    """K2 at m=512 on the SGP's B~ (4 panels of 128), or at another small m
+    (``label`` names the matrix), float32: against its plain form; its CUDA-event time over 20 calls back to back (the
     record's), one call's, its profiler time a call, beside cholesky_ex's
     and the plain form's; and the bound (:func:`k2_bound`)."""
     n = a.shape[0]
     lk, dinv, info = panel_cholesky(a)
     lp, dinv_p, info_p = k2_plain_form(a)
-    require(int(info) == 0 and int(info_p) == 0, f"13 K2 info {int(info)} at m={n}")
+    require(int(info) == 0 and int(info_p) == 0, f"K2 info {int(info)} at m={n} ({label})")
     res, d_err = k2_checks(lk, dinv, a)
     err = float((lk - lp).abs().max())
     l_gap = float(torch.linalg.matrix_norm(lk - lp) / torch.linalg.matrix_norm(lp))
     require(res <= 4 * math.sqrt(n) * torch.finfo(a.dtype).eps and l_gap <= K2_TOL[a.dtype][0]
-            and d_err <= K2_TOL[a.dtype][1], f"13 K2 m={n}: residual {res:.2e}, |L-Lp| "
+            and d_err <= K2_TOL[a.dtype][1], f"K2 m={n} ({label}): residual {res:.2e}, |L-Lp| "
             f"{l_gap:.2e}, panels {d_err:.2e}")
     t_k = back_to_back_ms(lambda: panel_cholesky(a))
     t_one = event_ms(lambda: panel_cholesky(a), reps=20)
@@ -5129,7 +5172,7 @@ def sparse_k2(a):
     t_lib = back_to_back_ms(lambda: torch.linalg.cholesky_ex(a))
     t_lib_one = event_ms(lambda: torch.linalg.cholesky_ex(a), reps=20)
     bound, bound_by = k2_bound(n, block=dinv.shape[-1])
-    print(f"  K2 m={n} f32 (B~ = s2 I + V V'): kernel {t_k:.4f} ms (events, back to back; "
+    print(f"  K2 m={n} f32 ({label}): kernel {t_k:.4f} ms (events, back to back; "
           f"one call {t_one:.4f} ms), device {fmt_ms(t_dev)} (profiler, a call); plain "
           f"{t_p:.4f} ms; cholesky_ex {t_lib:.4f} ms back to back ({t_lib_one:.4f} ms one "
           f"call); bound {bound:.5f} ms ({bound_by}); residual {res:.2e}, max abs err "
@@ -6150,6 +6193,467 @@ def phase14(trace_6c, gp, dt16, x_map, y_map, path, path_batched):
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+# The state-space families (ROADMAP item 13's gaussian half): bench.py's two
+# state-space rows (an exact O(n) NLL and gradient at n=16384), serving on
+# the first, the spatio-temporal family at its documented size (m=32 sites,
+# S=64 states), the chunked path past ssm_chunk_threshold and a params dict
+# of 16 rows.  Only 15d reaches K1 (the site gram, the cross grams) and K2
+# (the sites' factor); the Matern time kernels run no kernel of the port.
+# Witnesses: the port on the CPU in float64 (15a-c, 15f), the card in
+# float64 (15d-e: a CPU run at S=64 or n=2M takes tens of seconds).
+SS_N = 16384                 # bench.py:358's n
+SS_CHUNKED_N = 2_097_152     # 15e: 8 blocks of settings.ssm_chunk
+ST_SITES, ST_PER_SITE = 32, 512
+
+
+def ss_series(n, seed, span=None):
+    """bench.py:358-362's series (its formulas, a seeded stream): t sorted
+    uniform on (0, n/50), y = sin(2 pi t / 20) + 0.2 noise."""
+    rng = np.random.default_rng(seed)
+    span = n / 50.0 if span is None else span
+    t = np.sort(rng.uniform(0, span, n)).astype(np.float32)
+    return t, rng
+
+
+def ssgp_model(name, n=None, seed=15):
+    n = SS_N if n is None else n
+    t, rng = ss_series(n, seed)
+    y = (np.sin(2 * np.pi * t / 20.0) + 0.2 * rng.standard_normal(n)).astype(np.float32)
+    tc = t[:, None]
+    proc = g3t.StateSpaceGP(space=tc[:4], kernel=g3t.MAT32(tc) + g3t.OU(tc), name=name)
+    proc.observed(tc, y)
+    return proc, tc, y
+
+
+def mssgp_model(name, seed=16):
+    """bench.py:399-414's two channels: 9830 + 6554 events at their own
+    times on (0, 327), LMC-mixed from a MAT32 and an OU latent."""
+    rng = np.random.default_rng(seed)
+    n0, n1 = 9830, 6554
+    t0 = np.sort(rng.uniform(0, 327.0, n0)).astype(np.float32)
+    t1 = np.sort(rng.uniform(0, 327.0, n1)).astype(np.float32)
+    y0 = (np.sin(2 * np.pi * t0 / 20.0) + 0.2 * rng.standard_normal(n0)).astype(np.float32)
+    y1 = (-0.8 * np.sin(2 * np.pi * t1 / 20.0) + 0.5
+          + 0.3 * rng.standard_normal(n1)).astype(np.float32)
+    x, y = g3t.stack_outputs([t0[:, None], t1[:, None]], [y0, y1])
+    proc = g3t.MultiStateSpaceGP(space=x[:4], kernel=[g3t.MAT32(t0[:4, None]),
+                                                       g3t.OU(t0[:4, None])],
+                                 outputs_dim=2, name=name)
+    proc.observed(x, y)
+    return proc, x, y
+
+
+def value_grad_on(build, u, device, floatx, like_only=False):
+    """The model ``build()`` makes, on ``device`` in ``floatx``: its logp
+    (or loglike) and gradient at the unconstrained ``u`` (host float64)."""
+    t0 = time.perf_counter()
+    with port_on(device, floatx):
+        proc = build()[0]
+        val, grad = proc._value_and_grad(proc._logp_pure(like_only=like_only),
+                                         g3t.config.as_tensor(np.asarray(u)))
+        out = float(val), grad.cpu().numpy().astype(np.float64)
+    print(f"    the {floatx} witness on {device}: {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
+def held_value_grad(label, got, ref, gates=(1e-3, 1e-2), seed=15):
+    """A value and gradient against their float64 witness: the value's
+    relative gap and the gradient's along two random directions."""
+    gap = abs(got[0] - ref[0]) / max(abs(ref[0]), 1e-30)
+    dgaps, whole = directional_gaps(got[1], ref[1], seed)
+    require(gap <= gates[0] and max(dgaps) <= gates[1],
+            f"{label}: value gap {gap:.2e}, gradient gaps {dgaps}")
+    return dict(gap=gap, grad_gaps=dgaps, grad_norm_gap=whole)
+
+
+def device_profile(fn):
+    """A CUDA-only ``torch.profiler`` trace of one call of the warm ``fn``:
+    (device events, device ms).  Without the CPU activity the trace and its
+    key averages take ~1/3 of the time at 50,000 events (13.6 s against
+    38.9 s for 15d's evaluation on the card)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+    dev = [e for e in prof.key_averages() if _on_device(e)]
+    return sum(e.count for e in dev), sum(_self_device_us(e) for e in dev) / 1e3
+
+
+def evaluation_record(proc, u, label, reps, path=None, predict=None, profiled=True):
+    """Value and gradient through the normal entry (``_value_and_grad`` of
+    ``_logp_pure``, as bench.py times it): warm-up, then ``reps`` timed
+    evaluations (median), each one's K1/K2 launches against ``predict``
+    (per evaluation, K2 plus its jitter retries) and added to ``path``;
+    the peak allocated memory; with ``profiled``, one more evaluation's
+    device events (its launches), device time and idle share."""
+    import gc
+
+    pure = proc._logp_pure()
+    ut = torch.as_tensor(u, device=CARD)
+
+    def evaluate():
+        out = proc._value_and_grad(pure, ut)
+        torch.cuda.synchronize()
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t_warm = time.perf_counter()
+    evaluate()
+    t_warm = time.perf_counter() - t_warm
+    times, per_eval = [], []
+    for _ in range(reps):
+        zero_counts()
+        t0 = time.perf_counter()
+        val, grad = evaluate()
+        times.append(time.perf_counter() - t0)
+        k1, k2, retries = launches()
+        per_eval.append((k1, k2, retries))
+        if path is not None:
+            path[0] += k1
+            path[1] += k2
+        want = (0, 0) if predict is None else (predict[0], predict[1] + retries)
+        require((k1, k2) == want, f"{label}: an evaluation launched K1 x{k1}, K2 x{k2} "
+                f"({retries} retries), predicted {want}")
+    peak = torch.cuda.max_memory_allocated()
+    t_eval = statistics.median(times)
+    require(math.isfinite(float(val)) and finite(grad), f"{label}: value or gradient not finite")
+    t_prof = time.perf_counter()
+    events, t_dev = device_profile(evaluate) if profiled else (None, None)
+    t_prof = time.perf_counter() - t_prof
+    idle = None if not t_dev else max(0.0, 1.0 - t_dev / (t_eval * 1e3))
+    print(f"  {label}: logp + gradient {t_eval * 1e3:.2f} ms an evaluation ({1 / t_eval:.2f} "
+          f"evals/s; all {[round(t * 1e3, 2) for t in times]} ms), K1/K2/retries an "
+          f"evaluation {per_eval[0]}; device events {events} an evaluation, device "
+          f"{fmt_ms(t_dev)}, idle share {'not measured' if idle is None else f'{idle:.3f}'}; "
+          f"peak allocated {peak / 1e9:.3f} GB ({(peak - before) / 1e9:.3f} GB above "
+          f"{before / 1e9:.3f}); the first evaluation {t_warm:.2f} s, the profile "
+          f"{t_prof:.2f} s", flush=True)
+    return dict(eval_ms=t_eval * 1e3, first_s=t_warm, profile_s=t_prof, evals_per_s=1 / t_eval, times_ms=[t * 1e3 for t in times],
+                launches=per_eval, device_events=events, device_ms=t_dev, idle=idle,
+                peak_gb=peak / 1e9, value=float(val), grad=grad.cpu().numpy())
+
+
+def phase15a():
+    """bench.py:352-381: StateSpaceGP(MAT32 + OU) at n=16384, default params,
+    logp and gradient, against the port on the CPU in float64."""
+    build = lambda: ssgp_model("P15A")  # noqa: E731
+    proc, t, y = build()
+    u = proc.active.dict_to_array(proc.params_default)
+    rec = evaluation_record(proc, u, "15a SSGP(MAT32 + OU) n=16384", reps=10)
+    t0 = time.perf_counter()
+    ref = value_grad_on(build, u, "cpu", "float64")
+    rec["witness"] = held_value_grad("15a vs the CPU float64", (rec["value"], rec["grad"]), ref)
+    rec["cpu_s"] = time.perf_counter() - t0
+    print(f"  15a vs the CPU port in float64 ({rec['cpu_s']:.2f} s): {rec['witness']}",
+          flush=True)
+    rec.pop("grad")
+    return proc, u, rec
+
+
+def phase15b():
+    """bench.py:392-428: MultiStateSpaceGP, 9830 + 6554 events, default
+    params, logp and gradient, against the CPU port in float64."""
+    build = lambda: mssgp_model("P15B")  # noqa: E731
+    proc, _, _ = build()
+    u = proc.active.dict_to_array(proc.params_default)
+    rec = evaluation_record(proc, u, "15b MSSGP(MAT32, OU) 9830 + 6554", reps=10)
+    ref = value_grad_on(build, u, "cpu", "float64")
+    rec["witness"] = held_value_grad("15b vs the CPU float64", (rec["value"], rec["grad"]), ref)
+    print(f"  15b vs the CPU port in float64: {rec['witness']}", flush=True)
+    rec.pop("grad")
+    return rec
+
+
+def host_normals(samples, n, s, seed):
+    rng = np.random.default_rng(seed)
+    return {"x": rng.standard_normal((samples, n, s)), "y": rng.standard_normal((samples, n))}
+
+
+def phase15c(proc):
+    """Serving on 15a's model: a Predictor batch of mean and variance at
+    1024 query times, quantiler, and 16 joint sampler draws (the Matheron
+    simulation smoother, host normals), each timed after a warm call and
+    held against the CPU port in float64 (moments relative to their scale,
+    the draws with the same normals)."""
+    params = proc.params_default
+    tq = np.linspace(1.0, SS_N / 50.0 - 1.0, 1024).astype(np.float32)[:, None]
+    pr = proc.predictor(params)
+    draws = host_normals(16, SS_N + len(tq), 3, 151)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    zero_counts()
+    stats, t_pr = timed(lambda: pr.predict(tq, mean=True, std=False, var=True))
+    quant, t_q = timed(lambda: proc.quantiler(params, tq, q=0.975))
+    samp, t_s = timed(lambda: proc.sampler(params, tq, samples=16, seed=draws))
+    require(launches()[:2] == (0, 0), f"15c launched K1/K2 {launches()[:2]}, predicted none")
+    with port_on("cpu", "float64"):
+        cpu, _, _ = ssgp_model("P15A")
+        mean64 = cpu.mean(params, tq).numpy()
+        var64 = cpu.variance(params, tq).numpy()
+        quant64 = cpu.quantiler(params, tq, q=0.975)
+        samp64 = cpu.sampler(params, tq, samples=16, seed=draws)
+    with port_on("cpu", "float32"):
+        samp32 = ssgp_model("P15A")[0].sampler(params, tq, samples=16, seed=draws)
+    gaps = {"mean": rel_gap(stats["mean"].cpu().numpy(), mean64),
+            "variance": rel_gap(stats["variance"].cpu().numpy(), var64),
+            "quantile": rel_gap(quant, quant64), "draws": rel_gap(samp, samp64)}
+    # a float32 prior trajectory carries Q = Pinf - A Pinf A' at steps of
+    # ~1/50 with its cancellation: the draws are held within WITNESS_FACTOR
+    # x the CPU's own float32 gap to float64 (the same normals)
+    witness = rel_gap(samp32, samp64)
+    limits = {k: 1e-3 for k in gaps}
+    limits["draws"] = max(1e-3, WITNESS_FACTOR * witness)
+    print(f"  15c serving n=16384, 1024 queries: Predictor batch (mean, variance) {t_pr:.2f} "
+          f"ms, quantiler {t_q:.2f} ms, 16 joint draws {t_s:.2f} ms; vs the CPU port in "
+          f"float64 (relative to scale) {gaps}, the draws' float32 CPU witness {witness:.2e}",
+          flush=True)
+    require(all(np.isfinite(v) and v <= limits[k] for k, v in gaps.items()),
+            f"15c gaps {gaps} over {limits}")
+    return dict(predict_ms=t_pr, quantiler_ms=t_q, sampler_ms=t_s, gaps=gaps,
+                draws_witness=witness)
+
+
+def st_sites(seed=17):
+    """32 sites on a jittered 8 x 4 grid of spacing 1 in 2-D."""
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.arange(8.0), np.arange(4.0))
+    grid = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    return (grid + rng.uniform(-0.2, 0.2, grid.shape)).astype(np.float32)
+
+
+def st_model(name, seed=18):
+    """SpatioTemporalSSGP at its documented size: 32 sites, 512 events a
+    site on (0, 100) (n=16384), MAT32 in time x SE over the sites (S=64);
+    a smooth space-time field plus noise.  The SE's rate is set to the
+    grid's spacing (the data-driven default reads the sites' listing
+    order)."""
+    sites = st_sites()
+    rng = np.random.default_rng(seed)
+    ts, ys = [], []
+    for p in range(ST_SITES):
+        t = np.sort(rng.uniform(0, 100.0, ST_PER_SITE)).astype(np.float32)
+        ts.append(t[:, None])
+        ys.append((np.sin(2 * np.pi * t / 20.0 + 0.5 * sites[p, 0]) * np.cos(0.4 * sites[p, 1])
+                   + 0.2 * rng.standard_normal(ST_PER_SITE)).astype(np.float32))
+    x, y = g3t.stack_outputs(ts, ys)
+    proc = g3t.SpatioTemporalSSGP(space=x[:4], kernel=g3t.MAT32(x[:, :1]),
+                                  space_kernel=g3t.SE(sites), sites=sites, name=name)
+    proc.observed(x, y)
+    params = dict(proc.params_default)
+    params[f"{name}_SE_rate"] = np.ones(2, np.float32)
+    return proc, params, x, y
+
+
+def sparse_st_model(name, seed=19):
+    """SparseSpatioTemporalSSGP over 15d's 32 sites as inducing sites, with
+    16384 rows at random off-site coordinates (one global noise)."""
+    sites = st_sites()
+    rng = np.random.default_rng(seed)
+    n = ST_SITES * ST_PER_SITE
+    t = np.sort(rng.uniform(0, 100.0, n)).astype(np.float32)
+    xy = rng.uniform([-0.5, -0.5], [7.5, 3.5], (n, 2)).astype(np.float32)
+    y = (np.sin(2 * np.pi * t / 20.0 + 0.5 * xy[:, 0]) * np.cos(0.4 * xy[:, 1])
+         + 0.2 * rng.standard_normal(n)).astype(np.float32)
+    x = np.concatenate([t[:, None], xy], axis=1)
+    proc = g3t.SparseSpatioTemporalSSGP(space=x[:4], kernel=g3t.MAT32(x[:, :1]),
+                                        space_kernel=g3t.SE(sites), inducing=sites, name=name)
+    proc.observed(x, y)
+    params = dict(proc.params_default)
+    params[f"{name}_SE_rate"] = np.ones(2, np.float32)
+    return proc, params, x, y
+
+
+def phase15d(path):
+    """SpatioTemporalSSGP at m=32, S=64, n=16384: logp and gradient (K1 x1,
+    the (32,32,2) site gram; K2 x1 + jitter retries, the sites' factor),
+    the field at 256 off-site points (K1 x2, the site gram and the (32,256,2)
+    cross gram; K2 x1), one evaluation of SparseSpatioTemporalSSGP with
+    16384 off-site rows (K1 x2, the site gram and the (32,16384,2) cross
+    gram; K2 x1); every value against the card in float64; K1 at (32,32,2)
+    and (32,256,2) and K2 at m=32 against their plain forms."""
+    proc, params, x, y = st_model("P15D")
+    u = proc.active.dict_to_array(params)
+    rec = evaluation_record(proc, u, "15d STSSGP m=32 S=64 n=16384", reps=1, path=path,
+                            predict=(1, 1))
+    ref = value_grad_on(lambda: st_model("P15D"), u, CARD, "float64")
+    rec["witness"] = held_value_grad("15d vs the card's float64", (rec["value"], rec["grad"]),
+                                     ref)
+    rec.pop("grad")
+    rng = np.random.default_rng(20)
+    tq = np.sort(rng.uniform(0, 100.0, 256)).astype(np.float32)
+    xq = rng.uniform([-0.5, -0.5], [7.5, 3.5], (256, 2)).astype(np.float32)
+    proc.field(tq, xq, params=params)  # warm
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    fm, fv = proc.field(tq, xq, params=params)
+    torch.cuda.synchronize()
+    t_field = (time.perf_counter() - t0) * 1e3
+    k1, k2, retries = launches()
+    path[0] += k1
+    path[1] += k2
+    require((k1, k2) == (2, 1 + retries), f"15d field launched K1 x{k1}, K2 x{k2} ({retries} "
+            "retries), predicted K1 x2, K2 x1 + retries")
+    with port_on(CARD, "float64"):
+        p64, params64 = st_model("P15D")[:2]
+        fm64, fv64 = p64.field(tq, xq, params=params64)
+    field_gaps = {"mean": rel_gap(fm, fm64), "variance": rel_gap(fv, fv64)}
+    print(f"  15d field at 256 off-site points: {t_field:.2f} ms, K1 x{k1}, K2 x{k2}; vs the "
+          f"card's float64 {field_gaps}", flush=True)
+    require(max(field_gaps.values()) <= 1e-3 and np.isfinite(fm).all(),
+            f"15d field gaps {field_gaps}")
+    sp, sp_params = sparse_st_model("P15DS")[:2]
+    us = sp.active.dict_to_array(sp_params)
+    sparse = evaluation_record(sp, us, "15d SparseSTSSGP m=32 n=16384 off-site rows", reps=1,
+                               path=path, predict=(2, 1), profiled=False)
+    sparse["witness"] = held_value_grad(
+        "15d sparse vs the card's float64", (sparse["value"], sparse["grad"]),
+        value_grad_on(lambda: sparse_st_model("P15DS"), us, CARD, "float64"))
+    sparse.pop("grad")
+    # the kernels at the family's shapes, against their plain forms
+    t_rec = time.perf_counter()
+    pt = proc._tensor_params(params)
+    rate, var = pt["P15D_SE_rate"], pt["P15D_SE_var"]
+    z = torch.as_tensor(st_sites(), device=CARD)
+    k1_sites = k1_record(z, z, rate, var, "15d K1 site gram")
+    k1_cross = k1_record(z, torch.as_tensor(xq, device=CARD), rate, var, "15d K1 field cross")
+    with torch.no_grad():
+        gram = proc.f_mixing.spatial_cov(pt)
+    k2_sites = sparse_k2(gram.contiguous(), "K_s(sites), SE")
+    print(f"    the kernel records: {time.perf_counter() - t_rec:.2f} s", flush=True)
+    evals = len(rec["launches"]) + len(sparse["launches"])
+    out = dict(st=rec, field=dict(ms=t_field, launches=(k1, k2), gaps=field_gaps), sparse=sparse,
+               k1_sites=k1_sites, k1_cross=k1_cross, k2_sites=k2_sites,
+               # the launches by shape class, as predicted and counted above
+               sites_launches=evals + 1, cross_launches=1 + len(sparse["launches"]),
+               k2_launches=sum(v[1] for v in rec["launches"] + sparse["launches"]) + k2)
+    return out
+
+
+def phase15e():
+    """The chunked path: StateSpaceGP(MAT32 + OU) at n=2,097,152 (over
+    ssm_chunk_threshold: 8 blocks of ssm_chunk), logp and gradient through
+    chunked_kalman_nll, against parallel_kalman_nll on the same data in
+    float64 on the card (the threshold raised); the chunked smoother at
+    1024 queries against the plain smoother likewise."""
+    require(SS_CHUNKED_N > g3t.settings.ssm_chunk_threshold
+            and SS_CHUNKED_N // g3t.settings.ssm_chunk == 8, "15e is not 8 chunks")
+    build = lambda: ssgp_model("P15E", n=SS_CHUNKED_N, seed=21)  # noqa: E731
+    proc, t, y = build()
+    u = proc.active.dict_to_array(proc.params_default)
+    rec = evaluation_record(proc, u, "15e SSGP n=2097152 chunked", reps=1, profiled=False)
+    old = g3t.settings.ssm_chunk_threshold
+    g3t.settings.ssm_chunk_threshold = 1 << 40          # the plain scans
+    try:
+        t0 = time.perf_counter()
+        ref = value_grad_on(build, u, CARD, "float64")
+        t_plain = time.perf_counter() - t0
+        # query times exact in float32: at t ~ 4e4 a float32 rounding of a
+        # query moves it by ~1e-3, 5% of the MAT32's 0.02 lengthscale
+        tq = np.linspace(1.0, SS_CHUNKED_N / 50.0 - 1.0, 1024).astype(np.float32)
+        with port_on(CARD, "float64"), torch.no_grad():
+            p64 = build()[0]
+            pt = p64._tensor_params(p64.params_default)
+            plain_sm = [v.cpu().numpy() for v in p64._run_smoother(
+                pt, g3t.config.as_tensor(tq), p64._device_data("inputs"),
+                p64._device_data("outputs"))]
+    finally:
+        g3t.settings.ssm_chunk_threshold = old
+    rec["witness"] = held_value_grad("15e chunked vs plain float64", (rec["value"], rec["grad"]),
+                                     ref)
+    rec.pop("grad")
+    with torch.no_grad():
+        pt = proc._tensor_params(proc.params_default)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunked_sm = [v.cpu().numpy() for v in proc._run_smoother(
+            pt, g3t.config.as_tensor(tq), proc._device_data("inputs"),
+            proc._device_data("outputs"))]
+        t_sm = (time.perf_counter() - t0) * 1e3
+    sm_gaps = {"mean": rel_gap(chunked_sm[0], plain_sm[0]),
+               "variance": rel_gap(chunked_sm[1], plain_sm[1])}
+    print(f"  15e vs the plain scan in float64 ({t_plain:.2f} s): {rec['witness']}; chunked "
+          f"smoother at 1024 queries {t_sm:.1f} ms, vs the plain float64 smoother {sm_gaps}",
+          flush=True)
+    require(max(sm_gaps.values()) <= 1e-3, f"15e smoother gaps {sm_gaps}")
+    rec.update(smoother_ms=t_sm, smoother_gaps=sm_gaps, plain_witness_s=t_plain)
+    return rec
+
+
+def phase15f(proc, u):
+    """One batched evaluation over 16 rows at 15a's n (one scan over (16,
+    16384, 3, 3)) against its 16 single evaluations on the card and against
+    the CPU port's batched evaluation in float64."""
+    rows = u[None, :] + 0.1 * np.random.default_rng(22).standard_normal((16, len(u)))
+    rt = torch.as_tensor(rows, dtype=torch.float32, device=CARD)
+    proc._rows_value_and_grad(rt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val, grad = proc._rows_value_and_grad(rt)
+    torch.cuda.synchronize()
+    t_rows = (time.perf_counter() - t0) * 1e3
+    val, grad = val.cpu().numpy().astype(np.float64), grad.cpu().numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    singles = [proc._rows_value_and_grad(r) for r in rt]
+    torch.cuda.synchronize()
+    t_single = (time.perf_counter() - t0) * 1e3
+    sv = np.array([float(v) for v, _ in singles])
+    sg = np.stack([g.cpu().numpy() for _, g in singles]).astype(np.float64)
+    with port_on("cpu", "float64"):
+        cpu = ssgp_model("P15A")[0]
+        v64, g64 = cpu._rows_value_and_grad(torch.as_tensor(rows))
+        v64, g64 = v64.numpy(), g64.numpy()
+    single_gap = max(rel_gap(val, sv), rel_gap(grad, sg))
+    gaps = [held_value_grad(f"15f row {i}", (val[i], grad[i]), (v64[i], g64[i]), seed=i)
+            for i in range(16)]
+    worst = (max(g["gap"] for g in gaps), max(max(g["grad_gaps"]) for g in gaps))
+    print(f"  15f 16 rows at n=16384: batched {t_rows:.2f} ms, 16 single evaluations "
+          f"{t_single:.2f} ms; batched vs single (relative to scale) {single_gap:.2e}; vs the "
+          f"CPU port in float64, worst value gap {worst[0]:.2e}, gradient {worst[1]:.2e}",
+          flush=True)
+    require(single_gap <= 1e-4, f"15f batched vs single {single_gap:.2e}")
+    return dict(batched_ms=t_rows, singles_ms=t_single, single_gap=single_gap,
+                worst_value_gap=worst[0], worst_grad_gap=worst[1])
+
+
+def phase15(path):
+    """Phase 15's runs; the launches of 15d's float32 evaluations, field and
+    sparse evaluation go to ``path`` (15a-c, 15e and 15f launch neither
+    kernel: the Matern time kernels have no K1 gram)."""
+    out, models = {}, {}
+
+    def first():
+        proc, u, rec = phase15a()
+        models.update(proc=proc, u=u)
+        return rec
+
+    runs = (("15a", "StateSpaceGP n=16384 (bench.py:352-381)", first),
+            ("15b", "MultiStateSpaceGP 9830 + 6554 (bench.py:392-428)", phase15b),
+            ("15c", "serving on 15a's model", lambda: phase15c(models["proc"])),
+            ("15d", "SpatioTemporalSSGP m=32 S=64 n=16384, the sparse variant",
+             lambda: phase15d(path)),
+            ("15e", "the chunked path at n=2097152", phase15e),
+            ("15f", "16 rows at n=16384", lambda: phase15f(models["proc"], models["u"])))
+    for key, label, run in runs:
+        print(f"phase {key}: {label}", flush=True)
+        t0 = time.perf_counter()
+        out[key] = run()
+        out[key]["wall_s"] = time.perf_counter() - t0
+        print(f"  phase {key} wall {out[key]['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     print("phase 0: device", flush=True)
     if not torch.cuda.is_available():
@@ -6289,10 +6793,6 @@ def main():
     # float64 twins, the host checks and the witnesses are not counted
     p10, p10_batched = [0, 0], [0, 0]
     toolbox = phase10(tgp, gp_map, x_map, y_map, dt16, p10, p10_batched)
-    print(f"  launches in phase 10: K1 {p10[0]}, K2 {p10[1]}; batched K1 {p10_batched[0]}, "
-          f"K2 {p10_batched[1]}", flush=True)
-    require(p10[0] > 0 and p10[1] > 0 and p10_batched[0] > 0 and p10_batched[1] > 0,
-            "phase 10 did not go through both kernels")
 
     # ---- the gradient half of the Bayesian toolbox: the counts are zeroed
     # before, and read after, each float32 run (NUTS at n=125 and n=4096,
@@ -6301,12 +6801,24 @@ def main():
     # against its predicted evaluations; the float64 card runs of 11b and of
     # 11f's replay and 11c's float64 twin are checked but not counted
     p11_batched = [0, 0]
-    gradient = phase11(tgp, gp_map, x_map, y_map, map_s, surface["fits"]["loo_fit"],
-                       p11_batched)
+    try:
+        gradient = phase11(tgp, gp_map, x_map, y_map, map_s, surface["fits"]["loo_fit"],
+                           p11_batched)
+    except BaseException:
+        toolbox["10f"]["_pending"][0].kill()  # no process outlives a failed run
+        raise
     print(f"  launches in phase 11: batched K1 {p11_batched[0]}, K2 {p11_batched[1]}",
           flush=True)
     require(p11_batched[0] > 0 and p11_batched[1] > 0,
             "phase 11 did not go through both batched kernels")
+
+    # 10f's loader process ran beside phase 11: its checks and the
+    # artifact's K1 launches now
+    finish_phase10f(toolbox["10f"], p10)
+    print(f"  launches in phase 10: K1 {p10[0]}, K2 {p10[1]}; batched K1 {p10_batched[0]}, "
+          f"K2 {p10_batched[1]}", flush=True)
+    require(p10[0] > 0 and p10[1] > 0 and p10_batched[0] > 0 and p10_batched[1] > 0,
+            "phase 10 did not go through both kernels")
 
     # ---- the matrix-free path: the counts are zeroed before, and read
     # after, 12b's timed evaluations, 12d's fits and 12e's float32
@@ -6350,6 +6862,17 @@ def main():
     require(p14[0] > 0 and p14[1] > 0 and p14_batched[0] > 0 and p14_batched[1] > 0,
             "phase 14 did not go through both kernels")
 
+    # ---- the state-space families (item 13's gaussian half): the counts
+    # are zeroed before, and read after, 15d's float32 evaluations, field and
+    # sparse evaluation (15a-c, 15e and 15f are held to no launch); the
+    # warm-ups, the float64 witnesses and the kernel records are not counted
+    p15 = [0, 0]
+    t15 = time.perf_counter()
+    state_space = phase15(p15)
+    t15 = time.perf_counter() - t15
+    print(f"  launches in phase 15: K1 {p15[0]}, K2 {p15[1]}; phase 15 {t15:.1f} s", flush=True)
+    require(p15[0] > 0 and p15[1] > 0, "phase 15 did not go through both kernels")
+
     shape = (4096, 4096, 8)
     k1t = dict(k1_timing[("se", shape)], bound_ms=k1_bound_ms(*shape), bound_by="bytes")
     k1b = dict(k1b_timing[(16, 4096, 4096, 8)], bound_by="bytes")
@@ -6359,6 +6882,10 @@ def main():
     latent = items["14b"]["per_latent"]
     k1q, k2q = latent["k1_latents"], latent["k2_latents"]
     k2t, k2b, k2m = k2_timing[4096], k2b_timing[("float32", 11, 4096)], sparse["13a"]["k2"]
+    st = state_space["15d"]
+    sites, sites_cross = dict(st["k1_sites"], bound_by="bytes"), dict(st["k1_cross"],
+                                                                     bound_by="bytes")
+    k2s = st["k2_sites"]
     k1_src = dict(route="cuda", source="g3py_tpu_torch/csrc/stationary_gram.cu",
                   replaces="g3py_tpu/ops/pallas_gram.py:81")
     k2_src = dict(route="cuda", source="g3py_tpu_torch/csrc/panel_cholesky.cu",
@@ -6371,14 +6898,15 @@ def main():
     record = {"kernels": [
         {"name": "stationary_gram", **k1_src,
          "launches": (k1_serve + k1_train + k1_p7 + p8[0] + p9[0] + p10[0] + p12[0]
-                      + p13[0] + p14[0]),
+                      + p13[0] + p14[0] + p15[0]),
          "max_abs_err": max(k1_worst, catalogue["k1_algebra_err"]["single"],
                             slab["max_abs_err"], cross["max_abs_err"],
-                            features["max_abs_err"]), **timed(k1t)},
+                            features["max_abs_err"], sites["max_abs_err"],
+                            sites_cross["max_abs_err"]), **timed(k1t)},
         {"name": "panel_cholesky", **k2_src,
          "launches": (k2_serve + k2_train + k2_p7 + p8[1] + p9[1] + p10[1] + p12[1]
-                      + p13[1] + p14[1]),
-         "max_abs_err": k2_worst, **timed(k2t)},
+                      + p13[1] + p14[1] + p15[1]),
+         "max_abs_err": max(k2_worst, k2s["max_abs_err"]), **timed(k2t)},
         {"name": "stationary_gram_batched", **k1_src,
          "launches": (k1_bayes + p8_batched[0] + p9_batched[0] + p10_batched[0]
                       + p11_batched[0] + p13_batched[0] + p14_batched[0]),
@@ -6402,7 +6930,13 @@ def main():
          "max_abs_err": k1q["max_abs_err"], **timed(k1q)},
         {"name": "panel_cholesky_latents", **k2_src,
          "launches": latent["latent_launches"][1],
-         "max_abs_err": k2q["max_abs_err"], **timed(k2q)}]}
+         "max_abs_err": k2q["max_abs_err"], **timed(k2q)},
+        {"name": "stationary_gram_sites", **k1_src, "launches": st["sites_launches"],
+         "max_abs_err": sites["max_abs_err"], **timed(sites)},
+        {"name": "stationary_gram_sites_cross", **k1_src, "launches": st["cross_launches"],
+         "max_abs_err": sites_cross["max_abs_err"], **timed(sites_cross)},
+        {"name": "panel_cholesky_m32", **k2_src, "launches": st["k2_launches"],
+         "max_abs_err": k2s["max_abs_err"], **timed(k2s)}]}
     print(f"  K1 at {shape} SE f32: kernel {k1t['ms']:.4f} ms (events, back to back), device "
           f"{fmt_ms(k1t['device_ms'])} (profiler, a launch), wrapper {k1t['wrapper_ms']:.4f} "
           f"ms, plain {k1t['plain_ms']:.4f} ms, bound {k1t['bound_ms']:.4f} ms", flush=True)
@@ -6418,8 +6952,9 @@ def main():
     print(f"  phase 12: {json.dumps(matrix_free, default=float)}", flush=True)
     print(f"  phase 13: {json.dumps(sparse, default=float)}", flush=True)
     print(f"  phase 14: {json.dumps(items, default=float)}", flush=True)
+    print(f"  phase 15: {json.dumps(state_space, default=float)}", flush=True)
     print(f"  command time {time.perf_counter() - T_START:.1f} s (phase 12 {t12:.1f} s, "
-          f"phase 13 {t13:.1f} s, phase 14 {t14:.1f} s)", flush=True)
+          f"phase 13 {t13:.1f} s, phase 14 {t14:.1f} s, phase 15 {t15:.1f} s)", flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

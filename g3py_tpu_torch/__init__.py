@@ -118,7 +118,10 @@ def _import_all():
                          SparseWarpedGaussianProcess, select_inducing, VariationalQ,
                          VariationalQHeads, SparseVariationalProcess, MulticlassSVP,
                          HeteroscedasticSVP, SGP, SWGP, SVP, Mixing, MultiGaussianLik, LMCSVP,
-                         with_output, stack_outputs)
+                         with_output, stack_outputs, StateSpaceGP, SSGP, MultiStateSpaceGP,
+                         LMCSSGP, SpatioTemporalSSGP, STSSGP, SparseSpatioTemporalSSGP,
+                         NonGaussianSSGP, NGSSGP, NonGaussianMultiSSGP, NGMSSGP,
+                         NonGaussianSTSSGP, NGSTSSGP)
     from .serving import ExportedPredictor, load_predictor
     compat = importlib.import_module(__name__ + ".compat")
     names = dict(locals())

@@ -42,6 +42,21 @@ class Settings:
       mc_simulations: default Monte-Carlo draws of the transport and
         copula moments.
       device: torch device of model tensors ("cpu", "cuda", "cuda:1", ...).
+      ssm_harmonics: cosine harmonics kept in the state-space expansion of
+        the SIN (exp-sin^2 periodic) kernel (``ops/ssm.py`` PeriodicLeaf);
+        the truncation tail is sum_{j>J} 2 e^{-r} I_j(r), keep J >= rate + 8.
+      ssm_se_order: Taylor order of the SE kernel's state-space
+        approximation (``ops/ssm.py`` SELeaf): kernel error relative to var
+        4.3e-3 / 9.1e-4 / 2.1e-4 at order 6 / 8 / 10 in float32, and 10 is
+        the float32 ceiling (its eigen-form constants grow ~13x per +2).
+      ssm_chunk_threshold: above this many rows the state-space families
+        take the chunked monoid scans (``chunked_kalman_nll`` for the
+        loglike, ``chunked_smoother_diag`` for the statistics), whose
+        activation memory is O(``ssm_chunk``) rows.
+      ssm_chunk: rows of one block of those scans.
+      ssm_mxu_state_dim: the JAX package's state dimension at which its
+        tiny products leave a TPU's vector unit; accepted, changes nothing
+        here (every product is a full-FP32 ``torch.matmul``).
     """
 
     floatx: str = "float32"
@@ -52,6 +67,11 @@ class Settings:
     quadrature_degree: int = 10
     mc_simulations: int = 30
     device: str = "cuda"
+    ssm_harmonics: int = 7
+    ssm_se_order: int = 8
+    ssm_chunk_threshold: int = 1_048_576
+    ssm_chunk: int = 262_144
+    ssm_mxu_state_dim: int = 10_000
 
     @property
     def dtype(self):

@@ -5,7 +5,10 @@ datatrace-averaged AveragedPredictor, the matrix-free
 IterativePredictor, and the sparse families: the SGPR collapsed bound
 (SGP/SWGP), the sparse variational processes (SVP, MulticlassSVP,
 HeteroscedasticSVP) over the observation likelihoods and the linear model
-of coregionalization over them (LMCSVP)."""
+of coregionalization over them (LMCSVP), and the state-space families: the
+exact O(n) Markovian GP (StateSpaceGP), its LMC-mixed multi-output form
+(MultiStateSpaceGP) and the separable spatio-temporal GPs
+(SpatioTemporalSSGP, SparseSpatioTemporalSSGP)."""
 
 from .stochastic import StochasticProcess
 from .elliptical import EllipticalProcess
@@ -28,6 +31,10 @@ from .sparse import (InducingPoints, SparseGaussianProcess, SparseWarpedGaussian
 from .svgp import (VariationalQ, VariationalQHeads, SparseVariationalProcess, MulticlassSVP,
                    HeteroscedasticSVP)
 from .lmc import Mixing, MultiGaussianLik, LMCSVP, with_output, stack_outputs
+from .statespace import (StateSpaceGP, SSGP, MultiStateSpaceGP, LMCSSGP, NonGaussianSSGP,
+                         NGSSGP, NonGaussianMultiSSGP, NGMSSGP, NonGaussianSTSSGP, NGSTSSGP)
+from .spatiotemporal import (SpatioTemporalSSGP, STSSGP, SpatialMixing,
+                             SparseSpatioTemporalSSGP)
 
 GP = GaussianProcess
 WGP = WarpedGaussianProcess
@@ -56,4 +63,7 @@ __all__ = ["StochasticProcess", "EllipticalProcess", "GaussianProcess",
            "VariationalQ", "VariationalQHeads", "SparseVariationalProcess", "MulticlassSVP",
            "HeteroscedasticSVP", "GP", "WGP", "TP", "WTP", "MP", "TGP", "CGP", "CSTP", "SGP",
            "SWGP", "SVP", "Mixing", "MultiGaussianLik", "LMCSVP", "with_output",
-           "stack_outputs"]
+           "stack_outputs", "StateSpaceGP", "SSGP", "MultiStateSpaceGP", "LMCSSGP",
+           "SpatioTemporalSSGP", "STSSGP", "SpatialMixing", "SparseSpatioTemporalSSGP",
+           "NonGaussianSSGP", "NGSSGP", "NonGaussianMultiSSGP", "NGMSSGP", "NonGaussianSTSSGP",
+           "NGSTSSGP"]

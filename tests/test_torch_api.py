@@ -468,3 +468,58 @@ def test_sparse_functions_take_jax_arguments():
                      (tsp._sharded_draw_factory, (4, 2, True))):
         with pytest.raises(NotImplementedError, match="item 16"):
             fn(*args)
+
+
+STATE_SPACE_METHODS = {
+    "StateSpaceGP": ["__init__", "observed", "th_loglike_fn", "nll_distributed", "th_location",
+                     "th_kernel_diag", "th_mean", "th_median", "th_variance", "th_covariance",
+                     "th_logpredictive", "posterior_state", "predictor", "_joint_draws",
+                     "sampler", "quantiler", "_run_smoother", "_prior_diag"],
+    "MultiStateSpaceGP": ["__init__", "observed", "th_loglike_fn", "nll_distributed",
+                          "th_variance", "th_logpredictive", "_joint_draws", "sampler",
+                          "quantiler", "task_correlations", "_run_smoother", "_h_rows"],
+    "SpatioTemporalSSGP": ["__init__", "field", "task_correlations", "_interp",
+                           "_run_smoother_weights"],
+    "SparseSpatioTemporalSSGP": ["__init__", "observed", "th_loglike_fn", "nll_distributed",
+                                 "_joint_draws", "sampler", "quantiler", "_vrows", "_rows_fn",
+                                 "_run_smoother", "_run_smoother_weights"],
+    "SpatialMixing": ["__init__", "check_hypers", "default_hypers", "spatial_cov", "values"],
+}
+SSM_OPS = ["ssm_leaves", "ssm_blocks", "ssm_blocks_multi", "parallel_kalman_nll",
+           "parallel_kalman_filter", "parallel_kalman_quad_logdet", "parallel_smoother",
+           "chunked_kalman_nll", "chunked_smoother_diag", "periodic_coefficients", "small_inv",
+           "small_chol", "ssm_prior_state_sample"]
+
+
+def test_state_space_names_exposed():
+    """The JAX package's state-space names (and aliases) on the port's top
+    level; the non-gaussian family's name its item (13b)."""
+    for name in ("StateSpaceGP", "SSGP", "MultiStateSpaceGP", "LMCSSGP", "SpatioTemporalSSGP",
+                 "STSSGP", "SparseSpatioTemporalSSGP", "NonGaussianSSGP", "NGSSGP",
+                 "NonGaussianMultiSSGP", "NGMSSGP", "NonGaussianSTSSGP", "NGSTSSGP"):
+        assert hasattr(g3, name) and hasattr(g3t, name), name
+    assert g3t.SSGP is g3t.StateSpaceGP and g3t.STSSGP is g3t.SpatioTemporalSSGP
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        g3t.NGSSGP(space=np.zeros((4, 1)))
+    for key in ("ssm_harmonics", "ssm_se_order", "ssm_chunk_threshold", "ssm_chunk",
+                "ssm_mxu_state_dim"):
+        assert getattr(g3t.settings, key) == getattr(g3.config.settings, key), key
+
+
+@pytest.mark.parametrize("cls", sorted(STATE_SPACE_METHODS))
+def test_state_space_classes_take_jax_arguments(cls):
+    from g3py_tpu.models import spatiotemporal as jst
+    from g3py_tpu_torch.models import spatiotemporal as tst
+
+    jcls = getattr(g3, cls, None) or getattr(jst, cls)
+    tcls = getattr(g3t, cls, None) or getattr(tst, cls)
+    for name in STATE_SPACE_METHODS[cls]:
+        _assert_takes(getattr(jcls, name), getattr(tcls, name), f"{cls}.{name}")
+
+
+def test_state_space_ops_take_jax_arguments():
+    from g3py_tpu.ops import ssm as jssm
+    from g3py_tpu_torch.ops import ssm as tssm
+
+    for name in SSM_OPS:
+        _assert_takes(getattr(jssm, name), getattr(tssm, name), name)

@@ -211,6 +211,58 @@ def test_family_pins_hold_on_port(family_pins, pin):
                                err_msg=f"pin {pin}: port {family_pins[pin]} vs {want}")
 
 
+SSM_PINS = ("ssgp_logp", "ssgp_dlogp_norm", "ssgp_mean_sum", "ssgp_var_sum", "mssgp_logp",
+            "mssgp_dlogp_norm", "stssgp_logp")
+
+
+def _golden_series(n, seed, span=10.0):
+    """``tests/test_golden_families.py``'s series."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, span, n)).reshape(-1, 1).astype(np.float32)
+    y = (np.sin(t[:, 0]) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    return t, y
+
+
+@pytest.fixture(scope="module")
+def ssm_pins():
+    """The port's values of the state-space pins of
+    tests/golden_families.json, on tests/test_golden_families.py's
+    workloads (float32)."""
+    t, y = _golden_series(48, seed=1)
+    ss = g3t.StateSpaceGP(space=t, kernel=g3t.MAT32(t) + g3t.OU(t), name="GOLD_SS")
+    ss.observed(t, y)
+    tq = np.linspace(1, 9, 8).reshape(-1, 1).astype(np.float32)
+    t0, y0 = _golden_series(30, seed=2)
+    t1, y1 = _golden_series(25, seed=3)
+    xm, ym = g3t.stack_outputs([t0, t1], [y0, -0.5 * y1 + 0.3])
+    ms = g3t.MultiStateSpaceGP(space=xm, kernel=[g3t.MAT32(t0), g3t.OU(t0)], outputs_dim=2,
+                               name="GOLD_MS")
+    ms.observed(xm, ym)
+    sites = np.array([[0.0], [1.0], [2.5]], np.float32)
+    ts, ys = [], []
+    for p in range(3):
+        tp_, yp = _golden_series(14 + p, seed=4 + p)
+        ts.append(tp_)
+        ys.append(yp * float(np.exp(-p / 3.0)))
+    xs, ysr = g3t.stack_outputs(ts, ys)
+    st = g3t.SpatioTemporalSSGP(space=xs, kernel=g3t.MAT32(xs[:, :1]), space_kernel=g3t.SE(sites),
+                                sites=sites, name="GOLD_ST")
+    st.observed(xs, ysr)
+    return {"ssgp_logp": ss.logp(), "ssgp_dlogp_norm": float(np.linalg.norm(ss.dlogp())),
+            "ssgp_mean_sum": float(ss.mean(space=tq).sum()),
+            "ssgp_var_sum": float(ss.variance(space=tq).sum()),
+            "mssgp_logp": ms.logp(), "mssgp_dlogp_norm": float(np.linalg.norm(ms.dlogp())),
+            "stssgp_logp": st.logp()}
+
+
+@pytest.mark.parametrize("pin", SSM_PINS)
+def test_state_space_pins_hold_on_port(ssm_pins, pin):
+    """Each state-space pin at tests/test_golden_families.py's 5e-5."""
+    with open(os.path.join(HERE, "golden_families.json")) as fh:
+        want = json.load(fh)[pin]
+    np.testing.assert_allclose(ssm_pins[pin], want, rtol=5e-5, atol=5e-5,
+                               err_msg=f"pin {pin}: port {ssm_pins[pin]} vs {want}")
+
 if __name__ == "__main__":
     import sys
 
