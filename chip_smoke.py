@@ -12,9 +12,11 @@ sampler, NUTS, NeuTra, ADVI, HMC and the batched L-BFGS of
 ``IterativePredictor``), and the sparse families at n=100,000 (the SGPR
 collapsed bound, its Predictor and ``fit_svgp``, the sparse variational
 processes, the linear model of coregionalization), deep kernels, the
-datatrace toolkit and the Experiment harness, and the state-space families
+datatrace toolkit and the Experiment harness, the state-space families
 (exact O(n) time-series GPs by parallel Kalman scans, their multi-output
-and spatio-temporal forms) — through the hand-written kernels K1
+and spatio-temporal forms) and their Laplace forms for non-gaussian
+observations, and the Kronecker grid and SKI families — through the
+hand-written kernels K1
 (stationary gram) and K2 (blocked panel Cholesky), and checks them:
 
   phase 0  require a CUDA card; print its name and power limit
@@ -225,6 +227,23 @@ and spatio-temporal forms) — through the hand-written kernels K1
            chunked smoother at 1024 queries against the plain one; 15f one
            batched evaluation over 16 rows at n=16384 against its 16 single
            evaluations
+  phase 16 the Laplace state-space family (item 13b), against the card in
+           float64: 16a NonGaussianSSGP(MAT32, PoissonLik) on
+           benchmarks/ngssm_scale.py's data at n=262,144 (8 Newton steps),
+           3 timed evaluations, the script's chunked-vs-plain gate at
+           n=8192 and the gaussian identity with StateSpaceGP; 16b the
+           chunked route at n=2^20; 16c NonGaussianMultiSSGP(Poisson,
+           Bernoulli) at 9830 + 6554 events; 16d the Cox process
+           NonGaussianSTSSGP at 32 sites, S=64, 128 events a site (K1 x1,
+           K2 x1 an evaluation; field_rate K1 x2, K2 x1), K1 at (32,32,2)
+           and K2 at m=32 against their plain forms; 16e serving at 1024
+           queries; 16f 16 rows at n=16384
+  phase 17 the Kronecker grid and SKI families (item 14), against the card
+           in float64: 17a bench.py:437-471's GridGP 256 x 256 MAT52 x SE
+           (K1 x2 an evaluation; K1 at (256,256,1) against its plain form),
+           17b the same with 10% of the cells dropped (the CG residual),
+           17c bench.py:479-511's SKIGP at n=100,000 on 128 x 128 (K1 at
+           (128,128,1)), 17d serving at 1024 queries
 
 The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
 and read just after; the Bayesian path's counts are zeroed and read around
@@ -247,13 +266,16 @@ find_MAP(engine='jax'), 14b's per-latent ones (the latents a launch's
 rows), 14c's sampler and rows, 14d's KDE refills and errors (the batched
 records), and phase 15's around 15d's float32 evaluations, field and sparse
 evaluation (15a-c, 15e and 15f are held to no launch: their Matern time
-kernels have no K1 gram), so warm-ups, profiles, float64 twins and reference
-checks are not counted.  10f's loader process runs beside phase 11 and is
+kernels have no K1 gram), and phase 16's around 16d's float32 evaluation
+and field_rate (16a-c, 16e-f are held to no launch), and phase 17's around
+17a-c's float32 evaluations and 17d's serving, so warm-ups, profiles,
+float64 twins and reference checks are not counted.  10f's loader process runs beside phase 11 and is
 read after it.  The shape records count a subset of the two
 totals of their kernel: the slab (phase 12's), the cross gram and m=512
 (phase 13's), the features (14a's timed evaluations), the latents
-(14b's per-latent launches) and the sites (15d's site grams, its cross
-grams and its m=32 factorizations).  Each kernel must have
+(14b's per-latent launches), the sites (15d's site grams, its cross
+grams and its m=32 factorizations), the Laplace sites (16d's), the grid
+axes (17a-b's (256,256,1) grams by kind) and the SKI axes (17c's).  Each kernel must have
 launched on each path.  Every check raises on failure.  The last lines are
 the kernel record, the card and ``{"ok": true, "device": {...}}``.  Run from
 the repository root:
@@ -261,6 +283,7 @@ the repository root:
     python3 chip_smoke.py
 """
 
+import collections
 import concurrent.futures
 import contextlib
 import copy
@@ -1022,12 +1045,32 @@ def bench_wgp_data(d=8):
 
 def zero_counts():
     stationary_gram.launches = 0
+    stationary_gram.by_shape.clear()
     panel_cholesky.launches = 0
     safe_cholesky_panels.retries = 0
 
 
 def launches():
     return stationary_gram.launches, panel_cholesky.launches, safe_cholesky_panels.retries
+
+
+def k1_shapes():
+    """K1's launches since the counts were zeroed, by ``"kind (R, m, n, d)"``
+    (the wrapper's ``by_shape``, counted where it launches)."""
+    return {f"{k[0]} {k[1:]}": v for k, v in sorted(stationary_gram.by_shape.items())}
+
+
+#: K1's launches by kind and shape on the main path of the phase being run
+#: (``to_path`` adds each counted run's)
+PATH_K1 = collections.Counter()
+
+
+def to_path(path, k1, k2):
+    """Add a counted run's K1 and K2 launches to the two-item list ``path``
+    and its K1 launches by kind and shape to ``PATH_K1``."""
+    path[0] += k1
+    path[1] += k2
+    PATH_K1.update(k1_shapes())
 
 
 @contextlib.contextmanager
@@ -1037,8 +1080,7 @@ def counted(path):
     zero_counts()
     yield
     k1, k2, _ = launches()
-    path[0] += k1
-    path[1] += k2
+    to_path(path, k1, k2)
 
 
 @contextlib.contextmanager
@@ -3632,7 +3674,7 @@ def prior_terms(reg, u):
         g3t.settings.device, g3t.settings.floatx = old
 
 
-SAMPLER_10D = 5  # 10d's sampler iterations (cut from 10 for the script's time)
+SAMPLER_10D = 3  # 10d's sampler iterations (cut from 10 for the script's time)
 
 
 def phase10d(gp, gp_map, dt16, x, y, path_batched):
@@ -4085,8 +4127,8 @@ def leaf_profile(logp, z, label):
 @card_only
 def phase11a(path_batched, warmup=8, samples=8):
     """The JAX package's sampler workload on NUTS (bench.py:769-800, cut
-    from 400 warmup and 300 samples for time, to 8 + 8 since the sparse
-    phase 13 came: its trees sit at depth ~7, a leaf is ~12 ms of
+    from 400 warmup and 300 samples for time, to 6 + 6 since the Laplace
+    and grid phases 16-17 came: its trees sit at depth ~7, a leaf is ~12 ms of
     host-bound wall): WGP n=125 non-centered, dense mass,
     target_accept 0.95, max_depth 7, 4 chains, through nuts_sampler as
     bench.py calls it, from the non-centered start that sample_hypers
@@ -4231,7 +4273,7 @@ def host_gp_posterior(reg, u, x, y):
 @card_only
 def phase11c(gp, gp_map, x, y, path_batched):
     """NUTS at full width: GP(Bias, SE), n=4096, from phase 5's MAP, 4
-    chains, diagonal mass, max_depth 4, warmup 8, samples 8 (cut from 10 +
+    chains, diagonal mass, max_depth 4, warmup 6, samples 6 (cut from 10 +
     10 for the script's time), in float32
     (counted) and float64, through nuts_sampler from the start that
     sample_hypers jitters; the final states' lnprob against the float64
@@ -4246,8 +4288,8 @@ def phase11c(gp, gp_map, x, y, path_batched):
         g3t.settings.floatx = dtype
         try:
             with GradCounts() as cnt:
-                chain, lnprob, info = g3t.nuts_sampler(gp._sampling_logps()[0], z0, 8,
-                                                       warmup=8, key=3, max_depth=4, chains=4)
+                chain, lnprob, info = g3t.nuts_sampler(gp._sampling_logps()[0], z0, 6,
+                                                       warmup=6, key=3, max_depth=4, chains=4)
         finally:
             g3t.settings.floatx = "float32"
         if dtype == "float32":
@@ -4583,7 +4625,7 @@ PHASE11_RUNS = (phase11a, phase11b, phase11c, phase11d, phase11e, phase11f, phas
 def phase11(gp, gp_map, x, y, map_s, loo_opt, path_batched):
     """Phase 11's runs; their batched launches go to ``path_batched``."""
     map_logp = float(gp.logp(gp_map))
-    runs = (("11a", "NUTS, the n=125 sampler workload", lambda p: phase11a(p)),
+    runs = (("11a", "NUTS, the n=125 sampler workload", lambda p: phase11a(p, warmup=6, samples=6)),
             ("11b", "NUTS card vs CPU replay (float64)", lambda p: phase11b(p)),
             ("11c", "NUTS at n=4096", lambda p: phase11c(gp, gp_map, x, y, p)),
             ("11d", "find_MAP(engine='jax') at n=4096",
@@ -4764,24 +4806,25 @@ def phase12a():
     return dict(gaps=gaps, card_s=t_card, cpu_s=t_cpu)
 
 
-def k1_record(x1, x2, rate, var, label):
-    """K1 on float32 (x1, x2), SE, against its plain form: the kernel's
-    CUDA-event time over 20 launches back to back (the record's), its
-    profiler time a launch, the wrapper's and the plain form's CUDA-event
-    times, and the bound (inputs read and output written once over 3.35
-    TB/s)."""
-    out = stationary_gram("se", x1, x2, rate, var)
-    ref = _plain_form("se", x1, x2, rate, var)
+def k1_record(x1, x2, rate, var, label, kind="se"):
+    """K1 on float32 (x1, x2), ``kind`` (SE by default), against its plain
+    form: the kernel's CUDA-event time over 20 launches back to back (the
+    record's), its profiler time a launch, the wrapper's and the plain
+    form's CUDA-event times, and the bound (inputs read and output written
+    once over 3.35 TB/s)."""
+    out = stationary_gram(kind, x1, x2, rate, var)
+    ref = _plain_form(kind, x1, x2, rate, var)
     err = float((out - ref).abs().max())
     require(err <= 1e-5 * float(var) and finite(out), f"{label} vs plain {err:.2e}")
-    call = lambda: stationary_gram("se", x1, x2, rate, var)
+    call = lambda: stationary_gram(kind, x1, x2, rate, var)
     t_wrap = event_ms(call)
-    t_plain = event_ms(lambda: _plain_form("se", x1, x2, rate, var), reps=10)
+    t_plain = event_ms(lambda: _plain_form(kind, x1, x2, rate, var), reps=10)
     t_dev = launch_ms(profile(call, reps=10), "stationary_gram_kernel")
-    t_k = back_to_back_ms(k1_kernel("se", x1, x2, rate, var))
+    t_k = back_to_back_ms(k1_kernel(kind, x1, x2, rate, var))
     (m, d), n = x1.shape, x2.shape[0]
     bound = k1_bound_ms(m, n, d)
-    print(f"  {label} ({m},{n},{d}) SE f32: kernel {t_k:.4f} ms (events, back to back), "
+    print(f"  {label} ({m},{n},{d}) {kind.upper()} f32: kernel {t_k:.4f} ms (events, back to "
+          f"back), "
           f"device {fmt_ms(t_dev)} (profiler, a launch), wrapper {t_wrap:.4f} ms, plain "
           f"{t_plain:.4f} ms, bound {bound:.4f} ms, max_abs_err {err:.2e}", flush=True)
     return dict(ms=t_k, device_ms=t_dev, wrapper_ms=t_wrap, plain_ms=t_plain, bound_ms=bound,
@@ -4828,7 +4871,7 @@ def phase12b(path):
     before = torch.cuda.memory_allocated()
     evaluate()  # warm
     times, runs = [], []
-    for _ in range(2):
+    for _ in range(1):
         zero_counts()
         ITER.reset_counts()
         t0 = time.perf_counter()
@@ -6280,11 +6323,13 @@ def device_profile(fn):
     return sum(e.count for e in dev), sum(_self_device_us(e) for e in dev) / 1e3
 
 
-def evaluation_record(proc, u, label, reps, path=None, predict=None, profiled=True):
+def evaluation_record(proc, u, label, reps, path=None, predict=None, profiled=True, warm=True,
+                      predict_k1=None):
     """Value and gradient through the normal entry (``_value_and_grad`` of
     ``_logp_pure``, as bench.py times it): warm-up, then ``reps`` timed
     evaluations (median), each one's K1/K2 launches against ``predict``
-    (per evaluation, K2 plus its jitter retries) and added to ``path``;
+    (per evaluation, K2 plus its jitter retries) and, with ``predict_k1``,
+    its K1 launches by kind and shape against it, added to ``path``;
     the peak allocated memory; with ``profiled``, one more evaluation's
     device events (its launches), device time and idle share."""
     import gc
@@ -6302,7 +6347,8 @@ def evaluation_record(proc, u, label, reps, path=None, predict=None, profiled=Tr
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t_warm = time.perf_counter()
-    evaluate()
+    if warm:
+        evaluate()
     t_warm = time.perf_counter() - t_warm
     times, per_eval = [], []
     for _ in range(reps):
@@ -6313,11 +6359,12 @@ def evaluation_record(proc, u, label, reps, path=None, predict=None, profiled=Tr
         k1, k2, retries = launches()
         per_eval.append((k1, k2, retries))
         if path is not None:
-            path[0] += k1
-            path[1] += k2
+            to_path(path, k1, k2)
         want = (0, 0) if predict is None else (predict[0], predict[1] + retries)
         require((k1, k2) == want, f"{label}: an evaluation launched K1 x{k1}, K2 x{k2} "
                 f"({retries} retries), predicted {want}")
+        require(predict_k1 is None or k1_shapes() == predict_k1,
+                f"{label}: an evaluation's K1 launches {k1_shapes()}, predicted {predict_k1}")
     peak = torch.cuda.max_memory_allocated()
     t_eval = statistics.median(times)
     require(math.isfinite(float(val)) and finite(grad), f"{label}: value or gradient not finite")
@@ -6332,8 +6379,9 @@ def evaluation_record(proc, u, label, reps, path=None, predict=None, profiled=Tr
           f"peak allocated {peak / 1e9:.3f} GB ({(peak - before) / 1e9:.3f} GB above "
           f"{before / 1e9:.3f}); the first evaluation {t_warm:.2f} s, the profile "
           f"{t_prof:.2f} s", flush=True)
-    return dict(eval_ms=t_eval * 1e3, first_s=t_warm, profile_s=t_prof, evals_per_s=1 / t_eval, times_ms=[t * 1e3 for t in times],
-                launches=per_eval, device_events=events, device_ms=t_dev, idle=idle,
+    return dict(eval_ms=t_eval * 1e3, first_s=t_warm, profile_s=t_prof, evals_per_s=1 / t_eval,
+                times_ms=[t * 1e3 for t in times], launches=per_eval, k1_shapes=predict_k1,
+                device_events=events, device_ms=t_dev, idle=idle,
                 peak_gb=peak / 1e9, value=float(val), grad=grad.cpu().numpy())
 
 
@@ -6654,6 +6702,617 @@ def phase15(path):
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+# The Laplace state-space family (item 13b): NonGaussianSSGP on
+# benchmarks/ngssm_scale.py's data (make_data(n, 50 n / 16384) from a seeded
+# stream: Poisson counts on a MAT32 latent) at its first timed size with its
+# 8 Newton steps, the script's chunked-vs-plain gate, the gaussian identity
+# with StateSpaceGP, the chunked route at its second size, the two-channel
+# Poisson + Bernoulli fusion at 15b's event counts, the spatio-temporal Cox
+# process at 15d's layout (128 events a site: each Newton step is a pass of
+# 15d's size), serving and 16 rows.  Only 16d reaches K1 (the site gram and
+# the field's cross gram) and K2 (the sites' factor).  Witnesses: the card
+# in float64 (values 1e-3, gradients 1e-2 along two random directions).
+NG_N = 1 << 18                 # ngssm_scale.py's first timed size
+NG_CHUNKED_N = 1 << 20         # its second, past its threshold of 2^18
+NG_ITERS = 8                   # ngssm_scale.py:95-96
+NG_CHUNKED_ITERS = 4           # 16b: cut in depth (Newton steps) for time
+NG_GATE_N = 8192               # ngssm_scale.py:61-83's gate
+NG_ROWS_N = 16384              # 16f: 15f's n
+NGST_PER_SITE = 128            # 16d: cut in depth from 15d's 512
+
+
+@contextlib.contextmanager
+def laplace_settings(iters=NG_ITERS, threshold=None, chunk=None):
+    """``ssm_laplace_iters``, ``ssm_chunk_threshold`` (``NG_N`` by default)
+    and ``ssm_chunk`` for the block, as ngssm_scale.py sets them; restored
+    after."""
+    s = g3t.settings
+    old = s.ssm_laplace_iters, s.ssm_chunk_threshold, s.ssm_chunk
+    s.ssm_laplace_iters, s.ssm_chunk_threshold = iters, NG_N if threshold is None else threshold
+    s.ssm_chunk = old[2] if chunk is None else chunk
+    try:
+        yield
+    finally:
+        s.ssm_laplace_iters, s.ssm_chunk_threshold, s.ssm_chunk = old
+
+
+def ng_data(n, span, seed):
+    """ngssm_scale.py's make_data: t sorted uniform on (0, span), counts
+    ~ Poisson(exp(sin(2 pi t / 20) + 0.3 sin(t / 3) + 0.5))."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, span, n)).astype(np.float32)
+    f = (np.sin(2 * np.pi * t / 20.0) + 0.3 * np.sin(t / 3.0) + 0.5).astype(np.float32)
+    return t[:, None], rng.poisson(np.exp(f)).astype(np.float32)
+
+
+def ngssgp_model(name, n, seed=0, span=None, lik=None):
+    x, y = ng_data(n, 50.0 * n / 16384 if span is None else span, seed)
+    proc = g3t.NonGaussianSSGP(space=x[:4], kernel=g3t.MAT32(x[:4]),
+                               likelihood=g3t.PoissonLik() if lik is None else lik, name=name)
+    proc.observed(x, y)
+    return proc, x, y
+
+
+def ngssm_gate():
+    """ngssm_scale.py:61-83: at n=8192 (15 Newton steps) the chunked route
+    (threshold 1024, chunk 2048) against the plain scans, value and
+    gradient, rel_v < 1e-5 and rel_g < 1e-4, float32 on the card."""
+    def run(name):
+        proc = ngssgp_model(name, NG_GATE_N, seed=1, span=400.0)[0]
+        return card_value_grad(proc, proc.active.dict_to_array(proc.params_default), False)
+
+    with laplace_settings(iters=15, threshold=1 << 40):
+        v_p, g_p = run("P16G")
+    with laplace_settings(iters=15, threshold=1024, chunk=2048):
+        v_c, g_c = run("P16G2")
+    rel_v = abs(v_c - v_p) / abs(v_p)
+    rel_g = float(np.max(np.abs(g_c - g_p)) / np.max(np.abs(g_p)))
+    print(f"  16a gate n={NG_GATE_N}: chunked vs plain rel_v={rel_v:.2e} rel_g={rel_g:.2e}",
+          flush=True)
+    require(rel_v < 1e-5 and rel_g < 1e-4, f"16a gate rel_v {rel_v:.2e}, rel_g {rel_g:.2e}")
+    return dict(rel_v=rel_v, rel_g=rel_g)
+
+
+def gaussian_identity():
+    """The module docstring's identity: NonGaussianSSGP(GaussianLik) on 15a's
+    data and params is StateSpaceGP's exact evidence (its mode is one Newton
+    step), float32 on the card, within 1e-5 relative."""
+    ss, t, y = ssgp_model("P16I")
+    p = dict(ss.params_default)
+    ng = g3t.NonGaussianSSGP(space=t[:4], kernel=g3t.MAT32(t) + g3t.OU(t),
+                             likelihood=g3t.GaussianLik(), name="P16I")
+    ng.observed(t, y)
+    pn = {k: v for k, v in p.items() if not k.endswith("Noise_var")}
+    pn["P16I_GaussLik_var"] = p["P16I_Noise_var"]
+    with torch.no_grad():
+        want, got = ss.loglike(p), ng.loglike(pn)
+    gap = abs(got - want) / abs(want)
+    print(f"  16a gaussian identity at n={SS_N}: NGSSGP(GaussianLik) {got:.6f} vs StateSpaceGP "
+          f"{want:.6f} (relative {gap:.2e})", flush=True)
+    require(gap <= 1e-5, f"16a gaussian identity {gap:.2e}")
+    return dict(gap=gap)
+
+
+def phase16a():
+    """NGSSGP(MAT32, Poisson) at n=262,144 (8 Newton steps, the plain scans):
+    logp + gradient over 3 evaluations against the card's float64; the
+    script's gate; the gaussian identity."""
+    build = lambda: ngssgp_model("P16A", NG_N)  # noqa: E731
+    with laplace_settings():
+        proc = build()[0]
+        u = proc.active.dict_to_array(proc.params_default)
+        rec = evaluation_record(proc, u, "16a NGSSGP(MAT32, Poisson) n=262144", reps=2,
+                                profiled=False)
+        rec["witness"] = held_value_grad("16a vs the card's float64", (rec["value"], rec["grad"]),
+                                         value_grad_on(build, u, CARD, "float64"))
+    rec.pop("grad")
+    print(f"  16a vs the card's float64: {rec['witness']}", flush=True)
+    rec["gate"] = ngssm_gate()
+    rec["identity"] = gaussian_identity()
+    return proc, u, rec
+
+
+def phase16b():
+    """The chunked route at n=2^20 (threshold 2^18: 4 blocks of ssm_chunk),
+    ``NG_CHUNKED_ITERS`` Newton steps: one timed evaluation and its peak
+    memory."""
+    with laplace_settings(iters=NG_CHUNKED_ITERS):
+        proc = ngssgp_model("P16B", NG_CHUNKED_N)[0]
+        require(NG_CHUNKED_N > g3t.settings.ssm_chunk_threshold, "16b is not chunked")
+        u = proc.active.dict_to_array(proc.params_default)
+        rec = evaluation_record(proc, u, f"16b NGSSGP n=1048576 chunked, {NG_CHUNKED_ITERS} "
+                                "Newton steps", reps=1, profiled=False, warm=False)
+    rec.pop("grad")
+    return rec
+
+
+def ngmssgp_model(name, seed=16):
+    """15b's two channels (9830 + 6554 events on (0, 327)): Poisson counts
+    and Bernoulli events driven by shared MAT32 latents (Q = 2)."""
+    from scipy import stats
+
+    rng = np.random.default_rng(seed)
+    n0, n1 = 9830, 6554
+    t0 = np.sort(rng.uniform(0, 327.0, n0)).astype(np.float32)
+    t1 = np.sort(rng.uniform(0, 327.0, n1)).astype(np.float32)
+    y0 = rng.poisson(np.exp(np.sin(2 * np.pi * t0 / 20.0) + 0.5)).astype(np.float32)
+    y1 = (rng.uniform(size=n1) < stats.norm.cdf(-0.8 * np.sin(2 * np.pi * t1 / 20.0))
+          ).astype(np.float32)
+    x, y = g3t.stack_outputs([t0[:, None], t1[:, None]], [y0, y1])
+    proc = g3t.NonGaussianMultiSSGP(space=x[:4], kernel=g3t.MAT32(t0[:4, None]),
+                                    likelihood=[g3t.PoissonLik(), g3t.BernoulliLik()],
+                                    outputs_dim=2, name=name)
+    proc.observed(x, y)
+    return proc, x, y
+
+
+def phase16c():
+    """NGMSSGP [Poisson, Bernoulli] over MAT32 latents at 9830 + 6554 events:
+    logp + gradient against the card's float64."""
+    build = lambda: ngmssgp_model("P16C")  # noqa: E731
+    with laplace_settings():
+        proc = build()[0]
+        u = proc.active.dict_to_array(proc.params_default)
+        rec = evaluation_record(proc, u, "16c NGMSSGP(Poisson, Bernoulli) 9830 + 6554", reps=2,
+                                profiled=False)
+        rec["witness"] = held_value_grad("16c vs the card's float64", (rec["value"], rec["grad"]),
+                                         value_grad_on(build, u, CARD, "float64"))
+    rec.pop("grad")
+    print(f"  16c vs the card's float64: {rec['witness']}", flush=True)
+    return rec
+
+
+def ngst_model(name, seed=23):
+    """A spatio-temporal Poisson Cox process on 15d's layout: 32 sites on
+    the jittered 8 x 4 grid, 128 events a site on (0, 100), intensity
+    exp(0.5 + sin(2 pi t / 20 + 0.5 x) cos(0.4 y)); MAT32 x SE (S=64), the
+    SE's rate at the grid's spacing."""
+    sites = st_sites()
+    rng = np.random.default_rng(seed)
+    ts, ys = [], []
+    for p in range(ST_SITES):
+        t = np.sort(rng.uniform(0, 100.0, NGST_PER_SITE)).astype(np.float32)
+        lam = np.exp(0.5 + np.sin(2 * np.pi * t / 20.0 + 0.5 * sites[p, 0])
+                     * np.cos(0.4 * sites[p, 1]))
+        ts.append(t[:, None])
+        ys.append(rng.poisson(lam).astype(np.float32))
+    x, y = g3t.stack_outputs(ts, ys)
+    proc = g3t.NonGaussianSTSSGP(space=x[:4], kernel=g3t.MAT32(x[:, :1]),
+                                 space_kernel=g3t.SE(sites), sites=sites, name=name)
+    proc.observed(x, y)
+    params = dict(proc.params_default)
+    params[f"{name}_SE_rate"] = np.ones(2, np.float32)
+    return proc, params, x, y
+
+
+def phase16d(path):
+    """NGSTSSGP at m=32, S=64, n=4096, 8 Newton steps: logp + gradient (K1
+    x1, K2 x1 + retries) against the card's float64; field_rate at 256
+    off-site points (K1 x2, K2 x1) against the card's float64; K1 at
+    (32,32,2) and K2 at m=32 against their plain forms."""
+    with laplace_settings():
+        proc, params, _, _ = ngst_model("P16D")
+        u = proc.active.dict_to_array(params)
+        rec = evaluation_record(proc, u, "16d NGSTSSGP m=32 S=64 n=4096", reps=1, path=path,
+                                predict=(1, 1), profiled=False, warm=False,
+                                predict_k1={f"se (1, {ST_SITES}, {ST_SITES}, 2)": 1})
+        rec["witness"] = held_value_grad(
+            "16d vs the card's float64", (rec["value"], rec["grad"]),
+            value_grad_on(lambda: ngst_model("P16D"), u, CARD, "float64"))
+        rec.pop("grad")
+        rng = np.random.default_rng(20)
+        tq = np.sort(rng.uniform(0, 100.0, 256)).astype(np.float32)
+        xq = rng.uniform([-0.5, -0.5], [7.5, 3.5], (256, 2)).astype(np.float32)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        rate_m, rate_v = proc.field_rate(tq, xq, params=params)
+        torch.cuda.synchronize()
+        t_rate = (time.perf_counter() - t0) * 1e3
+        k1, k2, retries = launches()
+        to_path(path, k1, k2)
+        want_k1 = {f"se (1, {ST_SITES}, {ST_SITES}, 2)": 1, f"se (1, {ST_SITES}, 256, 2)": 1}
+        require((k1, k2) == (2, 1 + retries) and k1_shapes() == want_k1,
+                f"16d field_rate launched K1 x{k1} {k1_shapes()}, K2 x{k2} ({retries} "
+                f"retries), predicted K1 {want_k1}, K2 x1 + retries")
+        with port_on(CARD, "float64"):
+            p64, params64 = ngst_model("P16D")[:2]
+            m64, v64 = p64.field_rate(tq, xq, params=params64)
+    gaps = {"mean": rel_gap(rate_m, m64), "variance": rel_gap(rate_v, v64)}
+    print(f"  16d field_rate at 256 off-site points: {t_rate:.1f} ms, K1 x{k1}, K2 x{k2}; vs "
+          f"the card's float64 {gaps}", flush=True)
+    require(max(gaps.values()) <= 1e-3 and np.isfinite(rate_m).all() and (rate_m > 0).all(),
+            f"16d field_rate gaps {gaps}")
+    pt = proc._tensor_params(params)
+    z = torch.as_tensor(st_sites(), device=CARD)
+    k1_sites = k1_record(z, z, pt["P16D_SE_rate"], pt["P16D_SE_var"], "16d K1 site gram")
+    with torch.no_grad():
+        gram = proc.f_mixing.spatial_cov(pt)
+    k2_sites = sparse_k2(gram.contiguous(), "K_s(sites), SE, the Laplace family")
+    return dict(st=rec, field_rate=dict(ms=t_rate, launches=(k1, k2), gaps=gaps),
+                k1_sites=k1_sites, k2_sites=k2_sites,
+                k2_launches=sum(v[1] for v in rec["launches"]) + k2)
+
+
+def phase16e(proc):
+    """Serving on 16a's model at 1024 query times: a Predictor batch of the
+    predictive mean and variance (the rate's), quantiler(q=0.975) and 16
+    joint draws with noise=True (host normals, the counts from one numpy
+    Generator), each timed on its first call (16a warmed the scans),
+    against the card's float64
+    (moments and quantiles 1e-3 relative to scale).  A float32 prior
+    trajectory carries the cancellation of Q at this series' steps (15c),
+    so the latent draws are held to the float64 Laplace posterior they come
+    from: the squared standardized gap of their mean and their variance
+    over the posterior's, averaged over the queries, within ``DRAW_MOMENTS``;
+    their gap to the float64 draws is printed beside."""
+    params = proc.params_default
+    tq = np.linspace(1.0, NG_N * 50.0 / 16384 - 1.0, 1024).astype(np.float32)[:, None]
+    draws = host_normals(16, NG_N + len(tq), 2, 161)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with laplace_settings():
+        pr = proc.predictor(params)
+        zero_counts()
+        stats, t_pr = timed(lambda: pr.predict(tq, mean=True, std=False, var=True, noise=True))
+        quant, t_q = timed(lambda: proc.quantiler(params, tq, q=0.975))
+        latent, t_l = timed(lambda: proc.sampler(params, tq, samples=16, seed=draws))
+        counts, t_s = timed(lambda: proc.sampler(params, tq, samples=16, seed=draws, noise=True,
+                                                 rng=np.random.default_rng(162)))
+        require(launches()[:2] == (0, 0), f"16e launched K1/K2 {launches()[:2]}")
+        with port_on(CARD, "float64"):
+            p64 = ngssgp_model("P16A", NG_N)[0]
+            mean64 = p64.mean(params, tq).cpu().numpy()
+            var64 = p64.variance(params, tq, noise=True).cpu().numpy()
+            quant64 = p64.quantiler(params, tq, q=0.975)
+            latent64 = p64.sampler(params, tq, samples=16, seed=draws)
+            loc64 = p64.location(params, tq).cpu().numpy()
+            kd64 = p64.kernel_diag(params, tq).cpu().numpy()
+    gaps = {"mean": rel_gap(stats["mean"].cpu().numpy(), mean64),
+            "variance": rel_gap(stats["variance"].cpu().numpy(), var64),
+            "quantile": rel_gap(quant, quant64)}
+    limits = {"mean": 1e-3, "variance": 1e-3, "quantile": 1e-3}
+    draw_stats = {"z2": float(np.mean((latent.mean(1) - loc64) ** 2 / (kd64 / 16))),
+                  "var_ratio": float(np.mean(latent.var(1, ddof=1)) / np.mean(kd64)),
+                  "gap_to_float64": rel_gap(latent, latent64)}
+    print(f"  16e serving n=262144, 1024 queries: Predictor batch (mean, variance) {t_pr:.1f} ms, "
+          f"quantiler {t_q:.1f} ms, 16 joint latent draws {t_l:.1f} ms, 16 count draws "
+          f"{t_s:.1f} ms; vs the card's float64 {gaps}; the latent draws {draw_stats}",
+          flush=True)
+    require(all(np.isfinite(v) and v <= limits[k] for k, v in gaps.items())
+            and np.all(counts >= 0) and np.all(counts == np.round(counts)),
+            f"16e gaps {gaps} over {limits}")
+    require(DRAW_MOMENTS[0] <= draw_stats["z2"] <= DRAW_MOMENTS[1]
+            and DRAW_MOMENTS[0] <= draw_stats["var_ratio"] <= DRAW_MOMENTS[1],
+            f"16e draws {draw_stats} outside {DRAW_MOMENTS}")
+    return dict(predict_ms=t_pr, quantiler_ms=t_q, latent_draws_ms=t_l, count_draws_ms=t_s,
+                gaps=gaps, draws=draw_stats)
+
+
+# 16 joint draws held to the posterior they come from: the squared
+# standardized gap of their mean and their variance over the posterior's,
+# each averaged over the queries, read 0.92-1.03 on the H100 (16e and 17d,
+# host normals, so the same each run); a draw scale off by 1.15 or more
+# leaves this band
+DRAW_MOMENTS = (0.8, 1.25)
+F16_SINGLES = (0, 15)          # 16f's rows also evaluated alone (cut from 16 for time)
+
+
+def phase16f():
+    """One batched evaluation over 16 rows at n=16384 (15f's n) against the
+    single evaluations of rows ``F16_SINGLES`` on the card (a single
+    evaluation costs what the batch does: ~3.2 s of host-bound launches)
+    and, every row, against the card's float64 batched evaluation."""
+    with laplace_settings():
+        proc = ngssgp_model("P16F", NG_ROWS_N)[0]
+        u = proc.active.dict_to_array(proc.params_default)
+        rows = u[None, :] + 0.1 * np.random.default_rng(24).standard_normal((16, len(u)))
+        rt = torch.as_tensor(rows, dtype=torch.float32, device=CARD)
+        proc._rows_value_and_grad(rt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val, grad = proc._rows_value_and_grad(rt)
+        torch.cuda.synchronize()
+        t_rows = (time.perf_counter() - t0) * 1e3
+        val, grad = val.cpu().numpy().astype(np.float64), grad.cpu().numpy().astype(np.float64)
+        t0 = time.perf_counter()
+        singles = [proc._rows_value_and_grad(rt[i]) for i in F16_SINGLES]
+        torch.cuda.synchronize()
+        t_single = (time.perf_counter() - t0) * 1e3 / len(F16_SINGLES)
+        sv = np.array([float(v) for v, _ in singles])
+        sg = np.stack([g.cpu().numpy() for _, g in singles]).astype(np.float64)
+        with port_on(CARD, "float64"):
+            p64 = ngssgp_model("P16F", NG_ROWS_N)[0]
+            v64, g64 = p64._rows_value_and_grad(torch.as_tensor(rows, device=CARD))
+            v64, g64 = v64.cpu().numpy(), g64.cpu().numpy()
+    picked = list(F16_SINGLES)
+    single_gap = max(rel_gap(val[picked], sv), rel_gap(grad[picked], sg))
+    gaps = [held_value_grad(f"16f row {i}", (val[i], grad[i]), (v64[i], g64[i]), seed=i)
+            for i in range(16)]
+    worst = (max(g["gap"] for g in gaps), max(max(g["grad_gaps"]) for g in gaps))
+    print(f"  16f 16 rows at n={NG_ROWS_N}: batched {t_rows:.1f} ms, a single evaluation "
+          f"{t_single:.1f} ms (rows {picked}); batched vs single (relative to scale) "
+          f"{single_gap:.2e}; vs the card's float64, worst value gap {worst[0]:.2e}, gradient "
+          f"{worst[1]:.2e}", flush=True)
+    require(single_gap <= 1e-4, f"16f batched vs single {single_gap:.2e}")
+    return dict(batched_ms=t_rows, single_ms=t_single, single_gap=single_gap,
+                worst_value_gap=worst[0], worst_grad_gap=worst[1])
+
+
+def phase16(path):
+    """Phase 16's runs; 16d's float32 evaluation and field_rate launches go
+    to ``path`` (16a-c, 16e and 16f are held to no launch: MAT32 in time has
+    no K1 gram)."""
+    out, models = {}, {}
+
+    def first():
+        proc, u, rec = phase16a()
+        models.update(proc=proc)
+        return rec
+
+    runs = (("16a", "NonGaussianSSGP(MAT32, Poisson) n=262144 (ngssm_scale.py)", first),
+            ("16b", "the chunked route at n=1048576", phase16b),
+            ("16c", "NonGaussianMultiSSGP(Poisson, Bernoulli) 9830 + 6554", phase16c),
+            ("16d", "NonGaussianSTSSGP m=32 S=64 n=4096 (the Cox process)",
+             lambda: phase16d(path)),
+            ("16e", "serving on 16a's model", lambda: phase16e(models["proc"])),
+            ("16f", "16 rows at n=16384", phase16f))
+    for key, label, run in runs:
+        print(f"phase {key}: {label}", flush=True)
+        t0 = time.perf_counter()
+        out[key] = run()
+        out[key]["wall_s"] = time.perf_counter() - t0
+        print(f"  phase {key} wall {out[key]['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase 17
+# The Kronecker grid and SKI families (item 14): bench.py:437-471's GridGP
+# (256 x 256, MAT52 x SE, N=65,536; one K1 launch an axis, (256,256,1)), the
+# same grid with 10% of its cells dropped (the masked matrix-free path),
+# bench.py:479-511's SKIGP (100,000 scattered rows on a 128 x 128 grid, K1
+# at (128,128,1) an axis), and serving at 1024 queries.  Witnesses: the card
+# in float64 (the estimators' probes are the same integers in both dtypes).
+GRID_AXIS = 256
+SKI_N, SKI_GRID = 100_000, 128
+
+
+def grid_model(name, masked=False, seed=25):
+    """bench.py:441-455's grid: t on linspace(0, 8, 256), x on
+    linspace(-2, 2, 256), y = sin(t) exp(-x^2 / 2) + 0.1 noise; ``masked``
+    drops a seeded 10% of the cells."""
+    rng = np.random.default_rng(seed)
+    tgr = np.linspace(0, 8, GRID_AXIS).astype(np.float32)
+    xgr = np.linspace(-2, 2, GRID_AXIS).astype(np.float32)
+    rows = g3t.grid_rows([tgr, xgr])
+    y = (np.sin(rows[:, 0]) * np.exp(-0.5 * rows[:, 1] ** 2)
+         + 0.1 * rng.standard_normal(rows.shape[0])).astype(np.float32)
+    proc = g3t.GridGP(axes=[tgr, xgr], kernel=[g3t.MAT52(tgr[:, None]), g3t.SE(xgr[:, None])],
+                      name=name)
+    if masked:
+        keep = np.sort(rng.choice(rows.shape[0], int(0.9 * rows.shape[0]), replace=False))
+        rows, y = rows[keep], y[keep]
+    proc.observed(rows, y)
+    return proc, rows, y
+
+
+def ski_model(name, seed=26):
+    """bench.py:484-493's scattered rows: x uniform on (0, 10) x (-3, 3),
+    y = sin(x0) exp(-0.3 x1^2) + 0.1 noise; a 128 x 128 grid, MAT52 x SE."""
+    rng = np.random.default_rng(seed)
+    x = np.stack([rng.uniform(0, 10, SKI_N), rng.uniform(-3, 3, SKI_N)], 1).astype(np.float32)
+    y = (np.sin(x[:, 0]) * np.exp(-0.3 * x[:, 1] ** 2)
+         + 0.1 * rng.standard_normal(SKI_N)).astype(np.float32)
+    proc = g3t.SKIGP(kernel=[g3t.MAT52(x[:, :1]), g3t.SE(x[:, 1:2])],
+                     grid_shape=[SKI_GRID, SKI_GRID], name=name)
+    proc.observed(x, y)
+    return proc, x, y
+
+
+@contextlib.contextmanager
+def counted_solves():
+    """Count the PCG iterations (operator products) of every ``pcg_solve``
+    in the block: ``out["solves"]`` one entry a solve."""
+    out = {"solves": []}
+    orig = ITER.pcg_solve
+
+    def wrapped(matvec, b, p_inv, tol=1e-6, maxiter=100):
+        calls = [0]
+
+        def mv(v):
+            calls[0] += 1
+            return matvec(v)
+
+        res = orig(mv, b, p_inv, tol=tol, maxiter=maxiter)
+        out["solves"].append(calls[0])
+        return res
+
+    ITER.pcg_solve = wrapped
+    try:
+        yield out
+    finally:
+        ITER.pcg_solve = orig
+
+
+def estimator_info(proc):
+    """The loglike's diagnostics (quad, logdet, the CG relative residual)
+    and the iterations of its solve, one uncounted evaluation."""
+    from g3py_tpu_torch.ops.kron import masked_kron_nll, ski_nll
+
+    pt = proc._tensor_params(proc.params_default)
+    x, y = proc._device_data("inputs"), proc._device_data("outputs")
+    with torch.no_grad(), counted_solves() as solves:
+        if isinstance(proc, g3t.SKIGP):
+            idx, w = proc._taps(x)
+            sk = proc._ski
+            _, info = ski_nll(proc._grams(pt), proc._noise_var(pt), proc._yres(pt, x, y), idx, w,
+                              proc._grid_shape(), sk["rank"], sk["cg_iters"], sk["probes"],
+                              sk["lanczos_iters"], sk["seed"])
+        else:
+            mk = proc._masked
+            _, info = masked_kron_nll(proc._grams(pt), proc._noise_var(pt), proc._yres(pt, x, y),
+                                      proc._idx_stack(x), proc._grid_shape(), mk["rank"],
+                                      mk["cg_iters"], mk["probes"], mk["lanczos_iters"],
+                                      mk["seed"])
+    return {k: float(v) for k, v in info.items()} | {"cg_iterations": solves["solves"]}
+
+
+def grid_evaluation(build, label, path, reps, axis, gates=(1e-3, 1e-2)):
+    """A grid-family model's logp + gradient (K1 x2 an evaluation: the
+    (axis, axis, 1) MAT52 and SE grams; no K2) against the card's float64
+    (``gates``: value, gradient)."""
+    proc = build()[0]
+    u = proc.active.dict_to_array(proc.params_default)
+    rec = evaluation_record(proc, u, label, reps=reps, path=path, predict=(2, 0),
+                            predict_k1={f"mat52 (1, {axis}, {axis}, 1)": 1,
+                                        f"se (1, {axis}, {axis}, 1)": 1})
+    rec["witness"] = held_value_grad(f"{label} vs the card's float64", (rec["value"], rec["grad"]),
+                                     value_grad_on(build, u, CARD, "float64"), gates=gates)
+    rec.pop("grad")
+    print(f"  {label} vs the card's float64: {rec['witness']}", flush=True)
+    return proc, rec
+
+
+def phase17a(path):
+    proc, rec = grid_evaluation(lambda: grid_model("P17A"), "17a GridGP 256 x 256 MAT52 x SE",
+                                path, reps=5, axis=GRID_AXIS)
+    pt = proc._tensor_params(proc.params_default)
+    ax = [torch.as_tensor(a, device=CARD) for a in proc._axes]
+    rec["k1_mat52"] = k1_record(ax[0], ax[0], pt["P17A_MAT52_rate"], pt["P17A_MAT52_var"],
+                                "17a K1 time axis", kind="mat52")
+    rec["k1_se"] = k1_record(ax[1], ax[1], pt["P17A_SE_rate"], pt["P17A_SE_var"],
+                             "17a K1 space axis")
+    return proc, rec
+
+
+# the matrix-free estimators' value and gradient against float64 with the
+# same probes (value, gradient along two directions), set from the H100's
+# readings: the masked grid read 1.4e-4 and 4.4e-5 (float32 Lanczos moves
+# the SLQ log-determinant), SKI 2.7e-7 and 1.6e-6
+MASKED_GATES = (1e-3, 1e-3)
+SKI_GATES = (1e-5, 1e-4)
+
+
+def phase17b(path):
+    proc, rec = grid_evaluation(lambda: grid_model("P17B", masked=True),
+                                "17b GridGP 256 x 256, 10% of the cells dropped", path, reps=1,
+                                axis=GRID_AXIS, gates=MASKED_GATES)
+    rec["estimator"] = estimator_info(proc)
+    print(f"  17b the masked estimator: {rec['estimator']}", flush=True)
+    require(rec["estimator"]["cg_rel_residual"] < 5e-2, "17b CG residual over 5e-2")
+    return rec
+
+
+def phase17c(path):
+    proc, rec = grid_evaluation(lambda: ski_model("P17C"), "17c SKIGP n=100000 grid 128 x 128",
+                                path, reps=3, axis=SKI_GRID, gates=SKI_GATES)
+    rec["estimator"] = estimator_info(proc)
+    print(f"  17c the SKI estimator: {rec['estimator']}", flush=True)
+    require(rec["estimator"]["cg_rel_residual"] < 5e-2, "17c CG residual over 5e-2")
+    pt = proc._tensor_params(proc.params_default)
+    ax = [torch.as_tensor(a, device=CARD) for a in proc._axes]
+    rec["k1_mat52"] = k1_record(ax[0], ax[0], pt["P17C_MAT52_rate"], pt["P17C_MAT52_var"],
+                                "17c K1 inducing time axis", kind="mat52")
+    rec["k1_se"] = k1_record(ax[1], ax[1], pt["P17C_SE_rate"], pt["P17C_SE_var"],
+                             "17c K1 inducing space axis")
+    return proc, rec
+
+
+def phase17d(grid, ski, path):
+    """Serving at 1024 queries: GridGP's Predictor batch (mean, variance)
+    and 16 joint draws (host normals on the augmented grid), SKIGP's
+    Predictor batch (alpha held as its state), each timed after a warm
+    call; the moments against the card's float64 (GridGP 1e-3 of scale,
+    SKIGP's PCG-limited ones 1e-2).  A draw is Q sqrt(lam) eps over the
+    augmented axes' eigenvectors, whose signs and order differ between
+    float32 and float64, so the draws are held to the posterior they come
+    from: the squared standardized gap of their mean, and their variance
+    over the posterior's, each averaged over the queries, within
+    ``DRAW_MOMENTS``; the warm calls are not counted."""
+    rng = np.random.default_rng(27)
+    xq = np.stack([rng.uniform(0.2, 7.8, 1024), rng.uniform(-1.9, 1.9, 1024)],
+                  1).astype(np.float32)
+    xs = np.stack([rng.uniform(0.2, 9.8, 1024), rng.uniform(-2.9, 2.9, 1024)],
+                  1).astype(np.float32)
+    u_size = (GRID_AXIS + 1024, GRID_AXIS + 1024)
+    normals = {"field": rng.standard_normal((16,) + u_size),
+               "noise": rng.standard_normal((16, GRID_AXIS * GRID_AXIS))}
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        with counted(path):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+    pg, ps = grid.predictor(grid.params_default), ski.predictor(ski.params_default)
+    g_stats, t_g = timed(lambda: pg.predict(xq, mean=True, std=False, var=True))
+    g_draws, t_d = timed(lambda: grid.sampler(grid.params_default, xq, samples=16, seed=normals))
+    s_stats, t_s = timed(lambda: ps.predict(xs, mean=True, std=False, var=True))
+    with port_on(CARD, "float64"):
+        g64 = grid_model("P17A")[0]
+        gm64, gv64 = g64.mean(g64.params_default, xq), g64.variance(g64.params_default, xq)
+        s64 = ski_model("P17C")[0]
+        ps64 = s64.predictor(s64.params_default)
+        s64_stats = ps64.predict(xs, mean=True, std=False, var=True)
+    npy = lambda t: t.cpu().numpy()  # noqa: E731
+    gaps = {"grid_mean": rel_gap(npy(g_stats["mean"]), npy(gm64)),
+            "grid_variance": rel_gap(npy(g_stats["variance"]), npy(gv64)),
+            "ski_mean": rel_gap(npy(s_stats["mean"]), npy(s64_stats["mean"])),
+            "ski_variance": rel_gap(npy(s_stats["variance"]), npy(s64_stats["variance"]))}
+    limits = dict(grid_mean=1e-3, grid_variance=1e-3, ski_mean=1e-2, ski_variance=1e-2)
+    mu, var = npy(gm64), npy(gv64)
+    draw_stats = {"z2": float(np.mean((g_draws.mean(1) - mu) ** 2 / (var / 16))),
+                  "var_ratio": float(np.mean(g_draws.var(1, ddof=1)) / np.mean(var))}
+    print(f"  17d serving at 1024 queries: GridGP batch (mean, variance) {t_g:.1f} ms, 16 draws "
+          f"{t_d:.1f} ms, SKIGP batch (mean, variance) {t_s:.1f} ms; vs the card's float64 "
+          f"{gaps}; the draws against their posterior {draw_stats}", flush=True)
+    require(all(np.isfinite(v) and v <= limits[k] for k, v in gaps.items()),
+            f"17d gaps {gaps} over {limits}")
+    require(all(DRAW_MOMENTS[0] <= v <= DRAW_MOMENTS[1] for v in draw_stats.values()),
+            f"17d draws {draw_stats} outside {DRAW_MOMENTS}")
+    return dict(grid_batch_ms=t_g, grid_draws_ms=t_d, ski_batch_ms=t_s, gaps=gaps,
+                draws=draw_stats)
+
+
+def phase17(path):
+    """Phase 17's runs; the float32 evaluations' and serving's K1 launches go
+    to ``path`` (the grid families make no K2 launch)."""
+    out, models = {}, {}
+
+    def grid():
+        proc, rec = phase17a(path)
+        models["grid"] = proc
+        return rec
+
+    def ski():
+        proc, rec = phase17c(path)
+        models["ski"] = proc
+        return rec
+
+    runs = (("17a", "GridGP 256 x 256 (bench.py:437-471)", grid),
+            ("17b", "the masked grid (10% dropped)", lambda: phase17b(path)),
+            ("17c", "SKIGP n=100000, 128 x 128 (bench.py:479-511)", ski),
+            ("17d", "serving at 1024 queries", lambda: phase17d(models["grid"], models["ski"],
+                                                                path)))
+    for key, label, run in runs:
+        print(f"phase {key}: {label}", flush=True)
+        t0 = time.perf_counter()
+        out[key] = run()
+        out[key]["wall_s"] = time.perf_counter() - t0
+        print(f"  phase {key} wall {out[key]['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     print("phase 0: device", flush=True)
     if not torch.cuda.is_available():
@@ -6873,6 +7532,32 @@ def main():
     print(f"  launches in phase 15: K1 {p15[0]}, K2 {p15[1]}; phase 15 {t15:.1f} s", flush=True)
     require(p15[0] > 0 and p15[1] > 0, "phase 15 did not go through both kernels")
 
+    # ---- the Laplace state-space family (item 13b): the counts are zeroed
+    # before, and read after, 16d's float32 evaluation and field_rate (16a-c,
+    # 16e and 16f are held to no launch); the float64 witnesses and the
+    # kernel records are not counted
+    p16 = [0, 0]
+    PATH_K1.clear()
+    t16 = time.perf_counter()
+    laplace = phase16(p16)
+    t16 = time.perf_counter() - t16
+    p16_k1 = dict(PATH_K1)
+    print(f"  launches in phase 16: K1 {p16[0]}, K2 {p16[1]}; phase 16 {t16:.1f} s", flush=True)
+    require(p16[0] > 0 and p16[1] > 0, "phase 16 did not go through both kernels")
+
+    # ---- the Kronecker grid and SKI families (item 14): the counts are
+    # zeroed before, and read after, 17a-c's float32 evaluations and 17d's
+    # serving; the warm-ups, the float64 witnesses, the estimator diagnostics
+    # and the kernel records are not counted
+    p17 = [0, 0]
+    PATH_K1.clear()
+    t17 = time.perf_counter()
+    grids = phase17(p17)
+    t17 = time.perf_counter() - t17
+    p17_k1 = dict(PATH_K1)
+    print(f"  launches in phase 17: K1 {p17[0]}, K2 {p17[1]}; phase 17 {t17:.1f} s", flush=True)
+    require(p17[0] > 0, "phase 17 did not go through K1")
+
     shape = (4096, 4096, 8)
     k1t = dict(k1_timing[("se", shape)], bound_ms=k1_bound_ms(*shape), bound_by="bytes")
     k1b = dict(k1b_timing[(16, 4096, 4096, 8)], bound_by="bytes")
@@ -6886,6 +7571,22 @@ def main():
     sites, sites_cross = dict(st["k1_sites"], bound_by="bytes"), dict(st["k1_cross"],
                                                                      bound_by="bytes")
     k2s = st["k2_sites"]
+    ng = laplace["16d"]
+    ng_sites, ng_k2 = dict(ng["k1_sites"], bound_by="bytes"), ng["k2_sites"]
+    g_mat52 = dict(grids["17a"]["k1_mat52"], bound_by="bytes")
+    g_se = dict(grids["17a"]["k1_se"], bound_by="bytes")
+    s_mat52 = dict(grids["17c"]["k1_mat52"], bound_by="bytes")
+    s_se = dict(grids["17c"]["k1_se"], bound_by="bytes")
+    # the new uses' launches, counted by the wrapper by kind and shape on
+    # phases 16 and 17's main paths
+    sites_key = f"se (1, {ST_SITES}, {ST_SITES}, 2)"
+    new_uses = {"laplace_sites": p16_k1.get(sites_key, 0),
+                "grid_mat52": p17_k1.get(f"mat52 (1, {GRID_AXIS}, {GRID_AXIS}, 1)", 0),
+                "grid_se": p17_k1.get(f"se (1, {GRID_AXIS}, {GRID_AXIS}, 1)", 0),
+                "ski_mat52": p17_k1.get(f"mat52 (1, {SKI_GRID}, {SKI_GRID}, 1)", 0),
+                "ski_se": p17_k1.get(f"se (1, {SKI_GRID}, {SKI_GRID}, 1)", 0)}
+    print(f"  K1 launches by kind and shape: phase 16 {p16_k1}; phase 17 {p17_k1}", flush=True)
+    require(all(v > 0 for v in new_uses.values()), f"a new K1 use was not launched: {new_uses}")
     k1_src = dict(route="cuda", source="g3py_tpu_torch/csrc/stationary_gram.cu",
                   replaces="g3py_tpu/ops/pallas_gram.py:81")
     k2_src = dict(route="cuda", source="g3py_tpu_torch/csrc/panel_cholesky.cu",
@@ -6898,15 +7599,17 @@ def main():
     record = {"kernels": [
         {"name": "stationary_gram", **k1_src,
          "launches": (k1_serve + k1_train + k1_p7 + p8[0] + p9[0] + p10[0] + p12[0]
-                      + p13[0] + p14[0] + p15[0]),
+                      + p13[0] + p14[0] + p15[0] + p16[0] + p17[0]),
          "max_abs_err": max(k1_worst, catalogue["k1_algebra_err"]["single"],
                             slab["max_abs_err"], cross["max_abs_err"],
                             features["max_abs_err"], sites["max_abs_err"],
-                            sites_cross["max_abs_err"]), **timed(k1t)},
+                            sites_cross["max_abs_err"], ng_sites["max_abs_err"],
+                            g_mat52["max_abs_err"], g_se["max_abs_err"],
+                            s_mat52["max_abs_err"], s_se["max_abs_err"]), **timed(k1t)},
         {"name": "panel_cholesky", **k2_src,
          "launches": (k2_serve + k2_train + k2_p7 + p8[1] + p9[1] + p10[1] + p12[1]
-                      + p13[1] + p14[1] + p15[1]),
-         "max_abs_err": max(k2_worst, k2s["max_abs_err"]), **timed(k2t)},
+                      + p13[1] + p14[1] + p15[1] + p16[1] + p17[1]),
+         "max_abs_err": max(k2_worst, k2s["max_abs_err"], ng_k2["max_abs_err"]), **timed(k2t)},
         {"name": "stationary_gram_batched", **k1_src,
          "launches": (k1_bayes + p8_batched[0] + p9_batched[0] + p10_batched[0]
                       + p11_batched[0] + p13_batched[0] + p14_batched[0]),
@@ -6936,7 +7639,19 @@ def main():
         {"name": "stationary_gram_sites_cross", **k1_src, "launches": st["cross_launches"],
          "max_abs_err": sites_cross["max_abs_err"], **timed(sites_cross)},
         {"name": "panel_cholesky_m32", **k2_src, "launches": st["k2_launches"],
-         "max_abs_err": k2s["max_abs_err"], **timed(k2s)}]}
+         "max_abs_err": k2s["max_abs_err"], **timed(k2s)},
+        {"name": "stationary_gram_laplace_sites", **k1_src, "launches": new_uses["laplace_sites"],
+         "max_abs_err": ng_sites["max_abs_err"], **timed(ng_sites)},
+        {"name": "panel_cholesky_laplace_m32", **k2_src, "launches": ng["k2_launches"],
+         "max_abs_err": ng_k2["max_abs_err"], **timed(ng_k2)},
+        {"name": "stationary_gram_grid_mat52", **k1_src, "launches": new_uses["grid_mat52"],
+         "max_abs_err": g_mat52["max_abs_err"], **timed(g_mat52)},
+        {"name": "stationary_gram_grid_se", **k1_src, "launches": new_uses["grid_se"],
+         "max_abs_err": g_se["max_abs_err"], **timed(g_se)},
+        {"name": "stationary_gram_ski_grid_mat52", **k1_src, "launches": new_uses["ski_mat52"],
+         "max_abs_err": s_mat52["max_abs_err"], **timed(s_mat52)},
+        {"name": "stationary_gram_ski_grid_se", **k1_src, "launches": new_uses["ski_se"],
+         "max_abs_err": s_se["max_abs_err"], **timed(s_se)}]}
     print(f"  K1 at {shape} SE f32: kernel {k1t['ms']:.4f} ms (events, back to back), device "
           f"{fmt_ms(k1t['device_ms'])} (profiler, a launch), wrapper {k1t['wrapper_ms']:.4f} "
           f"ms, plain {k1t['plain_ms']:.4f} ms, bound {k1t['bound_ms']:.4f} ms", flush=True)
@@ -6953,8 +7668,11 @@ def main():
     print(f"  phase 13: {json.dumps(sparse, default=float)}", flush=True)
     print(f"  phase 14: {json.dumps(items, default=float)}", flush=True)
     print(f"  phase 15: {json.dumps(state_space, default=float)}", flush=True)
+    print(f"  phase 16: {json.dumps(laplace, default=float)}", flush=True)
+    print(f"  phase 17: {json.dumps(grids, default=float)}", flush=True)
     print(f"  command time {time.perf_counter() - T_START:.1f} s (phase 12 {t12:.1f} s, "
-          f"phase 13 {t13:.1f} s, phase 14 {t14:.1f} s, phase 15 {t15:.1f} s)", flush=True)
+          f"phase 13 {t13:.1f} s, phase 14 {t14:.1f} s, phase 15 {t15:.1f} s, phase 16 "
+          f"{t16:.1f} s, phase 17 {t17:.1f} s)", flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -121,7 +121,7 @@ def _import_all():
                          with_output, stack_outputs, StateSpaceGP, SSGP, MultiStateSpaceGP,
                          LMCSSGP, SpatioTemporalSSGP, STSSGP, SparseSpatioTemporalSSGP,
                          NonGaussianSSGP, NGSSGP, NonGaussianMultiSSGP, NGMSSGP,
-                         NonGaussianSTSSGP, NGSTSSGP)
+                         NonGaussianSTSSGP, NGSTSSGP, GridGP, grid_rows, SKIGP)
     from .serving import ExportedPredictor, load_predictor
     compat = importlib.import_module(__name__ + ".compat")
     names = dict(locals())

@@ -49,6 +49,9 @@ class Settings:
         approximation (``ops/ssm.py`` SELeaf): kernel error relative to var
         4.3e-3 / 9.1e-4 / 2.1e-4 at order 6 / 8 / 10 in float32, and 10 is
         the float32 ceiling (its eigen-form constants grow ~13x per +2).
+      ssm_laplace_iters: Newton iterations of the Laplace mode of the
+        non-gaussian state-space family (``models/ngssm.py``), each one
+        smoothing pass; log-concave likelihoods converge in ~5.
       ssm_chunk_threshold: above this many rows the state-space families
         take the chunked monoid scans (``chunked_kalman_nll`` for the
         loglike, ``chunked_smoother_diag`` for the statistics), whose
@@ -69,6 +72,7 @@ class Settings:
     device: str = "cuda"
     ssm_harmonics: int = 7
     ssm_se_order: int = 8
+    ssm_laplace_iters: int = 15
     ssm_chunk_threshold: int = 1_048_576
     ssm_chunk: int = 262_144
     ssm_mxu_state_dim: int = 10_000

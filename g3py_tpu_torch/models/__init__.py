@@ -7,8 +7,11 @@ IterativePredictor, and the sparse families: the SGPR collapsed bound
 HeteroscedasticSVP) over the observation likelihoods and the linear model
 of coregionalization over them (LMCSVP), and the state-space families: the
 exact O(n) Markovian GP (StateSpaceGP), its LMC-mixed multi-output form
-(MultiStateSpaceGP) and the separable spatio-temporal GPs
-(SpatioTemporalSSGP, SparseSpatioTemporalSSGP)."""
+(MultiStateSpaceGP), the separable spatio-temporal GPs
+(SpatioTemporalSSGP, SparseSpatioTemporalSSGP) and their Laplace
+counterparts for non-gaussian observations (NonGaussianSSGP,
+NonGaussianMultiSSGP, NonGaussianSTSSGP), and the Kronecker grid and SKI
+families (GridGP, SKIGP)."""
 
 from .stochastic import StochasticProcess
 from .elliptical import EllipticalProcess
@@ -31,10 +34,13 @@ from .sparse import (InducingPoints, SparseGaussianProcess, SparseWarpedGaussian
 from .svgp import (VariationalQ, VariationalQHeads, SparseVariationalProcess, MulticlassSVP,
                    HeteroscedasticSVP)
 from .lmc import Mixing, MultiGaussianLik, LMCSVP, with_output, stack_outputs
-from .statespace import (StateSpaceGP, SSGP, MultiStateSpaceGP, LMCSSGP, NonGaussianSSGP,
-                         NGSSGP, NonGaussianMultiSSGP, NGMSSGP, NonGaussianSTSSGP, NGSTSSGP)
+from .statespace import StateSpaceGP, SSGP, MultiStateSpaceGP, LMCSSGP
+from .ngssm import (NonGaussianSSGP, NGSSGP, NonGaussianMultiSSGP, NGMSSGP, NonGaussianSTSSGP,
+                    NGSTSSGP)
 from .spatiotemporal import (SpatioTemporalSSGP, STSSGP, SpatialMixing,
                              SparseSpatioTemporalSSGP)
+from .grid import GridGP, grid_rows
+from .ski import SKIGP
 
 GP = GaussianProcess
 WGP = WarpedGaussianProcess
@@ -66,4 +72,4 @@ __all__ = ["StochasticProcess", "EllipticalProcess", "GaussianProcess",
            "stack_outputs", "StateSpaceGP", "SSGP", "MultiStateSpaceGP", "LMCSSGP",
            "SpatioTemporalSSGP", "STSSGP", "SpatialMixing", "SparseSpatioTemporalSSGP",
            "NonGaussianSSGP", "NGSSGP", "NonGaussianMultiSSGP", "NGMSSGP", "NonGaussianSTSSGP",
-           "NGSTSSGP"]
+           "NGSTSSGP", "GridGP", "grid_rows", "SKIGP"]

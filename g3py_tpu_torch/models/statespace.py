@@ -40,8 +40,7 @@ from ..ops.ssm import (ssm_leaves, ssm_blocks, ssm_blocks_multi, parallel_kalman
                        parallel_smoother, ssm_prior_state_sample, LOG2PI)
 from .stochastic import StochasticProcess, _statistic
 
-__all__ = ["StateSpaceGP", "SSGP", "MultiStateSpaceGP", "LMCSSGP", "NonGaussianSSGP", "NGSSGP",
-           "NonGaussianMultiSSGP", "NGMSSGP", "NonGaussianSTSSGP", "NGSTSSGP"]
+__all__ = ["StateSpaceGP", "SSGP", "MultiStateSpaceGP", "LMCSSGP"]
 
 _NO_MESH = ("time-axis-sharded training (nll_distributed) is not ported yet "
             "(ROADMAP Queue 1 item 16)")
@@ -671,18 +670,3 @@ def _simulation_smoother(a, q, h, r, ys, os_, samples, draws, gen, qpos):
         out = ((m_s + x - msp) * h).sum(-1)                                 # (S, n)
     return out[:, qpos].T
 
-
-def _laplace_family(name):
-    """A name of the non-gaussian (Laplace) state-space family, which comes
-    with item 13b: constructing it raises."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{name} (models/ngssm.py, the Laplace state-space family) is "
-                                  "not ported yet (ROADMAP Queue 1 item 13b)")
-
-    return type(name, (StochasticProcess,), {"__init__": __init__, "__doc__": __init__.__doc__})
-
-
-NonGaussianSSGP = NGSSGP = _laplace_family("NonGaussianSSGP")
-NonGaussianMultiSSGP = NGMSSGP = _laplace_family("NonGaussianMultiSSGP")
-NonGaussianSTSSGP = NGSTSSGP = _laplace_family("NonGaussianSTSSGP")

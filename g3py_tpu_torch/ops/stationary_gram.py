@@ -16,7 +16,8 @@ predictor go through it this way.  The port of the TPU kernel
 * The kernel library is built by :mod:`._build` (``nvcc`` at first use,
   ``ctypes``), together with the port's other kernels.
 * ``stationary_gram.launches`` counts kernel launches (and nothing else),
-  so a run can show that its main path went through the kernel.
+  so a run can show that its main path went through the kernel;
+  ``stationary_gram.by_shape`` counts them by ``(kind, R, m, n, d)``.
 * The gradient is a ``torch.autograd.Function`` whose backward
   differentiates the plain form, as the TPU package's ``_gram_hybrid``
   replays the vjp of its XLA form.
@@ -115,6 +116,8 @@ def _launch(kind, s1, s2, var, extra):
     if rc != 0:
         raise RuntimeError(f"stationary_gram kernel launch failed: cudaError {rc}")
     stationary_gram.launches += 1
+    key = (kind, rows, m, n, d)
+    stationary_gram.by_shape[key] = stationary_gram.by_shape.get(key, 0) + 1
     return out
 
 
@@ -232,3 +235,5 @@ def stationary_gram(kind, x1, x2, rate, var, extra=None):
 
 
 stationary_gram.launches = 0
+#: the launches by (kind, R, m, n, d), beside their total
+stationary_gram.by_shape = {}

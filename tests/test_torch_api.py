@@ -493,16 +493,17 @@ SSM_OPS = ["ssm_leaves", "ssm_blocks", "ssm_blocks_multi", "parallel_kalman_nll"
 
 def test_state_space_names_exposed():
     """The JAX package's state-space names (and aliases) on the port's top
-    level; the non-gaussian family's name its item (13b)."""
+    level, the non-gaussian (Laplace) family's among them; the settings."""
     for name in ("StateSpaceGP", "SSGP", "MultiStateSpaceGP", "LMCSSGP", "SpatioTemporalSSGP",
                  "STSSGP", "SparseSpatioTemporalSSGP", "NonGaussianSSGP", "NGSSGP",
                  "NonGaussianMultiSSGP", "NGMSSGP", "NonGaussianSTSSGP", "NGSTSSGP"):
         assert hasattr(g3, name) and hasattr(g3t, name), name
     assert g3t.SSGP is g3t.StateSpaceGP and g3t.STSSGP is g3t.SpatioTemporalSSGP
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        g3t.NGSSGP(space=np.zeros((4, 1)))
+    assert g3t.NGSSGP is g3t.NonGaussianSSGP and g3t.NGSTSSGP is g3t.NonGaussianSTSSGP
+    assert isinstance(g3t.NGSSGP(space=np.zeros((4, 1)), kernel=g3t.MAT32(np.zeros((4, 1))),
+                                 name="API_NG"), g3t.StateSpaceGP)
     for key in ("ssm_harmonics", "ssm_se_order", "ssm_chunk_threshold", "ssm_chunk",
-                "ssm_mxu_state_dim"):
+                "ssm_mxu_state_dim", "ssm_laplace_iters"):
         assert getattr(g3t.settings, key) == getattr(g3.config.settings, key), key
 
 
@@ -523,3 +524,51 @@ def test_state_space_ops_take_jax_arguments():
 
     for name in SSM_OPS:
         _assert_takes(getattr(jssm, name), getattr(tssm, name), name)
+
+
+LAPLACE_METHODS = {
+    "NonGaussianSSGP": ["__init__", "observed", "default_hypers", "_d12", "_chunked_pieces",
+                        "_mode", "th_loglike_fn", "nll_distributed", "_run_smoother", "th_mean",
+                        "th_median", "th_variance", "th_logpredictive", "_joint_draws",
+                        "sampler", "quantiler"],
+    "NonGaussianMultiSSGP": ["__init__", "observed", "default_hypers", "_lik_idx",
+                             "_select_rows", "_d12", "_ll_rows", "_mode", "th_loglike_fn",
+                             "nll_distributed", "_run_smoother", "th_mean", "th_median",
+                             "th_variance", "th_logpredictive", "_joint_draws", "sampler",
+                             "quantiler"],
+    "NonGaussianSTSSGP": ["__init__", "default_hypers", "field", "task_correlations",
+                          "_run_smoother_weights", "field_rate"],
+}
+GRID_METHODS = {
+    "GridGP": ["__init__", "observed", "th_loglike_fn", "nll_distributed", "_eig_state",
+               "_posterior_moments", "th_location", "th_kernel_diag", "th_mean", "th_median",
+               "th_variance", "th_covariance", "th_logpredictive", "posterior_state",
+               "predictor", "_joint_draws", "sampler", "quantiler"],
+    "SKIGP": ["__init__", "observed", "_fit_grid", "_taps", "th_loglike_fn", "nll_distributed",
+              "_prior_diag", "_alpha", "_posterior_mean", "_posterior_moments", "th_location",
+              "posterior_state", "th_covariance", "_joint_draws"],
+}
+KRON_OPS = ["kron_apply", "kron_eigs", "kron_dinv", "kron_solve_eig", "kron_gp_nll",
+            "cross_mean", "cross_var", "cross_cov", "masked_kron_matvec", "masked_kron_nll",
+            "masked_cross_solve", "cubic_interp_axis", "ski_wv", "ski_wtv", "ski_dense_w",
+            "ski_operator", "ski_prior_diag", "ski_nll", "ski_solve"]
+
+
+@pytest.mark.parametrize("cls", sorted(LAPLACE_METHODS) + sorted(GRID_METHODS))
+def test_laplace_and_grid_classes_take_jax_arguments(cls):
+    """The Laplace state-space family (item 13b) and the grid/SKI families
+    (item 14): the JAX package's names on the port's top level, each listed
+    method taking the JAX package's arguments in its order."""
+    assert hasattr(g3t, cls) and hasattr(g3, cls), cls
+    for name in LAPLACE_METHODS.get(cls, GRID_METHODS.get(cls)):
+        _assert_takes(getattr(getattr(g3, cls), name), getattr(getattr(g3t, cls), name),
+                      f"{cls}.{name}")
+
+
+def test_kron_ops_and_grid_rows_take_jax_arguments():
+    from g3py_tpu.ops import kron as jk
+    from g3py_tpu_torch.ops import kron as tk
+
+    for name in KRON_OPS:
+        _assert_takes(getattr(jk, name), getattr(tk, name), name)
+    _assert_takes(g3.grid_rows, g3t.grid_rows, "grid_rows")

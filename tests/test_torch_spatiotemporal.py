@@ -14,7 +14,8 @@ import numpy as np
 import g3py_tpu as g3
 import g3py_tpu_torch as g3t
 
-from torch_parity import KernelSpy, assert_close, floatx, jax_logp_dlogp, to_numpy
+from torch_parity import (KernelSpy, assert_close, floatx, jax_compiled_method, jax_logp_dlogp,
+                          to_numpy)
 
 F64 = "float64"
 SITES = np.array([[0.0, 0.0], [1.0, 0.3], [2.5, -0.4], [0.7, 1.6]])
@@ -58,6 +59,7 @@ def test_stssgp_matches_jax():
         assert_close(tp.dlogp(p), grad, F64)
         tq = np.linspace(0.0, 10.0, 5)
         xq = np.array([[0.5, 0.5], [1.8, 0.0], [-1.0, 2.0], [0.7, 1.6], [3.0, 3.0]])
+        jax_compiled_method(jp, "_run_smoother_weights")
         assert_close(tp.field(tq, xq, params=p), jp.field(tq, xq, params=p), F64)
         assert_close(tp.field(tq, xq, params=p, prior=True),
                      jp.field(tq, xq, params=p, prior=True), F64)

@@ -2,9 +2,10 @@
 (``g3py_tpu_torch/models/spatiotemporal.py``) against the JAX package in
 float64 at 1e-10: rows at free 2-D coordinates, with inducing sites that
 cover every observed location (the FITC residual vanishes) and with a
-subset of them — logp and dlogp, and with ``ssm_chunk_threshold`` lowered
-in both packages the chunked payload path (each block's emissions from its
-own cross gram), equal to the JAX package's and to the port's plain path;
+subset of them — logp and dlogp (one program of the JAX package for both
+models, computed once), and with ``ssm_chunk_threshold`` lowered the chunked
+payload path (each block's emissions from its own cross gram), equal to
+the same JAX program's and to the port's plain path;
 the statistics at off-site rows against the port's own pieces; the K1/K2
 calls an evaluation (one K1 site gram, one K1 (m, n) cross gram, one K2)."""
 
@@ -14,7 +15,7 @@ import pytest
 import g3py_tpu as g3
 import g3py_tpu_torch as g3t
 
-from torch_parity import KernelSpy, assert_close, floatx, jax_logp_dlogp, to_numpy
+from torch_parity import KernelSpy, assert_close, floatx, jax_parts, logp_dlogp_part, to_numpy
 from test_torch_spatiotemporal import F64, SITES, _nudged
 from test_torch_statespace import chunked
 
@@ -39,6 +40,21 @@ def sparse(lib, inducing, name):
 
 
 CASES = {"complete": SITES, "subset": SITES[[0, 2, 3]]}
+_JAX = {}
+
+
+def jax_side(case):
+    """The JAX package's logp and dlogp of both cases' models at their
+    params nudged by seed 2: one program (``torch_parity.jax_parts``),
+    computed once a process (the plain and the chunked routing's checks
+    share it)."""
+    if not _JAX:
+        parts = {}
+        for c in CASES:
+            jp = sparse(g3, CASES[c], "SP_" + c)
+            parts[c] = logp_dlogp_part(jp, _nudged(jp.params, seed=2))
+        _JAX.update(jax_parts(parts))
+    return _JAX[case]
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -50,7 +66,7 @@ def test_sparse_logp_dlogp_match_jax(case):
         for k, v in jp.params_default.items():
             np.testing.assert_array_equal(tp.params_default[k], np.asarray(v), err_msg=k)
         p = _nudged(jp.params, seed=2)
-        value, grad = jax_logp_dlogp(jp, p)
+        value, grad = jax_side(case)
         assert_close(tp.logp(p), value, F64)
         assert_close(tp.dlogp(p), grad, F64)
         x = tp._device_data("inputs")
@@ -63,15 +79,15 @@ def test_sparse_logp_dlogp_match_jax(case):
 
 def test_sparse_chunked_payload_path_matches_jax_and_the_plain_path():
     with floatx(F64):
-        jp, tp = (sparse(lib, CASES["subset"], "SP_chunk") for lib in (g3, g3t))
-        p = _nudged(jp.params, seed=3)
+        jp, tp = (sparse(lib, CASES["subset"], "SP_subset") for lib in (g3, g3t))
+        p = _nudged(jp.params, seed=2)
+        want = jax_side("subset")
         xq = np.array([[2.0, 0.5, 0.5], [7.5, 1.0, 0.3], [4.0, -1.0, 2.0]])
         plain = (tp.logp(p), tp.dlogp(p), to_numpy(tp.mean(p, xq)),
                  to_numpy(tp.variance(p, xq)))
         with chunked(threshold=24, chunk=16):
             got = (tp.logp(p), tp.dlogp(p), to_numpy(tp.mean(p, xq)),
                    to_numpy(tp.variance(p, xq)))
-            want = jax_logp_dlogp(jp, p)
         assert_close(got[:2], want, F64)
         assert_close(got, plain, F64)
 

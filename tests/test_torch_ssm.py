@@ -7,7 +7,8 @@ the smoother (shared and per-row emissions), the prior state draw from the
 JAX package's normals, and the chunked NLL and smoother (plain, per-row,
 payload, blocks-on-the-fly and split forms, with a small chunk) against the
 plain scans — float64 against JAX x64 at 1e-10, float32 at rtol 1e-4 /
-atol 1e-5, the JAX side op by op (``jax_eager``)."""
+atol 1e-5, the JAX side one compiled program a check
+(``torch_parity.jax_compiled``)."""
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +22,7 @@ from g3py_tpu.ops import ssm as J
 import g3py_tpu_torch as g3t
 from g3py_tpu_torch.ops import ssm as T
 
-from torch_parity import assert_close, floatx, jax_eager, to_numpy
+from torch_parity import assert_close, floatx, jax_compiled, to_numpy
 
 KERNELS = {
     "ou": lambda L, t: L.OU(t),
@@ -68,8 +69,7 @@ def _t(*arrays):
     return [torch.as_tensor(np.array(a)) for a in arrays]
 
 
-N = 29        # one length for the filter, the smoother and the chunked
-              # paths, so the JAX side's op-by-op programs are compiled once
+N = 29        # one length for the filter, the smoother and the chunked paths
 
 
 def _filter_inputs(n=N, seed=1):
@@ -84,29 +84,38 @@ def _filter_inputs(n=N, seed=1):
     return a, q, h, y, tl, params, dt
 
 
+def _lax_scans(a, q, h, r, y, obs):
+    """``lax.associative_scan`` on the filter elements (both directions)
+    and on the smoothing elements built from the forward filter (both
+    directions), as one program."""
+    jel = J._filter_elements(a, q, h, r, y, obs)
+    filt = [lax.associative_scan(J._filter_combine, jel, reverse=rev) for rev in (False, True)]
+    m_f, p_f = filt[0][1:3]
+    sel = (a[1:], m_f[:-1], p_f[:-1])
+    smooth = [lax.associative_scan(J._smoother_combine, sel, reverse=rev) for rev in (True, False)]
+    return {"elements": jel, "filter": filt, "smoother": smooth}
+
+
 @pytest.mark.parametrize("n", [N - 1, N])
 def test_scan_matches_lax_on_the_filter_and_smoother_monoids(n):
-    with floatx("float64"), jax_eager():
+    with floatx("float64"):
         a, q, h, y = _filter_inputs(n)[:4]
         obs = np.ones(n, bool)
         obs[3] = False
         r = 0.05
-        jel = J._filter_elements(*map(jnp.asarray, (a, q, h)), r, jnp.asarray(y),
-                                 jnp.asarray(obs))
+        want = to_numpy(jax_compiled(_lax_scans, a, q, h, r, y, obs))
         tel = T._filter_elements(*_t(a, q, h), torch.tensor(r, dtype=torch.float64),
                                  *_t(y, obs))
-        assert_close(tel, jel, "float64")
-        for reverse in (False, True):
-            want = lax.associative_scan(J._filter_combine, jel, reverse=reverse)
+        assert_close(tel, want["elements"], "float64")
+        for i, reverse in enumerate((False, True)):
             got = T.associative_scan(T._filter_combine, tel, reverse=reverse)
-            assert_close(got, want, "float64", err_msg=f"filter reverse={reverse}")
-        m_f, p_f = (np.asarray(v) for v in lax.associative_scan(J._filter_combine, jel)[1:3])
+            assert_close(got, want["filter"][i], "float64", err_msg=f"filter reverse={reverse}")
+        m_f, p_f = want["filter"][0][1:3]
         sel = (a[1:], m_f[:-1], p_f[:-1])
-        for reverse in (True, False):
-            want = lax.associative_scan(J._smoother_combine, tuple(map(jnp.asarray, sel)),
-                                        reverse=reverse)
+        for i, reverse in enumerate((True, False)):
             got = T.associative_scan(T._smoother_combine, _t(*sel), reverse=reverse)
-            assert_close(got, want, "float64", err_msg=f"smoother reverse={reverse}")
+            assert_close(got, want["smoother"][i], "float64",
+                         err_msg=f"smoother reverse={reverse}")
 
 
 def test_scan_keeps_batch_axes_ahead_of_the_scanned_one():
@@ -126,7 +135,7 @@ def test_scan_keeps_batch_axes_ahead_of_the_scanned_one():
 @pytest.mark.parametrize("name,per_row", [("float64", False), ("float64", True),
                                           ("float32", True)])
 def test_filter_nll_split_and_smoother(name, per_row):
-    with floatx(name), jax_eager():
+    with floatx(name):
         a, q, h, y = _filter_inputs()[:4]
         rng = np.random.default_rng(5)
         obs = rng.uniform(size=N) > 0.2
@@ -144,8 +153,7 @@ def test_filter_nll_split_and_smoother(name, per_row):
             return (nll, J.parallel_kalman_quad_logdet(*z), J.parallel_kalman_filter(*z),
                     J.parallel_smoother(z[0], z[1], nll[1], nll[2]))
 
-        # float64 op by op shares the scan test's programs; float32 is one jit
-        want = (jax_side if name == "float64" else jax.jit(jax_side))(*jargs)
+        want = jax_compiled(jax_side, *jargs)
         got = T.parallel_kalman_nll(*targs)
         assert_close(got, want[0], name)
         assert_close(T.parallel_kalman_quad_logdet(*targs), want[1], name)

@@ -1,14 +1,15 @@
 """Port parity of ``StateSpaceGP`` (``g3py_tpu_torch/models/statespace.py``)
 against the JAX package in float64 at 1e-10: the hyper names and defaults,
-logp and dlogp (one jit of the JAX package's value and gradient,
-``torch_parity.jax_logp_dlogp``), the moment statistics (posterior and
-prior, with and without noise), the log predictive and the quantiles, and
+logp, dlogp and the moment statistics (posterior and prior, with and
+without noise, the log predictive) from one program of the JAX package
+(``torch_parity.jax_logp_dlogp``), the quantiles, and
 the joint sampler, posterior and prior, fed the JAX package's normals
 (rebuilt from its key splits).  The chunked routing, the rows, the
 predictor and ``find_MAP`` are ``tests/test_torch_statespace_rows.py``'s,
 ``MultiStateSpaceGP`` ``tests/test_torch_statespace_multi.py``'s and the
-golden pins ``tests/test_torch_parity.py``'s.  The JAX side is jitted: op
-by op, its scans' backward takes minutes."""
+golden pins ``tests/test_torch_parity.py``'s.  The JAX side is compiled,
+one program a quantity set (``torch_parity.FAST_COMPILE``): op by op, its
+scans' backward takes minutes."""
 
 import contextlib
 
@@ -19,7 +20,7 @@ from jax import random
 import g3py_tpu as g3
 import g3py_tpu_torch as g3t
 
-from torch_parity import assert_close, floatx, jax_logp_dlogp, to_numpy
+from torch_parity import assert_close, floatx, jax_compiled_method, jax_logp_dlogp, to_numpy
 
 F64 = "float64"
 
@@ -98,16 +99,18 @@ def _pair(build, *args):
     return out
 
 
-def _stats(proc, p, xq, y_q):
-    """The moment statistics of a process at p (host numpy): posterior and
-    prior mean, variance (with and without noise) and log predictive."""
-    out = {}
-    for prior in (False, True):
-        out[f"mean{prior}"] = proc.mean(p, xq, prior=prior)
-        out[f"var{prior}"] = proc.variance(p, xq, prior=prior)
-        out[f"varn{prior}"] = proc.variance(p, xq, prior=prior, noise=True)
-        out[f"lp{prior}"] = proc.logpredictive(p, xq, vector=y_q, prior=prior)
-    return to_numpy(out)
+#: the moment statistics held to the JAX package's: posterior and prior
+#: mean, variance (with and without noise) and log predictive
+STATS = {f"{key}{prior}": (th, dict(kw, prior=prior)) for prior in (False, True)
+         for key, th, kw in (("mean", "th_mean", {}), ("var", "th_variance", {}),
+                             ("varn", "th_variance", {"noise": True}),
+                             ("lp", "th_logpredictive", {}))}
+
+
+def _stats(tp, p, xq, y_q):
+    """The port's :data:`STATS` at p (host numpy)."""
+    return to_numpy({k: getattr(tp, th[3:])(p, xq, vector=y_q, **kw)
+                     for k, (th, kw) in STATS.items()})
 
 
 def assert_port_quantities(tp, p, xq):
@@ -122,8 +125,14 @@ def assert_port_quantities(tp, p, xq):
                  stats.norm.ppf(0.9, loc=m, scale=np.sqrt(v)), F64)
 
 
-def assert_logp_dlogp(jp, tp, p):
-    value, grad = jax_logp_dlogp(jp, p)
+def assert_logp_dlogp(jp, tp, p, xq=None, y_q=None):
+    """The port's logp, dlogp and (at ``xq``) :data:`STATS` equal the JAX
+    package's, from one program of it."""
+    if xq is None:
+        value, grad = jax_logp_dlogp(jp, p)
+    else:
+        value, grad, want = jax_logp_dlogp(jp, p, xq, STATS, vector=y_q)
+        assert_close(_stats(tp, p, xq, y_q), want, F64)
     assert_close(tp.logp(p), value, F64)
     assert_close(tp.dlogp(p), grad, F64)
 
@@ -144,9 +153,7 @@ def test_ssgp_matches_jax():
             proc.observed(t, y)
         assert_names_and_defaults(jp, tp)
         p = _nudged(jp.params)
-        assert_logp_dlogp(jp, tp, p)
-        y_q = np.cos(tq[:, 0])
-        assert_close(_stats(tp, p, tq, y_q), _stats(jp, p, tq, y_q), F64)
+        assert_logp_dlogp(jp, tp, p, tq, np.cos(tq[:, 0]))
         assert_port_quantities(tp, p, tq)
 
 
@@ -159,6 +166,7 @@ def test_ssgp_sampler_matches_jax():
         jp, tp = _pair(_ssgp, t)
         for proc in (jp, tp):
             proc.observed(t, y)
+        jax_compiled_method(jp, "_joint_draws")
         p = _nudged(jp.params, seed=1)
         s = sum(leaf.dim for leaf in tp._leaves)
         post = jax_normals(3, 2, len(t) + len(tq), s)

@@ -5,16 +5,21 @@ kernel), the moment statistics at rows of both outputs (posterior and
 prior, with and without noise, the log predictive), ``task_correlations``,
 the prior sampler fed the JAX package's normals and the posterior sampler's
 draws against the smoother's moments, the chunked routing with
-``ssm_chunk_threshold`` lowered in both packages, and a params dict of rows
-against its rows one by one."""
+``ssm_chunk_threshold`` lowered (held to the same JAX program as the plain
+path), and a params dict of rows against its rows one by one.  The JAX
+side's logp, dlogp and statistics are one program for both models
+(``torch_parity.jax_parts``), computed once and shared by the tests that
+read it."""
 
 import numpy as np
 import pytest
 
+import g3py_tpu as g3
 import g3py_tpu_torch as g3t
 
-from torch_parity import assert_close, floatx, jax_logp_dlogp, to_numpy
-from test_torch_statespace import (F64, _mssgp, _nudged, _pair, _stats, assert_logp_dlogp,
+from torch_parity import (assert_close, floatx, jax_compiled_method, jax_parts, logp_dlogp_part,
+                          to_numpy)
+from test_torch_statespace import (F64, STATS, _mssgp, _nudged, _pair, _stats,
                                    assert_names_and_defaults, assert_port_quantities, chunked,
                                    jax_normals)
 
@@ -24,12 +29,35 @@ def _queries():
     return np.concatenate([g3t.with_output(tq, 0), g3t.with_output(tq, 1)])
 
 
+_JAX = {}
+
+
+def jax_side(shared):
+    """The JAX package's logp and dlogp of both models (one kernel a latent,
+    one shared) at their params nudged by seed 5, and the first's
+    :data:`STATS` at :func:`_queries`: one program
+    (``torch_parity.jax_parts``), computed once a process and shared by the
+    plain and the chunked routing's checks."""
+    if not _JAX:
+        xq, parts = _queries(), {}
+        for sh in (False, True):
+            jp = _mssgp(g3, sh)[0]
+            p = _nudged(jp.params, seed=5)
+            parts[sh] = (logp_dlogp_part(jp, p) if sh else
+                         logp_dlogp_part(jp, p, xq, STATS, vector=np.sin(xq[:, 0])))
+        _JAX.update(jax_parts(parts))
+    return _JAX[shared]
+
+
 @pytest.mark.parametrize("shared", [False, True])
 def test_mssgp_logp_dlogp_match_jax(shared):
     with floatx(F64):
         (jp, _, _), (tp, _, _) = _pair(_mssgp, shared)
         assert_names_and_defaults(jp, tp)
-        assert_logp_dlogp(jp, tp, _nudged(jp.params, seed=5))
+        p = _nudged(jp.params, seed=5)
+        value, grad = jax_side(shared)[:2]
+        assert_close(tp.logp(p), value, F64)
+        assert_close(tp.dlogp(p), grad, F64)
 
 
 def test_mssgp_statistics_and_prior_draws_match_jax():
@@ -38,13 +66,14 @@ def test_mssgp_statistics_and_prior_draws_match_jax():
         p = _nudged(jp.params, seed=5)
         xq = _queries()
         y_q = np.sin(xq[:, 0])
-        assert_close(_stats(tp, p, xq, y_q), _stats(jp, p, xq, y_q), F64)
+        assert_close(_stats(tp, p, xq, y_q), jax_side(False)[2], F64)
         assert_port_quantities(tp, p, xq)
         assert_close(tp.task_correlations(p), jp.task_correlations(p), F64)
         s = sum(leaf.dim for leaves in tp._leaf_sets for leaf in leaves)
         prior = jax_normals(4, 2, len(xq), s, prior=True)
         assert_close(tp.sampler(p, xq, samples=2, prior=True, seed=prior),
-                     jp.sampler(p, xq, samples=2, prior=True, seed=4), F64)
+                     jax_compiled_method(jp, "_joint_draws").sampler(p, xq, samples=2,
+                                                                     prior=True, seed=4), F64)
         assert_close(tp.predictor(p).predict(xq)["mean"], tp.mean(p, xq), F64)
 
 
@@ -69,15 +98,15 @@ def test_mssgp_posterior_draws_have_the_smoother_moments():
 def test_mssgp_chunked_routing_and_rows():
     with floatx(F64):
         (jp, x, y), (tp, _, _) = _pair(_mssgp, False)
-        p = _nudged(jp.params, seed=6)
+        p = _nudged(jp.params, seed=5)
         xq = _queries()
+        value, grad, st = jax_side(False)
         plain = (tp.logp(p), tp.dlogp(p), to_numpy(tp.mean(p, xq)),
                  to_numpy(tp.variance(p, xq)))
         with chunked():
             got = (tp.logp(p), tp.dlogp(p), to_numpy(tp.mean(p, xq)),
                    to_numpy(tp.variance(p, xq)))
-            want = jax_logp_dlogp(jp, p)
-        assert_close(got[:2], want, F64)
+        assert_close(got, (value, grad, st["meanFalse"], st["varFalse"]), F64)
         assert_close(got, plain, F64)
         u0 = tp.active.dict_to_array(p)
         rows = u0[None, :] + 0.1 * np.random.default_rng(2).standard_normal((3, len(u0)))

@@ -106,20 +106,67 @@ def process_pair(build, x, y):
     return out
 
 
-def jax_logp_dlogp(proc, params):
+#: XLA options of every program these tests compile from the JAX package:
+#: the backend's optimizations off.  A Laplace state-space logp and gradient
+#: compiles in ~6 s, not ~9 s; and at XLA's default CPU optimization one
+#: NonGaussianMultiSSGP gradient leaves its own central differences by ~10%
+#: (ROADMAP Queue 3), where this compile agrees with them and with the port.
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def jax_compiled(fn, *args):
+    """``fn(*args)`` through one jit compiled with :data:`FAST_COMPILE`."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=FAST_COMPILE)(*args)
+
+
+def jax_parts(parts):
+    """Several JAX computations as ONE program (:func:`jax_compiled`):
+    ``parts`` maps a key to ``(fn, args, post)``; returns key ->
+    ``post(fn(*args))``.  For the Laplace family one program of three
+    models' logp and gradient compiles in about half the time of three."""
+    fns = {k: p[0] for k, p in parts.items()}
+    out = jax_compiled(lambda a: {k: fns[k](*a[k]) for k in fns},
+                       {k: p[1] for k, p in parts.items()})
+    return {k: parts[k][2](out[k]) for k in parts}
+
+
+def logp_dlogp_part(proc, params, space=None, specs=None, vector=None):
     """A JAX process's ``logp`` and ``dlogp`` at the params dict ``params``
-    from one jit of ``jax.value_and_grad`` over the process's own pure logp,
-    where its ``logp`` and ``dlogp`` compile a program each."""
+    (``jax.value_and_grad`` over the process's own pure logp, where its
+    ``logp`` and ``dlogp`` compile a program each) and, with ``specs``, its
+    statistics at ``space`` (``specs`` maps a key to ``(th_name, kwargs)``,
+    e.g. ``("th_variance", {"noise": True})``; ``vector`` the log
+    predictive's targets), as a part of :func:`jax_parts`: it gives
+    ``(value, grad)``, or ``(value, grad, statistics)`` with ``specs``."""
+    import jax.numpy as jnp
     from g3py_tpu.ops.guards import to_num
 
     reg = proc.active
     pure = proc._logp_pure(prior=False)
-    fn = jax.jit(jax.value_and_grad(
-        lambda u, s, i, o, v: pure(reg.array_to_dict_jax(u), s, i, o, v)))
     floatx = g3.settings.floatx
     u = np.asarray(reg.dict_to_array(params), dtype=floatx)
-    val, grad = fn(u, *proc._resolve_data(None, None, None), np.zeros(0, dtype=floatx))
-    return float(val), np.asarray(to_num(grad))
+    fns = {k: getattr(proc, th)(**kw) for k, (th, kw) in (specs or {}).items()}
+    s, i, o = proc._resolve_data(space, None, None)
+    sdata = (s, i, o, np.zeros(len(s), dtype=floatx) if vector is None
+             else np.asarray(vector, dtype=floatx))
+    pj = {k: jnp.asarray(v) for k, v in proc.filter_params(params).items()}
+    data = (*proc._resolve_data(None, None, None), np.zeros(0, dtype=floatx))
+
+    def fn(u, data, p, sdata):
+        vg = jax.value_and_grad(lambda w: pure(reg.array_to_dict_jax(w), *data))(u)
+        return vg, {k: f(p, *sdata) for k, f in fns.items()}
+
+    def post(out):
+        (val, grad), stats = out
+        vg = float(val), np.asarray(to_num(grad))
+        return vg + (to_numpy(stats),) if specs else vg
+
+    return fn, (u, data, pj, sdata), post
+
+
+def jax_logp_dlogp(proc, params, space=None, specs=None, vector=None):
+    """:func:`logp_dlogp_part` as its own program."""
+    return jax_parts({"": logp_dlogp_part(proc, params, space, specs, vector)})[""]
 
 
 def nudged(params, factor=0.1):
@@ -209,3 +256,27 @@ class KernelSpy:
         out = (self.k1, self.k2)
         self.k1 = self.k2 = 0
         return out
+
+
+def jax_compiled_method(proc, name):
+    """Route a JAX process's method ``name`` (e.g. ``_joint_draws``, which
+    its ``sampler`` calls) through one program compiled with
+    :data:`FAST_COMPILE`, not XLA's defaults or op-by-op dispatch of its
+    scans: its params-dict arguments are the program's inputs, the others
+    closed over.  Returns ``proc``."""
+    method = getattr(proc, name)
+    programs = {}
+
+    def compiled(*args, **kw):
+        dyn = {i: a for i, a in enumerate(args) if isinstance(a, dict)}
+        key = repr([(np.shape(a), np.asarray(a).tobytes()) if hasattr(a, "shape") else a
+                     for a in args if not isinstance(a, dict)] + sorted(kw.items()))
+        if key not in programs:            # the same closed-over inputs: one compile
+            def fn(dyn):
+                return method(*[dyn.get(i, a) for i, a in enumerate(args)], **kw)
+
+            programs[key] = jax.jit(fn).lower(dyn).compile(compiler_options=FAST_COMPILE)
+        return programs[key](dyn)
+
+    setattr(proc, name, compiled)
+    return proc
