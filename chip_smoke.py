@@ -15,7 +15,9 @@ processes, the linear model of coregionalization), deep kernels, the
 datatrace toolkit and the Experiment harness, the state-space families
 (exact O(n) time-series GPs by parallel Kalman scans, their multi-output
 and spatio-temporal forms) and their Laplace forms for non-gaussian
-observations, and the Kronecker grid and SKI families — through the
+observations, the Kronecker grid and SKI families, and Bayesian
+optimization, the fused split-training grid, the kernel structure search
+and the utils (checkpoints, model files, debug, profiling) — through the
 hand-written kernels K1
 (stationary gram) and K2 (blocked panel Cholesky), and checks them:
 
@@ -149,7 +151,7 @@ hand-written kernels K1
            mo_gp_nll_grad_evals_per_sec_n50k_p2 workload, an ICM GP over 2
            outputs of 25,000 points (rank 80, block 2048, cg_iters 100,
            probes 8): 12a every function of ops/iterative.py in float64 at
-           n=2048, card vs CPU (1e-8); K1 at the slab shape (2048,50000,2)
+           n=1024, card vs CPU (1e-8); K1 at the slab shape (2048,50000,2)
            against its plain form and its bound; 12b nll_iterative value
            and gradient at n=50,000: seconds an evaluation, K1 launches
            against the slab passes' prediction, host reads, peak allocated
@@ -230,11 +232,11 @@ hand-written kernels K1
   phase 16 the Laplace state-space family (item 13b), against the card in
            float64: 16a NonGaussianSSGP(MAT32, PoissonLik) on
            benchmarks/ngssm_scale.py's data at n=262,144 (8 Newton steps),
-           3 timed evaluations, the script's chunked-vs-plain gate at
+           1 timed evaluation, the script's chunked-vs-plain gate at
            n=8192 and the gaussian identity with StateSpaceGP; 16b the
            chunked route at n=2^20; 16c NonGaussianMultiSSGP(Poisson,
            Bernoulli) at 9830 + 6554 events; 16d the Cox process
-           NonGaussianSTSSGP at 32 sites, S=64, 128 events a site (K1 x1,
+           NonGaussianSTSSGP at 32 sites, S=64, 64 events a site (K1 x1,
            K2 x1 an evaluation; field_rate K1 x2, K2 x1), K1 at (32,32,2)
            and K2 at m=32 against their plain forms; 16e serving at 1024
            queries; 16f 16 rows at n=16384
@@ -244,6 +246,22 @@ hand-written kernels K1
            17b the same with 10% of the cells dropped (the CG residual),
            17c bench.py:479-511's SKIGP at n=100,000 on 128 x 128 (K1 at
            (128,128,1)), 17d serving at 1024 queries
+  phase 18 item 15: 18a BayesOpt at full width on phase 5's GP at its MAP
+           (logEI q=4 by the kriging believer, UCB q=1; 2048 candidates,
+           16 starts x 60 Adam steps; the gram factored once a
+           conditioning set, n = 4096..4099; the acquisitions and their
+           derivatives at the final starts and the believer's lie vs
+           float64 numpy/scipy; K2 once a conditioning set, K1 by shape as
+           predicted), 18b Thompson q=4, 18c BayesOpt.run on tutorial
+           18's warped 2-D problem (10 iterations, a find_MAP refit each),
+           18d fit_splits on benchmarks/fit_splits_probe.py's grid (n=512,
+           8 x 4 pairs; each split vs the float64 host, the masked logp vs
+           the subset's; one batched K1 and K2 an evaluation), 18e
+           Experiment.run_fanout on 14e's experiment (vs 14e's run()),
+           18f search_kernel (tutorial 03's search vs the CPU port's
+           winner from a process of its own; phase 5's data at n=4096),
+           18g checkpoints, a model file, debug_mode and profile_trace on
+           the card
 
 The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
 and read just after; the Bayesian path's counts are zeroed and read around
@@ -268,14 +286,19 @@ records), and phase 15's around 15d's float32 evaluations, field and sparse
 evaluation (15a-c, 15e and 15f are held to no launch: their Matern time
 kernels have no K1 gram), and phase 16's around 16d's float32 evaluation
 and field_rate (16a-c, 16e-f are held to no launch), and phase 17's around
-17a-c's float32 evaluations and 17d's serving, so warm-ups, profiles,
+17a-c's float32 evaluations and 17d's serving, and phase 18's around
+18a's suggest calls and 18f's searches (and 18d's and 18e's fan-outs, to
+the batched records), so warm-ups, profiles,
 float64 twins and reference checks are not counted.  10f's loader process runs beside phase 11 and is
 read after it.  The shape records count a subset of the two
 totals of their kernel: the slab (phase 12's), the cross gram and m=512
 (phase 13's), the features (14a's timed evaluations), the latents
 (14b's per-latent launches), the sites (15d's site grams, its cross
 grams and its m=32 factorizations), the Laplace sites (16d's), the grid
-axes (17a-b's (256,256,1) grams by kind) and the SKI axes (17c's).  Each kernel must have
+axes (17a-b's (256,256,1) grams by kind) and the SKI axes (17c's), BO's
+screen and ascent (18a's (2048,n,8) and (16,n,8) grams), its ragged
+factorizations (n = 4097..4099) and the fan-outs' batched grams and
+factorizations (18d's at n=512, 18e's at n=4096).  Each kernel must have
 launched on each path.  Every check raises on failure.  The last lines are
 the kernel record, the card and ``{"ok": true, "device": {...}}``.  Run from
 the repository root:
@@ -283,12 +306,14 @@ the repository root:
     python3 chip_smoke.py
 """
 
+import atexit
 import collections
 import concurrent.futures
 import contextlib
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2844,7 +2869,7 @@ def phase9a(x, y, path):
     val, grad = gp.logp(u, array=True), gp.dlogp(u).astype(np.float64)
     ref = host(np.asarray(u, np.float64))
     gaps = {"logp": abs(val - ref) / abs(ref)}
-    dirs = np.random.default_rng(91).standard_normal((2, reg.ndim))
+    dirs = np.random.default_rng(91).standard_normal((1, reg.ndim))
     u64, h = np.asarray(u, np.float64), 1e-4
     for i, v in enumerate(dirs / np.linalg.norm(dirs, axis=1, keepdims=True)):
         fd = (host(u64 + h * v) - host(u64 - h * v)) / (2 * h)
@@ -2959,8 +2984,8 @@ def phase9b(x, y, path):
     """Each case of ``zoo_9b`` in GP(Bias) at n=4096: one logp (K1 launches
     as the case says, one K2) against the float64 host."""
     x_idx = np.concatenate([x, (x[:, :1] > 0).astype(np.float32)], axis=1)
-    yt64 = torch.as_tensor(y.astype(np.float64))
-    out = {}
+    yt64, y32 = torch.as_tensor(y.astype(np.float64)), torch.as_tensor(y)
+    out, checks = {}, []
     for label, build, k1_want in zoo_9b(x_idx):
         xs = np.abs(x_idx) if label == "BW" else x_idx
         gp = g3t.GP(space=xs[:4], location=g3t.Bias(), kernel=build(),
@@ -2979,14 +3004,19 @@ def phase9b(x, y, path):
         path[0] += k1
         path[1] += k2
         vals = {k: np.asarray(v, np.float64) for k, v in params.items()}
-        ref = host_gp_logp(gp, vals, torch.as_tensor(xs.astype(np.float64)), yt64)
-        gap = abs(val - ref) / abs(ref)
-        x32, y32 = (torch.as_tensor(a) for a in (xs, y))
-        held(gap, 1e-3, lambda: abs(host_gp_logp(gp, vals, x32, y32) - ref) / abs(ref),
-             f"9b {label}")
         require((k1, k2 - retries) == (k1_want, 1),
                 f"9b {label}: K1 x{k1}, K2 x{k2} ({retries} retries), expected ({k1_want}, 1)")
-        out[label] = dict(logp=val, gap=gap, ms=t_ms, k1=k1)
+        out[label] = dict(logp=val, ms=t_ms, k1=k1)
+        checks.append((label, gp, vals, xs))
+    # the float64 host recomputations, on the host's cores at once
+    with concurrent.futures.ThreadPoolExecutor(HOST_THREADS) as pool:
+        refs = list(pool.map(lambda c: host_gp_logp(c[1], c[2], torch.as_tensor(
+            c[3].astype(np.float64)), yt64), checks))
+    for (label, gp, vals, xs), ref in zip(checks, refs):
+        gap = abs(out[label]["logp"] - ref) / abs(ref)
+        held(gap, 1e-3, lambda: abs(host_gp_logp(gp, vals, torch.as_tensor(xs), y32) - ref)
+             / abs(ref), f"9b {label}")
+        out[label]["gap"] = gap
     print("  9b zoo at n=4096 (logp vs the float64 host; ms of one logp; K1 launches): "
           + "; ".join(f"{k} {v['gap']:.1e} {v['ms']:.1f}ms K1x{v['k1']}" for k, v in out.items()),
           flush=True)
@@ -3748,15 +3778,10 @@ def phase10d(gp, gp_map, dt16, x, y, path_batched):
             return float(np.linalg.norm(g - ref_g) / np.linalg.norm(ref_g))
 
         # the witnesses: the same contraction in float32 on the card through
-        # torch (held), with its K^{-1} product in float64 (the cause), and
-        # on the host through scipy
-        with concurrent.futures.ThreadPoolExecutor(HOST_THREADS) as pool:
-            host32 = list(pool.map(lambda u: host_grad_sampling(reg, u, x64, y64, np.float32),
-                                   us))
+        # torch (held), and with its K^{-1} product in float64 (the cause)
         witness = {"card": row_mean_gap(card_witness_grad(reg, us, x, y)),
                    "card, K^-1 in float64": row_mean_gap(card_witness_grad(reg, us, x, y,
-                                                                           torch.float64)),
-                   "scipy": row_mean_gap([r[1] for r in host32])}
+                                                                           torch.float64))}
         print(f"  10d float32 fixed_dlogp's witnesses at the MAP: {witness}", flush=True)
         limit_g = held(gap_g, 1e-2, lambda: witness["card"],
                        "10d float32 fixed_dlogp at the MAP", "the card's float32 witness")
@@ -4436,12 +4461,12 @@ def neutra_replay(flow, draws, path_batched):
     whitening, _ = g3t.fit_flow(draws, n_couplings=0)
     adapted = {}
     # the float64 replay (its states and smallest step size feed the probes)
-    # takes NEUTRA_REPLAY's 10 + 10; the float32 and whitening ones, read
-    # for their adapted step sizes only, 6 + 3 (cut for time)
+    # takes NEUTRA_REPLAY's warmup and 6 samples; the float32 and whitening
+    # ones, read for their adapted step sizes only, 4 + 2 (cut for time)
     for label, fl, dtype, samples, warmup in (
-            ("float64", flow, "float64", 10, NEUTRA_REPLAY["warmup"]),
-            ("float32", flow, "float32", 3, 6),
-            ("whitening float64", whitening, "float64", 3, 6)):
+            ("float64", flow, "float64", 6, NEUTRA_REPLAY["warmup"]),
+            ("float32", flow, "float32", 2, 4),
+            ("whitening float64", whitening, "float64", 2, 4)):
         g3t.settings.floatx = dtype
         try:
             wgp, _, _ = bench_wgp(f"P11_NEUTRA_REPLAY_{len(adapted)}")
@@ -4631,7 +4656,7 @@ def phase11(gp, gp_map, x, y, map_s, loo_opt, path_batched):
             ("11d", "find_MAP(engine='jax') at n=4096",
              lambda p: phase11d(gp, x, y, map_logp, map_s, loo_opt, p)),
             ("11e", "ADVI at n=125", lambda p: phase11e(p)),
-            ("11f", "NeuTra at n=125", lambda p: phase11f(p)),
+            ("11f", "NeuTra at n=125", lambda p: phase11f(p, warmup=6, samples=6)),
             ("11g", "HMC at n=125", lambda p: phase11g(p)),
             ("11h", "sample_hypers(method=...) at n=125", lambda p: phase11h(p)))
     out = {}
@@ -4785,11 +4810,12 @@ def iterative_suite(x, y):
 
 
 def phase12a():
-    """Every function of ops/iterative.py, float64, at n=2048 (bench's ICM,
-    1024 points an output; blocks of 600, the last ragged): the card
+    """Every function of ops/iterative.py, float64, at n=1024 (bench's ICM,
+    512 points an output, cut from 1024 for time; blocks of 600, the last
+    ragged): the card
     (K1 on every slab) against the CPU (K1's plain form), each result
     within CARD_CPU_RTOL of the CPU's scale; no launch counted."""
-    x, y = icm_data(1024, seed=1)
+    x, y = icm_data(512, seed=1)
     t0 = time.perf_counter()
     with port_on(CARD, "float64"):
         card = iterative_suite(x, y)
@@ -4799,7 +4825,7 @@ def phase12a():
         cpu = iterative_suite(x, y)
     t_cpu = time.perf_counter() - t0
     gaps = {k: rel_gap(card[k], cpu[k]) for k in cpu}
-    print(f"  12a float64 card vs CPU at n=2048 (card {t_card:.2f} s, CPU {t_cpu:.2f} s), "
+    print(f"  12a float64 card vs CPU at n=1024 (card {t_card:.2f} s, CPU {t_cpu:.2f} s), "
           f"relative gaps: " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()), flush=True)
     require(all(v <= CARD_CPU_RTOL for v in gaps.values()),
             f"12a card vs CPU above {CARD_CPU_RTOL:g}: {gaps}")
@@ -5083,7 +5109,7 @@ def phase12(tgp, gp_map, x_map, y_map, map_s, x3, y3, path):
           flush=True)
     map_logp = float(tgp.logp(gp_map))
     out = {}
-    runs = (("12a", "float64 card vs CPU at n=2048", lambda: phase12a()),
+    runs = (("12a", "float64 card vs CPU at n=1024", lambda: phase12a()),
             ("12k", "K1 at the slab shape", slab_k1),
             ("12b", "nll_iterative at n=50000", lambda: phase12b(path)),
             ("12c", "nll_iterative vs exact at n=16384", lambda: phase12c(x3, y3)),
@@ -5906,7 +5932,7 @@ def latent_k1_record(grams, m, n):
                 library_ms=None, max_abs_err=err, shapes=shapes)
 
 
-def latent_k2_record(a):
+def latent_k2_record(a, label="14b latent"):
     """The per-latent LMC's one batched K2 launch over the Q Kuu, against
     the plain form row by row (phase 6b's checks); its CUDA-event time over
     20 calls back to back (the record's), the plain form's, cholesky_ex's
@@ -5915,21 +5941,21 @@ def latent_k2_record(a):
     q, m = a.shape[0], a.shape[-1]
     l_tol, d_tol = K2_TOL[a.dtype]
     lk, dinv, info = panel_cholesky(a)
-    require(lk.shape == (q, m, m) and not bool(info.any()), f"14b latents' K2 info {info}")
+    require(lk.shape == (q, m, m) and not bool(info.any()), f"{label}s' K2 info {info}")
     err = 0.0
     for r in range(q):
         lp, _, info_p = k2_plain_form(a[r])
         res, d_err = k2_checks(lk[r], dinv[r], a[r])
         l_gap = float(torch.linalg.matrix_norm(lk[r] - lp) / torch.linalg.matrix_norm(lp))
         require(res <= 4 * math.sqrt(m) * torch.finfo(a.dtype).eps and l_gap <= l_tol
-                and d_err <= d_tol and int(info_p) == 0, f"14b latent {r} K2: residual "
+                and d_err <= d_tol and int(info_p) == 0, f"{label} {r} K2: residual "
                 f"{res:.2e}, |L-Lp|/|Lp| {l_gap:.2e}, panels {d_err:.2e}")
         err = max(err, float((lk[r] - lp).abs().max()))
     t_k = back_to_back_ms(lambda: panel_cholesky(a))
     t_p = event_ms(lambda: k2_plain_form(a), reps=5)
     t_lib = event_ms(lambda: torch.linalg.cholesky_ex(a))
     bound, bound_by = k2_bound(m, rows=q, block=dinv.shape[-1])
-    print(f"  14b K2 over the {q} Kuu ({q},{m},{m}) f32: every row matches the plain form "
+    print(f"  {label}s' K2 ({q},{m},{m}) f32: every row matches the plain form "
           f"(max abs err {err:.2e}); kernel {t_k:.4f} ms (events, back to back), plain "
           f"{t_p:.4f} ms, cholesky_ex {t_lib:.4f} ms a call, bound {bound:.5f} ms ({bound_by})",
           flush=True)
@@ -6709,17 +6735,17 @@ def phase15(path):
 # 8 Newton steps, the script's chunked-vs-plain gate, the gaussian identity
 # with StateSpaceGP, the chunked route at its second size, the two-channel
 # Poisson + Bernoulli fusion at 15b's event counts, the spatio-temporal Cox
-# process at 15d's layout (128 events a site: each Newton step is a pass of
+# process at 15d's layout (64 events a site: each Newton step is a pass of
 # 15d's size), serving and 16 rows.  Only 16d reaches K1 (the site gram and
 # the field's cross gram) and K2 (the sites' factor).  Witnesses: the card
 # in float64 (values 1e-3, gradients 1e-2 along two random directions).
 NG_N = 1 << 18                 # ngssm_scale.py's first timed size
 NG_CHUNKED_N = 1 << 20         # its second, past its threshold of 2^18
 NG_ITERS = 8                   # ngssm_scale.py:95-96
-NG_CHUNKED_ITERS = 4           # 16b: cut in depth (Newton steps) for time
+NG_CHUNKED_ITERS = 2           # 16b: cut in depth (Newton steps) for time
 NG_GATE_N = 8192               # ngssm_scale.py:61-83's gate
 NG_ROWS_N = 16384              # 16f: 15f's n
-NGST_PER_SITE = 128            # 16d: cut in depth from 15d's 512
+NGST_PER_SITE = 64             # 16d: cut in depth from 15d's 512
 
 
 @contextlib.contextmanager
@@ -6754,17 +6780,21 @@ def ngssgp_model(name, n, seed=0, span=None, lik=None):
     return proc, x, y
 
 
+NG_GATE_ITERS = 6   # 16a's gate: ngssm_scale.py takes 15 Newton steps (cut in depth for time)
+
+
 def ngssm_gate():
-    """ngssm_scale.py:61-83: at n=8192 (15 Newton steps) the chunked route
-    (threshold 1024, chunk 2048) against the plain scans, value and
-    gradient, rel_v < 1e-5 and rel_g < 1e-4, float32 on the card."""
+    """ngssm_scale.py:61-83: at n=8192 (``NG_GATE_ITERS`` Newton steps) the
+    chunked route (threshold 1024, chunk 2048) against the plain scans,
+    value and gradient, rel_v < 1e-5 and rel_g < 1e-4, float32 on the
+    card."""
     def run(name):
         proc = ngssgp_model(name, NG_GATE_N, seed=1, span=400.0)[0]
         return card_value_grad(proc, proc.active.dict_to_array(proc.params_default), False)
 
-    with laplace_settings(iters=15, threshold=1 << 40):
+    with laplace_settings(iters=NG_GATE_ITERS, threshold=1 << 40):
         v_p, g_p = run("P16G")
-    with laplace_settings(iters=15, threshold=1024, chunk=2048):
+    with laplace_settings(iters=NG_GATE_ITERS, threshold=1024, chunk=2048):
         v_c, g_c = run("P16G2")
     rel_v = abs(v_c - v_p) / abs(v_p)
     rel_g = float(np.max(np.abs(g_c - g_p)) / np.max(np.abs(g_p)))
@@ -6802,7 +6832,7 @@ def phase16a():
     with laplace_settings():
         proc = build()[0]
         u = proc.active.dict_to_array(proc.params_default)
-        rec = evaluation_record(proc, u, "16a NGSSGP(MAT32, Poisson) n=262144", reps=2,
+        rec = evaluation_record(proc, u, "16a NGSSGP(MAT32, Poisson) n=262144", reps=1,
                                 profiled=False)
         rec["witness"] = held_value_grad("16a vs the card's float64", (rec["value"], rec["grad"]),
                                          value_grad_on(build, u, CARD, "float64"))
@@ -6854,7 +6884,7 @@ def phase16c():
     with laplace_settings():
         proc = build()[0]
         u = proc.active.dict_to_array(proc.params_default)
-        rec = evaluation_record(proc, u, "16c NGMSSGP(Poisson, Bernoulli) 9830 + 6554", reps=2,
+        rec = evaluation_record(proc, u, "16c NGMSSGP(Poisson, Bernoulli) 9830 + 6554", reps=1,
                                 profiled=False)
         rec["witness"] = held_value_grad("16c vs the card's float64", (rec["value"], rec["grad"]),
                                          value_grad_on(build, u, CARD, "float64"))
@@ -6865,7 +6895,7 @@ def phase16c():
 
 def ngst_model(name, seed=23):
     """A spatio-temporal Poisson Cox process on 15d's layout: 32 sites on
-    the jittered 8 x 4 grid, 128 events a site on (0, 100), intensity
+    the jittered 8 x 4 grid, 64 events a site on (0, 100), intensity
     exp(0.5 + sin(2 pi t / 20 + 0.5 x) cos(0.4 y)); MAT32 x SE (S=64), the
     SE's rate at the grid's spacing."""
     sites = st_sites()
@@ -6894,7 +6924,7 @@ def phase16d(path):
     with laplace_settings():
         proc, params, _, _ = ngst_model("P16D")
         u = proc.active.dict_to_array(params)
-        rec = evaluation_record(proc, u, "16d NGSTSSGP m=32 S=64 n=4096", reps=1, path=path,
+        rec = evaluation_record(proc, u, "16d NGSTSSGP m=32 S=64 n=2048", reps=1, path=path,
                                 predict=(1, 1), profiled=False, warm=False,
                                 predict_k1={f"se (1, {ST_SITES}, {ST_SITES}, 2)": 1})
         rec["witness"] = held_value_grad(
@@ -7002,7 +7032,7 @@ def phase16e(proc):
 # host normals, so the same each run); a draw scale off by 1.15 or more
 # leaves this band
 DRAW_MOMENTS = (0.8, 1.25)
-F16_SINGLES = (0, 15)          # 16f's rows also evaluated alone (cut from 16 for time)
+F16_SINGLES = (0,)             # 16f's rows also evaluated alone (cut from 16 for time)
 
 
 def phase16f():
@@ -7060,7 +7090,7 @@ def phase16(path):
     runs = (("16a", "NonGaussianSSGP(MAT32, Poisson) n=262144 (ngssm_scale.py)", first),
             ("16b", "the chunked route at n=1048576", phase16b),
             ("16c", "NonGaussianMultiSSGP(Poisson, Bernoulli) 9830 + 6554", phase16c),
-            ("16d", "NonGaussianSTSSGP m=32 S=64 n=4096 (the Cox process)",
+            ("16d", "NonGaussianSTSSGP m=32 S=64 n=2048 (the Cox process)",
              lambda: phase16d(path)),
             ("16e", "serving on 16a's model", lambda: phase16e(models["proc"])),
             ("16f", "16 rows at n=16384", phase16f))
@@ -7313,6 +7343,560 @@ def phase17(path):
     return out
 
 
+# ---------------------------------------------------------------- phase 18
+# ROADMAP item 15 on the card: Bayesian optimization at full width (phase
+# 5's GP(Bias, SE) at n=4096, d=8, at its MAP), Thompson picks, BayesOpt.run
+# on tutorial 18's warped 2-D problem, the fused split-training grid
+# (fit_splits at benchmarks/fit_splits_probe.py's n=512, 8 x 4 pairs;
+# Experiment.run_fanout on phase 14e's experiment), the kernel structure
+# search (tutorial 03's additive problem, and phase 5's data at n=4096) and
+# the utils on the card (checkpoints, model files, debug_mode,
+# profile_trace).  Witnesses: float64 numpy/scipy on the host (18a, 18d),
+# the port on the CPU in a process of its own (18f's winner), run() (18e).
+BO_STEPS = 60
+BO_BOUND = 3.0
+ACQ_GATES = (1e-3, 1e-2)      # 18a: value, directional derivative (relative)
+FANOUT_ITERS = 60             # 18d: benchmarks/fit_splits_probe.py's max_iters
+RUN_FANOUT_ITERS = 40         # 18e (fit_splits' default 200, cut for time)
+SEARCH_CPU = r'''
+import json, sys
+import numpy as np
+import g3py_tpu_torch as g3t
+g3t.settings.device = "cpu"
+rng = np.random.default_rng(5)
+n = 140
+xs = rng.uniform(-2, 2, (n, 2)).astype(np.float32)
+ys = (np.sin(3 * xs[:, 0]) + 0.5 * xs[:, 1] ** 2 + 0.1 * rng.standard_normal(n)).astype(np.float32)
+zoo = {"SE": g3t.SE, "SE0": (lambda x_, name=None: g3t.SE([0], name=name)),
+       "SE1": (lambda x_, name=None: g3t.SE([1], name=name))}
+res = g3t.search_kernel(xs, ys, bases=("SE", "SE0", "SE1"), depth=2, points=1, zoo=zoo,
+                        expand="all")
+print(json.dumps({"winner": res.best_name, "evaluated": len(res.table)}))
+'''
+
+
+def tut03_search_data():
+    """Tutorial 03's additive 2-D problem at n=140 (its full size)."""
+    rng = np.random.default_rng(5)
+    n = 140
+    xs = rng.uniform(-2, 2, (n, 2)).astype(np.float32)
+    ys = (np.sin(3 * xs[:, 0]) + 0.5 * xs[:, 1] ** 2
+          + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    zoo = {"SE": g3t.SE, "SE0": (lambda x_, name=None: g3t.SE([0], name=name)),
+           "SE1": (lambda x_, name=None: g3t.SE([1], name=name))}
+    return xs, ys, zoo
+
+
+def host_se_factor(reg, u, x, y, dtype=np.float64):
+    """GP(Bias, SE)'s observed gram factored on the host in ``dtype``
+    (float32: the rounding witness): (params, inputs, Cholesky, alpha)."""
+    import scipy.linalg
+
+    p = host_params(reg, u, dtype)
+    x, y = np.asarray(x, dtype), np.asarray(y, dtype)
+    k = (host_gram(x, x, p["SE_rate"], p["SE_var"])
+         + p["Noise_var"] * np.eye(len(x), dtype=dtype))
+    chol = scipy.linalg.cholesky(k, lower=True)
+    return p, x, chol, scipy.linalg.cho_solve((chol, True), y - p["Bias_Bias"])
+
+
+def host_se_moments(factor, xq, dvec=None):
+    """The posterior mean and latent sd at ``xq`` from a
+    :func:`host_se_factor`, in its dtype; with ``dvec`` (a direction a
+    query point) also their analytic derivatives along it."""
+    import scipy.linalg
+
+    p, x, chol, alpha = factor
+    dtype = x.dtype
+    xq = np.asarray(xq, dtype)
+    cross = host_gram(xq, x, p["SE_rate"], p["SE_var"])
+    v = scipy.linalg.solve_triangular(chol, cross.T, lower=True)
+    var = np.maximum(p["SE_var"] - (v * v).sum(axis=0), 0.0)
+    mean, sd = p["Bias_Bias"] + cross @ alpha, np.sqrt(var)
+    if dvec is None:
+        return mean, sd
+    # d k(q, x_j) along d_q = -k rate^2 (q - x_j) . d_q
+    r2 = np.asarray(p["SE_rate"], dtype) ** 2
+    diff = xq[:, None, :] - x[None, :, :]
+    dcross = -cross * (diff * (r2 * np.asarray(dvec, dtype))[:, None, :]).sum(-1)
+    dv = scipy.linalg.solve_triangular(chol, dcross.T, lower=True)
+    dmean = dcross @ alpha
+    dsd = -(v * dv).sum(axis=0) / np.maximum(sd, 1e-30)
+    return mean, sd, dmean, dsd
+
+
+def host_acq(kind, mean, sd, best, xi, beta, dmean=None, dsd=None):
+    """BayesOpt's acquisitions (maximization) in float64 with scipy, and
+    their derivatives from the mean's and the sd's along a direction."""
+    from scipy import stats
+
+    sd = np.maximum(sd, 1e-10)
+    z = (mean - best - xi) / sd
+    if kind == "UCB":
+        return mean + beta * sd, (None if dmean is None else dmean + beta * dsd)
+    h = stats.norm.pdf(z) + z * stats.norm.cdf(z)
+    zs = np.minimum(z, -1.0)
+    tail = (stats.norm.logpdf(zs) - 2.0 * np.log(-zs)
+            + np.log1p(np.maximum(-3.0 / zs ** 2, -0.999)))
+    value = np.log(sd) + np.where(z > -4.0, np.log(np.maximum(h, 1e-30)), tail)
+    if dmean is None:
+        return value, None
+    # d log h / dz: Phi / h directly, the tail's own derivative below z = -4
+    ratio = np.where(z > -4.0, stats.norm.cdf(z) / np.maximum(h, 1e-300),
+                     -zs - 2.0 / zs + (6.0 / zs ** 3) / (1.0 - 3.0 / zs ** 2))
+    return value, dsd / sd + ratio * (dmean - z * dsd) / sd
+
+
+def k1_grad_record(x1, x2, rate, var, label):
+    """:func:`k1_record`, then the forward and the x1 gradient together (the
+    ascent's use: the backward differentiates the plain form) against the
+    plain form's, with the gradient checked against the plain form's."""
+    rec = k1_record(x1, x2, rate, var, label)
+    xg = x1.clone().requires_grad_(True)
+
+    def fwd_bwd(fn):
+        with torch.enable_grad():
+            return torch.autograd.grad(fn("se", xg, x2, rate, var).sum(), xg)[0]
+
+    g, gp_ = fwd_bwd(stationary_gram), fwd_bwd(_plain_form)
+    err = float((g - gp_).abs().max() / gp_.abs().max())
+    require(err <= 1e-4 and finite(g), f"{label}: K1's x1 gradient vs plain {err:.2e}")
+    rec.update(grad_ms=event_ms(lambda: fwd_bwd(stationary_gram), reps=10),
+               plain_grad_ms=event_ms(lambda: fwd_bwd(_plain_form), reps=10), grad_rel_err=err)
+    print(f"  {label} forward + x1 gradient: {rec['grad_ms']:.4f} ms (plain "
+          f"{rec['plain_grad_ms']:.4f} ms), gradient vs plain {err:.2e}", flush=True)
+    return rec
+
+
+def batched_k1_record(x, rate, var, label):
+    """K1 over R rows of (rate, var) on one shared (n, d) input against the
+    plain form row by row (phase 6a's tolerance), with its CUDA-event time
+    over 20 launches back to back, the wrapper's, the plain form's and the
+    bound."""
+    rtol, atol_rel = TOL[x.dtype]
+    out = stationary_gram("se", x, x, rate, var)
+    err = 0.0
+    for r in range(rate.shape[0]):
+        ref = _plain_form("se", x, x, rate[r], var[r])
+        gap = (out[r] - ref).abs()
+        require(bool((gap <= atol_rel * var.max() + rtol * ref.abs()).all()) and finite(out[r]),
+                f"{label} row {r} K1 vs plain {float(gap.max()):.2e}")
+        err = max(err, float(gap.max()))
+    (n, d), rows = x.shape, rate.shape[0]
+    t_k = back_to_back_ms(k1_kernel("se", x, x, rate, var))
+    t_wrap = event_ms(lambda: stationary_gram("se", x, x, rate, var), reps=10)
+    t_plain = event_ms(lambda: _plain_form("se", x, x, rate, var), reps=5)
+    bound = k1_bound_ms(n, n, d, rows)
+    print(f"  {label} K1 ({rows},{n},{n},{d}) SE f32: every row matches the plain form (max "
+          f"abs err {err:.2e}); kernel {t_k:.4f} ms (events, back to back), wrapper "
+          f"{t_wrap:.4f} ms, plain {t_plain:.4f} ms, bound {bound:.4f} ms", flush=True)
+    return dict(ms=t_k, wrapper_ms=t_wrap, plain_ms=t_plain, bound_ms=bound, bound_by="bytes",
+                library_ms=None, max_abs_err=err)
+
+
+def fanout_kernels(x, rows, label, seed):
+    """18d/18e's batched K1 and K2 at the fan-out's shapes: R rows of
+    (rate, var) on the observed inputs, their grams + noise factored by one
+    batched K2 call."""
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    xt = torch.as_tensor(x, device=CARD)
+    d = xt.shape[1]
+    rate = 0.5 + torch.rand(rows, d, generator=gen, device=CARD)
+    var = 0.5 + torch.rand(rows, generator=gen, device=CARD)
+    k1 = batched_k1_record(xt, rate, var, label)
+    a = stationary_gram("se", xt, xt, rate, var)
+    a.diagonal(dim1=-2, dim2=-1).add_(0.1)
+    k2 = latent_k2_record(a, label=label)
+    return k1, k2
+
+
+def phase18a(gp, gp_map, x, y, path):
+    """BO at full width: logEI q=4 (kriging believer) and UCB q=1 on phase
+    5's GP at its MAP.  Gates: the picks finite and inside the bounds; at
+    the UCB ascent's final starts both acquisitions and their derivatives
+    along two directions against float64 numpy/scipy (the card in float64
+    at the gates, in float32 at the gates or within 4x a float32 host
+    witness's gaps); the believer lie
+    against the float64 posterior mean, clamped; K2 once a conditioning set
+    and K1 by shape as the design predicts."""
+    n, d = x.shape
+    reg = gp.active
+    u = reg.dict_to_array(gp_map)
+    bo = g3t.BayesOpt(gp, bounds=[[-BO_BOUND, BO_BOUND]] * d, maximize=True, seed=18)
+    kw = dict(candidates=2048, starts=16, steps=BO_STEPS)
+    out, counts = {}, {}
+    for kind, q in (("logEI", 4), ("UCB", 1)):
+        with counted(path):
+            t0 = time.perf_counter()
+            picks = np.atleast_2d(bo.suggest(gp_map, kind=kind, q=q, liar="mean", **kw))
+            torch.cuda.synchronize()
+            t_s = time.perf_counter() - t0
+            k1, k2, retries = launches()
+            counts[kind] = k1_shapes()
+        require(picks.shape == (q, d) and np.isfinite(picks).all()
+                and np.all(np.abs(picks) <= BO_BOUND), f"18a {kind}: picks {picks}")
+        require(k2 == q and retries == 0, f"18a {kind} q={q}: K2 x{k2} ({retries} retries), "
+                f"expected one factorization a conditioning set ({q})")
+        want = collections.Counter()
+        for i in range(q):
+            m = n + i
+            want[f"se (1, {m}, {m}, {d})"] += 1                  # the state's gram
+            want[f"se (1, 2048, {m}, {d})"] += 1                 # the screen
+            want[f"se (1, 16, {m}, {d})"] += BO_STEPS + 1        # the ascent, the final starts
+            if q > 1:
+                want[f"se (1, 1, {m}, {d})"] += 1                # the believer's mean
+        require(counts[kind] == dict(want), f"18a {kind}: K1 by shape {counts[kind]}, the "
+                f"design predicts {dict(want)}")
+        out[kind] = dict(s=t_s, picks=picks.tolist(), k1=k1, k2=k2)
+        print(f"  18a suggest(kind={kind!r}, q={q}): {t_s * 1e3:.1f} ms, K1 x{k1} {counts[kind]}, "
+              f"K2 x{k2}", flush=True)
+    # the acquisitions at the UCB ascent's final starts vs float64: the
+    # card in float64 at the gates; the card in float32 (the main path)
+    # at the gates, or within 4x a float32 host witness's gaps where
+    # float32 rounding at the MAP (cond(K) high) goes beyond them
+    xf = bo.last_starts.detach()
+    inputs, outputs, best_g = bo._data()
+    p0 = bo._conditioned(gp_map, inputs, outputs)
+    dirs = np.random.default_rng(181).standard_normal((2,) + tuple(xf.shape))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    xh = xf.double().cpu().numpy()
+
+    factors = {}
+
+    def host(kind, dvec, dtype=np.float64):
+        if dtype not in factors:
+            factors[dtype] = host_se_factor(reg, u, x, y, dtype)
+        m, sd, dm, dsd = host_se_moments(factors[dtype], xh, dvec)
+        return host_acq(kind, *(np.asarray(t, np.float64) for t in (m, sd)),
+                        float(best_g), bo.xi, bo.beta,
+                        *(np.asarray(t, np.float64) for t in (dm, dsd)))
+
+    def card(kind, p, xq, data):
+        xt = xq.clone().requires_grad_(True)
+        with torch.enable_grad():
+            val = bo._acq(kind, p, xt, *data)
+            (grad,) = torch.autograd.grad(val.sum(), xt)
+        g = grad.double().cpu().numpy()
+        return val.detach().double().cpu().numpy(), [(g * dv).sum(axis=1) for dv in dirs]
+
+    def gaps(got, refs):
+        (v, ds), (rv, rds) = got, refs
+        return (float(np.abs(v - rv).max() / max(np.abs(rv).max(), 1.0)),
+                max(float(np.abs(d - rd).max() / max(np.abs(rd).max(), 1e-12))
+                    for d, rd in zip(ds, rds)))
+
+    g3t.settings.floatx = "float64"
+    try:
+        data64 = tuple(t.double() for t in (inputs, outputs, best_g))
+        p64 = bo._conditioned(gp_map, *data64[:2])
+        got64 = {kind: card(kind, p64, xf.double(), data64) for kind in ("UCB", "logEI")}
+    finally:
+        g3t.settings.floatx = "float32"
+    out["acq_gaps"] = {}
+    for kind in ("UCB", "logEI"):
+        refs = [host(kind, dv) for dv in dirs]
+        ref = (refs[0][0], [r[1] for r in refs])
+        gap64 = gaps(got64[kind], ref)
+        require(gap64[0] <= ACQ_GATES[0] and gap64[1] <= ACQ_GATES[1], f"18a {kind} float64 "
+                f"at the final starts: value {gap64[0]:.2e}, derivative {gap64[1]:.2e}")
+        gap32 = gaps(card(kind, p0, xf, (inputs, outputs, best_g)), ref)
+        witness = []
+
+        def witness_gap(i):
+            if not witness:
+                wit = [host(kind, dv, np.float32) for dv in dirs]
+                witness.extend(gaps((wit[0][0], [w[1] for w in wit]), ref))
+            return witness[i]
+
+        for i, what in enumerate(("value", "derivative")):
+            held(gap32[i], ACQ_GATES[i], lambda: witness_gap(i),
+                 f"18a {kind} float32 {what} at the final starts")
+        out["acq_gaps"][kind] = dict(float64=gap64, float32=gap32, witness32=witness or None)
+    print(f"  18a at the 16 final starts vs float64 (value, derivative along 2 directions): "
+          f"{out['acq_gaps']}", flush=True)
+    # the believer's lie at the first logEI pick
+    pick0 = np.asarray(out["logEI"]["picks"][0], np.float32)
+    lie = float(bo._fantasy(p0, pick0, inputs, outputs, "mean"))
+    mean0 = host_se_moments(factors[np.float64], pick0[None])[0][0]
+    lie_ref = float(np.clip(mean0, y.min(), y.max()))
+    lie_gap = abs(lie - lie_ref) / max(abs(lie_ref), 1.0)
+    require(lie_gap <= ACQ_GATES[0], f"18a believer lie {lie} vs float64 {lie_ref}")
+    print(f"  18a believer lie {lie:.6f} vs float64 {lie_ref:.6f}", flush=True)
+    out["lie_gap"] = lie_gap
+    # K1 at the screen's and the ascent's shapes, with the x1 gradient; K2 at
+    # a fantasy's ragged n
+    hp = host_params(reg, u, np.float32)
+    rate = torch.as_tensor(hp["SE_rate"], device=CARD)
+    var = torch.tensor(float(hp["SE_var"]), device=CARD)
+    xt = torch.as_tensor(x, device=CARD)
+    gen = torch.Generator(device=CARD).manual_seed(18)
+    cand = (2 * torch.rand(2048, d, generator=gen, device=CARD) - 1) * BO_BOUND
+    out["k1_screen"] = k1_grad_record(cand, xt, rate, var, "18a K1 screen")
+    out["k1_ascent"] = k1_grad_record(cand[:16].contiguous(), xt, rate, var, "18a K1 ascent")
+    out["k2_ragged"] = sparse_k2(se_gram_plus_noise(n + 1, torch.float32, 18),
+                                 label="a fantasy's gram, ragged n")
+    return out
+
+
+def phase18b(gp, gp_map):
+    """Thompson q=4 on 2048 candidates: each pick is the argmax of its own
+    draw column (the same seed's paths drawn again on the same
+    candidates)."""
+    d = gp.inputs.shape[1]
+    bo = g3t.BayesOpt(gp, bounds=[[-BO_BOUND, BO_BOUND]] * d, seed=181)
+    stream = copy.deepcopy(bo.rng)
+    t0 = time.perf_counter()
+    picks = bo.suggest(gp_map, kind="thompson", q=4, candidates=2048, key=7)
+    t_s = time.perf_counter() - t0
+    cand = (-BO_BOUND + 2 * BO_BOUND * stream.random((2048, d))).astype(np.float32)
+    draws = gp.predictor(gp_map).pathwise_sampler(space=cand, samples=4, key=7).cpu().numpy()
+    require(np.isfinite(draws).all(), "18b: non-finite draws")
+    require(np.array_equal(picks, cand[np.argmax(draws, axis=0)]),
+            "18b: a Thompson pick is not the argmax of its own draw column")
+    print(f"  18b thompson q=4 on 2048 candidates: {t_s * 1e3:.1f} ms, every pick its column's "
+          f"argmax", flush=True)
+    return dict(s=t_s)
+
+
+def phase18c():
+    """BayesOpt.run on tutorial 18's warped 2-D minimization: WGP(Bias,
+    SE, BoxCoxShifted), logEI, init 8, iters 10, 1024 candidates, 30 steps,
+    a find_MAP refit each iteration."""
+    def f_2d(x):
+        x = np.atleast_2d(x)
+        return ((x[..., 0] - 1.0) ** 2 + 2.0 * (x[..., 1] - 1.5) ** 2
+                + 0.3 * np.sin(4 * x[..., 0]) ** 2)
+
+    gp2 = g3t.WGP(space=np.zeros((4, 2), np.float32), location=g3t.Bias(), kernel=g3t.SE(2),
+                  noisy=True, mapping=g3t.BoxCoxShifted(), name="P18C")
+    bo = g3t.BayesOpt(gp2, bounds=[[-1.0, 3.0], [-1.0, 3.5]], maximize=False, seed=2, xi=0.05)
+    refits, inner = [], bo._refit
+
+    def refit(params, kw):
+        params = inner(params, kw)
+        refits.append(params)
+        return params
+
+    bo._refit = refit
+    t0 = time.perf_counter()
+    _, hist = bo.run(f_2d, iters=10, init=8, kind="logEI", candidates=1024, steps=30)
+    t_run = time.perf_counter() - t0
+    best0, best = min(hist["y"][:8]), hist["best_y"][-1]
+    finite_refits = all(np.isfinite(np.asarray(v, np.float64)).all()
+                        for p in refits for v in p.values())
+    require(len(refits) == 11 and finite_refits, "18c: a refit is not finite")
+    require(best < best0, f"18c: best {best} did not improve on the initial design's {best0}")
+    print(f"  18c BayesOpt.run (tutorial 18's 2-D warped problem): best {best:.4f} from the "
+          f"initial design's {best0:.4f}; {t_run:.1f} s, {t_run / 10 * 1e3:.0f} ms an "
+          f"iteration (suggest + a find_MAP refit)", flush=True)
+    return dict(s=t_run, ms_per_iter=t_run / 10 * 1e3, best=best, best_initial=best0)
+
+
+def phase18d(path):
+    """fit_splits on benchmarks/fit_splits_probe.py's grid: GP(Bias, SE),
+    n=512, 8 splits x 4 starts, max_iters=60.  Gates: each split's best
+    value against the float64 host logp of its submatrix at the returned
+    params (1e-3 relative); the masked logp on the card against the
+    subset's plain logp (float32, 1e-4 relative); one batched K1 and one
+    batched K2 (plus retries) an evaluation."""
+    rng = np.random.default_rng(0)
+    n = 512
+    x = np.sort(rng.uniform(0, 50, n)).astype(np.float32).reshape(-1, 1)
+    y = (np.sin(0.4 * x[:, 0]) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    gp = g3t.GP(space=x, location=g3t.Bias(), kernel=g3t.SE(x), name="FSP")
+    gp.observed(x, y)
+    S, points = 8, 4
+    masks = np.zeros((S, n), np.float32)
+    for i in range(S):
+        masks[i, np.sort(rng.choice(n, int(0.8 * n), replace=False))] = 1.0
+    with counted(path):
+        t0 = time.perf_counter()
+        plist, vals, pts = g3t.fit_splits(gp, masks, points=points, max_iters=FANOUT_ITERS,
+                                          return_points=True)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        k1, k2, retries = launches()
+        shapes = k1_shapes()
+    evals = g3t.lbfgs_maximize.evaluations
+    require(k1 == evals and k2 == evals + retries, f"18d: K1 x{k1}, K2 x{k2} ({retries} "
+            f"retries) for {evals} evaluations")
+    reg, like = gp.active, gp.th_loglike_masked_fn()
+    gaps, card_gaps = [], []
+    for i in range(S):
+        keep = masks[i].astype(bool)
+        u = pts[i, int(np.argmax(vals[i]))]
+        ref = host_logp(reg, u, x[keep].astype(np.float64), y[keep].astype(np.float64))
+        ref += prior_terms(reg, u)[0]
+        gaps.append(abs(vals[i].max() - ref) / abs(ref))
+        with torch.no_grad():
+            masked = float(like(reg.array_to_dict_tensor(torch.as_tensor(u, device=CARD)),
+                                *gp._resolve_data(None, None, None)[1:],
+                                torch.as_tensor(masks[i], device=CARD)))
+        sub = g3t.GP(space=x[keep], location=g3t.Bias(), kernel=g3t.SE(x), name="FSP_SUB")
+        sub.observed(x[keep], y[keep])
+        plain = sub.loglike({k.replace("FSP_", "FSP_SUB_"): v for k, v in plist[i].items()})
+        card_gaps.append(abs(masked - plain) / abs(plain))
+    require(max(gaps) <= 1e-3, f"18d: the splits' best values vs float64 host {max(gaps):.2e}")
+    require(max(card_gaps) <= 1e-4, f"18d: the masked logp vs the subset's {max(card_gaps):.2e}")
+    print(f"  18d fit_splits n=512, 8 x 4 pairs, max_iters {FANOUT_ITERS}: {t_fit:.2f} s, "
+          f"{evals} evaluations ({g3t.lbfgs_maximize.iterations} iterations), K1 x{k1}, K2 "
+          f"x{k2}; best values vs float64 host {max(gaps):.2e}, masked vs subset logp "
+          f"{max(card_gaps):.2e}; K1 by shape {shapes}", flush=True)
+    k1r, k2r = fanout_kernels(x, S * points, "18d fan-out R=32 n=512", 184)
+    return dict(s=t_fit, evaluations=evals, host_gap=max(gaps), card_gap=max(card_gaps),
+                k1=k1r, k2=k2r, launches=[k1, k2])
+
+
+def phase18e(x_map, scipy_l2, path):
+    """Experiment.run_fanout on phase 14e's experiment (GP and WGP at
+    n=4096, p=0.5, 2 simulations, 2 starts): every row finite; each test
+    l2 within tests/test_experiment.py's rule (a < 1.5 b + 0.05) of 14e's
+    run(); a second call adds no row; the peak memory."""
+    y_pos = (np.abs(np.sin(x_map[:, 0])) + 0.5
+             + 0.1 * np.random.default_rng(146).standard_normal(len(x_map))).astype(np.float32)
+    models = [g3t.GP(space=x_map[:4], location=g3t.Bias(), kernel=g3t.SE(x_map),
+                     name="P14E_GP"),
+              g3t.WGP(space=x_map[:4], location=g3t.Bias(), kernel=g3t.MAT52(x_map),
+                      mapping=g3t.BoxCoxLinear(y_pos), name="P14E_WGP")]
+    e = g3t.Experiment(models=models)
+    e.set_data(x_map, y_pos, p=0.5)
+    e.set_selection(starts=2, powell=False)
+    torch.cuda.reset_peak_memory_stats()
+    with counted(path):
+        t0 = time.perf_counter()
+        res = e.run_fanout(n_simulations=2, max_iters=RUN_FANOUT_ITERS)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        k1, k2, _ = launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cols = [c for c in res.columns if c.startswith(("obs_", "test_"))]
+    require(len(res) == 4 and np.isfinite(np.array([res[c].astype(np.float64)
+                                                    for c in cols])).all(), "18e: result rows")
+    fan = e.describe("test_l2")
+    for m, ref in scipy_l2.items():
+        for sim, (a, b) in enumerate(zip(fan[m], ref)):
+            require(a < 1.5 * b + 0.05, f"18e {m} simulation {sim}: test_l2 {a} vs run()'s {b}")
+    require(len(e.run_fanout(n_simulations=2)) == 4, "18e: a second call added rows")
+    print(f"  18e run_fanout (GP, WGP at n=4096, 2 simulations x 2 starts): {t_run:.1f} s, K1 "
+          f"x{k1}, K2 x{k2}, peak {peak:.2f} GB; test_l2 "
+          f"{ {m: fan[m].tolist() for m in scipy_l2} } vs run()'s {scipy_l2}", flush=True)
+    k1r, k2r = fanout_kernels(x_map, 4, "18e fan-out R=4 n=4096", 185)
+    return dict(s=t_run, peak_gb=peak, launches=[k1, k2], k1=k1r, k2=k2r,
+                test_l2={m: fan[m].tolist() for m in scipy_l2})
+
+
+def phase18f(x_map, y_map, cpu, path):
+    """The kernel structure search: (i) tutorial 03's additive 2-D problem,
+    n=140, bases SE/SE0/SE1, depth 2, expand='all' — the winner is the CPU
+    port's (``cpu``, a process started earlier); (ii) phase 5's data at
+    n=4096, bases SE and MAT52, depth 1, root: every candidate finite."""
+    xs, ys, zoo = tut03_search_data()
+    with counted(path):
+        t0 = time.perf_counter()
+        res = g3t.search_kernel(xs, ys, bases=("SE", "SE0", "SE1"), depth=2, points=1,
+                                zoo=zoo, expand="all")
+        t_i = time.perf_counter() - t0
+    out_cpu, err = cpu.communicate(timeout=600)
+    require(cpu.returncode == 0, f"18f: the CPU search failed: {err[-2000:]}")
+    want = json.loads(out_cpu.strip().splitlines()[-1])
+    require(res.best_name == want["winner"], f"18f(i): winner {res.best_name} on the card, "
+            f"{want['winner']} on the CPU")
+    with counted(path):
+        t0 = time.perf_counter()
+        big = g3t.search_kernel(x_map, y_map, bases=("SE", "MAT52"), depth=1, points=1)
+        t_ii = time.perf_counter() - t0
+    crits = [r["criterion"] for r in big.table]
+    require(len(crits) == 6 and np.isfinite(crits).all(), f"18f(ii): criteria {crits}")
+    print(f"  18f(i) tutorial 03's search: winner {res.best_name} (the CPU port's too), "
+          f"{len(res.table)} structures in {t_i:.1f} s; (ii) n=4096: winner {big.best_name}, "
+          f"criteria {np.round(crits, 1).tolist()} in {t_ii:.1f} s", flush=True)
+    return dict(s_i=t_i, s_ii=t_ii, winner=res.best_name, winner_4096=big.best_name)
+
+
+def phase18g(gp, gp_map, dt16):
+    """The utils on the card: a checkpoint round trip of phase 5's MAP as
+    CUDA tensors and of a datatrace; a model file saved then loaded (logp
+    bit-equal; the same file loads on the CPU); debug_mode on a NaN made
+    on the card; profile_trace's chrome trace."""
+    import tempfile
+
+    folder = Path(tempfile.mkdtemp())
+    tensors = {k: torch.as_tensor(np.asarray(v), device=CARD) for k, v in gp_map.items()}
+    for target in (str(folder / "map.npz"), str(folder / "map_dir")):
+        back = g3t.load_checkpoint(g3t.save_checkpoint(tensors, target))
+        require(all(np.array_equal(back[k], v.cpu().numpy()) for k, v in tensors.items()),
+                f"18g: checkpoint {target}")
+    back = g3t.load_checkpoint(g3t.save_checkpoint(dt16, str(folder / "dt.npz")))
+    require(list(back) == dt16.columns and all(np.array_equal(back[c], dt16[c])
+                                              for c in dt16.columns), "18g: datatrace")
+    gp.save(str(folder / "gp.g3"))
+    loaded = g3t.GP(space=gp.inputs[:4], location=g3t.Bias(), kernel=g3t.SE(gp.inputs),
+                    name=gp.name, file=str(folder / "gp.g3"))
+    lp, lp_loaded = gp.logp(gp_map), loaded.logp(gp_map)
+    require(lp == lp_loaded, f"18g: the loaded model's logp {lp_loaded} vs {lp}")
+    g3t.settings.device = "cpu"
+    try:
+        lp_cpu = g3t.utils.load_pkl(str(folder / "gp.g3")).logp(gp_map)
+    finally:
+        g3t.settings.device = CARD
+    require(abs(lp_cpu - lp) <= 1e-3 * abs(lp), f"18g: the file on the CPU {lp_cpu} vs {lp}")
+    try:
+        with g3t.debug_mode():
+            torch.log(-torch.ones(4, device=CARD))
+        raise RuntimeError("chip_smoke check failed: 18g debug_mode let a NaN through")
+    except FloatingPointError:
+        pass
+    with g3t.profile_trace(str(folder / "trace")) as tp:
+        gp.logp(gp_map)
+    with open(Path(tp) / "trace.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    require(any("stationary_gram" in nm for nm in names), "18g: the trace holds no K1 launch")
+    print(f"  18g checkpoints (CUDA tensors, a datatrace), the model file (logp bit-equal, "
+          f"{lp_cpu:.4f} on the CPU vs {lp:.4f}), debug_mode and profile_trace on the card",
+          flush=True)
+    return dict(logp=lp, logp_cpu=lp_cpu)
+
+
+def start_search_cpu():
+    """18f(i)'s CPU witness: tutorial 03's search by the port on the CPU, in
+    a process of its own (started at the beginning of the run, read in
+    18f)."""
+    return subprocess.Popen([sys.executable, "-c", SEARCH_CPU], cwd=str(ROOT), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1"))
+
+
+def phase18(gp, gp_map, x_map, y_map, dt16, scipy_l2, path, path_batched, cpu=None):
+    """Phase 18's runs; the launches of 18a's suggest calls and 18f's
+    searches go to ``path``, 18d's and 18e's fan-outs (batched over the
+    pairs) to ``path_batched``; the CPU search of 18f(i) runs in a process
+    of its own (``cpu``, :func:`start_search_cpu`; started here when
+    None)."""
+    cpu = start_search_cpu() if cpu is None else cpu
+    out = {}
+    try:
+        runs = (("18a", "BO at full width, GP(Bias, SE) n=4096",
+                 lambda: phase18a(gp, gp_map, x_map, y_map, path)),
+                ("18b", "Thompson picks", lambda: phase18b(gp, gp_map)),
+                ("18c", "BayesOpt.run, tutorial 18's 2-D warped problem", phase18c),
+                ("18d", "fit_splits n=512, 8 x 4 pairs", lambda: phase18d(path_batched)),
+                ("18e", "Experiment.run_fanout at n=4096",
+                 lambda: phase18e(x_map, scipy_l2, path_batched)),
+                ("18f", "search_kernel", lambda: phase18f(x_map, y_map, cpu, path)),
+                ("18g", "utils on the card", lambda: phase18g(gp, gp_map, dt16)))
+        for key, label, run in runs:
+            print(f"phase {key}: {label}", flush=True)
+            t0 = time.perf_counter()
+            out[key] = run()
+            out[key]["wall_s"] = time.perf_counter() - t0
+            print(f"  phase {key} wall {out[key]['wall_s']:.1f} s", flush=True)
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+    return out
+
+
 def main():
     print("phase 0: device", flush=True)
     if not torch.cuda.is_available():
@@ -7323,6 +7907,8 @@ def main():
     print(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     print("phase 1: build", flush=True)
+    search_cpu = start_search_cpu()  # 18f(i)'s CPU witness, beside the whole run
+    atexit.register(lambda: search_cpu.poll() is None and search_cpu.kill())
     t0 = time.perf_counter()
     recs = _build.build()
     print(f"  built {len(recs)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
@@ -7558,6 +8144,22 @@ def main():
     print(f"  launches in phase 17: K1 {p17[0]}, K2 {p17[1]}; phase 17 {t17:.1f} s", flush=True)
     require(p17[0] > 0, "phase 17 did not go through K1")
 
+    # ---- item 15 (BO, the fan-out, the structure search, the utils): the
+    # counts are zeroed before, and read after, 18a's suggest calls and 18f's
+    # searches (single) and 18d's and 18e's fan-outs (batched); the float64
+    # witnesses, the CPU search, 18b's redraw and the kernel records are not
+    # counted
+    p18, p18_batched = [0, 0], [0, 0]
+    PATH_K1.clear()
+    t18 = time.perf_counter()
+    bayes_opt = phase18(tgp, gp_map, x_map, y_map, dt16, items["14e"]["scipy"]["test_l2"], p18,
+                        p18_batched, search_cpu)
+    t18 = time.perf_counter() - t18
+    p18_k1 = dict(PATH_K1)
+    print(f"  launches in phase 18: K1 {p18[0]}, K2 {p18[1]}; batched K1 {p18_batched[0]}, K2 "
+          f"{p18_batched[1]}; phase 18 {t18:.1f} s", flush=True)
+    require(min(p18 + p18_batched) > 0, "phase 18 did not go through both kernels")
+
     shape = (4096, 4096, 8)
     k1t = dict(k1_timing[("se", shape)], bound_ms=k1_bound_ms(*shape), bound_by="bytes")
     k1b = dict(k1b_timing[(16, 4096, 4096, 8)], bound_by="bytes")
@@ -7586,7 +8188,22 @@ def main():
                 "ski_mat52": p17_k1.get(f"mat52 (1, {SKI_GRID}, {SKI_GRID}, 1)", 0),
                 "ski_se": p17_k1.get(f"se (1, {SKI_GRID}, {SKI_GRID}, 1)", 0)}
     print(f"  K1 launches by kind and shape: phase 16 {p16_k1}; phase 17 {p17_k1}", flush=True)
+    def uses(test):
+        return sum(v for k, v in p18_k1.items()
+                   if test(tuple(int(t) for t in k.split(" ", 1)[1].strip("()").split(","))))
+
+    n_map = len(x_map)
+    new_uses.update(
+        bo_screen=uses(lambda s: s[:2] == (1, 2048) and s[2] >= n_map),
+        bo_ascent=uses(lambda s: s[:2] == (1, 16) and s[2] >= n_map),
+        fanout_512=uses(lambda s: s[0] > 1 and s[1:3] == (512, 512)),
+        fanout_4096=uses(lambda s: s[0] > 1 and s[1:3] == (n_map, n_map)))
+    print(f"  K1 launches by kind and shape: phase 18 {p18_k1}", flush=True)
     require(all(v > 0 for v in new_uses.values()), f"a new K1 use was not launched: {new_uses}")
+    bo = bayes_opt["18a"]
+    bo_screen = dict(bo["k1_screen"], bound_by="bytes")
+    bo_ascent = dict(bo["k1_ascent"], bound_by="bytes")
+    bo_k2, fan_d, fan_e = bo["k2_ragged"], bayes_opt["18d"], bayes_opt["18e"]
     k1_src = dict(route="cuda", source="g3py_tpu_torch/csrc/stationary_gram.cu",
                   replaces="g3py_tpu/ops/pallas_gram.py:81")
     k2_src = dict(route="cuda", source="g3py_tpu_torch/csrc/panel_cholesky.cu",
@@ -7599,26 +8216,30 @@ def main():
     record = {"kernels": [
         {"name": "stationary_gram", **k1_src,
          "launches": (k1_serve + k1_train + k1_p7 + p8[0] + p9[0] + p10[0] + p12[0]
-                      + p13[0] + p14[0] + p15[0] + p16[0] + p17[0]),
+                      + p13[0] + p14[0] + p15[0] + p16[0] + p17[0] + p18[0]),
          "max_abs_err": max(k1_worst, catalogue["k1_algebra_err"]["single"],
                             slab["max_abs_err"], cross["max_abs_err"],
                             features["max_abs_err"], sites["max_abs_err"],
                             sites_cross["max_abs_err"], ng_sites["max_abs_err"],
                             g_mat52["max_abs_err"], g_se["max_abs_err"],
-                            s_mat52["max_abs_err"], s_se["max_abs_err"]), **timed(k1t)},
+                            s_mat52["max_abs_err"], s_se["max_abs_err"],
+                            bo_screen["max_abs_err"], bo_ascent["max_abs_err"]), **timed(k1t)},
         {"name": "panel_cholesky", **k2_src,
          "launches": (k2_serve + k2_train + k2_p7 + p8[1] + p9[1] + p10[1] + p12[1]
-                      + p13[1] + p14[1] + p15[1] + p16[1] + p17[1]),
-         "max_abs_err": max(k2_worst, k2s["max_abs_err"], ng_k2["max_abs_err"]), **timed(k2t)},
+                      + p13[1] + p14[1] + p15[1] + p16[1] + p17[1] + p18[1]),
+         "max_abs_err": max(k2_worst, k2s["max_abs_err"], ng_k2["max_abs_err"],
+                            bo_k2["max_abs_err"]), **timed(k2t)},
         {"name": "stationary_gram_batched", **k1_src,
          "launches": (k1_bayes + p8_batched[0] + p9_batched[0] + p10_batched[0]
-                      + p11_batched[0] + p13_batched[0] + p14_batched[0]),
+                      + p11_batched[0] + p13_batched[0] + p14_batched[0] + p18_batched[0]),
          "max_abs_err": max(k1b_worst, catalogue["k1_algebra_err"]["batched"],
-                            k1q["max_abs_err"]), **timed(k1b)},
+                            k1q["max_abs_err"], fan_d["k1"]["max_abs_err"],
+                            fan_e["k1"]["max_abs_err"]), **timed(k1b)},
         {"name": "panel_cholesky_batched", **k2_src,
          "launches": (k2_bayes + p8_batched[1] + p9_batched[1] + p10_batched[1]
-                      + p11_batched[1] + p13_batched[1] + p14_batched[1]),
-         "max_abs_err": max(k2b_worst, k2q["max_abs_err"]), **timed(k2b)},
+                      + p11_batched[1] + p13_batched[1] + p14_batched[1] + p18_batched[1]),
+         "max_abs_err": max(k2b_worst, k2q["max_abs_err"], fan_d["k2"]["max_abs_err"],
+                            fan_e["k2"]["max_abs_err"]), **timed(k2b)},
         {"name": "stationary_gram_slab", **k1_src, "launches": p12[0],
          "max_abs_err": slab["max_abs_err"], **timed(slab)},
         {"name": "stationary_gram_cross", **k1_src, "launches": p13[0],
@@ -7651,7 +8272,21 @@ def main():
         {"name": "stationary_gram_ski_grid_mat52", **k1_src, "launches": new_uses["ski_mat52"],
          "max_abs_err": s_mat52["max_abs_err"], **timed(s_mat52)},
         {"name": "stationary_gram_ski_grid_se", **k1_src, "launches": new_uses["ski_se"],
-         "max_abs_err": s_se["max_abs_err"], **timed(s_se)}]}
+         "max_abs_err": s_se["max_abs_err"], **timed(s_se)},
+        {"name": "stationary_gram_bo_screen", **k1_src, "launches": new_uses["bo_screen"],
+         "max_abs_err": bo_screen["max_abs_err"], **timed(bo_screen)},
+        {"name": "stationary_gram_bo_ascent", **k1_src, "launches": new_uses["bo_ascent"],
+         "max_abs_err": bo_ascent["max_abs_err"], **timed(bo_ascent)},
+        {"name": "panel_cholesky_bo_ragged", **k2_src, "launches": bo["logEI"]["k2"] - 1,
+         "max_abs_err": bo_k2["max_abs_err"], **timed(bo_k2)},
+        {"name": "stationary_gram_fanout_r32_n512", **k1_src, "launches": new_uses["fanout_512"],
+         "max_abs_err": fan_d["k1"]["max_abs_err"], **timed(fan_d["k1"])},
+        {"name": "panel_cholesky_fanout_r32_n512", **k2_src, "launches": fan_d["launches"][1],
+         "max_abs_err": fan_d["k2"]["max_abs_err"], **timed(fan_d["k2"])},
+        {"name": "stationary_gram_fanout_n4096", **k1_src, "launches": new_uses["fanout_4096"],
+         "max_abs_err": fan_e["k1"]["max_abs_err"], **timed(fan_e["k1"])},
+        {"name": "panel_cholesky_fanout_n4096", **k2_src, "launches": fan_e["launches"][1],
+         "max_abs_err": fan_e["k2"]["max_abs_err"], **timed(fan_e["k2"])}]}
     print(f"  K1 at {shape} SE f32: kernel {k1t['ms']:.4f} ms (events, back to back), device "
           f"{fmt_ms(k1t['device_ms'])} (profiler, a launch), wrapper {k1t['wrapper_ms']:.4f} "
           f"ms, plain {k1t['plain_ms']:.4f} ms, bound {k1t['bound_ms']:.4f} ms", flush=True)
@@ -7670,9 +8305,10 @@ def main():
     print(f"  phase 15: {json.dumps(state_space, default=float)}", flush=True)
     print(f"  phase 16: {json.dumps(laplace, default=float)}", flush=True)
     print(f"  phase 17: {json.dumps(grids, default=float)}", flush=True)
+    print(f"  phase 18: {json.dumps(bayes_opt, default=float)}", flush=True)
     print(f"  command time {time.perf_counter() - T_START:.1f} s (phase 12 {t12:.1f} s, "
           f"phase 13 {t13:.1f} s, phase 14 {t14:.1f} s, phase 15 {t15:.1f} s, phase 16 "
-          f"{t16:.1f} s, phase 17 {t17:.1f} s)", flush=True)
+          f"{t16:.1f} s, phase 17 {t17:.1f} s, phase 18 {t18:.1f} s)", flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

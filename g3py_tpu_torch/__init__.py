@@ -16,7 +16,10 @@ hyperparameter rows.
 It imports neither JAX nor g3py_tpu.  Tensors live on ``settings.device``,
 the card (``"cuda"``) unless the program says ``"cpu"``.  The datatrace
 toolkit (densities, clusters, errors, candidates; ``.npz`` files) and the
-``Experiment`` model-selection harness run on the host around them:
+``Experiment`` model-selection harness (with its fused split-training
+grid), Bayesian optimization (``BayesOpt``), kernel structure search
+(``search_kernel``), the dataset loaders, checkpoints and plots run on the
+host around them (matplotlib is imported only by a call that draws):
 
 >>> import g3py_tpu_torch as g3t
 >>> gp = g3t.GP(space=x, location=g3t.Bias(), kernel=g3t.SE(x))
@@ -46,7 +49,14 @@ from . import config
 from .config import settings, floatx, set_floatx
 from .utils import (DictObj, MaxTime, clone, nan_to_high, save_pkl, load_pkl, save_datatrace,
                     load_datatrace, save_json, random_state, params_from_jax, flow_from_jax)
-from .utils.data import random_obs, uniform_obs
+from .utils.data import (save_csv, load_csv, datasets_path, data_sunspots, data_co2,
+                         data_engel, data_heart, data_eurusd, data_abalone, data_creep,
+                         data_ailerons, data_rivers, random_obs, uniform_obs)
+from .utils.plots import (subplot, tight_layout, style_text, figure, plot, show, plot_text,
+                          plot_save, plot_img, show_img, plot_matrix, grid2d, plot_2d,
+                          style_seaborn, style_normal, style_big, style_big_seaborn,
+                          style_widget)
+from .utils.checkpoint import save_checkpoint, load_checkpoint
 from .utils.datatrace import Datatrace
 from .ops import (safe_cholesky, cho_solve, solve_lower_triangular,
                   solve_upper_triangular, trtri_from_panels, mvn_quad_logdet,
@@ -99,7 +109,8 @@ def _import_all():
                            pt_sampler, default_beta_ladder, mcmc_ensemble, hmc_sampler,
                            nuts_sampler, nuts_warmup, fit_flow, flow_forward, flow_inverse,
                            neutra_logp, neutra_nuts, fit_advi, advi_draws, lbfgs_maximize,
-                           Experiment, chains_to_datatrace, datatrace_to_chains,
+                           lbfgs_fanout, lbfgs_fanout_sharded, fit_splits, BayesOpt,
+                           search_kernel, KernelSearch, Experiment, chains_to_datatrace, datatrace_to_chains,
                            datatrace_to_kde, kde_to_datatrace, cluster_datatrace,
                            errors_datatrace, marginal_datatrace, conditional_datatrace,
                            marginal, conditional, find_candidates, gelman_rubin,
@@ -123,6 +134,8 @@ def _import_all():
                          NonGaussianSSGP, NGSSGP, NonGaussianMultiSSGP, NGMSSGP,
                          NonGaussianSTSSGP, NGSTSSGP, GridGP, grid_rows, SKIGP)
     from .serving import ExportedPredictor, load_predictor
+    from .utils.lagrange import LagrangianConstraint, LagrangianMultiplier
+    from .utils.debug import debug, show_graph, print_graph, debug_mode, profile_trace, set_debug
     compat = importlib.import_module(__name__ + ".compat")
     names = dict(locals())
     names.update({k: getattr(compat, k) for k in compat.__all__})

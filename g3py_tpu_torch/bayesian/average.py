@@ -30,7 +30,8 @@ The host parts are numpy.  The JAX package runs the autocovariance,
 batch-means and univariate R-hat cores in C++ (``g3py_tpu/native.py``) with
 numpy fallbacks, and the densities and mixtures through scikit-learn; the
 port keeps its own copy of the numpy forms and of those algorithms
-(:mod:`.density`).  The plots wait for ROADMAP Queue 1 item 15.
+(:mod:`.density`).  The plots draw with matplotlib and seaborn, imported
+by the drawing calls only.
 """
 
 import numpy as np
@@ -532,29 +533,118 @@ def _sigma_mIS_adj(chain):
 
 
 # ---------------------------------------------------------------------------
-# plots (ROADMAP Queue 1 item 15)
+# plots: matplotlib and seaborn are imported by the drawing calls only; the
+# seaborn grids take a pandas frame of the columns (seaborn needs pandas)
 # ---------------------------------------------------------------------------
 
 
-_NO_PLOTS = "{} is a plot; plotting is not ported yet (ROADMAP Queue 1 item 15)"
+def _frame(dt, columns):
+    import pandas as pd
+
+    return pd.DataFrame({c: dt[c] for c in columns})
+
+
+def _finite(values):
+    values = np.asarray(values)
+    return values[~np.isnan(values)] if values.dtype.kind == "f" else values
 
 
 def plot_datatrace(datatrace, varnames=None, burnin=True, outlayer=True, combined=False,
                    figsize=None):
-    raise NotImplementedError(_NO_PLOTS.format("plot_datatrace"))
+    """A kde and trace panel a variable (pymc3's layout), with the burn-in's
+    end marked; the kde over the kept (post burn-in, non-outlier) rows."""
+    import seaborn as sb
+    from ..utils.plots import pyplot
+
+    plt = pyplot()
+    dt = datatrace
+    if varnames is None:
+        varnames = [c for c in dt.columns if not c.startswith("_")]
+    n = len(varnames)
+    if n == 0:
+        return
+    fig, axs = plt.subplots(n, 2, squeeze=False, figsize=figsize or (12, 2.2 * n))
+    nburn = None
+    if "_burnin" in dt and (~dt["_burnin"]).any():
+        nburn = dt["_niter"][~dt["_burnin"]].max()
+    sel = dt
+    if burnin and "_burnin" in dt and dt["_burnin"].any():
+        sel = sel[sel["_burnin"]]
+    if outlayer and "_outlayer" in sel and sel["_outlayer"].any():
+        sel = sel[sel["_outlayer"]]
+    chains = dt["_nchain"]
+    for i, v in enumerate(varnames):
+        vals = _finite(sel[v])
+        try:
+            sb.kdeplot(x=vals, ax=axs[i][0], fill=True)
+        except (ValueError, np.linalg.LinAlgError):
+            axs[i][0].hist(vals, bins=30)
+        axs[i][0].set_title(v)
+        for c in np.unique(chains):
+            axs[i][1].plot(dt["_niter"][chains == c], dt[v][chains == c], alpha=0.4, lw=0.7)
+        if nburn is not None:
+            axs[i][1].axvline(nburn, color="r", ls="--", alpha=0.6)
+        axs[i][1].set_title(v)
+    plt.tight_layout()
+    return fig
 
 
 def plot_clusters(process, dt, clusters=None, *args, **kwargs):
-    raise NotImplementedError(_NO_PLOTS.format("plot_clusters"))
+    """The best row (by ``_ll``) of each cluster, plotted through the
+    process (the clusters are computed first when ``dt`` has none)."""
+    from ..utils.plots import show
+
+    if "_cluster" not in dt:
+        cluster_datatrace(process, dt, n_components=clusters or 5)
+    for c in sorted(np.unique(dt["_cluster"])):
+        sel = dt[dt["_cluster"] == c]
+        best = sel[np.array([int(np.argmax(sel["_ll"]))])]
+        row = next(r for _, r in best.iterrows())
+        process.plot(params=process.active.params_serie(row), title=f"cluster {c}", *args,
+                     **kwargs)
+        show()
 
 
 def kde_datatrace(dt, varnames=None, size=6):
-    raise NotImplementedError(_NO_PLOTS.format("kde_datatrace"))
+    """A pair grid of kdes over (the first four) variables."""
+    import seaborn as sb
+
+    if varnames is None:
+        varnames = [c for c in dt.columns if not c.startswith("_")][:4]
+    g = sb.PairGrid(_frame(dt, varnames), height=size / max(len(varnames), 1))
+    g.map_diag(sb.kdeplot)
+    g.map_offdiag(sb.kdeplot, fill=True)
+    return g
 
 
 def hist_datatrace(dt, varnames=None, bins=50, reference=None, figsize=None):
-    raise NotImplementedError(_NO_PLOTS.format("hist_datatrace"))
+    """A histogram a variable, three a row, with ``reference`` values
+    marked."""
+    from ..utils.plots import pyplot
+
+    plt = pyplot()
+    if varnames is None:
+        varnames = [c for c in dt.columns if not c.startswith("_")]
+    n = len(varnames)
+    fig, axs = plt.subplots((n + 2) // 3, 3, squeeze=False,
+                            figsize=figsize or (12, 2.5 * ((n + 2) // 3)))
+    for i, v in enumerate(varnames):
+        ax = axs[i // 3][i % 3]
+        ax.hist(_finite(dt[v]), bins=bins)
+        ax.set_title(v)
+        if reference is not None and v in reference:
+            ax.axvline(np.asarray(reference[v]).ravel()[0], color="r", ls="--")
+    plt.tight_layout()
+    return fig
 
 
 def scatter_datatrace(dt, varnames=None, samples=1000):
-    raise NotImplementedError(_NO_PLOTS.format("scatter_datatrace"))
+    """A pair plot of (the first four) variables over at most ``samples``
+    rows, coloured by cluster when there are clusters."""
+    import seaborn as sb
+
+    if varnames is None:
+        varnames = [c for c in dt.columns if not c.startswith("_")][:4]
+    sel = dt if len(dt) <= samples else dt.sample(samples)
+    hue = "_cluster" if "_cluster" in sel else None
+    return sb.pairplot(_frame(sel, varnames + ([hue] if hue else [])), hue=hue, corner=True)

@@ -1,6 +1,6 @@
 """Model scoring and datatrace-wide (batched) evaluation (the PyTorch
-counterpart of :class:`g3py_tpu.bayesian.models.PlotModel`, without the
-plots).
+counterpart of :class:`g3py_tpu.bayesian.models.PlotModel`), the plots
+and the widgets.
 
 :meth:`BatchedModel.scores` is the reference's metric set of one params
 point against the true values ``hidden`` at the space.  The reference
@@ -223,3 +223,213 @@ class BatchedModel:
                 if not left > 0:
                     break
         return torch.cat(particles, dim=1)
+
+    # -- description and plots -----------------------------------------------------
+    # matplotlib is imported by the drawing calls only (utils/plots.py)
+
+    #: the params a widget's sliders set (None: the process's own)
+    widget_params = None
+
+    @property
+    def params_widget(self):
+        """The widget's params when a widget set some, else ``params``."""
+        wp = getattr(self, "widget_params", None)
+        return self.params if wp is None else DictObj(wp)
+
+    def describe(self, title=None, x=None, y=None, text=None):
+        """Set the plots' title, axis labels and text."""
+        for key, value in (("title", title), ("x", x), ("y", y), ("text", text)):
+            if value is not None:
+                self.description[key] = value
+
+    def plot_space(self, independent=False, observed=False):
+        from ..utils.plots import figure, plot
+
+        space = _host(self.space)
+        if independent:
+            for i in range(space.shape[1]):
+                figure(i)
+                plot(self.order, space[:, i])
+        else:
+            plot(self.order, space)
+        if self.index is not None and observed:
+            inputs = _host(self.inputs)
+            if independent:
+                for i in range(space.shape[1]):
+                    figure(i)
+                    plot(self.index, inputs[:, i], ".k")
+            else:
+                plot(self.index, inputs, ".k")
+
+    def plot_hidden(self, order=None, hidden=None, big=None):
+        from ..utils.plots import plot
+
+        order = self.order if order is None else order
+        hidden = self.hidden if hidden is None else hidden
+        big = settings.plot_big if big is None else big
+        if hidden is None:
+            return
+        if big:
+            plot(order, hidden, "w", alpha=1.0, lw=4, label="")
+            plot(order, hidden, "k", alpha=0.9, lw=3, label="Hidden Process")
+        else:
+            plot(order, hidden, "w", alpha=0.8, lw=3, label="")
+            plot(order, hidden, "k", alpha=1.0, lw=2, label="Hidden Process")
+
+    def plot_observations(self, index=None, outputs=None, big=None):
+        from ..utils.plots import plot
+
+        index = self.index if index is None else index
+        outputs = self.outputs if outputs is None else outputs
+        if outputs is None:
+            return
+        plot(index, outputs, "Xw", ms=12)
+        plot(index, outputs, "Xk", ms=10, label="Observations")
+
+    def plot(self, params=None, space=None, inputs=None, outputs=None, hidden=True, order=None,
+             mean=True, std=False, cov=False, median=False, quantiles=True, quantiles_noise=True,
+             samples=0, palette="Reds", prior=False, noise=False, simulations=None, values=None,
+             data=True, logp=True, big=None, plot_space=False, title=None, labels=None,
+             loc="best", ncol=3):
+        """Predict, then draw the mean, median, bands, samples, the hidden
+        process and the observations over ``order``."""
+        from ..utils.plots import plot, plot_text, pyplot, show
+
+        plt = pyplot()
+        labels = {} if labels is None else labels
+        if values is None:
+            values = self.predict(params=params, space=space, inputs=inputs, outputs=outputs,
+                                  mean=mean, std=std, cov=cov, median=median,
+                                  quantiles=quantiles, quantiles_noise=quantiles_noise,
+                                  samples=samples, prior=prior, noise=noise,
+                                  simulations=simulations)
+        values = {k: _host(v) for k, v in values.items()}
+        cmap = plt.get_cmap(palette if palette is not None else "Reds")
+        order = self.order if order is None else order
+        space = _host(self.space if space is None else space)
+        if len(order) != len(space):
+            if len(space.shape) == 1:
+                order = space
+            elif space.shape[1] == 1:
+                order = space[:, 0]
+            else:
+                order = np.arange(len(space))
+        if samples > 0:
+            labels.setdefault("samples", None)
+            plot(order, values["samples"][:, 0], color=cmap(0.9), alpha=0.15, lw=1.0,
+                 label=labels["samples"])
+            plot(order, values["samples"], color=cmap(0.9), alpha=0.15, lw=1.0)
+        if mean:
+            labels.setdefault("mean", "Mean")
+            plot(order, values["mean"], "-w", alpha=1.0, lw=4)
+            plot(order, values["mean"], "-", color=cmap(1.0), alpha=0.8, lw=3,
+                 label=labels["mean"])
+        if median:
+            labels.setdefault("median", "Median")
+            plot(order, values["median"], "--w", alpha=1.0, lw=4)
+            plot(order, values["median"], "--", color=cmap(1.0), alpha=0.8, lw=3,
+                 label=labels["median"])
+        if quantiles:
+            labels.setdefault("quantiles", "95% CI")
+            plot(order, values["quantile_up"], "--", color=cmap(1.0), alpha=0.5, lw=2,
+                 label=labels["quantiles"])
+            plot(order, values["quantile_down"], "--", color=cmap(1.0), alpha=0.5, lw=2)
+            plt.fill_between(order, values["quantile_up"], values["quantile_down"],
+                             color=cmap(1.0), alpha=0.1)
+        if quantiles_noise:
+            labels.setdefault("quantiles_noise", "95% CI + Noise")
+            plt.fill_between(order, values["noise_up"], values["noise_down"], color=cmap(1.0),
+                             alpha=0.1, label=labels["quantiles_noise"])
+        if std:
+            labels.setdefault("std", "4.0 Std")
+            plot(order, values["mean"] + 2.0 * values["std"], "--k", alpha=0.2,
+                 label=labels["std"])
+            plot(order, values["mean"] - 2.0 * values["std"], "--k", alpha=0.2)
+        if data and hidden is not False:
+            self.plot_hidden(big=big)
+        if data and self.is_observed:
+            self.plot_observations(big=big)
+        if title is None:
+            title = self.description["title"]
+        if logp:
+            title += " (logp: {0:.3f})".format(float(
+                self.logp(self.params if params is None else params)))
+        if loc is not None:
+            plot_text(title, self.description["x"], self.description["y"], loc=loc, ncol=ncol)
+        if plot_space:
+            show()
+            plot(order, space)
+            plot_text("Space X", "Index", "Value", legend=False)
+
+    def plot_datatrace(self, datatrace, overlap=False, limit=10, scores=True, *args, **kwargs):
+        """Plot each datatrace row's params (at most ``limit``)."""
+        from ..utils.plots import plot_text, show
+
+        for k, v in datatrace.iterrows():
+            params = self.active.params_serie(v)
+            self.plot(params, *args, **kwargs)
+            if not overlap:
+                name = (str(k) + " - " + str(self.scores(params, *args, **kwargs)) if scores
+                        else str(k))
+                plot_text(name, self.description["x"], self.description["y"])
+                show()
+            if limit is None:
+                pass
+            elif limit > 1:
+                limit -= 1
+            else:
+                break
+
+    # -- widgets ---------------------------------------------------------------------
+    def _widget_intervals(self, params):
+        """Each param's slider (min, max, value, step): the widget's layout,
+        apart from ipywidgets so that it runs headless."""
+        intervals = dict()
+        for k, v in params.items():
+            v = _host(v)
+            v = float(np.squeeze(v)) if np.size(v) == 1 else float(np.mean(v))
+            if v > 0.1:
+                intervals[k] = (0.0, 2 * v, v, 1e-2)
+            elif v < -0.1:
+                intervals[k] = (2 * v, 0.0, v, 1e-2)
+            else:
+                intervals[k] = (-5.0, 5.0, v, 1e-2)
+        return intervals
+
+    def widget(self, params=None, model=False, auto=False, *args, **kwargs):
+        """Interactive param sliders (needs ipywidgets and a notebook)."""
+        from ipywidgets import interact, interact_manual, FloatSlider
+
+        if params is None:
+            params = self.params_widget
+        intervals = {k: FloatSlider(min=lo, max=hi, value=v, step=st)
+                     for k, (lo, hi, v, st) in self._widget_intervals(params).items()}
+        self._widget_args = args
+        self._widget_kwargs = kwargs
+        widget_plot = self._widget_plot_model if model else self._widget_plot
+        return (interact if auto else interact_manual)(widget_plot, **intervals)
+
+    def _check_params_dims(self, params):
+        spec = self.active.params_spec
+        return {k: np.array(v, dtype=settings.floatx).reshape(spec[k].shape)
+                for k, v in params.items() if k in spec}
+
+    def _widget_plot(self, **params):
+        from ..utils.plots import show
+
+        self.widget_params = self._check_params_dims(params)
+        self.plot(params=self.params_widget, *self._widget_args, **self._widget_kwargs)
+        show()
+
+    def _widget_plot_model(self, **params):
+        from ..utils.plots import show
+
+        self.widget_params = self._check_params_dims(params)
+        self.plot_model(params=self.params_widget, indexs=None, kernel=False, mapping=True,
+                        marginals=True, bivariate=False)
+        show()
+
+
+def _host(v):
+    """A tensor's values on the host (anything else as numpy)."""
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)

@@ -118,9 +118,13 @@ def _direction(g, mem_s, mem_y, mem_rho, gamma):
     return -r
 
 
-def lbfgs_maximize(logp_fn, starts, max_iters=200, tol=1e-5):
+def lbfgs_maximize(logp_fn, starts, max_iters=200, tol=1e-5, with_rows=False):
     """Maximize a batched log density ``logp_fn`` ((R, ndim) tensor -> (R,),
     differentiable by torch autograd) from every row of ``starts`` at once.
+    With ``with_rows`` it is called as ``logp_fn(u, rows)``: ``rows`` is the
+    (R,) index tensor of the start each row of ``u`` belongs to (the line
+    searches evaluate the starts still searching, a subset), so that an
+    objective with a payload per start (a split's mask) picks its own.
 
     The objective is -logp with a non-finite value read as 1e30 (and its
     gradient as 0); a step that lands on non-finite parameters is rejected
@@ -133,9 +137,13 @@ def lbfgs_maximize(logp_fn, starts, max_iters=200, tol=1e-5):
     k, ndim = x.shape
     lbfgs_maximize.evaluations = 0
 
-    def objective(rows):
+    def objective(pts, rows=None):
         lbfgs_maximize.evaluations += 1
-        v, g = value_and_grad(logp_fn, rows)
+        if with_rows:
+            rows = torch.arange(k, device=x.device) if rows is None else rows
+            v, g = value_and_grad(lambda u: logp_fn(u, rows), pts)
+        else:
+            v, g = value_and_grad(logp_fn, pts)
         finite = torch.isfinite(v)
         return (torch.where(finite, -v, torch.full_like(v, 1e30)),
                 torch.where(finite[:, None], -g, torch.zeros_like(g)))
@@ -189,7 +197,7 @@ def lbfgs_maximize(logp_fn, starts, max_iters=200, tol=1e-5):
             rows = torch.as_tensor(idx, device=x.device)
             alpha = torch.as_tensor([steps[i] for i in idx], dtype=x.dtype, device=x.device)
             pts = x[rows] + alpha[:, None] * d[rows]
-            fv, gv = objective(pts)
+            fv, gv = objective(pts, rows)
             sv = (gv * d[rows]).sum(-1)
             host = torch.stack([fv, sv]).cpu().numpy()
             for j, i in enumerate(idx):

@@ -8,20 +8,33 @@ evaluations run on the card), obs/valid/test scores and wall times, one
 result row a (simulation, model) pair collected into a
 :class:`~g3py_tpu_torch.utils.datatrace.Datatrace` and pickled to ``file``
 after every row, so that a second ``run`` resumes where the first stopped.
-The fused training grid (``run_fanout``) and the plots wait for ROADMAP
-Queue 1 item 15, ``engine='distributed'`` for item 16.
+``run_fanout`` trains the whole grid as one batched L-BFGS
+(:mod:`.fanout`); ``engine='distributed'`` waits for ROADMAP Queue 1 item
+16.
 """
 
 import time
 
 import numpy as np
 import scipy.optimize as sp_optimize
+import torch
 
 from ..config import settings
 from ..utils import DictObj, MaxTime, nan_to_high, save_pkl, load_pkl
 from ..utils.datatrace import Datatrace
 
-__all__ = ["optimize", "Experiment"]
+__all__ = ["optimize", "Experiment", "device_fault"]
+
+
+def device_fault(err):
+    """Whether an exception is a fault of the card or of a kernel (a failed
+    build or launch, a CUDA error, device memory), which must surface, and
+    not a numerical failure of one fit, which loses that candidate."""
+    if isinstance(err, (torch.cuda.OutOfMemoryError, OSError, ImportError)):
+        return True
+    text = str(err)
+    return any(word in text for word in ("CUDA", "cuda", "nvcc", "kernel launch",
+                                         "cudaError"))
 
 
 def optimize(logp, start, dlogp=None, fmin=None, max_time=None, disp=False):
@@ -252,6 +265,35 @@ class Experiment:
         if self.file is not None:
             self.save()
 
+    def _score_row(self, sp, sim, params, obs_i, valid_i, test_i, time_obs, time_params,
+                   display, tag=""):
+        """Score ``params`` on the obs/valid/test indices and add the row."""
+        row = DictObj()
+        row["_simulation"] = sim
+        row["_model"] = sp.name
+        row["time_obs"] = time_obs
+        row["time_params"] = time_params
+        t0 = time.time()
+        for k, v in self.calc_scores(sp, params, obs_i).items():
+            row["obs" + k] = v
+        row["time_scores_obs"] = time.time() - t0
+        if len(valid_i):
+            t0 = time.time()
+            for k, v in self.calc_scores(sp, params, valid_i).items():
+                row["valid" + k] = v
+            row["time_valid"] = time.time() - t0
+        t0 = time.time()
+        for k, v in self.calc_scores(sp, params, test_i).items():
+            row["test" + k] = v
+        row["time_test"] = time.time() - t0
+        for k, v in params.items():
+            v = v.detach().cpu().numpy() if hasattr(v, "detach") else v
+            row[k] = np.asarray(v)
+        self.add_result(row)
+        if display:
+            print(f"sim {sim} model {sp.name}{tag}: "
+                  + str({k: v for k, v in row.items() if k.startswith("test")}))
+
     def run(self, n_simulations=1, repeat=False, display=False):
         """Per (simulation, model): observe the split, train, score the
         obs/valid/test indices, and add the row; pairs already in the
@@ -271,37 +313,77 @@ class Experiment:
                 t0 = time.time()
                 params = self.select_model(sp, valid_index=valid_i, display=display)
                 time_params = time.time() - t0
-                row = DictObj()
-                row["_simulation"] = sim
-                row["_model"] = sp.name
-                row["time_obs"] = time_obs
-                row["time_params"] = time_params
-                t0 = time.time()
-                for k, v in self.calc_scores(sp, params, obs_i).items():
-                    row["obs" + k] = v
-                row["time_scores_obs"] = time.time() - t0
-                if len(valid_i):
-                    t0 = time.time()
-                    for k, v in self.calc_scores(sp, params, valid_i).items():
-                        row["valid" + k] = v
-                    row["time_valid"] = time.time() - t0
-                t0 = time.time()
-                for k, v in self.calc_scores(sp, params, test_i).items():
-                    row["test" + k] = v
-                row["time_test"] = time.time() - t0
-                for k, v in params.items():
-                    v = v.detach().cpu().numpy() if hasattr(v, "detach") else v
-                    row[k] = np.asarray(v)
-                self.add_result(row)
-                if display:
-                    print(f"sim {sim} model {sp.name}: "
-                          + str({k: v for k, v in row.items() if k.startswith("test")}))
+                self._score_row(sp, sim, params, obs_i, valid_i, test_i, time_obs,
+                                time_params, display)
         return self.results
 
     def run_fanout(self, n_simulations=1, repeat=False, display=False, points=None,
                    max_iters=200, shard=False, mesh=None):
-        raise NotImplementedError("Experiment.run_fanout needs the fused training grid "
-                                  "(fanout.py), not ported yet (ROADMAP Queue 1 item 15)")
+        """``run`` with the training grid fused: every (simulation, start)
+        pair of a model trains at once through the masked loglike
+        (:func:`~g3py_tpu_torch.bayesian.fanout.fit_splits`), S x K
+        optimizations as rows of one batched L-BFGS instead of S x K scipy
+        fits.  The same splits, scores, result rows and resume as ``run``;
+        the starts are the full-data defaults plus perturbations; with a
+        holdout, the grid's optimized candidate of smallest validation
+        ``_l2`` wins.  Needs every model to have ``th_loglike_masked_fn``
+        (the GP, WGP and TP families); ``shard=True`` waits for
+        ``parallel/``."""
+        from .fanout import fit_splits
+
+        if points is None:
+            points = max(self.points, self.starts, 1)
+        sims = {}
+        for sim in range(n_simulations):
+            if sim not in self.simulations:
+                self.simulations[sim] = self.new_data(seed=sim)
+            sims[sim] = self.simulations[sim]
+        # the limit rule of new_data: a fraction when <= 1, a count otherwise
+        n_all = (int(self.data_limit) if self.data_limit > 1
+                 else int(self.data_limit * len(self.data_x)))
+        x_all = np.asarray(self.data_x[:n_all])
+        y_all = np.asarray(self.data_y[:n_all])
+        for sp in self.models:
+            if not hasattr(sp, "th_loglike_masked_fn"):
+                raise ValueError(f"model {sp.name} has no masked loglike; use run()")
+            todo = [sim for sim in range(n_simulations)
+                    if repeat or self.results is None or not np.any(
+                        (self.results["_simulation"] == sim)
+                        & (self.results["_model"] == sp.name))]
+            if not todo:
+                continue
+            sp.observed(x_all, y_all)
+            masks = np.zeros((len(todo), len(x_all)), np.float32)
+            for row_i, sim in enumerate(todo):
+                masks[row_i, sims[sim][0]] = 1.0
+            t0 = time.time()
+            plist, _, pts = fit_splits(sp, masks, points=points, max_iters=max_iters,
+                                       shard=shard, mesh=mesh, return_points=True)
+            grid_time = time.time() - t0
+            reg = sp.active
+            for row_i, sim in enumerate(todo):
+                obs_i, valid_i, test_i = sims[sim]
+                t0 = time.time()
+                sp.observed(x_all[obs_i], y_all[obs_i])
+                time_obs = time.time() - t0
+                params = plist[row_i]
+                if len(valid_i):
+                    best_score = np.inf
+                    for k in range(pts.shape[1]):
+                        cand = DictObj(reg.array_to_dict(pts[row_i, k]))
+                        try:
+                            score = float(self.calc_scores(sp, cand, valid_i).get("_l2",
+                                                                                  np.inf))
+                        except Exception as err:
+                            if device_fault(err):
+                                raise
+                            score = np.inf
+                        if np.isfinite(score) and score < best_score:
+                            params, best_score = cand, score
+                # run()'s timing columns: the grid's time shared evenly by its rows
+                self._score_row(sp, sim, params, obs_i, valid_i, test_i, time_obs,
+                                grid_time / len(todo), display, " (fanout)")
+        return self.results
 
     # -- reporting ------------------------------------------------------------------
     def describe(self, score="test_l2"):
@@ -321,5 +403,14 @@ class Experiment:
         return Datatrace(out)
 
     def plot(self, score="test_l2", kind="violin"):
-        raise NotImplementedError("Experiment.plot is a plot; plotting is not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
+        """The score of each model over the simulations, as a violin (or a
+        swarm) plot."""
+        import seaborn as sb
+
+        if self.results is None:
+            return
+        df = {c: self.results[c] for c in ("_model", score)}
+        if kind == "violin":
+            sb.violinplot(data=df, x="_model", y=score)
+        else:
+            sb.swarmplot(data=df, x="_model", y=score)

@@ -98,7 +98,9 @@ def modelcontext(model=None):
 
 
 def debug_p(msg):
-    """The reference's tracing print: needs the debug switch of
-    ``utils/debug``, not ported yet."""
-    raise NotImplementedError("debug_p needs utils/debug, not ported yet "
-                              "(ROADMAP Queue 1 item 15)")
+    """The reference's tracing print: prints ``msg`` when the debug switch
+    of :mod:`g3py_tpu_torch.utils.debug` is on (``set_debug(True)``)."""
+    from .utils import debug as _dbg
+
+    if _dbg._DEBUG:
+        print(msg)

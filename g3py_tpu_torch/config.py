@@ -60,6 +60,8 @@ class Settings:
       ssm_mxu_state_dim: the JAX package's state dimension at which its
         tiny products leave a TPU's vector unit; accepted, changes nothing
         here (every product is a full-FP32 ``torch.matmul``).
+      plot_big: whether the plot styles draw the thick lines of
+        ``style_big`` (:mod:`g3py_tpu_torch.utils.plots`).
     """
 
     floatx: str = "float32"
@@ -76,6 +78,7 @@ class Settings:
     ssm_chunk_threshold: int = 1_048_576
     ssm_chunk: int = 262_144
     ssm_mxu_state_dim: int = 10_000
+    plot_big: bool = False
 
     @property
     def dtype(self):

@@ -38,7 +38,8 @@ from ..hypers import LogTransform, hval
 from ..hypers.kernels import KernelSum, KernelNoise, KernelStationary
 from ..hypers.means import Zero
 from ..hypers.mappings import Identity
-from ..config import as_tensor
+from ..config import as_tensor, settings
+from ..bayesian.models import _host
 from ..ops.guards import to_cov, to_num, to_bounded
 from ..ops.linalg import (safe_cholesky, safe_cholesky_panels, trtri_from_panels,
                           solve_lower_triangular, cho_solve)
@@ -502,3 +503,130 @@ class EllipticalProcess(StochasticProcess):
     kernel_sd = _statistic("th_kernel_sd", "Latent marginal standard deviation.")
     cholesky_diag = _statistic("th_cholesky_diag",
                                "Diagonal matrix of the latent standard deviations.")
+
+    # -- model plots (matplotlib imported by the drawing calls only) -----------------
+    def plot_kernel(self, params=None, space=None, inputs=None, prior=True, noise=False,
+                    centers=(1 / 10, 1 / 2, 9 / 10)):
+        from ..utils.plots import plot, plot_text
+
+        params = self.params if params is None else params
+        space = self.space if space is None else space
+        inputs = self.inputs if inputs is None else inputs
+        ksi = _host(self.kernel(params=params, space=space, inputs=inputs, prior=prior,
+                                noise=noise)).T
+        for ind in centers:
+            plot(self.order, ksi[int(len(ksi) * ind), :],
+                 label="k(x_" + str(int(len(ksi) * ind)) + ")")
+        plot_text("Kernel", "Space x", "Kernel value k(x,v)")
+
+    def plot_concentration(self, params=None, space=None, prior=True, noise=True, color=True,
+                           cmap="seismic", figsize=(6, 6), title="Concentration"):
+        from ..utils.plots import plot_text, pyplot
+
+        plt = pyplot()
+        params = self.params if params is None else params
+        space = self.space if space is None else space
+        concentration = _host(self.kernel(params=params, space=space, prior=prior,
+                                          noise=noise))
+        if color:
+            if figsize is not None:
+                plt.figure(None, figsize)
+            v = np.max(np.abs(concentration))
+            plt.imshow(concentration, cmap=cmap, vmax=v, vmin=-v)
+        else:
+            plt.matshow(concentration)
+        plot_text(title, "Space x", "Space x", legend=False)
+
+    def plot_mapping(self, params=None, domain=None, inputs=None, outputs=None, neval=100,
+                     title=None, label="mapping"):
+        from ..utils.plots import plot, plot_text
+
+        params = self.params if params is None else params
+        outputs = self.outputs if outputs is None else outputs
+        if domain is None:
+            domain = np.linspace(outputs.min(), outputs.max(), neval, dtype=settings.floatx)
+        with torch.no_grad():
+            warped = self.f_mapping.inv(self._tensor_params(params), as_tensor(domain))
+        plot(domain, _host(warped), label=label)
+        plot_text(title or "Mapping", "Domain y", "Domain T(y)")
+
+    def plot_model(self, params=None, indexs=None, kernel=True, mapping=True, marginals=True,
+                   bivariate=True):
+        from ..utils.plots import show, subplot
+
+        if indexs is None:
+            mid = len(self.index) // 2
+            indexs = [int(self.index[mid]), int(self.index[mid]) + 1]
+        if kernel:
+            subplot(121)
+            self.plot_kernel(params=params)
+        if mapping:
+            subplot(122)
+            self.plot_mapping(params=params)
+        show()
+        if marginals:
+            for panel, i in ((121, indexs[0]), (122, indexs[1])):
+                subplot(panel)
+                self.plot_distribution(index=i, params=params, space=self.space[i:i + 1, :],
+                                       prior=True)
+                self.plot_distribution(index=i, params=params, space=self.space[i:i + 1, :])
+            show()
+        if bivariate:
+            self.plot_distribution2D(indexs=indexs, params=params, space=self.space[indexs, :])
+            show()
+
+    def plot_distribution(self, index=0, params=None, space=None, inputs=None, outputs=None,
+                          mean=True, var=True, cov=False, median=False, quantiles=False,
+                          quantiles_noise=False, noise=False, prior=False, sigma=4, neval=100,
+                          title=None, swap=False, label=None):
+        from ..utils.plots import plot, plot_text
+
+        pred = self.predict(params=params, space=space, inputs=inputs, outputs=outputs,
+                            mean=mean, var=var, cov=cov, median=median, quantiles=quantiles,
+                            quantiles_noise=quantiles_noise, noise=noise, distribution=True,
+                            prior=prior)
+        m, sd = _host(pred["mean"]), _host(pred["std"])
+        domain = np.linspace(m - sigma * sd, m + sigma * sd, neval).reshape(-1)
+        dist_plot = np.exp([float(_host(pred["logpredictive"](domain[i:i + 1])))
+                            for i in range(len(domain))])
+        if label is None:
+            label = "prior" if prior else "posterior"
+        if label is False:
+            label = None
+        if title is None:
+            title = "Marginal Distribution y_" + str(self.order[index])
+        if swap:
+            plot(dist_plot, domain, label=label)
+            plot_text(title, "Density", "Domain y")
+        else:
+            plot(domain, dist_plot, label=label)
+            plot_text(title, "Domain y", "Density")
+
+    def plot_distribution2D(self, indexs=(0, 1), params=None, space=None, inputs=None,
+                            outputs=None, mean=True, var=True, cov=False, median=False,
+                            quantiles=False, quantiles_noise=False, noise=False, prior=False,
+                            sigma_1=2, sigma_2=2, neval=33, title=None):
+        from ..utils.plots import grid2d, plot_2d, plot_text
+
+        pred = self.predict(params=params, space=space, inputs=inputs, outputs=outputs,
+                            mean=mean, var=var, cov=cov, median=median, quantiles=quantiles,
+                            quantiles_noise=quantiles_noise, noise=noise, distribution=True,
+                            prior=prior)
+        m, sd = _host(pred["mean"]), _host(pred["std"])
+        dist1 = np.linspace(m[0] - sigma_1 * sd[0], m[0] + sigma_1 * sd[0], neval)
+        dist2 = np.linspace(m[1] - sigma_2 * sd[1], m[1] + sigma_2 * sd[1], neval)
+        xy, x2d, y2d = grid2d(dist1, dist2)
+        dist_plot = np.exp([float(_host(pred["logpredictive"](xy[i])))
+                            for i in range(len(xy))])
+        plot_2d(dist_plot, x2d, y2d)
+        plot_text(title or "Distribution2D", "Domain y_" + str(self.order[indexs[0]]),
+                  "Domain y_" + str(self.order[indexs[1]]), legend=False)
+
+    def plot_location(self, params=None, space=None):
+        from ..utils.plots import plot, plot_text
+
+        params = self.params if params is None else params
+        space = self.space if space is None else space
+        plot(self.order, _host(self.location(params=params, space=space, prior=True)),
+             label="location")
+        plot_text("Location", "Space x", "Location value m(x)")

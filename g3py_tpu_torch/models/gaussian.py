@@ -60,6 +60,20 @@ def _any_nonfinite(delta, logdet, cho, lcho):
     return flag(delta, 1) | flag(logdet, 0) | flag(cho, 2) | flag(lcho, 1)
 
 
+def _masked_parts(mapping, location, kernel_noise, params, inputs, outputs, w):
+    """The masked gram ``w w' o K + diag(1 - w)``, the masked residual, the
+    masked log-Jacobian and the count of included points, for the masked
+    loglikes of the GP and Student-t families (a leading row axis on the
+    params or on ``w`` gives a stack)."""
+    w = torch.as_tensor(w, dtype=settings.dtype, device=inputs.device)
+    mu = location(params, inputs)
+    cov = to_cov(kernel_noise.cov(params, inputs))
+    covw = cov * (w[..., :, None] * w[..., None, :]) + torch.diag_embed(1.0 - w)
+    resid = (to_num(mapping.inv(params, outputs)) - mu) * w
+    logdet_map = (mapping.logdet_dinv_elem(params, outputs) * w).sum(dim=-1)
+    return covw, resid, logdet_map, w.sum(dim=-1)
+
+
 class WarpedGaussianDistribution:
     """Namespace kept for the reference's API."""
 
@@ -96,6 +110,41 @@ class GaussianProcess(EllipticalProcess):
             return _guarded(r, (ok == 0) | ~torch.isfinite(quad) | ~torch.isfinite(logdet_map))
 
         return fn
+
+    def th_loglike_masked_fn(self):
+        """Masked-observation loglikelihood ``fn(params, inputs, outputs, w)``
+        with ``w`` a {0,1} inclusion vector (or (R, n) rows of them beside a
+        params dict of R rows) — exactly the loglike of the included
+        submatrix, at one shape for every split.  The excluded coordinates
+        leave the gram as identity rows, ``K_w = w w' o K + diag(1 - w)``,
+        and their residuals are zeroed: the factorization is block-diagonal
+        and the excluded block adds 0 to the quadratic form and the
+        log-determinant.  R rows are one batched K1 and one batched K2
+        call."""
+        mapping = self.f_mapping
+        location = self.f_location
+        kernel_noise = self.f_kernel_noise
+
+        def fn(params, inputs, outputs, w):
+            covw, resid, logdet_map, n_eff = _masked_parts(mapping, location, kernel_noise,
+                                                           params, inputs, outputs, w)
+            quad, logdet_half, ok = mvn_quad_logdet(covw, resid)
+            r = -0.5 * n_eff * LOG2PI - 0.5 * quad - logdet_half + logdet_map
+            return _guarded(r, (ok == 0) | ~torch.isfinite(quad) | ~torch.isfinite(logdet_map))
+
+        return fn
+
+    def fit_splits(self, masks, start=None, points=4, max_iters=200, tol=1e-5,
+                   noise_mult=0.2, seed=0, shard=False, mesh=None, pair_chunk=None):
+        """Train this model on every observation split at once: one batched
+        L-BFGS over the (split, start) pairs on the masked loglike
+        (:meth:`th_loglike_masked_fn`, :mod:`g3py_tpu_torch.bayesian.fanout`).
+        Returns (the per-split best params list, the (S, points) logp
+        matrix)."""
+        from ..bayesian.fanout import fit_splits as _fit_splits
+        return _fit_splits(self, masks, start=start, points=points, max_iters=max_iters,
+                           tol=tol, noise_mult=noise_mult, seed=seed, shard=shard, mesh=mesh,
+                           pair_chunk=pair_chunk)
 
     def th_loo_fn(self):
         """Leave-one-out log pseudo-likelihood ``fn(params, space, inputs,

@@ -175,6 +175,24 @@ class Predictor(_Bound):
         self.state = process.posterior_state(self.params) if _state is None else _state
         self._merged = {**self.params, **self.state}
 
+    def __getattr__(self, name):
+        """Any other statistic of the process (``mean``, ``std``,
+        ``quantiler``, ``sampler``, ...) at this predictor's params, as the
+        JAX package's Predictor delegates them; keywords only (the
+        process's positional slot is ``params``)."""
+        if name.startswith("_") or "process" not in self.__dict__:
+            raise AttributeError(name)
+        target = getattr(self.process, name)
+        if not callable(target):
+            raise AttributeError(name)
+
+        def bound(*args, **kwargs):
+            self._check()
+            return target(self.params, *args, **kwargs)
+
+        bound.__name__ = name
+        return bound
+
     # ------------------------------------------------------------ streaming
     def updated(self, x_new, y_new):
         """Absorb m new observations with no n x n refactorization: the

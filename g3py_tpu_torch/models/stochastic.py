@@ -29,15 +29,19 @@ samplers (``sample_hypers(method='nuts' | 'neutra' | 'advi')``) and
 with torch autograd: a batched value-and-gradient evaluation of all chains,
 MC rows or starts is one batched K1 and K2 call and one batched analytic
 backward.  ``find_MAP(engine='iterative')`` (GP family) trains through the
-matrix-free NLL.  The distributed ``find_MAP`` engine, model files and
-plotting come in later slices.
+matrix-free NLL.  ``file=`` loads the process saved there (or saves a
+new one), device-agnostically.  The distributed ``find_MAP`` engine waits
+for ROADMAP Queue 1 item 16.
 """
+
+import os
+import pickle
 
 import numpy as np
 import torch
 
 from ..config import settings, asarray_x, as_tensor
-from ..utils import DictObj, save_datatrace, load_datatrace
+from ..utils import DictObj, save_datatrace, load_datatrace, save_pkl, load_pkl
 from ..ops.guards import to_num
 from ..bayesian.registry import GraphicalModel
 from ..bayesian.selection import optimize
@@ -47,7 +51,7 @@ from ..bayesian.nuts import nuts_sampler
 from ..bayesian.neutra import neutra_nuts
 from ..bayesian.advi import fit_advi, advi_draws
 from ..bayesian.optimize_jax import lbfgs_maximize
-from ..bayesian.average import chains_to_datatrace
+from ..bayesian.average import chains_to_datatrace, plot_datatrace
 
 __all__ = ["StochasticProcess"]
 
@@ -143,9 +147,17 @@ class StochasticProcess(BatchedModel):
     def __init__(self, space=None, order=None, inputs=None, outputs=None, hidden=None,
                  index=None, name="SP", distribution=None, active=False, precompile=False,
                  file=None, load=True, compile_logp=True):
-        if file is not None:
-            raise NotImplementedError("model files (file=) are not ported yet "
-                                      "(ROADMAP Queue 1 item 15)")
+        if file is not None and load:  # load-or-create: an existing file wins
+            try:
+                loaded = load_pkl(file)
+            except (OSError, EOFError, pickle.UnpicklingError, AttributeError, TypeError):
+                print("Model Not Found in " + str(file))
+            else:
+                self.__dict__.update(loaded.__dict__)
+                print("Loaded model " + file)
+                self.set_space(space=space, hidden=hidden, order=order, inputs=inputs,
+                               outputs=outputs, index=index)
+                return
         ndim = 1
         if space is not None:
             if hasattr(space, "shape"):
@@ -180,6 +192,28 @@ class StochasticProcess(BatchedModel):
         self.th_define_process()
         self.set_space(space=space, hidden=hidden, order=order, inputs=inputs,
                        outputs=outputs, index=index)
+        if file is not None:
+            self.file = file
+            self.save()
+
+    # ------------------------------------------------------------- persistence
+    def save(self, path=None, params=None):
+        """Pickle the process (its registry and data) to ``path`` (the
+        constructor's ``file`` by default), after ``set_params(params)``
+        when given; tensors are stored device-agnostically (a file saved on
+        the card loads on the CPU, and the reverse).  An error is printed,
+        not raised, as in the JAX package."""
+        if path is None:
+            path = self.file
+        if params is not None:
+            self.set_params(params)
+        try:
+            if os.path.isfile(path):
+                os.remove(path)
+            save_pkl(self, path)
+            print("Model saved on " + path)
+        except (OSError, pickle.PicklingError, TypeError, AttributeError) as details:
+            print("Error saving model " + str(path), details)
 
     def __getstate__(self):
         """Pickled state: the device copies of the data (rebuilt on use) and
@@ -778,9 +812,6 @@ class StochasticProcess(BatchedModel):
             raise ValueError(f"unknown method {method!r}")
         if reparam not in (None, "noncentered"):
             raise ValueError(f"unknown reparam {reparam!r} (None | 'noncentered')")
-        if plot:
-            raise NotImplementedError("sample_hypers(plot=...) is not ported yet "
-                                      "(ROADMAP Queue 1 item 15 (plots))")
         reg = self.active
         ndim = len(reg.sampling_dims)
         if chains is None:
@@ -789,6 +820,8 @@ class StochasticProcess(BatchedModel):
             datatrace = load_datatrace(file)
             if (datatrace is not None and datatrace["_niter"].max() == samples - 1
                     and datatrace["_nchain"].max() == chains - 1):
+                if plot:
+                    plot_datatrace(datatrace)
                 return datatrace
         if start is None:
             start = self.find_MAP(display=False)
@@ -861,6 +894,8 @@ class StochasticProcess(BatchedModel):
             outlayer_percentile=outlayer_percentile, clusters=clusters)
         if file is not None:
             save_datatrace(datatrace, file)
+        if plot:
+            plot_datatrace(datatrace)
         return datatrace
 
     def _array_logp_sampling(self, p):
@@ -970,8 +1005,6 @@ class StochasticProcess(BatchedModel):
         if kwargs:
             raise TypeError(f"find_MAP(engine={engine!r}) got unexpected keyword arguments "
                             f"{sorted(kwargs)}")
-        if plot:
-            raise NotImplementedError("plotting is not ported yet (ROADMAP Queue 1 item 15)")
         if not self.is_observed:
             print("For find_MAP it is necessary to have observations")
             return start
@@ -1000,6 +1033,8 @@ class StochasticProcess(BatchedModel):
         n_starts = len(points_list)
         if display:
             print("Starting function value (-logp): " + str(-points_list[0][1]))
+        if plot:
+            self._plot_point(0, points_list[0][2], "start")
         check = 0 if init == "bfgs" else 1
         i = -1
         points -= 1
@@ -1031,6 +1066,8 @@ class StochasticProcess(BatchedModel):
                 new = optimize(logp=logp, start=reg.sampling_params(start_i),
                                fmin="powell", max_time=max_time, disp=display)
             points_list.append((name, logp(new), reg.dict_from_sampling_array(new)))
+            if plot:
+                self._plot_point(i + 1, points_list[-1][2], name)
 
         optimal = points_list[0]
         for test in points_list:
@@ -1042,6 +1079,14 @@ class StochasticProcess(BatchedModel):
         if return_points is False:
             return params
         return params, points_list
+
+    def _plot_point(self, fig, params, title):
+        """``find_MAP(plot=True)``: one figure a visited point."""
+        from ..utils.plots import figure, show
+
+        figure(fig)
+        self.plot(params=params, title=title)
+        show()
 
     def _find_map_jax(self, start=None, points=1, return_points=False, display=True,
                       max_iters=200, objective="logp"):

@@ -31,7 +31,7 @@ from ..ops.linalg import mvn_quad_logdet, solve_lower_triangular
 from ..ops.quadrature import gauss_hermite, hermite_moments
 from ..ops.special import gammaln
 from .elliptical import EllipticalProcess, STATE_OBS_Z
-from .gaussian import _any_nonfinite, _guarded
+from .gaussian import _any_nonfinite, _guarded, _masked_parts
 
 __all__ = ["StudentTProcess", "WarpedStudentTProcess",
            "warped_studentt_logp_cho", "WarpedStudentTDistribution"]
@@ -49,7 +49,7 @@ def _t_terms(nu, n, beta):
     r1 = -0.5 * (nu + n) * torch.log1p(beta / (nu - 2.0))
     student = (gammaln((nu + n) * 0.5) - gammaln(nu * 0.5)
                - 0.5 * n * torch.log((nu - 2.0) * math.pi))
-    gaussian_limit = torch.full_like(student, -n * 0.5 * math.log(2.0 * math.pi))
+    gaussian_limit = (-0.5 * math.log(2.0 * math.pi) * n) * torch.ones_like(student)
     return r1 + torch.where(nu >= 1e6, gaussian_limit, student)
 
 
@@ -108,6 +108,34 @@ class StudentTProcess(EllipticalProcess):
             return _guarded(r, (ok == 0) | ~torch.isfinite(beta) | ~torch.isfinite(logdet_map))
 
         return fn
+
+    def th_loglike_masked_fn(self):
+        """Masked-observation multivariate-t loglike (the gaussian version's
+        identity-row gram surgery, :meth:`GaussianProcess.th_loglike_masked_fn`):
+        n becomes n_eff = sum(w) in every density term, so one shape serves
+        every split — exactly the submatrix model's loglike at the same
+        ``degree``."""
+        mapping = self.f_mapping
+        location = self.f_location
+        degree = self.f_degree
+        kernel_noise = self.f_kernel_noise
+
+        def fn(params, inputs, outputs, w):
+            covw, resid, logdet_map, n_eff = _masked_parts(mapping, location, kernel_noise,
+                                                           params, inputs, outputs, w)
+            beta, logdet_half, ok = mvn_quad_logdet(covw, resid)
+            r = _t_terms(degree(params), n_eff, beta) - logdet_half + logdet_map
+            return _guarded(r, (ok == 0) | ~torch.isfinite(beta) | ~torch.isfinite(logdet_map))
+
+        return fn
+
+    def fit_splits(self, masks, start=None, points=4, max_iters=200, tol=1e-5,
+                   noise_mult=0.2, seed=0, shard=False, mesh=None, pair_chunk=None):
+        """On-device (split x start) MAP fan-out (:mod:`g3py_tpu_torch.bayesian.fanout`)."""
+        from ..bayesian.fanout import fit_splits as _fit_splits
+        return _fit_splits(self, masks, start=start, points=points, max_iters=max_iters,
+                           tol=tol, noise_mult=noise_mult, seed=seed, shard=shard, mesh=mesh,
+                           pair_chunk=pair_chunk)
 
     # -- posterior scaling -----------------------------------------------------
     def _scaling_fn(self, prior):

@@ -100,6 +100,17 @@ class TransportProcess(StochasticProcess):
                                 "Push ``vector`` through the map's marginal scales.")
     transport_inv = _statistic("th_transport_inv", "Pull ``vector`` back to white noise.")
 
+    # the marginal and bivariate density plots draw nothing for a transport
+    # process, as in the JAX package
+    def plot_model(self, *args, **kwargs):
+        pass
+
+    def plot_distribution(self, *args, **kwargs):
+        pass
+
+    def plot_distribution2D(self, *args, **kwargs):
+        pass
+
 
 class TransportGaussianProcess(TransportProcess):
     """TGP: the observed density through the transport's pullback;

@@ -87,10 +87,33 @@ def _ensure_dir(path):
         os.makedirs(d, exist_ok=True)
 
 
+def _tensor_on_device(values, dtype):
+    """A pickled tensor, rebuilt on ``settings.device`` at load time."""
+    import torch
+
+    from ..config import settings
+    return torch.as_tensor(values, dtype=getattr(torch, dtype), device=settings.device)
+
+
+class _DevicePickler(pickle.Pickler):
+    """Pickles every tensor as its host values and dtype, to be rebuilt on
+    the loading program's device: a file saved from the card loads on the
+    CPU, and the reverse."""
+
+    def reducer_override(self, obj):
+        import torch
+
+        if isinstance(obj, torch.Tensor):
+            return _tensor_on_device, (obj.detach().cpu().numpy(), str(obj.dtype)[6:])
+        return NotImplemented
+
+
 def save_pkl(to_pkl, path="file.pkl"):
+    """Pickle ``to_pkl`` to ``path``; its tensors are stored as host values
+    and come back on ``settings.device`` (see :class:`_DevicePickler`)."""
     _ensure_dir(path)
     with open(path, "wb") as f:
-        pickle.dump(to_pkl, f, protocol=-1)
+        _DevicePickler(f, protocol=-1).dump(to_pkl)
 
 
 def load_pkl(path="file.pkl"):

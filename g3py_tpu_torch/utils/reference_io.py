@@ -18,7 +18,7 @@ import json
 
 import numpy as np
 
-from .data import datasets_path
+from .data import _file
 
 __all__ = ["load_oracle", "transformed_to_natural", "natural_to_transformed"]
 
@@ -27,7 +27,7 @@ def load_oracle(path=None):
     """``(rows, simulations)`` of the recorded experiment: a list of row
     dicts (params as float32 arrays) and a dict ``n_sim -> {"obs", "test"}``
     of int64 index arrays."""
-    with open(path or datasets_path("sunsets_oracle.json")) as fh:
+    with open(path or _file("sunsets_oracle.json")) as fh:
         data = json.load(fh)
     rows = [dict(row, params={k: np.asarray(v, np.float32) for k, v in row["params"].items()})
             for row in data["rows"]]

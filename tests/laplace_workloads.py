@@ -8,7 +8,7 @@ import numpy as np
 LIKS = {"poisson": "PoissonLik", "bernoulli": "BernoulliLik", "studentt": "StudentTLik"}
 
 
-def counts(n=24, seed=3):
+def counts(n=12, seed=3):
     """A series on (0, 10) and its Poisson, Bernoulli and Student-t
     targets around sin(t)."""
     rng = np.random.default_rng(seed)
@@ -25,7 +25,7 @@ def nudged(params, seed=0):
             for k, v in params.items()}
 
 
-def ngssgp(lib, kind, n=24):
+def ngssgp(lib, kind, n=12):
     t, ys = counts(n)
     proc = lib.NonGaussianSSGP(space=t, location=lib.Bias(), kernel=lib.MAT32(t),
                                likelihood=getattr(lib, LIKS[kind])(), name="NG_" + kind)
@@ -40,10 +40,10 @@ NG_DRAW_TQ = np.linspace(0.5, 9.5, 5)[:, None]
 
 def ngm_data(case):
     """Two channels at their own times, Poisson counts and Bernoulli events
-    (``mixed`` 10 + 7 rows; ``fault`` 20 + 14, where the JAX package's
+    (``mixed`` 6 + 4 rows; ``fault`` 20 + 14, where the JAX package's
     gradient leaves its own central differences)."""
     rng = np.random.default_rng(4)
-    n0, n1 = (10, 7) if case == "mixed" else (20, 14)
+    n0, n1 = (6, 4) if case == "mixed" else (20, 14)
     t0 = np.sort(rng.uniform(0, 8, n0))[:, None]
     t1 = np.sort(rng.uniform(0, 8, n1))[:, None]
     y0 = rng.poisson(np.exp(np.sin(t0[:, 0]))).astype(float)
@@ -71,12 +71,12 @@ def ngst_sites():
 
 
 def ngstssgp(lib):
-    """A Poisson Cox process on 4 sites in 2-D, 6 events a site."""
+    """A Poisson Cox process on 4 sites in 2-D, 3 events a site."""
     rng = np.random.default_rng(5)
     sites = ngst_sites()
     ts, ys = [], []
     for s in range(len(sites)):
-        tt = np.sort(rng.uniform(0, 5, 6))[:, None]
+        tt = np.sort(rng.uniform(0, 5, 3))[:, None]
         ts.append(tt)
         ys.append(rng.poisson(np.exp(0.5 * np.sin(tt[:, 0] + s))).astype(float))
     x, y = lib.stack_outputs(ts, ys)

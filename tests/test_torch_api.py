@@ -9,6 +9,8 @@ a sample of them is called with the JAX package's keywords and positional
 order."""
 
 import inspect
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -62,6 +64,25 @@ UTILS = ["save_pkl", "load_pkl", "save_datatrace", "load_datatrace", "save_json"
 EXPERIMENT = ["__init__", "add_model", "set_data", "set_scores", "set_selection", "save",
               "new_data", "select_model", "calc_scores", "add_result", "run", "run_fanout",
               "describe", "plot"]
+#: item 15's entry points: the fan-out, BO, the structure search, the utils
+ITEM15_FUNCS = ["fit_splits", "lbfgs_fanout", "search_kernel", "save_checkpoint",
+                "load_checkpoint", "save_csv", "load_csv", "datasets_path", "data_co2",
+                "data_engel", "data_heart", "data_eurusd", "data_abalone", "data_creep",
+                "data_ailerons", "data_rivers", "subplot", "tight_layout", "style_text",
+                "plot_text", "plot_save", "plot_img", "show_img", "plot_matrix", "grid2d",
+                "plot_2d", "style_seaborn", "style_normal", "style_big", "style_big_seaborn",
+                "style_widget", "debug", "show_graph", "print_graph", "debug_mode",
+                "profile_trace", "set_debug"]
+ITEM15_METHODS = [("BayesOpt", ["__init__", "tell", "best", "acquisition", "suggest", "run"]),
+                  ("KernelSearch", ["__init__", "best_kernel"]),
+                  ("LagrangianConstraint", ["__init__", "violation", "penalty", "update"]),
+                  ("LagrangianMultiplier", ["__init__", "lagrangian", "minimize"]),
+                  ("WGP", ["fit_splits", "th_loglike_masked_fn", "save", "describe", "plot",
+                           "plot_space", "plot_hidden", "plot_observations", "plot_datatrace",
+                           "widget", "plot_kernel", "plot_concentration", "plot_mapping",
+                           "plot_model", "plot_distribution", "plot_distribution2D",
+                           "plot_location"]),
+                  ("WTP", ["fit_splits", "th_loglike_masked_fn"])]
 LMC = ["__init__", "task_correlations", "sampler", "quantiler", "predict_proba",
        "fit_svgp", "predictor", "th_covariance", "th_logpredictive"]
 
@@ -136,7 +157,11 @@ PAIRS = [
     for name in ITERATIVE_PREDICTOR] + [(getattr(g3.WGP, name), getattr(g3t.WGP, name)) for name in PROCESS_METHODS] + [
     (getattr(g3, cls).__init__, getattr(g3t, cls).__init__)
     for cls in ("WarpingTanh", "ArcsinhLinear", "BoxCoxLinear", "Identity", "SE", "MAT32",
-                "MAT52", "RQ", "Bias")]
+                "MAT52", "RQ", "Bias")] + [
+    (getattr(g3, name), getattr(g3t, name)) for name in ITEM15_FUNCS] + [
+    (getattr(getattr(g3, cls), name), getattr(getattr(g3t, cls), name))
+    for cls, names in ITEM15_METHODS for name in names] + [
+    (g3.bayesian.fanout.lbfgs_fanout_sharded, g3t.bayesian.fanout.lbfgs_fanout_sharded)]
 
 
 def _named(fn):
@@ -218,8 +243,13 @@ def test_calls_in_jax_order_and_keywords():
     assert chain.shape == (4, 2, tp.active.ndim)
     with pytest.raises(TypeError):
         tp.find_MAP(display=False, rank=8)  # as the JAX package: scipy takes no solver knobs
-    with pytest.raises(NotImplementedError, match="item 15"):
-        g3t.GP(x, location=g3t.Bias(), kernel=g3t.SE(x), file="model.g3")
+    # file= is load-or-create: a new file is written, an existing one loaded
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.g3")
+        saved = g3t.GP(x, location=g3t.Bias(), kernel=g3t.SE(x), file=path, name="API_F")
+        assert os.path.isfile(path)
+        loaded = g3t.GP(x, location=g3t.Bias(), kernel=g3t.SE(x), file=path, name="API_F")
+        assert loaded.name == saved.name and loaded.ndim == saved.ndim
     # active=True joins the active registry (creating it when there is none)
     g3t.GraphicalModel.active = None
     try:
@@ -301,8 +331,13 @@ def test_degree_and_aliases():
     assert g3t.modelcontext() is g3t.GraphicalModel.active is ep.active
     g3t.GraphicalModel.active = None
     assert g3t.modelcontext() is None
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # debug_p prints only under the debug switch
+    g3t.debug_p("silent")
+    g3t.set_debug(True)
+    try:
         g3t.debug_p("trace")
+    finally:
+        g3t.set_debug(False)
 
 
 CATALOGUE_CLASSES = [

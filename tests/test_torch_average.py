@@ -148,7 +148,9 @@ def test_sample_hypers_end_to_end():
     # parquet path is the JAX package's format, refused; plots wait
     with pytest.raises(ValueError, match=".npz"):
         tp.sample_hypers(start=u0, samples=2, chains=8, file="x.parquet", load=False)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tp.sample_hypers(start=u0, samples=2, chains=8, plot=True)
+    # plot=True draws the datatrace panels (the Agg backend here)
+    dt_plot = tp.sample_hypers(start=u0, samples=2, chains=8, plot=True)
+    assert len(dt_plot) == 16
+    g3t.utils.plots.pyplot().close("all")
     dt = tp.sample_hypers(start=u0, samples=12, chains=8, burnin_tol=0.5, clusters=2)
     assert set(np.unique(dt["_cluster"])) <= {0, 1}

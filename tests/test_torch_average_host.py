@@ -300,5 +300,7 @@ def test_marginal_and_conditional_match_jax():
     got = g3t.conditional(tdt, lambda dt: dt["_l1"] < 0.3)
     np.testing.assert_array_equal(got.index, want.index.to_numpy())
     np.testing.assert_array_equal(got["_ll"], want["_ll"].to_numpy())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        g3t.plot_datatrace(tdt)
+    # the datatrace panels: a kde and a trace a variable
+    fig = g3t.plot_datatrace(tdt, varnames=["a"])
+    assert len(fig.axes) == 2
+    g3t.utils.plots.pyplot().close("all")

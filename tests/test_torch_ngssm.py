@@ -99,12 +99,12 @@ def test_joint_draws_from_the_jax_normals():
     ``noise=True`` draws integer counts."""
     tq = W.NG_DRAW_TQ
     with floatx(F64):
-        jp, tp = W.ngssgp(g3, "poisson", n=16), W.ngssgp(g3t, "poisson", n=16)
+        jp, tp = W.ngssgp(g3, "poisson"), W.ngssgp(g3t, "poisson")
         p = W.nudged(jp.params_default, seed=2)
         jax_compiled_method(jp, "_joint_draws")
         want = (jp.sampler(p, tq, samples=2, seed=3),
                 jp.sampler(p, tq, samples=2, prior=True, seed=5))
-        post = jax_normals(3, 2, 16 + len(tq), 2)
+        post = jax_normals(3, 2, len(jp.inputs) + len(tq), 2)
         assert_close(tp.sampler(p, tq, samples=2, seed=post), want[0], F64)
         prior = jax_normals(5, 2, len(tq), 2, prior=True)
         assert_close(tp.sampler(p, tq, samples=2, prior=True, seed=prior), want[1], F64)

@@ -28,7 +28,7 @@ import torch_parity  # noqa: F401  (puts the port on the CPU)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FRAMES = os.path.join(HERE, "data", "experiments", "sunsets.g3x")
-ORACLE = datasets_path("sunsets_oracle.json")
+ORACLE = os.path.join(datasets_path("sunsets_oracle.json"), "sunsets_oracle.json")
 # the JAX test's tolerances (tests/test_parity_reference.py)
 TEST_RTOL = 2e-3
 NLPD_RTOL = 3e-2
@@ -209,6 +209,31 @@ def test_family_pins_hold_on_port(family_pins, pin):
         want = json.load(fh)[pin]
     np.testing.assert_allclose(family_pins[pin], want, rtol=2e-5, atol=1e-5,
                                err_msg=f"pin {pin}: port {family_pins[pin]} vs {want}")
+
+
+def test_bo_ucb_pin_holds_on_port():
+    """``bo_ucb_suggest_x`` of tests/golden_families.json, on
+    tests/test_golden_families.py's workload (float32): a fixed-seed UCB
+    suggestion at hand-set hypers, at that file's 5e-5."""
+    xb = np.array([[0.4], [1.1], [2.0], [2.9], [3.6]], np.float32)
+    yb = np.sin(2.0 * xb[:, 0]).astype(np.float32)
+    bgp = g3t.GP(space=xb, location=g3t.Bias(), kernel=g3t.SE(xb), noisy=True, name="GOLD_BO")
+    bgp.observed(xb, yb)
+    bo = g3t.BayesOpt(bgp, bounds=[[0.0, 4.0]], maximize=True, seed=0)
+    pb = dict(bgp.params_default)
+    for k in pb:
+        if k.endswith("SE_var"):
+            pb[k] = np.asarray(1.0, np.float32)
+        if k.endswith("Noise_var"):
+            pb[k] = np.asarray(1e-4, np.float32)
+        if "scales" in k:
+            pb[k] = np.asarray(pb[k]) * 0 + 0.5
+    got = float(np.ravel(bo.suggest(params=pb, kind="UCB", candidates=256, starts=4,
+                                    steps=40))[0])
+    with open(os.path.join(HERE, "golden_families.json")) as fh:
+        want = json.load(fh)["bo_ucb_suggest_x"]
+    np.testing.assert_allclose(got, want, rtol=5e-5, atol=5e-5,
+                               err_msg=f"pin bo_ucb_suggest_x: port {got} vs {want}")
 
 
 SSM_PINS = ("ssgp_logp", "ssgp_dlogp_norm", "ssgp_mean_sum", "ssgp_var_sum", "mssgp_logp",

@@ -26,7 +26,7 @@ def site_rows(lib, seed=4):
     ts, ys = [], []
     for p in range(len(SITES)):
         rng = np.random.default_rng(seed + p)
-        t = np.sort(rng.uniform(0, 10, 12 + p)).reshape(-1, 1)
+        t = np.sort(rng.uniform(0, 10, 6 + p)).reshape(-1, 1)
         ts.append(t)
         ys.append((np.sin(t[:, 0]) + 0.1 * rng.standard_normal(len(t))) * np.exp(-p / 3.0))
     return lib.stack_outputs(ts, ys)

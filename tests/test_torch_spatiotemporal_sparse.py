@@ -20,7 +20,7 @@ from test_torch_spatiotemporal import F64, SITES, _nudged
 from test_torch_statespace import chunked
 
 
-def scattered_rows(n=40, seed=3):
+def scattered_rows(n=20, seed=3):
     """n rows (t, x1, x2) on the 4 locations of ``SITES``, targets from a
     smooth field."""
     rng = np.random.default_rng(seed)
@@ -85,7 +85,7 @@ def test_sparse_chunked_payload_path_matches_jax_and_the_plain_path():
         xq = np.array([[2.0, 0.5, 0.5], [7.5, 1.0, 0.3], [4.0, -1.0, 2.0]])
         plain = (tp.logp(p), tp.dlogp(p), to_numpy(tp.mean(p, xq)),
                  to_numpy(tp.variance(p, xq)))
-        with chunked(threshold=24, chunk=16):
+        with chunked(threshold=12, chunk=8):
             got = (tp.logp(p), tp.dlogp(p), to_numpy(tp.mean(p, xq)),
                    to_numpy(tp.variance(p, xq)))
         assert_close(got[:2], want, F64)

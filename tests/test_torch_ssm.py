@@ -37,7 +37,7 @@ KERNELS = {
 }
 
 
-def _series(n=37, seed=0, dup=True):
+def _series(n=19, seed=0, dup=True):
     rng = np.random.default_rng(seed)
     t = np.sort(rng.uniform(0.0, 10.0, n)).reshape(-1, 1)
     if dup:
@@ -69,7 +69,7 @@ def _t(*arrays):
     return [torch.as_tensor(np.array(a)) for a in arrays]
 
 
-N = 29        # one length for the filter, the smoother and the chunked paths
+N = 15        # one length for the filter, the smoother and the chunked paths
 
 
 def _filter_inputs(n=N, seed=1):
@@ -187,7 +187,7 @@ def _per_row(tl, tp, dtt, seed=2):
 
 
 def test_chunked_nll_equals_the_plain_scan():
-    """The chunked NLL (a chunk of 8 over 29 rows: pads in the last block)
+    """The chunked NLL (a chunk of 8 over 15 rows: pads in the last block)
     equals the plain scan in every form — sliced, blocks built on the fly,
     the quad/logdet split, per-row emissions by index and by payload — and
     so does its gradient through the recomputed blocks."""

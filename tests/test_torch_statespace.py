@@ -25,7 +25,7 @@ from torch_parity import assert_close, floatx, jax_compiled_method, jax_logp_dlo
 F64 = "float64"
 
 
-def _series(n=48, seed=1, span=10.0):
+def _series(n=24, seed=1, span=10.0):
     rng = np.random.default_rng(seed)
     t = np.sort(rng.uniform(0, span, n)).reshape(-1, 1)
     t[7] = t[6]                                        # a duplicate time
@@ -41,10 +41,10 @@ def _ssgp(lib, t, kernel="sum"):
 
 def _mssgp(lib, shared=False):
     rng = np.random.default_rng(4)
-    t0 = np.sort(rng.uniform(0, 8, 26))[:, None]
-    t1 = np.sort(rng.uniform(0, 8, 19))[:, None]
-    y0 = np.sin(t0[:, 0]) + 0.1 * rng.standard_normal(26)
-    y1 = -0.6 * np.sin(t1[:, 0]) + 0.4 + 0.1 * rng.standard_normal(19)
+    t0 = np.sort(rng.uniform(0, 8, 13))[:, None]
+    t1 = np.sort(rng.uniform(0, 8, 10))[:, None]
+    y0 = np.sin(t0[:, 0]) + 0.1 * rng.standard_normal(13)
+    y1 = -0.6 * np.sin(t1[:, 0]) + 0.4 + 0.1 * rng.standard_normal(10)
     x, y = lib.stack_outputs([t0, t1], [y0, y1])
     kernel = lib.MAT32(t0) if shared else [lib.MAT32(t0, name="KA"), lib.OU(t0, name="KB")]
     proc = lib.MultiStateSpaceGP(space=x, kernel=kernel, outputs_dim=2, name="MS%d" % shared)
@@ -53,7 +53,7 @@ def _mssgp(lib, shared=False):
 
 
 @contextlib.contextmanager
-def chunked(threshold=30, chunk=16):
+def chunked(threshold=12, chunk=8):
     """Both packages' state-space chunking lowered (and restored)."""
     old = [(s, s.ssm_chunk_threshold, s.ssm_chunk) for s in (g3.config.settings, g3t.settings)]
     for s, _, _ in old:
@@ -160,7 +160,7 @@ def test_ssgp_matches_jax():
 def test_ssgp_sampler_matches_jax():
     """Posterior and prior joint draws from the JAX package's normals; the
     noise from the same numpy Generator; a seed draws on the device."""
-    t, y = _series(n=30)
+    t, y = _series(n=16)
     tq = np.linspace(0.5, 9.5, 9)[:, None]
     with floatx(F64):
         jp, tp = _pair(_ssgp, t)

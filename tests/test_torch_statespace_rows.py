@@ -19,9 +19,9 @@ from test_torch_statespace import F64, _nudged, _pair, _series, _ssgp, chunked
 
 
 def test_ssgp_chunked_routing_matches_jax_and_the_plain_path():
-    """n=55 above a threshold of 30: the loglike takes the chunked NLL (4
-    blocks of 16) and the statistics the chunked smoother."""
-    t, y = _series(n=55, seed=2)
+    """n=28 above a threshold of 12: the loglike takes the chunked NLL (4
+    blocks of 8, the last ragged) and the statistics the chunked smoother."""
+    t, y = _series(n=28, seed=2)
     tq = np.linspace(0.0, 10.0, 7)[:, None]
     with floatx(F64):
         jp, tp = _pair(_ssgp, t)

@@ -119,9 +119,14 @@ def test_find_map_return_points_and_unported_options():
     assert [p[0] for p in points] == ["start", "start_bfgs"]
     assert points[1][1] >= points[0][1]
     assert set(params) == set(tp.params_default)
-    for kw, match in [(dict(engine="distributed"), "item 16"), (dict(plot=True), "plotting")]:
-        with pytest.raises(NotImplementedError, match=match):
-            tp.find_MAP(display=False, **kw)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tp.find_MAP(display=False, engine="distributed")
+    # plot=True draws the start and each visited point (the Agg backend)
+    plt = g3t.utils.plots.pyplot()
+    plt.close("all")
+    tp.find_MAP(points=1, powell=False, display=False, plot=True)
+    assert len(plt.get_fignums()) == 2
+    plt.close("all")
     # engine='iterative' is ported (tests/test_torch_iterative_gp.py): an
     # unknown loop reaches its own check
     for kw in (dict(engine="nope"), dict(objective="nope"),
