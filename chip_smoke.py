@@ -134,7 +134,7 @@ hand-written kernels K1
            start of an evaluation in one batched K1 and K2 launch, each
            run's launches equal to its predicted evaluations: 11a NUTS on
            the n=125 sampler workload (non-centered, dense mass, 0.95, depth
-           7, 4 chains, warmup 8 + 8 samples), ESS/s, a leaf's wall and
+           7, 4 chains, warmup 4 + 4 samples), ESS/s, a leaf's wall and
            device time, every 10th lnprob vs a float64 host logp; 11b the
            same sampler through sample_hypers in float64 on the card and
            replayed on the CPU from the same numpy draws (1e-8); 11c NUTS on
@@ -142,7 +142,7 @@ hand-written kernels K1
            find_MAP(engine='jax') by logp and by LOO at n=4096 vs the scipy
            optima; 11e ADVI at n=125; 11f NeuTra through neutra_nuts
            (ensemble warmup 32 x 200, a 6-coupling flow fitted once, NUTS in
-           latent space, 8 + 8) and its replay through the same flow
+           latent space, 4 + 4) and its replay through the same flow
            (float64 card vs CPU at 1e-8, float32 and the whitening beside
            it, 6 + 3); 11g HMC 4 x 50
            x 10; 11h sample_hypers(method='nuts' | 'advi' | 'neutra')
@@ -236,7 +236,7 @@ hand-written kernels K1
            n=8192 and the gaussian identity with StateSpaceGP; 16b the
            chunked route at n=2^20; 16c NonGaussianMultiSSGP(Poisson,
            Bernoulli) at 9830 + 6554 events; 16d the Cox process
-           NonGaussianSTSSGP at 32 sites, S=64, 64 events a site (K1 x1,
+           NonGaussianSTSSGP at 32 sites, S=64, 32 events a site (K1 x1,
            K2 x1 an evaluation; field_rate K1 x2, K2 x1), K1 at (32,32,2)
            and K2 at m=32 against their plain forms; 16e serving at 1024
            queries; 16f 16 rows at n=16384
@@ -258,10 +258,35 @@ hand-written kernels K1
            8 x 4 pairs; each split vs the float64 host, the masked logp vs
            the subset's; one batched K1 and K2 an evaluation), 18e
            Experiment.run_fanout on 14e's experiment (vs 14e's run()),
-           18f search_kernel (tutorial 03's search vs the CPU port's
-           winner from a process of its own; phase 5's data at n=4096),
-           18g checkpoints, a model file, debug_mode and profile_trace on
-           the card
+           18f search_kernel (tutorial 03's search at depth 1 vs the CPU
+           port's winner from a process of its own; phase 5's data at
+           n=4096), 18g checkpoints, a model file, debug_mode and
+           profile_trace on the card
+  phase 19 item 16a, the band-sharded exact GP/TP objective over
+           torch.distributed ranks (g3py_tpu_torch/parallel/, the ranks'
+           code in g3py_tpu_torch/tools/dist_smoke.py, each world started
+           by parallel.launch.run_local in fresh interpreters with a file
+           store and a 120 s collective timeout): 19a a world of one over
+           NCCL, GP(Bias, SE) at n=16384, d=8, block 256 (64 panels):
+           nll_distributed's value and gradient against the single-device
+           loglike in float32 and in float64 on the card (1e-3, and 1e-2
+           along two random directions), ms an evaluation, peak memory,
+           K1 x2 (the band gram, and again for the backward's vjp) and K2
+           x64 (the diagonal tiles) an evaluation; 19b four gloo ranks
+           sharing the card at phase 5's n=4096: the GP and TP band NLLs
+           against 19a's world of one and float64, ms an evaluation and the
+           host-clock share of its collectives, find_MAP(engine=
+           'distributed', 30 iterations at most, from the objectives' point
+           10% off the MAP) within 2 nats of phase 5's scipy optimum, predictor_distributed on 256 queries against the
+           single-device Predictor (2e-3 at the defaults; at phase 5's MAP
+           against the float64 Predictor within 4x the float32 Predictor's
+           own gap); K1 at the band shapes
+           (1024,4096,8) and (16384,16384,8) and K2 on a (256,256) diagonal
+           tile against their plain forms (K2 beside cholesky_ex +
+           solve_triangular); 19c the host-facing statistics on the card
+           (host arrays that numpy reduces: fault F3). Every phase calls
+           the statistics as a user does (host arrays); a check that
+           compares device tensors puts them back on the card (on_card)
 
 The kernel counts are set to 0 just before each path (phases 3-4, phase 5)
 and read just after; the Bayesian path's counts are zeroed and read around
@@ -288,7 +313,9 @@ kernels have no K1 gram), and phase 16's around 16d's float32 evaluation
 and field_rate (16a-c, 16e-f are held to no launch), and phase 17's around
 17a-c's float32 evaluations and 17d's serving, and phase 18's around
 18a's suggest calls and 18f's searches (and 18d's and 18e's fan-outs, to
-the batched records), so warm-ups, profiles,
+the batched records), and phase 19's in each rank around 19a's timed
+evaluation and 19b's evaluations, MAP search and predictor (the band
+records), so warm-ups, profiles,
 float64 twins and reference checks are not counted.  10f's loader process runs beside phase 11 and is
 read after it.  The shape records count a subset of the two
 totals of their kernel: the slab (phase 12's), the cross gram and m=512
@@ -483,7 +510,30 @@ def top_ops(averages, label, count=12):
 
 
 def finite(t):
+    if isinstance(t, np.ndarray):
+        return bool(np.isfinite(t).all())
     return bool(torch.isfinite(t).all())
+
+
+def host64(value):
+    """A statistic (a host array or a tensor anywhere) as a float64 host
+    array."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().double().cpu().numpy()
+    return np.asarray(value, np.float64)
+
+
+def on_card(value):
+    """A host-facing statistic's host arrays (those of a dict, tuple or
+    list too) as tensors on the card, for the checks that compare device
+    tensors: the user's call, its host copy included, has run first."""
+    if isinstance(value, np.ndarray):
+        return torch.as_tensor(value, device="cuda")
+    if isinstance(value, dict):
+        return type(value)({k: on_card(v) for k, v in value.items()})
+    if isinstance(value, (tuple, list)):
+        return type(value)(on_card(v) for v in value)
+    return value
 
 
 def fmt_ms(t):
@@ -723,8 +773,8 @@ def serve(process, rng, batches, m, d, label, params=None):
         times.append((time.perf_counter() - t0) * 1e3)
         for k in ("mean", "std", "quantile_up", "quantile_down", "noise_std",
                   "noise_up", "noise_down"):
-            require(out[k].shape == (m,) and out[k].is_cuda and finite(out[k]),
-                    f"{label} batch {b}: {k} is not a finite ({m},) CUDA tensor")
+            require(isinstance(out[k], np.ndarray) and out[k].shape == (m,) and finite(out[k]),
+                    f"{label} batch {b}: {k} is not a finite ({m},) host array")
         require(bool((out["std"] > 0).all()), f"{label} batch {b}: std <= 0")
         require(bool((out["quantile_down"] <= out["quantile_up"]).all()),
                 f"{label} batch {b}: quantile_down > quantile_up")
@@ -756,7 +806,7 @@ def host_check(rng):
     params = gp.params_default
     logp = gp.logp(params)
     out = gp.predictor(params)(xq)
-    mean, std = out["mean"].cpu().numpy(), out["std"].cpu().numpy()
+    mean, std = np.asarray(out["mean"]), np.asarray(out["std"])
 
     p = {k: np.asarray(v, np.float64) for k, v in params.items()}
     bias, var = p["HOSTGP_Bias_Bias"], p["HOSTGP_SE_var"]
@@ -1317,7 +1367,7 @@ def phase6d(gp, gp_map, x, y):
         out = ap(xq)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        outs.append(out)
+        outs.append(on_card(out))
     k1, k2, _ = launches()
     path = [path[0] + k1, path[1] + k2]
     print(f"  averaged predictor, 16 rows of n=4096: set-up {t_setup * 1e3:.1f} ms; 8 batches "
@@ -1334,17 +1384,17 @@ def phase6d(gp, gp_map, x, y):
     # be off by at most twice the largest of those gaps.
     rows = range(len(ap.rows))
     singles32 = [gp.predictor({k: v[i] for k, v in ap.params.items()}) for i in rows]
-    got32 = [[pr(xq) for pr in singles32] for xq in queries]
+    got32 = [[on_card(pr(xq)) for pr in singles32] for xq in queries]
     del singles32
     g3t.settings.floatx = "float64"
     try:
         ap64 = gp.averaged_predictor(dt, max_rows=16)
         singles64 = [gp.predictor({k: v[i] for k, v in ap64.params.items()}) for i in rows]
-        got64 = [[pr(xq) for pr in singles64] for xq in queries]
+        got64 = [[on_card(pr(xq)) for pr in singles64] for xq in queries]
         avg64 = [{k: torch.stack([r[k] for r in refs]).mean(dim=0) for k in ("mean", "std")}
                  for refs in got64]
         scale = {k: max(float(a[k].abs().max()) for a in avg64) for k in ("mean", "std")}
-        machinery = predictor_gaps([ap64(xq) for xq in queries], avg64, scale)
+        machinery = predictor_gaps([on_card(ap64(xq)) for xq in queries], avg64, scale)
         del singles64, ap64
     finally:
         g3t.settings.floatx = "float32"
@@ -1625,8 +1675,8 @@ def surface_gaps(got, refs):
     return (
         {k: float(abs(got[k] - refs[k]) / abs(refs[k]))
          for k in ("_l1", "_l2", "_mse", "_nlpd", "_logp", "_loo")},
-        {k: float(np.abs(np.asarray(got[k], np.float64) - refs[k]).max()
-                  / np.abs(refs[k]).max()) for k in ("cov", "draws")})
+        {k: float(np.abs(host64(got[k]) - refs[k]).max() / np.abs(refs[k]).max())
+         for k in ("cov", "draws")})
 
 
 def surface_run(gp, params, xh, yh, xc, refs, path=None):
@@ -1650,14 +1700,13 @@ def surface_run(gp, params, xh, yh, xc, refs, path=None):
         out = gp.predict(params, mean=True, std=False, cov=True, samples=64, noise=True)
         torch.cuda.synchronize()
         t_cov = time.perf_counter() - t0
-    c = out["covariance"]
+    c = host64(out["covariance"])
     require(out["samples"].shape == (1024, 64) and finite(out["samples"]) and finite(c),
             "predict(cov=True, samples=64) is not finite")
-    asym = float((c - c.T).abs().max() / c.abs().max())
+    asym = float(np.abs(c - c.T).max() / np.abs(c).max())
     require(asym <= 1e-6, f"posterior covariance not symmetric ({asym:.3e})")
     draws = gp.sampler(params, samples=64, noise=True, rng=np.random.default_rng(70))
-    score_gaps, gaps = surface_gaps(
-        dict(sc, cov=c.double().cpu().numpy(), draws=draws.double().cpu().numpy()), refs)
+    score_gaps, gaps = surface_gaps(dict(sc, cov=c, draws=draws), refs)
     return dict(scores_ms=t_scores * 1e3, cov_samples_ms=t_cov * 1e3, asym=asym,
                 score_gaps=score_gaps, cov_gap=gaps["cov"], sample_gap=gaps["draws"])
 
@@ -1860,6 +1909,7 @@ def phase7c(rng, path, n=4096):
             out = pr(xq, mean=True, std=False, median=True, quantiles=True)
             torch.cuda.synchronize()
             batch_ms.append((time.perf_counter() - t0) * 1e3)
+        out = on_card(out)
         for k in ("mean", "median", "quantile_up", "quantile_down"):
             require(out[k].shape == (256,) and finite(out[k]), f"WGP batch {b}: {k}")
         require(bool((out["quantile_down"] <= out["median"]).all()
@@ -2031,7 +2081,7 @@ def host_tp_posterior(p, x, y, xq, dtype=np.float64):
 
 def stat_gap(got, ref):
     """max |got - ref| / max |ref| of each statistic."""
-    return {k: float(np.abs(got[k].double().cpu().numpy() - ref[k]).max() / np.abs(ref[k]).max())
+    return {k: float(np.abs(host64(got[k]) - ref[k]).max() / np.abs(ref[k]).max())
             for k in ref}
 
 
@@ -2515,8 +2565,8 @@ def phase8e(path_batched):
                    for i in range(len(ap64.rows))]
         machinery = 0.0
         for xq in queries:
-            got = ap64(xq, quantiles=True)
-            refs = [pr(xq, quantiles=True) for pr in singles]
+            got = on_card(ap64(xq, quantiles=True))
+            refs = [on_card(pr(xq, quantiles=True)) for pr in singles]
             for key in ("mean", "std"):
                 avg = torch.stack([r[key] for r in refs]).mean(dim=0)
                 machinery = max(machinery, float((got[key] - avg).abs().max() / avg.abs().max()))
@@ -3183,7 +3233,7 @@ def phase9e(x, y_pos, path):
             resid = latent - host_mean(wgp.f_location, vals, xt)
             loc = (host_mean(wgp.f_location, vals, qt) + host_cov(wgp.f_kernel, vals, qt, xt)
                    @ torch.cholesky_solve(resid[:, None], chol)[:, 0])
-            back, _ = host_mapping(wgp.f_mapping, vals, got["median"].double().cpu())
+            back, _ = host_mapping(wgp.f_mapping, vals, torch.as_tensor(host64(got["median"])))
             rec["newton_gap"] = float((back - loc).abs().max() / loc.abs().max())
             rec["batch_ms"] = t_batch
             require(all(finite(v) for v in got.values()) and rec["newton_gap"] <= 1e-3,
@@ -3280,8 +3330,8 @@ def map_params(gp_map, name):
 
 def stat_gaps(got, ref):
     """max |got - ref| / max |ref| for each key of ``ref``."""
-    return {k: float(np.abs(np.asarray(got[k], np.float64) - ref[k]).max()
-                     / np.abs(ref[k]).max()) for k in ref}
+    return {k: float(np.abs(host64(got[k]) - ref[k]).max() / np.abs(ref[k]).max())
+            for k in ref}
 
 
 def host_stats(reg, u, x, y, xq, dtype=np.float64):
@@ -3339,8 +3389,7 @@ def phase10a(x, y, gp_map, path):
             torch.cuda.synchronize()
             t_fresh = time.perf_counter() - t0
             ref = fresh(xq, **flags)
-            gaps = stat_gaps({k: v.cpu().numpy() for k, v in got.items()},
-                             {k: v.double().cpu().numpy() for k, v in ref.items()})
+            gaps = stat_gaps(got, {k: host64(v) for k, v in ref.items()})
             out[dtype] = dict(update_ms=t_up * 1e3, fresh_setup_ms=t_fresh * 1e3,
                               vs_fresh=gaps)
             print(f"  10a {dtype}: update of 256 onto 3840 {t_up * 1e3:.2f} ms, a fresh "
@@ -3355,7 +3404,7 @@ def phase10a(x, y, gp_map, path):
     u = reg.dict_to_array(params)
     x64, y64 = x.astype(np.float64), y.astype(np.float64)
     ref64 = host_stats(reg, u, x64, y64, xq)
-    got = {k: v.cpu().numpy() for k, v in pr2(xq, **flags).items()}
+    got = dict(pr2(xq, **flags))
     gaps = stat_gaps(got, ref64)
     for k, gap in gaps.items():
         held(gap, 1e-3, lambda k=k: stat_gaps(host_stats(reg, u, x, y, xq, np.float32),
@@ -3430,7 +3479,7 @@ def phase10b(gp, gp_map, path):
 
     def stats(pr):
         ref = pr(xq)
-        return ref["mean"].double().cpu().numpy(), ref["std"].double().cpu().numpy()
+        return host64(ref["mean"]), host64(ref["std"])
 
     z32, ratio32 = moments(draws, *stats(pr))
     reg = gp.active
@@ -3586,7 +3635,7 @@ def phase10c(gp, dt16, x, y, path, path_batched):
     witness's gap is printed beside it.  Then average(samples=2) through
     the row loop against the batched average."""
     reg = gp.active
-    rows = dt16[reg.param_names()]
+    rows = np.asarray(dt16[reg.param_names()])
     xq = np.random.default_rng(102).standard_normal((1024, 8)).astype(np.float32)
     torch.cuda.synchronize()
     with counted(path_batched):
@@ -3855,7 +3904,7 @@ def phase10e(path_batched):
         dt = wgp.sample_hypers(start=start, samples=400, chains=32, noise_mult=0.05, seed=2,
                                reparam="noncentered")
         t_s = time.perf_counter() - t0
-    rows = dt[wgp.active.param_names()]
+    rows = np.asarray(dt[wgp.active.param_names()])
     ll = wgp.logp_chain(rows)
     inside = dt["_ll"] > -1e29
     gap = float(np.max(np.abs(ll[inside] - dt["_ll"][inside])
@@ -3929,8 +3978,7 @@ def phase10f(gp, gp_map, x, path):
         t0 = time.perf_counter()
         pr.export(str(out_dir / name), **fl)
         t_export[name] = time.perf_counter() - t0
-        live[name] = {m: {k: v.cpu().numpy() for k, v in pr(xq[:m], **fl).items()}
-                      for m in (1, 256, 1000)}
+        live[name] = {m: dict(pr(xq[:m], **fl)) for m in (1, 256, 1000)}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pr(xq[:256], **fl)
@@ -4152,9 +4200,9 @@ def leaf_profile(logp, z, label):
 @card_only
 def phase11a(path_batched, warmup=8, samples=8):
     """The JAX package's sampler workload on NUTS (bench.py:769-800, cut
-    from 400 warmup and 300 samples for time, to 6 + 6 since the Laplace
-    and grid phases 16-17 came: its trees sit at depth ~7, a leaf is ~12 ms of
-    host-bound wall): WGP n=125 non-centered, dense mass,
+    from 400 warmup and 300 samples for time, to 4 + 4 since the Laplace,
+    grid and distributed phases 16-19 came: its trees sit at depth ~7, a
+    leaf is ~12-18 ms of host-bound wall): WGP n=125 non-centered, dense mass,
     target_accept 0.95, max_depth 7, 4 chains, through nuts_sampler as
     bench.py calls it, from the non-centered start that sample_hypers
     jitters (sample_hypers(method='nuts') itself runs in 11b and 11h)."""
@@ -4526,7 +4574,8 @@ def phase11f(path_batched, warmup=8, samples=8, ensemble=200):
     couplings, hidden 32; FLOW_STEPS steps, cut from 1500 for time), fitted
     once, timed, and NUTS in the
     latent space (depth 6, target_accept 0.95, dense mass, 4 chains, warmup
-    8, samples 8: cut from 60 + 60 for time, its trees at depth ~6); the
+    and samples 8 by default, 4 + 4 from ``phase11``: cut from 60 + 60 for
+    time, its trees at depth ~6); the
     same flow gives the round trip and feeds the replay.  The ensemble's
     draws set the replay's latent geometry: 120 iterations gave a flow
     whose CPU replay left its own 1e-12-nudged twin at the first sample,
@@ -4650,13 +4699,13 @@ PHASE11_RUNS = (phase11a, phase11b, phase11c, phase11d, phase11e, phase11f, phas
 def phase11(gp, gp_map, x, y, map_s, loo_opt, path_batched):
     """Phase 11's runs; their batched launches go to ``path_batched``."""
     map_logp = float(gp.logp(gp_map))
-    runs = (("11a", "NUTS, the n=125 sampler workload", lambda p: phase11a(p, warmup=6, samples=6)),
+    runs = (("11a", "NUTS, the n=125 sampler workload", lambda p: phase11a(p, warmup=4, samples=4)),
             ("11b", "NUTS card vs CPU replay (float64)", lambda p: phase11b(p)),
             ("11c", "NUTS at n=4096", lambda p: phase11c(gp, gp_map, x, y, p)),
             ("11d", "find_MAP(engine='jax') at n=4096",
              lambda p: phase11d(gp, x, y, map_logp, map_s, loo_opt, p)),
             ("11e", "ADVI at n=125", lambda p: phase11e(p)),
-            ("11f", "NeuTra at n=125", lambda p: phase11f(p, warmup=6, samples=6)),
+            ("11f", "NeuTra at n=125", lambda p: phase11f(p, warmup=4, samples=4)),
             ("11g", "HMC at n=125", lambda p: phase11g(p)),
             ("11h", "sample_hypers(method=...) at n=125", lambda p: phase11h(p)))
     out = {}
@@ -5037,7 +5086,7 @@ def phase12e(gp, gp_map, x, path):
     the peak memory."""
     rng = np.random.default_rng(21)
     xq = rng.standard_normal((256, x.shape[1])).astype(np.float32)
-    dense = gp.predictor(gp_map)(xq)
+    dense = on_card(gp.predictor(gp_map)(xq))
     out = {}
     for dtype in (None, "float64"):
         zero_counts()
@@ -5047,6 +5096,7 @@ def phase12e(gp, gp_map, x, path):
         torch.cuda.synchronize()
         t = time.perf_counter() - t0
         path[0] += stationary_gram.launches
+        got = on_card(got)
         gaps = {k: float((got[k] - dense[k]).abs().max()
                          / (5e-3 + 5e-3 * float(dense[k].abs().max()))) for k in ("mean", "std")}
         out[dtype or "float32"] = dict(s=t, residual=pr.cg_rel_residual, gaps=gaps)
@@ -5057,9 +5107,9 @@ def phase12e(gp, gp_map, x, path):
     # pathwise draws against the predictor's moments
     samples = 512
     zero_counts()
-    draws = pr.sampler(space=xq[:64], samples=samples, key=0, n_features=4096)
+    draws = on_card(pr.sampler(space=xq[:64], samples=samples, key=0, n_features=4096))
     path[0] += stationary_gram.launches
-    mu, sd = pr.mean(xq[:64]), pr.std(xq[:64])
+    mu, sd = on_card(pr.mean(xq[:64])), on_card(pr.std(xq[:64]))
     z_mean = float(((draws.mean(1) - mu).abs() / (sd / math.sqrt(samples))).max())
     z_std = float(((draws.std(1) - sd).abs() / (sd / math.sqrt(2 * samples))).max())
     print(f"  12e sampler: {samples} paths at 64 points, |mean - mu| {z_mean:.2f} and |std - sd| "
@@ -5375,7 +5425,7 @@ def phase13b(sgp, params, x, y, z, path):
         if b < 2:
             mean, std = with_host_threads(lambda: host_sparse_posterior(
                 reg, u, x64, y64, torch.as_tensor(xq, dtype=torch.float64), "P13A"))
-            gaps.append({k: rel_gap(out[k].cpu().numpy(), ref)
+            gaps.append({k: rel_gap(np.asarray(out[k]), ref)
                          for k, ref in (("mean", mean), ("std", std))})
     worst = {k: max(g[k] for g in gaps) for k in gaps[0]}
     print(f"  13b SGP Predictor n={len(x)} m={len(z)}: set-up {t_setup * 1e3:.1f} ms, a batch "
@@ -5394,7 +5444,7 @@ def phase13b(sgp, params, x, y, z, path):
         t_upd = time.perf_counter() - t0
     xq = rng.standard_normal((256, SP_D)).astype(np.float32)
     got, fresh = upd(xq), pr(xq)
-    upd_gap = {k: rel_gap(got[k].cpu().numpy(), fresh[k].cpu().numpy()) for k in ("mean", "std")}
+    upd_gap = {k: rel_gap(got[k], fresh[k]) for k in ("mean", "std")}
     print(f"  13b updated: 256 points onto {n0} in {t_upd * 1e3:.2f} ms (a fresh set-up "
           f"{t_setup * 1e3:.1f} ms); vs the fresh state {upd_gap}", flush=True)
     require(max(upd_gap.values()) <= 1e-3, f"13b updated vs fresh {upd_gap}")
@@ -5405,7 +5455,7 @@ def phase13b(sgp, params, x, y, z, path):
         draws = pr.pathwise_sampler(space=xq[:64], samples=samples, key=0, n_features=4096)
         torch.cuda.synchronize()
         t_path = time.perf_counter() - t0
-    mu, sd = fresh["mean"][:64], fresh["std"][:64]
+    mu, sd = on_card(fresh["mean"][:64]), on_card(fresh["std"][:64])
     z_mean = float(((draws.mean(1) - mu).abs() / (sd / math.sqrt(samples))).max())
     z_std = float(((draws.std(1) - sd).abs() / (sd / math.sqrt(2 * samples))).max())
     print(f"  13b pathwise: {samples} paths at 64 points in {t_path * 1e3:.1f} ms; |mean - mu| "
@@ -5784,7 +5834,7 @@ def phase14a(x, y, path, path_batched):
         out = pr(xq)
         torch.cuda.synchronize()
     ref_s = host_dkl_posterior(reg, uf, x, y, xq, name)
-    gaps = {k: rel_gap(out[k].cpu().numpy(), ref_s[k]) for k in ref_s}
+    gaps = {k: rel_gap(out[k], ref_s[k]) for k in ref_s}
 
     def witness():
         w32 = host_dkl_posterior(reg, uf, x, y, xq, name, torch.float32)
@@ -5797,7 +5847,7 @@ def phase14a(x, y, path, path_batched):
         draws = pr.pathwise_sampler(space=xq, samples=samples, key=0, n_features=PATH_FEATURES)
         torch.cuda.synchronize()
         t_path = time.perf_counter() - t0
-    mu, sd = out["mean"], out["std"]
+    mu, sd = on_card(out["mean"]), on_card(out["std"])
     z_mean = float(((draws.mean(1) - mu).abs() / (sd / math.sqrt(samples))).max())
     z_std = float(((draws.std(1) - sd).abs() / (sd / math.sqrt(2 * samples))).max())
     print(f"  14a Predictor batch of 256 vs the float64 host {gaps} (limit {limit:.1e}); "
@@ -6473,14 +6523,14 @@ def phase15c(proc):
     require(launches()[:2] == (0, 0), f"15c launched K1/K2 {launches()[:2]}, predicted none")
     with port_on("cpu", "float64"):
         cpu, _, _ = ssgp_model("P15A")
-        mean64 = cpu.mean(params, tq).numpy()
-        var64 = cpu.variance(params, tq).numpy()
+        mean64 = cpu.mean(params, tq)
+        var64 = cpu.variance(params, tq)
         quant64 = cpu.quantiler(params, tq, q=0.975)
         samp64 = cpu.sampler(params, tq, samples=16, seed=draws)
     with port_on("cpu", "float32"):
         samp32 = ssgp_model("P15A")[0].sampler(params, tq, samples=16, seed=draws)
-    gaps = {"mean": rel_gap(stats["mean"].cpu().numpy(), mean64),
-            "variance": rel_gap(stats["variance"].cpu().numpy(), var64),
+    gaps = {"mean": rel_gap(stats["mean"], mean64),
+            "variance": rel_gap(stats["variance"], var64),
             "quantile": rel_gap(quant, quant64), "draws": rel_gap(samp, samp64)}
     # a float32 prior trajectory carries Q = Pinf - A Pinf A' at steps of
     # ~1/50 with its cancellation: the draws are held within WITNESS_FACTOR
@@ -6735,17 +6785,17 @@ def phase15(path):
 # 8 Newton steps, the script's chunked-vs-plain gate, the gaussian identity
 # with StateSpaceGP, the chunked route at its second size, the two-channel
 # Poisson + Bernoulli fusion at 15b's event counts, the spatio-temporal Cox
-# process at 15d's layout (64 events a site: each Newton step is a pass of
+# process at 15d's layout (32 events a site: each Newton step is a pass of
 # 15d's size), serving and 16 rows.  Only 16d reaches K1 (the site gram and
 # the field's cross gram) and K2 (the sites' factor).  Witnesses: the card
 # in float64 (values 1e-3, gradients 1e-2 along two random directions).
 NG_N = 1 << 18                 # ngssm_scale.py's first timed size
 NG_CHUNKED_N = 1 << 20         # its second, past its threshold of 2^18
 NG_ITERS = 8                   # ngssm_scale.py:95-96
-NG_CHUNKED_ITERS = 2           # 16b: cut in depth (Newton steps) for time
+NG_CHUNKED_ITERS = 1           # 16b: cut in depth (Newton steps) for time
 NG_GATE_N = 8192               # ngssm_scale.py:61-83's gate
 NG_ROWS_N = 16384              # 16f: 15f's n
-NGST_PER_SITE = 64             # 16d: cut in depth from 15d's 512
+NGST_PER_SITE = 32             # 16d: cut in depth from 15d's 512
 
 
 @contextlib.contextmanager
@@ -6780,7 +6830,7 @@ def ngssgp_model(name, n, seed=0, span=None, lik=None):
     return proc, x, y
 
 
-NG_GATE_ITERS = 6   # 16a's gate: ngssm_scale.py takes 15 Newton steps (cut in depth for time)
+NG_GATE_ITERS = 4   # 16a's gate: ngssm_scale.py takes 15 Newton steps (cut in depth for time)
 
 
 def ngssm_gate():
@@ -6895,7 +6945,7 @@ def phase16c():
 
 def ngst_model(name, seed=23):
     """A spatio-temporal Poisson Cox process on 15d's layout: 32 sites on
-    the jittered 8 x 4 grid, 64 events a site on (0, 100), intensity
+    the jittered 8 x 4 grid, 32 events a site on (0, 100), intensity
     exp(0.5 + sin(2 pi t / 20 + 0.5 x) cos(0.4 y)); MAT32 x SE (S=64), the
     SE's rate at the grid's spacing."""
     sites = st_sites()
@@ -6924,7 +6974,8 @@ def phase16d(path):
     with laplace_settings():
         proc, params, _, _ = ngst_model("P16D")
         u = proc.active.dict_to_array(params)
-        rec = evaluation_record(proc, u, "16d NGSTSSGP m=32 S=64 n=2048", reps=1, path=path,
+        rec = evaluation_record(proc, u, f"16d NGSTSSGP m=32 S=64 n={ST_SITES * NGST_PER_SITE}",
+                                reps=1, path=path,
                                 predict=(1, 1), profiled=False, warm=False,
                                 predict_k1={f"se (1, {ST_SITES}, {ST_SITES}, 2)": 1})
         rec["witness"] = held_value_grad(
@@ -6999,14 +7050,14 @@ def phase16e(proc):
         require(launches()[:2] == (0, 0), f"16e launched K1/K2 {launches()[:2]}")
         with port_on(CARD, "float64"):
             p64 = ngssgp_model("P16A", NG_N)[0]
-            mean64 = p64.mean(params, tq).cpu().numpy()
-            var64 = p64.variance(params, tq, noise=True).cpu().numpy()
+            mean64 = p64.mean(params, tq)
+            var64 = p64.variance(params, tq, noise=True)
             quant64 = p64.quantiler(params, tq, q=0.975)
             latent64 = p64.sampler(params, tq, samples=16, seed=draws)
-            loc64 = p64.location(params, tq).cpu().numpy()
-            kd64 = p64.kernel_diag(params, tq).cpu().numpy()
-    gaps = {"mean": rel_gap(stats["mean"].cpu().numpy(), mean64),
-            "variance": rel_gap(stats["variance"].cpu().numpy(), var64),
+            loc64 = p64.location(params, tq)
+            kd64 = p64.kernel_diag(params, tq)
+    gaps = {"mean": rel_gap(stats["mean"], mean64),
+            "variance": rel_gap(stats["variance"], var64),
             "quantile": rel_gap(quant, quant64)}
     limits = {"mean": 1e-3, "variance": 1e-3, "quantile": 1e-3}
     draw_stats = {"z2": float(np.mean((latent.mean(1) - loc64) ** 2 / (kd64 / 16))),
@@ -7090,7 +7141,7 @@ def phase16(path):
     runs = (("16a", "NonGaussianSSGP(MAT32, Poisson) n=262144 (ngssm_scale.py)", first),
             ("16b", "the chunked route at n=1048576", phase16b),
             ("16c", "NonGaussianMultiSSGP(Poisson, Bernoulli) 9830 + 6554", phase16c),
-            ("16d", "NonGaussianSTSSGP m=32 S=64 n=2048 (the Cox process)",
+            ("16d", f"NonGaussianSTSSGP m=32 S=64 n={ST_SITES * NGST_PER_SITE} (the Cox process)",
              lambda: phase16d(path)),
             ("16e", "serving on 16a's model", lambda: phase16e(models["proc"])),
             ("16f", "16 rows at n=16384", phase16f))
@@ -7294,7 +7345,7 @@ def phase17d(grid, ski, path):
         s64 = ski_model("P17C")[0]
         ps64 = s64.predictor(s64.params_default)
         s64_stats = ps64.predict(xs, mean=True, std=False, var=True)
-    npy = lambda t: t.cpu().numpy()  # noqa: E731
+    npy = np.asarray
     gaps = {"grid_mean": rel_gap(npy(g_stats["mean"]), npy(gm64)),
             "grid_variance": rel_gap(npy(g_stats["variance"]), npy(gv64)),
             "ski_mean": rel_gap(npy(s_stats["mean"]), npy(s64_stats["mean"])),
@@ -7369,7 +7420,7 @@ xs = rng.uniform(-2, 2, (n, 2)).astype(np.float32)
 ys = (np.sin(3 * xs[:, 0]) + 0.5 * xs[:, 1] ** 2 + 0.1 * rng.standard_normal(n)).astype(np.float32)
 zoo = {"SE": g3t.SE, "SE0": (lambda x_, name=None: g3t.SE([0], name=name)),
        "SE1": (lambda x_, name=None: g3t.SE([1], name=name))}
-res = g3t.search_kernel(xs, ys, bases=("SE", "SE0", "SE1"), depth=2, points=1, zoo=zoo,
+res = g3t.search_kernel(xs, ys, bases=("SE", "SE0", "SE1"), depth=1, points=1, zoo=zoo,
                         expand="all")
 print(json.dumps({"winner": res.best_name, "evaluated": len(res.table)}))
 '''
@@ -7787,13 +7838,14 @@ def phase18e(x_map, scipy_l2, path):
 
 def phase18f(x_map, y_map, cpu, path):
     """The kernel structure search: (i) tutorial 03's additive 2-D problem,
-    n=140, bases SE/SE0/SE1, depth 2, expand='all' — the winner is the CPU
-    port's (``cpu``, a process started earlier); (ii) phase 5's data at
-    n=4096, bases SE and MAT52, depth 1, root: every candidate finite."""
+    n=140, bases SE/SE0/SE1, depth 1 (9 host-bound fits; depth 2's 28 took
+    41 s), expand='all' — the winner is the CPU port's (``cpu``, a process
+    started earlier); (ii) phase 5's data at n=4096, bases SE and MAT52,
+    depth 1, root: every candidate finite."""
     xs, ys, zoo = tut03_search_data()
     with counted(path):
         t0 = time.perf_counter()
-        res = g3t.search_kernel(xs, ys, bases=("SE", "SE0", "SE1"), depth=2, points=1,
+        res = g3t.search_kernel(xs, ys, bases=("SE", "SE0", "SE1"), depth=1, points=1,
                                 zoo=zoo, expand="all")
         t_i = time.perf_counter() - t0
     out_cpu, err = cpu.communicate(timeout=600)
@@ -7894,6 +7946,181 @@ def phase18(gp, gp_map, x_map, y_map, dt16, scipy_l2, path, path_batched, cpu=No
         if cpu.poll() is None:
             cpu.kill()
             cpu.wait()
+    return out
+
+
+# ---------------------------------------------------------------- phase 19
+P19_N, P19_BLOCK, P19_MAP_ITERS, P19_RANKS = 16384, 256, 30, 4
+
+
+def band_k2(a):
+    """K2 on one (256, 256) diagonal tile of the band Cholesky: the m=512
+    record's checks and times (:func:`sparse_k2`), its library time that of
+    the pair it replaces, ``cholesky_ex`` and the inverse by
+    ``solve_triangular``."""
+    rec = sparse_k2(a, label="the band's diagonal tile")
+    eye = torch.eye(a.shape[0], device=a.device, dtype=a.dtype)
+
+    def pair():
+        lkk = torch.linalg.cholesky_ex(a)[0]
+        return torch.linalg.solve_triangular(lkk, eye, upper=False)
+
+    rec["library_ms"] = back_to_back_ms(pair)
+    print(f"  cholesky_ex + solve_triangular on the tile: {rec['library_ms']:.4f} ms (events, "
+          "back to back)", flush=True)
+    return rec
+
+
+def phase19a(x_map, y_map, u_off):
+    """The world of one (NCCL) at n=16384, and the n=4096 references (the
+    GP at ``u_off``, phase 5's MAP moved off its zero gradient; the TP at
+    its defaults)."""
+    from g3py_tpu_torch.parallel.launch import run_local
+
+    payload = dict(seed=19, n=P19_N, d=x_map.shape[1], block=P19_BLOCK, x4=x_map, y4=y_map,
+                   u4={"gp": u_off, "tp": None})
+    a = run_local(1, "g3py_tpu_torch.tools.dist_smoke:world_of_one", payload,
+                  backend="nccl" if CARD.startswith("cuda") else "gloo", device=CARD,
+                  timeout=600, collective_timeout=120)[0]
+    (v, g), (v64, g64), (v32, g32) = a["band"], a["float64"], a["single32"]
+    dgaps, _ = directional_gaps(g, g64, 191)
+    gap = abs(v - v64) / abs(v64)
+    require(gap <= 1e-3 and max(dgaps) <= 1e-2,
+            f"19a: the band NLL {v} vs float64 {v64} (gap {gap:.2e}), gradient gaps {dgaps}")
+    k1, k2 = a["launches"]
+    require((k1, k2) == (2, P19_N // P19_BLOCK) or not CARD.startswith("cuda"),
+            f"19a: K1/K2 launches an evaluation {(k1, k2)}, predicted (2, {P19_N // P19_BLOCK})")
+    single_gaps, _ = directional_gaps(g32, g64, 191)
+    summary = dict(band_ms=a["band_ms"], peak_gb=a["peak_gb"], launches=a["launches"],
+                   value_gap=gap, dir_gaps=dgaps, single_value_gap=abs(v32 - v64) / abs(v64),
+                   single_dir_gaps=single_gaps)
+    print(f"  19a world of one (NCCL), GP n={P19_N} d=8 block {P19_BLOCK}: nll_distributed + "
+          f"gradient {a['band_ms']:.1f} ms an evaluation, peak {a['peak_gb'] or 0.0:.2f} GB, K1/K2 "
+          f"{k1}/{k2}; vs float64: value {gap:.2e}, gradient along two directions "
+          f"{[f'{t:.2e}' for t in dgaps]} (the single-device float32 path: value "
+          f"{summary['single_value_gap']:.2e}, gradient {[f'{t:.2e}' for t in single_gaps]})",
+          flush=True)
+    return summary, a
+
+
+def phase19b(x_map, y_map, u_off, gp, gp_map, a):
+    """Four gloo ranks sharing the card at n=4096: the objectives at 19a's
+    points, the predictor at phase 5's MAP."""
+    from g3py_tpu_torch.parallel.launch import run_local
+
+    xq = np.random.default_rng(192).standard_normal((256, x_map.shape[1])).astype(np.float32)
+    payload = dict(x4=x_map, y4=y_map, u4={"gp": u_off, "tp": None}, block=P19_BLOCK,
+                   max_iters=P19_MAP_ITERS, xq=xq,
+                   u_pred=np.asarray(gp.active.dict_to_array(gp_map), np.float32))
+    ranks = run_local(P19_RANKS, "g3py_tpu_torch.tools.dist_smoke:four_ranks", payload,
+                      backend="gloo", device=CARD, timeout=600, collective_timeout=120)
+    out = {"launches": [sum(r["launches"][i] for r in ranks) for i in (0, 1)]}
+    nb = x_map.shape[0] // P19_BLOCK
+    for r in ranks:
+        require(r["eval_launches"] == (2, nb) or not CARD.startswith("cuda"),
+                f"19b rank {r['rank']}: K1/K2 launches an evaluation {r['eval_launches']}, "
+                f"predicted (2, {nb})")
+        for kind in ("gp", "tp"):
+            (v, g), (w, gw) = r[kind], a[kind + "4096"]["band"]
+            (v64, g64) = a[kind + "4096"]["float64"]
+            require(v == ranks[0][kind][0] and np.array_equal(g, ranks[0][kind][1]),
+                    f"19b: the ranks' {kind} values differ")
+            gap, gap1 = abs(v - v64) / abs(v64), abs(v - w) / abs(w)
+            dgaps, _ = directional_gaps(g, g64, 193)
+            require(gap <= 1e-3 and max(dgaps) <= 1e-2 and gap1 <= 1e-4,
+                    f"19b {kind}: {v} vs float64 {v64} ({gap:.2e}) and the world of one {w} "
+                    f"({gap1:.2e}); gradient gaps {dgaps}")
+            out[kind] = dict(value_gap=gap, world_of_one_gap=gap1, dir_gaps=dgaps)
+    lp_scipy = gp.logp(gp_map)
+    lp_dist = gp.logp(ranks[0]["map_u"], array=True)  # the same model's registry order
+    require(lp_dist >= lp_scipy - 2.0, f"19b: find_MAP(engine='distributed') logp {lp_dist} "
+            f"vs the scipy optimum {lp_scipy}")
+    # the band predictor against the single-device Predictor: at the
+    # defaults within tutorial 11's 2e-3; at phase 5's MAP (cond(K) ~1e7 in
+    # float32) both against the float64 Predictor, the band's gap within 4x
+    # the single-device float32 Predictor's own (ROADMAP: f32 at an
+    # ill-conditioned MAP)
+    def gaps(got, want):
+        return {k: float(np.max(np.abs(np.asarray(got[k], np.float64) - want[k]))
+                         / (np.max(np.abs(want[k])) + 1e-9))
+                for k in ("mean", "std", "quantile_up")}
+
+    pred_gaps = gaps(ranks[0]["pred"]["default"], gp.predictor(gp.params_default)(
+        xq, quantiles=True))
+    require(max(pred_gaps.values()) < 2e-3, f"19b: predictor_distributed vs Predictor at the "
+            f"defaults {pred_gaps}")
+    g3t.set_floatx("float64")
+    try:
+        want64 = {k: np.asarray(v, np.float64) for k, v in gp.predictor(gp_map)(
+            xq, quantiles=True).items()}
+    finally:
+        g3t.set_floatx("float32")
+    map_gaps = gaps(ranks[0]["pred"]["map"], want64)
+    witness = gaps(gp.predictor(gp_map)(xq, quantiles=True), want64)
+    require(all(map_gaps[k] <= 4 * witness[k] + 1e-6 for k in map_gaps),
+            f"19b: predictor_distributed at the MAP vs float64 {map_gaps}, the float32 "
+            f"Predictor's {witness}")
+    pred_gaps.update({f"map_{k}": v for k, v in map_gaps.items()})
+    pred_gaps.update({f"map_witness_{k}": v for k, v in witness.items()})
+    shares = [r["collective_share"] for r in ranks]
+    out.update(eval_ms=[r["eval_ms"] for r in ranks], collective_share=shares,
+               collectives=[r["collectives"] for r in ranks],
+               map_s=ranks[0]["map_s"], map_logp=lp_dist, scipy_logp=lp_scipy,
+               pred_gaps=pred_gaps, peak_gb=max(r["peak_gb"] or 0.0 for r in ranks))
+    print(f"  19b {P19_RANKS} gloo ranks on one card, n={x_map.shape[0]}: an evaluation "
+          f"{[round(t, 1) for t in out['eval_ms']]} ms (host-clock share in collectives "
+          f"{[round(t, 3) for t in shares]}; rank 0's ops, calls and ms: "
+          f"{ {k: (c, round(ms, 1)) for k, (c, ms) in ranks[0]['collectives'].items()} }); "
+          f"GP {out['gp']}, TP {out['tp']}; find_MAP "
+          f"{out['map_s']:.1f} s, logp {lp_dist:.3f} vs scipy's {lp_scipy:.3f}; the predictor "
+          f"vs the Predictor {pred_gaps}; peak {out['peak_gb']:.2f} GB a rank", flush=True)
+    return out
+
+
+def phase19c(gp, gp_map, x_map):
+    """The host-facing statistics on the card: a
+    user's numpy on ``predict``, a statistic and a Predictor's batch."""
+    xq = x_map[:64]
+    pred = gp.predict(gp_map, space=xq, quantiles=True)
+    stats = [pred[k] for k in pred] + [gp.mean(gp_map, space=xq),
+                                       gp.predictor(gp_map)(xq)["std"]]
+    require(all(isinstance(v, np.ndarray) and np.all(np.isfinite(v)) for v in stats),
+            "19c: a statistic is not a finite host array")
+    require(np.all(np.asarray(pred["quantile_up"]) >= pred["quantile_down"]), "19c: bands")
+    print(f"  19c predict/mean/Predictor on the card give host arrays: "
+          f"{sorted({type(v).__name__ for v in stats})}, mean of the mean "
+          f"{float(np.mean(pred['mean'])):.4f}", flush=True)
+
+
+def phase19(gp, gp_map, x_map, y_map, path):
+    """Phase 19's runs; the ranks' main-path launches go to ``path``."""
+    torch.cuda.empty_cache()  # the ranks' processes share the card with this one
+    # the objectives off the MAP, where the gradient is not ~0 and a
+    # directional gap is a gap of the gradient, not of its rounding
+    u_off = np.asarray(gp.active.dict_to_array(
+        {k: np.asarray(v) * 1.1 for k, v in gp_map.items()}), np.float32)
+    print(f"phase 19a: a world of one over NCCL, GP n={P19_N}", flush=True)
+    t0 = time.perf_counter()
+    out = {}
+    out["19a"], ranks_a = phase19a(x_map, y_map, u_off)
+    out["19a"]["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 19a wall {out['19a']['wall_s']:.1f} s", flush=True)
+    print(f"phase 19b: {P19_RANKS} gloo ranks sharing the card, n={len(x_map)}", flush=True)
+    t0 = time.perf_counter()
+    out["19b"] = phase19b(x_map, y_map, u_off, gp, gp_map, ranks_a)
+    out["19b"]["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 19b wall {out['19b']['wall_s']:.1f} s", flush=True)
+    for i in (0, 1):
+        path[i] += out["19a"]["launches"][i] + out["19b"]["launches"][i]
+    gen = torch.Generator(device=CARD).manual_seed(19)
+    rate, var = torch.full((8,), 0.5, device=CARD), torch.tensor(1.1, device=CARD)
+    x16 = torch.randn(P19_N, 8, generator=gen, device=CARD)
+    out["k1_band"] = k1_record(x16[:1024], x16[:4096], rate, var, "K1 band (D=4)")
+    out["k1_band_16384"] = k1_record(x16, x16, rate, var, "K1 band (D=1)")
+    tile = se_gram_plus_noise(P19_BLOCK, torch.float32, 19).to(CARD)
+    out["k2_tile"] = band_k2(tile)
+    print("phase 19c: the host-facing statistics on the card (fault F3)", flush=True)
+    phase19c(gp, gp_map, x_map)
     return out
 
 
@@ -8160,6 +8387,17 @@ def main():
           f"{p18_batched[1]}; phase 18 {t18:.1f} s", flush=True)
     require(min(p18 + p18_batched) > 0, "phase 18 did not go through both kernels")
 
+    # ---- item 16a (the band-sharded objective over torch.distributed): the
+    # counts are zeroed before, and read after, the main path in each rank
+    # (19a's timed evaluation; 19b's evaluations, MAP search and predictor)
+    p19 = [0, 0]
+    t19 = time.perf_counter()
+    band = phase19(tgp, gp_map, x_map, y_map, p19)
+    t19 = time.perf_counter() - t19
+    print(f"  launches in phase 19 (every rank): K1 {p19[0]}, K2 {p19[1]}; phase 19 "
+          f"{t19:.1f} s", flush=True)
+    require(p19[0] > 0 and p19[1] > 0, "phase 19 did not go through both kernels")
+
     shape = (4096, 4096, 8)
     k1t = dict(k1_timing[("se", shape)], bound_ms=k1_bound_ms(*shape), bound_by="bytes")
     k1b = dict(k1b_timing[(16, 4096, 4096, 8)], bound_by="bytes")
@@ -8204,6 +8442,8 @@ def main():
     bo_screen = dict(bo["k1_screen"], bound_by="bytes")
     bo_ascent = dict(bo["k1_ascent"], bound_by="bytes")
     bo_k2, fan_d, fan_e = bo["k2_ragged"], bayes_opt["18d"], bayes_opt["18e"]
+    band_k1 = dict(band["k1_band"], bound_by="bytes")
+    band_k1_16384, band_k2_rec = band["k1_band_16384"], band["k2_tile"]
     k1_src = dict(route="cuda", source="g3py_tpu_torch/csrc/stationary_gram.cu",
                   replaces="g3py_tpu/ops/pallas_gram.py:81")
     k2_src = dict(route="cuda", source="g3py_tpu_torch/csrc/panel_cholesky.cu",
@@ -8216,19 +8456,21 @@ def main():
     record = {"kernels": [
         {"name": "stationary_gram", **k1_src,
          "launches": (k1_serve + k1_train + k1_p7 + p8[0] + p9[0] + p10[0] + p12[0]
-                      + p13[0] + p14[0] + p15[0] + p16[0] + p17[0] + p18[0]),
+                      + p13[0] + p14[0] + p15[0] + p16[0] + p17[0] + p18[0] + p19[0]),
          "max_abs_err": max(k1_worst, catalogue["k1_algebra_err"]["single"],
                             slab["max_abs_err"], cross["max_abs_err"],
                             features["max_abs_err"], sites["max_abs_err"],
                             sites_cross["max_abs_err"], ng_sites["max_abs_err"],
                             g_mat52["max_abs_err"], g_se["max_abs_err"],
                             s_mat52["max_abs_err"], s_se["max_abs_err"],
-                            bo_screen["max_abs_err"], bo_ascent["max_abs_err"]), **timed(k1t)},
+                            bo_screen["max_abs_err"], bo_ascent["max_abs_err"],
+                            band_k1["max_abs_err"], band_k1_16384["max_abs_err"]),
+         **timed(k1t)},
         {"name": "panel_cholesky", **k2_src,
          "launches": (k2_serve + k2_train + k2_p7 + p8[1] + p9[1] + p10[1] + p12[1]
-                      + p13[1] + p14[1] + p15[1] + p16[1] + p17[1] + p18[1]),
+                      + p13[1] + p14[1] + p15[1] + p16[1] + p17[1] + p18[1] + p19[1]),
          "max_abs_err": max(k2_worst, k2s["max_abs_err"], ng_k2["max_abs_err"],
-                            bo_k2["max_abs_err"]), **timed(k2t)},
+                            bo_k2["max_abs_err"], band_k2_rec["max_abs_err"]), **timed(k2t)},
         {"name": "stationary_gram_batched", **k1_src,
          "launches": (k1_bayes + p8_batched[0] + p9_batched[0] + p10_batched[0]
                       + p11_batched[0] + p13_batched[0] + p14_batched[0] + p18_batched[0]),
@@ -8286,7 +8528,12 @@ def main():
         {"name": "stationary_gram_fanout_n4096", **k1_src, "launches": new_uses["fanout_4096"],
          "max_abs_err": fan_e["k1"]["max_abs_err"], **timed(fan_e["k1"])},
         {"name": "panel_cholesky_fanout_n4096", **k2_src, "launches": fan_e["launches"][1],
-         "max_abs_err": fan_e["k2"]["max_abs_err"], **timed(fan_e["k2"])}]}
+         "max_abs_err": fan_e["k2"]["max_abs_err"], **timed(fan_e["k2"])},
+        {"name": "stationary_gram_band", **k1_src, "launches": p19[0],
+         "max_abs_err": max(band_k1["max_abs_err"], band_k1_16384["max_abs_err"]),
+         **timed(band_k1)},
+        {"name": "panel_cholesky_band_diag", **k2_src, "launches": p19[1],
+         "max_abs_err": band_k2_rec["max_abs_err"], **timed(band_k2_rec)}]}
     print(f"  K1 at {shape} SE f32: kernel {k1t['ms']:.4f} ms (events, back to back), device "
           f"{fmt_ms(k1t['device_ms'])} (profiler, a launch), wrapper {k1t['wrapper_ms']:.4f} "
           f"ms, plain {k1t['plain_ms']:.4f} ms, bound {k1t['bound_ms']:.4f} ms", flush=True)
@@ -8306,9 +8553,11 @@ def main():
     print(f"  phase 16: {json.dumps(laplace, default=float)}", flush=True)
     print(f"  phase 17: {json.dumps(grids, default=float)}", flush=True)
     print(f"  phase 18: {json.dumps(bayes_opt, default=float)}", flush=True)
+    print(f"  phase 19: {json.dumps(band, default=float)}", flush=True)
     print(f"  command time {time.perf_counter() - T_START:.1f} s (phase 12 {t12:.1f} s, "
           f"phase 13 {t13:.1f} s, phase 14 {t14:.1f} s, phase 15 {t15:.1f} s, phase 16 "
-          f"{t16:.1f} s, phase 17 {t17:.1f} s, phase 18 {t18:.1f} s)", flush=True)
+          f"{t16:.1f} s, phase 17 {t17:.1f} s, phase 18 {t18:.1f} s, phase 19 {t19:.1f} s)",
+          flush=True)
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,7 +19,13 @@ toolkit (densities, clusters, errors, candidates; ``.npz`` files) and the
 ``Experiment`` model-selection harness (with its fused split-training
 grid), Bayesian optimization (``BayesOpt``), kernel structure search
 (``search_kernel``), the dataset loaders, checkpoints and plots run on the
-host around them (matplotlib is imported only by a call that draws):
+host around them (matplotlib is imported only by a call that draws).
+Across ranks of ``torch.distributed`` (:mod:`.parallel`), the exact GP
+and Student-t objectives are band-sharded (``nll_distributed``,
+``find_MAP(engine='distributed')``, ``predictor_distributed``) and the
+samplers and the fan-out split over the ranks.  The host-facing
+statistics (``predict``, ``mean``, a predictor's call, ...) return host
+numpy arrays:
 
 >>> import g3py_tpu_torch as g3t
 >>> gp = g3t.GP(space=x, location=g3t.Bias(), kernel=g3t.SE(x))
@@ -62,6 +68,7 @@ from .ops import (safe_cholesky, cho_solve, solve_lower_triangular,
                   solve_upper_triangular, trtri_from_panels, mvn_quad_logdet,
                   gauss_hermite, stationary_gram, panel_cholesky, newton_inverse)
 from .ops.special import betainc, gammaln, ndtri, ndtr
+from . import parallel
 
 __version__ = "0.1.0"
 _loaded = False
@@ -123,7 +130,8 @@ def _import_all():
                          TransportProcess, TransportGaussianProcess, CopulaProcess,
                          CopulaGaussianProcess, CopulaStudentTProcess, TransformedStudentTProcess,
                          GP, WGP, TP, WTP, MP, TGP, CGP, CSTP, Predictor, AveragedPredictor,
-                         IterativePredictor, Likelihood, GaussianLik, StudentTLik, BernoulliLik,
+                         IterativePredictor, DistributedPredictor, Likelihood, GaussianLik,
+                         StudentTLik, BernoulliLik,
                          PoissonLik, NegBinomialLik, OrdinalLik, CategoricalLik,
                          HeteroscedasticLik, InducingPoints, SparseGaussianProcess,
                          SparseWarpedGaussianProcess, select_inducing, VariationalQ,

@@ -102,10 +102,10 @@ def chains_to_datatrace(process, chains, ll=None, transforms=True, burnin_tol=0.
             q = outlayer_percentile
             qcols = columns + (["_ll"] if ll is not None else [])
             # pandas' DataFrame.quantile: linear, NaN skipped
-            vals = base[qcols].astype(np.float64)
+            vals = np.asarray(base[qcols], dtype=np.float64)
             lower = np.nanquantile(vals, q, axis=0)
             upper = np.nanquantile(vals, 1 - q, axis=0)
-            par = dt[columns]
+            par = np.asarray(dt[columns])
             bad = ((par > upper[:n_vars]) | (par < lower[:n_vars])).any(axis=1)
             if ll is not None:
                 bad |= (dt["_ll"] > upper[-1]) | (dt["_ll"] < lower[-1])
@@ -136,7 +136,7 @@ def datatrace_to_chains(process, dt, flat=False, burnin=False):
     (rows, ndim) matrix with ``flat``; ``burnin`` keeps the rows past the
     burn-in (all of them when burn-in never converged)."""
     chain = dt[dt["_burnin"]] if burnin and "_burnin" in dt and dt["_burnin"].any() else dt
-    values = chain[process.active.param_names()]
+    values = np.asarray(chain[process.active.param_names()])
     if flat:
         return values
     nchain = len(np.unique(chain["_nchain"]))
@@ -157,7 +157,7 @@ def datatrace_to_kde(process, dt, kernel="tophat", bandwidth=0.02, min_ll=-1e6):
         dt = dt[dt["_ll"] > min_ll]
     sel = dt[dt["_burnin"]] if "_burnin" in dt else dt
     kde = KernelDensity(kernel=kernel, bandwidth=bandwidth).fit(
-        sel[process.active.param_names()])
+        np.asarray(sel[process.active.param_names()]))
     kde.min_ll = sel["_ll"].min() if "_ll" in sel else -np.inf
     return kde
 
@@ -204,7 +204,7 @@ def cluster_datatrace(process, dt, n_components=5, bayesian=True, burnin=True,
         tmp = sel[sel["_outlayer"]]
         if len(tmp) > 0:
             sel = tmp
-    data = sel[cols]
+    data = np.asarray(sel[cols])
     method = BayesianGaussianMixture if bayesian else GaussianMixture
     gm = method(n_components=n_components, max_iter=max_iter, n_init=n_init).fit(data)
     labels = gm.predict(data)
@@ -212,7 +212,7 @@ def cluster_datatrace(process, dt, n_components=5, bayesian=True, burnin=True,
     argsorted = sorted(np.arange(n_components), reverse=True)
 
     def _cluster(datatrace):
-        pred = gm.predict(datatrace[cols])
+        pred = gm.predict(np.asarray(datatrace[cols]))
         datatrace["_cluster"] = (pred == argsort[:, None]).T.dot(argsorted)
 
     _cluster(dt)

@@ -15,7 +15,12 @@ Here the whole grid is one batched optimization:
 
 A pair stops at max|g| <= ``tol``, at ``max_iters``, or where its step
 lands on a non-finite point (the point is kept and its gradient zeroed).
+With ``shard=True`` the pairs are split over the ranks of a mesh
+(:func:`lbfgs_fanout_sharded`): each rank runs its share as the rows of
+its own batched L-BFGS, and the results are all-gathered.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -25,9 +30,6 @@ from ..utils import DictObj
 from .optimize_jax import lbfgs_maximize
 
 __all__ = ["lbfgs_fanout", "lbfgs_fanout_sharded", "fit_splits"]
-
-_NO_SHARDS = ("the fan-out sharded over devices needs parallel/, not ported yet "
-              "(ROADMAP Queue 1 item 16)")
 
 
 def lbfgs_fanout(obj_fn, starts, masks, max_iters, tol):
@@ -41,8 +43,31 @@ def lbfgs_fanout(obj_fn, starts, masks, max_iters, tol):
 
 
 def lbfgs_fanout_sharded(obj_fn, starts, masks, max_iters=200, tol=1e-5, mesh=None):
-    """The pair axis sharded over a device mesh: waits for ``parallel/``."""
-    raise NotImplementedError(_NO_SHARDS)
+    """:func:`lbfgs_fanout` with the pairs split over every rank of
+    ``mesh`` (the default mesh when None): the pair count is padded to a
+    multiple of the ranks (with copies of the last pair), each rank
+    optimizes its equal share as the rows of one batched L-BFGS, and the
+    shares are all-gathered.  Every rank calls it alike and gets every
+    pair's (points (P, ndim), values (P,)), host arrays."""
+    from ..parallel.mesh import make_mesh, all_gather
+
+    if mesh is None:
+        mesh = make_mesh()
+    ndev = int(np.prod(mesh.devices.shape))
+    starts = np.asarray(starts, settings.floatx)
+    masks = np.asarray(masks, settings.floatx)
+    p = len(starts)
+    pad = (-p) % ndev
+    if pad:
+        starts = np.concatenate([starts, np.repeat(starts[-1:], pad, 0)])
+        masks = np.concatenate([masks, np.repeat(masks[-1:], pad, 0)])
+    per = len(starts) // ndev
+    mine = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    pts, vals = lbfgs_fanout(obj_fn, starts[mine], masks[mine], max_iters, tol)
+    both = torch.cat([torch.as_tensor(np.asarray(pts), device=mesh.device),
+                      torch.as_tensor(np.asarray(vals), device=mesh.device)[:, None]], dim=1)
+    both = all_gather(mesh, both, axis=None).cpu().numpy()
+    return both[:p, :-1], both[:p, -1]
 
 
 def fit_splits(process, masks, start=None, points=4, max_iters=200, tol=1e-5,
@@ -56,14 +81,13 @@ def fit_splits(process, masks, start=None, points=4, max_iters=200, tol=1e-5,
     the JAX package draws them) are paired with every split, and all S x
     points optimizations run as rows of one batched L-BFGS.  ``pair_chunk``
     runs the pairs in chunks of that many rows (to bound the batched
-    grams' memory).  Not supported with ``fix_vars``; ``shard=True`` waits
-    for ``parallel/``.
+    grams' memory).  Not supported with ``fix_vars``; ``shard=True`` splits
+    each chunk's pairs over the ranks of ``mesh`` (every rank calling it
+    alike, :func:`lbfgs_fanout_sharded`).
 
     Returns ``(params_list, values)``: the per-split best-start
     natural-space params dicts and the (S, points) final logp matrix; with
     ``return_points`` also the (S, points, ndim) unconstrained points."""
-    if shard:
-        raise NotImplementedError(_NO_SHARDS)
     reg = process.active
     if reg.fixed_datatrace is not None:
         raise ValueError("fit_splits does not support fix_vars")
@@ -90,7 +114,8 @@ def fit_splits(process, masks, start=None, points=4, max_iters=200, tol=1e-5,
     u0 = np.broadcast_to(starts[None], (S, K, base.size)).reshape(S * K, -1)
     wv = np.broadcast_to(masks[:, None, :], (S, K, masks.shape[1])).reshape(S * K, -1)
     chunk = len(u0) if pair_chunk is None else int(pair_chunk)
-    parts = [lbfgs_fanout(obj, u0[lo:lo + chunk], wv[lo:lo + chunk], max_iters, tol)
+    fan = functools.partial(lbfgs_fanout_sharded, mesh=mesh) if shard else lbfgs_fanout
+    parts = [fan(obj, u0[lo:lo + chunk], wv[lo:lo + chunk], max_iters, tol)
              for lo in range(0, len(u0), chunk)]
     pts = np.concatenate([p for p, _ in parts]).reshape(S, K, -1)
     vals = np.concatenate([v for _, v in parts]).reshape(S, K)

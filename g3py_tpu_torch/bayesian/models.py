@@ -22,7 +22,7 @@ cycles a datatrace's rows through it.
 import numpy as np
 import torch
 
-from ..config import settings, as_tensor
+from ..config import settings, as_tensor, host_statistic, device_statistics
 from ..utils import DictObj
 
 __all__ = ["BatchedModel"]
@@ -43,6 +43,7 @@ class BatchedModel:
     needs ``active``, ``predict``, ``hidden`` and the ``_batch_statistics``
     hook of the process family."""
 
+    @host_statistic
     def sample(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                prior=False, noise=False):
         """``samples`` draws of the process at the space, (m, samples)."""
@@ -63,8 +64,9 @@ class BatchedModel:
         processes that have ``loo``)."""
         if hidden is None:
             hidden = self.hidden
-        pred = self.predict(params=params, space=space, inputs=inputs, outputs=outputs,
-                            mean=True, var=variance, median=median, distribution=logpred)
+        pred = device_statistics(self).predict(params=params, space=space, inputs=inputs,
+                                              outputs=outputs, mean=True, var=variance,
+                                              median=median, distribution=logpred)
         target = as_tensor(np.asarray(hidden))
         out = DictObj()
         if bias:
@@ -149,7 +151,7 @@ class BatchedModel:
         total = None
         for _, row in datatrace.iterrows():
             params = self.active.params_serie(row)
-            pred = self.predict(params, *args, **kwargs)
+            pred = device_statistics(self).predict(params, *args, **kwargs)
             if scores:
                 pred.update(self.scores(params, *args, **kwargs))
             pred = {k: v.to(torch.float64) if isinstance(v, torch.Tensor) else v
@@ -218,7 +220,8 @@ class BatchedModel:
         left = nsamples
         while left > 0:
             for _, row in datatrace.iterrows():
-                particles.append(self.sample(self.active.params_serie(row), *args, **kwargs))
+                particles.append(device_statistics(self).sample(self.active.params_serie(row),
+                                                                *args, **kwargs))
                 left -= 1
                 if not left > 0:
                     break

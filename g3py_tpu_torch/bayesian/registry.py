@@ -244,7 +244,7 @@ class GraphicalModel:
         """A datatrace row (``loc`` or ``iloc``: a row position of the
         numpy datatrace, which has no row labels) or, with neither, the
         mean of its rows -> natural-space params dict."""
-        values = dt[self.param_names()]
+        values = np.asarray(dt[self.param_names()])
         pos = loc if loc is not None else iloc
         row = values[pos] if pos is not None else values.astype(np.float64).mean(axis=0)
         return self.array_to_dict(np.asarray(row, dtype=settings.floatx))

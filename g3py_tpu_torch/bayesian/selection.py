@@ -9,8 +9,10 @@ result row a (simulation, model) pair collected into a
 :class:`~g3py_tpu_torch.utils.datatrace.Datatrace` and pickled to ``file``
 after every row, so that a second ``run`` resumes where the first stopped.
 ``run_fanout`` trains the whole grid as one batched L-BFGS
-(:mod:`.fanout`); ``engine='distributed'`` waits for ROADMAP Queue 1 item
-16.
+(:mod:`.fanout`), its pairs split over the ranks of a mesh with
+``shard=True``; ``engine='distributed'`` trains each model through the
+band-sharded exact NLL, every rank of the mesh running the same experiment
+(the same splits and starts; only rank 0 writes ``file``).
 """
 
 import time
@@ -105,8 +107,9 @@ class Experiment:
         self.powell = True
         self.max_time = None
         # training engine of select_model: "scipy", "jax" (the batched
-        # L-BFGS) or "iterative" (matrix-free, GP family); engine knobs go
-        # in engine_kwargs
+        # L-BFGS), "iterative" (matrix-free, GP family) or "distributed"
+        # (the band-sharded exact NLL on every rank of a mesh); engine
+        # knobs (mesh, block, axis, ...) go in engine_kwargs
         self.engine = "scipy"
         self.engine_kwargs = {}
         # training objective: 'logp' (marginal likelihood) or 'loo'
@@ -165,8 +168,10 @@ class Experiment:
 
     def save(self, path=None):
         path = path or self.file
-        if path is None:
-            return
+        if path is None or (torch.distributed.is_available()
+                            and torch.distributed.is_initialized()
+                            and torch.distributed.get_rank() != 0):
+            return  # one writer a world
         save_pkl({k: v for k, v in self.__dict__.items() if k != "models"}, path)
 
     # -- data splits --------------------------------------------------------------
@@ -197,12 +202,12 @@ class Experiment:
         holdout the best start by the objective wins; with one, the
         optimized candidate of smallest holdout ``_l2``; with
         ``selection='loo'``, the candidate of largest training LOO."""
-        if self.engine == "distributed":
-            raise NotImplementedError("Experiment engine='distributed' is not ported yet "
-                                      "(ROADMAP Queue 1 item 16)")
+        # the band-sharded engine runs alike on every rank: its random starts
+        # come from one seed there
+        rng = np.random.default_rng(0) if self.engine == "distributed" else None
         starts = [sp.params_default]
         for _ in range(max(self.starts - 1, 0)):
-            starts.append(sp.params_random(mean=sp.params_default, sigma=0.2))
+            starts.append(sp.params_random(mean=sp.params_default, sigma=0.2, rng=rng))
         if self.master is not None and self.master is not sp:
             try:
                 starts.append(sp.params_process(process=self.master))
@@ -327,8 +332,9 @@ class Experiment:
         the starts are the full-data defaults plus perturbations; with a
         holdout, the grid's optimized candidate of smallest validation
         ``_l2`` wins.  Needs every model to have ``th_loglike_masked_fn``
-        (the GP, WGP and TP families); ``shard=True`` waits for
-        ``parallel/``."""
+        (the GP, WGP and TP families); ``shard=True`` splits the grid's
+        pairs over the ranks of ``mesh`` (every rank running the same
+        experiment)."""
         from .fanout import fit_splits
 
         if points is None:

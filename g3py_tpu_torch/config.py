@@ -13,13 +13,14 @@ TF32 by default; both are pinned off here so the policy is stated, not
 inherited.
 """
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 __all__ = ["Settings", "settings", "floatx", "set_floatx", "asarray_x",
-           "as_tensor"]
+           "as_tensor", "host_statistic", "device_statistics"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -114,3 +115,47 @@ def as_tensor(value):
     if isinstance(value, torch.Tensor):
         return value.to(dtype=settings.dtype, device=settings.device)
     return torch.as_tensor(asarray_x(value), device=settings.device)
+
+
+# ---------------------------------------------------------------------------
+# the host boundary of the statistics
+# ---------------------------------------------------------------------------
+def _to_host(value):
+    """Tensors, and the tensors of a dict or tuple, as host numpy arrays of
+    their dtype; anything else (floats, callables) as it is."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    if isinstance(value, dict):
+        return type(value)({k: _to_host(v) for k, v in value.items()})
+    if isinstance(value, tuple):
+        return tuple(_to_host(v) for v in value)
+    return value
+
+
+def host_statistic(fn):
+    """A host-facing statistic (``predict``, ``mean``, ``quantiler``, a
+    predictor's call, ...): its caller gets host numpy arrays (the tensors
+    of a dict or tuple converted, in the dtype the statistic was computed
+    in), which numpy reduces as it reduces the JAX package's arrays.  The
+    port's own consumers call the body, ``fn.__wrapped__``
+    (:class:`device_statistics`), and keep the device tensors."""
+
+    @functools.wraps(fn)
+    def method(*args, **kwargs):
+        return _to_host(fn(*args, **kwargs))
+
+    method.host_statistic = True
+    return method
+
+
+class device_statistics:
+    """The tensor bodies of an object's host statistics, for the port's own
+    consumers: ``device_statistics(proc).mean(params, space)`` is what
+    ``proc.mean`` computes, before its host copy."""
+
+    def __init__(self, obj):
+        self._obj = obj
+
+    def __getattr__(self, name):
+        method = getattr(self._obj, name)
+        return functools.partial(method.__func__.__wrapped__, method.__self__)

@@ -25,7 +25,7 @@ from .transport import (TransportProcess, TransportGaussianProcess,
                         TransportGaussianDistribution, transport_gaussian_logp_t)
 from .copula import (CopulaProcess, CopulaGaussianProcess, CopulaStudentTProcess,
                      TransformedStudentTProcess)
-from .predictor import Predictor, AveragedPredictor, IterativePredictor
+from .predictor import Predictor, AveragedPredictor, IterativePredictor, DistributedPredictor
 from .likelihoods import (Likelihood, GaussianLik, StudentTLik, BernoulliLik, PoissonLik,
                           NegBinomialLik, OrdinalLik, CategoricalLik, HeteroscedasticLik,
                           sample_conditional)
@@ -62,7 +62,8 @@ __all__ = ["StochasticProcess", "EllipticalProcess", "GaussianProcess",
            "TransportProcess", "TransportGaussianProcess", "TransportGaussianDistribution",
            "transport_gaussian_logp_t", "CopulaProcess", "CopulaGaussianProcess",
            "CopulaStudentTProcess", "TransformedStudentTProcess", "Predictor",
-           "AveragedPredictor", "IterativePredictor", "Likelihood", "GaussianLik",
+           "AveragedPredictor", "IterativePredictor", "DistributedPredictor", "Likelihood",
+           "GaussianLik",
            "StudentTLik", "BernoulliLik", "PoissonLik", "NegBinomialLik", "OrdinalLik",
            "CategoricalLik", "HeteroscedasticLik", "sample_conditional", "InducingPoints",
            "SparseGaussianProcess", "SparseWarpedGaussianProcess", "select_inducing",

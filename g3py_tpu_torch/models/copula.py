@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from scipy import stats
 
-from ..config import settings, as_tensor
+from ..config import settings, as_tensor, host_statistic, device_statistics
 from ..hypers import Freedom
 from ..hypers.kernels import KernelSum, KernelNoise
 from ..ops.guards import to_cov, to_num
@@ -161,37 +161,42 @@ class CopulaProcess(StochasticProcess):
         return self._resolve_data(None if space is None or space is self._space else space,
                                   None, None)[0]
 
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None, rng=None):
         """F^{-1}(Phi(mu + z_q sd)) of the latent posterior."""
+        dev = device_statistics(self)
         if params is None:
             params = self.params
         kw = dict(space=space, inputs=inputs, outputs=outputs, prior=prior, noise=noise)
-        latent = (self.location(params, **kw)
-                  + float(np.float32(stats.norm.ppf(q))) * self.kernel_sd(params, **kw))
+        latent = (dev.location(params, **kw)
+                  + float(np.float32(stats.norm.ppf(q))) * dev.kernel_sd(params, **kw))
         return self._push_quantile(params, space, latent)
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None):
         """``samples`` draws at the space, (m, samples): latent posterior
         draws (numpy standard normals from ``rng``, one length-m vector a
         sample in turn, as the JAX package draws them) pushed through the
         marginal's ppf."""
+        dev = device_statistics(self)
         if params is None:
             params = self.params
         if rng is None:
             rng = np.random.default_rng()
         kw = dict(space=space, inputs=inputs, outputs=outputs, prior=prior, noise=noise)
-        loc = self.location(params, **kw)
-        sd = self.kernel_sd(params, **kw)
+        loc = dev.location(params, **kw)
+        sd = dev.kernel_sd(params, **kw)
         rand = as_tensor(rng.standard_normal((samples, loc.shape[0])).astype(settings.floatx))
         return self._push_quantile(params, space, loc[:, None] + sd[:, None] * rand.T)
 
     def _mc_draws(self, params, space, inputs, outputs, prior, noise, simulations, rng):
         samples = simulations if isinstance(simulations, int) else settings.mc_simulations
-        return self.sampler(params, space, inputs, outputs, samples=samples, prior=prior,
-                            noise=noise, rng=rng)
+        return device_statistics(self).sampler(params, space, inputs, outputs, samples=samples,
+                                               prior=prior, noise=noise, rng=rng)
 
+    @host_statistic
     def mean(self, params=None, space=None, inputs=None, outputs=None, prior=False,
              noise=False, simulations=None, rng=None, **kwargs):
         """Monte-Carlo mean through the copula push-forward (an int
@@ -199,19 +204,23 @@ class CopulaProcess(StochasticProcess):
         return self._mc_draws(params, space, inputs, outputs, prior, noise, simulations,
                               rng).mean(dim=1)
 
+    @host_statistic
     def median(self, params=None, space=None, inputs=None, outputs=None, prior=False,
                noise=False, simulations=None, rng=None, **kwargs):
-        return self.quantiler(params, space, inputs, outputs, q=0.5, prior=prior, noise=noise)
+        return device_statistics(self).quantiler(params, space, inputs, outputs, q=0.5,
+                                                 prior=prior, noise=noise)
 
+    @host_statistic
     def std(self, params=None, space=None, inputs=None, outputs=None, prior=False,
             noise=False, simulations=None, rng=None, **kwargs):
         return self._mc_draws(params, space, inputs, outputs, prior, noise, simulations,
                               rng).std(dim=1, unbiased=False)
 
+    @host_statistic
     def variance(self, params=None, space=None, inputs=None, outputs=None, prior=False,
                  noise=False, simulations=None, rng=None, **kwargs):
-        return self.std(params, space, inputs, outputs, prior=prior, noise=noise,
-                        simulations=simulations, rng=rng) ** 2
+        return device_statistics(self).std(params, space, inputs, outputs, prior=prior,
+                                           noise=noise, simulations=simulations, rng=rng) ** 2
 
 
 class CopulaGaussianProcess(CopulaProcess):

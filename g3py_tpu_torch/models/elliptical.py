@@ -176,6 +176,52 @@ class EllipticalProcess(StochasticProcess):
         """Robust Cholesky of the (noisy) observed gram."""
         return safe_cholesky(to_cov(self.f_kernel_noise.cov(params, inputs)))
 
+    # -- the band-sharded (multi-rank) objective ---------------------------------
+    def _distributed_parts(self, mesh=None, axis="dp", what="nll_distributed"):
+        """``(mesh, cov_fn, noise_fn)`` of every band-sharded consumer
+        (training objectives, serving), after the checks they share: n
+        divisible by the mesh, the noisy=True construction and no
+        KernelNoise inside the signal kernel."""
+        from ..parallel.cholesky import _resolve_mesh
+
+        mesh = _resolve_mesh(mesh, axis)
+        n_dev = mesh.shape[axis]
+        n_obs = len(self.inputs) if self.inputs is not None else 0
+        if n_obs == 0 or n_obs % n_dev:
+            raise ValueError(
+                f"{what}: n={n_obs} observations must divide evenly over the {n_dev}-device "
+                "mesh (subset/pad the training data or use a mesh whose size divides n)")
+        kn = self.f_kernel_noise
+        if not (isinstance(kn, KernelSum) and isinstance(kn.k2, KernelNoise)):
+            raise ValueError(f"{what} needs the noisy=True KernelSum(kernel, KernelNoise) "
+                             "construction")
+        if _contains_kernel_noise(self.f_kernel):
+            # the band gram is built from CROSS covariances (x_band vs x): a
+            # KernelNoise term inside the signal kernel adds 0 there
+            raise ValueError(f"{what} does not support KernelNoise terms inside the signal "
+                             "kernel (the band gram sees only cross-covariances)")
+        kernel, noise_hyper = self.f_kernel, kn.k2.var
+        return mesh, kernel.cov, lambda p: hval(noise_hyper, p)
+
+    def _distributed_qld(self, mesh=None, block=None, axis="dp"):
+        """The band-sharded ``fn(params, x, resid) -> (quad, logdet_half)``
+        (:func:`~g3py_tpu_torch.parallel.cholesky.distributed_quad_logdet`)
+        behind the families' ``nll_distributed``."""
+        from ..parallel.cholesky import distributed_quad_logdet
+
+        mesh, cov_fn, noise_fn = self._distributed_parts(mesh, axis)
+        return distributed_quad_logdet(cov_fn, mesh=mesh, block=block, axis=axis,
+                                       noise_fn=noise_fn)
+
+    def _distributed_resid(self, params):
+        """``(params, x, outputs, resid)`` of ``nll_distributed``: params
+        as device tensors, the observed data and T^{-1}y - m(x)."""
+        params = {k: as_tensor(v) for k, v in
+                  self.filter_params(self.params if params is None else params).items()}
+        x = self._device_data("inputs")
+        outputs = self._device_data("outputs")
+        return params, x, outputs, self._latent_obs(params, outputs) - self.f_location(params, x)
+
     def posterior_state(self, params=None):
         """Factor the observed gram ONCE: a dict of ``_state_*`` device
         tensors (L^{-1} of the observed-gram Cholesky, alpha =

@@ -19,7 +19,7 @@ from statistics import NormalDist
 import numpy as np
 import torch
 
-from ..config import settings, as_tensor
+from ..config import settings, as_tensor, host_statistic, device_statistics
 from ..ops.guards import to_num, to_cov
 from ..ops.linalg import mvn_quad_logdet, mvn_loo, solve_lower_triangular, cho_solve
 from ..ops.quadrature import gauss_hermite, hermite_moments
@@ -198,6 +198,7 @@ class GaussianProcess(EllipticalProcess):
 
         return fn
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None):
         """``samples`` posterior (or prior) draws at the space, (m,
@@ -205,8 +206,9 @@ class GaussianProcess(EllipticalProcess):
         warping.  ``rng`` draws the normals: a numpy Generator (the JAX
         package's: the same seed gives the same normals; a fresh one when
         None) or a ``torch.Generator`` on ``settings.device``."""
+        dev = device_statistics(self)
         kw = dict(space=space, inputs=inputs, outputs=outputs, prior=prior, noise=noise)
-        loc = self.location(params, **kw)
+        loc = dev.location(params, **kw)
         m = loc.shape[0]
         if isinstance(rng, torch.Generator):
             rand = torch.randn((m, samples), generator=rng, dtype=loc.dtype,
@@ -214,7 +216,7 @@ class GaussianProcess(EllipticalProcess):
         else:
             rng = np.random.default_rng() if rng is None else rng
             rand = as_tensor(rng.standard_normal((m, samples)).astype(settings.floatx))
-        latent = loc[:, None] + torch.matmul(self.cholesky(params, **kw), rand)
+        latent = loc[:, None] + torch.matmul(dev.cholesky(params, **kw), rand)
         return self.f_mapping(self._tensor_params(self.params if params is None else params),
                               latent)
 
@@ -401,6 +403,32 @@ class GaussianProcess(EllipticalProcess):
             return best, [(n_, -v, p) for n_, v, p in results]
         return best
 
+    def nll_distributed(self, params=None, mesh=None, block=None, axis="dp"):
+        """Band-sharded exact negative loglikelihood (no hyper priors; the
+        mean and the warping Jacobian included, as ``loglike``): every rank
+        of the mesh builds, factors and differentiates its own (n/D, n) row
+        band of the gram (:meth:`_distributed_qld`); no rank holds the n x n
+        gram, in the forward or the backward.  Every rank calls it with the
+        same params and gets the same value; autograd through it gives the
+        same gradient on every rank.  Needs noisy=True and n divisible by
+        the mesh."""
+        qld = self._distributed_qld(mesh=mesh, block=block, axis=axis)
+        params, x, outputs, resid = self._distributed_resid(params)
+        quad, logdet_half = qld(params, x, resid)
+        val = 0.5 * quad + logdet_half + 0.5 * len(resid) * LOG2PI
+        # the warping Jacobian: loglike = log N(T^{-1}y) + log det dT^{-1}/dy
+        return val - self.f_mapping.logdet_dinv(params, outputs)
+
+    def predictor_distributed(self, params=None, mesh=None, block=None, axis="dp"):
+        """Band-sharded serving, the counterpart of
+        ``find_MAP(engine='distributed')``: the gram is factored once by the
+        band Cholesky and stays split over the ranks; a query batch costs a
+        cross band, a band solve and two psums
+        (:class:`~g3py_tpu_torch.models.predictor.DistributedPredictor`)."""
+        from .predictor import DistributedPredictor
+
+        return DistributedPredictor(self, params, mesh=mesh, block=block, axis=axis)
+
     def _quantile_p(self, q):
         """Latent-space quantile coefficient: quantile = T(mu + p * sd).  Held
         at float32 precision, as the JAX package holds it."""
@@ -421,14 +449,16 @@ class GaussianProcess(EllipticalProcess):
         """Per-row latent innovations (R, n): standard normals from ``rng``."""
         return rng.standard_normal((len(rows), n)).astype(settings.floatx)
 
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
         """Analytic quantile T(mu + z_q sigma)."""
+        dev = device_statistics(self)
         p = self._quantile_p(q)
         kw = dict(space=space, inputs=inputs, outputs=outputs, prior=prior, noise=noise)
-        loc = self.location(params, **kw)
-        sd = self.kernel_sd(params, **kw)
-        return self.mapping(params, space=space, inputs=inputs, outputs=outputs,
+        loc = dev.location(params, **kw)
+        sd = dev.kernel_sd(params, **kw)
+        return dev.mapping(params, space=space, inputs=inputs, outputs=outputs,
                             vector=loc + p * sd, prior=prior, noise=noise)
 
 

@@ -32,7 +32,7 @@ evaluated a row at a time, and ``nll_distributed`` comes with item 16.
 import numpy as np
 import torch
 
-from ..config import settings, as_tensor
+from ..config import settings, as_tensor, host_statistic
 from ..hypers import hval
 from ..hypers.kernels import KernelNoise
 from ..hypers.means import Zero
@@ -433,6 +433,7 @@ class GridGP(StochasticProcess):
         return (f_q + corr).T
 
     # -- host sampling and quantiles ----------------------------------------------
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None, seed=0):
         """(M, samples) joint draws of the latent field at the query rows
@@ -454,6 +455,7 @@ class GridGP(StochasticProcess):
             f = f + np.sqrt(s2) * rng.standard_normal(f.shape).astype(settings.floatx)
         return f
 
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
         from scipy import stats
@@ -461,9 +463,8 @@ class GridGP(StochasticProcess):
         params = self.params if params is None else params
         space = self.space if space is None else space
         with torch.no_grad():
-            m = self.location(params, space, inputs, outputs, prior=prior).cpu().numpy()
-            v = np.maximum(self.kernel_diag(params, space, inputs, outputs,
-                                            prior=prior).cpu().numpy(), 0.0)
+            m = self.location(params, space, inputs, outputs, prior=prior)
+            v = np.maximum(self.kernel_diag(params, space, inputs, outputs, prior=prior), 0.0)
         if noise:
             v = v + float(np.maximum(float(hval(self.f_noise.var,
                                                 self._tensor_params(params))), 1e-10))

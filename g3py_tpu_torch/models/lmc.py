@@ -28,7 +28,7 @@ it (the rows and latents of a gram share one launch).
 import numpy as np
 import torch
 
-from ..config import settings, as_tensor
+from ..config import settings, as_tensor, host_statistic
 from ..hypers import Hypers, Flat, FlatExp, hval, is_param
 from ..hypers import kernels as _kernels
 from ..hypers.kernels import KernelNoise, KernelStationary
@@ -426,6 +426,7 @@ class LMCSVP(SparseVariationalProcess):
             vg = vg + s2[np.rint(np.asarray(space)[:, -1]).astype(np.int64)]
         return mg, vg
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None):
         """(n, samples) mean-field draws of g (``noise=False``) or y
@@ -435,6 +436,7 @@ class LMCSVP(SparseVariationalProcess):
         return mg[:, None] + np.sqrt(vg)[:, None] * rng.standard_normal(
             (len(mg), samples)).astype(settings.floatx)
 
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
         """Analytic normal predictive quantiles a row."""

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from scipy import stats
 
-from ..config import settings, as_tensor
+from ..config import settings, as_tensor, host_statistic
 from ..utils import DictObj
 from ..ops.special import gammaln, norm_cdf, betainc
 from .stochastic import StochasticProcess, _statistic
@@ -289,6 +289,7 @@ class MarginalProcess(StochasticProcess):
         kw = dict(space=space, inputs=inputs, outputs=outputs, prior=prior, noise=noise)
         return [_host(getattr(self, name)(params, **kw)) for name in names]
 
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
         """The marginal quantile at ``q`` (``scipy.stats`` ppf)."""
@@ -304,6 +305,7 @@ class MarginalProcess(StochasticProcess):
             out = stats.norm.ppf(q, loc=mean, scale=std)
         return as_tensor(out)
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None):
         """``samples`` draws at the space, (m, samples), from ``scipy.stats``

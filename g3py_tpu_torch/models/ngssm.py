@@ -44,7 +44,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..config import settings, as_tensor
+from ..config import settings, as_tensor, host_statistic
 from ..hypers import hval
 from ..hypers.means import Zero
 from ..ops.iterative import full_fp32
@@ -342,6 +342,7 @@ class NonGaussianSSGP(StateSpaceGP):
         return _simulation_smoother(a, q, h, rs2, ys2, os2, samples, draws, gen,
                                     _query_positions(order, ts.shape[0]))
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None, seed=0):
         """Joint latent paths g = loc + f (``noise=True``: then y | g drawn
@@ -373,6 +374,7 @@ class NonGaussianSSGP(StateSpaceGP):
     def _all_gaussian(self):
         return isinstance(self.f_likelihood, GaussianLik)
 
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
         """Latent-normal quantiles pushed through the monotone links (probit
@@ -706,6 +708,7 @@ class NonGaussianMultiSSGP(MultiStateSpaceGP):
         return _simulation_smoother(a, q, h, rs2, ys2, os2, samples, draws, gen,
                                     _query_positions(order, n_obs))
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None, seed=0):
         """Joint latent paths g = loc + b_p + mixed f (``noise=True``: then

@@ -44,11 +44,12 @@ import os
 import numpy as np
 import torch
 
-from ..config import settings, as_tensor
+from ..config import settings, as_tensor, host_statistic, device_statistics
 from ..utils import DictObj
 from ..bayesian.models import _row_scores
 
-__all__ = ["Predictor", "AveragedPredictor", "IterativePredictor", "statistics"]
+__all__ = ["Predictor", "AveragedPredictor", "IterativePredictor", "DistributedPredictor",
+           "statistics"]
 
 
 def statistics(proc, p, space, inputs, outputs, mean=True, std=True, var=False, cov=False,
@@ -160,7 +161,7 @@ class Predictor(_Bound):
     prediction.
 
     >>> pr = gp.predictor(params)          # one O(n^3) factorization
-    >>> out = pr(x_query, quantiles=True)  # dict of tensors for the batch
+    >>> out = pr(x_query, quantiles=True)  # dict of host arrays for the batch
 
     The state snapshots the process's observed inputs and outputs;
     changing them later (``observed``) invalidates the predictor, which then
@@ -365,6 +366,7 @@ class Predictor(_Bound):
                        "device": torch.device(settings.device).type}, fh, indent=1)
         return path
 
+    @host_statistic
     def predict(self, space=None, mean=True, std=True, var=False, cov=False, median=False,
                 quantiles=False, quantiles_noise=False, samples=0, distribution=False,
                 prior=False, noise=False, simulations=None, fused=True):
@@ -381,25 +383,28 @@ class Predictor(_Bound):
                             quantiles=quantiles, quantiles_noise=quantiles_noise,
                             noise=noise, prior=prior)
         if samples > 0:
-            values["samples"] = self.process.sampler(self._merged, space, samples=samples,
-                                                     prior=prior, noise=noise)
+            values["samples"] = device_statistics(self.process).sampler(
+                self._merged, space, samples=samples, prior=prior, noise=noise)
         if distribution:
             values["logpredictive"] = lambda v: self.logpredictive(v, space, prior=prior)
         return values
 
     __call__ = predict
 
+    @host_statistic
     def median(self, space=None, prior=False):
         """T(location) at the query points."""
-        return self.predict(space, mean=False, std=False, median=True, prior=prior)["median"]
+        return device_statistics(self).predict(space, mean=False, std=False, median=True,
+                                               prior=prior)["median"]
 
+    @host_statistic
     def logpredictive(self, vector, space=None, prior=False):
         """Independent-marginal log predictive density of ``vector`` at the
         query points (noise included), from the factored state."""
         self._check()
         with torch.no_grad():
-            return self.process.logpredictive(self._merged, self._space(space), vector=vector,
-                                              prior=prior, noise=True)
+            return device_statistics(self.process).logpredictive(
+                self._merged, self._space(space), vector=vector, prior=prior, noise=True)
 
 
 def _bundle_keys(mean=True, std=True, var=False, cov=False, median=False, quantiles=False,
@@ -519,6 +524,7 @@ class AveragedPredictor(_Bound):
         return statistics(self.process, self._merged, self._space(space), self.inputs,
                           self.outputs, batch=True, **flags)
 
+    @host_statistic
     def predict(self, space=None, scores=False, **flags):
         """Row-averaged statistics (the ``average()`` keys), in float64;
         ``scores=True`` adds ``_l1``/``_l2`` of the rows' means against the
@@ -532,7 +538,161 @@ class AveragedPredictor(_Bound):
     __call__ = predict
 
 
-class IterativePredictor(_Bound):
+class _LatentStatistics(_Bound):
+    """The statistics of a gaussian-family predictor from the latent
+    moments ``(mu, sd)`` of a query batch (its ``_moments``): Gauss-Hermite
+    moments of the warping, quantiles ``T(mu + z_q sd)``, the median
+    ``T(mu)``, and Matheron pathwise draws (:meth:`_pathwise_draws`) over a
+    backend's solve and cross product.  The subclass sets ``params``,
+    ``stat_params`` (the params of the warping, in ``settings.floatx``),
+    ``_noise_var`` and ``_precision()``."""
+
+    def _query(self, space):
+        """Query points as a host array (the process's space when None)."""
+        if space is None:
+            return np.asarray(self.process._space)
+        if isinstance(space, torch.Tensor):
+            space = space.detach().cpu().numpy()
+        space = np.asarray(space)
+        return space.reshape(len(space), -1)
+
+    def _moments_memo(self, space, noise=False, **kw):
+        """``_moments`` memoized by (space, noise, options): ``predict``
+        derives every statistic of a batch from one (mu, sd), so the solve
+        runs once a batch, not once a statistic."""
+        self._check()
+        space = self._query(space)
+        key = (space.tobytes(), space.shape, bool(noise), tuple(sorted(kw.items())))
+        cache = self.__dict__.setdefault("_mom_cache", {})
+        if key not in cache:
+            if len(cache) >= 8:
+                cache.pop(next(iter(cache)))
+            cache[key] = self._moments(space, noise=noise, **kw)
+        return cache[key]
+
+    def _is_identity(self):
+        from ..hypers.mappings import Identity
+        return isinstance(self.process.f_mapping, Identity)
+
+    def _warped(self, mu, sd):
+        from ..ops.quadrature import hermite_moments
+
+        mapping, p = self.process.f_mapping, self.stat_params
+        with torch.no_grad():
+            return hermite_moments(lambda v: mapping(p, v), mu, sd,
+                                   settings.quadrature_degree)
+
+    @host_statistic
+    def mean(self, space=None, noise=False, **kw):
+        mu, sd = self._moments_memo(space, noise=noise, **kw)
+        return mu if self._is_identity() else self._warped(mu, sd)[0]
+
+    @host_statistic
+    def std(self, space=None, noise=False, **kw):
+        mu, sd = self._moments_memo(space, noise=noise, **kw)
+        return sd if self._is_identity() else torch.sqrt(self._warped(mu, sd)[1])
+
+    @host_statistic
+    def variance(self, space=None, noise=False, **kw):
+        return device_statistics(self).std(space, noise=noise, **kw) ** 2
+
+    @host_statistic
+    def quantiler(self, space=None, q=0.975, noise=False, **kw):
+        mu, sd = self._moments_memo(space, noise=noise, **kw)
+        with torch.no_grad():
+            return self.process.f_mapping(self.stat_params,
+                                          mu + self.process._quantile_p(q) * sd)
+
+    @host_statistic
+    def median(self, space=None, **kw):
+        mu, _ = self._moments_memo(space, **kw)
+        with torch.no_grad():
+            return self.process.f_mapping(self.stat_params, mu)
+
+    def logpredictive(self, vector, space=None, **kw):
+        """Independent-marginal log predictive density of ``vector`` at the
+        query points (noise included): the latent normal density of the
+        warping's pullback at (mu, sd) plus the pullback's log-Jacobian."""
+        mu, sd = self._moments_memo(space, noise=True, **kw)
+        mapping, p = self.process.f_mapping, self.stat_params
+        with torch.no_grad():
+            v = self.process._as_vector(vector)
+            z = (mapping.inv(p, v) - mu) / sd
+            return float((-0.5 * math.log(2.0 * math.pi) - torch.log(sd) - 0.5 * z * z).sum()
+                         + mapping.logdet_dinv(p, v))
+
+    @host_statistic
+    def predict(self, space=None, mean=True, std=True, var=False, median=False,
+                quantiles=False, quantiles_noise=False, noise=False, distribution=False,
+                samples=0, **kw):
+        """The statistics of one query batch (``exact_var`` among ``kw``),
+        every one from the same latent moments."""
+        dev = device_statistics(self)
+        values = DictObj()
+        if samples > 0:
+            values["samples"] = dev.sampler(space=space, samples=samples, noise=noise)
+        if distribution:
+            values["logpredictive"] = (lambda v, _s=space, _kw=dict(kw):
+                                       self.logpredictive(v, space=_s, **_kw))
+        if mean:
+            values["mean"] = dev.mean(space, noise=noise, **kw)
+        if std:
+            values["std"] = dev.std(space, noise=noise, **kw)
+        if var:
+            values["variance"] = dev.variance(space, noise=noise, **kw)
+        if median:
+            values["median"] = dev.median(space, **kw)
+        if quantiles:
+            values["quantile_up"] = dev.quantiler(space, q=0.975, noise=noise, **kw)
+            values["quantile_down"] = dev.quantiler(space, q=0.025, noise=noise, **kw)
+        if quantiles_noise:
+            values["noise_std"] = dev.std(space, noise=True, **kw)
+            values["noise_up"] = dev.quantiler(space, q=0.975, noise=True, **kw)
+            values["noise_down"] = dev.quantiler(space, q=0.025, noise=True, **kw)
+        return values
+
+    __call__ = predict
+
+    def _pathwise_draws(self, space, samples, key, n_features, noise, solve, cross_apply):
+        """Matheron's pathwise update over random-Fourier prior paths of the
+        signal kernel (:func:`_rff_prior`):
+
+          f*(s) = m(s) + g(s) + K_sX a,   a = solve(resid - g(X) - s eps)
+
+        with the backend's ``solve(rhs (n, S)) -> a`` and ``cross_apply(xq,
+        a) -> K_qX a``, pushed through the warping.  ``key`` is a seed, a
+        ``torch.Generator``, or a dict of the draws (``parts``, ``eps`` (n,
+        samples) and, with ``noise``, ``noise`` (m, samples)), as for
+        ``Predictor.pathwise_sampler``."""
+        from ..ops.iterative import full_fp32
+        from ..ops.rff import _generator
+
+        self._check()
+        space = self._query(space)
+        proc = self.process
+        draws = key if isinstance(key, dict) else None
+        with self._precision(), torch.no_grad(), full_fp32():
+            p, x = self.params, self.inputs
+            gen = None if draws is not None else _generator(key)
+            prior = _rff_prior(proc.f_kernel, p, x, n_features, samples,
+                               draws["parts"] if draws is not None else gen)
+            resid = proc._latent_obs(p, self.outputs) - proc.f_location(p, x)
+            g_x = prior(x)  # (n, S)
+            eps = (as_tensor(np.array(draws["eps"])) if draws is not None else
+                   torch.randn(g_x.shape, generator=gen, dtype=g_x.dtype, device=g_x.device))
+            a = solve(resid[:, None] - g_x - torch.sqrt(self._noise_var) * eps)
+            xq = proc._as_matrix(space)
+            latent = proc.f_location(p, xq)[:, None] + prior(xq) + cross_apply(xq, a)
+            if noise:
+                e = (as_tensor(np.array(draws["noise"])) if draws is not None else
+                     torch.randn(latent.shape, generator=gen, dtype=latent.dtype,
+                                 device=latent.device))
+                latent = latent + torch.sqrt(self._noise_var) * e
+            out = proc.f_mapping(p, latent.reshape(-1)).reshape(latent.shape)
+        return out.to(dtype=settings.dtype, device=settings.device)
+
+
+class IterativePredictor(_LatentStatistics):
     """Streaming serving for training sets too large to factor: no O(n^3)
     factorization and no n x n matrix, ever — the serving counterpart of
     ``find_MAP(engine='iterative')``.
@@ -619,15 +779,6 @@ class IterativePredictor(_Bound):
         return (lazy_kernel_matvec(self._kernel, self.params, self.inputs, v, block=self.block)
                 + self._noise_var * v)
 
-    def _query(self, space):
-        """Query points as a host array (the process's space when None)."""
-        if space is None:
-            return np.asarray(self.process._space)
-        if isinstance(space, torch.Tensor):
-            space = space.detach().cpu().numpy()
-        space = np.asarray(space)
-        return space.reshape(len(space), -1)
-
     def _moments(self, space, noise=False, exact_var=True, chunk=4096):
         """Latent ``(mu, sd)`` at the host query array ``space``, tensors
         in ``settings.dtype``: ``chunk`` query points a cross gram."""
@@ -660,96 +811,7 @@ class IterativePredictor(_Bound):
         return (torch.cat(mus).to(dtype=out_dt, device=out_dev),
                 sd.to(dtype=out_dt, device=out_dev))
 
-    def _moments_memo(self, space, noise=False, **kw):
-        """``_moments`` memoized by (space, noise, options): ``predict``
-        derives every statistic of a batch from one (mu, sd), so the solve
-        runs once a batch, not once a statistic."""
-        self._check()
-        space = self._query(space)
-        key = (space.tobytes(), space.shape, bool(noise), tuple(sorted(kw.items())))
-        cache = self.__dict__.setdefault("_mom_cache", {})
-        if key not in cache:
-            if len(cache) >= 8:
-                cache.pop(next(iter(cache)))
-            cache[key] = self._moments(space, noise=noise, **kw)
-        return cache[key]
-
-    def _is_identity(self):
-        from ..hypers.mappings import Identity
-        return isinstance(self.process.f_mapping, Identity)
-
-    def _warped(self, mu, sd):
-        from ..ops.quadrature import hermite_moments
-
-        mapping, p = self.process.f_mapping, self.stat_params
-        with torch.no_grad():
-            return hermite_moments(lambda v: mapping(p, v), mu, sd,
-                                   settings.quadrature_degree)
-
-    def mean(self, space=None, noise=False, **kw):
-        mu, sd = self._moments_memo(space, noise=noise, **kw)
-        return mu if self._is_identity() else self._warped(mu, sd)[0]
-
-    def std(self, space=None, noise=False, **kw):
-        mu, sd = self._moments_memo(space, noise=noise, **kw)
-        return sd if self._is_identity() else torch.sqrt(self._warped(mu, sd)[1])
-
-    def variance(self, space=None, noise=False, **kw):
-        return self.std(space, noise=noise, **kw) ** 2
-
-    def quantiler(self, space=None, q=0.975, noise=False, **kw):
-        mu, sd = self._moments_memo(space, noise=noise, **kw)
-        with torch.no_grad():
-            return self.process.f_mapping(self.stat_params,
-                                          mu + self.process._quantile_p(q) * sd)
-
-    def median(self, space=None, **kw):
-        mu, _ = self._moments_memo(space, **kw)
-        with torch.no_grad():
-            return self.process.f_mapping(self.stat_params, mu)
-
-    def logpredictive(self, vector, space=None, **kw):
-        """Independent-marginal log predictive density of ``vector`` at the
-        query points (noise included): the latent normal density of the
-        warping's pullback at (mu, sd) plus the pullback's log-Jacobian."""
-        mu, sd = self._moments_memo(space, noise=True, **kw)
-        mapping, p = self.process.f_mapping, self.stat_params
-        with torch.no_grad():
-            v = self.process._as_vector(vector)
-            z = (mapping.inv(p, v) - mu) / sd
-            return float((-0.5 * math.log(2.0 * math.pi) - torch.log(sd) - 0.5 * z * z).sum()
-                         + mapping.logdet_dinv(p, v))
-
-    def predict(self, space=None, mean=True, std=True, var=False, median=False,
-                quantiles=False, quantiles_noise=False, noise=False, distribution=False,
-                samples=0, **kw):
-        """The statistics of one query batch (``exact_var`` among ``kw``),
-        every one from the same latent moments."""
-        values = DictObj()
-        if samples > 0:
-            values["samples"] = self.sampler(space=space, samples=samples, noise=noise)
-        if distribution:
-            values["logpredictive"] = (lambda v, _s=space, _kw=dict(kw):
-                                       self.logpredictive(v, space=_s, **_kw))
-        if mean:
-            values["mean"] = self.mean(space, noise=noise, **kw)
-        if std:
-            values["std"] = self.std(space, noise=noise, **kw)
-        if var:
-            values["variance"] = self.variance(space, noise=noise, **kw)
-        if median:
-            values["median"] = self.median(space, **kw)
-        if quantiles:
-            values["quantile_up"] = self.quantiler(space, q=0.975, noise=noise, **kw)
-            values["quantile_down"] = self.quantiler(space, q=0.025, noise=noise, **kw)
-        if quantiles_noise:
-            values["noise_std"] = self.std(space, noise=True, **kw)
-            values["noise_up"] = self.quantiler(space, q=0.975, noise=True, **kw)
-            values["noise_down"] = self.quantiler(space, q=0.025, noise=True, **kw)
-        return values
-
-    __call__ = predict
-
+    @host_statistic
     def sampler(self, space=None, samples=1, key=0, n_features=2048, noise=False):
         """Joint posterior draws (len(space), samples) with no factorization:
         Matheron's pathwise update over random-Fourier prior paths of the
@@ -759,23 +821,9 @@ class IterativePredictor(_Bound):
         ``eps`` (n, samples) and, with ``noise``, ``noise`` (m, samples)),
         as for ``Predictor.pathwise_sampler``.  A solve whose worst relative
         residual is above 5e-2 raises."""
-        from ..ops.iterative import pcg_solve, full_fp32
-        from ..ops.rff import _generator
+        from ..ops.iterative import pcg_solve
 
-        self._check()
-        space = self._query(space)
-        proc = self.process
-        draws = key if isinstance(key, dict) else None
-        with self._precision(), torch.no_grad(), full_fp32():
-            p, x = self.params, self.inputs
-            gen = None if draws is not None else _generator(key)
-            prior = _rff_prior(self._kernel, p, x, n_features, samples,
-                               draws["parts"] if draws is not None else gen)
-            resid = proc._latent_obs(p, self.outputs) - proc.f_location(p, x)
-            g_x = prior(x)  # (n, S)
-            eps = (as_tensor(np.array(draws["eps"])) if draws is not None else
-                   torch.randn(g_x.shape, generator=gen, dtype=g_x.dtype, device=g_x.device))
-            rhs = resid[:, None] - g_x - torch.sqrt(self._noise_var) * eps
+        def solve(rhs):
             a = pcg_solve(self._mv, rhs.T, self._p_inv, maxiter=self.cg_iters).T
             res = self._mv(a) - rhs
             rel = float((torch.linalg.vector_norm(res, dim=0) / torch.clamp(
@@ -785,17 +833,87 @@ class IterativePredictor(_Bound):
                     "pathwise sampler: the multi-RHS PCG solve did not converge (worst relative "
                     f"residual {rel:.2e}); raise cg_iters (path right-hand sides carry white-"
                     "noise components that need more iterations than the data solve) or rank")
-            xq = proc._as_matrix(space)
-            cross_a = torch.cat([torch.matmul(self._kernel.cov(p, xq[lo:lo + 4096], x), a)
-                                 for lo in range(0, xq.shape[0], 4096)])
-            latent = proc.f_location(p, xq)[:, None] + prior(xq) + cross_a
+            return a
+
+        def cross_apply(xq, a):
+            return torch.cat([torch.matmul(self._kernel.cov(self.params, xq[lo:lo + 4096],
+                                                            self.inputs), a)
+                              for lo in range(0, xq.shape[0], 4096)])
+
+        return self._pathwise_draws(space, samples, key, n_features, noise, solve, cross_apply)
+
+
+class DistributedPredictor(_LatentStatistics):
+    """Band-sharded serving for a model trained with
+    ``find_MAP(engine='distributed')``: the observed gram is factored ONCE
+    by the band Cholesky and stays split over the mesh's ranks (each holds
+    its (n/D, n) band of L and of alpha); a query batch costs each rank its
+    (n/D, m) cross band, a band solve and two psums
+    (:func:`~g3py_tpu_torch.parallel.cholesky.distributed_posterior`).
+    Neither the n x n gram nor the n x m cross matrix exists whole on a
+    rank.  Every rank calls it with the same queries and gets the same
+    statistics (the gaussian family's, from the latent moments); the
+    pathwise ``sampler`` solves exactly with two band solves and applies the
+    cross gram band-wise."""
+
+    def __init__(self, process, params=None, mesh=None, block=None, axis="dp"):
+        from ..parallel.cholesky import distributed_posterior
+        from .gaussian import GaussianProcess
+
+        if not isinstance(process, GaussianProcess):
+            raise ValueError("DistributedPredictor implements the gaussian posterior algebra "
+                             "(GP/WGP family)")
+        if params is None:
+            params = process.params
+        self.mesh, self._cov_fn, noise_fn = process._distributed_parts(
+            mesh, axis, what="DistributedPredictor")
+        self._bind(process)
+        self.params = self.stat_params = process._tensor_params(process.filter_params(params))
+        state_fn, self._query_fn, self._solve_fn, self._apply_fn = distributed_posterior(
+            self._cov_fn, mesh=self.mesh, block=block, axis=axis, noise_fn=noise_fn)
+        p, x = self.params, self.inputs
+        with torch.no_grad():
+            self._noise_var = noise_fn(p)
+            resid = process._latent_obs(p, self.outputs) - process.f_location(p, x)
+            self.l_band, self.alpha_band = state_fn(p, x, resid)
+
+    def _precision(self):
+        return contextlib.nullcontext()
+
+    def _moments(self, space, noise=False, chunk=4096):
+        """Latent ``(mu, sd)`` at the host query array ``space``: ``chunk``
+        query points a band query."""
+        from ..ops.iterative import _kernel_diag
+
+        self._check()
+        if len(space) == 0:
+            e = torch.zeros(0, dtype=settings.dtype, device=settings.device)
+            return e, e
+        proc, p, x = self.process, self.params, self.inputs
+        mus, vs = [], []
+        with torch.no_grad():
+            for lo in range(0, len(space), chunk):
+                s = proc._as_matrix(space[lo:lo + chunk])
+                md, vr = self._query_fn(p, x, self.l_band, self.alpha_band, s)
+                mus.append(proc.f_location(p, s) + md)
+                vs.append(torch.clamp(_kernel_diag(proc.f_kernel, p, s, chunk) - vr, min=0.0))
+            var = torch.cat(vs)
             if noise:
-                e = (as_tensor(np.array(draws["noise"])) if draws is not None else
-                     torch.randn(latent.shape, generator=gen, dtype=latent.dtype,
-                                 device=latent.device))
-                latent = latent + torch.sqrt(self._noise_var) * e
-            out = proc.f_mapping(p, latent.reshape(-1)).reshape(latent.shape)
-        return out.to(dtype=settings.dtype, device=settings.device)
+                var = var + self._noise_var
+        return torch.cat(mus), torch.sqrt(torch.clamp(var, min=1e-30))
+
+    @host_statistic
+    def sampler(self, space=None, samples=1, key=0, n_features=2048, noise=False):
+        """Joint posterior draws (len(space), samples) with the gram still
+        band-sharded: Matheron's pathwise update (:meth:`_pathwise_draws`,
+        ``key`` as there) with the exact solve (two band solves) and the
+        band cross product."""
+        return self._pathwise_draws(
+            space, samples, key, n_features, noise,
+            solve=lambda rhs: self._solve_fn(self.l_band, rhs),
+            cross_apply=lambda xq, a: torch.cat([
+                self._apply_fn(self.params, self.inputs, xq[lo:lo + 4096], a)
+                for lo in range(0, xq.shape[0], 4096)]))
 
 
 @contextlib.contextmanager

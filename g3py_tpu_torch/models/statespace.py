@@ -29,7 +29,7 @@ every scan over (R, n, s, s): the sampler's rows, ``fixed_*`` and
 import numpy as np
 import torch
 
-from ..config import settings, as_tensor
+from ..config import settings, as_tensor, host_statistic
 from ..hypers import hval
 from ..hypers.kernels import KernelNoise
 from ..hypers.means import Zero
@@ -303,6 +303,7 @@ class StateSpaceGP(StochasticProcess):
         outputs = self._device_data("outputs") if outputs is None else self._as_vector(outputs)
         return self._tensor_params(params), space, inputs, outputs
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None, seed=0):
         """(n, samples) joint draws of f (``noise=True`` adds the observation
@@ -325,11 +326,11 @@ class StateSpaceGP(StochasticProcess):
         params = self.params if params is None else params
         space = self.space if space is None else space
         with torch.no_grad():
-            m = self.location(params, space, inputs, outputs, prior=prior).cpu().numpy()
-            v = np.maximum(self.kernel_diag(params, space, inputs, outputs,
-                                            prior=prior).cpu().numpy(), 0.0)
+            m = self.location(params, space, inputs, outputs, prior=prior)
+            v = np.maximum(self.kernel_diag(params, space, inputs, outputs, prior=prior), 0.0)
         return params, space, m, v
 
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
         from scipy import stats
@@ -608,6 +609,7 @@ class MultiStateSpaceGP(StateSpaceGP):
         idx = np.rint(np.asarray(space)[:, 1]).astype(np.int64)
         return self.f_likelihood._vars(pj).cpu().numpy()[idx]
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None, seed=0):
         pj, space, inputs, outputs = self._host(params, space, inputs, outputs)
@@ -623,6 +625,7 @@ class MultiStateSpaceGP(StateSpaceGP):
             f = f + np.sqrt(s2)[:, None] * rng.standard_normal(f.shape).astype(settings.floatx)
         return f
 
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
         from scipy import stats

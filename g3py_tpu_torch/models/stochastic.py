@@ -6,7 +6,11 @@ Observed data lives on the host as numpy arrays in ``settings.floatx``
 made once per data change and reused.  Every statistic is a ``th_*``
 builder returning a function ``fn(params, space, inputs, outputs, vector)``
 of tensors — PyTorch runs eagerly, so the builders are called directly
-instead of being jitted.  Statistics return tensors on ``settings.device``;
+instead of being jitted.  The ``th_*`` functions compute on tensors on
+``settings.device``; the public statistics (``predict``, ``mean``, ...)
+return host numpy arrays to their caller
+(:func:`~g3py_tpu_torch.config.host_statistic`; each family decorates its
+overrides), and
 ``logp`` returns a Python float.
 
 This port carries construction, data (``space``/``hidden``/``order`` for
@@ -29,9 +33,10 @@ samplers (``sample_hypers(method='nuts' | 'neutra' | 'advi')``) and
 with torch autograd: a batched value-and-gradient evaluation of all chains,
 MC rows or starts is one batched K1 and K2 call and one batched analytic
 backward.  ``find_MAP(engine='iterative')`` (GP family) trains through the
-matrix-free NLL.  ``file=`` loads the process saved there (or saves a
-new one), device-agnostically.  The distributed ``find_MAP`` engine waits
-for ROADMAP Queue 1 item 16.
+matrix-free NLL, ``find_MAP(engine='distributed')`` (GP and Student-t
+families) through the band-sharded exact NLL over the ranks of a
+``torch.distributed`` mesh.  ``file=`` loads the process saved there (or
+saves a new one), device-agnostically.
 """
 
 import os
@@ -40,7 +45,7 @@ import pickle
 import numpy as np
 import torch
 
-from ..config import settings, asarray_x, as_tensor
+from ..config import settings, asarray_x, as_tensor, host_statistic, device_statistics
 from ..utils import DictObj, save_datatrace, load_datatrace, save_pkl, load_pkl
 from ..ops.guards import to_num
 from ..bayesian.registry import GraphicalModel
@@ -92,7 +97,7 @@ def _statistic(th_name, doc):
 
     method.__name__ = th_name[3:]
     method.__doc__ = doc
-    return method
+    return host_statistic(method)
 
 
 class _RowsLogp(torch.autograd.Function):
@@ -981,7 +986,11 @@ class StochasticProcess(BatchedModel):
         ``engine='iterative'`` (GP family) trains through the matrix-free
         NLL of ``nll_iterative`` (``_find_map_iterative`` takes its solver
         keywords: ``rank``, ``block``, ``cg_iters``, ``probes``,
-        ``lanczos_iters``, ``seed``, ``loop`` and ``linesearch_steps``)."""
+        ``lanczos_iters``, ``seed``, ``loop`` and ``linesearch_steps``).
+        ``engine='distributed'`` (families with ``nll_distributed``) trains
+        through the band-sharded exact NLL, every rank of the mesh calling
+        it alike (``_find_map_distributed`` takes ``mesh``, ``block`` and
+        ``axis``)."""
         if objective not in ("logp", "loo"):
             raise ValueError(f"unknown objective {objective!r}")
         if engine == "jax":
@@ -997,10 +1006,14 @@ class StochasticProcess(BatchedModel):
             return self._find_map_iterative(start=start, points=points,
                                             return_points=return_points, display=display,
                                             max_iters=max_iters, **kwargs)
+        if engine == "distributed":
+            if not hasattr(self, "nll_distributed"):
+                raise ValueError(f"engine='distributed' needs a family with nll_distributed, "
+                                 f"not {type(self).__name__}")
+            return self._find_map_distributed(start=start, points=points,
+                                              return_points=return_points, display=display,
+                                              max_iters=max_iters, **kwargs)
         if engine != "scipy":
-            if engine == "distributed":
-                raise NotImplementedError("find_MAP(engine='distributed') is not ported yet "
-                                          "(ROADMAP Queue 1 item 16)")
             raise ValueError(f"unknown engine {engine!r}")
         if kwargs:
             raise TypeError(f"find_MAP(engine={engine!r}) got unexpected keyword arguments "
@@ -1080,6 +1093,68 @@ class StochasticProcess(BatchedModel):
             return params
         return params, points_list
 
+    def _find_map_distributed(self, start=None, points=1, return_points=False, display=True,
+                              max_iters=200, mesh=None, block=None, axis="dp", **_):
+        """MAP search on the band-sharded exact NLL plus the hyper priors
+        (``find_MAP(engine='distributed')``): scipy's L-BFGS-B on every rank
+        of the mesh, each objective and gradient one band-sharded
+        evaluation whose value and gradient are all-reduced, so bit-equal on
+        every rank — the ranks' iterates stay in lockstep, and every
+        decision (the non-finite guard, the best start) is made from those
+        replicated values.  ``display`` evaluates each start on every rank
+        (an evaluation is a collective) and only the mesh's rank 0 prints.
+        The starts are
+        ``start`` (``params_default`` when None; a list of them) and, up to
+        ``points``, ``params_random`` around the first (sigma 0.15, from
+        ``np.random.default_rng(0)``)."""
+        import scipy.optimize as spo
+        from ..parallel.cholesky import _resolve_mesh
+
+        reg = self.active
+        mesh = _resolve_mesh(mesh, axis)
+        speak = display and mesh.rank == 0
+        if start is None:
+            start = self.params_default
+        starts = list(start) if isinstance(start, list) else [start]
+        rng = np.random.default_rng(0)
+        while len(starts) < points:
+            starts.append(self.params_random(mean=starts[0], sigma=0.15, prop=True, rng=rng))
+        prior_pure = self._logp_pure(prior=True)
+        space, inputs, outputs = self._resolve_data(None, None, None)
+
+        def f_and_g(u):
+            ut = torch.as_tensor(u, dtype=settings.dtype,
+                                 device=settings.device).requires_grad_(True)
+            with torch.enable_grad():
+                p = reg.array_to_dict_tensor(ut)
+                v = (self.nll_distributed(p, mesh=mesh, block=block, axis=axis)
+                     - prior_pure(p, space, inputs, outputs))
+                (g,) = torch.autograd.grad(v, ut)
+            v, g = float(v.detach()), g.detach().cpu().numpy().astype(np.float64)
+            if not np.isfinite(v) or not np.all(np.isfinite(g)):
+                # an overshoot into a dead region reads as very bad
+                return 1e10, np.zeros_like(g)
+            return v, g
+
+        results = []
+        for i, s in enumerate(starts, start=1):
+            u0 = np.asarray(reg.dict_to_array(s), np.float64)
+            if display:
+                v0 = f_and_g(u0)[0]
+                if speak:
+                    print(f"start{i} (-logp): {v0:.6g}")
+            res = spo.minimize(f_and_g, u0, jac=True, method="L-BFGS-B",
+                               options={"maxiter": max_iters})
+            results.append((f"distributed{i}", float(res.fun),
+                            reg.array_to_dict(np.asarray(res.x, settings.floatx))))
+            if speak:
+                print(f"start{i} done (-logp): {res.fun:.6g}")
+        results.sort(key=lambda t: t[1])
+        best = DictObj(results[0][2])
+        if return_points:
+            return best, [(n_, -v, p) for n_, v, p in results]
+        return best
+
     def _plot_point(self, fig, params, title):
         """``find_MAP(plot=True)``: one figure a visited point."""
         from ..utils.plots import figure, show
@@ -1121,20 +1196,23 @@ class StochasticProcess(BatchedModel):
         return params
 
     # ----------------------------------------------------------------- predict
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False):
         return None
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False):
         return None
 
+    @host_statistic
     def predict(self, params=None, space=None, inputs=None, outputs=None, mean=True,
                 std=True, var=False, cov=False, median=False, quantiles=False,
                 quantiles_noise=False, samples=0, distribution=False, prior=False,
                 noise=False, simulations=None, rng=None):
-        """Dict of the requested statistics (tensors), each evaluated on its
-        own as in the JAX package; :meth:`predictor` serves query batches
+        """Dict of the requested statistics (host arrays), each evaluated on
+        its own as in the JAX package; :meth:`predictor` serves query batches
         from one factorization instead.  ``samples`` adds that many
         posterior draws (``samples``, (m, samples)); ``distribution`` adds
         ``logpredictive``, a function of a vector of values at ``space``.
@@ -1143,6 +1221,7 @@ class StochasticProcess(BatchedModel):
         fresh one when None), for every statistic that reads draws, and the
         noise bands draw their own, as in the JAX package; the gaussian and
         Student-t statistics are analytic and ignore both."""
+        dev = device_statistics(self)
         if params is None:
             params = self.params
         if not self.is_observed:
@@ -1152,42 +1231,43 @@ class StochasticProcess(BatchedModel):
         n_simulations = 1
         if self._mc_moments and isinstance(simulations, int):
             n_simulations = simulations
-            simulations = self.sampler(params, samples=simulations, noise=noise, rng=rng,
+            simulations = dev.sampler(params, samples=simulations, noise=noise, rng=rng,
                                        **kw)
         values = DictObj()
         if mean:
-            values["mean"] = self.mean(params, noise=noise, simulations=simulations, **mc, **kw)
+            values["mean"] = dev.mean(params, noise=noise, simulations=simulations, **mc, **kw)
         if var:
-            values["variance"] = self.variance(params, noise=noise, simulations=simulations,
+            values["variance"] = dev.variance(params, noise=noise, simulations=simulations,
                                                **mc, **kw)
         if std:
-            values["std"] = self.std(params, noise=noise, simulations=simulations, **mc, **kw)
+            values["std"] = dev.std(params, noise=noise, simulations=simulations, **mc, **kw)
         if cov:
             if self.th_covariance() is None:
                 raise ValueError(
                     f"{type(self).__name__} has no analytic posterior covariance (warped "
                     "covariances have no closed form); use samples= for an empirical "
                     "covariance")
-            values["covariance"] = self.covariance(params, noise=noise, **kw)
+            values["covariance"] = dev.covariance(params, noise=noise, **kw)
         if median:
-            values["median"] = self.median(params, noise=noise, simulations=simulations,
+            values["median"] = dev.median(params, noise=noise, simulations=simulations,
                                            **mc, **kw)
         if quantiles:
             for key, q in (("quantile_up", 0.975), ("quantile_down", 0.025)):
-                values[key] = self.quantiler(params, q=q, noise=noise, simulations=simulations,
+                values[key] = dev.quantiler(params, q=q, noise=noise, simulations=simulations,
                                              **mc, **kw)
         if quantiles_noise:
-            sims_noise = (self.sampler(params, samples=n_simulations, noise=True, rng=rng, **kw)
+            sims_noise = (dev.sampler(params, samples=n_simulations, noise=True, rng=rng, **kw)
                           if self._mc_moments else simulations)
-            values["noise_std"] = self.std(params, noise=True, simulations=sims_noise, **mc,
+            values["noise_std"] = dev.std(params, noise=True, simulations=sims_noise, **mc,
                                            **kw)
             sims_noise = n_simulations if self._mc_moments else simulations
             for key, q in (("noise_up", 0.975), ("noise_down", 0.025)):
-                values[key] = self.quantiler(params, q=q, noise=True, simulations=sims_noise,
+                values[key] = dev.quantiler(params, q=q, noise=True, simulations=sims_noise,
                                              **mc, **kw)
         if samples > 0:
-            values["samples"] = self.sampler(params, samples=samples, noise=noise, **kw)
+            values["samples"] = dev.sampler(params, samples=samples, noise=noise, **kw)
         if distribution:
             values["logpredictive"] = lambda x: self.logpredictive(params, vector=x,
                                                                    noise=True, **kw)
         return values
+

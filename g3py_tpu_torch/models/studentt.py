@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from scipy import stats
 
-from ..config import settings, as_tensor
+from ..config import settings, as_tensor, host_statistic, device_statistics
 from ..hypers import Freedom
 from ..ops.guards import to_num, to_cov
 from ..ops.linalg import mvn_quad_logdet, solve_lower_triangular
@@ -108,6 +108,20 @@ class StudentTProcess(EllipticalProcess):
             return _guarded(r, (ok == 0) | ~torch.isfinite(beta) | ~torch.isfinite(logdet_map))
 
         return fn
+
+    def nll_distributed(self, params=None, mesh=None, block=None, axis="dp"):
+        """Band-sharded exact Student-t negative loglikelihood: the
+        multivariate-t terms of ``th_loglike_fn`` over the quadratic form and
+        log det of the band-sharded gram (``_distributed_qld``); nu and the
+        gammaln terms are replicated scalars.  The GP version's contract
+        (noisy=True, n divisible by the mesh, the warping Jacobian
+        included, no priors)."""
+        qld = self._distributed_qld(mesh=mesh, block=block, axis=axis)
+        params, x, outputs, resid = self._distributed_resid(params)
+        beta, logdet_half = qld(params, x, resid)
+        ll = (_t_terms(self.f_degree(params), len(resid), beta) - logdet_half
+              + self.f_mapping.logdet_dinv(params, outputs))
+        return -ll
 
     def th_loglike_masked_fn(self):
         """Masked-observation multivariate-t loglike (the gaussian version's
@@ -209,16 +223,18 @@ class StudentTProcess(EllipticalProcess):
         return fn
 
     # -- quantiles and samples (host scipy, as the JAX package) ---------------
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
         """T(mu + t_q sd), t_q the Student-t quantile at the posterior df
         (held at float32, as the JAX package holds it) and sd the unscaled
         latent sd."""
+        dev = device_statistics(self)
         p = self._quantile_p(params, q, prior=prior, noise=noise, space=space,
                              inputs=inputs, outputs=outputs)
         kw = dict(space=space, inputs=inputs, outputs=outputs, prior=prior, noise=noise)
-        latent = self.location(params, **kw) + p * self.kernel_sd(params, **kw)
-        return self.mapping(params, space=space, inputs=inputs, outputs=outputs,
+        latent = dev.location(params, **kw) + p * dev.kernel_sd(params, **kw)
+        return dev.mapping(params, space=space, inputs=inputs, outputs=outputs,
                             vector=latent)
 
     def _quantile_p(self, params, q, prior=False, noise=False, space=None, inputs=None,
@@ -267,6 +283,7 @@ class StudentTProcess(EllipticalProcess):
         scale = stats.invgamma.rvs(a=df / 2, scale=(df - 2) / 2, random_state=rng)
         return (rand * np.asarray(scale).reshape(-1, 1)).astype(settings.floatx)
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None):
         """``samples`` draws at the space, (m, samples): standard normals
@@ -274,17 +291,18 @@ class StudentTProcess(EllipticalProcess):
         inverse-gamma draw a sample (``scipy.stats.invgamma`` on numpy's
         global generator, as the JAX package draws it), coloured by the
         latent Cholesky factor and pushed through the warping."""
+        dev = device_statistics(self)
         if space is None:
             space = self.space
         if rng is None:
             rng = np.random.default_rng()
         kw = dict(space=space, inputs=inputs, outputs=outputs, prior=prior, noise=noise)
-        free = float(self.freedom(params, **kw))
+        free = float(dev.freedom(params, **kw))
         rand = rng.standard_normal((len(space), samples)).astype(settings.floatx)
         rand = rand * stats.invgamma.rvs(a=free / 2, scale=(free - 2) / 2,
                                          size=samples).astype(settings.floatx)
-        loc = self.location(params, **kw)
-        latent = loc[:, None] + torch.matmul(self.cholesky(params, **kw), as_tensor(rand))
+        loc = dev.location(params, **kw)
+        latent = loc[:, None] + torch.matmul(dev.cholesky(params, **kw), as_tensor(rand))
         return self.f_mapping(self._tensor_params(self.params if params is None else params),
                               latent)
 

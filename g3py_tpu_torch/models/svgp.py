@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..bayesian.advi import _Adam
-from ..config import settings, as_tensor
+from ..config import settings, as_tensor, host_statistic
 from ..hypers import Hypers, Flat, hval
 from ..hypers.kernels import KernelNoise
 from ..hypers.means import Zero
@@ -374,6 +374,7 @@ class SparseVariationalProcess(StochasticProcess):
                                                      prior=prior)), 0.0))
         return mf, sd
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None):
         """y draws on the host, (n, samples): f ~ q(f) elementwise, then y | f
@@ -389,6 +390,7 @@ class SparseVariationalProcess(StochasticProcess):
             return f
         return sample_conditional(self.f_likelihood, params, f, rng)
 
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
         """Predictive quantiles: the normal's for the gaussian likelihood (or
@@ -571,6 +573,7 @@ class MulticlassSVP(_MultiHeadLatent, SparseVariationalProcess):
     def predict_class(self, params=None, space=None, prior=False):
         return np.argmax(self.predict_proba(params, space, prior=prior), axis=-1)
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None):
         """``noise=False``: latent draws (n, C, samples) from the mean-field
@@ -589,6 +592,7 @@ class MulticlassSVP(_MultiHeadLatent, SparseVariationalProcess):
         # entry can land just below 1
         return (u > cum[:, :-1, :]).sum(axis=1).astype(settings.floatx)
 
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
         """Per-class probability quantiles (n, C), Monte Carlo through the
@@ -709,6 +713,7 @@ class HeteroscedasticSVP(_MultiHeadLatent, SparseVariationalProcess):
             return _np(self.f_likelihood.noise_mean(
                 self._tensor_params(self.filter_params(params)), mf, vf))
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None):
         """(n, samples) y draws: the heads from the mean-field q, then y = f1
@@ -724,6 +729,7 @@ class HeteroscedasticSVP(_MultiHeadLatent, SparseVariationalProcess):
         s = np.exp(np.clip(0.5 * (f[:, 1, :] + b), -15.0, 15.0))
         return f[:, 0, :] + s * rng.standard_normal(s.shape).astype(settings.floatx)
 
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None):
         """Monte-Carlo predictive quantiles through the scale mixture."""

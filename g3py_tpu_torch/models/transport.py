@@ -21,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from ..config import settings, as_tensor
+from ..config import settings, as_tensor, host_statistic, device_statistics
 from ..hypers.transports import ID
 from ..ops.guards import to_num
 from .stochastic import StochasticProcess, _statistic
@@ -141,31 +141,37 @@ class TransportGaussianProcess(TransportProcess):
         if simulations is None:
             simulations = settings.mc_simulations
         if isinstance(simulations, int):
-            return self.sampler(params=params, space=space, inputs=inputs, outputs=outputs,
-                                samples=simulations, prior=prior, noise=noise, rng=rng)
+            return device_statistics(self).sampler(
+                params=params, space=space, inputs=inputs, outputs=outputs,
+                samples=simulations, prior=prior, noise=noise, rng=rng)
         return as_tensor(simulations)
 
+    @host_statistic
     def mean(self, params=None, space=None, inputs=None, outputs=None, prior=False,
              noise=False, simulations=None, rng=None, **kwargs):
         """Monte-Carlo mean over ``simulations`` draws (an int, or the draws)."""
         return self._mc_samples(params, space, inputs, outputs, prior, noise, simulations,
                                 rng).mean(dim=1)
 
+    @host_statistic
     def std(self, params=None, space=None, inputs=None, outputs=None, prior=False,
             noise=False, simulations=None, rng=None, **kwargs):
         return self._mc_samples(params, space, inputs, outputs, prior, noise, simulations,
                                 rng).std(dim=1, unbiased=False)
 
+    @host_statistic
     def variance(self, params=None, space=None, inputs=None, outputs=None, prior=False,
                  noise=False, simulations=None, rng=None, **kwargs):
         return self._mc_samples(params, space, inputs, outputs, prior, noise, simulations,
                                 rng).var(dim=1, unbiased=False)
 
+    @host_statistic
     def median(self, params=None, space=None, inputs=None, outputs=None, prior=False,
                noise=False, simulations=None, rng=None, **kwargs):
         return torch.nanquantile(self._mc_samples(params, space, inputs, outputs, prior,
                                                   noise, simulations, rng), 0.5, dim=1)
 
+    @host_statistic
     def quantiler(self, params=None, space=None, inputs=None, outputs=None, q=0.975,
                   prior=False, noise=False, simulations=None, rng=None):
         """The q-quantile of the draws (linear interpolation, as
@@ -173,6 +179,7 @@ class TransportGaussianProcess(TransportProcess):
         return torch.nanquantile(self._mc_samples(params, space, inputs, outputs, prior,
                                                   noise, simulations, rng), q, dim=1)
 
+    @host_statistic
     def sampler(self, params=None, space=None, inputs=None, outputs=None, samples=1,
                 prior=False, noise=False, rng=None):
         """``samples`` draws at the space, (m, samples): numpy standard

@@ -222,7 +222,8 @@ def draws_report(n, m, main_device="cuda"):
                                      noise_mult=0.02)
     dt = g3t.chains_to_datatrace(gp, chain, ll=lnprob, burnin_tol=None)
     inside = np.flatnonzero(dt["_ll"] > -1e29)
-    rows = dt[inside[np.linspace(0, len(inside) - 1, 16).astype(int)]][gp.active.param_names()]
+    rows = np.asarray(dt[inside[np.linspace(0, len(inside) - 1, 16).astype(int)]][
+        gp.active.param_names()])
     out = {}
     for label, u in (("MAP", gp.active.dict_to_array(params)), ("row 0", rows[0]),
                      ("row 15", rows[15])):

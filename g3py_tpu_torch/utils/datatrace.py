@@ -20,9 +20,13 @@ __all__ = ["Datatrace"]
 class Datatrace:
     """Ordered, equal-length numpy columns.
 
-    * ``dt["name"]`` is a column; ``dt[["a", "b"]]`` the (rows, 2) matrix of
-      those columns; ``dt[mask]`` (a boolean or integer array) a new
-      Datatrace of those rows.
+    * ``dt["name"]`` is a column; ``dt[["a", "b"]]`` a Datatrace of those
+      columns (``np.asarray`` of it, ``values`` and ``to_numpy()`` are the
+      (rows, 2) matrix); ``dt[mask]`` (a boolean or integer array) and
+      ``dt[a:b]`` a new Datatrace of those rows.
+    * ``dt.iloc[i]`` is row ``i`` as a dict of column -> value;
+      ``dt.iloc[a:b:k]`` (or an integer or boolean array) a Datatrace of
+      those rows, as in pandas.
     * ``dt["name"] = values`` adds or replaces a column; :meth:`insert`
       puts a new one at a position; :meth:`copy` and :meth:`iterrows` as
       in pandas.
@@ -62,11 +66,33 @@ class Datatrace:
         if isinstance(key, str):
             return self._cols[key]
         if isinstance(key, list):
-            return np.column_stack([self._cols[k] for k in key])
+            missing = [k for k in key if k not in self._cols]
+            if missing:
+                raise KeyError(f"Datatrace: no columns {missing}")
+            return Datatrace({k: self._cols[k] for k in key}, index=self._index)
         if callable(key):
             key = key(self)
+        if isinstance(key, slice):
+            key = np.arange(len(self))[key]
         key = np.asarray(key)
         return Datatrace({k: v[key] for k, v in self._cols.items()}, index=self.index[key])
+
+    @property
+    def iloc(self):
+        """Positional rows: ``iloc[i]`` a dict of column -> value,
+        ``iloc[slice or array]`` a Datatrace of those rows."""
+        return _ILoc(self)
+
+    def to_numpy(self, dtype=None):
+        """The (rows, columns) matrix of every column in order."""
+        cols = list(self._cols.values())
+        out = np.column_stack(cols) if cols else np.zeros((0, 0))
+        return out if dtype is None else out.astype(dtype, copy=False)
+
+    values = property(to_numpy)
+
+    def __array__(self, dtype=None, copy=None):
+        return self.to_numpy(dtype)
 
     def __setitem__(self, name, values):
         self._cols[name] = self._column(values)
@@ -201,3 +227,22 @@ class Datatrace:
 
     def __repr__(self):
         return f"Datatrace({len(self)} rows, columns={self.columns})"
+
+
+class _ILoc:
+    """``Datatrace.iloc``: pandas' positional row access."""
+
+    def __init__(self, dt):
+        self._dt = dt
+
+    def __getitem__(self, key):
+        dt = self._dt
+        if isinstance(key, (int, np.integer)):
+            i = range(len(dt))[key]  # negative positions, IndexError past the end
+            return {k: v[i] for k, v in dt._cols.items()}
+        if isinstance(key, slice):
+            return dt[key]
+        key = np.asarray(key)
+        if key.dtype == bool:
+            key = np.flatnonzero(key)
+        return dt[key]

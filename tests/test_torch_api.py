@@ -607,3 +607,22 @@ def test_kron_ops_and_grid_rows_take_jax_arguments():
     for name in KRON_OPS:
         _assert_takes(getattr(jk, name), getattr(tk, name), name)
     _assert_takes(g3.grid_rows, g3t.grid_rows, "grid_rows")
+
+
+PARALLEL_METHODS = [("GP", "nll_distributed"), ("GP", "predictor_distributed"),
+                    ("TP", "nll_distributed"), ("WTP", "nll_distributed"),
+                    ("GP", "_find_map_distributed"), ("DistributedPredictor", "__init__"),
+                    ("DistributedPredictor", "sampler"), ("Experiment", "run_fanout")]
+
+
+def test_parallel_takes_jax_arguments():
+    """Item 16a: the port's ``parallel`` package exports the JAX package's
+    ``parallel.__all__``, each name taking its arguments, and the
+    band-sharded consumers take theirs."""
+    assert g3t.parallel.__all__ == g3.parallel.__all__
+    for name in g3.parallel.__all__:
+        _assert_takes(getattr(g3.parallel, name), getattr(g3t.parallel, name), name)
+    for cls, name in PARALLEL_METHODS:
+        _assert_takes(getattr(getattr(g3, cls), name), getattr(getattr(g3t, cls), name),
+                      f"{cls}.{name}")
+    _assert_takes(g3.fit_splits, g3t.fit_splits, "fit_splits")

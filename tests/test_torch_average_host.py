@@ -288,7 +288,7 @@ def test_marginal_and_conditional_match_jax():
         want = g3.marginal_datatrace(jdt, **kw)
         got = g3t.marginal(tdt, **kw)
         assert got.columns == list(want.columns), kw
-        np.testing.assert_allclose(got[got.columns].astype(float),
+        np.testing.assert_allclose(np.asarray(got[got.columns], dtype=float),
                                    want.to_numpy(dtype=float), rtol=0)
     np.random.seed(8)
     want = g3.marginal_datatrace(jdt, like="a", samples=7)

@@ -2,8 +2,8 @@
 ``main(quick=True, plot=False)`` in a fresh process where ``g3py_tpu`` (and
 every ``g3py_tpu.<module>``) is an alias of ``g3py_tpu_torch``, so that no
 JAX is imported.  Marked ``slow``, as tests/test_examples.py is.  Tutorial
-11 (distributed training) waits for ``parallel/`` (ROADMAP Queue 1 item
-16) and is skipped.
+11 (distributed training) calls ``jax.devices()`` itself and is skipped
+(its path runs in ``tests/test_torch_distributed_models.py``).
 
 On the card (``settings.device = "cuda"``), without pytest:
 
@@ -31,8 +31,9 @@ MODULES = ["example", "tut00_introduction", "tut01_gaussian_processes", "tut02_h
            "tut10_serving", "tut12_likelihoods", "tut13_time_series", "tut14_spatiotemporal",
            "tut15_grids", "tut16_ski", "tut17_deep_kernels", "tut18_bayesian_optimization",
            "tut19_multioutput_50k"]
-#: tutorials of a later slice
-LATER = {"tut11_distributed_training": "ROADMAP Queue 1 item 16 (parallel/)"}
+#: tutorials that use JAX themselves
+NOT_PORTABLE = {"tut11_distributed_training":
+                "calls jax.devices() itself (examples/tut11_distributed_training.py:34)"}
 
 # the child: alias g3py_tpu to the port, then run one tutorial
 _CHILD = r'''
@@ -75,10 +76,10 @@ def run_tutorial(name, device="cpu", timeout=1800):
     return proc.returncode == 0, time.perf_counter() - t0, tail
 
 
-@pytest.mark.parametrize("name", MODULES + sorted(LATER))
+@pytest.mark.parametrize("name", MODULES + sorted(NOT_PORTABLE))
 def test_tutorial_runs_on_the_port(name):
-    if name in LATER:
-        pytest.skip(f"{name} waits for {LATER[name]}")
+    if name in NOT_PORTABLE:
+        pytest.skip(f"{name} {NOT_PORTABLE[name]}")
     ok, _, tail = run_tutorial(name)
     assert ok, tail
 

@@ -67,7 +67,7 @@ def test_loaded_statistics_match_live_and_jax(model, tmp_path):
             got = ep(xq[:m])
             live = pr(xq[:m], **flags)
             for k in live:
-                np.testing.assert_allclose(got[k].numpy(), live[k].numpy(), rtol=1e-5,
+                np.testing.assert_allclose(got[k].numpy(), live[k], rtol=1e-5,
                                            atol=1e-6, err_msg=f"{model} {k} m={m}")
             assert_close({k: got[k] for k in want}, {k: want[k][:m] for k in want}, "float32")
         torch.testing.assert_close(ep.mean(xq[:3]), got["mean"][:3])
@@ -145,7 +145,7 @@ def test_loader_imports_no_model_code(tmp_path):
                    timeout=300)
     out = np.load(tmp_path / "out.npz")
     for k in live:
-        np.testing.assert_allclose(out[k], live[k].numpy(), rtol=1e-5, atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(out[k], live[k], rtol=1e-5, atol=1e-6, err_msg=k)
 
 
 @pytest.mark.parametrize("name", ["float64", "float32"])

@@ -134,15 +134,19 @@ def test_fit_splits_optimum_matches_jax(monkeypatch):
         evals = g3t.lbfgs_maximize.evaluations
         # one batched K1 gram and one batched K2 factorization an evaluation
         assert spy.take() == (evals, evals)
+        # the pairs split over a mesh of one (no process group): the same fits
+        sharded_p, sharded_v = tp.fit_splits(masks, points=2, max_iters=200, tol=1e-8,
+                                             shard=True)
     np.testing.assert_allclose(got_v.max(axis=1), np.asarray(want_v).max(axis=1), rtol=1e-6)
     for g, w in zip(got_p, want_p):
         for k in w:
             np.testing.assert_allclose(np.asarray(g[k]), np.asarray(w[k]), rtol=1e-4,
                                        atol=1e-4, err_msg=k)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tp.fit_splits(masks, shard=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        g3t.lbfgs_fanout_sharded(None, np.zeros((1, 1)), masks[:1])
+    # (tests/test_torch_parallel_sharded.py splits the pairs over 2 and 4 ranks)
+    np.testing.assert_array_equal(sharded_v, got_v)
+    for g, s in zip(got_p, sharded_p):
+        for k in g:
+            np.testing.assert_array_equal(np.asarray(s[k]), np.asarray(g[k]), err_msg=k)
 
 
 def test_run_fanout_rows_and_resume(tmp_path):

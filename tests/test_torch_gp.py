@@ -94,7 +94,7 @@ def test_gp_float64_tight():
         xq = np.linspace(-1.0, 11.0, 16).reshape(-1, 1)
         params = jp.params_default
         got = _torch_stats(tp, params_from_jax(tp, params), xq)
-        assert got["mean"].dtype == torch.float64
+        assert got["mean"].dtype == np.float64
         assert_close(got, _jax_stats(jp, params, xq), name="float64")
 
 

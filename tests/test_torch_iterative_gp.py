@@ -88,7 +88,8 @@ def test_nll_iterative_refusals():
             gp2.predictor_iterative()
         with pytest.raises(ValueError, match="objective='loo'"):
             gp2.find_MAP(engine="iterative", objective="loo", display=False)
-        with pytest.raises(NotImplementedError, match="item 16"):
+        # the band-sharded engine refuses it as nll_iterative does
+        with pytest.raises(ValueError, match="KernelNoise"):
             gp2.find_MAP(engine="distributed", display=False)
 
 
@@ -190,7 +191,7 @@ def test_iterative_predictor_statistics(predictors, name, exact_var):
         assert_close({k: got[k] for k in want if k not in moments},
                      {k: want[k] for k in want if k not in moments}, "float64")
         for k in moments:
-            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-10,
+            np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=1e-10,
                                        atol=1e-7, err_msg=k)
         yq = np.interp(xq[:, 0], jp.inputs[:, 0], jp.outputs)
         assert_close(tpr.logpredictive(yq, space=xq, exact_var=exact_var),
@@ -198,7 +199,7 @@ def test_iterative_predictor_statistics(predictors, name, exact_var):
         if exact_var:  # the exact variance is the dense Predictor's
             dense = tp.predictor(params)(xq, quantiles=True)
             for k in ("mean", "std", "quantile_up"):
-                np.testing.assert_allclose(got[k].numpy(), dense[k].numpy(), rtol=1e-5,
+                np.testing.assert_allclose(got[k], dense[k], rtol=1e-5,
                                            atol=1e-5, err_msg=k)
 
 
@@ -228,7 +229,7 @@ def test_iterative_predictor_float64_solve():
     tpr = tp.predictor_iterative(params, dtype="float64", **PRED_KW)
     assert tpr.alpha.dtype == torch.float64
     want, got = jpr(xq, var=True), tpr(xq, var=True)
-    assert all(v.dtype == torch.float32 for v in got.values())
+    assert all(v.dtype == np.float32 for v in got.values())
     assert_close({k: got[k] for k in want}, dict(want), "float32")
 
 

@@ -95,7 +95,7 @@ def test_scipy_reference_and_draws():
         assert got.shape == (len(x), 3)
         assert_close(got, np.asarray(want))
     jp, tp, x, y = _pair("t")
-    np.testing.assert_array_equal(tp.freedom(PARAMS["t"]).numpy(), np.full(len(x), 5.0))
+    np.testing.assert_array_equal(tp.freedom(PARAMS["t"]), np.full(len(x), 5.0))
 
 
 def test_rows_evaluate_one_at_a_time():

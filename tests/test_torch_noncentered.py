@@ -73,9 +73,9 @@ def test_sample_hypers_noncentered_matches_jax(monkeypatch):
         np.testing.assert_allclose(tdt["_ll"], np.asarray(jdt["_ll"]), rtol=1e-10, atol=1e-10)
         # the chain is in the model's parameterization: each _ll is the
         # model's logp at its row
-        np.testing.assert_allclose(tdt["_ll"], tp.logp_chain(tdt[cols]), rtol=1e-10,
-                                   atol=1e-10)
-        assert (np.diff(tdt[cols].reshape(chains, samples, -1), axis=1) != 0).any()
+        rows = np.asarray(tdt[cols])
+        np.testing.assert_allclose(tdt["_ll"], tp.logp_chain(rows), rtol=1e-10, atol=1e-10)
+        assert (np.diff(rows.reshape(chains, samples, -1), axis=1) != 0).any()
 
 
 def test_tempered_noncentered_and_refusals():

@@ -30,14 +30,14 @@ def test_covariance_cholesky_and_samples_match_jax():
                      jp.sampler(params, samples=5, rng=np.random.default_rng(7)), "float64")
         chol = tp.cholesky(params, noise=True)
         assert_close(chol @ chol.T, tp.covariance(params, noise=True), "float64")
-        assert_close(tp.cholesky_diag(params), torch.diag(tp.kernel_sd(params)), "float64")
+        assert_close(tp.cholesky_diag(params), np.diag(tp.kernel_sd(params)), "float64")
         s = tp.sample(params, samples=3)
-        assert s.shape == (len(xs), 3) and bool(torch.isfinite(s).all())
+        assert s.shape == (len(xs), 3) and bool(np.isfinite(s).all())
         gen = torch.Generator().manual_seed(0)
         assert tp.sampler(params, samples=4, rng=gen).shape == (len(xs), 4)
         _, tw, wparams, _, _ = _pair("wgp", "SAMP_WGP")
         z = np.random.default_rng(8).standard_normal((len(xs), 3))
-        latent = tw.location(wparams)[:, None] + tw.cholesky(wparams) @ torch.as_tensor(z)
+        latent = torch.as_tensor(tw.location(wparams)[:, None] + tw.cholesky(wparams) @ z)
         assert_close(tw.sampler(wparams, samples=3, rng=np.random.default_rng(8)),
                      tw.f_mapping(tw._tensor_params(wparams), latent), "float64")
         with pytest.raises(ValueError, match="covariance"):

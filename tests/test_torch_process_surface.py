@@ -1,7 +1,6 @@
 """The process surface of the port against the JAX package's: every public
 attribute of the JAX package's ``GaussianProcess`` exists on the port's
-(but ``executed``, a count of JAX compiles, and the names of the later
-slices), and the registry views and bound statistics — ``params_test``,
+(but ``executed``, a count of JAX compiles), and the registry views and bound statistics — ``params_test``,
 ``ndim``, ``params_process``, ``params_random``, ``transform_params``,
 ``transformations``, ``potentials``, ``mapping_inv``, ``cross_mean``,
 ``error_l1``, ``error_l2``, ``error_mse`` — give the JAX package's values
@@ -15,11 +14,9 @@ import g3py_tpu_torch as g3t
 
 from torch_parity import assert_close, floatx, jax_eager, nudged, process_pair
 
-#: names the ROADMAP gives to a later slice: item 16 (the distributed engine)
-LATER = {
-    "item 16": {"nll_distributed", "predictor_distributed"},
-}
-SKIPPED = {"executed"}.union(*LATER.values())
+SKIPPED = {"executed"}
+#: item 16's names (the band-sharded engine): required
+DISTRIBUTED = {"nll_distributed", "predictor_distributed"}
 #: item 15's names (plots, widgets, persistence, the fan-out): required
 ITEM15 = {"describe", "fit_splits", "th_loglike_masked_fn", "params_widget", "widget", "save",
           "plot", "plot_concentration", "plot_datatrace", "plot_distribution",
@@ -56,6 +53,7 @@ def test_every_public_attribute_exists():
     assert not missing, missing
     assert ITERATIVE <= _public(tp)
     assert ITEM15 <= _public(tp)
+    assert DISTRIBUTED <= _public(tp)
     # the skip list names only what the JAX package has
     assert SKIPPED <= _public(jp)
 

@@ -169,7 +169,7 @@ def test_sample_hypers_neutra_noncentered():
     assert len(dt) == 60 and np.all(np.isfinite(dt["_ll"]))
     # rows in the model's parameterization: the model's logp at a row is its
     # _ll (tests/test_samplers.py's non-centered case and tolerance)
-    row = dt[gp.active.param_names()][7]
+    row = np.asarray(dt[gp.active.param_names()])[7]
     np.testing.assert_allclose(gp.logp(row, array=True), dt["_ll"][7], rtol=1e-4, atol=1e-3)
 
 

@@ -4,9 +4,8 @@ splits (``new_data``, random and uniform, with a holdout), one simulation
 of two models trained with the scipy engine (the selected params within
 1e-6 and the scores within 1e-6 relative, float64), the result rows and
 ``describe``'s pivot, resuming from ``file=`` (a second ``run`` adds no
-row), the 'jax' and 'iterative' engines and LOO selection running
-through, and the options
-that wait for later items raising."""
+row), the 'jax', 'iterative' and 'distributed' engines and LOO selection
+running through."""
 
 import numpy as np
 import pytest
@@ -96,6 +95,8 @@ def test_experiment_engines_and_refusals():
     assert len(e.run_fanout(1)) == 3
     e.plot()
     g3t.utils.plots.pyplot().close("all")
+    # the band-sharded engine on a mesh of one (no process group;
+    # tests/test_torch_distributed_models.py runs it on 2 and 4 ranks)
     e.set_selection(engine="distributed")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        e.run(n_simulations=2)
+    e.run(n_simulations=2)
+    assert len(e.results) == 4 and np.isfinite(e.results["test_l2"]).all()

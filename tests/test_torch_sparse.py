@@ -162,9 +162,9 @@ def test_rows_are_one_batched_call(monkeypatch):
         batch = tp._batch_statistics(rows, xq, None, None)
         for i, r in enumerate(rows):
             single = tp.predictor(tp.active.array_to_dict(r))(xq)
-            np.testing.assert_allclose(batch["mean"][i].numpy(), single["mean"].numpy(),
+            np.testing.assert_allclose(batch["mean"][i].numpy(), single["mean"],
                                        rtol=1e-10)
-            np.testing.assert_allclose(batch["std"][i].numpy(), single["std"].numpy(),
+            np.testing.assert_allclose(batch["std"][i].numpy(), single["std"],
                                        rtol=1e-10)
 
 
@@ -188,8 +188,8 @@ def test_predictor_updated_and_pathwise_match_jax():
                         name="SPu")
         fresh.observed(x, y)
         got = fresh.predictor(params)(xq, mean=True, std=True)
-        np.testing.assert_allclose(tpr(xq)["mean"].numpy(), got["mean"].numpy(), rtol=1e-9)
-        np.testing.assert_allclose(tpr(xq)["std"].numpy(), got["std"].numpy(), rtol=1e-9)
+        np.testing.assert_allclose(tpr(xq)["mean"], got["mean"], rtol=1e-9)
+        np.testing.assert_allclose(tpr(xq)["std"], got["std"], rtol=1e-9)
         # pathwise draws of the sparse state
         S, F = 5, 64
         key = random.PRNGKey(3)

@@ -256,8 +256,8 @@ def test_predictor_and_params_only_export(tmp_path):
         path = tpr.export(str(tmp_path / "svp"), mean=True, std=True, noise=True)
         loaded = g3t.load_predictor(path)
         out = loaded(xq)
-        np.testing.assert_allclose(out["mean"].numpy(), got["mean"].numpy(), rtol=1e-12)
-        np.testing.assert_allclose(out["std"].numpy(), got["std"].numpy(), rtol=1e-12)
+        np.testing.assert_allclose(out["mean"].numpy(), got["mean"], rtol=1e-12)
+        np.testing.assert_allclose(out["std"].numpy(), got["std"], rtol=1e-12)
         data = np.load(os.path.join(path, "state.npz"))
         assert max(data[k].size for k in data.files if k.startswith("merged/")) == 25
 

@@ -119,8 +119,11 @@ def test_find_map_return_points_and_unported_options():
     assert [p[0] for p in points] == ["start", "start_bfgs"]
     assert points[1][1] >= points[0][1]
     assert set(params) == set(tp.params_default)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tp.find_MAP(display=False, engine="distributed")
+    # the band-sharded engine on a mesh of one (no process group;
+    # tests/test_torch_distributed_models.py runs it on 2 and 4 ranks)
+    dist = tp.find_MAP(display=False, engine="distributed", max_iters=30)
+    assert set(dist) == set(tp.params_default)
+    assert tp.logp(dist) > tp.logp(tp.params_default)
     # plot=True draws the start and each visited point (the Agg backend)
     plt = g3t.utils.plots.pyplot()
     plt.close("all")

@@ -9,6 +9,7 @@ Tolerances: float64 against JAX x64 at rtol/atol 1e-10, float32 at rtol
 1e-6 relative in logp."""
 
 import numpy as np
+import torch
 import pytest
 
 import g3py_tpu_torch as g3t
@@ -51,10 +52,10 @@ def test_predict_draws_once():
     draws = tp.sampler(space=xq, samples=30, rng=np.random.default_rng(9))
     out = tp.predict(space=xq, quantiles=True, median=True, simulations=30,
                      rng=np.random.default_rng(9))
-    np.testing.assert_array_equal(out["mean"].numpy(), draws.mean(dim=1).numpy())
-    np.testing.assert_allclose(out["quantile_up"].numpy(),
-                               np.percentile(draws.numpy(), 97.5, axis=1), rtol=1e-6)
-    assert np.all(out["quantile_down"].numpy() <= out["quantile_up"].numpy())
+    np.testing.assert_array_equal(out["mean"], torch.as_tensor(draws).mean(dim=1).numpy())
+    np.testing.assert_allclose(out["quantile_up"],
+                               np.percentile(draws, 97.5, axis=1), rtol=1e-6)
+    assert np.all(out["quantile_down"] <= out["quantile_up"])
 
 
 def test_tkernel_is_the_zero_mean_gp():

@@ -52,8 +52,8 @@ def test_updated_matches_jax_and_a_fresh_predictor(kind, name, monkeypatch):
             assert_close(dict(got), dict(fresh), name)
         else:  # the JAX test's bound against a refactorization
             for k in fresh:
-                scale = float(fresh[k].abs().max()) + 1e-9
-                assert float((got[k] - fresh[k]).abs().max()) / scale < 2e-3, k
+                scale = float(np.abs(fresh[k]).max()) + 1e-9
+                assert float(np.abs(got[k] - fresh[k]).max()) / scale < 2e-3, k
 
 
 def test_stale_chained_and_refusals():
@@ -68,7 +68,7 @@ def test_stale_chained_and_refusals():
         with pytest.raises(ValueError, match="rebuild"):
             pr.updated(x[new], y[new])
         pr3 = pr2.updated(x[new][:3] + 31.0, y[new][:3])
-        assert np.all(np.isfinite(pr3(xq)["mean"].numpy()))
+        assert np.all(np.isfinite(pr3(xq)["mean"]))
         assert len(gp.inputs) == len(x) + 3
         for kernel in (g3t.SE(x) + g3t.WN(x), g3t.SE(x) + g3t.KernelNoise(x)):
             wn = g3t.GP(space=x, location=g3t.Bias(), kernel=kernel, name="UPW")
